@@ -1,0 +1,56 @@
+"""Shared CLI plumbing: device and dtype selection, dataset construction.
+
+Port of ``patchgan_tpu/cli/common.py``.
+"""
+
+import torch
+
+
+def select_device(name):
+    """'auto' and 'cuda' mean the card, and raise without one; only 'cpu'
+    runs on the CPU."""
+    if name == 'cpu':
+        return torch.device('cpu')
+    if name in ('auto', 'cuda') or name.startswith('cuda:'):
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {name!r} needs a CUDA GPU and none "
+                               f"is available; pass -d cpu to run on the "
+                               f"CPU")
+        return torch.device('cuda' if name == 'auto' else name)
+    raise ValueError(f"Unknown device {name!r}")
+
+
+def compute_dtype(name, device):
+    """'auto' is bfloat16 on the card and float32 on the CPU. float32 on
+    the card turns TF32 off for cuDNN and matmuls, keeping the JAX
+    package's fp32 semantics."""
+    if name == 'auto':
+        return torch.bfloat16 if device.type == 'cuda' else torch.float32
+    dtype = {'float32': torch.float32, 'bfloat16': torch.bfloat16}[name]
+    if device.type == 'cuda' and dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return dtype
+
+
+def build_dataset_factory(dataset_params):
+    """Resolve the Dataset class and channel counts from the config's
+    ``dataset`` section."""
+    from ..data import COCOStuffDataset, load_dataset_class
+
+    kwargs = {}
+    if dataset_params['type'] == 'COCOStuff':
+        cls = COCOStuffDataset
+        in_channels = 3
+        labels = dataset_params.get('labels', [1])
+        out_channels = len(labels)
+        kwargs['labels'] = labels
+    elif dataset_params['type'] == 'TarShards':
+        raise NotImplementedError(
+            "dataset type 'TarShards' is not ported yet (ROADMAP.md, "
+            "queue 1, training slice: data)")
+    else:
+        cls = load_dataset_class(dataset_params['type'])
+        in_channels = dataset_params.get('in_channels', 3)
+        out_channels = dataset_params.get('out_channels', 1)
+    return cls, in_channels, out_channels, kwargs

@@ -1,0 +1,256 @@
+// Implicit-GEMM core shared by the fused conv kernels (conv_norm_act.cu,
+// convt_norm_act.cu).
+//
+// A problem P describes, per sample n and group g (the convT kernel's
+// four output parity classes; one group for the plain conv), a product
+//   out[m, co] = sum_k A[m, k] * B[k, co],   m < M, co < Cout, k < K
+// where A is gathered from the input on the fly (zero outside the image)
+// and B is read from the weight in its torch layout. The problem supplies
+//   T a(n, g, r, c, k)    input element for output pixel m = r * Mw + c
+//   T b(g, k, co)         weight element
+//   long out(n, g, r, c, co)  index of the fp32 result in `acc`
+//
+// One block computes a BM x BN tile of one (n, g) product with fp32
+// accumulation: bf16 through WMMA 16x16x16 tensor-core fragments, fp32
+// through plain FMAs (so fp32 runs keep full fp32 products, as the JAX
+// reference does). Shared-memory tiles are stored k-major for A and
+// channel-major for B, so the gather's stores from neighbouring threads
+// land on neighbouring addresses.
+//
+// Without a K split, the epilogue writes the fp32 tile to `acc` and one
+// partial (sum, sum of squares) per channel over the tile's valid pixels
+// to part[((n * Cout + co) * G + g) * gridDim.x + tile], with no atomics;
+// finish_from_partials (in_common.cuh) then reduces those in a fixed
+// order and normalises from the fp32 accumulator.
+//
+// The deep levels have few output tiles and a long K (enc4-enc6: 64
+// blocks, 256 K steps each), too few blocks to fill the card. There K is
+// split `splits` ways: block s of a tile sums its share of K into slice
+// s of `acc`, and finish_split adds the slices in order, takes the
+// statistics over the summed plane, and normalises.
+#pragma once
+
+#include <mma.h>
+
+#include <type_traits>
+
+#include "in_common.cuh"
+
+namespace pgt {
+
+constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
+// blocks that keep every SM of an H100 SXM (132) busy with a few each
+constexpr int TARGET_BLOCKS = 4 * 132;
+constexpr int LDA = BM + 8;  // As[k * LDA + m]; 16-row fragments stay
+                             // 32-byte aligned
+constexpr int LDC = BM + 4;  // Cs is channel-major: Cs[co * LDC + m]
+
+// K split of a product with `tiles` output tiles: double it while the
+// grid is below TARGET_BLOCKS and every split keeps >= 8 K steps.
+inline int choose_splits(long tiles, int K) {
+  const int ksteps = (K + BK - 1) / BK;
+  int s = 1;
+  while (tiles * s < TARGET_BLOCKS && ksteps / (2 * s) >= 8) s *= 2;
+  return s;
+}
+
+// Blocks per SM the bf16 kernel is held to (<= 64 registers a thread):
+// with 8, the 1024 blocks of enc1 at 8 tiles fit in one wave on 132 SMs;
+// 7 (72 registers) measured 1.4x slower there from the second wave.
+template <typename T>
+struct MinBlocks {
+  static constexpr int value = std::is_same<T, float>::value ? 1 : 8;
+};
+
+template <typename T, typename P>
+__global__ void __launch_bounds__(GEMM_THREADS, MinBlocks<T>::value)
+    conv_gemm_kernel(const P p, int splits, long slice,
+                     float* __restrict__ acc, float2* __restrict__ part) {
+  // Bs[co * LDB + k]: 8 bf16 of padding keep wmma's alignment; fp32
+  // reads along co (FMA path) want an odd stride instead
+  constexpr int LDB = std::is_same<T, float>::value ? BK + 1 : BK + 8;
+  __shared__ __align__(32) T As[BK * LDA];
+  __shared__ __align__(32) T Bs[BN * LDB];
+  __shared__ __align__(32) float Cs[BN * LDC];
+
+  const int mt = blockIdx.x, nt = blockIdx.y;
+  const int split = blockIdx.z % splits, ng = blockIdx.z / splits;
+  const int g = ng % p.G, n = ng / p.G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T zero = from_f32<T>(0.f);
+  const int ksteps = (p.K + BK - 1) / BK;
+  const int per = (ksteps + splits - 1) / splits;
+  const int kbegin = split * per * BK, kend = min(p.K, kbegin + per * BK);
+
+  // each thread gathers a fixed A row and a fixed B row
+  const int am = tid % BM, ak0 = tid / BM;  // ak0 in {0, 1}
+  const int m = mt * BM + am;
+  const bool mvalid = m < p.M;
+  const int mr = mvalid ? m / p.Mw : 0, mc = mvalid ? m % p.Mw : 0;
+  const int bk = tid % BK, bc0 = tid / BK;  // bc0 in {0, 1, 2, 3}
+
+  constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+  using namespace nvcuda;
+  const int wm = warp >> 1, wn = warp & 1;  // 2 x 2 warps of 32 x 32
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[2][2];
+  const int tm = tid >> 3, tn = tid & 7;  // FMA path: 4 rows x 8 cols each
+  float c[4][8];
+  if constexpr (kTensorCores) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(cf[i][j], 0.f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
+  }
+
+  for (int k0 = kbegin; k0 < kend; k0 += BK) {
+#pragma unroll 4
+    for (int j = 0; j < BK / 2; ++j) {
+      const int kl = ak0 + 2 * j, k = k0 + kl;
+      As[kl * LDA + am] = (mvalid && k < kend) ? p.a(n, g, mr, mc, k) : zero;
+    }
+#pragma unroll 4
+    for (int j = 0; j < BN / 4; ++j) {
+      const int cl = bc0 + 4 * j, co = nt * BN + cl, k = k0 + bk;
+      Bs[cl * LDB + bk] = (co < p.Cout && k < kend) ? p.b(g, k, co) : zero;
+    }
+    __syncthreads();
+    if constexpr (kTensorCores) {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major>
+            af[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major>
+            bf[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(af[i], As + kk * LDA + wm * 32 + i * 16,
+                                 LDA);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(bf[j], Bs + (wn * 32 + j * 16) * LDB + kk,
+                                 LDB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wmma::mma_sync(cf[i][j], af[i], bf[j], cf[i][j]);
+      }
+    } else {
+#pragma unroll 8
+      for (int kk = 0; kk < BK; ++kk) {
+        float av[4], bv[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = to_f32(As[kk * LDA + tm * 4 + i]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bv[j] = to_f32(Bs[(tn * 8 + j) * LDB + kk]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) c[i][j] = fmaf(av[i], bv[j], c[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  if constexpr (kTensorCores) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(Cs + (wn * 32 + j * 16) * LDC + wm * 32 + i * 16,
+                                cf[i][j], LDC, wmma::mem_col_major);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Cs[(tn * 8 + j) * LDC + tm * 4 + i] = c[i][j];
+  }
+  __syncthreads();
+
+  // fp32 conv output (this split's slice), coalesced along m
+  float* out = acc + split * slice;
+  for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
+    const int ml = idx % BM, cl = idx / BM;
+    const int mm = mt * BM + ml, co = nt * BN + cl;
+    if (mm < p.M && co < p.Cout)
+      out[p.out(n, g, mm / p.Mw, mm % p.Mw, co)] = Cs[cl * LDC + ml];
+  }
+  if (splits > 1) return;  // finish_split takes the statistics
+  // per-channel partial statistics over this tile's valid pixels
+  const int rows = min(BM, p.M - mt * BM);
+  for (int cl = warp; cl < BN; cl += GEMM_THREADS / 32) {
+    const int co = nt * BN + cl;
+    float s = 0.f, ss = 0.f;
+    for (int ml = lane; ml < rows; ml += 32) {
+      const float v = Cs[cl * LDC + ml];
+      s += v;
+      ss += v * v;
+    }
+    const float2 t = warp_sum2(s, ss);
+    if (lane == 0 && co < p.Cout)
+      part[((long)(n * p.Cout + co) * p.G + g) * gridDim.x + mt] = t;
+  }
+}
+
+// Finishing pass after a K split: block p owns plane p; each element is
+// the sum of the `splits` slices of `acc` (`slice` elements apart, added
+// in slice order and kept in slice 0), then the statistics and the
+// normalisation run over the summed plane.
+template <typename Tout>
+__global__ void finish_split(float* __restrict__ acc, int splits, long slice,
+                             Tout* __restrict__ y, long plane, float eps,
+                             int act) {
+  float* a = acc + blockIdx.x * plane;
+  float s = 0.f, ss = 0.f;
+  for (long i = threadIdx.x; i < plane; i += blockDim.x) {
+    float v = a[i];
+    for (int k = 1; k < splits; ++k) v += a[k * slice + i];
+    a[i] = v;
+    s += v;
+    ss += v * v;
+  }
+  const float2 t = block_sum2(s, ss);  // its barrier publishes a[]
+  normalize_plane(a, y + blockIdx.x * plane, plane, t.x, t.y, eps, act);
+}
+
+template <typename P>
+int splits_for(const P& p, int batch) {
+  const long tiles = (long)((p.M + BM - 1) / BM) * ((p.Cout + BN - 1) / BN) *
+                     batch * p.G;
+  return choose_splits(tiles, p.K);
+}
+
+// Runs the product, then the finishing pass over the N * Cout planes of
+// `plane` elements each, writing y. `acc` holds splits_for(p, batch)
+// slices of N * Cout * plane floats. Returns cudaGetLastError().
+template <typename T, typename P>
+int launch_conv_in_act(const P& p, int batch, float* acc, float2* part, T* y,
+                       long plane, int act, float eps, cudaStream_t st) {
+  const int splits = splits_for(p, batch);
+  const long slice = (long)batch * p.Cout * plane;
+  const dim3 grid((p.M + BM - 1) / BM, (p.Cout + BN - 1) / BN,
+                  batch * p.G * splits);
+  conv_gemm_kernel<T, P><<<grid, GEMM_THREADS, 0, st>>>(p, splits, slice,
+                                                         acc, part);
+  if (splits == 1) {
+    finish_from_partials<T><<<(long)batch * p.Cout, FINISH_THREADS, 0, st>>>(
+        acc, part, y, plane, p.G * grid.x, eps, act);
+  } else {
+    finish_split<T><<<(long)batch * p.Cout, FINISH_THREADS, 0, st>>>(
+        acc, splits, slice, y, plane, eps, act);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace pgt
+
+// Rows of one GEMM tile; the wrapper sizes the partial-statistics buffer
+// as N * Cout * G * ceil(M / tile_m).
+extern "C" int pgt_tile_m(void) { return pgt::BM; }

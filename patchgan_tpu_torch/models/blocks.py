@@ -1,0 +1,100 @@
+"""Encoder / decoder building blocks (NCHW).
+
+Port of ``patchgan_tpu/models/blocks.py:31-174``: conv(k=4, s=2, p=1,
+no bias) -> instance norm (affine-free) -> activation -> optional
+Dropout(0.2), and the decoder's transposed conv with the skip concat
+folded into the convolution. Each block computes in its input's dtype
+(the UNet casts the image to its compute dtype once) and casts its
+weight to that dtype at use; the output head's sigmoid/softmax runs in
+fp32.
+
+Dispatch on the card, the JAX gates run with every Pallas kernel on:
+a normed DownBlock with Cin >= 16 runs kernel K2 (conv+IN+act); enc0
+(Cin = 3) runs the conv and then kernel K1 (IN+act); a normed UpBlock
+runs kernel K3 (convT+IN+act) at every Cout; the un-normed dec0 and the
+output head run the transposed conv and the activation.
+
+Parameters sit under the reference's state_dict keys
+(``model.DownConv{i}.weight`` / ``model.UpConv{i}.weight``), held by
+torch conv modules that serve only as weight containers.
+"""
+
+import torch.nn as nn
+
+from ..ops.activations import apply_activation
+from ..ops.conv import conv2d, conv_transpose2d
+from ..ops.kernels import conv_norm_act, convt_norm_act
+from ..ops.norm import instance_norm
+
+KERNEL_SIZE = 4
+DROPOUT_RATE = 0.2
+NORM_EPS = 1e-5
+# the fused conv kernel's input-channel gate (conv_norm_act.py:94-95 in
+# the JAX package): the 3-channel first level runs conv, then K1
+FUSED_CONV_MIN_CIN = 16
+
+
+class DownBlock(nn.Module):
+    """Strided conv -> instance norm -> activation -> optional dropout."""
+
+    def __init__(self, in_channels, features, activation, level,
+                 use_dropout=False, use_norm=True):
+        super().__init__()
+        self.activation = activation
+        self.use_norm = use_norm
+        self.name = f'DownConv{level}'
+        self.model = nn.ModuleDict({self.name: nn.Conv2d(
+            in_channels, features, KERNEL_SIZE, 2, 1, bias=False)})
+        self.dropout = nn.Dropout(DROPOUT_RATE) if use_dropout else None
+
+    @property
+    def weight(self):
+        return self.model[self.name].weight
+
+    def forward(self, x):
+        w = self.weight.to(x.dtype)
+        if self.use_norm and x.shape[1] >= FUSED_CONV_MIN_CIN:
+            x = conv_norm_act(x, w, NORM_EPS, self.activation)
+        elif self.use_norm:
+            x = instance_norm(conv2d(x, w), NORM_EPS, self.activation)
+        else:
+            x = apply_activation(conv2d(x, w), self.activation)
+        if self.dropout is not None:
+            x = self.dropout(x)
+        return x
+
+
+class UpBlock(nn.Module):
+    """Transposed conv over concat(x, skip) -> optional instance norm ->
+    activation -> optional dropout. ``fp32_act``: the output head, whose
+    activation runs in fp32 (bf16 saturates sigmoid/softmax to exact 0/1
+    at |logit| ~ 9)."""
+
+    def __init__(self, in_channels, features, activation, level,
+                 use_norm=True, use_dropout=False, fp32_act=False):
+        super().__init__()
+        self.activation = activation
+        self.use_norm = use_norm
+        self.fp32_act = fp32_act
+        self.name = f'UpConv{level}'
+        self.model = nn.ModuleDict({self.name: nn.ConvTranspose2d(
+            in_channels, features, KERNEL_SIZE, 2, 1, bias=False)})
+        self.dropout = nn.Dropout(DROPOUT_RATE) if use_dropout else None
+
+    @property
+    def weight(self):
+        return self.model[self.name].weight
+
+    def forward(self, x, skip=None):
+        w = self.weight.to(x.dtype)
+        skip = skip.to(x.dtype) if skip is not None else None
+        if self.use_norm:
+            x = convt_norm_act(x, w, NORM_EPS, self.activation, skip)
+        else:
+            out = conv_transpose2d(x, w, x2=skip)
+            if self.fp32_act:
+                out = out.float()
+            x = apply_activation(out, self.activation)
+        if self.dropout is not None:
+            x = self.dropout(x)
+        return x

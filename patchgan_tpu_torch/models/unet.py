@@ -1,0 +1,83 @@
+"""U-Net generator (NCHW).
+
+Port of ``patchgan_tpu/models/unet.py``: a 7-level encoder with the
+filter ladder [nf, 2nf, 4nf, 8nf, 8nf, 8nf, 8nf], every encoder level
+normed; a decoder mirroring it, whose first level has no norm, whose
+inner levels take the skip-concatenated input (and dropout when
+enabled), and whose last level maps 2nf -> output_nc with ``final_act``
+in fp32. The forward collects the encoder outputs, reverses them and
+skip-connects every decoder level but the first; ``return_hidden=True``
+also returns the bottleneck.
+
+``dtype`` is the compute dtype: the input is cast to it once and every
+block computes in it; parameters stay as they are (fp32 from init or a
+checkpoint; the inference engine pre-casts its copy once).
+"""
+
+import torch
+import torch.nn as nn
+
+from .blocks import DownBlock, UpBlock
+
+N_LEVELS = 7
+
+
+def unet_filters(nf):
+    """Encoder filter ladder."""
+    return [nf, nf * 2, nf * 4, nf * 8, nf * 8, nf * 8, nf * 8]
+
+
+class UNet(nn.Module):
+    def __init__(self, input_nc, output_nc, nf=64, use_dropout=False,
+                 activation='tanh', final_act='softmax',
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        self.input_nc, self.output_nc, self.nf = input_nc, output_nc, nf
+        self.dtype = dtype
+        filts = unet_filters(nf)
+        self.encoder = nn.ModuleList(
+            DownBlock(input_nc if i == 0 else filts[i - 1], f, activation,
+                      i, use_dropout=use_dropout)
+            for i, f in enumerate(filts))
+        dec_filts = filts[:-1][::-1]  # [8nf, 8nf, 8nf, 4nf, 2nf, nf]
+        decoder = [UpBlock(filts[-1], dec_filts[0], activation, 0,
+                           use_norm=False)]
+        for i in range(1, len(dec_filts)):
+            # previous decoder level + encoder skip rev[i] = enc(6 - i)
+            decoder.append(UpBlock(dec_filts[i - 1] + filts[N_LEVELS - 1 - i],
+                                   dec_filts[i], activation, i,
+                                   use_dropout=use_dropout))
+        decoder.append(UpBlock(dec_filts[-1] + filts[0], output_nc,
+                               final_act, len(dec_filts), use_norm=False,
+                               fp32_act=True))
+        self.decoder = nn.ModuleList(decoder)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator=None):
+        """Xavier-uniform conv weights (the reference's weights_init)."""
+        with torch.no_grad():
+            for p in self.parameters():
+                nn.init.xavier_uniform_(p, generator=generator)
+
+    def forward(self, x, return_hidden=False):
+        """x: (N, input_nc, H, W) with H, W multiples of 128 -> (N,
+        output_nc, H, W) float32."""
+        h, w = x.shape[2], x.shape[3]
+        stride_total = 2 ** N_LEVELS
+        if h % stride_total or w % stride_total:
+            raise ValueError(
+                f"UNet input spatial dims must be multiples of "
+                f"{stride_total}; got {h}x{w}")
+        x = x.to(self.dtype)
+        skips = []
+        for block in self.encoder:
+            x = block(x)
+            skips.append(x)
+        hidden = skips[-1]
+        rev = skips[::-1]
+        x = self.decoder[0](hidden)
+        for i in range(1, len(self.decoder)):
+            x = self.decoder[i](x, skip=rev[i])
+        if return_hidden:
+            return x, hidden
+        return x

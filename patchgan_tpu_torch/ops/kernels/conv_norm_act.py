@@ -1,0 +1,80 @@
+"""K2: conv(k=4, s=2, p=1, no bias) + instance norm + activation
+(forward), NCHW input, OIHW weight.
+
+Port of ``patchgan_tpu/ops/pallas/conv_norm_act.py::fused_conv_norm_act``.
+The CUDA kernel is ``csrc/conv_norm_act.cu``; ``conv_norm_act_plain`` is
+the same function in plain PyTorch (CPU tensors, tests, and the kernel's
+oracle on the card).
+"""
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .norm_act import (act_code, dtype_flag, forward_only,
+                       instance_norm_act_plain, require)
+
+
+def conv_norm_act_plain(x, w, eps=1e-5, activation=None):
+    """fp32 conv of the given values, then the fp32 norm and activation,
+    cast back to x's dtype: the conv output is never rounded before the
+    statistics, as in the kernel."""
+    acc = F.conv2d(x.float(), w.float(), stride=2, padding=1)
+    return instance_norm_act_plain(acc, eps, activation).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load('conv_norm_act')
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pgt_conv_in_act.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                    ctypes.c_float, i, p]
+    lib.pgt_conv_in_act.restype = i
+    lib.pgt_tile_m.argtypes = []
+    lib.pgt_tile_m.restype = i
+    lib.pgt_conv_splits.argtypes = [i] * 5
+    lib.pgt_conv_splits.restype = i
+    return lib
+
+
+def conv_norm_act(x, w, eps=1e-5, activation=None):
+    """x: (N, Cin, H, W), w: (Cout, Cin, 4, 4) in x's dtype. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel."""
+    if x.device.type == 'cpu':
+        return conv_norm_act_plain(x, w, eps, activation)
+    act = act_code(activation)
+    require(x, 'x', 4)
+    require(w, 'w', 4, like=x)
+    forward_only(x, w)
+    flag = dtype_flag(x)
+    n, cin, h, wd = x.shape
+    cout = w.shape[0]
+    if tuple(w.shape) != (cout, cin, 4, 4):
+        raise ValueError(f"w must be ({cout}, {cin}, 4, 4), got "
+                         f"{tuple(w.shape)}")
+    ho, wo = (h - 2) // 2 + 1, (wd - 2) // 2 + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"input {h}x{wd} is too small for k=4, s=2, p=1")
+    lib = _lib()
+    tiles = -(-ho * wo // lib.pgt_tile_m())
+    y = torch.empty((n, cout, ho, wo), dtype=x.dtype, device=x.device)
+    # fp32 conv output, one copy per K split
+    splits = lib.pgt_conv_splits(n, cin, h, wd, cout)
+    acc = torch.empty((splits, n, cout, ho, wo), dtype=torch.float32,
+                      device=x.device)
+    part = torch.empty((n, cout, tiles, 2), dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.pgt_conv_in_act(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), acc.data_ptr(),
+            part.data_ptr(), n, cin, h, wd, cout, act, eps, flag,
+            _build.stream_of(x))
+    _build.check(rc, 'conv_norm_act')
+    conv_norm_act.launches += 1
+    return y
+
+
+conv_norm_act.launches = 0

@@ -1,0 +1,90 @@
+"""K3: transposed conv(k=4, s=2, p=1, no bias) over concat(x, skip) +
+instance norm + activation (forward), NCHW, torch IOHW weight.
+
+Port of ``patchgan_tpu/ops/pallas/convt_norm_act.py::fused_convt_norm_act``.
+The CUDA kernel is ``csrc/convt_norm_act.cu``; ``convt_norm_act_plain``
+is the same function in plain PyTorch (CPU tensors, tests, and the
+kernel's oracle on the card).
+
+Unlike the TPU gate (``Cout >= 128``, a lane-padding limit of that chip),
+every Cout runs the kernel here, so the nf=64 generator's dec5 (Cout=64)
+goes through it too.
+"""
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .norm_act import (act_code, dtype_flag, forward_only,
+                       instance_norm_act_plain, require)
+
+
+def convt_norm_act_plain(x, w, eps=1e-5, activation=None, skip=None):
+    """fp32 transposed conv over the concat of the given values, then the
+    fp32 norm and activation, cast back to x's dtype."""
+    xin = x if skip is None else torch.cat([x, skip], dim=1)
+    acc = F.conv_transpose2d(xin.float(), w.float(), stride=2, padding=1)
+    return instance_norm_act_plain(acc, eps, activation).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load('convt_norm_act')
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pgt_convt_in_act.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                     ctypes.c_float, i, p]
+    lib.pgt_convt_in_act.restype = i
+    lib.pgt_tile_m.argtypes = []
+    lib.pgt_tile_m.restype = i
+    lib.pgt_convt_splits.argtypes = [i] * 6
+    lib.pgt_convt_splits.restype = i
+    return lib
+
+
+def convt_norm_act(x, w, eps=1e-5, activation=None, skip=None):
+    """x: (N, Cx, H, W), optional skip: (N, Cs, H, W), w: (Cx + Cs, Cout,
+    4, 4), all in x's dtype. Returns (N, Cout, 2H, 2W). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel."""
+    if x.device.type == 'cpu':
+        return convt_norm_act_plain(x, w, eps, activation, skip)
+    act = act_code(activation)
+    require(x, 'x', 4)
+    require(w, 'w', 4, like=x)
+    forward_only(x, w, skip)
+    n, cx, h, wd = x.shape
+    cs = 0
+    if skip is not None:
+        require(skip, 'skip', 4, like=x)
+        if skip.shape[0] != n or skip.shape[2:] != x.shape[2:]:
+            raise ValueError(f"skip {tuple(skip.shape)} does not match x "
+                             f"{tuple(x.shape)}")
+        cs = skip.shape[1]
+    flag = dtype_flag(x)
+    cout = w.shape[1]
+    if tuple(w.shape) != (cx + cs, cout, 4, 4):
+        raise ValueError(f"w must be ({cx + cs}, {cout}, 4, 4), got "
+                         f"{tuple(w.shape)}")
+    lib = _lib()
+    tiles = -(-h * wd // lib.pgt_tile_m())
+    y = torch.empty((n, cout, 2 * h, 2 * wd), dtype=x.dtype, device=x.device)
+    # fp32 conv output, one copy per K split
+    splits = lib.pgt_convt_splits(n, cx, cs, h, wd, cout)
+    acc = torch.empty((splits,) + y.shape, dtype=torch.float32,
+                      device=x.device)
+    part = torch.empty((n, cout, 4 * tiles, 2), dtype=torch.float32,
+                       device=x.device)
+    skip_ptr = skip.data_ptr() if skip is not None else None
+    with torch.cuda.device(x.device):
+        rc = lib.pgt_convt_in_act(
+            x.data_ptr(), skip_ptr, w.data_ptr(), y.data_ptr(),
+            acc.data_ptr(), part.data_ptr(), n, cx, cs, h, wd, cout, act,
+            eps, flag, _build.stream_of(x))
+    _build.check(rc, 'convt_norm_act')
+    convt_norm_act.launches += 1
+    return y
+
+
+convt_norm_act.launches = 0
