@@ -26,8 +26,9 @@ Run from the root of the repository. In order:
 4. the full nf=64 forward on one bucket of 8 tiles: the kernel path in
    fp32 against the plain path (the same model on the CPU), max |dprob|
    <= 1e-3; the bf16 kernel path against it, reported;
-5. masks/s for the 1280x960 image and tiles/s for the bare forward at
-   buckets 8 and 32.
+5. masks/s for the 1280x960 image, one image at a time, in five windows
+   of at least 2 s each (every reading and their median), and tiles/s
+   for the bare forward at buckets 8 and 32.
 
 It prints a JSON summary of the kernels, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure
@@ -37,6 +38,7 @@ exits non-zero before that line; without a CUDA device it exits 2.
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -50,6 +52,7 @@ B = 8                  # tiles per bucket in the kernel phase
 NF, SIZE, IN_C, OUT_C = 64, 256, 3, 7
 ACTS = (None, 'tanh', 'relu', 'leakyrelu')
 TOL = {'float32': 1e-3, 'bfloat16': 3e-2}
+WINDOWS, WINDOW_S = 5, 2.0   # masks/s: timing windows, seconds each
 
 
 def card_line():
@@ -341,14 +344,24 @@ def main():
     print('== throughput (bf16)', flush=True)
     big = np.random.default_rng(2).random((960, 1280, IN_C),
                                           dtype=np.float32)
-    eng.predict_image(big)
-    torch.cuda.synchronize()
-    reps = 5
-    t0 = time.perf_counter()
-    for _ in range(reps):
+    for _ in range(3):
         eng.predict_image(big)
-    masks_s = reps / (time.perf_counter() - t0)
-    print(f'  1280x960: {masks_s:.3f} masks/s on {card}')
+    readings = []
+    for i in range(WINDOWS):
+        count, t0 = 0, time.perf_counter()
+        while True:
+            eng.predict_image(big)      # .result() waits for the card
+            count += 1
+            dt = time.perf_counter() - t0
+            if dt >= WINDOW_S:
+                break
+        readings.append(count / dt)
+        print(f'  1280x960 window {i}: {count} masks in {dt:.3f} s, '
+              f'{readings[-1]:.3f} masks/s', flush=True)
+    masks_s = statistics.median(readings)
+    print(f'  1280x960: median {masks_s:.3f} masks/s (min {min(readings):.3f}'
+          f', max {max(readings):.3f}) over {WINDOWS} windows of >= '
+          f'{WINDOW_S} s on {card}')
     rates = {}
     with torch.inference_mode():
         for bs in (8, 32):
@@ -358,6 +371,7 @@ def main():
             print(f'  forward bucket {bs}: {ms:.3f} ms, {rates[bs]:.1f} '
                   f'tiles/s on {card}', flush=True)
     print(json.dumps({'masks_per_s_1280x960': masks_s,
+                      'masks_per_s_windows': readings,
                       'tiles_per_s': rates, 'card': card}))
 
     summary = []

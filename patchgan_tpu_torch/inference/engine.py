@@ -33,8 +33,9 @@ def _round_up(n, m):
 
 # Generator-forward throughput by bucket size, relative; only the ratios
 # pick the cheapest bucket for a tile count. Uniform until it is measured
-# on the card (the JAX package's table was measured on another chip), so
-# the smallest bucket with the least padding wins.
+# on the card (the JAX package's table was measured on another chip); a
+# uniform table always yields bucket 8, the least padding, for any cap of
+# at least 8.
 _BUCKET_REL_RATE = {8: 1.0, 16: 1.0, 32: 1.0, 64: 1.0, 128: 1.0}
 
 
