@@ -8,33 +8,60 @@ Run from the root of the repository. In order:
 1. prints the card's name and power limit, the torch / CUDA versions, and
    builds every kernel from ``patchgan_tpu_torch/csrc`` (one nvcc per
    source, all at once), with the build time;
-2. kernel phase: each kernel (K1 instance norm + act, K2 conv + IN + act,
-   K3 convT + IN + act) at every shape the nf=64 generator gives it for
-   8 tiles of 256 px, in bf16 and fp32, against its plain PyTorch version
-   on the same inputs with TF32 off. Tolerances: fp32 inputs, atol 1e-3
-   (another summation order); bf16 inputs against the plain version in
-   fp32 on the same bf16-rounded inputs, atol 3e-2 (one bf16 rounding of
-   outputs of magnitude up to ~5). K3 also runs a case with H != W, and
-   every kernel all four activations at one shape. Times (CUDA events):
-   the kernel, its plain version, and a library yardstick (cuDNN conv +
-   F.instance_norm + activation, which the port never calls), beside the
-   bound max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s);
-3. the main path: ``patchgan_infer -d cuda`` (bf16) with a random nf=64
-   3 -> 7-class generator on four images (1280x960, 640x480, 256x256,
-   200x150), checking each mask's shape and labels, and that K1, K2 and
-   K3 ran 1, 6 and 5 times per forward chunk;
+2. kernel phase: each forward kernel (K1 instance norm + act, K2 conv +
+   IN + act, K3 convT + IN + act) at every shape the nf=64 generator
+   gives it for 8 tiles of 256 px, in bf16 and fp32, against its plain
+   PyTorch version on the same inputs with TF32 off. Tolerances: fp32
+   inputs, atol 1e-3 (another summation order); bf16 inputs against the
+   plain version in fp32 on the same bf16-rounded inputs, atol 3e-2 (one
+   bf16 rounding of outputs of magnitude up to ~5). K3 also runs a case
+   with H != W, and every kernel all four activations at one shape.
+   Times (CUDA events): the kernel, its plain version, and a library
+   yardstick (cuDNN conv + F.instance_norm + activation, which the port
+   never calls), beside the bound max(FLOPs / peak, bytes / 3.35 TB/s);
+3. the inference path: ``patchgan_infer -d cuda`` (bf16) with a random
+   nf=64 3 -> 7-class generator on four images (1280x960, 640x480,
+   256x256, 200x150), checking each mask's shape and labels, and that
+   K1, K2 and K3 ran 1, 6 and 5 times per forward chunk;
 4. the full nf=64 forward on one bucket of 8 tiles: the kernel path in
    fp32 against the plain path (the same model on the CPU), max |dprob|
    <= 1e-3; the bf16 kernel path against it, reported;
 5. masks/s for the 1280x960 image, one image at a time, in five windows
    of at least 2 s each (every reading and their median), and tiles/s
-   for the bare forward at buckets 8 and 32.
+   for the bare forward at buckets 8 and 32;
+6. K1-bwd (the instance norm + act backward) at the 12 shapes of one
+   generator backward at batch 16, 256 px, nf=64, in bf16 and fp32, plus
+   all four activations at one shape, an H != W case and planes whose
+   middle value normalises to exactly 0, against the plain backward on
+   the same inputs (fp32 max |err| <= 1e-3 max(1, max |dx|); bf16
+   against the fp32 plain version on the bf16-rounded inputs, <= 3e-2
+   max(1, max |dx|)). Times: kernel, plain, and ATen's backward of
+   F.instance_norm + relu through torch.autograd.grad (never called by
+   the port), beside the bytes bound;
+7. step parity: one G+D loss and generator gradient at nf=64, 256 px,
+   batch 2, fp32, TF32 off, dropout off, from the same weights and batch,
+   through the kernel path on the card and the plain path on the CPU:
+   losses within rtol 2e-3 / atol 2e-4, every generator gradient within
+   1e-3 of that tensor's max |g|;
+8. the training path: ``patchgan_train -d cuda`` (bf16, batch 16, 2
+   epochs, nf=64 / ndf=64, 256 px, tversky * 200 + BCE) on a synthetic
+   npz folder (64 training and 16 validation images, 7 classes), then a
+   resume with ``load_last_checkpoint`` to epoch 3: finite losses, all
+   four epoch files, the resume at epoch 3 with the fast-forwarded LR,
+   and K1 / K2 / K3 / K1-bwd at 1 / 6 / 5 / 12 launches per train step
+   (1 / 6 / 5 / 0 per validation batch);
+9. training img/s of the bf16 step at batch 16 on a device-resident
+   batch, in five windows of at least 2 s (every reading and the
+   median), peak device memory, and a profiler breakdown of three steps.
 
 It prints a JSON summary of the kernels, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before that line; without a CUDA device it exits 2.
 """
 
+import contextlib
+import copy
+import io
 import json
 import os
 import shutil
@@ -52,7 +79,12 @@ B = 8                  # tiles per bucket in the kernel phase
 NF, SIZE, IN_C, OUT_C = 64, 256, 3, 7
 ACTS = (None, 'tanh', 'relu', 'leakyrelu')
 TOL = {'float32': 1e-3, 'bfloat16': 3e-2}
-WINDOWS, WINDOW_S = 5, 2.0   # masks/s: timing windows, seconds each
+WINDOWS, WINDOW_S = 5, 2.0   # masks/s, img/s: timing windows, seconds each
+TRAIN_B, NDF = 16, 64        # training batch, discriminator width
+TOL_BWD = {'float32': 1e-3, 'bfloat16': 3e-2}   # times max(1, max |dx|)
+# fp32 operations per element of K1-bwd: statistics 3, the two sums 6,
+# dx 5 (act' counted as one)
+BWD_FLOPS = 14
 
 
 def card_line():
@@ -247,6 +279,352 @@ def expected_chunks(sizes):
     return total
 
 
+def bwd_shapes():
+    """(level, (N, C, H, W)) of the 12 K1-bwd calls of one generator
+    backward at batch 16, 256 px, nf=64: x is each normed level's
+    pre-norm tensor."""
+    b, f = TRAIN_B, NF
+    out = [('enc0', (b, f, 128, 128))]
+    for lvl, (c, hw) in enumerate([(2 * f, 64), (4 * f, 32), (8 * f, 16),
+                                   (8 * f, 8), (8 * f, 4), (8 * f, 2)], 1):
+        out.append((f'enc{lvl}', (b, c, hw, hw)))
+    for lvl, (c, hw) in enumerate([(8 * f, 8), (8 * f, 16), (4 * f, 32),
+                                   (2 * f, 64), (f, 128)], 1):
+        out.append((f'dec{lvl}', (b, c, hw, hw)))
+    return out
+
+
+def backward_phase(torch, F, kernel):
+    """K1-bwd against its plain version at the training shapes; timing
+    rows go to ``kernel.rows``."""
+    gen = torch.Generator(device='cuda').manual_seed(3)
+
+    def rand(shape):
+        return torch.randn(*shape, generator=gen, device='cuda')
+
+    def check(label, x, g, act):
+        errs = {}
+        for dname, dt in (('bfloat16', torch.bfloat16),
+                          ('float32', torch.float32)):
+            xd, gd = x.to(dt), g.to(dt)
+            got = kernel.wrapper(gd, xd, 1e-5, act).float()
+            want = kernel.plain(gd.float(), xd.float(), 1e-5, act)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            tol = TOL_BWD[dname] * max(1.0, want.abs().max().item())
+            print(f'  {kernel.name} {label} {dname} act={act}: max_abs_err '
+                  f'{e:.3e} (tol {tol:.3e})', flush=True)
+            if not e <= tol:
+                raise AssertionError(f'{kernel.name} {label} {dname} '
+                                     f'act={act}: {e} > {tol}')
+            errs[dname] = e
+        return errs
+
+    for label, shape in bwd_shapes():
+        x, g = rand(shape), rand(shape)
+        errs = check(f'{label} {shape}', x, g, 'relu')
+        args = (g.bfloat16(), x.bfloat16(), 1e-5, 'relu')
+        k_ms = cuda_ms(lambda: kernel.wrapper(*args))
+        p_ms = cuda_ms(lambda: kernel.plain(*args))
+        xr = args[1].clone().requires_grad_()
+        y = F.relu(F.instance_norm(xr, eps=1e-5))
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(y, xr, args[0],
+                                                     retain_graph=True))
+        numel = x.numel()
+        b_ms, b_by = bound(BWD_FLOPS * numel, 3 * 2 * numel, PEAK_FP32)
+        row = {'kernel': kernel.name, 'case': f'{label} {shape}',
+               'dtype': 'bfloat16', 'kernel_ms': k_ms, 'plain_ms': p_ms,
+               'library_ms': lib_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+               'max_abs_err_bf16': errs['bfloat16'],
+               'max_abs_err_fp32': errs['float32']}
+        kernel.rows.append(row)
+        print(json.dumps(row), flush=True)
+    x, g = rand((TRAIN_B, 4 * NF, 32, 32)), rand((TRAIN_B, 4 * NF, 32, 32))
+    for act in ACTS:
+        check('dec3 shape', x, g, act)
+    x, g = rand((TRAIN_B, NF, 24, 40)), rand((TRAIN_B, NF, 24, 40))
+    check('H!=W (16, 64, 24, 40)', x, g, 'leakyrelu')
+    # (-a, 0, a) planes: the middle xhat is exactly 0, where relu' = 0
+    # and leakyrelu' = 1
+    a = rand((TRAIN_B, NF, 1, 1)).abs() + 0.5
+    x = torch.cat([-a, 0 * a, a], dim=3)
+    g = rand((TRAIN_B, NF, 1, 3))
+    for act in ACTS:
+        check('xhat=0 (16, 64, 1, 3)', x, g, act)
+
+
+def train_batch(torch, np, n, size, device, seed):
+    """A seeded NCHW (image, one-hot mask) batch of OUT_C classes."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.random((n, IN_C, size, size),
+                                    dtype=np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, OUT_C, (n, size, size)))
+    y = torch.nn.functional.one_hot(labels, OUT_C).permute(0, 3, 1, 2)
+    return x, y.float().contiguous().to(device)
+
+
+def step_parity_phase(torch, np, wrappers):
+    """One G+D loss and generator gradient, kernel path on the card
+    against the plain path on the CPU, fp32, TF32 off, dropout off."""
+    from patchgan_tpu_torch.models import Discriminator, UNet
+    from patchgan_tpu_torch.train.steps import (disc_losses, gan_losses,
+                                                make_seg_loss)
+    init = torch.Generator().manual_seed(4)
+    gen = UNet(IN_C, OUT_C, nf=NF, activation='relu', final_act='softmax',
+               generator=init)
+    disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3, generator=init)
+    x, y = train_batch(torch, np, 2, SIZE, 'cpu', 5)
+    seg = make_seg_loss('tversky', 200.0)
+
+    def run(g, d, x, y):
+        g_loss, gen_img, gdisc = gan_losses(g, d, seg, x, y)
+        grads = torch.autograd.grad(g_loss, list(g.parameters()))
+        d_loss, real, fake = disc_losses(d, x, y, gen_img.detach())
+        losses = {'gen': g_loss, 'gdisc': gdisc, 'discr': real,
+                  'discf': fake, 'disc': d_loss}
+        return ({k: v.item() for k, v in losses.items()},
+                [t.float().cpu() for t in grads])
+
+    t0 = time.perf_counter()
+    cpu_losses, cpu_grads = run(gen, disc, x, y)
+    cpu_s = time.perf_counter() - t0
+    gen_c, disc_c = copy.deepcopy(gen).cuda(), copy.deepcopy(disc).cuda()
+    for w in wrappers:
+        w.launches = 0
+    gpu_losses, gpu_grads = run(gen_c, disc_c, x.cuda(), y.cuda())
+    launches = [w.launches for w in wrappers]
+    print(f'  plain path on the CPU {cpu_s:.1f} s; launches on the card '
+          f'{launches}', flush=True)
+    if launches != [1, 6, 5, 12]:
+        raise AssertionError(f'step parity launches {launches}')
+    for k, want in cpu_losses.items():
+        got = gpu_losses[k]
+        ok = abs(got - want) <= 2e-4 + 2e-3 * abs(want)
+        print(f'  loss {k}: card {got:.7g}, CPU {want:.7g}'
+              f'{"" if ok else "  FAIL"}', flush=True)
+        if not ok:
+            raise AssertionError(f'loss {k}: {got} vs {want}')
+    worst = 0.0
+    for (name, _), got, want in zip(gen.named_parameters(), gpu_grads,
+                                    cpu_grads):
+        rel = (got - want).abs().max().item() / max(
+            want.abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        if not rel <= 1e-3:
+            raise AssertionError(f'grad {name}: {rel:.3e} of max |g|')
+    print(f'  generator gradients: worst max |dg| / max |g| {worst:.3e} '
+          f'(tol 1e-3) over {len(gpu_grads)} tensors', flush=True)
+    return worst
+
+
+class Tee(io.StringIO):
+    """Keeps what is printed and passes it on to the real stdout."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+
+def write_train_inputs(tmp, np):
+    shutil.copy(os.path.join(ROOT, 'examples', 'io_plugin_example.py'),
+                os.path.join(tmp, 'io.py'))
+    rng = np.random.default_rng(6)
+    for split, n in (('train', 64), ('val', 16)):
+        os.makedirs(os.path.join(tmp, split))
+        for i in range(n):
+            np.savez(os.path.join(tmp, split, f'{i:03d}.npz'),
+                     image=rng.random((SIZE, SIZE, IN_C), dtype=np.float32),
+                     labels=rng.integers(1, OUT_C + 1, (SIZE, SIZE))
+                     .astype(np.int32))
+    cfg = {
+        'dataset': {'type': 'NpzSegmentationDataset', 'size': SIZE,
+                    'in_channels': IN_C, 'out_channels': OUT_C,
+                    'labels': list(range(1, OUT_C + 1)),
+                    'train_data': {'images': 'train', 'masks': 'train'},
+                    'validation_data': {'images': 'val', 'masks': 'val'}},
+        'model_params': {'generator': {'filters': NF, 'activation': 'relu',
+                                       'final_activation': 'softmax'},
+                         'discriminator': {'filters': NDF, 'n_layers': 3}},
+        'checkpoint_path': os.path.join(tmp, 'ck'),
+        'train_params': {'loss_type': 'tversky', 'seg_alpha': 200,
+                         'gen_learning_rate': 1e-3,
+                         'disc_learning_rate': 1e-3, 'decay_rate': 0.5,
+                         'save_freq': 1},
+    }
+    import yaml
+    paths = []
+    for name, resume in (('train.yaml', False), ('resume.yaml', True)):
+        cfg['load_last_checkpoint'] = resume
+        paths.append(os.path.join(tmp, name))
+        with open(paths[-1], 'w') as f:
+            yaml.safe_dump(cfg, f)
+    return paths
+
+
+def train_path_phase(torch, np, wrappers, card):
+    """patchgan_train -d cuda for 2 epochs, then a resume to epoch 3;
+    returns the launch counts of the first run and the epoch times."""
+    from patchgan_tpu_torch.cli.train import patchgan_train
+    per_step = [1, 6, 5, 12]     # K1, K2, K3, K1-bwd per train step
+    per_eval = [1, 6, 5, 0]      # per validation batch
+    cwd = os.getcwd()
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        train_cfg, resume_cfg = write_train_inputs(tmp, np)
+        os.chdir(tmp)
+        try:
+            for cfg, epochs in ((train_cfg, 2), (resume_cfg, 3)):
+                for w in wrappers:
+                    w.launches = 0
+                tee = Tee(sys.stdout)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(tee):
+                    g_hist, d_hist = patchgan_train(
+                        ['-c', cfg, '-n', str(epochs), '-b', str(TRAIN_B),
+                         '-d', 'cuda', '--no-summary'])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                runs.append(([w.launches for w in wrappers], g_hist, d_hist,
+                             tee.getvalue(), wall))
+        finally:
+            os.chdir(cwd)
+        files = sorted(os.listdir(os.path.join(tmp, 'ck')))
+    want_files = [f'{p}_ep_{e:03d}.npz' for p in ('discriminator',
+                                                   'generator')
+                  for e in (1, 2, 3)]
+    if files != want_files:
+        raise AssertionError(f'checkpoints {files}, expected {want_files}')
+    epoch_s = []
+    for (launches, g_hist, d_hist, out, wall), epochs in zip(runs, (2, 1)):
+        steps, evals = 4 * epochs, epochs     # 64 / 16 and 16 / 16
+        want = [steps * a + evals * b for a, b in zip(per_step, per_eval)]
+        print(f'  run of {epochs} epoch(s): wall {wall:.2f} s, launches '
+              f'{launches} (expected {want}), G losses {g_hist}, D losses '
+              f'{d_hist}', flush=True)
+        if launches != want:
+            raise AssertionError(f'launches {launches}, expected {want}')
+        if not all(np.isfinite(g_hist + d_hist)) or \
+                len(g_hist) != epochs:
+            raise AssertionError(f'losses {g_hist} {d_hist}')
+        for line in out.splitlines():
+            if ' images in ' in line:
+                epoch_s.append(float(line.split(' images in ')[1]
+                                     .split('s')[0]))
+    resumed = runs[1][3]
+    lr = 1e-3 * 0.5 ** (2 / 5)
+    if f'Epoch 3 -- lr: {lr:5.3e}, {lr:5.3e}' not in resumed or \
+            'Epoch 1' in resumed or 'Epoch 2' in resumed:
+        raise AssertionError('the resume did not start at epoch 3 with the '
+                             'fast-forwarded LR')
+    print(f'  resumed at epoch 3 with lr {lr:5.3e}; training epoch wall '
+          f'times (64 images, loader included) {epoch_s} s on {card}',
+          flush=True)
+    return runs[0][0], epoch_s
+
+
+def throughput_phase(torch, np, card):
+    """img/s of the bf16 train step at batch 16 on a device-resident
+    batch, peak memory, and a profiler breakdown of three steps."""
+    from patchgan_tpu_torch.models import Discriminator, UNet
+    from patchgan_tpu_torch.train.steps import (make_optimizer,
+                                                make_train_step)
+    bf16 = torch.bfloat16
+    init = torch.Generator().manual_seed(7)
+    gen = UNet(IN_C, OUT_C, nf=NF, use_dropout=True, activation='relu',
+               final_act='softmax', dtype=bf16, generator=init).cuda()
+    disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3, dtype=bf16,
+                         generator=init).cuda()
+    gen.dropout_generator = torch.Generator(device='cuda').manual_seed(0)
+    step = make_train_step(
+        gen, disc, make_optimizer(gen.parameters(), 1e-3, mu_dtype=bf16),
+        make_optimizer(disc.parameters(), 1e-3, mu_dtype=bf16))
+    x, y = train_batch(torch, np, TRAIN_B, SIZE, 'cuda', 8)
+    x, y = x.to(bf16), y.to(bf16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        losses = step(x, y)
+    torch.cuda.synchronize()
+    readings = []
+    for i in range(WINDOWS):
+        count, t0 = 0, time.perf_counter()
+        while True:
+            for _ in range(5):
+                losses = step(x, y)
+            torch.cuda.synchronize()
+            count += 5
+            dt = time.perf_counter() - t0
+            if dt >= WINDOW_S:
+                break
+        readings.append(TRAIN_B * count / dt)
+        print(f'  window {i}: {count} steps in {dt:.3f} s, '
+              f'{readings[-1]:.3f} img/s', flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    img_s = statistics.median(readings)
+    loss = {k: float(v) for k, v in losses.items()}
+    if not all(np.isfinite(list(loss.values()))):
+        raise AssertionError(f'losses {loss}')
+    print(f'  bf16 step, batch {TRAIN_B}: median {img_s:.3f} img/s (min '
+          f'{min(readings):.3f}, max {max(readings):.3f}), '
+          f'{1e3 * TRAIN_B / img_s:.3f} ms/step, peak memory '
+          f'{peak / 2**30:.3f} GiB on {card}', flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(x, y)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device kernels are the entries with no CPU time of their own (an
+    # operator's entry repeats its kernels' device time)
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and e.self_cpu_time_total == 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    ours = sum(r[0] for r in rows if 'pgt::' in r[2])
+    print(f'  profile of 3 steps: wall {wall_us / 3e3:.3f} ms/step, kernels '
+          f'{busy / 3e3:.3f} ms/step (device busy {100 * busy / wall_us:.1f}'
+          f'%), the port\'s kernels {ours / 3e3:.3f} ms/step; top kernels:',
+          flush=True)
+    for dev, n, key in rows[:15]:
+        print(f'    {dev / 3e3:8.3f} ms/step {n // 3:5d}/step  {key[:90]}')
+    return {'img_per_s': img_s, 'img_per_s_windows': readings,
+            'ms_per_step': 1e3 * TRAIN_B / img_s,
+            'peak_memory_bytes': peak,
+            'profile_busy_ms_per_step': busy / 3e3,
+            'profile_port_kernels_ms_per_step': ours / 3e3,
+            'profile_wall_ms_per_step': wall_us / 3e3}
+
+
+def thin_conv_bounds():
+    """Computed, not measured: the bound of the two kernels not ported
+    yet (thin_conv.py::_forward :196, ::_wgrad :216) at the s2d boundary
+    convs of the batch-16, 256-px, nf=64 / ndf=64 step, bf16 operands:
+    enc0 (12 -> 64 channels on the 128 x 128 s2d grid) and the
+    discriminator's conv0 mask part (28 -> 64). Forward: im2col
+    [9 Cin, H W] @ [9 Cin, Cout]; wgrad: the same product's FLOPs,
+    reading x and dy and writing an fp32 dw."""
+    out = []
+    n, hw, cout = TRAIN_B, (SIZE // 2) ** 2, NF
+    for name, cin in (('enc0 s2d 12->64', 12), ('disc conv0 mask 28->64',
+                                                  28)):
+        flops = 2 * n * hw * 9 * cin * cout
+        x_b, y_b, w_b = 2 * n * hw * cin, 2 * n * hw * cout, 9 * cin * cout
+        fwd = bound(flops, x_b + y_b + 2 * w_b, PEAK_BF16)
+        wgrad = bound(flops, x_b + y_b + 4 * w_b, PEAK_BF16)
+        out.append({'case': name, 'forward_bound_ms': fwd[0],
+                    'forward_bound_by': fwd[1], 'wgrad_bound_ms': wgrad[0],
+                    'wgrad_bound_by': wgrad[1]})
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -258,7 +636,8 @@ def main():
     from patchgan_tpu_torch.cli.infer import patchgan_infer
     from patchgan_tpu_torch.ops.kernels import (
         _build, conv_norm_act, conv_norm_act_plain, convt_norm_act,
-        convt_norm_act_plain, instance_norm_act, instance_norm_act_plain)
+        convt_norm_act_plain, instance_norm_act, instance_norm_act_backward,
+        instance_norm_act_backward_plain, instance_norm_act_plain)
 
     card = card_line()
     print(f'card: {card}')
@@ -284,10 +663,15 @@ def main():
         Kernel('convt_norm_act',
                'patchgan_tpu_torch/csrc/convt_norm_act.cu',
                'patchgan_tpu/ops/pallas/convt_norm_act.py:178',
-               convt_norm_act, convt_norm_act_plain))
+               convt_norm_act, convt_norm_act_plain),
+        Kernel('instance_norm_act_backward',
+               'patchgan_tpu_torch/csrc/norm_act_bwd.cu',
+               'patchgan_tpu/ops/pallas/norm_act.py:253',
+               instance_norm_act_backward, instance_norm_act_backward_plain))
+    wrappers = [k.wrapper for k in kernels]
     print('== kernel phase (8 tiles of 256 px, nf=64)', flush=True)
     with torch.inference_mode():
-        kernel_phase(torch, F, kernels)
+        kernel_phase(torch, F, kernels[:3])
 
     print('== main path: patchgan_infer -d cuda', flush=True)
     cwd = os.getcwd()
@@ -308,7 +692,7 @@ def main():
         print(f'  wall {wall:.2f} s, {chunks} forward chunks, launches '
               f'{launches}', flush=True)
         want = dict(zip([k.name for k in kernels],
-                        [chunks, 6 * chunks, 5 * chunks]))
+                        [chunks, 6 * chunks, 5 * chunks, 0]))
         if launches != want:
             raise AssertionError(f'launches {launches}, expected {want}')
         for i, (h, w) in enumerate(sizes):
@@ -373,18 +757,35 @@ def main():
     print(json.dumps({'masks_per_s_1280x960': masks_s,
                       'masks_per_s_windows': readings,
                       'tiles_per_s': rates, 'card': card}))
+    del eng
+
+    print(f'== K1-bwd at the training shapes (batch {TRAIN_B}, 256 px, '
+          f'nf={NF})', flush=True)
+    backward_phase(torch, F, kernels[3])
+    print('== step parity: kernel path on the card vs plain path on the '
+          'CPU (nf=64, 256 px, batch 2, fp32)', flush=True)
+    step_parity_phase(torch, np, wrappers)
+    print('== training path: patchgan_train -d cuda, then resume',
+          flush=True)
+    train_launches, epoch_s = train_path_phase(torch, np, wrappers, card)
+    print(f'== training throughput (bf16, batch {TRAIN_B})', flush=True)
+    train = throughput_phase(torch, np, card)
+    train.update({'epoch_s': epoch_s, 'card': card})
+    print(json.dumps(train))
 
     summary = []
-    for k in kernels:
+    for k, n in zip(kernels, train_launches):
         summary.append({
             'name': k.name, 'route': 'cuda', 'source': k.source,
-            'replaces': k.replaces, 'launches': launches[k.name],
+            'replaces': k.replaces, 'launches': n,
+            'launches_infer': launches[k.name],
             'max_abs_err': max(r['max_abs_err_bf16'] for r in k.rows),
             'ms': sum(r['kernel_ms'] for r in k.rows),
             'plain_ms': sum(r['plain_ms'] for r in k.rows),
             'bound_ms': sum(r['bound_ms'] for r in k.rows),
             'bound_by': max(k.rows, key=lambda r: r['bound_ms'])['bound_by'],
             'library_ms': sum(r['library_ms'] for r in k.rows)})
+    print(json.dumps({'not_ported_bounds': thin_conv_bounds()}))
     print(json.dumps({'kernels': summary}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

@@ -48,9 +48,13 @@ def build_dataset_factory(dataset_params):
     elif dataset_params['type'] == 'TarShards':
         raise NotImplementedError(
             "dataset type 'TarShards' is not ported yet (ROADMAP.md, "
-            "queue 1, training slice: data)")
+            "queue 1 item 6)")
     else:
         cls = load_dataset_class(dataset_params['type'])
         in_channels = dataset_params.get('in_channels', 3)
         out_channels = dataset_params.get('out_channels', 1)
+        if 'labels' in dataset_params:
+            # a plugin one-hots over the labels it is given, like the
+            # built-in dataset (``examples/io_plugin_example.py``)
+            kwargs['labels'] = dataset_params['labels']
     return cls, in_channels, out_channels, kwargs

@@ -1,0 +1,168 @@
+"""Training entry point: ``python -m patchgan_tpu_torch.cli.train``.
+
+Port of ``patchgan_tpu/cli/train.py``: the same flags (-c/--config_file,
+-b/--batch_size, --dataloader_workers, --dataloader_worker_type,
+-n/--n_epochs, -d/--device, --summary/--no-summary, --dtype, --seed,
+--profile_dir) and YAML sections (dataset, both model_params schemas,
+checkpoint_path, load_last_checkpoint, transfer_learn, train_params),
+the cwd ``io.py`` plugin datasets, resume from the last checkpoint and
+transfer learning. ``-d auto`` (the default) and ``-d cuda`` train on
+the card and raise without one; ``-d cpu`` trains on the CPU.
+``--dtype auto`` is bfloat16 on the card, where Adam's first moment is
+then kept in bfloat16 too (``cli/train.py:150-153``).
+
+Not ported yet, and refused with NotImplementedError naming ROADMAP.md:
+``train_params.spatial_parallelism`` > 1, the TarShards dataset,
+``--dataloader_worker_type process``, ``dataset.cache``, the s2d
+boundary form (``PATCHGAN_S2D=on``), ``--profile_dir``, and the Trainer
+options the Trainer itself refuses.
+"""
+
+import argparse
+import os
+
+import torch
+
+from ..data import DataLoader
+from ..data.split import random_split
+from ..models import Discriminator, UNet
+from ..train import Trainer
+from ..utils.config import dataset_paths, load_config, model_params
+from ..utils.summary import summarize
+from .common import build_dataset_factory, compute_dtype, select_device
+
+
+def _refuse(what, item):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
+                              f"queue 1 item {item})")
+
+
+def patchgan_train(argv=None):
+    parser = argparse.ArgumentParser(
+        prog='PatchGAN',
+        description='Train the PatchGAN architecture'
+    )
+    parser.add_argument('-c', '--config_file', required=True, type=str,
+                        help='Location of the config YAML file')
+    parser.add_argument('-b', '--batch_size', default=16, type=int,
+                        help='Number of images per batch')
+    parser.add_argument('--dataloader_workers', default=4, type=int,
+                        help='Number of decode threads (0 decodes in the '
+                             'producer thread)')
+    parser.add_argument('--dataloader_worker_type', default='thread',
+                        choices=['thread', 'process'],
+                        help="'thread' (ported) or 'process' (not yet)")
+    parser.add_argument('-n', '--n_epochs', required=True, type=int,
+                        help='Number of epochs to train the model')
+    parser.add_argument('-d', '--device', default='auto',
+                        help="Device to train on: 'auto', 'cuda' or 'cpu'")
+    parser.add_argument('--summary', dest='summary', default=True,
+                        action='store_true',
+                        help='Print summary of the models (default)')
+    parser.add_argument('--no-summary', dest='summary',
+                        action='store_false',
+                        help='Skip the model summary tables')
+    parser.add_argument('--dtype', default='auto',
+                        choices=['auto', 'float32', 'bfloat16'],
+                        help='Compute dtype (default: bf16 on the card, '
+                             'fp32 on the CPU)')
+    parser.add_argument('--seed', default=0, type=int)
+    parser.add_argument('--profile_dir', default=None,
+                        help='Profiler trace directory (not ported yet)')
+    args = parser.parse_args(argv)
+
+    device = select_device(args.device)
+    dtype = compute_dtype(args.dtype, device)
+    print(f"Running with {device}")
+    if args.profile_dir:
+        _refuse("--profile_dir", 7)
+    if os.environ.get('PATCHGAN_S2D', 'off').lower() in ('on', '1', 'true'):
+        _refuse("the s2d boundary form (PATCHGAN_S2D=on)", 10)
+
+    config = load_config(args.config_file)
+    dataset_params = config['dataset']
+    train_params = config['train_params']
+    if int(train_params.get('spatial_parallelism') or 1) > 1:
+        _refuse("train_params.spatial_parallelism", 11)
+    train_paths, val_paths, data_paths, split = dataset_paths(config)
+    size = dataset_params.get('size', 256)
+    augmentation = dataset_params.get('augmentation', 'randomcrop')
+
+    Dataset, in_channels, out_channels, ds_kwargs = \
+        build_dataset_factory(dataset_params)
+
+    def make_ds(paths):
+        return Dataset(paths['images'], paths['masks'], size=size,
+                       augmentation=augmentation, **ds_kwargs)
+
+    if split is None:
+        train_datagen = make_ds(train_paths)
+        val_datagen = make_ds(val_paths)
+    else:
+        train_datagen, val_datagen = random_split(make_ds(data_paths),
+                                                  split, seed=args.seed)
+
+    # the loader refuses the RAM cache and process workers (not ported)
+    loader_kwargs = dict(batch_size=args.batch_size, shuffle=True,
+                         num_workers=args.dataloader_workers,
+                         device=device, dtype=dtype, seed=args.seed,
+                         cache=dataset_params.get('cache', False),
+                         worker_type=args.dataloader_worker_type)
+    train_data = DataLoader(train_datagen, drop_last=True, **loader_kwargs)
+    val_data = DataLoader(val_datagen, drop_last=False, **loader_kwargs)
+
+    gen_cfg, disc_cfg = model_params(config)
+    init = torch.Generator().manual_seed(args.seed)
+    generator = UNet(input_nc=in_channels, output_nc=out_channels,
+                     nf=gen_cfg['filters'],
+                     use_dropout=gen_cfg['use_dropout'],
+                     activation=gen_cfg['activation'],
+                     final_act=gen_cfg['final_activation'], dtype=dtype,
+                     generator=init)
+    discriminator = Discriminator(input_nc=in_channels + out_channels,
+                                  ndf=disc_cfg['filters'],
+                                  norm=disc_cfg['norm'],
+                                  n_layers=disc_cfg['n_layers'],
+                                  dtype=dtype, generator=init)
+
+    trainer = Trainer(generator, discriminator,
+                      savefolder=config.get('checkpoint_path',
+                                            './checkpoints/'),
+                      device=device, seed=args.seed)
+    if dtype == torch.bfloat16:
+        trainer.adam_mu_dtype = torch.bfloat16
+
+    if args.summary:
+        summarize('UNet generator', generator, (1, in_channels, size, size))
+        summarize('Discriminator', discriminator,
+                  (1, in_channels + out_channels, size, size))
+
+    if config.get('load_last_checkpoint', False):
+        trainer.load_last_checkpoint()
+    elif config.get('transfer_learn', {}).get('generator_checkpoint',
+                                              None) is not None:
+        tl = config['transfer_learn']
+        trainer.load_transfer_checkpoints(tl['generator_checkpoint'],
+                                          tl['discriminator_checkpoint'])
+        if tl.get('freeze_encoder', False):
+            trainer.freeze_generator = ('enc',)
+        elif tl.get('freeze'):
+            trainer.freeze_generator = tuple(tl['freeze'])
+
+    trainer.loss_type = train_params['loss_type']
+    trainer.seg_alpha = train_params['seg_alpha']
+    trainer.bce_weighting = train_params.get('bce_weighting', 'complement')
+    trainer.compute_iou = train_params.get('compute_iou', False)
+    trainer.save_every_steps = train_params.get('save_every_steps')
+    trainer.accumulate_steps = train_params.get('accumulate_steps', 1)
+
+    return trainer.train(
+        train_data, val_data, args.n_epochs,
+        dsc_learning_rate=train_params['disc_learning_rate'],
+        gen_learning_rate=train_params['gen_learning_rate'],
+        lr_decay=train_params.get('decay_rate', None),
+        save_freq=train_params.get('save_freq', 10))
+
+
+if __name__ == '__main__':
+    patchgan_train()

@@ -46,6 +46,24 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
+// d act / d v, written out as the JAX package's _act_grad
+// (patchgan_tpu/ops/pallas/norm_act.py:61-71): relu' is 0 at 0, leakyrelu'
+// is 1 at 0.
+__device__ __forceinline__ float activate_grad(float v, int act) {
+  switch (act) {
+    case ACT_TANH: {
+      const float t = tanhf(v);
+      return 1.f - t * t;
+    }
+    case ACT_RELU:
+      return v > 0.f ? 1.f : 0.f;
+    case ACT_LEAKY:
+      return v >= 0.f ? 1.f : 0.2f;
+    default:
+      return 1.f;
+  }
+}
+
 __device__ __forceinline__ float2 warp_sum2(float a, float b) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {

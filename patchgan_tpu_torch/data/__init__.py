@@ -1,4 +1,5 @@
 from .coco import COCOStuffDataset
+from .loader import DataLoader
 from .plugin import load_dataset_class
 
-__all__ = ['COCOStuffDataset', 'load_dataset_class']
+__all__ = ['COCOStuffDataset', 'DataLoader', 'load_dataset_class']

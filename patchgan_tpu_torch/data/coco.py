@@ -1,11 +1,17 @@
-"""COCO-Stuff style dataset, inference subset: ``*.jpg`` images (and,
-when present, ``*.png`` masks with matching integer basenames).
+"""COCO-Stuff style dataset: ``*.jpg`` images and ``*.png`` masks with
+matching integer basenames.
 
-Port of the inference half of ``patchgan_tpu/data/coco.py``: sorted
-globs with the integer-ID check, ``get_filename``, ``get_image`` (uint8
-HWC at the original resolution; the engine divides by 255 on the device)
-and ``save_mask``. Training's decode, resize and one-hot come with the
-training slice.
+Port of ``patchgan_tpu/data/coco.py``: sorted globs with the integer-ID
+check; images decode to RGB, /255 as floats (``load_raw``) or kept as
+uint8 for the loader to normalise on the device (``load_raw_u8``);
+mask labels are the PNG grey value + 1, one-hot over the sorted
+``labels``; the augmentation vocabulary: 'randomcrop' resizes to
+(size, size) (bilinear image, NEAREST mask), 'randomcrop+flip' resizes
+and flips (on the device in the loader, on the host in
+``__getitem__``), anything else ('resize', the default) leaves the
+image as it is. Decoding uses PIL, imported when first needed; the JAX
+package's native libjpeg path is not ported. ``get_filename``,
+``get_image`` and ``save_mask`` serve inference.
 """
 
 import glob
@@ -15,12 +21,17 @@ import numpy as np
 
 
 class COCOStuffDataset:
-    def __init__(self, imgfolder, maskfolder=None, labels=(1,)):
+    augmentation = None
+
+    def __init__(self, imgfolder, maskfolder=None, labels=(1,), size=256,
+                 augmentation='resize'):
         if maskfolder is None:
             maskfolder = imgfolder
         self.images = sorted(glob.glob(os.path.join(imgfolder, '*.jpg')))
         self.masks = sorted(glob.glob(os.path.join(maskfolder, '*.png')))
         self.labels = np.sort(np.asarray(labels))
+        self.size = size
+        self.augmentation = augmentation
 
         image_ids = [int(os.path.splitext(os.path.basename(p))[0])
                      for p in self.images]
@@ -34,6 +45,57 @@ class COCOStuffDataset:
 
     def __len__(self):
         return len(self.images)
+
+    def _resize_to(self):
+        if self.augmentation in ('randomcrop', 'randomcrop+flip'):
+            return self.size
+        return None
+
+    def _decode(self, index):
+        """(uint8 HWC RGB image, uint8 HW raw grey mask), resized when the
+        augmentation asks for it."""
+        from PIL import Image
+        size = self._resize_to()
+        with Image.open(self.images[index]) as im:
+            image = im.convert('RGB')
+            if size:
+                image = image.resize((size, size), Image.BILINEAR)
+            image = np.asarray(image, dtype=np.uint8)
+        with Image.open(self.masks[index]) as im:
+            mask = im.convert('L')
+            if size:
+                mask = mask.resize((size, size), Image.NEAREST)
+            mask = np.asarray(mask, dtype=np.uint8)
+        return image, mask
+
+    def load_raw(self, index):
+        """(image HWC float32 in [0, 1], labelmap HW int32 = grey + 1)."""
+        image, mask = self._decode(index)
+        return (image.astype(np.float32) / 255.0,
+                mask.astype(np.int32) + 1)
+
+    def load_raw_u8(self, index):
+        """(image HWC uint8, labelmap HW uint8 WITHOUT the +1): a quarter
+        of the float32 bytes over the host-to-device copy; the loader
+        normalises and one-hots on the device."""
+        return self._decode(index)
+
+    def one_hot(self, labelmap):
+        """(H, W) labelmap -> (H, W, n_labels) float32 one-hot."""
+        return (labelmap[:, :, None]
+                == self.labels[None, None, :]).astype(np.float32)
+
+    def __getitem__(self, index):
+        """(image HWC float32, one-hot mask HWC float32), flipped on the
+        host with p = 0.25 each way for 'randomcrop+flip'."""
+        image, labelmap = self.load_raw(index)
+        if self.augmentation == 'randomcrop+flip':
+            if np.random.uniform() < 0.25:
+                image, labelmap = image[:, ::-1], labelmap[:, ::-1]
+            if np.random.uniform() < 0.25:
+                image, labelmap = image[::-1], labelmap[::-1]
+        return np.ascontiguousarray(image), self.one_hot(
+            np.ascontiguousarray(labelmap))
 
     def get_filename(self, index):
         return os.path.basename(self.images[index])

@@ -1,4 +1,5 @@
 from .blocks import DownBlock, UpBlock
+from .disc import Discriminator
 from .unet import UNet
 
-__all__ = ['UNet', 'DownBlock', 'UpBlock']
+__all__ = ['UNet', 'DownBlock', 'UpBlock', 'Discriminator']

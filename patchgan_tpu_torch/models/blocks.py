@@ -2,11 +2,13 @@
 
 Port of ``patchgan_tpu/models/blocks.py:31-174``: conv(k=4, s=2, p=1,
 no bias) -> instance norm (affine-free) -> activation -> optional
-Dropout(0.2), and the decoder's transposed conv with the skip concat
-folded into the convolution. Each block computes in its input's dtype
-(the UNet casts the image to its compute dtype once) and casts its
-weight to that dtype at use; the output head's sigmoid/softmax runs in
-fp32.
+Dropout(0.2) in train mode, and the decoder's transposed conv with the
+skip concat folded into the convolution. Each block computes in its
+input's dtype (the UNet casts the image to its compute dtype once) and
+casts its fp32 master weight to that dtype at use, so autograd carries
+dw back to fp32 (the JAX step's ``master_grads``); the output head's
+sigmoid/softmax runs in fp32. Gradients flow through the kernels'
+``autograd.Function``s.
 
 Dispatch on the card, the JAX gates run with every Pallas kernel on:
 a normed DownBlock with Cin >= 16 runs kernel K2 (conv+IN+act); enc0
@@ -19,6 +21,7 @@ Parameters sit under the reference's state_dict keys
 torch conv modules that serve only as weight containers.
 """
 
+import torch
 import torch.nn as nn
 
 from ..ops.activations import apply_activation
@@ -34,6 +37,15 @@ NORM_EPS = 1e-5
 FUSED_CONV_MIN_CIN = 16
 
 
+def dropout(x, generator):
+    """Flax ``nn.Dropout(0.2)`` in train mode: keep each element with
+    probability 0.8 and scale it by 1/0.8, the mask drawn from
+    ``generator`` (an explicit ``torch.Generator`` on x's device)."""
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) >= DROPOUT_RATE
+    return torch.where(keep, x / (1.0 - DROPOUT_RATE), 0.0).to(x.dtype)
+
+
 class DownBlock(nn.Module):
     """Strided conv -> instance norm -> activation -> optional dropout."""
 
@@ -45,13 +57,13 @@ class DownBlock(nn.Module):
         self.name = f'DownConv{level}'
         self.model = nn.ModuleDict({self.name: nn.Conv2d(
             in_channels, features, KERNEL_SIZE, 2, 1, bias=False)})
-        self.dropout = nn.Dropout(DROPOUT_RATE) if use_dropout else None
+        self.use_dropout = use_dropout
 
     @property
     def weight(self):
         return self.model[self.name].weight
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         w = self.weight.to(x.dtype)
         if self.use_norm and x.shape[1] >= FUSED_CONV_MIN_CIN:
             x = conv_norm_act(x, w, NORM_EPS, self.activation)
@@ -59,8 +71,8 @@ class DownBlock(nn.Module):
             x = instance_norm(conv2d(x, w), NORM_EPS, self.activation)
         else:
             x = apply_activation(conv2d(x, w), self.activation)
-        if self.dropout is not None:
-            x = self.dropout(x)
+        if self.use_dropout and self.training:
+            x = dropout(x, generator)
         return x
 
 
@@ -79,13 +91,13 @@ class UpBlock(nn.Module):
         self.name = f'UpConv{level}'
         self.model = nn.ModuleDict({self.name: nn.ConvTranspose2d(
             in_channels, features, KERNEL_SIZE, 2, 1, bias=False)})
-        self.dropout = nn.Dropout(DROPOUT_RATE) if use_dropout else None
+        self.use_dropout = use_dropout
 
     @property
     def weight(self):
         return self.model[self.name].weight
 
-    def forward(self, x, skip=None):
+    def forward(self, x, skip=None, generator=None):
         w = self.weight.to(x.dtype)
         skip = skip.to(x.dtype) if skip is not None else None
         if self.use_norm:
@@ -95,6 +107,6 @@ class UpBlock(nn.Module):
             if self.fp32_act:
                 out = out.float()
             x = apply_activation(out, self.activation)
-        if self.dropout is not None:
-            x = self.dropout(x)
+        if self.use_dropout and self.training:
+            x = dropout(x, generator)
         return x

@@ -12,6 +12,8 @@ also returns the bottleneck.
 ``dtype`` is the compute dtype: the input is cast to it once and every
 block computes in it; parameters stay as they are (fp32 from init or a
 checkpoint; the inference engine pre-casts its copy once).
+``dropout_generator`` is the ``torch.Generator`` the dropout masks are
+drawn from in train mode (the Trainer seeds one on the model's device).
 """
 
 import torch
@@ -34,6 +36,7 @@ class UNet(nn.Module):
         super().__init__()
         self.input_nc, self.output_nc, self.nf = input_nc, output_nc, nf
         self.dtype = dtype
+        self.dropout_generator = None
         filts = unet_filters(nf)
         self.encoder = nn.ModuleList(
             DownBlock(input_nc if i == 0 else filts[i - 1], f, activation,
@@ -69,15 +72,16 @@ class UNet(nn.Module):
                 f"UNet input spatial dims must be multiples of "
                 f"{stride_total}; got {h}x{w}")
         x = x.to(self.dtype)
+        gen = self.dropout_generator
         skips = []
         for block in self.encoder:
-            x = block(x)
+            x = block(x, generator=gen)
             skips.append(x)
         hidden = skips[-1]
         rev = skips[::-1]
-        x = self.decoder[0](hidden)
+        x = self.decoder[0](hidden, generator=gen)
         for i in range(1, len(self.decoder)):
-            x = self.decoder[i](x, skip=rev[i])
+            x = self.decoder[i](x, skip=rev[i], generator=gen)
         if return_hidden:
             return x, hidden
         return x

@@ -2,7 +2,9 @@
 
 Port of ``patchgan_tpu/ops/activations.py``: the same names, with
 'softmax' over the channel axis (dim 1 in NCHW, the JAX package's last
-axis in NHWC).
+axis in NHWC). 'leakyrelu' is written as ``jax.nn.leaky_relu`` is,
+``where(x >= 0, x, 0.2 x)``, so its gradient at exactly 0 is 1 as in the
+JAX package (autograd of ``F.leaky_relu`` gives 0.2 there).
 """
 
 import torch
@@ -17,7 +19,7 @@ def apply_activation(x, name):
     if name == 'relu':
         return F.relu(x)
     if name == 'leakyrelu':
-        return F.leaky_relu(x, negative_slope=0.2)
+        return torch.where(x >= 0, x, 0.2 * x)
     if name == 'softmax':
         return torch.softmax(x, dim=1)
     if name == 'sigmoid':

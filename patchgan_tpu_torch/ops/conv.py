@@ -1,29 +1,32 @@
 """Conv / transposed-conv primitives, NCHW with torch weight layouts.
 
 Port of ``patchgan_tpu/ops/conv.py:54-149``: torch ``Conv2d`` /
-``ConvTranspose2d`` geometry at the generator's k=4, s=2, p=1, and an
-optional
-second input ``x2`` that is logically channel-concatenated with ``x``,
-computed by linearity as two convolutions over the weight's channel
-halves so the concat is never materialised. The weights are OIHW for the
-conv and unflipped IOHW for the transposed conv, as torch stores them.
+``ConvTranspose2d`` geometry (k=4; s=2, p=1 by default), an optional
+bias, and an optional second input ``x2`` that is logically
+channel-concatenated with ``x``, computed by linearity as two
+convolutions over the weight's channel halves so the concat is never
+materialised. The weights are OIHW for the conv and unflipped IOHW for
+the transposed conv, as torch stores them; weight and bias are cast to
+x's dtype at use.
 
-These serve only the generator levels that no fused kernel covers (enc0,
+These serve the generator levels that no fused kernel covers (enc0,
 dec0 and the dec6 head), which the JAX package also leaves outside its
-Pallas kernels.
+Pallas kernels, and the discriminator.
 """
 
 import torch.nn.functional as F
 
 
-def conv2d(x, w, x2=None):
-    """x: (N, C, H, W), w: (Cout, C [+ C2], 4, 4)."""
+def conv2d(x, w, x2=None, stride=2, padding=1, bias=None):
+    """x: (N, C, H, W), w: (Cout, C [+ C2], k, k), bias: (Cout,)."""
     w = w.to(x.dtype)
+    b = bias.to(x.dtype) if bias is not None else None
     if x2 is None:
-        return F.conv2d(x, w, stride=2, padding=1)
+        return F.conv2d(x, w, b, stride=stride, padding=padding)
     c1 = x.shape[1]
-    return (F.conv2d(x, w[:, :c1], stride=2, padding=1)
-            + F.conv2d(x2.to(x.dtype), w[:, c1:], stride=2, padding=1))
+    return (F.conv2d(x, w[:, :c1], b, stride=stride, padding=padding)
+            + F.conv2d(x2.to(x.dtype), w[:, c1:], stride=stride,
+                       padding=padding))
 
 
 def conv_transpose2d(x, w, x2=None):

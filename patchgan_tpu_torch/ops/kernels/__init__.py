@@ -3,11 +3,15 @@ version (see ``_build`` for how they are compiled and loaded)."""
 
 from .conv_norm_act import conv_norm_act, conv_norm_act_plain
 from .convt_norm_act import convt_norm_act, convt_norm_act_plain
-from .norm_act import instance_norm_act, instance_norm_act_plain
+from .norm_act import (instance_norm_act, instance_norm_act_backward,
+                       instance_norm_act_backward_plain,
+                       instance_norm_act_plain)
 
 # every kernel wrapper; each carries a ``launches`` count
-WRAPPERS = (instance_norm_act, conv_norm_act, convt_norm_act)
+WRAPPERS = (instance_norm_act, conv_norm_act, convt_norm_act,
+            instance_norm_act_backward)
 
 __all__ = ['conv_norm_act', 'conv_norm_act_plain', 'convt_norm_act',
            'convt_norm_act_plain', 'instance_norm_act',
+           'instance_norm_act_backward', 'instance_norm_act_backward_plain',
            'instance_norm_act_plain', 'WRAPPERS']

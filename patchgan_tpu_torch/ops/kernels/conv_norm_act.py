@@ -1,10 +1,14 @@
-"""K2: conv(k=4, s=2, p=1, no bias) + instance norm + activation
-(forward), NCHW input, OIHW weight.
+"""K2: conv(k=4, s=2, p=1, no bias) + instance norm + activation, NCHW
+input, OIHW weight, with its gradient.
 
 Port of ``patchgan_tpu/ops/pallas/conv_norm_act.py::fused_conv_norm_act``.
 The CUDA kernel is ``csrc/conv_norm_act.cu``; ``conv_norm_act_plain`` is
 the same function in plain PyTorch (CPU tensors, tests, and the kernel's
-oracle on the card).
+oracle on the card). ``ConvNormAct`` is the custom VJP of
+``conv_norm_act.py:194-211``: residuals (x, w); the backward recomputes
+the conv output in the compute dtype (cuDNN; the JAX package leaves this
+conv to XLA), runs K1-bwd on it, and takes dx and dw through the
+recomputed conv.
 """
 
 import ctypes
@@ -14,8 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .norm_act import (act_code, dtype_flag, forward_only,
-                       instance_norm_act_plain, require)
+from .norm_act import (act_code, dtype_flag, instance_norm_act_backward,
+                       instance_norm_act_plain, needs_graph, require)
 
 
 def conv_norm_act_plain(x, w, eps=1e-5, activation=None):
@@ -40,15 +44,14 @@ def _lib():
     return lib
 
 
-def conv_norm_act(x, w, eps=1e-5, activation=None):
-    """x: (N, Cin, H, W), w: (Cout, Cin, 4, 4) in x's dtype. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel."""
+def _forward(x, w, eps, activation):
+    """K2 on CUDA tensors, the plain version on CPU tensors; never
+    recorded by autograd."""
     if x.device.type == 'cpu':
         return conv_norm_act_plain(x, w, eps, activation)
     act = act_code(activation)
     require(x, 'x', 4)
     require(w, 'w', 4, like=x)
-    forward_only(x, w)
     flag = dtype_flag(x)
     n, cin, h, wd = x.shape
     cout = w.shape[0]
@@ -75,6 +78,53 @@ def conv_norm_act(x, w, eps=1e-5, activation=None):
     _build.check(rc, 'conv_norm_act')
     conv_norm_act.launches += 1
     return y
+
+
+def recompute_grads(ctx, g, conv, inputs):
+    """The shared backward of K2 and K3: ``conv(*inputs)`` recomputed in
+    the compute dtype, K1-bwd on it, then the input gradients that
+    ``ctx.needs_input_grad`` asks for through the recomputed conv (None
+    for the rest)."""
+    want = [t is not None and need
+            for t, need in zip(inputs, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need) if t is not None else None
+                  for t, need in zip(inputs, want)]
+        out = conv(*leaves)
+    dout = instance_norm_act_backward(g.to(out.dtype).contiguous(),
+                                      out.detach(), ctx.eps, ctx.activation)
+    wanted = [t for t, need in zip(leaves, want) if need]
+    found = iter(torch.autograd.grad(out, wanted, dout)) if wanted else None
+    return [next(found) if need else None for need in want]
+
+
+def _conv(x, w):
+    return F.conv2d(x, w, stride=2, padding=1)
+
+
+class ConvNormAct(torch.autograd.Function):
+    """K2 forward; backward by recompute + K1-bwd. Residuals (x, w)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, activation):
+        ctx.save_for_backward(x, w)
+        ctx.eps, ctx.activation = eps, activation
+        return _forward(x, w, eps, activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = recompute_grads(ctx, g, _conv, (x, w))
+        return dx, dw, None, None
+
+
+def conv_norm_act(x, w, eps=1e-5, activation=None):
+    """x: (N, Cin, H, W), w: (Cout, Cin, 4, 4) in x's dtype. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel.
+    Differentiable through ``ConvNormAct``."""
+    if needs_graph(x, w):
+        return ConvNormAct.apply(x, w, eps, activation)
+    return _forward(x, w, eps, activation)
 
 
 conv_norm_act.launches = 0

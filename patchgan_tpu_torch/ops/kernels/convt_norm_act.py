@@ -1,10 +1,13 @@
 """K3: transposed conv(k=4, s=2, p=1, no bias) over concat(x, skip) +
-instance norm + activation (forward), NCHW, torch IOHW weight.
+instance norm + activation, NCHW, torch IOHW weight, with its gradient.
 
 Port of ``patchgan_tpu/ops/pallas/convt_norm_act.py::fused_convt_norm_act``.
 The CUDA kernel is ``csrc/convt_norm_act.cu``; ``convt_norm_act_plain``
 is the same function in plain PyTorch (CPU tensors, tests, and the
-kernel's oracle on the card).
+kernel's oracle on the card). ``ConvTNormAct`` is the custom VJP of
+``convt_norm_act.py:201-225``: residuals (x, w, skip); the backward
+recomputes the transposed conv over the concat in the compute dtype,
+runs K1-bwd on it, and takes dx, dw and dskip through the recompute.
 
 Unlike the TPU gate (``Cout >= 128``, a lane-padding limit of that chip),
 every Cout runs the kernel here, so the nf=64 generator's dec5 (Cout=64)
@@ -18,8 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .norm_act import (act_code, dtype_flag, forward_only,
-                       instance_norm_act_plain, require)
+from .conv_norm_act import recompute_grads
+from .norm_act import (act_code, dtype_flag, instance_norm_act_plain,
+                       needs_graph, require)
 
 
 def convt_norm_act_plain(x, w, eps=1e-5, activation=None, skip=None):
@@ -44,16 +48,14 @@ def _lib():
     return lib
 
 
-def convt_norm_act(x, w, eps=1e-5, activation=None, skip=None):
-    """x: (N, Cx, H, W), optional skip: (N, Cs, H, W), w: (Cx + Cs, Cout,
-    4, 4), all in x's dtype. Returns (N, Cout, 2H, 2W). A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel."""
+def _forward(x, w, eps, activation, skip):
+    """K3 on CUDA tensors, the plain version on CPU tensors; never
+    recorded by autograd."""
     if x.device.type == 'cpu':
         return convt_norm_act_plain(x, w, eps, activation, skip)
     act = act_code(activation)
     require(x, 'x', 4)
     require(w, 'w', 4, like=x)
-    forward_only(x, w, skip)
     n, cx, h, wd = x.shape
     cs = 0
     if skip is not None:
@@ -85,6 +87,38 @@ def convt_norm_act(x, w, eps=1e-5, activation=None, skip=None):
     _build.check(rc, 'convt_norm_act')
     convt_norm_act.launches += 1
     return y
+
+
+def _convt(x, w, skip):
+    xin = x if skip is None else torch.cat([x, skip], dim=1)
+    return F.conv_transpose2d(xin, w, stride=2, padding=1)
+
+
+class ConvTNormAct(torch.autograd.Function):
+    """K3 forward; backward by recompute + K1-bwd. Residuals (x, w,
+    skip)."""
+
+    @staticmethod
+    def forward(ctx, x, w, skip, eps, activation):
+        ctx.save_for_backward(x, w, skip)
+        ctx.eps, ctx.activation = eps, activation
+        return _forward(x, w, eps, activation, skip)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, skip = ctx.saved_tensors
+        dx, dw, dskip = recompute_grads(ctx, g, _convt, (x, w, skip))
+        return dx, dw, dskip, None, None
+
+
+def convt_norm_act(x, w, eps=1e-5, activation=None, skip=None):
+    """x: (N, Cx, H, W), optional skip: (N, Cs, H, W), w: (Cx + Cs, Cout,
+    4, 4), all in x's dtype. Returns (N, Cout, 2H, 2W). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel. Differentiable
+    through ``ConvTNormAct``."""
+    if needs_graph(x, w, skip):
+        return ConvTNormAct.apply(x, w, skip, eps, activation)
+    return _forward(x, w, eps, activation, skip)
 
 
 convt_norm_act.launches = 0

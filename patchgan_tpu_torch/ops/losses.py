@@ -1,0 +1,71 @@
+"""Segmentation and adversarial losses, NCHW, fp32 reductions.
+
+Port of ``patchgan_tpu/ops/losses.py``:
+
+- ``tversky``: per-sample Tversky index over all non-batch axes,
+  loss = 1 - tp / (tp + beta*fn + (1-beta)*fp), batch-meaned.
+- ``fc_tversky``: focal Tversky with smooth=1 in numerator and
+  denominator; gamma is applied AFTER the batch mean (``:45-61``).
+- ``bce_loss``: binary cross-entropy on probabilities with the log
+  clamped at -100 (``torch.nn.BCELoss``), written so the gradient at
+  p = 0 is zero and NaN-free (``:71-82``).
+- ``weighted_bce_loss``: elementwise-weighted BCE.
+
+Every reduction runs in float32 whatever the input dtype.
+"""
+
+import torch
+
+
+def _sum_nonbatch(x):
+    """Sum over every axis but the leading batch axis (fp32)."""
+    return x.float().sum(dim=tuple(range(1, x.dim())))
+
+
+def _tversky_terms(y_true, y_pred):
+    y_true, y_pred = y_true.float(), y_pred.float()
+    tp = _sum_nonbatch(y_true * y_pred)
+    fn = _sum_nonbatch((1.0 - y_pred) * y_true)
+    fp = _sum_nonbatch(y_pred * (1.0 - y_true))
+    return tp, fn, fp
+
+
+def tversky(y_true, y_pred, beta, batch_mean=True):
+    tp, fn, fp = _tversky_terms(y_true, y_pred)
+    loss = 1.0 - tp / (tp + beta * fn + (1.0 - beta) * fp)
+    return loss.mean() if batch_mean else loss
+
+
+def fc_tversky(y_true, y_pred, beta, gamma=0.75, batch_mean=True):
+    smooth = 1.0
+    tp, fn, fp = _tversky_terms(y_true, y_pred)
+    index = (tp + smooth) / (tp + beta * fn + (1.0 - beta) * fp + smooth)
+    focal = 1.0 - index
+    if batch_mean:
+        return torch.pow(focal.mean(), gamma)
+    return torch.pow(focal, gamma)
+
+
+def mae_loss(y_true, y_pred):
+    return (y_true.float() - y_pred.float()).abs().mean()
+
+
+def _clamped_log(p):
+    """log(p) clamped at -100; the where() takes the constant branch at
+    p == 0, so the gradient there is 0, not 0 * (1/0) = NaN."""
+    safe = torch.log(torch.clamp(p, min=1e-35))
+    return torch.where(p > 0, torch.clamp(safe, min=-100.0),
+                       torch.full_like(p, -100.0))
+
+
+def bce_loss(y_pred, y_true):
+    """(input = predicted probabilities, target), torch's order."""
+    p, t = y_pred.float(), y_true.float()
+    return (-(t * _clamped_log(p) + (1.0 - t) * _clamped_log(1.0 - p))).mean()
+
+
+def weighted_bce_loss(y_pred, y_true, weight):
+    p, t = y_pred.float(), y_true.float()
+    w = weight.float().expand_as(p)
+    return (-w * (t * _clamped_log(p)
+                  + (1.0 - t) * _clamped_log(1.0 - p))).mean()

@@ -1,0 +1,194 @@
+"""The fused G+D train step, the eval step, Adam and the loss dispatch.
+
+Port of ``patchgan_tpu/train/steps.py``. The order of one train step is
+the reference's (``:376-419``):
+
+1. generator forward (dropout on), segmentation loss + the BCE of the
+   pre-update discriminator on (x, gen_img), gradients for the generator
+   only;
+2. the generator's Adam step;
+3. the discriminator's loss on (x, y) as real and (x, detached
+   pre-update gen_img) as fake, its gradients and Adam step.
+
+Steps return their losses as 0-d tensors on the device under the
+reference's keys ``gen, gen_loss, gdisc, discr, discf, disc``; nothing
+in a step waits for the device.
+"""
+
+import numpy as np
+import torch
+
+from ..ops.losses import bce_loss, fc_tversky, mae_loss, weighted_bce_loss
+from ..utils.metrics import iou
+
+LOSS_KEYS = ('gen', 'gen_loss', 'gdisc', 'discr', 'discf', 'disc')
+
+
+def _f32(v):
+    """A hyperparameter rounded to float32, as ``inject_hyperparams(...,
+    hyperparam_dtype=float32)`` holds it (``:98-104``)."""
+    return float(np.float32(v))
+
+
+class Adam:
+    """Adam over ``torch._foreach_*``, the update of ``optax.adam`` with
+    fp32 hyperparameters and a mutable ``lr``:
+
+        mu <- b1 mu + (1 - b1) g          nu <- b2 nu + (1 - b2) g^2
+        p  <- p - lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
+
+    ``mu_dtype=torch.bfloat16`` stores the first moment in bf16 beside
+    fp32 parameters, as optax's ``mu_dtype`` does: the moment update and
+    the step run in fp32 from the stored value, and only the stored
+    moment is rounded (``optax.scale_by_adam``). ``torch.optim.Adam``
+    keeps its moments in the parameters' dtype."""
+
+    def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                 mu_dtype=None):
+        self.params = [p for p in params]
+        self.lr = lr
+        self.b1, self.b2, self.eps = _f32(b1), _f32(b2), _f32(eps)
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype)
+                   for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads):
+        """Apply one update from ``grads`` (one per parameter, in the
+        parameters' dtype)."""
+        self.count += 1
+        one = np.float32(1)
+        b1, b2 = np.float32(self.b1), np.float32(self.b2)
+        bc1 = float(one - b1 ** np.float32(self.count))
+        bc2 = float(one - b2 ** np.float32(self.count))
+        low = self.mu[0].dtype != self.params[0].dtype if self.mu else False
+        mu = [m.float() for m in self.mu] if low else self.mu
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=float(one - b1))
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads,
+                                value=float(one - b2))
+        den = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(upd, den)
+        torch._foreach_add_(self.params, upd, alpha=-_f32(self.lr))
+        if low:
+            torch._foreach_copy_(self.mu, mu)
+
+
+def make_optimizer(params, learning_rate=1e-3, b1=0.9, b2=0.999,
+                   mu_dtype=None):
+    """Adam(b1, b2) with eps 1e-8 over ``params`` (``:74-116``); its
+    ``lr`` attribute is the learning rate, changed between epochs."""
+    return Adam(params, learning_rate, b1, b2, mu_dtype=mu_dtype)
+
+
+def make_seg_loss(loss_type, seg_alpha, tversky_beta=0.75,
+                  tversky_gamma=0.75, bce_weighting='complement'):
+    """Segmentation loss dispatch (``:160-213``), NCHW: 'tversky' (focal
+    Tversky), 'weighted_bce' with 'complement' / 'inverse' / 'none'
+    class weights, 'MAE'; each scaled by ``seg_alpha``."""
+    if loss_type == 'tversky':
+        def seg(gen_img, y):
+            return fc_tversky(y, gen_img, beta=tversky_beta,
+                              gamma=tversky_gamma) * seg_alpha
+    elif loss_type == 'weighted_bce':
+        if bce_weighting not in ('complement', 'inverse', 'none'):
+            raise ValueError(
+                f"bce_weighting {bce_weighting!r} not in "
+                "('complement', 'inverse', 'none')")
+
+        def seg(gen_img, y):
+            c = gen_img.shape[1]
+            yf = y.float()
+            if c > 1 and bce_weighting == 'inverse':
+                # batch-level shares, floored so absent classes cannot
+                # absorb all the gradient signal
+                share = yf.sum(dim=(0, 2, 3), keepdim=True) / yf.sum()
+                inv = 1.0 / share.clamp(min=1.0 / (100.0 * c))
+                weight = (c * inv / inv.sum()).expand(y.shape[0], c, 1, 1)
+            elif c > 1 and bce_weighting == 'complement':
+                share = yf.sum(dim=(2, 3), keepdim=True) / yf.sum()
+                weight = 1.0 - share
+            else:
+                weight = torch.ones_like(yf)
+            return weighted_bce_loss(gen_img, y, weight) * seg_alpha
+    elif loss_type == 'MAE':
+        def seg(gen_img, y):
+            return mae_loss(gen_img, y) * seg_alpha
+    else:
+        raise ValueError(f"Unknown loss_type: {loss_type!r}")
+    return seg
+
+
+def gan_losses(generator, discriminator, seg_loss, x, y):
+    """The generator's loss: segmentation + BCE(D(x, gen_img), 1).
+    Returns (loss, gen_img, gdisc)."""
+    gen_img = generator(x)
+    disc_fake = discriminator(x, gen_img)
+    gdisc = bce_loss(disc_fake, torch.ones_like(disc_fake))
+    return seg_loss(gen_img, y) + gdisc, gen_img, gdisc
+
+
+def disc_losses(discriminator, x, y, gen_img):
+    """(mean of the two, real, fake) BCE losses of the discriminator on
+    (x, y) as real and (x, gen_img) as fake, two separate forwards."""
+    disc_real = discriminator(x, y)
+    disc_fake = discriminator(x, gen_img)
+    loss_real = bce_loss(disc_real, torch.ones_like(disc_real))
+    loss_fake = bce_loss(disc_fake, torch.zeros_like(disc_fake))
+    return (loss_fake + loss_real) / 2.0, loss_real, loss_fake
+
+
+def make_train_step(generator, discriminator, gen_opt, disc_opt,
+                    loss_type='tversky', seg_alpha=200.0, tversky_beta=0.75,
+                    tversky_gamma=0.75, bce_weighting='complement'):
+    """``step(x, y) -> losses``: one G+D update in place on the models
+    and the two ``Adam``s."""
+    seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
+                             tversky_gamma, bce_weighting)
+    g_params = list(generator.parameters())
+    d_params = list(discriminator.parameters())
+
+    def train_step(x, y):
+        generator.train()
+        g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
+                                            seg_loss, x, y)
+        gen_opt.step(torch.autograd.grad(g_loss, g_params))
+        gen_img = gen_img.detach()
+        d_loss, loss_real, loss_fake = disc_losses(discriminator, x, y,
+                                                   gen_img)
+        disc_opt.step(torch.autograd.grad(d_loss, d_params))
+        g_loss, gdisc = g_loss.detach(), gdisc.detach()
+        return dict(zip(LOSS_KEYS, (g_loss, g_loss, gdisc,
+                                    loss_real.detach(), loss_fake.detach(),
+                                    d_loss.detach())))
+
+    return train_step
+
+
+def make_eval_step(generator, discriminator, loss_type='tversky',
+                   seg_alpha=200.0, tversky_beta=0.75, tversky_gamma=0.75,
+                   compute_iou=False, bce_weighting='complement'):
+    """``step(x, y) -> losses``: the same losses with dropout off and no
+    update (``:431-466``), plus 'iou' when ``compute_iou``."""
+    seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
+                             tversky_gamma, bce_weighting)
+
+    @torch.no_grad()
+    def eval_step(x, y):
+        generator.eval()
+        g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
+                                            seg_loss, x, y)
+        d_loss, loss_real, loss_fake = disc_losses(discriminator, x, y,
+                                                   gen_img)
+        losses = dict(zip(LOSS_KEYS, (g_loss, g_loss, gdisc, loss_real,
+                                      loss_fake, d_loss)))
+        if compute_iou:
+            losses['iou'] = iou(y, gen_img)
+        return losses
+
+    return eval_step

@@ -1,12 +1,22 @@
-"""npz / .pth checkpoint files keyed by torch state_dict names.
+"""npz / .pth checkpoint files keyed by torch state_dict names, and the
+epoch-numbered checkpoint store.
 
-Port of ``patchgan_tpu/utils/checkpoint.py:24-35``: an ``.npz`` whose
-keys are the reference's state_dict names and whose arrays are in torch
-layouts, so the JAX package and this port read each other's files.
+Port of ``patchgan_tpu/utils/checkpoint.py``: an ``.npz`` whose keys are
+the reference's state_dict names and whose arrays are in torch layouts,
+so the JAX package and this port read each other's files; two files per
+epoch, ``generator_ep_{epoch:03d}`` and ``discriminator_ep_{epoch:03d}``,
+resumed from the largest epoch of the union of both.
 """
+
+import glob
+import os
+import re
 
 import numpy as np
 import torch
+
+GEN_PREFIX = 'generator_ep_'
+DISC_PREFIX = 'discriminator_ep_'
 
 
 def save_state_dict(path, state_dict):
@@ -24,3 +34,26 @@ def load_state_dict(path):
                 if isinstance(v, torch.Tensor)}
     with np.load(path) as data:
         return {k: torch.from_numpy(data[k]) for k in data.files}
+
+
+def checkpoint_epochs(savefolder, prefix):
+    """{epoch: path} of the files of ``prefix`` (.npz, .pth or .pt)."""
+    epochs = {}
+    for path in glob.glob(os.path.join(savefolder, f'{prefix}*')):
+        m = re.match(rf'{re.escape(prefix)}(\d+)\.(npz|pth|pt)$',
+                     os.path.basename(path))
+        if m:
+            epochs[int(m.group(1))] = path
+    return epochs
+
+
+def find_last_checkpoint(savefolder):
+    """(epoch, generator path, discriminator path) of the latest epoch:
+    the largest over the union of both prefixes; a missing counterpart
+    raises (KeyError), as in the JAX package."""
+    gen = checkpoint_epochs(savefolder, GEN_PREFIX)
+    disc = checkpoint_epochs(savefolder, DISC_PREFIX)
+    if not gen:
+        raise FileNotFoundError("No checkpoints found!")
+    last = max(set(gen) | set(disc))
+    return last, gen[last], disc[last]

@@ -6,7 +6,8 @@ reference ecosystem:
   final_activation}`` / ``model_params.discriminator.{filters, norm,
   n_layers}``;
 - flat: ``model_params.{gen_filts, disc_filts, n_disc_layers,
-  activation, use_dropout, final_activation}``.
+  activation, use_dropout, final_activation}``;
+and the data directories inside ``dataset:`` or at the top level.
 """
 
 import warnings
@@ -71,3 +72,26 @@ def model_params(config):
             'n_layers': mp.get('n_disc_layers', 3),
         }
     return gen, disc
+
+
+def dataset_paths(config):
+    """(train, validation, data, split): the train/validation directory
+    mappings, or one data directory and a train/val split, looked up
+    inside ``dataset:`` first and at the top level second
+    (``patchgan_tpu/utils/config.py:82-101``)."""
+    ds = config.get('dataset', {})
+
+    def pick(key):
+        return ds.get(key, config.get(key))
+
+    train_data = pick('train_data')
+    val_data = pick('validation_data')
+    if train_data is not None and val_data is not None:
+        return train_data, val_data, None, None
+    data = pick('data')
+    split = ds.get('train_val_split', config.get('train_val_split'))
+    if data is not None and split is not None:
+        return None, None, data, split
+    raise AttributeError(
+        "Please provide either the training and validation data paths "
+        "or a train/val split!")

@@ -1,6 +1,8 @@
 """The port's ``patchgan_infer`` against the JAX package's on the same
 npz-plugin folder and checkpoint: masks agree on >= 99.9% of pixels.
-``-d cuda`` / ``-d auto`` without a GPU raise."""
+The port's ``patchgan_train`` on an npz-plugin folder: it trains, writes
+checkpoints the JAX package reads, and resumes; options that are not
+ported raise. ``-d cuda`` / ``-d auto`` without a GPU raise."""
 
 import os
 import shutil
@@ -12,6 +14,7 @@ import yaml
 
 from patchgan_tpu.cli.infer import patchgan_infer as jax_infer
 from patchgan_tpu_torch.cli.infer import patchgan_infer
+from patchgan_tpu_torch.cli.train import patchgan_train
 from patchgan_tpu_torch.models import UNet
 from patchgan_tpu_torch.utils.checkpoint import save_state_dict
 
@@ -80,3 +83,115 @@ def test_infer_cli_rejects_partial_checkpoint(infer_dir, tmp_path):
     save_state_dict(str(tmp_path / 'gen.npz'), sd)
     with pytest.raises(ValueError, match='7/14'):
         patchgan_infer(['-c', _config(infer_dir, 'x'), '-d', 'cpu'])
+
+
+TRAIN_CLASSES = 3
+
+
+@pytest.fixture
+def train_dir(tmp_path, monkeypatch):
+    shutil.copy(os.path.join(ROOT, 'examples', 'io_plugin_example.py'),
+                tmp_path / 'io.py')
+    rng = np.random.default_rng(60)
+    for split, n in (('train', 4), ('val', 2)):
+        (tmp_path / split).mkdir()
+        for i in range(n):
+            np.savez(tmp_path / split / f'{i:03d}.npz',
+                     image=rng.random((128, 128, 3), dtype=np.float32),
+                     labels=rng.integers(1, 4, (128, 128)).astype(np.int32))
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
+def _train_config(root, **extra):
+    cfg = {
+        'dataset': {'type': 'NpzSegmentationDataset', 'size': 128,
+                    'in_channels': 3, 'out_channels': TRAIN_CLASSES,
+                    'labels': [1, 2, 3],
+                    'train_data': {'images': 'train', 'masks': 'train'},
+                    'validation_data': {'images': 'val', 'masks': 'val'}},
+        'model_params': {'generator': {'filters': 4, 'activation': 'relu',
+                                       'final_activation': 'softmax'},
+                         'discriminator': {'filters': 4, 'n_layers': 3}},
+        'checkpoint_path': 'ck',
+        'train_params': {'loss_type': 'tversky', 'seg_alpha': 200,
+                         'gen_learning_rate': 1e-3,
+                         'disc_learning_rate': 1e-3, 'save_freq': 1,
+                         'decay_rate': 0.5},
+    }
+    for key, value in extra.items():
+        section, _, name = key.partition('.')
+        if name:
+            cfg[section][name] = value
+        else:
+            cfg[key] = value
+    path = root / 'train.yaml'
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+TRAIN_ARGS = ['-d', 'cpu', '--dtype', 'float32', '-b', '2', '--no-summary',
+              '--dataloader_workers', '1']
+
+
+def test_train_cli_trains_saves_and_resumes(train_dir, capsys):
+    """The npz plugin at 128 px, nf 4: two epochs write both checkpoint
+    files each, the JAX package loads them, and a resume with
+    load_last_checkpoint starts at epoch 3 with lr 1e-3 * 0.5 ** 0.4."""
+    from patchgan_tpu.utils.checkpoint import load_state_dict
+    from patchgan_tpu.utils.transfer import disc_key_map, unet_key_map
+    g_hist, d_hist = patchgan_train(['-c', _train_config(train_dir), '-n',
+                                     '2'] + TRAIN_ARGS)
+    assert len(g_hist) == 2 and np.isfinite(g_hist + d_hist).all()
+    for ep in (1, 2):
+        gen = load_state_dict(str(train_dir / f'ck/generator_ep_{ep:03d}'
+                                  '.npz'))
+        disc = load_state_dict(str(train_dir / 'ck/discriminator_ep_'
+                                   f'{ep:03d}.npz'))
+        assert set(gen) == set(unet_key_map())
+        assert set(disc) == set(disc_key_map(3, False))
+    capsys.readouterr()
+    g_hist, _ = patchgan_train(['-c', _train_config(
+        train_dir, load_last_checkpoint=True), '-n', '3'] + TRAIN_ARGS)
+    out = capsys.readouterr().out
+    assert len(g_hist) == 1 and 'Epoch 3 -- lr: 7.579e-04' in out
+    assert (train_dir / 'ck' / 'generator_ep_003.npz').exists()
+
+
+@pytest.mark.parametrize('device', ['cuda', 'auto'])
+def test_train_cli_without_gpu_raises(train_dir, device, monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='-d cpu'):
+        patchgan_train(['-c', _train_config(train_dir), '-n', '1', '-d',
+                        device])
+
+
+@pytest.mark.parametrize('extra,args', [
+    ({'train_params.spatial_parallelism': 2}, []),
+    ({'dataset.cache': True}, []),
+    ({'dataset.type': 'TarShards'}, []),
+    ({}, ['--dataloader_worker_type', 'process']),
+    ({}, ['--profile_dir', 'trace']),
+    ({'train_params.save_every_steps': 2}, []),
+    ({'train_params.accumulate_steps': 2}, []),
+    ({'transfer_learn': {'generator_checkpoint': 'g.npz',
+                         'discriminator_checkpoint': 'd.npz',
+                         'freeze_encoder': True}}, []),
+], ids=['spatial', 'cache', 'tarshards', 'process', 'profile',
+        'save_every_steps', 'accumulate', 'freeze'])
+def test_train_cli_deferred_keys_raise(train_dir, extra, args):
+    if 'transfer_learn' in extra:
+        gen = UNet(3, TRAIN_CLASSES, nf=4)
+        save_state_dict('g.npz', gen.state_dict())
+        from patchgan_tpu_torch.models import Discriminator
+        save_state_dict('d.npz', Discriminator(6, ndf=4).state_dict())
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        patchgan_train(['-c', _train_config(train_dir, **extra), '-n',
+                        '1'] + TRAIN_ARGS + args)
+
+
+def test_train_cli_s2d_raises(train_dir, monkeypatch):
+    monkeypatch.setenv('PATCHGAN_S2D', 'on')
+    with pytest.raises(NotImplementedError, match='s2d.*ROADMAP'):
+        patchgan_train(['-c', _train_config(train_dir), '-n', '1']
+                       + TRAIN_ARGS)

@@ -1,13 +1,15 @@
 """The port's kernel modules against the JAX package's Pallas kernels.
 
 On the CPU each wrapper takes its plain PyTorch version; the JAX Pallas
-functions are called directly and run in interpret mode. Same inputs
-(numpy, seeded) through both, NHWC/HWIO on the JAX side and NCHW with
-torch weight layouts on the port's. Tolerances: fp32 rtol 1e-3 /
-atol 1e-4; bf16 atol 3e-2 (one bf16 rounding of O(1) outputs, summed in
-another order).
+functions are called directly and run in interpret mode (their custom
+VJPs too: ``_backward_pallas`` for K1, the XLA recompute for K2 and K3).
+Same inputs (numpy, seeded) through both, NHWC/HWIO on the JAX side and
+NCHW with torch weight layouts on the port's. Tolerances: fp32 rtol 1e-3
+/ atol 1e-4; bf16 atol 3e-2 (one bf16 rounding of O(1) outputs, summed
+in another order).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +22,8 @@ from patchgan_tpu.utils.transfer import conv_kernel_to_jax, \
     convT_kernel_to_jax
 from patchgan_tpu_torch.ops.kernels import (
     WRAPPERS, conv_norm_act, conv_norm_act_plain, convt_norm_act,
-    convt_norm_act_plain, instance_norm_act, instance_norm_act_plain)
+    convt_norm_act_plain, instance_norm_act, instance_norm_act_backward,
+    instance_norm_act_backward_plain, instance_norm_act_plain)
 
 torch.set_num_threads(2)
 
@@ -93,7 +96,8 @@ def test_convt_norm_act_matches_pallas(act, dt, with_skip):
 
 def test_cpu_tensors_never_launch():
     """A CPU tensor takes the plain version and leaves every launch
-    count at 0, and equals that plain version exactly."""
+    count at 0, and equals that plain version exactly; so does the
+    backward, also under autograd."""
     for f in WRAPPERS:
         f.launches = 0
     x = _inputs((1, 16, 8, 8), torch.float32, 6)
@@ -105,10 +109,128 @@ def test_cpu_tensors_never_launch():
                        conv_norm_act_plain(x, w, 1e-5, 'tanh'))
     assert torch.equal(convt_norm_act(x, wt, 1e-5, 'leakyrelu'),
                        convt_norm_act_plain(x, wt, 1e-5, 'leakyrelu'))
-    assert [f.launches for f in WRAPPERS] == [0, 0, 0]
+    g = _inputs((1, 16, 8, 8), torch.float32, 9)
+    assert torch.equal(instance_norm_act_backward(g, x, 1e-5, 'tanh'),
+                       instance_norm_act_backward_plain(g, x, 1e-5, 'tanh'))
+    xg = x.clone().requires_grad_()
+    conv_norm_act(xg, w.clone().requires_grad_(), 1e-5, 'relu').sum() \
+        .backward()
+    assert xg.grad is not None
+    assert [f.launches for f in WRAPPERS] == [0] * len(WRAPPERS) and \
+        len(WRAPPERS) == 4
 
 
 def test_unsupported_activation_raises():
     x = _inputs((1, 4, 4, 4), torch.float32, 9)
     with pytest.raises(ValueError, match='activations'):
         instance_norm_act(x, 1e-5, 'softmax')
+
+
+def _vjp_nhwc(fn, primals, g):
+    """jax.vjp of ``fn`` at NHWC ``primals`` with cotangent g."""
+    _, vjp = jax.vjp(fn, *primals)
+    return vjp(g)
+
+
+# (N, C, H, W): H != W, enc6's 2x2 plane at 256 px, its 1x1 plane at
+# 128 px (xhat = 0 exactly, where relu' and leakyrelu' differ between
+# conventions)
+BWD_SHAPES = [(2, 8, 6, 10), (3, 16, 2, 2), (4, 8, 1, 1)]
+
+
+@pytest.mark.parametrize('shape', BWD_SHAPES, ids=lambda s: 'x'.join(
+    map(str, s[2:])))
+@pytest.mark.parametrize('dt', DTYPES, ids=lambda d: d[0])
+@pytest.mark.parametrize('act', ACTS)
+def test_instance_norm_act_backward_matches_pallas(act, dt, shape):
+    """The plain K1 backward (the oracle of K1-bwd on the card) against
+    jax.vjp of instance_norm_act_pallas, whose backward on the CPU is
+    ``_backward_pallas`` in interpret mode; and InstanceNormAct's
+    backward is that plain version."""
+    name, tdt, jdt = dt
+    x = _inputs(shape, tdt, 10, scale=2.0) + 0.5
+    g = _inputs(shape, tdt, 11)
+    got = instance_norm_act_backward(g, x, 1e-5, act)
+    assert got.dtype == tdt
+    want, = _vjp_nhwc(lambda a: instance_norm_act_pallas(a, 1e-5, act),
+                      (jnp.asarray(_nhwc(x), jdt),),
+                      jnp.asarray(_nhwc(g), jdt))
+    _close(got, want, name)
+    xg = x.clone().requires_grad_()
+    dx, = torch.autograd.grad(instance_norm_act(xg, 1e-5, act), xg, g)
+    assert torch.equal(dx, got)
+
+
+def _grad_close(got, want, layout):
+    """fp32 comparison of a torch gradient with a JAX one; ``layout``
+    maps the torch array to the JAX layout."""
+    np.testing.assert_allclose(layout(got.numpy()), np.asarray(want),
+                               rtol=1e-3, atol=1e-4)
+
+
+def _act_nhwc(a):
+    return np.transpose(a, (0, 2, 3, 1))
+
+
+@pytest.mark.parametrize('act', ACTS)
+def test_conv_norm_act_grads_match_jax(act):
+    """ConvNormAct's dx and dw (recompute + plain K1 backward on the
+    CPU) against jax.vjp of fused_conv_norm_act, fp32."""
+    x = _inputs((2, 16, 8, 12), torch.float32, 12).requires_grad_()
+    w = _inputs((8, 16, 4, 4), torch.float32, 13, scale=0.1) \
+        .requires_grad_()
+    g = _inputs((2, 8, 4, 6), torch.float32, 14)
+    dx, dw = torch.autograd.grad(conv_norm_act(x, w, 1e-5, act), (x, w), g)
+    jdx, jdw = _vjp_nhwc(
+        lambda a, b: fused_conv_norm_act(a, b, 1e-5, act),
+        (jnp.asarray(_nhwc(x.detach())),
+         jnp.asarray(conv_kernel_to_jax(w.detach().numpy()))),
+        jnp.asarray(_nhwc(g)))
+    _grad_close(dx, jdx, _act_nhwc)
+    _grad_close(dw, jdw, conv_kernel_to_jax)
+
+
+@pytest.mark.parametrize('with_skip', [True, False], ids=['skip', 'noskip'])
+@pytest.mark.parametrize('act', ACTS)
+def test_convt_norm_act_grads_match_jax(act, with_skip):
+    """ConvTNormAct's dx, dw and dskip against jax.vjp of
+    fused_convt_norm_act, fp32, on a 6x10 input."""
+    x = _inputs((2, 16, 6, 10), torch.float32, 15).requires_grad_()
+    skip = _inputs((2, 8, 6, 10), torch.float32, 16).requires_grad_() \
+        if with_skip else None
+    w = _inputs((16 + (8 if with_skip else 0), 8, 4, 4), torch.float32, 17,
+                scale=0.1).requires_grad_()
+    g = _inputs((2, 8, 12, 20), torch.float32, 18)
+    ins = (x, w) + ((skip,) if with_skip else ())
+    got = torch.autograd.grad(convt_norm_act(x, w, 1e-5, act, skip), ins, g)
+    jins = (jnp.asarray(_nhwc(x.detach())),
+            jnp.asarray(convT_kernel_to_jax(w.detach().numpy())))
+    if with_skip:
+        jins += (jnp.asarray(_nhwc(skip.detach())),)
+    want = _vjp_nhwc(
+        lambda *a: fused_convt_norm_act(a[0], a[1], 1e-5, act,
+                                        a[2] if with_skip else None),
+        jins, jnp.asarray(_nhwc(g)))
+    _grad_close(got[0], want[0], _act_nhwc)
+    _grad_close(got[1], want[1], convT_kernel_to_jax)
+    if with_skip:
+        _grad_close(got[2], want[2], _act_nhwc)
+
+
+@pytest.mark.parametrize('dt', DTYPES, ids=lambda d: d[0])
+@pytest.mark.parametrize('act', ACTS)
+def test_backward_at_xhat_zero_matches_pallas(act, dt):
+    """Planes (-a, 0, a) normalise to xhat = 0 exactly in the middle,
+    where act'(0) enters dx: relu' = 0 and leakyrelu' = 1, as in the JAX
+    package's _act_grad (a 1x1 plane cannot show it: its dx is 0 for any
+    act')."""
+    name, tdt, jdt = dt
+    a = np.random.default_rng(19).uniform(0.5, 2.0, size=(2, 4, 1, 1))
+    x = torch.from_numpy(np.concatenate([-a, 0 * a, a], axis=3)
+                         .astype(np.float32)).to(tdt)
+    g = _inputs((2, 4, 1, 3), tdt, 20)
+    got = instance_norm_act_backward(g, x, 1e-5, act)
+    want, = _vjp_nhwc(lambda v: instance_norm_act_pallas(v, 1e-5, act),
+                      (jnp.asarray(_nhwc(x), jdt),),
+                      jnp.asarray(_nhwc(g), jdt))
+    _close(got, want, name)
