@@ -19,16 +19,28 @@ Run from the root of the repository. In order:
    Times (CUDA events): the kernel, its plain version, and a library
    yardstick (cuDNN conv + F.instance_norm + activation, which the port
    never calls), beside the bound max(FLOPs / peak, bytes / 3.35 TB/s);
+   then K4 (the thin 3x3 conv of the s2d boundary form) and K4-wgrad (its
+   weight gradient) at every shape of the s2d paths: enc0 of an 8-tile
+   inference chunk (12 -> 64 channels on the 128 x 128 s2d grid), the
+   batch-16 step's enc0 / discriminator conv0 image part (12 -> 64) and
+   mask part (28 -> 64), the merged 32-sample validation discriminator,
+   and a ragged case (4 -> 28 channels on 40 x 72). K4 tolerances as K2's;
+   K4-wgrad (fp32 output) 1e-3 max(1, max |dw|) in both dtypes. Library
+   yardsticks F.conv2d and torch.nn.grad.conv2d_weight in bf16;
 3. the inference path: ``patchgan_infer -d cuda`` (bf16) with a random
    nf=64 3 -> 7-class generator on four images (1280x960, 640x480,
    256x256, 200x150), checking each mask's shape and labels, and that
-   K1, K2 and K3 ran 1, 6 and 5 times per forward chunk;
+   K1, K2 and K3 ran 1, 6 and 5 times per forward chunk; then the same
+   with ``PATCHGAN_S2D=on`` (the space-to-depth boundary form), where K4
+   also runs once per chunk;
 4. the full nf=64 forward on one bucket of 8 tiles: the kernel path in
-   fp32 against the plain path (the same model on the CPU), max |dprob|
-   <= 1e-3; the bf16 kernel path against it, reported;
-5. masks/s for the 1280x960 image, one image at a time, in five windows
-   of at least 2 s each (every reading and their median), and tiles/s
-   for the bare forward at buckets 8 and 32;
+   fp32, plain and s2d form, against the plain path (the same model on
+   the CPU), max |dprob| <= 1e-3; the bf16 kernel path against it,
+   reported;
+5. masks/s for the 1280x960 image, one image at a time, in windows of at
+   least 2 s, five per form, plain and s2d in turns (every reading and
+   the medians), and tiles/s of the forward at buckets 8 and 32 in both
+   forms;
 6. K1-bwd (the instance norm + act backward) at the 12 shapes of one
    generator backward at batch 16, 256 px, nf=64, in bf16 and fp32, plus
    all four activations at one shape, an H != W case and planes whose
@@ -38,25 +50,31 @@ Run from the root of the repository. In order:
    max(1, max |dx|)). Times: kernel, plain, and ATen's backward of
    F.instance_norm + relu through torch.autograd.grad (never called by
    the port), beside the bytes bound;
-7. step parity: one G+D loss and generator gradient at nf=64, 256 px,
-   batch 2, fp32, TF32 off, dropout off, from the same weights and batch,
-   through the kernel path on the card and the plain path on the CPU:
-   losses within rtol 2e-3 / atol 2e-4, every generator gradient within
-   1e-3 of that tensor's max |g|;
+7. step parity, plain form and s2d form: one G+D loss and the generator's
+   and discriminator's gradients at nf=64, 256 px, batch 2, fp32, TF32
+   off, dropout off, from the same weights and batch, through the kernel
+   path on the card and the plain path on the CPU: losses within rtol
+   2e-3 / atol 2e-4, every gradient within 1e-3 of that tensor's max
+   |g|;
 8. the training path: ``patchgan_train -d cuda`` (bf16, batch 16, 2
    epochs, nf=64 / ndf=64, 256 px, tversky * 200 + BCE) on a synthetic
    npz folder (64 training and 16 validation images, 7 classes), then a
    resume with ``load_last_checkpoint`` to epoch 3: finite losses, all
    four epoch files, the resume at epoch 3 with the fast-forwarded LR,
    and K1 / K2 / K3 / K1-bwd at 1 / 6 / 5 / 12 launches per train step
-   (1 / 6 / 5 / 0 per validation batch);
+   (1 / 6 / 5 / 0 per validation batch); then the same under
+   ``PATCHGAN_S2D=on``, where a train step also launches K4 6 times and
+   K4-wgrad 4 times (see ``S2D_STEP``) and a validation batch K4 5 times;
 9. training img/s of the bf16 step at batch 16 on a device-resident
-   batch, in five windows of at least 2 s (every reading and the
-   median), peak device memory, and a profiler breakdown of three steps.
+   batch, plain and s2d form in turns, five windows of at least 2 s each
+   (every reading and the medians), peak device memory, and a profiler
+   breakdown of three steps of each form.
 
-It prints a JSON summary of the kernels, the card's name and power limit,
-and as its last line ``{"ok": true, "device": {...}}``. Any failure
-exits non-zero before that line; without a CUDA device it exits 2.
+It prints a JSON summary of the kernels (launches from the s2d training
+run, which drives all six; every path's counts beside them), the card's
+name and power limit, and as its last line ``{"ok": true, "device":
+{...}}``. Any failure exits non-zero before that line; without a CUDA
+device it exits 2.
 """
 
 import contextlib
@@ -85,6 +103,16 @@ TOL_BWD = {'float32': 1e-3, 'bfloat16': 3e-2}   # times max(1, max |dx|)
 # fp32 operations per element of K1-bwd: statistics 3, the two sums 6,
 # dx 5 (act' counted as one)
 BWD_FLOPS = 14
+# launches of K1, K2, K3, K1-bwd, K4, K4-wgrad per train step and per
+# validation batch. s2d step: K4 6 = enc0 1 + the fake conv0's image and
+# mask parts inside G's loss 2 + the paired D step's shared image part
+# and two mask parts 3; K4-wgrad 4 = enc0 1 + the D step's three parts
+# (D's weights are constants in G's loss, so its conv0 takes no weight
+# gradient there; the dec6 head's Cin = 64 convs run in cuDNN). s2d
+# validation: K4 5 = enc0 1 + the fake pair in G's loss 2 + the merged
+# real and fake pair 2.
+STEP = {'off': [1, 6, 5, 12, 0, 0], 'on': [1, 6, 5, 12, 6, 4]}
+EVAL = {'off': [1, 6, 5, 0, 0, 0], 'on': [1, 6, 5, 0, 5, 0]}
 
 
 def card_line():
@@ -107,6 +135,20 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def s2d_env(flag):
+    """PATCHGAN_S2D set to ``flag`` ('on' or 'off') for the block."""
+    old = os.environ.get('PATCHGAN_S2D')
+    os.environ['PATCHGAN_S2D'] = flag
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop('PATCHGAN_S2D')
+        else:
+            os.environ['PATCHGAN_S2D'] = old
 
 
 def bound(flops, nbytes, peak):
@@ -231,6 +273,71 @@ def kernel_phase(torch, F, kernels):
                'max_abs_err_fp32': errs['float32']}
         kernel.rows.append(row)
         print(json.dumps(row), flush=True)
+
+
+def thin_conv_phase(torch, F, k4, k4w):
+    """K4 and K4-wgrad against their plain versions at the s2d paths'
+    shapes, bf16 and fp32; timing rows go to ``k4.rows`` / ``k4w.rows``
+    with ``calls``, the number of calls per train step at that shape
+    (0: the inference chunk and the merged validation discriminator)."""
+    gen = torch.Generator(device='cuda').manual_seed(9)
+    hw = SIZE // 2
+    # (label, N, Cin, H, W, Cout, K4 calls per step, K4-wgrad calls)
+    cases = [('enc0 infer chunk', B, 4 * IN_C, hw, hw, NF, 0, 0),
+             ('enc0 / D conv0 image', TRAIN_B, 4 * IN_C, hw, hw, NF, 3, 2),
+             ('D conv0 mask', TRAIN_B, 4 * OUT_C, hw, hw, NDF, 3, 2),
+             ('val D image', 2 * TRAIN_B, 4 * IN_C, hw, hw, NDF, 0, 0),
+             ('val D mask', 2 * TRAIN_B, 4 * OUT_C, hw, hw, NDF, 0, 0),
+             ('ragged', 3, 4, 40, 72, 28, 0, 0)]
+    for label, n, cin, h, wd, cout, fcalls, wcalls in cases:
+        label = f'{label} ({n}, {cin}, {h}, {wd}) -> {cout}'
+        x = torch.randn(n, cin, h, wd, generator=gen, device='cuda')
+        # O(1) outputs, as the layers' xavier weights give
+        w = torch.randn(cout, cin, 3, 3, generator=gen, device='cuda') * \
+            0.5 / (9 * cin) ** 0.5
+        dy = torch.randn(n, cout, h, wd, generator=gen, device='cuda')
+        errs = {}
+        for dname, dt in (('bfloat16', torch.bfloat16),
+                          ('float32', torch.float32)):
+            xd, wd_, dyd = x.to(dt), w.to(dt), dy.to(dt)
+            got = k4.wrapper(xd, wd_).float()
+            want = k4.plain(xd.float(), wd_.float())
+            got_w = k4w.wrapper(xd, dyd)
+            want_w = k4w.plain(xd.float(), dyd.float())
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            ew = (got_w - want_w).abs().max().item()
+            tol_w = 1e-3 * max(1.0, want_w.abs().max().item())
+            print(f'  {k4.name} {label} {dname}: max_abs_err {e:.3e} (tol '
+                  f'{TOL[dname]:.0e}); {k4w.name}: {ew:.3e} (tol '
+                  f'{tol_w:.3e})', flush=True)
+            if not (e <= TOL[dname] and ew <= tol_w):
+                raise AssertionError(f'thin conv {label} {dname}: {e}, {ew}')
+            errs[dname] = (e, ew)
+        if label.startswith('ragged'):
+            continue
+        xb, wb, dyb = x.bfloat16(), w.bfloat16(), dy.bfloat16()
+        flops = 2 * n * h * wd * 9 * cin * cout
+        xy = 2 * (x.numel() + dy.numel())
+        for k, calls, (fn, plain, lib), nbytes, i in (
+                (k4, fcalls, (lambda: k4.wrapper(xb, wb),
+                              lambda: k4.plain(xb, wb),
+                              lambda: F.conv2d(xb, wb, padding=1)),
+                 xy + 2 * w.numel(), 0),
+                (k4w, wcalls, (lambda: k4w.wrapper(xb, dyb),
+                               lambda: k4w.plain(xb, dyb),
+                               lambda: torch.nn.grad.conv2d_weight(
+                                   xb, wb.shape, dyb, padding=1)),
+                 xy + 4 * w.numel(), 1)):
+            b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
+            row = {'kernel': k.name, 'case': label, 'dtype': 'bfloat16',
+                   'calls': calls, 'kernel_ms': cuda_ms(fn),
+                   'plain_ms': cuda_ms(plain), 'library_ms': cuda_ms(lib),
+                   'bound_ms': b_ms, 'bound_by': b_by,
+                   'max_abs_err_bf16': errs['bfloat16'][i],
+                   'max_abs_err_fp32': errs['float32'][i]}
+            k.rows.append(row)
+            print(json.dumps(row), flush=True)
 
 
 def write_inputs(tmp, torch, np):
@@ -363,27 +470,37 @@ def train_batch(torch, np, n, size, device, seed):
     return x, y.float().contiguous().to(device)
 
 
-def step_parity_phase(torch, np, wrappers):
-    """One G+D loss and generator gradient, kernel path on the card
+def step_parity_phase(torch, np, wrappers, s2d):
+    """One G+D loss and the generator's and discriminator's gradients in
+    the form ``s2d`` ('on' or 'off') selects, kernel path on the card
     against the plain path on the CPU, fp32, TF32 off, dropout off."""
     from patchgan_tpu_torch.models import Discriminator, UNet
-    from patchgan_tpu_torch.train.steps import (disc_losses, gan_losses,
-                                                make_seg_loss)
+    from patchgan_tpu_torch.ops.s2d import space_to_depth
+    from patchgan_tpu_torch.train.steps import (
+        constant_params, disc_loss, disc_real_fake, gan_losses,
+        make_seg_loss, resolve_paired_disc)
     init = torch.Generator().manual_seed(4)
     gen = UNet(IN_C, OUT_C, nf=NF, activation='relu', final_act='softmax',
                generator=init)
     disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3, generator=init)
     x, y = train_batch(torch, np, 2, SIZE, 'cpu', 5)
     seg = make_seg_loss('tversky', 200.0)
+    form = s2d == 'on'
+    paired = resolve_paired_disc(None, False, disc)
 
     def run(g, d, x, y):
-        g_loss, gen_img, gdisc = gan_losses(g, d, seg, x, y)
-        grads = torch.autograd.grad(g_loss, list(g.parameters()))
-        d_loss, real, fake = disc_losses(d, x, y, gen_img.detach())
+        if form:
+            x, y = space_to_depth(x), space_to_depth(y)
+        with constant_params(d):
+            g_loss, gen_img, gdisc = gan_losses(g, d, seg, x, y, form)
+        g_grads = torch.autograd.grad(g_loss, list(g.parameters()))
+        d_loss, real, fake = disc_loss(*disc_real_fake(
+            d, x, y, gen_img.detach(), merged=False, paired=paired, s2d=form))
+        d_grads = torch.autograd.grad(d_loss, list(d.parameters()))
         losses = {'gen': g_loss, 'gdisc': gdisc, 'discr': real,
                   'discf': fake, 'disc': d_loss}
         return ({k: v.item() for k, v in losses.items()},
-                [t.float().cpu() for t in grads])
+                [t.float().cpu() for t in g_grads + d_grads])
 
     t0 = time.perf_counter()
     cpu_losses, cpu_grads = run(gen, disc, x, y)
@@ -393,10 +510,11 @@ def step_parity_phase(torch, np, wrappers):
         w.launches = 0
     gpu_losses, gpu_grads = run(gen_c, disc_c, x.cuda(), y.cuda())
     launches = [w.launches for w in wrappers]
-    print(f'  plain path on the CPU {cpu_s:.1f} s; launches on the card '
-          f'{launches}', flush=True)
-    if launches != [1, 6, 5, 12]:
-        raise AssertionError(f'step parity launches {launches}')
+    print(f'  s2d {s2d}: plain path on the CPU {cpu_s:.1f} s; launches on '
+          f'the card {launches}', flush=True)
+    if launches != STEP[s2d]:
+        raise AssertionError(f'step parity launches {launches}, expected '
+                             f'{STEP[s2d]}')
     for k, want in cpu_losses.items():
         got = gpu_losses[k]
         ok = abs(got - want) <= 2e-4 + 2e-3 * abs(want)
@@ -404,16 +522,18 @@ def step_parity_phase(torch, np, wrappers):
               f'{"" if ok else "  FAIL"}', flush=True)
         if not ok:
             raise AssertionError(f'loss {k}: {got} vs {want}')
-    worst = 0.0
-    for (name, _), got, want in zip(gen.named_parameters(), gpu_grads,
-                                    cpu_grads):
+    worst = {}
+    names = [f'G {n}' for n, _ in gen.named_parameters()] + \
+        [f'D {n}' for n, _ in disc.named_parameters()]
+    for name, got, want in zip(names, gpu_grads, cpu_grads):
         rel = (got - want).abs().max().item() / max(
             want.abs().max().item(), 1e-30)
-        worst = max(worst, rel)
+        worst[name[0]] = max(worst.get(name[0], 0.0), rel)
         if not rel <= 1e-3:
             raise AssertionError(f'grad {name}: {rel:.3e} of max |g|')
-    print(f'  generator gradients: worst max |dg| / max |g| {worst:.3e} '
-          f'(tol 1e-3) over {len(gpu_grads)} tensors', flush=True)
+    print(f'  gradients: worst max |dg| / max |g| generator {worst["G"]:.3e}'
+          f', discriminator {worst["D"]:.3e} (tol 1e-3) over '
+          f'{len(gpu_grads)} tensors', flush=True)
     return worst
 
 
@@ -465,12 +585,12 @@ def write_train_inputs(tmp, np):
     return paths
 
 
-def train_path_phase(torch, np, wrappers, card):
-    """patchgan_train -d cuda for 2 epochs, then a resume to epoch 3;
-    returns the launch counts of the first run and the epoch times."""
+def train_path_phase(torch, np, wrappers, card, s2d):
+    """patchgan_train -d cuda for 2 epochs, then a resume to epoch 3,
+    under PATCHGAN_S2D=``s2d``; returns the launch counts of the first
+    run and the epoch times."""
     from patchgan_tpu_torch.cli.train import patchgan_train
-    per_step = [1, 6, 5, 12]     # K1, K2, K3, K1-bwd per train step
-    per_eval = [1, 6, 5, 0]      # per validation batch
+    per_step, per_eval = STEP[s2d], EVAL[s2d]
     cwd = os.getcwd()
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -482,7 +602,7 @@ def train_path_phase(torch, np, wrappers, card):
                     w.launches = 0
                 tee = Tee(sys.stdout)
                 t0 = time.perf_counter()
-                with contextlib.redirect_stdout(tee):
+                with contextlib.redirect_stdout(tee), s2d_env(s2d):
                     g_hist, d_hist = patchgan_train(
                         ['-c', cfg, '-n', str(epochs), '-b', str(TRAIN_B),
                          '-d', 'cuda', '--no-summary'])
@@ -520,108 +640,183 @@ def train_path_phase(torch, np, wrappers, card):
             'Epoch 1' in resumed or 'Epoch 2' in resumed:
         raise AssertionError('the resume did not start at epoch 3 with the '
                              'fast-forwarded LR')
-    print(f'  resumed at epoch 3 with lr {lr:5.3e}; training epoch wall '
-          f'times (64 images, loader included) {epoch_s} s on {card}',
-          flush=True)
+    print(f'  s2d {s2d}: resumed at epoch 3 with lr {lr:5.3e}; training '
+          f'epoch wall times (64 images, loader included) {epoch_s} s on '
+          f'{card}', flush=True)
     return runs[0][0], epoch_s
 
 
 def throughput_phase(torch, np, card):
     """img/s of the bf16 train step at batch 16 on a device-resident
-    batch, peak memory, and a profiler breakdown of three steps."""
+    batch, plain and s2d form in turns, peak memory, and a profiler
+    breakdown of three steps of each form."""
     from patchgan_tpu_torch.models import Discriminator, UNet
     from patchgan_tpu_torch.train.steps import (make_optimizer,
                                                 make_train_step)
     bf16 = torch.bfloat16
-    init = torch.Generator().manual_seed(7)
-    gen = UNet(IN_C, OUT_C, nf=NF, use_dropout=True, activation='relu',
-               final_act='softmax', dtype=bf16, generator=init).cuda()
-    disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3, dtype=bf16,
-                         generator=init).cuda()
-    gen.dropout_generator = torch.Generator(device='cuda').manual_seed(0)
-    step = make_train_step(
-        gen, disc, make_optimizer(gen.parameters(), 1e-3, mu_dtype=bf16),
-        make_optimizer(disc.parameters(), 1e-3, mu_dtype=bf16))
     x, y = train_batch(torch, np, TRAIN_B, SIZE, 'cuda', 8)
     x, y = x.to(bf16), y.to(bf16)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        losses = step(x, y)
-    torch.cuda.synchronize()
-    readings = []
-    for i in range(WINDOWS):
-        count, t0 = 0, time.perf_counter()
-        while True:
-            for _ in range(5):
-                losses = step(x, y)
-            torch.cuda.synchronize()
-            count += 5
-            dt = time.perf_counter() - t0
-            if dt >= WINDOW_S:
-                break
-        readings.append(TRAIN_B * count / dt)
-        print(f'  window {i}: {count} steps in {dt:.3f} s, '
-              f'{readings[-1]:.3f} img/s', flush=True)
-    peak = torch.cuda.max_memory_allocated()
-    img_s = statistics.median(readings)
-    loss = {k: float(v) for k, v in losses.items()}
-    if not all(np.isfinite(list(loss.values()))):
-        raise AssertionError(f'losses {loss}')
-    print(f'  bf16 step, batch {TRAIN_B}: median {img_s:.3f} img/s (min '
-          f'{min(readings):.3f}, max {max(readings):.3f}), '
-          f'{1e3 * TRAIN_B / img_s:.3f} ms/step, peak memory '
-          f'{peak / 2**30:.3f} GiB on {card}', flush=True)
-
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step(x, y)
+    steps, out = {}, {}
+    for form in ('off', 'on'):
+        init = torch.Generator().manual_seed(7)
+        gen = UNet(IN_C, OUT_C, nf=NF, use_dropout=True, activation='relu',
+                   final_act='softmax', dtype=bf16, generator=init).cuda()
+        disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3, dtype=bf16,
+                             generator=init).cuda()
+        gen.dropout_generator = torch.Generator(device='cuda').manual_seed(0)
+        steps[form] = make_train_step(
+            gen, disc, make_optimizer(gen.parameters(), 1e-3,
+                                      mu_dtype=bf16),
+            make_optimizer(disc.parameters(), 1e-3, mu_dtype=bf16),
+            s2d=form == 'on')
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device kernels are the entries with no CPU time of their own (an
-    # operator's entry repeats its kernels' device time)
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.self_device_time_total > 0
-                   and e.self_cpu_time_total == 0), reverse=True)
-    busy = sum(r[0] for r in rows)
-    ours = sum(r[0] for r in rows if 'pgt::' in r[2])
-    print(f'  profile of 3 steps: wall {wall_us / 3e3:.3f} ms/step, kernels '
-          f'{busy / 3e3:.3f} ms/step (device busy {100 * busy / wall_us:.1f}'
-          f'%), the port\'s kernels {ours / 3e3:.3f} ms/step; top kernels:',
-          flush=True)
-    for dev, n, key in rows[:15]:
-        print(f'    {dev / 3e3:8.3f} ms/step {n // 3:5d}/step  {key[:90]}')
-    return {'img_per_s': img_s, 'img_per_s_windows': readings,
-            'ms_per_step': 1e3 * TRAIN_B / img_s,
-            'peak_memory_bytes': peak,
-            'profile_busy_ms_per_step': busy / 3e3,
-            'profile_port_kernels_ms_per_step': ours / 3e3,
-            'profile_wall_ms_per_step': wall_us / 3e3}
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            losses = steps[form](x, y)
+        torch.cuda.synchronize()
+        out[form] = {'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+                     'img_per_s_windows': []}
+        loss = {k: float(v) for k, v in losses.items()}
+        if not all(np.isfinite(list(loss.values()))):
+            raise AssertionError(f'losses {loss}')
+    for i in range(WINDOWS):
+        for form in (('off', 'on') if i % 2 == 0 else ('on', 'off')):
+            count, t0 = 0, time.perf_counter()
+            while True:
+                for _ in range(5):
+                    steps[form](x, y)
+                torch.cuda.synchronize()
+                count += 5
+                dt = time.perf_counter() - t0
+                if dt >= WINDOW_S:
+                    break
+            out[form]['img_per_s_windows'].append(TRAIN_B * count / dt)
+            print(f'  window {i} s2d {form}: {count} steps in {dt:.3f} s, '
+                  f'{TRAIN_B * count / dt:.3f} img/s', flush=True)
+    from torch.profiler import ProfilerActivity, profile
+    for form in ('off', 'on'):
+        r = out[form]
+        readings = r['img_per_s_windows']
+        img_s = statistics.median(readings)
+        r.update(img_per_s=img_s, ms_per_step=1e3 * TRAIN_B / img_s)
+        print(f'  bf16 step, batch {TRAIN_B}, s2d {form}: median '
+              f'{img_s:.3f} img/s (min {min(readings):.3f}, max '
+              f'{max(readings):.3f}), {r["ms_per_step"]:.3f} ms/step, peak '
+              f'memory {r["peak_memory_bytes"] / 2**30:.3f} GiB on {card}',
+              flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                steps[form](x, y)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # device kernels are the entries with no CPU time of their own (an
+        # operator's entry repeats its kernels' device time)
+        rows = sorted(((e.self_device_time_total, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.self_device_time_total > 0
+                       and e.self_cpu_time_total == 0), reverse=True)
+        busy = sum(row[0] for row in rows)
+        ours = sum(row[0] for row in rows if 'pgt::' in row[2])
+        print(f'  profile of 3 steps, s2d {form}: wall {wall_us / 3e3:.3f} '
+              f'ms/step, kernels {busy / 3e3:.3f} ms/step (device busy '
+              f'{100 * busy / wall_us:.1f}%), the port\'s kernels '
+              f'{ours / 3e3:.3f} ms/step; top kernels:', flush=True)
+        for dev, n, key in rows[:15]:
+            print(f'    {dev / 3e3:8.3f} ms/step {n // 3:5d}/step  '
+                  f'{key[:90]}')
+        r.update(profile_busy_ms_per_step=busy / 3e3,
+                 profile_port_kernels_ms_per_step=ours / 3e3,
+                 profile_wall_ms_per_step=wall_us / 3e3)
+    return out
 
 
-def thin_conv_bounds():
-    """Computed, not measured: the bound of the two kernels not ported
-    yet (thin_conv.py::_forward :196, ::_wgrad :216) at the s2d boundary
-    convs of the batch-16, 256-px, nf=64 / ndf=64 step, bf16 operands:
-    enc0 (12 -> 64 channels on the 128 x 128 s2d grid) and the
-    discriminator's conv0 mask part (28 -> 64). Forward: im2col
-    [9 Cin, H W] @ [9 Cin, Cout]; wgrad: the same product's FLOPs,
-    reading x and dy and writing an fp32 dw."""
-    out = []
-    n, hw, cout = TRAIN_B, (SIZE // 2) ** 2, NF
-    for name, cin in (('enc0 s2d 12->64', 12), ('disc conv0 mask 28->64',
-                                                  28)):
-        flops = 2 * n * hw * 9 * cin * cout
-        x_b, y_b, w_b = 2 * n * hw * cin, 2 * n * hw * cout, 9 * cin * cout
-        fwd = bound(flops, x_b + y_b + 2 * w_b, PEAK_BF16)
-        wgrad = bound(flops, x_b + y_b + 4 * w_b, PEAK_BF16)
-        out.append({'case': name, 'forward_bound_ms': fwd[0],
-                    'forward_bound_by': fwd[1], 'wgrad_bound_ms': wgrad[0],
-                    'wgrad_bound_by': wgrad[1]})
+def infer_path_phase(torch, np, kernels, s2d):
+    """patchgan_infer -d cuda on the four images under
+    PATCHGAN_S2D=``s2d``; checks each mask and the launch counts per
+    forward chunk. Returns (launches by kernel name, the model, masks)."""
+    from patchgan_tpu_torch.cli.infer import patchgan_infer
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, sizes, model = write_inputs(tmp, torch, np)
+        os.chdir(tmp)
+        try:
+            for k in kernels:
+                k.wrapper.launches = 0
+            t0 = time.perf_counter()
+            with s2d_env(s2d):
+                patchgan_infer(['-c', cfg, '-d', 'cuda'])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.wrapper.launches for k in kernels}
+        finally:
+            os.chdir(cwd)
+        chunks = expected_chunks(sizes)
+        print(f'  s2d {s2d}: wall {wall:.2f} s, {chunks} forward chunks, '
+              f'launches {launches}', flush=True)
+        want = dict(zip([k.name for k in kernels],
+                        [chunks, 6 * chunks, 5 * chunks, 0,
+                         chunks if s2d == 'on' else 0, 0]))
+        if launches != want:
+            raise AssertionError(f'launches {launches}, expected {want}')
+        masks = []
+        for i, (h, w) in enumerate(sizes):
+            mask = np.load(os.path.join(tmp, 'masks', f'{i:03d}.npy'))
+            if mask.shape != (h, w) or mask.min() < 0 or \
+                    mask.max() >= OUT_C:
+                raise AssertionError(f'mask {i}: shape {mask.shape}, '
+                                     f'labels {mask.min()}..{mask.max()}')
+            print(f'  mask {i}: {mask.shape}, {len(np.unique(mask))} '
+                  f'labels', flush=True)
+            masks.append(mask)
+    return launches, model, masks
+
+
+def infer_throughput_phase(torch, np, engines, card):
+    """masks/s of the 1280x960 image, one image at a time, plain and s2d
+    engine in turns; tiles/s of each form's forward at buckets 8 and
+    32."""
+    big = np.random.default_rng(2).random((960, 1280, IN_C),
+                                          dtype=np.float32)
+    readings = {form: [] for form in engines}
+    for eng in engines.values():
+        for _ in range(3):
+            eng.predict_image(big)
+    for i in range(WINDOWS):
+        for form in (('off', 'on') if i % 2 == 0 else ('on', 'off')):
+            count, t0 = 0, time.perf_counter()
+            while True:
+                engines[form].predict_image(big)   # .result() waits
+                count += 1
+                dt = time.perf_counter() - t0
+                if dt >= WINDOW_S:
+                    break
+            readings[form].append(count / dt)
+            print(f'  1280x960 window {i} s2d {form}: {count} masks in '
+                  f'{dt:.3f} s, {count / dt:.3f} masks/s', flush=True)
+    out = {'card': card}
+    for form, r in readings.items():
+        med = statistics.median(r)
+        print(f'  1280x960 s2d {form}: median {med:.3f} masks/s (min '
+              f'{min(r):.3f}, max {max(r):.3f}) over {WINDOWS} windows of '
+              f'>= {WINDOW_S} s on {card}')
+        out[form] = {'masks_per_s_1280x960': med, 'masks_per_s_windows': r,
+                     'forward_ms': {}, 'tiles_per_s': {}}
+    with torch.inference_mode():
+        for bs in (8, 32):
+            x = torch.rand(bs, IN_C, SIZE, SIZE, device='cuda')
+            for form in ('off', 'on', 'on', 'off'):
+                ms = cuda_ms(lambda: engines[form]._forward(x), iters=10,
+                             warmup=2)
+                out[form]['forward_ms'].setdefault(bs, []).append(ms)
+            for form in ('off', 'on'):
+                ms = min(out[form]['forward_ms'][bs])
+                out[form]['tiles_per_s'][bs] = bs / ms * 1e3
+                print(f'  forward bucket {bs}, s2d {form}: '
+                      f'{out[form]["forward_ms"][bs]} ms, '
+                      f'{out[form]["tiles_per_s"][bs]:.1f} tiles/s on '
+                      f'{card}', flush=True)
     return out
 
 
@@ -633,11 +828,13 @@ def main():
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch.nn.functional as F
-    from patchgan_tpu_torch.cli.infer import patchgan_infer
+    from patchgan_tpu_torch.inference import InferenceEngine
     from patchgan_tpu_torch.ops.kernels import (
         _build, conv_norm_act, conv_norm_act_plain, convt_norm_act,
         convt_norm_act_plain, instance_norm_act, instance_norm_act_backward,
-        instance_norm_act_backward_plain, instance_norm_act_plain)
+        instance_norm_act_backward_plain, instance_norm_act_plain,
+        thin_conv3x3, thin_conv3x3_plain, thin_conv3x3_wgrad,
+        thin_conv3x3_wgrad_plain)
 
     card = card_line()
     print(f'card: {card}')
@@ -667,125 +864,104 @@ def main():
         Kernel('instance_norm_act_backward',
                'patchgan_tpu_torch/csrc/norm_act_bwd.cu',
                'patchgan_tpu/ops/pallas/norm_act.py:253',
-               instance_norm_act_backward, instance_norm_act_backward_plain))
+               instance_norm_act_backward, instance_norm_act_backward_plain),
+        Kernel('thin_conv3x3', 'patchgan_tpu_torch/csrc/thin_conv.cu',
+               'patchgan_tpu/ops/pallas/thin_conv.py:196',
+               thin_conv3x3, thin_conv3x3_plain),
+        Kernel('thin_conv3x3_wgrad', 'patchgan_tpu_torch/csrc/thin_conv.cu',
+               'patchgan_tpu/ops/pallas/thin_conv.py:216',
+               thin_conv3x3_wgrad, thin_conv3x3_wgrad_plain))
     wrappers = [k.wrapper for k in kernels]
-    print('== kernel phase (8 tiles of 256 px, nf=64)', flush=True)
+    print('== kernel phase (8 tiles of 256 px, nf=64; the s2d paths\' '
+          'thin convs)', flush=True)
     with torch.inference_mode():
         kernel_phase(torch, F, kernels[:3])
+        thin_conv_phase(torch, F, kernels[4], kernels[5])
 
-    print('== main path: patchgan_infer -d cuda', flush=True)
-    cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg, sizes, model = write_inputs(tmp, torch, np)
-        os.chdir(tmp)
-        try:
-            for k in kernels:
-                k.wrapper.launches = 0
-            t0 = time.perf_counter()
-            patchgan_infer(['-c', cfg, '-d', 'cuda'])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {k.name: k.wrapper.launches for k in kernels}
-        finally:
-            os.chdir(cwd)
-        chunks = expected_chunks(sizes)
-        print(f'  wall {wall:.2f} s, {chunks} forward chunks, launches '
-              f'{launches}', flush=True)
-        want = dict(zip([k.name for k in kernels],
-                        [chunks, 6 * chunks, 5 * chunks, 0]))
-        if launches != want:
-            raise AssertionError(f'launches {launches}, expected {want}')
-        for i, (h, w) in enumerate(sizes):
-            mask = np.load(os.path.join(tmp, 'masks', f'{i:03d}.npy'))
-            if mask.shape != (h, w) or mask.min() < 0 or \
-                    mask.max() >= OUT_C:
-                raise AssertionError(f'mask {i}: shape {mask.shape}, '
-                                     f'labels {mask.min()}..{mask.max()}')
-            print(f'  mask {i}: {mask.shape}, {len(np.unique(mask))} '
-                  f'labels', flush=True)
+    paths = {}
+    for s2d in ('off', 'on'):
+        print(f'== main path: patchgan_infer -d cuda, PATCHGAN_S2D={s2d}',
+              flush=True)
+        paths[f'infer_s2d_{s2d}'], model, masks = infer_path_phase(
+            torch, np, kernels, s2d)
+        if s2d == 'off':
+            plain_masks = masks
+    agree = [float(np.mean(a == b)) for a, b in zip(plain_masks, masks)]
+    print(f'  s2d vs plain bf16 masks: label agreement {agree}', flush=True)
 
     print('== full forward, one bucket of 8 tiles', flush=True)
-    from patchgan_tpu_torch.inference import InferenceEngine
     tiles = torch.from_numpy(np.random.default_rng(1).random(
         (B, IN_C, SIZE, SIZE), dtype=np.float32))
     model.eval()
+    engines = {}
     with torch.inference_mode():
         ref = model.to(torch.float32)(tiles)            # plain path, CPU
-        gpu32 = InferenceEngine(model, dtype=torch.float32).model
-        p32 = gpu32(tiles.cuda()).cpu()
-        d32 = (p32 - ref).abs().max().item()
-        del gpu32
-        eng = InferenceEngine(model, dtype=torch.bfloat16)
-        p16 = eng.model(tiles.cuda()).float().cpu()
-    d16 = (p16 - ref).abs().max().item()
-    agree = (p16.argmax(1) == ref.argmax(1)).float().mean().item()
-    print(f'  fp32 kernels vs plain: max |dprob| {d32:.3e} (tol 1e-3)')
-    print(f'  bf16 kernels vs fp32 plain: max |dprob| {d16:.3e}, argmax '
-          f'agreement {agree:.5f}', flush=True)
-    if not d32 <= 1e-3:
-        raise AssertionError(f'fp32 forward differs by {d32}')
+        for s2d in ('off', 'on'):
+            with s2d_env(s2d):
+                eng32 = InferenceEngine(model, dtype=torch.float32)
+                engines[s2d] = InferenceEngine(model, dtype=torch.bfloat16)
+            for w in wrappers:
+                w.launches = 0
+            p32 = eng32._forward(tiles.cuda()).cpu()
+            n4 = thin_conv3x3.launches
+            d32 = (p32 - ref).abs().max().item()
+            del eng32
+            p16 = engines[s2d]._forward(tiles.cuda()).cpu()
+            d16 = (p16 - ref).abs().max().item()
+            agree = (p16.argmax(1) == ref.argmax(1)).float().mean().item()
+            print(f'  s2d {s2d}: fp32 kernels vs plain: max |dprob| '
+                  f'{d32:.3e} (tol 1e-3), K4 launches {n4}')
+            print(f'  s2d {s2d}: bf16 kernels vs fp32 plain: max |dprob| '
+                  f'{d16:.3e}, argmax agreement {agree:.5f}', flush=True)
+            if not d32 <= 1e-3:
+                raise AssertionError(f's2d {s2d}: fp32 forward differs by '
+                                     f'{d32}')
+            if n4 != (1 if s2d == 'on' else 0):
+                raise AssertionError(f's2d {s2d}: {n4} K4 launches')
 
-    print('== throughput (bf16)', flush=True)
-    big = np.random.default_rng(2).random((960, 1280, IN_C),
-                                          dtype=np.float32)
-    for _ in range(3):
-        eng.predict_image(big)
-    readings = []
-    for i in range(WINDOWS):
-        count, t0 = 0, time.perf_counter()
-        while True:
-            eng.predict_image(big)      # .result() waits for the card
-            count += 1
-            dt = time.perf_counter() - t0
-            if dt >= WINDOW_S:
-                break
-        readings.append(count / dt)
-        print(f'  1280x960 window {i}: {count} masks in {dt:.3f} s, '
-              f'{readings[-1]:.3f} masks/s', flush=True)
-    masks_s = statistics.median(readings)
-    print(f'  1280x960: median {masks_s:.3f} masks/s (min {min(readings):.3f}'
-          f', max {max(readings):.3f}) over {WINDOWS} windows of >= '
-          f'{WINDOW_S} s on {card}')
-    rates = {}
-    with torch.inference_mode():
-        for bs in (8, 32):
-            x = torch.rand(bs, IN_C, SIZE, SIZE, device='cuda')
-            ms = cuda_ms(lambda: eng.model(x), iters=10, warmup=2)
-            rates[bs] = bs / ms * 1e3
-            print(f'  forward bucket {bs}: {ms:.3f} ms, {rates[bs]:.1f} '
-                  f'tiles/s on {card}', flush=True)
-    print(json.dumps({'masks_per_s_1280x960': masks_s,
-                      'masks_per_s_windows': readings,
-                      'tiles_per_s': rates, 'card': card}))
-    del eng
+    print('== inference throughput (bf16), plain and s2d in turns',
+          flush=True)
+    infer = infer_throughput_phase(torch, np, engines, card)
+    print(json.dumps(infer))
+    del engines
 
     print(f'== K1-bwd at the training shapes (batch {TRAIN_B}, 256 px, '
           f'nf={NF})', flush=True)
     backward_phase(torch, F, kernels[3])
-    print('== step parity: kernel path on the card vs plain path on the '
-          'CPU (nf=64, 256 px, batch 2, fp32)', flush=True)
-    step_parity_phase(torch, np, wrappers)
-    print('== training path: patchgan_train -d cuda, then resume',
-          flush=True)
-    train_launches, epoch_s = train_path_phase(torch, np, wrappers, card)
-    print(f'== training throughput (bf16, batch {TRAIN_B})', flush=True)
+    epoch_s = {}
+    for s2d in ('off', 'on'):
+        print('== step parity: kernel path on the card vs plain path on '
+              f'the CPU (nf=64, 256 px, batch 2, fp32), s2d {s2d}',
+              flush=True)
+        step_parity_phase(torch, np, wrappers, s2d)
+        print(f'== training path: patchgan_train -d cuda, then resume, '
+              f'PATCHGAN_S2D={s2d}', flush=True)
+        launches, epoch_s[s2d] = train_path_phase(torch, np, wrappers, card,
+                                                  s2d)
+        paths[f'train_s2d_{s2d}'] = dict(zip([k.name for k in kernels],
+                                             launches))
+    print(f'== training throughput (bf16, batch {TRAIN_B}), plain and s2d '
+          'in turns', flush=True)
     train = throughput_phase(torch, np, card)
     train.update({'epoch_s': epoch_s, 'card': card})
     print(json.dumps(train))
 
     summary = []
-    for k, n in zip(kernels, train_launches):
+    for k in kernels:
+        rows = [r for r in k.rows if r.get('calls', 1)]
+
+        def total(key):
+            return sum(r.get('calls', 1) * r[key] for r in rows)
         summary.append({
             'name': k.name, 'route': 'cuda', 'source': k.source,
-            'replaces': k.replaces, 'launches': n,
-            'launches_infer': launches[k.name],
+            'replaces': k.replaces,
+            'launches': paths['train_s2d_on'][k.name],
+            'launches_by_path': {p: c[k.name] for p, c in paths.items()},
             'max_abs_err': max(r['max_abs_err_bf16'] for r in k.rows),
-            'ms': sum(r['kernel_ms'] for r in k.rows),
-            'plain_ms': sum(r['plain_ms'] for r in k.rows),
-            'bound_ms': sum(r['bound_ms'] for r in k.rows),
-            'bound_by': max(k.rows, key=lambda r: r['bound_ms'])['bound_by'],
-            'library_ms': sum(r['library_ms'] for r in k.rows)})
-    print(json.dumps({'not_ported_bounds': thin_conv_bounds()}))
+            'ms': total('kernel_ms'), 'plain_ms': total('plain_ms'),
+            'bound_ms': total('bound_ms'),
+            'bound_by': max(rows, key=lambda r: r['bound_ms'])['bound_by'],
+            'library_ms': total('library_ms')})
     print(json.dumps({'kernels': summary}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

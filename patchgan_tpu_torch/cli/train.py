@@ -11,15 +11,16 @@ the card and raise without one; ``-d cpu`` trains on the CPU.
 ``--dtype auto`` is bfloat16 on the card, where Adam's first moment is
 then kept in bfloat16 too (``cli/train.py:150-153``).
 
+``PATCHGAN_S2D=on|off`` selects the space-to-depth boundary form of the
+step, as in the JAX package (``ops/s2d.py``).
+
 Not ported yet, and refused with NotImplementedError naming ROADMAP.md:
 ``train_params.spatial_parallelism`` > 1, the TarShards dataset,
-``--dataloader_worker_type process``, ``dataset.cache``, the s2d
-boundary form (``PATCHGAN_S2D=on``), ``--profile_dir``, and the Trainer
-options the Trainer itself refuses.
+``--dataloader_worker_type process``, ``dataset.cache``,
+``--profile_dir``, and the Trainer options the Trainer itself refuses.
 """
 
 import argparse
-import os
 
 import torch
 
@@ -76,8 +77,6 @@ def patchgan_train(argv=None):
     print(f"Running with {device}")
     if args.profile_dir:
         _refuse("--profile_dir", 7)
-    if os.environ.get('PATCHGAN_S2D', 'off').lower() in ('on', '1', 'true'):
-        _refuse("the s2d boundary form (PATCHGAN_S2D=on)", 10)
 
     config = load_config(args.config_file)
     dataset_params = config['dataset']

@@ -10,7 +10,11 @@ in the same order as ``tiling.build_mask``; threshold and argmax run on
 the device; the mask comes back as uint8 labels, or bit-packed rows for
 a binary mask, in one device-to-host copy when ``.result()`` is called.
 ``predict_image_async`` returns before that copy, so a caller can decode
-and save neighbouring images while the device works.
+and save neighbouring images while the device works. When
+``PATCHGAN_S2D`` selects it and the tile size is even, the tiled forward
+runs the generator in its space-to-depth boundary form
+(``engine.py:269-297``, ``ops/s2d.py``) on the uploaded tiles and turns
+its output back before the stitch.
 
 The JAX package's whole-image ``mode='spatial'`` and multi-device meshes
 are not ported yet (ROADMAP, queue 1).
@@ -21,6 +25,7 @@ import copy
 import numpy as np
 import torch
 
+from ..ops.s2d import depth_to_space, s2d_enabled, space_to_depth
 from .tiling import crop_positions
 
 _NOT_PORTED = ("is not ported yet: see ROADMAP.md, queue 1 "
@@ -131,6 +136,9 @@ class InferenceEngine:
             model.dtype = dtype
         dtype = getattr(model, 'dtype', torch.float32)
         self.model = model.to(device=self.device, dtype=dtype).eval()
+        # only modules with the s2d capability (the UNet) take the form
+        self._s2d = (s2d_enabled() and size % 2 == 0
+                     and getattr(generator, 's2d', None) is not None)
         self.size = size
         self.overlap = overlap
         self.threshold = threshold
@@ -147,6 +155,9 @@ class InferenceEngine:
         return t
 
     def _forward(self, tiles):
+        if self._s2d:
+            x = space_to_depth(tiles.to(self.model.dtype))
+            return depth_to_space(self.model(x, s2d=True)).float()
         return self.model(tiles).float()
 
     @torch.inference_mode()

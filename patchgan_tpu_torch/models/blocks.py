@@ -16,6 +16,13 @@ a normed DownBlock with Cin >= 16 runs kernel K2 (conv+IN+act); enc0
 runs kernel K3 (convT+IN+act) at every Cout; the un-normed dec0 and the
 output head run the transposed conv and the activation.
 
+The space-to-depth boundary form (``ops/s2d.py``; JAX ``blocks.py:31-47,
+106-112``): ``DownBlock(..., s2d_in=True)`` takes an s2d input and runs
+its stride-2 conv as the stride-1 3x3 conv over the s2d grid (kernel K4),
+then K1; ``UpBlock(..., s2d_out=True)``, the output head only, produces
+its output in s2d form with the activation per parity block. Same
+parameter, same per-pixel output.
+
 Parameters sit under the reference's state_dict keys
 (``model.DownConv{i}.weight`` / ``model.UpConv{i}.weight``), held by
 torch conv modules that serve only as weight containers.
@@ -28,6 +35,7 @@ from ..ops.activations import apply_activation
 from ..ops.conv import conv2d, conv_transpose2d
 from ..ops.kernels import conv_norm_act, convt_norm_act
 from ..ops.norm import instance_norm
+from ..ops.s2d import apply_activation_s2d, conv2d_s2d, conv_transpose2d_s2d
 
 KERNEL_SIZE = 4
 DROPOUT_RATE = 0.2
@@ -63,9 +71,14 @@ class DownBlock(nn.Module):
     def weight(self):
         return self.model[self.name].weight
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, s2d_in=False):
+        """``s2d_in``: x is the s2d form [N, 4C, H/2, W/2] of the input."""
         w = self.weight.to(x.dtype)
-        if self.use_norm and x.shape[1] >= FUSED_CONV_MIN_CIN:
+        if s2d_in:
+            x = conv2d_s2d(x, w)
+            x = instance_norm(x, NORM_EPS, self.activation) \
+                if self.use_norm else apply_activation(x, self.activation)
+        elif self.use_norm and x.shape[1] >= FUSED_CONV_MIN_CIN:
             x = conv_norm_act(x, w, NORM_EPS, self.activation)
         elif self.use_norm:
             x = instance_norm(conv2d(x, w), NORM_EPS, self.activation)
@@ -97,10 +110,19 @@ class UpBlock(nn.Module):
     def weight(self):
         return self.model[self.name].weight
 
-    def forward(self, x, skip=None, generator=None):
+    def forward(self, x, skip=None, generator=None, s2d_out=False):
+        """``s2d_out``: produce the s2d form [N, 4 Cout, H, W] of the
+        output (the output head only)."""
         w = self.weight.to(x.dtype)
         skip = skip.to(x.dtype) if skip is not None else None
-        if self.use_norm:
+        if s2d_out:
+            if self.use_norm:
+                raise ValueError("s2d_out is an output-head option "
+                                 "(use_norm=False)")
+            out = conv_transpose2d_s2d(x, w, x2=skip)
+            x = apply_activation_s2d(out.float() if self.fp32_act else out,
+                                     self.activation)
+        elif self.use_norm:
             x = convt_norm_act(x, w, NORM_EPS, self.activation, skip)
         else:
             out = conv_transpose2d(x, w, x2=skip)

@@ -3,7 +3,8 @@
 Port of ``patchgan_tpu/models/disc.py:43-160``:
 
 - the input is the channel concat of image and mask (a plain
-  ``torch.cat``);
+  ``torch.cat``), or, in the paired and s2d forms below, conv0 split by
+  linearity into an image part and a mask part;
 - conv0: Conv(k=4, s=2, p=1, bias) + LeakyReLU(0.2);
 - layers 1..n_layers-1: Conv(k=4, s=2, p=1, no bias) + **Tanh**, then
   instance norm AFTER the activation when ``norm=True``;
@@ -17,6 +18,17 @@ uniform(+-1/sqrt(fan_in)), both from an explicit generator. Parameters
 sit under the reference's Sequential keys ``model.{idx}.weight`` /
 ``model.{idx}.bias`` (``utils/transfer.py:74-99``); the activation and
 norm entries of ``model`` hold no parameters and only keep the indices.
+
+Two forms of conv0 (JAX ``disc.py:50-131``):
+
+- paired: ``y`` a tuple of masks sharing one image (the train step's
+  real and fake pair) gives one output per mask, with conv0's image part
+  computed once, so its weight gradient is one contraction of the summed
+  gradients;
+- ``s2d`` (the default of ``forward``'s argument of the same name): x
+  and y arrive in space-to-depth form and conv0 runs ``conv2d_s2d``, the
+  stride-1 3x3 equivalent over the s2d grid (kernel K4 on the card), with
+  the same parameters. The layers after conv0 are unchanged.
 """
 
 import math
@@ -27,15 +39,17 @@ import torch.nn as nn
 from ..ops.activations import apply_activation
 from ..ops.conv import conv2d
 from ..ops.norm import instance_norm
+from ..ops.s2d import conv2d_s2d
 from .blocks import KERNEL_SIZE, NORM_EPS
 
 
 class Discriminator(nn.Module):
     def __init__(self, input_nc, ndf=64, n_layers=3, norm=False,
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, s2d=False):
         super().__init__()
         self.input_nc, self.ndf = input_nc, ndf
         self.n_layers, self.norm, self.dtype = n_layers, norm, dtype
+        self.s2d = s2d
         layers = []
         # (Sequential index of the conv, stride, activation, norm after)
         self.plan = []
@@ -72,13 +86,36 @@ class Discriminator(nn.Module):
                     bound = 1.0 / math.sqrt(conv.weight[0].numel())
                     conv.bias.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, x, y=None):
-        """x: (N, Ci, H, W) image, y: optional (N, Cm, H, W) mask
-        concatenated to it. Returns fp32 probabilities (N, 1, H', W')."""
-        h = x.to(self.dtype)
-        if y is not None:
-            h = torch.cat([h, y.to(self.dtype)], dim=1)
-        for idx, stride, act, normed in self.plan:
+    def forward(self, x, y=None, s2d=None):
+        """x: (N, Ci, H, W) image; y: optional (N, Cm, H, W) mask
+        concatenated to it, or a tuple of such masks (the paired form).
+        With ``s2d`` (default: the module's flag) x and y are in s2d form.
+        Returns fp32 probabilities (N, 1, H', W'), a tuple of them when y
+        is a tuple."""
+        s2d = self.s2d if s2d is None else s2d
+        paired = isinstance(y, (tuple, list))
+        x = x.to(self.dtype)
+        conv0 = self.model[self.plan[0][0]]
+        w0 = conv0.weight.to(self.dtype)
+        if paired:
+            ys = tuple(m.to(self.dtype) for m in y)
+            if any(m.shape != ys[0].shape for m in ys):
+                raise ValueError("paired masks must share one shape")
+            hs = conv2d_s2d(x, w0, bias=conv0.bias, x2s=ys) if s2d else \
+                conv2d(x, w0, stride=2, padding=1, bias=conv0.bias, x2s=ys)
+        elif s2d:
+            hs = (conv2d_s2d(x, w0, bias=conv0.bias,
+                             x2=y.to(self.dtype) if y is not None else None),)
+        else:
+            h = x if y is None else torch.cat([x, y.to(self.dtype)], dim=1)
+            hs = (conv2d(h, w0, stride=2, padding=1, bias=conv0.bias),)
+        outs = tuple(self._tail(h) for h in hs)
+        return outs if paired else outs[0]
+
+    def _tail(self, h):
+        """conv0's activation and the layers after it."""
+        h = apply_activation(h, self.plan[0][2])
+        for idx, stride, act, normed in self.plan[1:]:
             conv = self.model[idx]
             h = conv2d(h, conv.weight, stride=stride, padding=1,
                        bias=conv.bias)

@@ -14,6 +14,12 @@ block computes in it; parameters stay as they are (fp32 from init or a
 checkpoint; the inference engine pre-casts its copy once).
 ``dropout_generator`` is the ``torch.Generator`` the dropout masks are
 drawn from in train mode (the Trainer seeds one on the model's device).
+
+``s2d`` (JAX ``unet.py:45-52``), the default of ``forward``'s argument
+of the same name: the space-to-depth boundary form, whose input is
+``[N, 4 input_nc, H/2, W/2]`` and output ``[N, 4 output_nc, H/2, W/2]``
+(channel order (dy, dx, c), ``ops/s2d.py``). Both forms use the same
+parameters and state_dict keys, so one module serves both.
 """
 
 import torch
@@ -32,10 +38,11 @@ def unet_filters(nf):
 class UNet(nn.Module):
     def __init__(self, input_nc, output_nc, nf=64, use_dropout=False,
                  activation='tanh', final_act='softmax',
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, s2d=False):
         super().__init__()
         self.input_nc, self.output_nc, self.nf = input_nc, output_nc, nf
         self.dtype = dtype
+        self.s2d = s2d
         self.dropout_generator = None
         filts = unet_filters(nf)
         self.encoder = nn.ModuleList(
@@ -62,10 +69,14 @@ class UNet(nn.Module):
             for p in self.parameters():
                 nn.init.xavier_uniform_(p, generator=generator)
 
-    def forward(self, x, return_hidden=False):
+    def forward(self, x, return_hidden=False, s2d=None):
         """x: (N, input_nc, H, W) with H, W multiples of 128 -> (N,
-        output_nc, H, W) float32."""
+        output_nc, H, W) float32; with ``s2d`` (default: the module's
+        flag) both in their s2d form."""
+        s2d = self.s2d if s2d is None else s2d
         h, w = x.shape[2], x.shape[3]
+        if s2d:
+            h, w = 2 * h, 2 * w   # x is the s2d form of a 2h x 2w input
         stride_total = 2 ** N_LEVELS
         if h % stride_total or w % stride_total:
             raise ValueError(
@@ -74,14 +85,16 @@ class UNet(nn.Module):
         x = x.to(self.dtype)
         gen = self.dropout_generator
         skips = []
-        for block in self.encoder:
-            x = block(x, generator=gen)
+        for i, block in enumerate(self.encoder):
+            x = block(x, generator=gen, s2d_in=s2d and i == 0)
             skips.append(x)
         hidden = skips[-1]
         rev = skips[::-1]
         x = self.decoder[0](hidden, generator=gen)
-        for i in range(1, len(self.decoder)):
-            x = self.decoder[i](x, skip=rev[i], generator=gen)
+        last = len(self.decoder) - 1
+        for i in range(1, last + 1):
+            x = self.decoder[i](x, skip=rev[i], generator=gen,
+                                s2d_out=s2d and i == last)
         if return_hidden:
             return x, hidden
         return x

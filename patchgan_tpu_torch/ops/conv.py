@@ -17,10 +17,24 @@ Pallas kernels, and the discriminator.
 import torch.nn.functional as F
 
 
-def conv2d(x, w, x2=None, stride=2, padding=1, bias=None):
-    """x: (N, C, H, W), w: (Cout, C [+ C2], k, k), bias: (Cout,)."""
+def conv2d(x, w, x2=None, stride=2, padding=1, bias=None, x2s=None):
+    """x: (N, C, H, W), w: (Cout, C [+ C2], k, k), bias: (Cout,).
+
+    ``x2s``, a tuple of second inputs of one shape, returns one output
+    per element, each equal to ``conv2d(x, w, x2=m)``, with the x-part
+    conv computed once and shared: its weight gradient then contracts
+    the sum of the outputs' gradients once (the paired discriminator,
+    models/disc.py)."""
     w = w.to(x.dtype)
     b = bias.to(x.dtype) if bias is not None else None
+    if x2s is not None:
+        if x2 is not None:
+            raise ValueError("conv2d: pass x2 or x2s, not both")
+        c1 = x.shape[1]
+        shared = F.conv2d(x, w[:, :c1], b, stride=stride, padding=padding)
+        return tuple(shared + F.conv2d(m.to(x.dtype), w[:, c1:],
+                                       stride=stride, padding=padding)
+                     for m in x2s)
     if x2 is None:
         return F.conv2d(x, w, b, stride=stride, padding=padding)
     c1 = x.shape[1]

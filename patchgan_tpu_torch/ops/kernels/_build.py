@@ -21,7 +21,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 
-KERNELS = ('norm_act', 'norm_act_bwd', 'conv_norm_act', 'convt_norm_act')
+KERNELS = ('norm_act', 'norm_act_bwd', 'conv_norm_act', 'convt_norm_act',
+           'thin_conv')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 

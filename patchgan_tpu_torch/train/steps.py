@@ -10,15 +10,24 @@ the reference's (``:376-419``):
 3. the discriminator's loss on (x, y) as real and (x, detached
    pre-update gen_img) as fake, its gradients and Adam step.
 
+``s2d`` steps (``:216-237, 376-466``) take x and y to their
+space-to-depth form at entry, run both models in that form and give the
+segmentation loss and the IoU ``fold_blocks`` of the s2d tensors
+(``ops/s2d.py``).
+
 Steps return their losses as 0-d tensors on the device under the
 reference's keys ``gen, gen_loss, gdisc, discr, discf, disc``; nothing
 in a step waits for the device.
 """
 
+import contextlib
+import os
+
 import numpy as np
 import torch
 
 from ..ops.losses import bce_loss, fc_tversky, mae_loss, weighted_bce_loss
+from ..ops.s2d import fold_blocks, space_to_depth
 from ..utils.metrics import iou
 
 LOSS_KEYS = ('gen', 'gen_loss', 'gdisc', 'discr', 'discf', 'disc')
@@ -124,20 +133,68 @@ def make_seg_loss(loss_type, seg_alpha, tversky_beta=0.75,
     return seg
 
 
-def gan_losses(generator, discriminator, seg_loss, x, y):
-    """The generator's loss: segmentation + BCE(D(x, gen_img), 1).
-    Returns (loss, gen_img, gdisc)."""
-    gen_img = generator(x)
-    disc_fake = discriminator(x, gen_img)
+@contextlib.contextmanager
+def constant_params(module):
+    """``module``'s parameters as constants for the block: the generator's
+    loss reads the discriminator but takes no gradient for it, as JAX's
+    ``value_and_grad`` over the generator's parameters does. A custom
+    ``autograd.Function`` fixes which gradients its backward computes at
+    the forward (``ctx.needs_input_grad``), so without this the fake
+    conv0 would launch K4-wgrad for a gradient that is thrown away."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+def gan_losses(generator, discriminator, seg_loss, x, y, s2d=False):
+    """The generator's loss: segmentation + BCE(D(x, gen_img), 1), x and
+    y in the form ``s2d`` says. Returns (loss, gen_img, gdisc)."""
+    gen_img = generator(x, s2d=s2d)
+    disc_fake = discriminator(x, gen_img, s2d=s2d)
+    seg = seg_loss(fold_blocks(gen_img), fold_blocks(y)) if s2d else \
+        seg_loss(gen_img, y)
     gdisc = bce_loss(disc_fake, torch.ones_like(disc_fake))
-    return seg_loss(gen_img, y) + gdisc, gen_img, gdisc
+    return seg + gdisc, gen_img, gdisc
 
 
-def disc_losses(discriminator, x, y, gen_img):
-    """(mean of the two, real, fake) BCE losses of the discriminator on
-    (x, y) as real and (x, gen_img) as fake, two separate forwards."""
-    disc_real = discriminator(x, y)
-    disc_fake = discriminator(x, gen_img)
+def disc_real_fake(discriminator, x, y, gen_img, merged=True, paired=False,
+                   s2d=False):
+    """The discriminator's outputs on (x, y) and (x, gen_img)
+    (``:239-272``): ``paired`` runs the tuple-of-masks form, conv0's image
+    part shared; ``merged`` one forward of the two pairs stacked along
+    the batch; otherwise two forwards."""
+    y = y.to(gen_img.dtype)
+    if paired:
+        return discriminator(x, (y, gen_img), s2d=s2d)
+    if merged:
+        both = discriminator(torch.cat([x, x]), torch.cat([y, gen_img]),
+                             s2d=s2d)
+        return both.chunk(2)
+    return discriminator(x, y, s2d=s2d), discriminator(x, gen_img, s2d=s2d)
+
+
+def resolve_paired_disc(paired_disc, merged_disc, discriminator):
+    """Whether the train step uses the paired form (``:275-298``): an
+    explicit ``paired_disc`` wins; an explicit ``merged_disc`` keeps the
+    merged form; otherwise paired for modules that take a tuple of masks
+    (the port's Discriminator) unless ``PATCHGAN_PAIRED_DISC`` is off, 0
+    or false."""
+    if paired_disc is not None:
+        return paired_disc
+    if merged_disc:
+        return False
+    return (hasattr(discriminator, 's2d')
+            and os.environ.get('PATCHGAN_PAIRED_DISC', 'on').lower()
+            not in ('off', '0', 'false'))
+
+
+def disc_loss(disc_real, disc_fake):
+    """(mean of the two, real, fake) BCE losses of the discriminator."""
     loss_real = bce_loss(disc_real, torch.ones_like(disc_real))
     loss_fake = bce_loss(disc_fake, torch.zeros_like(disc_fake))
     return (loss_fake + loss_real) / 2.0, loss_real, loss_fake
@@ -145,22 +202,32 @@ def disc_losses(discriminator, x, y, gen_img):
 
 def make_train_step(generator, discriminator, gen_opt, disc_opt,
                     loss_type='tversky', seg_alpha=200.0, tversky_beta=0.75,
-                    tversky_gamma=0.75, bce_weighting='complement'):
+                    tversky_gamma=0.75, bce_weighting='complement',
+                    merged_disc=False, paired_disc=None, s2d=None):
     """``step(x, y) -> losses``: one G+D update in place on the models
-    and the two ``Adam``s."""
+    and the two ``Adam``s. x and y are NCHW; ``s2d`` (default: the
+    generator's flag) runs the step in the space-to-depth form. The
+    discriminator's forms follow ``disc_real_fake`` and
+    ``resolve_paired_disc``."""
     seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
                              tversky_gamma, bce_weighting)
+    if s2d is None:
+        s2d = getattr(generator, 's2d', False)
+    paired = resolve_paired_disc(paired_disc, merged_disc, discriminator)
     g_params = list(generator.parameters())
     d_params = list(discriminator.parameters())
 
     def train_step(x, y):
         generator.train()
-        g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
-                                            seg_loss, x, y)
+        if s2d:
+            x, y = space_to_depth(x), space_to_depth(y)
+        with constant_params(discriminator):
+            g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
+                                                seg_loss, x, y, s2d)
         gen_opt.step(torch.autograd.grad(g_loss, g_params))
         gen_img = gen_img.detach()
-        d_loss, loss_real, loss_fake = disc_losses(discriminator, x, y,
-                                                   gen_img)
+        d_loss, loss_real, loss_fake = disc_loss(*disc_real_fake(
+            discriminator, x, y, gen_img, merged_disc, paired, s2d))
         disc_opt.step(torch.autograd.grad(d_loss, d_params))
         g_loss, gdisc = g_loss.detach(), gdisc.detach()
         return dict(zip(LOSS_KEYS, (g_loss, g_loss, gdisc,
@@ -172,23 +239,29 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
 
 def make_eval_step(generator, discriminator, loss_type='tversky',
                    seg_alpha=200.0, tversky_beta=0.75, tversky_gamma=0.75,
-                   compute_iou=False, bce_weighting='complement'):
+                   compute_iou=False, bce_weighting='complement', s2d=None):
     """``step(x, y) -> losses``: the same losses with dropout off and no
-    update (``:431-466``), plus 'iou' when ``compute_iou``."""
+    update (``:431-466``), the discriminator in the merged form, plus
+    'iou' when ``compute_iou``; ``s2d`` as in ``make_train_step``."""
     seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
                              tversky_gamma, bce_weighting)
+    if s2d is None:
+        s2d = getattr(generator, 's2d', False)
 
     @torch.no_grad()
     def eval_step(x, y):
         generator.eval()
+        if s2d:
+            x, y = space_to_depth(x), space_to_depth(y)
         g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
-                                            seg_loss, x, y)
-        d_loss, loss_real, loss_fake = disc_losses(discriminator, x, y,
-                                                   gen_img)
+                                            seg_loss, x, y, s2d)
+        d_loss, loss_real, loss_fake = disc_loss(*disc_real_fake(
+            discriminator, x, y, gen_img, s2d=s2d))
         losses = dict(zip(LOSS_KEYS, (g_loss, g_loss, gdisc, loss_real,
                                       loss_fake, d_loss)))
         if compute_iou:
-            losses['iou'] = iou(y, gen_img)
+            losses['iou'] = iou(fold_blocks(y), fold_blocks(gen_img)) \
+                if s2d else iou(y, gen_img)
         return losses
 
     return eval_step

@@ -10,9 +10,11 @@ and writes too) and ``load_transfer_checkpoints``.
 
 ``generator`` and ``discriminator`` are the port's ``nn.Module``s with
 fp32 parameters; they compute in their own ``dtype``. Batches are NCHW
-tensors (or numpy arrays), moved to the models' device. Options of the
-JAX Trainer that are not ported raise ``NotImplementedError`` at
-``train()`` rather than being ignored.
+tensors (or numpy arrays), moved to the models' device. Each batch runs
+the space-to-depth boundary form (``ops/s2d.py``) when ``PATCHGAN_S2D``
+selects it and its H and W are even (``:232-251``); the checkpoints are
+the same in both forms. Options of the JAX Trainer that are not ported
+raise ``NotImplementedError`` at ``train()`` rather than being ignored.
 """
 
 import os
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 import tqdm
 
+from ..ops.s2d import s2d_enabled
 from ..utils import checkpoint as ckpt
 from ..utils.transfer import InvalidCheckpointError, load_transfer_data
 from .schedulers import (ConstantLR, ExponentialDecay, ReduceLROnPlateau,
@@ -91,16 +94,36 @@ class Trainer:
             if is_set:
                 raise NotImplementedError(f"Trainer.{name} {_NOT_PORTED}")
 
+    @staticmethod
+    def _use_s2d(x):
+        """The s2d form for an NCHW batch: ``PATCHGAN_S2D`` on and even H
+        and W (the 2x2 block grid)."""
+        return s2d_enabled() and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
+
     def _steps(self):
+        """(train step, eval step), each running a batch in the form
+        ``_use_s2d`` picks for it."""
         loss_kwargs = dict(loss_type=self.loss_type,
                            seg_alpha=self.seg_alpha,
                            tversky_beta=self.tversky_beta,
                            tversky_gamma=self.tversky_gamma,
                            bce_weighting=self.bce_weighting)
-        return (make_train_step(self.generator, self.discriminator,
-                                self.gen_opt, self.disc_opt, **loss_kwargs),
-                make_eval_step(self.generator, self.discriminator,
-                               compute_iou=self.compute_iou, **loss_kwargs))
+        forms = {}
+
+        def form(x):
+            s2d = self._use_s2d(x)
+            if s2d not in forms:
+                forms[s2d] = (
+                    make_train_step(self.generator, self.discriminator,
+                                    self.gen_opt, self.disc_opt, s2d=s2d,
+                                    **loss_kwargs),
+                    make_eval_step(self.generator, self.discriminator,
+                                   compute_iou=self.compute_iou, s2d=s2d,
+                                   **loss_kwargs))
+            return forms[s2d]
+
+        return (lambda x, y: form(x)[0](x, y),
+                lambda x, y: form(x)[1](x, y))
 
     def _place_batch(self, x, y):
         def place(a):

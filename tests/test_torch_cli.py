@@ -190,8 +190,41 @@ def test_train_cli_deferred_keys_raise(train_dir, extra, args):
                         '1'] + TRAIN_ARGS + args)
 
 
-def test_train_cli_s2d_raises(train_dir, monkeypatch):
+def test_train_cli_s2d_raises(train_dir, monkeypatch, capsys):
+    """Under PATCHGAN_S2D=on the CLI raises nothing: it trains two epochs
+    in the s2d boundary form, resumes at epoch 3, and the JAX package's
+    Trainer resumes from the epoch files it wrote, with the same
+    weights."""
+    import jax
+    from patchgan_tpu.models import Discriminator as JaxDisc
+    from patchgan_tpu.models import UNet as JaxUNet
+    from patchgan_tpu.parallel.mesh import default_mesh
+    from patchgan_tpu.train import Trainer as JaxTrainer
+    from patchgan_tpu_torch.utils.checkpoint import load_state_dict
+    from patchgan_tpu_torch.utils.transfer import state_dict_from_jax
     monkeypatch.setenv('PATCHGAN_S2D', 'on')
-    with pytest.raises(NotImplementedError, match='s2d.*ROADMAP'):
-        patchgan_train(['-c', _train_config(train_dir), '-n', '1']
-                       + TRAIN_ARGS)
+    g_hist, d_hist = patchgan_train(['-c', _train_config(train_dir), '-n',
+                                     '2'] + TRAIN_ARGS)
+    assert len(g_hist) == 2 and np.isfinite(g_hist + d_hist).all()
+    capsys.readouterr()
+    g_hist, _ = patchgan_train(['-c', _train_config(
+        train_dir, load_last_checkpoint=True), '-n', '3'] + TRAIN_ARGS)
+    assert len(g_hist) == 1 and 'Epoch 3 -- lr: 7.579e-04' in \
+        capsys.readouterr().out
+    monkeypatch.setenv('PATCHGAN_AUTO_LAYOUT', 'off')
+    jt = JaxTrainer(JaxUNet(input_nc=3, output_nc=TRAIN_CLASSES, nf=4,
+                            activation='relu', final_act='softmax',
+                            use_pallas=False),
+                    JaxDisc(input_nc=3 + TRAIN_CLASSES, ndf=4, n_layers=3,
+                            use_pallas=False),
+                    str(train_dir / 'ck'),
+                    mesh=default_mesh(jax.devices()[:1]))
+    jt.load_last_checkpoint()
+    assert jt.start == 4
+    for params, name in ((jt.state.g_params, 'generator'),
+                         (jt.state.d_params, 'discriminator')):
+        want = load_state_dict(str(train_dir / f'ck/{name}_ep_003.npz'))
+        got = state_dict_from_jax(jax.device_get(params))
+        assert set(got) == set(want)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)

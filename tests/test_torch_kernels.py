@@ -23,7 +23,8 @@ from patchgan_tpu.utils.transfer import conv_kernel_to_jax, \
 from patchgan_tpu_torch.ops.kernels import (
     WRAPPERS, conv_norm_act, conv_norm_act_plain, convt_norm_act,
     convt_norm_act_plain, instance_norm_act, instance_norm_act_backward,
-    instance_norm_act_backward_plain, instance_norm_act_plain)
+    instance_norm_act_backward_plain, instance_norm_act_plain, thin_conv3x3,
+    thin_conv3x3_plain, thin_conv3x3_wgrad, thin_conv3x3_wgrad_plain)
 
 torch.set_num_threads(2)
 
@@ -103,6 +104,7 @@ def test_cpu_tensors_never_launch():
     x = _inputs((1, 16, 8, 8), torch.float32, 6)
     w = _inputs((8, 16, 4, 4), torch.float32, 7, scale=0.1)
     wt = _inputs((16, 8, 4, 4), torch.float32, 8, scale=0.1)
+    wc = _inputs((8, 16, 3, 3), torch.float32, 8, scale=0.1)
     assert torch.equal(instance_norm_act(x, 1e-5, 'relu'),
                        instance_norm_act_plain(x, 1e-5, 'relu'))
     assert torch.equal(conv_norm_act(x, w, 1e-5, 'tanh'),
@@ -116,8 +118,14 @@ def test_cpu_tensors_never_launch():
     conv_norm_act(xg, w.clone().requires_grad_(), 1e-5, 'relu').sum() \
         .backward()
     assert xg.grad is not None
+    assert torch.equal(thin_conv3x3(x, wc), thin_conv3x3_plain(x, wc))
+    assert torch.equal(thin_conv3x3_wgrad(x, g[:, :8]),
+                       thin_conv3x3_wgrad_plain(x, g[:, :8]))
+    wg = wc.clone().requires_grad_()
+    thin_conv3x3(xg, wg).sum().backward()
+    assert wg.grad is not None
     assert [f.launches for f in WRAPPERS] == [0] * len(WRAPPERS) and \
-        len(WRAPPERS) == 4
+        len(WRAPPERS) == 6
 
 
 def test_unsupported_activation_raises():
@@ -234,3 +242,53 @@ def test_backward_at_xhat_zero_matches_pallas(act, dt):
                       (jnp.asarray(_nhwc(x), jdt),),
                       jnp.asarray(_nhwc(g), jdt))
     _close(got, want, name)
+
+
+@pytest.mark.parametrize('cin,cout', [(12, 64), (28, 64), (4, 64)])
+def test_thin_conv_matches_pallas(cin, cout, monkeypatch):
+    """The plain K4 and K4-wgrad (the kernels' oracles on the card),
+    through ThinConv3x3 on CPU tensors, against the JAX thin_conv3x3 in
+    interpret mode (H a multiple of its 32-row chunk): the forward, and dx
+    and dw of sum(sin(f)), fp32, at the tolerances of
+    tests/test_pallas.py:264-287."""
+    monkeypatch.setenv('PATCHGAN_THIN_CONV', 'interpret')
+    from patchgan_tpu.ops.pallas.thin_conv import thin_conv3x3 as jax_thin
+    rng = np.random.default_rng(21)
+    xa = rng.normal(size=(2, 32, 24, cin)).astype(np.float32)
+    wa = (rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32)
+    x = torch.from_numpy(np.transpose(xa, (0, 3, 1, 2)).copy()) \
+        .requires_grad_()
+    w = torch.from_numpy(np.transpose(wa, (3, 2, 0, 1)).copy()) \
+        .requires_grad_()
+    y = thin_conv3x3(x, w)
+    np.testing.assert_allclose(_nhwc(y.detach()),
+                               np.asarray(jax_thin(jnp.asarray(xa),
+                                                   jnp.asarray(wa))),
+                               rtol=1e-4, atol=1e-5)
+    dx, dw = torch.autograd.grad(torch.sin(y).sum(), (x, w))
+    jdx, jdw = jax.grad(lambda a, b: jnp.sum(jnp.sin(jax_thin(a, b))),
+                        (0, 1))(jnp.asarray(xa), jnp.asarray(wa))
+    np.testing.assert_allclose(_nhwc(dx), np.asarray(jdx), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(np.transpose(dw.numpy(), (2, 3, 1, 0)),
+                               np.asarray(jdw), rtol=1e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize('wants', ['x', 'w', 'both'])
+def test_thin_conv_grads_match_autograd(wants):
+    """ThinConv3x3's gradients on CPU tensors against autograd of
+    F.conv2d, fp32, for each set of inputs that require a gradient; an
+    input that requires none gets none."""
+    x = _inputs((2, 12, 10, 14), torch.float32, 22)
+    w = _inputs((20, 12, 3, 3), torch.float32, 23, scale=0.1)
+    g = _inputs((2, 20, 10, 14), torch.float32, 24)
+    need = {'x': (True, False), 'w': (False, True), 'both': (True, True)}
+    ins = [t.clone().requires_grad_(r) for t, r in zip((x, w), need[wants])]
+    ref = [t.clone().requires_grad_(r) for t, r in zip((x, w), need[wants])]
+    thin_conv3x3(*ins).backward(g)
+    torch.nn.functional.conv2d(*ref, padding=1).backward(g)
+    for got, want in zip(ins, ref):
+        assert (got.grad is None) == (want.grad is None)
+        if want.grad is not None:
+            np.testing.assert_allclose(got.grad.numpy(), want.grad.numpy(),
+                                       rtol=1e-4, atol=1e-4)

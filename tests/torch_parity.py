@@ -18,9 +18,10 @@ BATCH = 2
 
 
 @functools.lru_cache(maxsize=None)
-def jax_case(size, act, out_c, final_act):
+def jax_case(size, act, out_c, final_act, s2d=False):
     """(initial JAX TrainState, jitted JAX step) of one configuration,
-    built once per process."""
+    built once per process; ``s2d`` steps through clones of the models in
+    the space-to-depth form (the same parameter tree)."""
     from patchgan_tpu.models import Discriminator, UNet
     from patchgan_tpu.train.steps import (init_train_state, make_optimizer,
                                           make_train_step)
@@ -31,6 +32,8 @@ def jax_case(size, act, out_c, final_act):
     gtx, dtx = make_optimizer(LR), make_optimizer(LR)
     state = init_train_state(gen, disc, (1, size, size, 3), out_c, gtx,
                              dtx, seed=0)
+    if s2d:
+        gen, disc = gen.clone(s2d=True), disc.clone(s2d=True)
     step = jax.jit(make_train_step(gen, disc, gtx, dtx, loss_type='tversky',
                                    seg_alpha=200.0))
     return state, step
@@ -69,20 +72,22 @@ def nchw(a):
                                                               (0, 3, 1, 2))))
 
 
-def run(size, act, out_c, final_act, steps):
-    """Run ``steps`` G+D steps in both packages on the same batches.
+def run(size, act, out_c, final_act, steps, s2d=False):
+    """Run ``steps`` G+D steps in both packages on the same batches, in
+    the form ``s2d`` says.
     Returns (jax losses per step, port losses per step, JAX state after
     the first step, port generator and discriminator state_dicts after
     the first step)."""
     from patchgan_tpu_torch.train.steps import (make_optimizer,
                                                 make_train_step)
     from patchgan_tpu_torch.utils.transfer import state_dict_from_jax
-    state, step = jax_case(size, act, out_c, final_act)
+    state, step = jax_case(size, act, out_c, final_act, s2d)
     gen, disc = port_models(state, act, out_c, final_act)
     port_step = make_train_step(gen, disc,
                                 make_optimizer(gen.parameters(), LR),
                                 make_optimizer(disc.parameters(), LR),
-                                loss_type='tversky', seg_alpha=200.0)
+                                loss_type='tversky', seg_alpha=200.0,
+                                s2d=s2d)
     jl, pl, first = [], [], None
     for i, (x, y) in enumerate(batches(size, out_c, steps)):
         state, losses = step(state, x, y)
