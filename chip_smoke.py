@@ -279,7 +279,8 @@ def thin_conv_phase(torch, F, k4, k4w):
     """K4 and K4-wgrad against their plain versions at the s2d paths'
     shapes, bf16 and fp32; timing rows go to ``k4.rows`` / ``k4w.rows``
     with ``calls``, the number of calls per train step at that shape
-    (0: the inference chunk and the merged validation discriminator)."""
+    (0: the inference chunk and the merged validation discriminator,
+    where K4-wgrad is checked but not timed)."""
     gen = torch.Generator(device='cuda').manual_seed(9)
     hw = SIZE // 2
     # (label, N, Cin, H, W, Cout, K4 calls per step, K4-wgrad calls)
@@ -329,6 +330,8 @@ def thin_conv_phase(torch, F, k4, k4w):
                                lambda: torch.nn.grad.conv2d_weight(
                                    xb, wb.shape, dyb, padding=1)),
                  xy + 4 * w.numel(), 1)):
+            if k is k4w and not calls:
+                continue   # no backward at this shape on any path
             b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
             row = {'kernel': k.name, 'case': label, 'dtype': 'bfloat16',
                    'calls': calls, 'kernel_ms': cuda_ms(fn),
@@ -486,7 +489,7 @@ def step_parity_phase(torch, np, wrappers, s2d):
     x, y = train_batch(torch, np, 2, SIZE, 'cpu', 5)
     seg = make_seg_loss('tversky', 200.0)
     form = s2d == 'on'
-    paired = resolve_paired_disc(None, False, disc)
+    paired = resolve_paired_disc(disc)
 
     def run(g, d, x, y):
         if form:

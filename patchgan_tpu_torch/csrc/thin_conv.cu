@@ -30,10 +30,13 @@
 //   block cannot carry a sum across the grid as the TPU's sequential grid
 //   does, so each block sums the tiles of its share into an fp32 partial
 //   [64, 9 Cin] in registers and stores it; a second pass adds the
-//   partials in block order. No atomics: runs are bit-reproducible, as the
-//   instance-norm statistics are (in_common.cuh).
+//   partials in a fixed order. No atomics: runs are bit-reproducible, as
+//   the instance-norm statistics are (in_common.cuh);
+// - bf16 staging moves 8 channels of a position per 16-byte shared store:
+//   channel-innermost 2-byte stores would conflict 8-16 ways.
 #include <mma.h>
 
+#include <cstdint>
 #include <type_traits>
 
 #include "in_common.cuh"
@@ -74,6 +77,17 @@ __host__ __device__ inline int xstride(int cin) {
   return Bf16<T>::value ? (cin + 15) / 16 * 16 : (cin | 1);
 }
 
+// Offset of (position, channel) in the staged input tile. bf16: slabs of
+// 16 channels, xs[((ci / 16) * HALO + pos) * 16 + ci % 16], so the WMMA
+// operand of a tap is a 16-channel matrix with a 32-byte row stride;
+// fp32: xs[pos * cs + ci].
+template <typename T>
+__device__ __forceinline__ int xoff(int pos, int ci, int cs) {
+  if constexpr (Bf16<T>::value)
+    return ((ci >> 4) * HALO + pos) * 16 + (ci & 15);
+  return pos * cs + ci;
+}
+
 struct Tile {
   int n, row0, col0;
 };
@@ -87,19 +101,69 @@ __device__ inline Tile tile_at(int t, int h, int wd) {
   return p;
 }
 
-// Haloed input of a tile, xs[position * cs + ci], position = row * (TW +
-// 2) + column from (row0 - 1, col0 - 1); channels from cin to cs are zero.
+// Shared-memory fill with U global loads in flight a thread: element i
+// (i < total, strided over the block) is load(i), then store(i, value).
+// A loop that stores each value before it loads the next waits a full
+// load latency per element.
+template <int U, typename V, typename Load, typename Store>
+__device__ __forceinline__ void fill(int total, Load load, Store store) {
+  for (int base = threadIdx.x; base < total; base += U * blockDim.x) {
+    V v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < total) v[u] = load(i);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < total) store(i, v[u]);
+    }
+  }
+}
+
+// Haloed input of a tile at xoff(position, ci), position = row * (TW + 2)
+// + column from (row0 - 1, col0 - 1); channels from cin to cs are zero.
 template <typename T>
 __device__ void stage_x(const T* __restrict__ x, T* xs, const Tile& p,
                         int cin, int h, int wd, int cs) {
-  for (int idx = threadIdx.x; idx < cs * HALO; idx += blockDim.x) {
-    const int ci = idx / HALO, pos = idx - ci * HALO;
+  const long plane = (long)h * wd;
+  // global offset of channel ci at position pos, or -1 outside the image
+  auto at = [&](int ci, int pos) -> long {
     const int rr = pos / (TW + 2), cc = pos - rr * (TW + 2);
     const int gy = p.row0 + rr - 1, gx = p.col0 + cc - 1;
-    T v = from_f32<T>(0.f);
-    if (ci < cin && gy >= 0 && gy < h && gx >= 0 && gx < wd)
-      v = x[(((long)p.n * cin + ci) * h + gy) * wd + gx];
-    xs[pos * cs + ci] = v;
+    if (ci >= cin || gy < 0 || gy >= h || gx < 0 || gx >= wd) return -1;
+    return ((long)p.n * cin + ci) * plane + (long)gy * wd + gx;
+  };
+  if constexpr (Bf16<T>::value) {
+    // a task moves 8 channels of one position: eight loads, each
+    // coalesced over the warp's neighbouring positions, and one 16-byte
+    // store (2-byte stores at the cs stride conflict 8-16 ways)
+    fill<4, uint4>(
+        cs / 8 * HALO,
+        [&](int i) {
+          const int g = i / HALO, pos = i - g * HALO;
+          unsigned b[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const long o = at(8 * g + j, pos);
+            b[j] = o < 0 ? 0u : __bfloat16_as_ushort(x[o]);
+          }
+          return make_uint4(b[0] | b[1] << 16, b[2] | b[3] << 16,
+                            b[4] | b[5] << 16, b[6] | b[7] << 16);
+        },
+        [&](int i, uint4 v) {
+          const int g = i / HALO, pos = i - g * HALO;
+          *reinterpret_cast<uint4*>(xs + xoff<T>(pos, 8 * g, cs)) = v;
+        });
+  } else {
+    fill<8, T>(
+        cs * HALO,
+        [&](int i) {
+          const long o = at(i / HALO, i % HALO);
+          return o < 0 ? from_f32<T>(0.f) : x[o];
+        },
+        [&](int i, T v) { xs[xoff<T>(i % HALO, i / HALO, cs)] = v; });
   }
 }
 
@@ -131,14 +195,18 @@ __global__ void __launch_bounds__(FWD_THREADS)
   const int co0 = blockIdx.y * BN;
 
   // the block's weights, ws[(tap * ks + ci) * ldw + co], zero past cin
-  // and cout
-  for (int idx = tid; idx < 9 * ks * BN; idx += blockDim.x) {
-    const int k = idx / BN, c = idx - k * BN;
-    const int tap = k / ks, ci = k - tap * ks, co = co0 + c;
-    T v = from_f32<T>(0.f);
-    if (ci < cin && co < cout) v = w[((long)co * cin + ci) * 9 + tap];
-    ws[k * ldw + c] = v;
-  }
+  // and cout: zeros first, then the weight read in its own (co, ci, tap)
+  // order, so a warp's loads are contiguous
+  for (int i = tid; i < 9 * ks * ldw; i += blockDim.x)
+    ws[i] = from_f32<T>(0.f);
+  __syncthreads();
+  fill<8, T>(
+      min(BN, cout - co0) * 9 * cin,
+      [&](int i) { return w[(long)co0 * cin * 9 + i]; },
+      [&](int i, T v) {
+        const int c = i / (9 * cin), r = i - c * 9 * cin;
+        ws[(r % 9 * ks + r / 9) * ldw + c] = v;
+      });
 
   const int t1 = min(tiles, (blockIdx.x + 1) * per);
   for (int t = blockIdx.x * per; t < t1; ++t) {
@@ -166,8 +234,9 @@ __global__ void __launch_bounds__(FWD_THREADS)
 #pragma unroll
           for (int i = 0; i < 2; ++i)
             wmma::load_matrix_sync(
-                a[i], xs + ((rowl + r) * (TW + 2) + cb + 16 * i + s) * cs + c0,
-                cs);
+                a[i],
+                xs + xoff<T>((rowl + r) * (TW + 2) + cb + 16 * i + s, c0, cs),
+                16);
 #pragma unroll
           for (int j = 0; j < 4; ++j)
             wmma::load_matrix_sync(b[j], ws + (tap * ks + c0) * LDW + 16 * j,
@@ -248,14 +317,15 @@ size_t wgrad_smem(int cin) {
 }
 
 // Partial weight gradient of the 64 output channels of blockIdx.y over the
-// tiles [blockIdx.x * per, + per):
+// tiles [blockIdx.x * per, + per) (vec: dy may be read 8 pixels at a
+// time):
 //   part[blk][co][tap * ks + ci] = sum_pixels dy[n, co, p] x[n, ci, p + tap]
 // with blk = blockIdx.x * gridDim.y + blockIdx.y, fp32.
 template <typename T>
-__global__ void __launch_bounds__(WG_THREADS)
+__global__ void __launch_bounds__(WG_THREADS, 2)
     thin_wgrad(const T* __restrict__ x, const T* __restrict__ dy,
                float* __restrict__ part, int cin, int h, int wd, int cout,
-               int tiles, int per) {
+               int tiles, int per, bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr bool kTensorCores = Bf16<T>::value;
   const int ks = kstride<T>(cin), cs = xstride<T>(cin), kp = 9 * ks;
@@ -295,16 +365,39 @@ __global__ void __launch_bounds__(WG_THREADS)
     const Tile p = tile_at(t, h, wd);
     stage_x(x, xs, p, cin, h, wd, cs);
     // dy of the tile, zero outside the image and past cout
-    for (int idx = tid; idx < BN * TM; idx += blockDim.x) {
-      const int c = idx / TM, m = idx - c * TM;
+    auto dy_at = [&](int i) -> long {   // element i = (channel, pixel)
+      const int c = i / TM, m = i - c * TM;
       const int gy = p.row0 + m / TW, gx = p.col0 + m % TW, co = co0 + c;
-      T v = from_f32<T>(0.f);
-      if (gy < h && gx < wd && co < cout)
-        v = dy[(((long)p.n * cout + co) * h + gy) * wd + gx];
-      if constexpr (kTensorCores)
-        dys[c * LDD + m] = v;
-      else
-        dyf[m * LDF + c] = to_f32(v);
+      if (gy >= h || gx >= wd || co >= cout) return -1;
+      return (((long)p.n * cout + co) * h + gy) * wd + gx;
+    };
+    if (kTensorCores && vec) {
+      // 8 pixels of a row a task, one 16-byte load and store
+      fill<4, uint4>(
+          BN * TM / 8,
+          [&](int i) {
+            const long o = dy_at(8 * i);
+            return o < 0 ? make_uint4(0u, 0u, 0u, 0u)
+                         : *reinterpret_cast<const uint4*>(dy + o);
+          },
+          [&](int i, uint4 v) {
+            const int c = 8 * i / TM, m = 8 * i - c * TM;
+            *reinterpret_cast<uint4*>(dys + c * LDD + m) = v;
+          });
+    } else {
+      fill<8, T>(
+          BN * TM,
+          [&](int i) {
+            const long o = dy_at(i);
+            return o < 0 ? from_f32<T>(0.f) : dy[o];
+          },
+          [&](int i, T v) {
+            const int c = i / TM, m = i - c * TM;
+            if constexpr (kTensorCores)
+              dys[c * LDD + m] = v;
+            else
+              dyf[m * LDF + c] = to_f32(v);
+          });
     }
     __syncthreads();
     if constexpr (kTensorCores) {
@@ -324,8 +417,9 @@ __global__ void __launch_bounds__(WG_THREADS)
                 b;
             wmma::load_matrix_sync(
                 b,
-                xs + ((rowl + tap / 3) * (TW + 2) + col + tap % 3) * cs + c0,
-                cs);
+                xs + xoff<T>((rowl + tap / 3) * (TW + 2) + col + tap % 3, c0,
+                             cs),
+                16);
             wmma::mma_sync(acc[q], a, b, acc[q]);
           }
         }
@@ -367,20 +461,34 @@ __global__ void __launch_bounds__(WG_THREADS)
   }
 }
 
-// dw[co, ci, r, s] = sum over blocks, in block order, of the partials.
+// dw[co, ci, r, s] = the sum of the nblk partials in a fixed order. A
+// block of 32 x RED_ROWS threads: column tx owns the partial element o
+// (o = co * 9 ks + tap * ks + ci, consecutive over the warp), row ty sums
+// partials ty, ty + RED_ROWS, ... and the row sums are added in row order.
+constexpr int RED_ROWS = 8;
+
 __global__ void thin_wgrad_reduce(const float* __restrict__ part,
                                   float* __restrict__ dw, int nblk, int cblks,
                                   int cin, int cout, int ks) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= cout * 9 * cin) return;
-  const int co = idx / (9 * cin), rem = idx - co * 9 * cin;
-  const int ci = rem / 9, tap = rem - 9 * ci;
-  // part[blk][co / BN][co % BN][tap * ks + ci], blk-major
-  const long stride = (long)cblks * BN * 9 * ks;
-  const float* src = part + (long)co * 9 * ks + tap * ks + ci;
+  __shared__ float rows[RED_ROWS][33];
+  const int kp = 9 * ks;
+  const long o = (long)blockIdx.x * 32 + threadIdx.x;
+  const bool valid = o < (long)cout * kp;
   float s = 0.f;
-  for (int b = 0; b < nblk; ++b) s += src[b * stride];
-  dw[idx] = s;
+  if (valid) {
+    // part[blk][co / BN][co % BN][k]: element o of every block
+    const long stride = (long)cblks * BN * kp;
+    for (int b = threadIdx.y; b < nblk; b += RED_ROWS)
+      s += part[b * stride + o];
+  }
+  rows[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y != 0 || !valid) return;
+  float t = 0.f;
+#pragma unroll
+  for (int r = 0; r < RED_ROWS; ++r) t += rows[r][threadIdx.x];
+  const int co = o / kp, k = o - (long)co * kp, tap = k / ks, ci = k - tap * ks;
+  if (ci < cin) dw[((long)co * cin + ci) * 9 + tap] = t;
 }
 
 inline int tiles_of(int n, int h, int wd) {
@@ -425,9 +533,11 @@ int run_wgrad(const void* x, const void* dy, void* part, void* dw, int n,
                        (int)smem);
   thin_wgrad<T><<<dim3(nblk, cblks), WG_THREADS, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy),
-      static_cast<float*>(part), cin, h, wd, cout, tiles, per);
-  const int outs = cout * 9 * cin;
-  thin_wgrad_reduce<<<(outs + 255) / 256, 256, 0, st>>>(
+      static_cast<float*>(part), cin, h, wd, cout, tiles, per,
+      // 16-byte dy loads: every 8-pixel run of a row is aligned and whole
+      wd % 8 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0);
+  const long outs = (long)cout * 9 * kstride<T>(cin);
+  thin_wgrad_reduce<<<(outs + 31) / 32, dim3(32, RED_ROWS), 0, st>>>(
       static_cast<const float*>(part), static_cast<float*>(dw), nblk, cblks,
       cin, cout, kstride<T>(cin));
   return static_cast<int>(cudaGetLastError());

@@ -178,16 +178,11 @@ def disc_real_fake(discriminator, x, y, gen_img, merged=True, paired=False,
     return discriminator(x, y, s2d=s2d), discriminator(x, gen_img, s2d=s2d)
 
 
-def resolve_paired_disc(paired_disc, merged_disc, discriminator):
-    """Whether the train step uses the paired form (``:275-298``): an
-    explicit ``paired_disc`` wins; an explicit ``merged_disc`` keeps the
-    merged form; otherwise paired for modules that take a tuple of masks
-    (the port's Discriminator) unless ``PATCHGAN_PAIRED_DISC`` is off, 0
-    or false."""
-    if paired_disc is not None:
-        return paired_disc
-    if merged_disc:
-        return False
+def resolve_paired_disc(discriminator):
+    """Whether the train step uses the paired form (``:275-298``): for
+    modules that take a tuple of masks (the port's Discriminator) unless
+    ``PATCHGAN_PAIRED_DISC`` is off, 0 or false; otherwise two separate
+    forwards."""
     return (hasattr(discriminator, 's2d')
             and os.environ.get('PATCHGAN_PAIRED_DISC', 'on').lower()
             not in ('off', '0', 'false'))
@@ -203,17 +198,17 @@ def disc_loss(disc_real, disc_fake):
 def make_train_step(generator, discriminator, gen_opt, disc_opt,
                     loss_type='tversky', seg_alpha=200.0, tversky_beta=0.75,
                     tversky_gamma=0.75, bce_weighting='complement',
-                    merged_disc=False, paired_disc=None, s2d=None):
+                    s2d=None):
     """``step(x, y) -> losses``: one G+D update in place on the models
     and the two ``Adam``s. x and y are NCHW; ``s2d`` (default: the
     generator's flag) runs the step in the space-to-depth form. The
-    discriminator's forms follow ``disc_real_fake`` and
-    ``resolve_paired_disc``."""
+    discriminator step takes the paired form ``resolve_paired_disc``
+    picks, else two separate forwards."""
     seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
                              tversky_gamma, bce_weighting)
     if s2d is None:
         s2d = getattr(generator, 's2d', False)
-    paired = resolve_paired_disc(paired_disc, merged_disc, discriminator)
+    paired = resolve_paired_disc(discriminator)
     g_params = list(generator.parameters())
     d_params = list(discriminator.parameters())
 
@@ -227,7 +222,8 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
         gen_opt.step(torch.autograd.grad(g_loss, g_params))
         gen_img = gen_img.detach()
         d_loss, loss_real, loss_fake = disc_loss(*disc_real_fake(
-            discriminator, x, y, gen_img, merged_disc, paired, s2d))
+            discriminator, x, y, gen_img, merged=False, paired=paired,
+            s2d=s2d))
         disc_opt.step(torch.autograd.grad(d_loss, d_params))
         g_loss, gdisc = g_loss.detach(), gdisc.detach()
         return dict(zip(LOSS_KEYS, (g_loss, g_loss, gdisc,

@@ -342,3 +342,28 @@ def test_s2d_engine_matches_jax(jax_weights, monkeypatch):
     np.testing.assert_array_equal(got, plain.predict_image(image))
     monkeypatch.setenv('PATCHGAN_S2D', 'on')
     assert not InferenceEngine(gen, size=SIZE - 1, device='cpu')._s2d
+
+
+@pytest.mark.parametrize('s2d', [False, True], ids=['plain', 's2d'])
+def test_paired_and_separate_disc_steps_agree(s2d, monkeypatch):
+    """PATCHGAN_PAIRED_DISC=off gives the discriminator step two separate
+    forwards in place of the paired form; both give the same losses and
+    updates (the forward is the same, the image part's weight gradient is
+    summed in another order)."""
+    x, y = torch_parity.batches(128, 3, 1, seed=7)[0]
+    out = {}
+    for flag in ('on', 'off'):
+        monkeypatch.setenv('PATCHGAN_PAIRED_DISC', flag)
+        init = torch.Generator().manual_seed(15)
+        gen = UNet(3, 3, nf=4, generator=init)
+        disc = Discriminator(6, ndf=4, n_layers=3, generator=init)
+        step = make_train_step(gen, disc, make_optimizer(gen.parameters()),
+                               make_optimizer(disc.parameters()), s2d=s2d)
+        losses = step(torch_parity.nchw(x), torch_parity.nchw(y))
+        out[flag] = ({k: float(v) for k, v in losses.items()},
+                     {k: v.clone() for k, v in disc.state_dict().items()})
+    for k, v in out['on'][0].items():
+        np.testing.assert_allclose(out['off'][0][k], v, rtol=1e-6,
+                                   atol=1e-7, err_msg=k)
+    torch_parity.assert_params_close(
+        {k: v for k, v in out['on'][1].items()}, out['off'][1])
