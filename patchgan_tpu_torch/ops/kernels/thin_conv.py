@@ -22,7 +22,8 @@ import torch.nn.functional as F
 from . import _build
 from .norm_act import dtype_flag, needs_graph, require
 
-# widest input the kernels take (the JAX gate's thin regime)
+# widest input the kernels take: the upper edge of the JAX gate's thin
+# regime (thin_conv.py:98)
 MAX_CIN = 32
 
 

@@ -41,10 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from .activations import apply_activation
-from .kernels.thin_conv import thin_conv3x3
+from .kernels.thin_conv import MAX_CIN, thin_conv3x3
 
-# widest input of a 3x3 conv that K4 takes (thin_conv.py:98)
-THIN_MAX_CIN = 32
 # the s2d form in the Trainer and the inference engine when PATCHGAN_S2D
 # is unset
 DEFAULT = 'off'
@@ -116,7 +114,7 @@ def up_kernel_s2d(w):
 def _conv3(x, k):
     """3x3 / stride-1 / pad-1 conv of x with the OIHW kernel k."""
     k = k.to(x.dtype)
-    if x.shape[1] <= THIN_MAX_CIN:
+    if x.shape[1] <= MAX_CIN:
         return thin_conv3x3(x, k)
     return F.conv2d(x, k, padding=1)
 
