@@ -31,8 +31,8 @@ Kernel rearrangements (1-D, stride 2, k=4, p=1):
 
 ``_conv3`` dispatches each stride-1 3x3 conv: Cin <= 32 (the thin regime
 of the JAX gate, ``thin_conv.py:98``) runs kernel K4 (``thin_conv3x3``),
-anything wider (the dec6 head's Cin = 2nf convs, which the JAX package
-also leaves to XLA's conv) a cuDNN conv.
+anything wider (the dec6 head's two convs, Cin = nf each, 64 at nf=64,
+which the JAX package also leaves to XLA's conv) a cuDNN conv.
 """
 
 import os
