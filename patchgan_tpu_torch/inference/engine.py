@@ -25,6 +25,7 @@ import copy
 import numpy as np
 import torch
 
+from ..models.unet import UNet
 from ..ops.s2d import depth_to_space, s2d_enabled, space_to_depth
 from .tiling import crop_positions
 
@@ -136,9 +137,9 @@ class InferenceEngine:
             model.dtype = dtype
         dtype = getattr(model, 'dtype', torch.float32)
         self.model = model.to(device=self.device, dtype=dtype).eval()
-        # only modules with the s2d capability (the UNet) take the form
+        # only the UNet has the s2d form
         self._s2d = (s2d_enabled() and size % 2 == 0
-                     and getattr(generator, 's2d', None) is not None)
+                     and isinstance(generator, UNet))
         self.size = size
         self.overlap = overlap
         self.threshold = threshold

@@ -25,10 +25,10 @@ Two forms of conv0 (JAX ``disc.py:50-131``):
   real and fake pair) gives one output per mask, with conv0's image part
   computed once, so its weight gradient is one contraction of the summed
   gradients;
-- ``s2d`` (the default of ``forward``'s argument of the same name): x
-  and y arrive in space-to-depth form and conv0 runs ``conv2d_s2d``, the
-  stride-1 3x3 equivalent over the s2d grid (kernel K4 on the card), with
-  the same parameters. The layers after conv0 are unchanged.
+- ``forward(..., s2d=True)``: x and y arrive in space-to-depth form and
+  conv0 runs ``conv2d_s2d``, the stride-1 3x3 equivalent over the s2d
+  grid (kernel K4 on the card), with the same parameters. The layers
+  after conv0 are unchanged.
 """
 
 import math
@@ -45,11 +45,10 @@ from .blocks import KERNEL_SIZE, NORM_EPS
 
 class Discriminator(nn.Module):
     def __init__(self, input_nc, ndf=64, n_layers=3, norm=False,
-                 dtype=torch.float32, generator=None, s2d=False):
+                 dtype=torch.float32, generator=None):
         super().__init__()
         self.input_nc, self.ndf = input_nc, ndf
         self.n_layers, self.norm, self.dtype = n_layers, norm, dtype
-        self.s2d = s2d
         layers = []
         # (Sequential index of the conv, stride, activation, norm after)
         self.plan = []
@@ -86,13 +85,12 @@ class Discriminator(nn.Module):
                     bound = 1.0 / math.sqrt(conv.weight[0].numel())
                     conv.bias.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, x, y=None, s2d=None):
+    def forward(self, x, y=None, s2d=False):
         """x: (N, Ci, H, W) image; y: optional (N, Cm, H, W) mask
         concatenated to it, or a tuple of such masks (the paired form).
-        With ``s2d`` (default: the module's flag) x and y are in s2d form.
+        With ``s2d`` x and y are in s2d form.
         Returns fp32 probabilities (N, 1, H', W'), a tuple of them when y
         is a tuple."""
-        s2d = self.s2d if s2d is None else s2d
         paired = isinstance(y, (tuple, list))
         x = x.to(self.dtype)
         conv0 = self.model[self.plan[0][0]]

@@ -15,11 +15,11 @@ checkpoint; the inference engine pre-casts its copy once).
 ``dropout_generator`` is the ``torch.Generator`` the dropout masks are
 drawn from in train mode (the Trainer seeds one on the model's device).
 
-``s2d`` (JAX ``unet.py:45-52``), the default of ``forward``'s argument
-of the same name: the space-to-depth boundary form, whose input is
-``[N, 4 input_nc, H/2, W/2]`` and output ``[N, 4 output_nc, H/2, W/2]``
-(channel order (dy, dx, c), ``ops/s2d.py``). Both forms use the same
-parameters and state_dict keys, so one module serves both.
+``forward(..., s2d=True)`` (JAX ``unet.py:45-52``) runs the
+space-to-depth boundary form, whose input is ``[N, 4 input_nc, H/2,
+W/2]`` and output ``[N, 4 output_nc, H/2, W/2]`` (channel order (dy, dx,
+c), ``ops/s2d.py``). Both forms use the same parameters and state_dict
+keys, so one module serves both.
 """
 
 import torch
@@ -38,11 +38,10 @@ def unet_filters(nf):
 class UNet(nn.Module):
     def __init__(self, input_nc, output_nc, nf=64, use_dropout=False,
                  activation='tanh', final_act='softmax',
-                 dtype=torch.float32, generator=None, s2d=False):
+                 dtype=torch.float32, generator=None):
         super().__init__()
         self.input_nc, self.output_nc, self.nf = input_nc, output_nc, nf
         self.dtype = dtype
-        self.s2d = s2d
         self.dropout_generator = None
         filts = unet_filters(nf)
         self.encoder = nn.ModuleList(
@@ -69,11 +68,9 @@ class UNet(nn.Module):
             for p in self.parameters():
                 nn.init.xavier_uniform_(p, generator=generator)
 
-    def forward(self, x, return_hidden=False, s2d=None):
+    def forward(self, x, return_hidden=False, s2d=False):
         """x: (N, input_nc, H, W) with H, W multiples of 128 -> (N,
-        output_nc, H, W) float32; with ``s2d`` (default: the module's
-        flag) both in their s2d form."""
-        s2d = self.s2d if s2d is None else s2d
+        output_nc, H, W) float32; with ``s2d`` both in their s2d form."""
         h, w = x.shape[2], x.shape[3]
         if s2d:
             h, w = 2 * h, 2 * w   # x is the s2d form of a 2h x 2w input

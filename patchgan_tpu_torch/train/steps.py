@@ -26,6 +26,7 @@ import os
 import numpy as np
 import torch
 
+from ..models.disc import Discriminator
 from ..ops.losses import bce_loss, fc_tversky, mae_loss, weighted_bce_loss
 from ..ops.s2d import fold_blocks, space_to_depth
 from ..utils.metrics import iou
@@ -180,10 +181,10 @@ def disc_real_fake(discriminator, x, y, gen_img, merged=True, paired=False,
 
 def resolve_paired_disc(discriminator):
     """Whether the train step uses the paired form (``:275-298``): for
-    modules that take a tuple of masks (the port's Discriminator) unless
+    the port's Discriminator, which takes a tuple of masks, unless
     ``PATCHGAN_PAIRED_DISC`` is off, 0 or false; otherwise two separate
     forwards."""
-    return (hasattr(discriminator, 's2d')
+    return (isinstance(discriminator, Discriminator)
             and os.environ.get('PATCHGAN_PAIRED_DISC', 'on').lower()
             not in ('off', '0', 'false'))
 
@@ -198,16 +199,13 @@ def disc_loss(disc_real, disc_fake):
 def make_train_step(generator, discriminator, gen_opt, disc_opt,
                     loss_type='tversky', seg_alpha=200.0, tversky_beta=0.75,
                     tversky_gamma=0.75, bce_weighting='complement',
-                    s2d=None):
+                    s2d=False):
     """``step(x, y) -> losses``: one G+D update in place on the models
-    and the two ``Adam``s. x and y are NCHW; ``s2d`` (default: the
-    generator's flag) runs the step in the space-to-depth form. The
-    discriminator step takes the paired form ``resolve_paired_disc``
-    picks, else two separate forwards."""
+    and the two ``Adam``s. x and y are NCHW; ``s2d`` runs the step in
+    the space-to-depth form. The discriminator step takes the paired
+    form ``resolve_paired_disc`` picks, else two separate forwards."""
     seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
                              tversky_gamma, bce_weighting)
-    if s2d is None:
-        s2d = getattr(generator, 's2d', False)
     paired = resolve_paired_disc(discriminator)
     g_params = list(generator.parameters())
     d_params = list(discriminator.parameters())
@@ -235,14 +233,12 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
 
 def make_eval_step(generator, discriminator, loss_type='tversky',
                    seg_alpha=200.0, tversky_beta=0.75, tversky_gamma=0.75,
-                   compute_iou=False, bce_weighting='complement', s2d=None):
+                   compute_iou=False, bce_weighting='complement', s2d=False):
     """``step(x, y) -> losses``: the same losses with dropout off and no
     update (``:431-466``), the discriminator in the merged form, plus
     'iou' when ``compute_iou``; ``s2d`` as in ``make_train_step``."""
     seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
                              tversky_gamma, bce_weighting)
-    if s2d is None:
-        s2d = getattr(generator, 's2d', False)
 
     @torch.no_grad()
     def eval_step(x, y):

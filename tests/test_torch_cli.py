@@ -190,7 +190,7 @@ def test_train_cli_deferred_keys_raise(train_dir, extra, args):
                         '1'] + TRAIN_ARGS + args)
 
 
-def test_train_cli_s2d_raises(train_dir, monkeypatch, capsys):
+def test_train_cli_s2d_trains_and_resumes(train_dir, monkeypatch, capsys):
     """Under PATCHGAN_S2D=on the CLI raises nothing: it trains two epochs
     in the s2d boundary form, resumes at epoch 3, and the JAX package's
     Trainer resumes from the epoch files it wrote, with the same
