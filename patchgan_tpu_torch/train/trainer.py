@@ -27,7 +27,7 @@ import tqdm
 
 from ..ops.s2d import s2d_enabled
 from ..utils import checkpoint as ckpt
-from ..utils.transfer import InvalidCheckpointError, load_transfer_data
+from ..utils.transfer import load_transfer_data
 from .schedulers import (ConstantLR, ExponentialDecay, ReduceLROnPlateau,
                          resume_fast_forward)
 from .steps import LOSS_KEYS, make_eval_step, make_optimizer, \
@@ -262,7 +262,7 @@ class Trainer:
                 self.savefolder)
             self.load(gen_path, disc_path)
             self.start = last + 1
-        except (OSError, KeyError, ValueError, InvalidCheckpointError) as e:
+        except Exception as e:   # e.g. a file cut short by a killed save
             print(e)
             print("Checkpoints not loaded")
             return

@@ -135,3 +135,24 @@ def test_missing_checkpoint_starts_afresh(tmp_path, capsys):
     pt.load_last_checkpoint()
     assert pt.start == 1
     assert "Checkpoints not loaded" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize('cut', ['half', 'empty'])
+def test_broken_checkpoint_starts_afresh(tmp_path, jax_env, capsys, cut):
+    """A newest generator file cut short, as a run killed in the middle
+    of a save leaves it, or empty: both Trainers print the error and
+    start afresh at epoch 1."""
+    pt = _port_trainer(tmp_path)
+    pt.save(1)
+    path = tmp_path / 'generator_ep_001.npz'
+    data = path.read_bytes()
+    path.write_bytes(data[:len(data) // 2] if cut == 'half' else b'')
+    capsys.readouterr()
+    pt = _port_trainer(tmp_path)
+    pt.load_last_checkpoint()
+    assert pt.start == 1
+    assert "Checkpoints not loaded" in capsys.readouterr().out
+    jt = _jax_trainer(tmp_path)
+    jt.load_last_checkpoint()
+    assert jt.start == 1
+    assert "Checkpoints not loaded" in capsys.readouterr().out
