@@ -15,7 +15,11 @@ Run from the root of the repository. In order:
    inputs, atol 1e-3 (another summation order); bf16 inputs against the
    plain version in fp32 on the same bf16-rounded inputs, atol 3e-2 (one
    bf16 rounding of outputs of magnitude up to ~5). K3 also runs a case
-   with H != W, and every kernel all four activations at one shape.
+   with H != W and a ragged one (13 + 6 input channels, so K = 76 is no
+   multiple of 8 and one K step holds x, skip and the zero-filled tail;
+   40 output channels; 12 x 20), and every kernel all four activations at
+   one shape. K3's weight pack kernel is held exactly against
+   ``pack_convt_weight_plain`` at every K3 case, in both dtypes.
    Times (CUDA events): the kernel, its plain version, and a library
    yardstick (cuDNN conv + F.instance_norm + activation, which the port
    never calls), beside the bound max(FLOPs / peak, bytes / 3.35 TB/s);
@@ -212,7 +216,8 @@ def make_cases(torch, F, kernels):
               (3, 16, 16, 8 * NF, 8 * NF, 4 * NF),
               (4, 32, 32, 4 * NF, 4 * NF, 2 * NF),
               (5, 64, 64, 2 * NF, 2 * NF, NF),
-              ('H!=W', 24, 40, 2 * NF, 2 * NF, NF)]
+              ('H!=W', 24, 40, 2 * NF, 2 * NF, NF),
+              ('ragged', 12, 20, 13, 6, 40)]
     for lvl, h, wd, cx, cs, cout in shapes:
         x = rand(B, cx, h, wd)
         s = rand(B, cs, h, wd)
@@ -234,6 +239,9 @@ def make_cases(torch, F, kernels):
 
 
 def kernel_phase(torch, F, kernels):
+    from patchgan_tpu_torch.ops.kernels import (pack_convt_weight,
+                                                pack_convt_weight_plain)
+
     def err(kernel, args32, args):
         got = kernel.wrapper(*args).float()
         want = kernel.plain(*args32).float()
@@ -248,6 +256,12 @@ def kernel_phase(torch, F, kernels):
         errs = {}
         for dname, dt in (('bfloat16', torch.bfloat16),
                           ('float32', torch.float32)):
+            if kernel.name == 'convt_norm_act':
+                w = make(dt)[1]
+                if not torch.equal(pack_convt_weight(w),
+                                   pack_convt_weight_plain(w)):
+                    raise AssertionError(f'K3 pack {label} {dname} differs')
+                print(f'  K3 pack {label} {dname}: equal', flush=True)
             for act in (ACTS if all_acts else ('relu',)):
                 args = make(dt, act)
                 e = err(kernel, as_fp32(args), args)
@@ -260,7 +274,7 @@ def kernel_phase(torch, F, kernels):
                                          f'act={act}: {e} > {TOL[dname]}')
                 errs.setdefault(dname, 0.0)
                 errs[dname] = max(errs[dname], e)
-        if label.startswith('H!=W'):
+        if label.startswith(('H!=W', 'ragged')):
             continue
         args = make(torch.bfloat16)
         k_ms = cuda_ms(lambda: kernel.wrapper(*args))

@@ -5,9 +5,14 @@
 // four output parity classes; one group for the plain conv), a product
 //   out[m, co] = sum_k A[m, k] * B[k, co],   m < M, co < Cout, k < K
 // where A is gathered from the input on the fly (zero outside the image)
-// and B is read from the weight in its torch layout. The problem supplies
-//   T a(n, g, r, c, k)    input element for output pixel m = r * Mw + c
-//   T b(g, k, co)         weight element
+// and B is a weight laid out k-contiguous, B[k, co] = P::bw[(g * Cout +
+// co) * ldb + k], with ldb a multiple of 8 and, where K is not, zeros
+// from K up to the next multiple of 8. The problem supplies
+//   Gather gather(n, g, valid, r, c, ak0)  a thread's addressing for
+//       output pixel m = r * Mw + c and k = k0 + ak0 + 2j, set up once
+//   void load_a(Gather, k0, kend, v)  the 16 A elements of that thread
+//       for the K step at k0 (zero for k >= kend), as pairs:
+//       v[i].x at k = k0 + ak0 + 4i, v[i].y at k = k0 + ak0 + 4i + 2
 //   long out(n, g, r, c, co)  index of the fp32 result in `acc`
 //
 // One block computes a BM x BN tile of one (n, g) product with fp32
@@ -16,6 +21,13 @@
 // reference does). Shared-memory tiles are stored k-major for A and
 // channel-major for B, so the gather's stores from neighbouring threads
 // land on neighbouring addresses.
+//
+// The bf16 path is a two-stage pipeline with one barrier per K step: B's
+// next tile goes to the other stage by 16-byte cp.async (zero-filled past
+// kend and Cout), and A's next elements are loaded into registers before
+// this step's MMAs and stored to the other stage after them. The fp32
+// path stages the same operands synchronously in one stage. The epilogue
+// tile `Cs` shares the staging memory, so a block takes about 19 KB.
 //
 // Without a K split, the epilogue writes the fp32 tile to `acc` and one
 // partial (sum, sum of squares) per channel over the tile's valid pixels
@@ -45,6 +57,35 @@ constexpr int LDA = BM + 8;  // As[k * LDA + m]; 16-row fragments stay
                              // 32-byte aligned
 constexpr int LDC = BM + 4;  // Cs is channel-major: Cs[co * LDC + m]
 
+// two elements of T, the unit a problem's load_a hands over
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+};
+template <typename T>
+using pair_t = typename Pair<T>::type;
+
+// 16-byte global -> shared copy that bypasses L1; it writes zeros
+// without reading when `valid` is false
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // K split of a product with `tiles` output tiles: double it while the
 // grid is below TARGET_BLOCKS and every split keeps >= 8 K steps.
 inline int choose_splits(long tiles, int K) {
@@ -66,30 +107,45 @@ template <typename T, typename P>
 __global__ void __launch_bounds__(GEMM_THREADS, MinBlocks<T>::value)
     conv_gemm_kernel(const P p, int splits, long slice,
                      float* __restrict__ acc, float2* __restrict__ part) {
-  // Bs[co * LDB + k]: 8 bf16 of padding keep wmma's alignment; fp32
-  // reads along co (FMA path) want an odd stride instead
-  constexpr int LDB = std::is_same<T, float>::value ? BK + 1 : BK + 8;
-  __shared__ __align__(32) T As[BK * LDA];
-  __shared__ __align__(32) T Bs[BN * LDB];
-  __shared__ __align__(32) float Cs[BN * LDC];
+  constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int STAGES = kTensorCores ? 2 : 1;
+  // Bs[co * LDB + k]: 8 bf16 of padding keep wmma's and cp.async's
+  // alignment; fp32 reads along co (FMA path) want an odd stride instead
+  constexpr int LDB = kTensorCores ? BK + 8 : BK + 1;
+  constexpr int A_STAGE = BK * LDA, B_STAGE = BN * LDB;
+  constexpr int STAGE_BYTES = STAGES * (A_STAGE + B_STAGE) * sizeof(T);
+  constexpr int C_BYTES = BN * LDC * sizeof(float);
+  __shared__ __align__(128)
+      unsigned char smem[STAGE_BYTES > C_BYTES ? STAGE_BYTES : C_BYTES];
+  T* const As = reinterpret_cast<T*>(smem);     // STAGES x A_STAGE
+  T* const Bs = As + STAGES * A_STAGE;          // STAGES x B_STAGE
+  float* const Cs = reinterpret_cast<float*>(smem);  // after the K loop
 
   const int mt = blockIdx.x, nt = blockIdx.y;
   const int split = blockIdx.z % splits, ng = blockIdx.z / splits;
   const int g = ng % p.G, n = ng / p.G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T zero = from_f32<T>(0.f);
   const int ksteps = (p.K + BK - 1) / BK;
   const int per = (ksteps + splits - 1) / splits;
   const int kbegin = split * per * BK, kend = min(p.K, kbegin + per * BK);
 
-  // each thread gathers a fixed A row and a fixed B row
+  // each thread gathers A for one fixed row m and every second k
   const int am = tid % BM, ak0 = tid / BM;  // ak0 in {0, 1}
   const int m = mt * BM + am;
   const bool mvalid = m < p.M;
-  const int mr = mvalid ? m / p.Mw : 0, mc = mvalid ? m % p.Mw : 0;
-  const int bk = tid % BK, bc0 = tid / BK;  // bc0 in {0, 1, 2, 3}
+  const auto ga = p.gather(n, g, mvalid, mvalid ? m / p.Mw : 0,
+                           mvalid ? m % p.Mw : 0, ak0);
+  pair_t<T> av[BK / 4];
+  auto store_a = [&](T* a) {
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) {
+      a[(ak0 + 4 * i) * LDA + am] = av[i].x;
+      a[(ak0 + 4 * i + 2) * LDA + am] = av[i].y;
+    }
+  };
+  // B rows of this (g, co tile) in the k-contiguous weight
+  const T* const brow = p.bw + ((long)g * p.Cout + nt * BN) * p.ldb;
 
-  constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
   using namespace nvcuda;
   const int wm = warp >> 1, wn = warp & 1;  // 2 x 2 warps of 32 x 32
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf[2][2];
@@ -100,26 +156,36 @@ __global__ void __launch_bounds__(GEMM_THREADS, MinBlocks<T>::value)
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 2; ++j) wmma::fill_fragment(cf[i][j], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
-  }
 
-  for (int k0 = kbegin; k0 < kend; k0 += BK) {
-#pragma unroll 4
-    for (int j = 0; j < BK / 2; ++j) {
-      const int kl = ak0 + 2 * j, k = k0 + kl;
-      As[kl * LDA + am] = (mvalid && k < kend) ? p.a(n, g, mr, mc, k) : zero;
+    // B tile of the K step at k0 -> stage b: BN rows of BK bf16, four
+    // 16-byte chunks a row, two chunks a thread
+    auto stage_b = [&](T* b, int k0) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int ch = tid + q * GEMM_THREADS, row = ch >> 2;
+        const int kc = (ch & 3) * 8;
+        const bool ok = nt * BN + row < p.Cout && k0 + kc < kend;
+        cp_async16(b + row * LDB + kc,
+                   ok ? brow + (long)row * p.ldb + k0 + kc : p.bw, ok);
+      }
+      cp_async_commit();
+    };
+    if (kbegin < kend) {
+      stage_b(Bs, kbegin);
+      p.load_a(ga, kbegin, kend, av);
+      store_a(As);
+      cp_async_wait_all();
+      __syncthreads();
     }
-#pragma unroll 4
-    for (int j = 0; j < BN / 4; ++j) {
-      const int cl = bc0 + 4 * j, co = nt * BN + cl, k = k0 + bk;
-      Bs[cl * LDB + bk] = (co < p.Cout && k < kend) ? p.b(g, k, co) : zero;
-    }
-    __syncthreads();
-    if constexpr (kTensorCores) {
+    int s = 0;
+    for (int k0 = kbegin; k0 < kend; k0 += BK) {
+      const bool more = k0 + BK < kend;
+      if (more) {  // the next step's loads fly during this step's MMAs
+        stage_b(Bs + (s ^ 1) * B_STAGE, k0 + BK);
+        p.load_a(ga, k0 + BK, kend, av);
+      }
+      const T* a = As + s * A_STAGE;
+      const T* b = Bs + s * B_STAGE;
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
@@ -130,11 +196,10 @@ __global__ void __launch_bounds__(GEMM_THREADS, MinBlocks<T>::value)
             bf[2];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(af[i], As + kk * LDA + wm * 32 + i * 16,
-                                 LDA);
+          wmma::load_matrix_sync(af[i], a + kk * LDA + wm * 32 + i * 16, LDA);
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(bf[j], Bs + (wn * 32 + j * 16) * LDB + kk,
+          wmma::load_matrix_sync(bf[j], b + (wn * 32 + j * 16) * LDB + kk,
                                  LDB);
 #pragma unroll
         for (int i = 0; i < 2; ++i)
@@ -142,21 +207,42 @@ __global__ void __launch_bounds__(GEMM_THREADS, MinBlocks<T>::value)
           for (int j = 0; j < 2; ++j)
             wmma::mma_sync(cf[i][j], af[i], bf[j], cf[i][j]);
       }
-    } else {
+      if (more) store_a(As + (s ^ 1) * A_STAGE);
+      cp_async_wait_all();
+      __syncthreads();  // stage s^1 is full, stage s free to refill
+      s ^= 1;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
+    const int bk = tid % BK, bc0 = tid / BK;  // bc0 in {0, 1, 2, 3}
+    for (int k0 = kbegin; k0 < kend; k0 += BK) {
+      p.load_a(ga, k0, kend, av);
+      store_a(As);
+#pragma unroll 4
+      for (int j = 0; j < BN / 4; ++j) {
+        const int cl = bc0 + 4 * j, k = k0 + bk;
+        Bs[cl * LDB + bk] = (nt * BN + cl < p.Cout && k < kend)
+                                ? brow[(long)cl * p.ldb + k]
+                                : from_f32<T>(0.f);
+      }
+      __syncthreads();
 #pragma unroll 8
       for (int kk = 0; kk < BK; ++kk) {
-        float av[4], bv[8];
+        float av4[4], bv[8];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = to_f32(As[kk * LDA + tm * 4 + i]);
+        for (int i = 0; i < 4; ++i) av4[i] = to_f32(As[kk * LDA + tm * 4 + i]);
 #pragma unroll
         for (int j = 0; j < 8; ++j) bv[j] = to_f32(Bs[(tn * 8 + j) * LDB + kk]);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) c[i][j] = fmaf(av[i], bv[j], c[i][j]);
+          for (int j = 0; j < 8; ++j) c[i][j] = fmaf(av4[i], bv[j], c[i][j]);
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   if constexpr (kTensorCores) {

@@ -21,6 +21,12 @@
 // as the Pallas kernel does (conv_norm_act.py:154-161). The deep levels
 // (enc4-enc6: 64 output tiles at 8 samples, K up to 8192) split K across
 // blocks to fill the card, and normalise from the summed slices.
+//
+// The OIHW weight is already k-contiguous with K = 16 * Cin a multiple of
+// 8, so the core stages it as it is. With k = k0 + ak0 + 2j a gathering
+// thread's kx = ak0 + 2 (j & 1) alternates, ky = (j >> 1) & 3 steps and ci
+// every eighth j: its four row and two column masks and its base offset
+// are set up once a block.
 
 #include "conv_gemm.cuh"
 
@@ -28,19 +34,47 @@ namespace pgt {
 
 template <typename T>
 struct ConvProblem {
-  const T* x;  // [N, Cin, H, W]
-  const T* w;  // [Cout, Cin, 4, 4]
+  const T* x;   // [N, Cin, H, W]
+  const T* bw;  // [Cout, Cin, 4, 4], row co is B[:, co]
   int Cin, H, W, Cout, Ho, Wo;
-  int M, Mw, K, G;
+  int M, Mw, K, G, ldb;
 
-  __device__ __forceinline__ T a(int n, int, int r, int c, int k) const {
-    const int ci = k >> 4, ky = (k >> 2) & 3, kx = k & 3;
-    const int iy = 2 * r - 1 + ky, ix = 2 * c - 1 + kx;
-    if (iy < 0 || iy >= H || ix < 0 || ix >= W) return from_f32<T>(0.f);
-    return x[(((long)n * Cin + ci) * H + iy) * W + ix];
+  struct Gather {
+    const T* xs;   // this sample's first plane
+    int base;      // in-plane offset of tap (ky, kx) = (0, ak0)
+    unsigned ok;   // bit 2 * ky + side: tap (ky, ak0 + 2 side) inside
+  };
+  __device__ __forceinline__ Gather gather(int n, int, bool valid, int r,
+                                           int c, int ax) const {
+    const int iy = 2 * r - 1, ix = 2 * c - 1 + ax;
+    Gather t;
+    t.xs = x + (long)n * Cin * H * W;
+    t.base = iy * W + ix;
+    t.ok = 0;
+#pragma unroll
+    for (int ky = 0; ky < 4; ++ky)
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const int yy = iy + ky, xx = ix + 2 * side;
+        if (valid && yy >= 0 && yy < H && xx >= 0 && xx < W)
+          t.ok |= 1u << (2 * ky + side);
+      }
+    return t;
   }
-  __device__ __forceinline__ T b(int, int k, int co) const {
-    return w[(long)co * K + k];
+  // pair i of the K step at k0: channel k0 / 16 + i / 4, row ky = i & 3,
+  // columns kx = ak0 and ak0 + 2
+  __device__ __forceinline__ void load_a(const Gather& t, int k0, int kend,
+                                         pair_t<T> (&v)[BK / 4]) const {
+    const int hw = H * W, ci0 = k0 >> 4, ciend = kend >> 4;
+    const T zero = from_f32<T>(0.f);
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) {
+      const int ci = ci0 + (i >> 2), ky = i & 3;
+      const T* row = t.xs + (long)ci * hw + t.base + ky * W;
+      const bool live = ci < ciend;
+      v[i].x = live && (t.ok >> (2 * ky) & 1) ? row[0] : zero;
+      v[i].y = live && (t.ok >> (2 * ky + 1) & 1) ? row[2] : zero;
+    }
   }
   __device__ __forceinline__ long out(int n, int, int r, int c,
                                       int co) const {
@@ -53,7 +87,7 @@ ConvProblem<T> problem(const void* x, const void* w, int cin, int h, int wd,
                        int cout) {
   ConvProblem<T> p;
   p.x = static_cast<const T*>(x);
-  p.w = static_cast<const T*>(w);
+  p.bw = static_cast<const T*>(w);
   p.Cin = cin;
   p.H = h;
   p.W = wd;
@@ -64,6 +98,7 @@ ConvProblem<T> problem(const void* x, const void* w, int cin, int h, int wd,
   p.Mw = p.Wo;
   p.K = 16 * cin;
   p.G = 1;
+  p.ldb = p.K;
   return p;
 }
 
@@ -87,9 +122,10 @@ extern "C" int pgt_conv_splits(int batch, int cin, int h, int wd, int cout) {
                          batch);
 }
 
-// x [N, Cin, H, W], w [Cout, Cin, 4, 4], y [N, Cout, Ho, Wo], all bf16
-// (bf16 != 0) or all fp32; acc: fp32 scratch of pgt_conv_splits() times
-// y's shape; part: fp32 pairs, N * Cout * ceil(Ho*Wo / pgt_tile_m()).
+// x [N, Cin, H, W], w [Cout, Cin, 4, 4] (16-byte aligned), y [N, Cout,
+// Ho, Wo], all bf16 (bf16 != 0) or all fp32; acc: fp32 scratch of
+// pgt_conv_splits() times y's shape; part: fp32 pairs, N * Cout *
+// ceil(Ho*Wo / pgt_tile_m()).
 // Returns cudaGetLastError().
 extern "C" int pgt_conv_in_act(const void* x, const void* w, void* y,
                                void* acc, void* part, int batch, int cin,

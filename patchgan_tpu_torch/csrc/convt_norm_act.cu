@@ -23,6 +23,15 @@
 // scratch; statistics partials span all four classes, and the finishing
 // pass shared with K1 and K2 normalises over the full 2H x 2W plane.
 // dec1 and dec2 (4x4 and 8x8 inputs, K = 4096) split K across blocks.
+//
+// Before the GEMM, a pack kernel writes the weight k-contiguous per class,
+//   wp[g][co][ci * 4 + ay * 2 + ax] = w[ci, co, 1 - (g >> 1) + 2 ay,
+//                                       1 - (g & 1) + 2 ax],
+// zero-padded to Kp = K rounded up to BK, so the core stages B with
+// 16-byte copies. With k = k0 + ak0 + 2j a gathering thread's ax = ak0 is
+// fixed, ay = j & 1 alternates and ci steps every second j: its column
+// mask, two row masks and two in-plane offsets are set up once a block,
+// and each element costs one predicated 2-byte load.
 
 #include "conv_gemm.cuh"
 
@@ -30,23 +39,47 @@ namespace pgt {
 
 template <typename T>
 struct ConvTProblem {
-  const T* x;  // [N, Cx, H, W]
-  const T* s;  // [N, Cs, H, W], or unused when Cs == 0
-  const T* w;  // [Cx + Cs, Cout, 4, 4]
+  const T* x;   // [N, Cx, H, W]
+  const T* s;   // [N, Cs, H, W], or unused when Cs == 0
+  const T* bw;  // packed weight [4][Cout][ldb]
   int Cx, Cs, H, W, Cout;
-  int M, Mw, K, G;
+  int M, Mw, K, G, ldb;
 
-  __device__ __forceinline__ T a(int n, int g, int r, int c, int k) const {
-    const int ci = k >> 2, ay = (k >> 1) & 1, ax = k & 1;
-    const int iy = r + (g >> 1) - ay, ix = c + (g & 1) - ax;
-    if (iy < 0 || iy >= H || ix < 0 || ix >= W) return from_f32<T>(0.f);
-    if (ci < Cx) return x[(((long)n * Cx + ci) * H + iy) * W + ix];
-    return s[(((long)n * Cs + (ci - Cx)) * H + iy) * W + ix];
+  struct Gather {
+    const T* xs;     // this sample's first x plane
+    const T* ss;     // this sample's first skip plane
+    int off0, off1;  // in-plane offsets of taps ay = 0 and ay = 1
+    bool ok0, ok1;   // those taps lie inside the image
+  };
+  __device__ __forceinline__ Gather gather(int n, int g, bool valid, int r,
+                                           int c, int ax) const {
+    const int iy = r + (g >> 1), ix = c + (g & 1) - ax;
+    const bool col = valid && ix >= 0 && ix < W;
+    Gather t;
+    t.xs = x + (long)n * Cx * H * W;
+    t.ss = s + (long)n * Cs * H * W;
+    t.ok0 = col && iy < H;     // iy >= 0 always
+    t.ok1 = col && iy >= 1;    // iy - 1 < H always
+    t.off0 = t.ok0 ? iy * W + ix : 0;
+    t.off1 = t.ok1 ? (iy - 1) * W + ix : 0;
+    return t;
   }
-  __device__ __forceinline__ T b(int g, int k, int co) const {
-    const int ci = k >> 2, ay = (k >> 1) & 1, ax = k & 1;
-    const int ky = 1 - (g >> 1) + 2 * ay, kx = 1 - (g & 1) + 2 * ax;
-    return w[(((long)ci * Cout + co) * 4 + ky) * 4 + kx];
+  // pair i of the K step at k0: channel ci = k0 / 4 + i, taps ay = 0, 1
+  __device__ __forceinline__ void load_a(const Gather& t, int k0, int kend,
+                                         pair_t<T> (&v)[BK / 4]) const {
+    const int hw = H * W, ci0 = k0 >> 2, ciend = kend >> 2;
+    const T zero = from_f32<T>(0.f);
+    const T* plane = ci0 < Cx ? t.xs + (long)ci0 * hw
+                              : t.ss + (long)(ci0 - Cx) * hw;
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) {
+      const int ci = ci0 + i;
+      if (ci == Cx) plane = t.ss;
+      const bool live = ci < ciend;
+      v[i].x = live && t.ok0 ? plane[t.off0] : zero;
+      v[i].y = live && t.ok1 ? plane[t.off1] : zero;
+      plane += hw;
+    }
   }
   __device__ __forceinline__ long out(int n, int g, int r, int c,
                                       int co) const {
@@ -55,13 +88,55 @@ struct ConvTProblem {
   }
 };
 
+// One thread per (co, ci slot of Kp / 4): reads the 16 taps of w[ci, co]
+// (two or four 16-byte loads), writes 4 values into each class's row.
+// Slots ci >= C write the zero padding.
 template <typename T>
-ConvTProblem<T> problem(const void* x, const void* s, const void* w, int cx,
+__global__ void pack_convt_weight(const T* __restrict__ w, T* __restrict__ wp,
+                                  int C, int Cout, int Kp) {
+  const int slots = Kp / 4;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)Cout * slots) return;
+  const int ci = idx % slots, co = idx / slots;
+  uint4 raw[sizeof(T)];  // 16 values of T
+  const T* tap = reinterpret_cast<const T*>(raw);
+  const uint4* src =
+      reinterpret_cast<const uint4*>(w + ((long)ci * Cout + co) * 16);
+#pragma unroll
+  for (int i = 0; i < (int)sizeof(T); ++i)
+    raw[i] = ci < C ? src[i] : make_uint4(0, 0, 0, 0);
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    T* dst = wp + ((long)g * Cout + co) * Kp + 4 * ci;
+#pragma unroll
+    for (int ay = 0; ay < 2; ++ay)
+#pragma unroll
+      for (int ax = 0; ax < 2; ++ax)
+        dst[2 * ay + ax] =
+            tap[(1 - (g >> 1) + 2 * ay) * 4 + 1 - (g & 1) + 2 * ax];
+  }
+}
+
+inline int packed_k(int cx, int cs) {
+  return (4 * (cx + cs) + BK - 1) / BK * BK;
+}
+
+template <typename T>
+int pack(const void* w, void* wp, int cx, int cs, int cout, cudaStream_t st) {
+  const int kp = packed_k(cx, cs);
+  const long threads = (long)cout * (kp / 4);
+  pack_convt_weight<T><<<(threads + 255) / 256, 256, 0, st>>>(
+      static_cast<const T*>(w), static_cast<T*>(wp), cx + cs, cout, kp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+ConvTProblem<T> problem(const void* x, const void* s, const void* wp, int cx,
                         int cs, int h, int wd, int cout) {
   ConvTProblem<T> p;
   p.x = static_cast<const T*>(x);
   p.s = static_cast<const T*>(s);
-  p.w = static_cast<const T*>(w);
+  p.bw = static_cast<const T*>(wp);
   p.Cx = cx;
   p.Cs = cs;
   p.H = h;
@@ -71,14 +146,17 @@ ConvTProblem<T> problem(const void* x, const void* s, const void* w, int cx,
   p.Mw = wd;
   p.K = 4 * (cx + cs);
   p.G = 4;
+  p.ldb = packed_k(cx, cs);
   return p;
 }
 
 template <typename T>
-int run(const void* x, const void* s, const void* w, void* y, void* acc,
-        void* part, int batch, int cx, int cs, int h, int wd, int cout,
-        int act, float eps, cudaStream_t st) {
-  const ConvTProblem<T> p = problem<T>(x, s, w, cx, cs, h, wd, cout);
+int run(const void* x, const void* s, const void* w, void* wp, void* y,
+        void* acc, void* part, int batch, int cx, int cs, int h, int wd,
+        int cout, int act, float eps, cudaStream_t st) {
+  const int rc = pack<T>(w, wp, cx, cs, cout, st);
+  if (rc != 0) return rc;
+  const ConvTProblem<T> p = problem<T>(x, s, wp, cx, cs, h, wd, cout);
   return launch_conv_in_act<T>(p, batch, static_cast<float*>(acc),
                                static_cast<float2*>(part), static_cast<T*>(y),
                                4L * p.M, act, eps, st);
@@ -95,20 +173,37 @@ extern "C" int pgt_convt_splits(int batch, int cx, int cs, int h, int wd,
                          batch);
 }
 
+// Row length of the packed weight: 4 * (cx + cs) rounded up to BK.
+extern "C" int pgt_convt_packed_k(int cx, int cs) {
+  return pgt::packed_k(cx, cs);
+}
+
+// The pack kernel alone: w [Cx + Cs, Cout, 4, 4] -> wp [4, Cout,
+// pgt_convt_packed_k()], bf16 (bf16 != 0) or fp32, w 16-byte aligned.
+// Returns cudaGetLastError().
+extern "C" int pgt_convt_pack(const void* w, void* wp, int cx, int cs,
+                              int cout, int bf16, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) return pgt::pack<__nv_bfloat16>(w, wp, cx, cs, cout, st);
+  return pgt::pack<float>(w, wp, cx, cs, cout, st);
+}
+
 // x [N, Cx, H, W], skip [N, Cs, H, W] (Cs may be 0, skip then unused),
-// w [Cx + Cs, Cout, 4, 4], y [N, Cout, 2H, 2W], all bf16 (bf16 != 0) or
-// all fp32; acc: fp32 scratch of pgt_convt_splits() times y's shape;
-// part: fp32 pairs, N * Cout * 4 * ceil(H*W / pgt_tile_m()).
+// w [Cx + Cs, Cout, 4, 4] (16-byte aligned), y [N, Cout, 2H, 2W], all bf16
+// (bf16 != 0) or all fp32; wp: scratch of the packed weight, 4 * Cout *
+// pgt_convt_packed_k() elements; acc: fp32 scratch of pgt_convt_splits()
+// times y's shape; part: fp32 pairs, N * Cout * 4 * ceil(H*W /
+// pgt_tile_m()). Launches the pack, the GEMM and the finishing pass.
 // Returns cudaGetLastError().
 extern "C" int pgt_convt_in_act(const void* x, const void* skip,
-                                const void* w, void* y, void* acc, void* part,
-                                int batch, int cx, int cs, int h, int wd,
-                                int cout, int act, float eps, int bf16,
-                                void* stream) {
+                                const void* w, void* wp, void* y, void* acc,
+                                void* part, int batch, int cx, int cs, int h,
+                                int wd, int cout, int act, float eps,
+                                int bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return pgt::run<__nv_bfloat16>(x, skip, w, y, acc, part, batch, cx, cs, h,
-                                   wd, cout, act, eps, st);
-  return pgt::run<float>(x, skip, w, y, acc, part, batch, cx, cs, h, wd, cout,
-                         act, eps, st);
+    return pgt::run<__nv_bfloat16>(x, skip, w, wp, y, acc, part, batch, cx,
+                                   cs, h, wd, cout, act, eps, st);
+  return pgt::run<float>(x, skip, w, wp, y, acc, part, batch, cx, cs, h, wd,
+                         cout, act, eps, st);
 }

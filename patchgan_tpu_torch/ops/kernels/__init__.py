@@ -2,7 +2,8 @@
 version (see ``_build`` for how they are compiled and loaded)."""
 
 from .conv_norm_act import conv_norm_act, conv_norm_act_plain
-from .convt_norm_act import convt_norm_act, convt_norm_act_plain
+from .convt_norm_act import (convt_norm_act, convt_norm_act_plain,
+                             pack_convt_weight, pack_convt_weight_plain)
 from .norm_act import (instance_norm_act, instance_norm_act_backward,
                        instance_norm_act_backward_plain,
                        instance_norm_act_plain)
@@ -16,5 +17,6 @@ WRAPPERS = (instance_norm_act, conv_norm_act, convt_norm_act,
 __all__ = ['conv_norm_act', 'conv_norm_act_plain', 'convt_norm_act',
            'convt_norm_act_plain', 'instance_norm_act',
            'instance_norm_act_backward', 'instance_norm_act_backward_plain',
-           'instance_norm_act_plain', 'thin_conv3x3', 'thin_conv3x3_plain',
+           'instance_norm_act_plain', 'pack_convt_weight',
+           'pack_convt_weight_plain', 'thin_conv3x3', 'thin_conv3x3_plain',
            'thin_conv3x3_wgrad', 'thin_conv3x3_wgrad_plain', 'WRAPPERS']

@@ -4,7 +4,10 @@ instance norm + activation, NCHW, torch IOHW weight, with its gradient.
 Port of ``patchgan_tpu/ops/pallas/convt_norm_act.py::fused_convt_norm_act``.
 The CUDA kernel is ``csrc/convt_norm_act.cu``; ``convt_norm_act_plain``
 is the same function in plain PyTorch (CPU tensors, tests, and the
-kernel's oracle on the card). ``ConvTNormAct`` is the custom VJP of
+kernel's oracle on the card). Each launch first packs the weight per
+output parity class, k-contiguous (``pack_convt_weight_plain`` is that
+layout in plain PyTorch, ``pack_convt_weight`` the pack kernel alone;
+both for tests and ``chip_smoke.py``). ``ConvTNormAct`` is the custom VJP of
 ``convt_norm_act.py:201-225``: residuals (x, w, skip); the backward
 recomputes the transposed conv over the concat in the compute dtype,
 runs K1-bwd on it, and takes dx, dw and dskip through the recompute.
@@ -22,8 +25,10 @@ import torch.nn.functional as F
 
 from . import _build
 from .conv_norm_act import recompute_grads
-from .norm_act import (act_code, dtype_flag, instance_norm_act_plain,
-                       needs_graph, require)
+from .norm_act import (act_code, aligned16, dtype_flag,
+                       instance_norm_act_plain, needs_graph, require)
+
+TILE_K = 32   # BK of csrc/conv_gemm.cuh: the packed rows' multiple
 
 
 def convt_norm_act_plain(x, w, eps=1e-5, activation=None, skip=None):
@@ -34,18 +39,58 @@ def convt_norm_act_plain(x, w, eps=1e-5, activation=None, skip=None):
     return instance_norm_act_plain(acc, eps, activation).to(x.dtype)
 
 
+def pack_convt_weight_plain(w):
+    """The K3 GEMM's weight: (4, Cout, Kp) with wp[g, co, 4 ci + 2 ay +
+    ax] = w[ci, co, 1 - (g >> 1) + 2 ay, 1 - (g & 1) + 2 ax] for output
+    parity class g = 2 dy + dx, zero from K = 4 Cin up to Kp, the next
+    multiple of ``TILE_K``."""
+    cin, cout = w.shape[:2]
+    k = 4 * cin
+    wp = torch.stack([w[:, :, 1 - (g >> 1)::2, 1 - (g & 1)::2]
+                      .permute(1, 0, 2, 3).reshape(cout, k)
+                      for g in range(4)])
+    return F.pad(wp, (0, -(-k // TILE_K) * TILE_K - k))
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load('convt_norm_act')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pgt_convt_in_act.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                     ctypes.c_float, i, p]
+    lib.pgt_convt_in_act.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                     i, ctypes.c_float, i, p]
     lib.pgt_convt_in_act.restype = i
+    lib.pgt_convt_pack.argtypes = [p, p, i, i, i, i, p]
+    lib.pgt_convt_pack.restype = i
     lib.pgt_tile_m.argtypes = []
     lib.pgt_tile_m.restype = i
     lib.pgt_convt_splits.argtypes = [i] * 6
     lib.pgt_convt_splits.restype = i
+    lib.pgt_convt_packed_k.argtypes = [i, i]
+    lib.pgt_convt_packed_k.restype = i
     return lib
+
+
+def _packed(lib, w):
+    """An empty buffer for w's packed form."""
+    return torch.empty((4, w.shape[1], lib.pgt_convt_packed_k(w.shape[0], 0)),
+                       dtype=w.dtype, device=w.device)
+
+
+def pack_convt_weight(w):
+    """The pack kernel alone on a CUDA weight (Cin, Cout, 4, 4): what K3
+    packs before its GEMM, to hold against ``pack_convt_weight_plain``.
+    Not a K3 launch."""
+    require(w, 'w', 4)
+    if w.shape[2:] != (4, 4):
+        raise ValueError(f"w must be (Cin, Cout, 4, 4), got {tuple(w.shape)}")
+    w = aligned16(w)
+    lib = _lib()
+    wp = _packed(lib, w)
+    with torch.cuda.device(w.device):
+        rc = lib.pgt_convt_pack(w.data_ptr(), wp.data_ptr(), w.shape[0], 0,
+                                w.shape[1], dtype_flag(w), _build.stream_of(w))
+    _build.check(rc, 'convt pack')
+    return wp
 
 
 def _forward(x, w, eps, activation, skip):
@@ -69,6 +114,7 @@ def _forward(x, w, eps, activation, skip):
     if tuple(w.shape) != (cx + cs, cout, 4, 4):
         raise ValueError(f"w must be ({cx + cs}, {cout}, 4, 4), got "
                          f"{tuple(w.shape)}")
+    w = aligned16(w)
     lib = _lib()
     tiles = -(-h * wd // lib.pgt_tile_m())
     y = torch.empty((n, cout, 2 * h, 2 * wd), dtype=x.dtype, device=x.device)
@@ -78,12 +124,13 @@ def _forward(x, w, eps, activation, skip):
                       device=x.device)
     part = torch.empty((n, cout, 4 * tiles, 2), dtype=torch.float32,
                        device=x.device)
+    wp = _packed(lib, w)
     skip_ptr = skip.data_ptr() if skip is not None else None
     with torch.cuda.device(x.device):
         rc = lib.pgt_convt_in_act(
-            x.data_ptr(), skip_ptr, w.data_ptr(), y.data_ptr(),
-            acc.data_ptr(), part.data_ptr(), n, cx, cs, h, wd, cout, act,
-            eps, flag, _build.stream_of(x))
+            x.data_ptr(), skip_ptr, w.data_ptr(), wp.data_ptr(),
+            y.data_ptr(), acc.data_ptr(), part.data_ptr(), n, cx, cs, h, wd,
+            cout, act, eps, flag, _build.stream_of(x))
     _build.check(rc, 'convt_norm_act')
     convt_norm_act.launches += 1
     return y

@@ -53,6 +53,13 @@ def require(t, name, ndim, like=None):
                          f"{like.dtype} on {like.device}")
 
 
+def aligned16(t):
+    """``t``, or a copy of it where its data does not start on 16 bytes,
+    as the kernels' 16-byte weight loads need (a view can start
+    anywhere; a fresh allocation always does)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def needs_graph(*tensors):
     """True when autograd must record this call: grad mode is on and an
     input requires grad. Otherwise (inference_mode, no_grad, constant

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from patchgan_tpu.ops.pallas.conv_norm_act import fused_conv_norm_act
 from patchgan_tpu.ops.pallas.convt_norm_act import fused_convt_norm_act
@@ -23,8 +24,9 @@ from patchgan_tpu.utils.transfer import conv_kernel_to_jax, \
 from patchgan_tpu_torch.ops.kernels import (
     WRAPPERS, conv_norm_act, conv_norm_act_plain, convt_norm_act,
     convt_norm_act_plain, instance_norm_act, instance_norm_act_backward,
-    instance_norm_act_backward_plain, instance_norm_act_plain, thin_conv3x3,
-    thin_conv3x3_plain, thin_conv3x3_wgrad, thin_conv3x3_wgrad_plain)
+    instance_norm_act_backward_plain, instance_norm_act_plain,
+    pack_convt_weight_plain, thin_conv3x3, thin_conv3x3_plain,
+    thin_conv3x3_wgrad, thin_conv3x3_wgrad_plain)
 
 torch.set_num_threads(2)
 
@@ -93,6 +95,42 @@ def test_convt_norm_act_matches_pallas(act, dt, with_skip):
         jnp.asarray(_nhwc(skip), jdt) if with_skip else None)
     assert got.shape == (2, 32, 12, 20) and got.dtype == tdt
     _close(got, want, name)
+
+
+@pytest.mark.parametrize('act', ACTS)
+def test_packed_convt_weight_products(act):
+    """K3's packed weight, read as its GEMM reads it: per output parity
+    class g = 2 dy + dx, A[n, 4 ci + 2 ay + ax, t, u] = the zero-padded
+    input at (t + dy - ay, u + dx - ax), times wp[g], interleaved into
+    [N, Cout, 2H, 2W], equals F.conv_transpose2d. Cx + Cs = 5 puts K = 20
+    in a 32-wide packed row, and A past K is ones, so the product is
+    right only if the packed tail is zero. After IN + act it equals the
+    JAX fused_convt_norm_act (fp32, atol 1e-4)."""
+    x = _inputs((2, 3, 6, 10), torch.float32, 30)
+    skip = _inputs((2, 2, 6, 10), torch.float32, 31)
+    w = _inputs((5, 7, 4, 4), torch.float32, 32, scale=0.3)
+    xin = torch.cat([x, skip], 1)
+    wp = pack_convt_weight_plain(w)
+    n, c, h, wd = xin.shape
+    assert wp.shape == (4, 7, 32)
+    xp = F.pad(xin, (1, 1, 1, 1))
+    got = torch.zeros(n, 7, 2 * h, 2 * wd)
+    for g in range(4):
+        dy, dx = g >> 1, g & 1
+        a = torch.stack([xp[:, :, 1 + dy - ay:1 + dy - ay + h,
+                            1 + dx - ax:1 + dx - ax + wd]
+                         for ay in (0, 1) for ax in (0, 1)], 2)
+        a = torch.cat([a.reshape(n, 4 * c, h, wd),
+                       torch.ones(n, 32 - 4 * c, h, wd)], 1)
+        got[:, :, dy::2, dx::2] = torch.einsum('nkhw,ok->nohw', a, wp[g])
+    want = F.conv_transpose2d(xin, w, stride=2, padding=1)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    ours = instance_norm_act_plain(got, 1e-5, act)
+    theirs = fused_convt_norm_act(
+        jnp.asarray(_nhwc(x)), jnp.asarray(convT_kernel_to_jax(w.numpy())),
+        1e-5, act, jnp.asarray(_nhwc(skip)))
+    np.testing.assert_allclose(_nhwc(ours), np.asarray(theirs), rtol=0,
+                               atol=1e-4)
 
 
 def test_cpu_tensors_never_launch():
