@@ -18,9 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .norm_act import (act_code, aligned16, dtype_flag,
-                       instance_norm_act_backward, instance_norm_act_plain,
-                       needs_graph, require)
+from .norm_act import (act_code, dtype_flag, instance_norm_act_backward,
+                       instance_norm_act_plain, needs_graph, require,
+                       require_aligned)
 
 
 def conv_norm_act_plain(x, w, eps=1e-5, activation=None):
@@ -62,7 +62,7 @@ def _forward(x, w, eps, activation):
     ho, wo = (h - 2) // 2 + 1, (wd - 2) // 2 + 1
     if ho < 1 or wo < 1:
         raise ValueError(f"input {h}x{wd} is too small for k=4, s=2, p=1")
-    w = aligned16(w)
+    require_aligned(w, 'w')
     lib = _lib()
     tiles = -(-ho * wo // lib.pgt_tile_m())
     y = torch.empty((n, cout, ho, wo), dtype=x.dtype, device=x.device)

@@ -25,8 +25,8 @@ import torch.nn.functional as F
 
 from . import _build
 from .conv_norm_act import recompute_grads
-from .norm_act import (act_code, aligned16, dtype_flag,
-                       instance_norm_act_plain, needs_graph, require)
+from .norm_act import (act_code, dtype_flag, instance_norm_act_plain,
+                       needs_graph, require, require_aligned)
 
 TILE_K = 32   # BK of csrc/conv_gemm.cuh: the packed rows' multiple
 
@@ -83,7 +83,7 @@ def pack_convt_weight(w):
     require(w, 'w', 4)
     if w.shape[2:] != (4, 4):
         raise ValueError(f"w must be (Cin, Cout, 4, 4), got {tuple(w.shape)}")
-    w = aligned16(w)
+    require_aligned(w, 'w')
     lib = _lib()
     wp = _packed(lib, w)
     with torch.cuda.device(w.device):
@@ -114,7 +114,7 @@ def _forward(x, w, eps, activation, skip):
     if tuple(w.shape) != (cx + cs, cout, 4, 4):
         raise ValueError(f"w must be ({cx + cs}, {cout}, 4, 4), got "
                          f"{tuple(w.shape)}")
-    w = aligned16(w)
+    require_aligned(w, 'w')
     lib = _lib()
     tiles = -(-h * wd // lib.pgt_tile_m())
     y = torch.empty((n, cout, 2 * h, 2 * wd), dtype=x.dtype, device=x.device)

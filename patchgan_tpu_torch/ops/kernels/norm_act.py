@@ -53,11 +53,11 @@ def require(t, name, ndim, like=None):
                          f"{like.dtype} on {like.device}")
 
 
-def aligned16(t):
-    """``t``, or a copy of it where its data does not start on 16 bytes,
-    as the kernels' 16-byte weight loads need (a view can start
-    anywhere; a fresh allocation always does)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def require_aligned(t, name):
+    """K2's and K3's weights are read in 16-byte vectors; a fresh
+    allocation starts on 16 bytes, a view need not."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def needs_graph(*tensors):
