@@ -53,9 +53,6 @@ constexpr int LDC = TM + 4;                // fp32 epilogue stride
 constexpr int LDD = TM + 8;                // bf16 dy row stride (wgrad)
 constexpr int LDF = BN + 4;                // fp32 dy row stride (wgrad)
 constexpr int FWD_THREADS = 128, WG_THREADS = 256;
-// blocks that keep the 132 SMs of an H100 SXM busy: the forward holds
-// 2-3 blocks per SM, the wgrad 2, and each wgrad block writes a partial
-constexpr int FWD_TARGET = 4 * 132, WG_TARGET = 2 * 132;
 constexpr int MAX_CIN = 32;
 constexpr int MAX_KF = 9;  // fp32 wgrad: K = 9 Cin <= 288 in 16 columns
 
@@ -178,13 +175,13 @@ size_t fwd_smem(int cin) {
 }
 
 // y[n, co, p] = sum_(r, s, ci) w[co, ci, r, s] x[n, ci, p + (r - 1, s - 1)]
-// for the 64 output channels of blockIdx.y, over tiles [blockIdx.x * per,
-// + per).
+// for the 64 output channels of blockIdx.y, over tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ...
 template <typename T>
 __global__ void __launch_bounds__(FWD_THREADS)
     thin_fwd(const T* __restrict__ x, const T* __restrict__ w,
-             T* __restrict__ y, int cin, int h, int wd, int cout, int tiles,
-             int per) {
+             T* __restrict__ y, int cin, int h, int wd, int cout,
+             int tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr bool kTensorCores = Bf16<T>::value;
   const int ks = kstride<T>(cin), cs = xstride<T>(cin);
@@ -208,8 +205,7 @@ __global__ void __launch_bounds__(FWD_THREADS)
         ws[(r % 9 * ks + r / 9) * ldw + c] = v;
       });
 
-  const int t1 = min(tiles, (blockIdx.x + 1) * per);
-  for (int t = blockIdx.x * per; t < t1; ++t) {
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const Tile p = tile_at(t, h, wd);
     stage_x(x, xs, p, cin, h, wd, cs);
     __syncthreads();
@@ -317,15 +313,15 @@ size_t wgrad_smem(int cin) {
 }
 
 // Partial weight gradient of the 64 output channels of blockIdx.y over the
-// tiles [blockIdx.x * per, + per) (vec: dy may be read 8 pixels at a
-// time):
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ... (vec: dy may be read 8
+// pixels at a time):
 //   part[blk][co][tap * ks + ci] = sum_pixels dy[n, co, p] x[n, ci, p + tap]
 // with blk = blockIdx.x * gridDim.y + blockIdx.y, fp32.
 template <typename T>
 __global__ void __launch_bounds__(WG_THREADS, 2)
     thin_wgrad(const T* __restrict__ x, const T* __restrict__ dy,
                float* __restrict__ part, int cin, int h, int wd, int cout,
-               int tiles, int per, bool vec) {
+               int tiles, bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr bool kTensorCores = Bf16<T>::value;
   const int ks = kstride<T>(cin), cs = xstride<T>(cin), kp = 9 * ks;
@@ -360,8 +356,7 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
     }
   }
 
-  const int t1 = min(tiles, (blockIdx.x + 1) * per);
-  for (int t = blockIdx.x * per; t < t1; ++t) {
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const Tile p = tile_at(t, h, wd);
     stage_x(x, xs, p, cin, h, wd, cs);
     // dy of the tile, zero outside the image and past cout
@@ -495,51 +490,72 @@ inline int tiles_of(int n, int h, int wd) {
   return n * ((h + TH - 1) / TH) * ((wd + TW - 1) / TW);
 }
 
-// tiles per block for a grid of about `target` blocks
-inline int per_block(int tiles, int target) {
-  return (tiles + target - 1) / target;
+// The persistent grid: as many blocks as the current device holds at once
+// (the occupancy query for the kernel, dtype and Cin, times the SM count;
+// cached per device and Cin), shared by the Cout blocks and capped at the
+// tile count. Each block walks the tiles with the grid's stride. *per_sm,
+// if given, receives the blocks one SM holds.
+constexpr int MAX_DEVICES = 64;
+template <typename K>
+dim3 persistent_grid(K kernel, int threads, size_t smem, size_t smem_max,
+                     int (&cache)[MAX_DEVICES], int tiles, int cout,
+                     int* per_sm) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  if (dev >= MAX_DEVICES) dev = MAX_DEVICES - 1;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (cache[dev] == 0) {
+    // the largest Cin's shared memory, so a launch at any Cin is allowed
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_max);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&cache[dev], kernel,
+                                                  threads, smem);
+  }
+  if (per_sm) *per_sm = cache[dev];
+  const int cblks = (cout + BN - 1) / BN;
+  return dim3(min(tiles, max(1, cache[dev] * sms / cblks)), cblks);
+}
+
+template <typename T>
+dim3 fwd_grid(int n, int cin, int h, int wd, int cout, int* per_sm = nullptr) {
+  static int cache[MAX_CIN + 1][MAX_DEVICES];
+  return persistent_grid(thin_fwd<T>, FWD_THREADS, fwd_smem<T>(cin),
+                         fwd_smem<T>(MAX_CIN), cache[cin], tiles_of(n, h, wd),
+                         cout, per_sm);
+}
+
+template <typename T>
+dim3 wgrad_grid(int n, int cin, int h, int wd, int cout,
+                int* per_sm = nullptr) {
+  static int cache[MAX_CIN + 1][MAX_DEVICES];
+  return persistent_grid(thin_wgrad<T>, WG_THREADS, wgrad_smem<T>(cin),
+                         wgrad_smem<T>(MAX_CIN), cache[cin],
+                         tiles_of(n, h, wd), cout, per_sm);
 }
 
 template <typename T>
 int run_fwd(const void* x, const void* w, void* y, int n, int cin, int h,
             int wd, int cout, cudaStream_t st) {
-  const int tiles = tiles_of(n, h, wd), cblks = (cout + BN - 1) / BN;
-  const int per = per_block(tiles, max(1, FWD_TARGET / cblks));
-  const size_t smem = fwd_smem<T>(cin);
-  cudaFuncSetAttribute(thin_fwd<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const dim3 grid((tiles + per - 1) / per, cblks);
-  thin_fwd<T><<<grid, FWD_THREADS, smem, st>>>(
+  const dim3 grid = fwd_grid<T>(n, cin, h, wd, cout);
+  thin_fwd<T><<<grid, FWD_THREADS, fwd_smem<T>(cin), st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      cin, h, wd, cout, tiles, per);
+      cin, h, wd, cout, tiles_of(n, h, wd));
   return static_cast<int>(cudaGetLastError());
-}
-
-inline int wgrad_per(int n, int h, int wd, int cout) {
-  const int cblks = (cout + BN - 1) / BN;
-  return per_block(tiles_of(n, h, wd), max(1, WG_TARGET / cblks));
 }
 
 template <typename T>
 int run_wgrad(const void* x, const void* dy, void* part, void* dw, int n,
               int cin, int h, int wd, int cout, cudaStream_t st) {
-  const int tiles = tiles_of(n, h, wd), cblks = (cout + BN - 1) / BN;
-  const int per = wgrad_per(n, h, wd, cout);
-  const int nblk = (tiles + per - 1) / per;
-  const size_t smem = wgrad_smem<T>(cin);
-  cudaFuncSetAttribute(thin_wgrad<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  thin_wgrad<T><<<dim3(nblk, cblks), WG_THREADS, smem, st>>>(
+  const dim3 grid = wgrad_grid<T>(n, cin, h, wd, cout);
+  thin_wgrad<T><<<grid, WG_THREADS, wgrad_smem<T>(cin), st>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy),
-      static_cast<float*>(part), cin, h, wd, cout, tiles, per,
+      static_cast<float*>(part), cin, h, wd, cout, tiles_of(n, h, wd),
       // 16-byte dy loads: every 8-pixel run of a row is aligned and whole
       wd % 8 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0);
   const long outs = (long)cout * 9 * kstride<T>(cin);
   thin_wgrad_reduce<<<(outs + 31) / 32, dim3(32, RED_ROWS), 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(dw), nblk, cblks,
-      cin, cout, kstride<T>(cin));
+      static_cast<const float*>(part), static_cast<float*>(dw), grid.x,
+      grid.y, cin, cout, kstride<T>(cin));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -569,10 +585,24 @@ extern "C" long pgt_thin_conv_wgrad_scratch(int n, int cin, int h, int wd,
                                             int cout, int bf16) {
   using namespace pgt::thin;
   if (!valid(n, cin, h, wd, cout)) return 0;
-  const int per = wgrad_per(n, h, wd, cout), cblks = (cout + BN - 1) / BN;
-  const long nblk = (tiles_of(n, h, wd) + per - 1) / per;
+  const dim3 g = bf16 ? wgrad_grid<__nv_bfloat16>(n, cin, h, wd, cout)
+                      : wgrad_grid<float>(n, cin, h, wd, cout);
   const int ks = bf16 ? kstride<__nv_bfloat16>(cin) : kstride<float>(cin);
-  return nblk * cblks * BN * 9 * ks;
+  return (long)g.x * g.y * BN * 9 * ks;
+}
+
+// Blocks along the tiles of the forward (wgrad == 0) or the weight
+// gradient on the current device, as the launches take them; *per_sm
+// receives the blocks one SM holds.
+extern "C" int pgt_thin_conv_grid(int n, int cin, int h, int wd, int cout,
+                                  int bf16, int wgrad, int* per_sm) {
+  using namespace pgt::thin;
+  if (!valid(n, cin, h, wd, cout)) return 0;
+  if (wgrad)
+    return bf16 ? wgrad_grid<__nv_bfloat16>(n, cin, h, wd, cout, per_sm).x
+                : wgrad_grid<float>(n, cin, h, wd, cout, per_sm).x;
+  return bf16 ? fwd_grid<__nv_bfloat16>(n, cin, h, wd, cout, per_sm).x
+              : fwd_grid<float>(n, cin, h, wd, cout, per_sm).x;
 }
 
 // x [N, Cin, H, W] and dy [N, Cout, H, W], both bf16 or both fp32; dw
