@@ -28,11 +28,19 @@ Run from the root of the repository. In order:
    inference chunk (12 -> 64 channels on the 128 x 128 s2d grid), the
    batch-16 step's enc0 / discriminator conv0 image part (12 -> 64) and
    mask part (28 -> 64), the merged 32-sample validation discriminator,
-   and a ragged case (4 -> 28 channels on 40 x 70, a width that is no
-   multiple of the 64-wide tile or of 8, so the bf16 K4-wgrad stages dy
-   element by element in place of its 16-byte loads). K4 tolerances as K2's;
-   K4-wgrad (fp32 output) 1e-3 max(1, max |dw|) in both dtypes. Library
-   yardsticks F.conv2d and torch.nn.grad.conv2d_weight in bf16;
+   and four cases checked only: a ragged one (4 -> 28 channels on 40 x
+   70, a width that is no multiple of the 64-wide tile or of 8, so both
+   kernels stage x and dy element by element and K4 stores its output so),
+   an aligned partial one (20 -> 40 on 24 x 72: a width that is a multiple
+   of 8 but not of 64, so the 16-byte staging runs with chunks past the
+   image; a half-empty 8-channel group; Cout under one block), one with
+   fewer tiles than the persistent grid (12 -> 64 on 6 x 8) and the
+   widest input (32 -> 64 on 16 x 64). K4 tolerances as K2's; K4-wgrad
+   (fp32 output) 1e-3 max(1, max |dw|) in both dtypes; K4's weight pack
+   kernel exactly equal to ``pack_thin_weight_plain`` at every case, in
+   both dtypes. Each timed row carries the grid (blocks along the tiles)
+   and the blocks an SM holds. Library yardsticks F.conv2d and
+   torch.nn.grad.conv2d_weight in bf16;
 3. the inference path: ``patchgan_infer -d cuda`` (bf16) with a random
    nf=64 3 -> 7-class generator on four images (1280x960, 640x480,
    256x256, 200x150), checking each mask's shape and labels, and that
@@ -293,20 +301,29 @@ def kernel_phase(torch, F, kernels):
 
 def thin_conv_phase(torch, F, k4, k4w):
     """K4 and K4-wgrad against their plain versions at the s2d paths'
-    shapes, bf16 and fp32; timing rows go to ``k4.rows`` / ``k4w.rows``
-    with ``calls``, the number of calls per train step at that shape
-    (0: the inference chunk and the merged validation discriminator,
-    where K4-wgrad is checked but not timed)."""
+    shapes, bf16 and fp32, and K4's weight pack against its plain
+    layout; timing rows go to ``k4.rows`` / ``k4w.rows`` with ``calls``,
+    the number of calls per train step at that shape (0: the inference
+    chunk and the merged validation discriminator, where K4-wgrad is
+    checked but not timed)."""
+    from patchgan_tpu_torch.ops.kernels import (pack_thin_weight,
+                                                pack_thin_weight_plain)
+    from patchgan_tpu_torch.ops.kernels.thin_conv import thin_conv_grid
     gen = torch.Generator(device='cuda').manual_seed(9)
     hw = SIZE // 2
-    # (label, N, Cin, H, W, Cout, K4 calls per step, K4-wgrad calls)
-    cases = [('enc0 infer chunk', B, 4 * IN_C, hw, hw, NF, 0, 0),
-             ('enc0 / D conv0 image', TRAIN_B, 4 * IN_C, hw, hw, NF, 3, 2),
-             ('D conv0 mask', TRAIN_B, 4 * OUT_C, hw, hw, NDF, 3, 2),
-             ('val D image', 2 * TRAIN_B, 4 * IN_C, hw, hw, NDF, 0, 0),
-             ('val D mask', 2 * TRAIN_B, 4 * OUT_C, hw, hw, NDF, 0, 0),
-             ('ragged', 3, 4, 40, 70, 28, 0, 0)]
-    for label, n, cin, h, wd, cout, fcalls, wcalls in cases:
+    # (label, N, Cin, H, W, Cout, K4 calls per step, K4-wgrad calls,
+    # timed)
+    cases = [('enc0 infer chunk', B, 4 * IN_C, hw, hw, NF, 0, 0, True),
+             ('enc0 / D conv0 image', TRAIN_B, 4 * IN_C, hw, hw, NF, 3, 2,
+              True),
+             ('D conv0 mask', TRAIN_B, 4 * OUT_C, hw, hw, NDF, 3, 2, True),
+             ('val D image', 2 * TRAIN_B, 4 * IN_C, hw, hw, NDF, 0, 0, True),
+             ('val D mask', 2 * TRAIN_B, 4 * OUT_C, hw, hw, NDF, 0, 0, True),
+             ('ragged', 3, 4, 40, 70, 28, 0, 0, False),
+             ('aligned partial', 2, 20, 24, 72, 40, 0, 0, False),
+             ('few tiles', 1, 12, 6, 8, 64, 0, 0, False),
+             ('max Cin', 4, 32, 16, 64, 64, 0, 0, False)]
+    for label, n, cin, h, wd, cout, fcalls, wcalls, timed in cases:
         label = f'{label} ({n}, {cin}, {h}, {wd}) -> {cout}'
         x = torch.randn(n, cin, h, wd, generator=gen, device='cuda')
         # O(1) outputs, as the layers' xavier weights give
@@ -317,6 +334,9 @@ def thin_conv_phase(torch, F, k4, k4w):
         for dname, dt in (('bfloat16', torch.bfloat16),
                           ('float32', torch.float32)):
             xd, wd_, dyd = x.to(dt), w.to(dt), dy.to(dt)
+            if not torch.equal(pack_thin_weight(wd_),
+                               pack_thin_weight_plain(wd_, dt)):
+                raise AssertionError(f'K4 pack {label} {dname} differs')
             got = k4.wrapper(xd, wd_).float()
             want = k4.plain(xd.float(), wd_.float())
             got_w = k4w.wrapper(xd, dyd)
@@ -327,11 +347,11 @@ def thin_conv_phase(torch, F, k4, k4w):
             tol_w = 1e-3 * max(1.0, want_w.abs().max().item())
             print(f'  {k4.name} {label} {dname}: max_abs_err {e:.3e} (tol '
                   f'{TOL[dname]:.0e}); {k4w.name}: {ew:.3e} (tol '
-                  f'{tol_w:.3e})', flush=True)
+                  f'{tol_w:.3e}); pack equal', flush=True)
             if not (e <= TOL[dname] and ew <= tol_w):
                 raise AssertionError(f'thin conv {label} {dname}: {e}, {ew}')
             errs[dname] = (e, ew)
-        if label.startswith('ragged'):
+        if not timed:
             continue
         xb, wb, dyb = x.bfloat16(), w.bfloat16(), dy.bfloat16()
         flops = 2 * n * h * wd * 9 * cin * cout
@@ -349,8 +369,10 @@ def thin_conv_phase(torch, F, k4, k4w):
             if k is k4w and not calls:
                 continue   # no backward at this shape on any path
             b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
+            grid, per_sm = thin_conv_grid(xb, cout, wgrad=k is k4w)
             row = {'kernel': k.name, 'case': label, 'dtype': 'bfloat16',
-                   'calls': calls, 'kernel_ms': cuda_ms(fn),
+                   'calls': calls, 'grid': grid, 'blocks_per_sm': per_sm,
+                   'kernel_ms': cuda_ms(fn),
                    'plain_ms': cuda_ms(plain), 'library_ms': cuda_ms(lib),
                    'bound_ms': b_ms, 'bound_by': b_by,
                    'max_abs_err_bf16': errs['bfloat16'][i],

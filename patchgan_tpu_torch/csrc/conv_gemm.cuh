@@ -71,21 +71,6 @@ struct Pair<__nv_bfloat16> {
 template <typename T>
 using pair_t = typename Pair<T>::type;
 
-// 16-byte global -> shared copy that bypasses L1; it writes zeros
-// without reading when `valid` is false
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // K split of a product with `tiles` output tiles: double it while the
 // grid is below TARGET_BLOCKS and every split keeps >= 8 K steps.
 inline int choose_splits(long tiles, int K) {

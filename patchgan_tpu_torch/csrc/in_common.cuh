@@ -1,8 +1,8 @@
-// Shared device code of the instance-norm kernels: dtype conversion, the
-// activation table, a fixed-order block reduction, and the finishing pass
-// (statistics -> normalise -> activate -> store) that the plain IN+act
-// kernel (norm_act.cu) runs after its own statistics pass and the two
-// fused conv kernels run from per-tile partial statistics.
+// Shared device code of the kernels: dtype conversion, 16-byte cp.async
+// copies, the activation table, a fixed-order block reduction, and the
+// finishing pass (statistics -> normalise -> activate -> store) that the
+// plain IN+act kernel (norm_act.cu) runs after its own statistics pass and
+// the two fused conv kernels run from per-tile partial statistics.
 //
 // Statistics follow the JAX package's formula exactly: fp32 sums,
 // mean = s / n, var = ss / n - mean^2, rstd = rsqrt(var + eps). Every
@@ -14,6 +14,21 @@
 #include <cuda_runtime.h>
 
 namespace pgt {
+
+// 16-byte global -> shared copy that bypasses L1; it writes zeros
+// without reading when `valid` is false
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 enum Act { ACT_NONE = 0, ACT_TANH = 1, ACT_RELU = 2, ACT_LEAKY = 3 };
 

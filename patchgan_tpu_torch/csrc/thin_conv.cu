@@ -24,16 +24,28 @@
 // - bf16 runs on the tensor cores through WMMA 16x16x16 with fp32
 //   accumulation, Cin zero-padded to 16 per tap; fp32 runs on plain FMAs
 //   (no TF32), as the JAX reference keeps full fp32 products;
-// - the forward stages the block's [9 Cin, 64] weight once and walks
-//   several tiles with it;
+// - both kernels run a persistent grid, as many blocks as the card holds
+//   at once, each walking the tiles with the grid's stride, so no partial
+//   second wave runs;
+// - bf16 staging of x goes through registers: where W % 8 == 0 a thread
+//   loads a run of pixels of each of 8 channels as vectors, transposes
+//   them with byte permutes and stores 16-byte channel-innermost vectors
+//   (channel-innermost 2-byte stores would conflict 8-16 ways); the halo
+//   columns, and every column at other widths, load element by element.
+//   The next tile's loads are issued before the current tile's MMAs and
+//   stored after them: one barrier pair a tile;
+// - the forward's weight is packed once a call by a small kernel into the
+//   block's shared-memory layout (zero past Cin and Cout), which each
+//   block copies once with 16-byte cp.async; its bf16 epilogue writes 8
+//   pixels of a channel as one 16-byte store where W % 8 == 0;
 // - the wgrad is a reduction over N * H * W pixels into a tiny output. A
 //   block cannot carry a sum across the grid as the TPU's sequential grid
-//   does, so each block sums the tiles of its share into an fp32 partial
+//   does, so each block sums the tiles it walks into an fp32 partial
 //   [64, 9 Cin] in registers and stores it; a second pass adds the
-//   partials in a fixed order. No atomics: runs are bit-reproducible, as
-//   the instance-norm statistics are (in_common.cuh);
-// - bf16 staging moves 8 channels of a position per 16-byte shared store:
-//   channel-innermost 2-byte stores would conflict 8-16 ways.
+//   partials in a fixed order. No atomics: runs are bit-reproducible on a
+//   given card, as the instance-norm statistics are (in_common.cuh). Its
+//   bf16 dy tile (64-pixel rows) is copied by 16-byte cp.async into the
+//   other of two stages while the MMAs run.
 #include <mma.h>
 
 #include <cstdint>
@@ -46,10 +58,10 @@ namespace thin {
 
 constexpr int TH = 2, TW = 64;             // output tile: rows x columns
 constexpr int TM = TH * TW;                // output pixels of a tile
-constexpr int HALO = (TH + 2) * (TW + 2);  // staged input positions
+constexpr int RW = TW + 2;                 // staged positions of a row
+constexpr int HALO = (TH + 2) * RW;        // staged input positions
 constexpr int BN = 64;                     // output channels of a block
 constexpr int LDW = BN + 8;                // bf16 weight row stride
-constexpr int LDC = TM + 4;                // fp32 epilogue stride
 constexpr int LDD = TM + 8;                // bf16 dy row stride (wgrad)
 constexpr int LDF = BN + 4;                // fp32 dy row stride (wgrad)
 constexpr int FWD_THREADS = 128, WG_THREADS = 256;
@@ -61,10 +73,20 @@ struct Bf16 {
   static constexpr bool value = std::is_same<T, __nv_bfloat16>::value;
 };
 
-// weight rows per tap: bf16 pads Cin to the WMMA depth
+// wgrad partial columns per tap: bf16 pads Cin to the WMMA depth
 template <typename T>
 __host__ __device__ inline int kstride(int cin) {
   return Bf16<T>::value ? (cin + 15) / 16 * 16 : cin;
+}
+
+// rows per tap of the forward's packed weight, in both dtypes
+__host__ __device__ inline int wrows(int cin) { return (cin + 15) / 16 * 16; }
+
+// row stride of the forward's packed weight: bf16 pads 8 channels, so
+// neighbouring WMMA rows start on other banks
+template <typename T>
+__host__ __device__ constexpr int wld() {
+  return Bf16<T>::value ? LDW : BN;
 }
 
 // channel stride of a staged input position: the WMMA depth for bf16;
@@ -119,100 +141,199 @@ __device__ __forceinline__ void fill(int total, Load load, Store store) {
   }
 }
 
-// Haloed input of a tile at xoff(position, ci), position = row * (TW + 2)
-// + column from (row0 - 1, col0 - 1); channels from cin to cs are zero.
-template <typename T>
-__device__ void stage_x(const T* __restrict__ x, T* xs, const Tile& p,
-                        int cin, int h, int wd, int cs) {
+// fp32: the haloed input of a tile at xoff(position, ci), position = row *
+// RW + column from (row0 - 1, col0 - 1); channels from cin to cs are zero.
+__device__ void stage_x_fp32(const float* __restrict__ x, float* xs,
+                             const Tile& p, int cin, int h, int wd, int cs) {
   const long plane = (long)h * wd;
-  // global offset of channel ci at position pos, or -1 outside the image
-  auto at = [&](int ci, int pos) -> long {
-    const int rr = pos / (TW + 2), cc = pos - rr * (TW + 2);
-    const int gy = p.row0 + rr - 1, gx = p.col0 + cc - 1;
-    if (ci >= cin || gy < 0 || gy >= h || gx < 0 || gx >= wd) return -1;
-    return ((long)p.n * cin + ci) * plane + (long)gy * wd + gx;
-  };
-  if constexpr (Bf16<T>::value) {
-    // a task moves 8 channels of one position: eight loads, each
-    // coalesced over the warp's neighbouring positions, and one 16-byte
-    // store (2-byte stores at the cs stride conflict 8-16 ways)
-    fill<4, uint4>(
-        cs / 8 * HALO,
-        [&](int i) {
-          const int g = i / HALO, pos = i - g * HALO;
-          unsigned b[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const long o = at(8 * g + j, pos);
-            b[j] = o < 0 ? 0u : __bfloat16_as_ushort(x[o]);
-          }
-          return make_uint4(b[0] | b[1] << 16, b[2] | b[3] << 16,
-                            b[4] | b[5] << 16, b[6] | b[7] << 16);
-        },
-        [&](int i, uint4 v) {
-          const int g = i / HALO, pos = i - g * HALO;
-          *reinterpret_cast<uint4*>(xs + xoff<T>(pos, 8 * g, cs)) = v;
-        });
-  } else {
-    fill<8, T>(
-        cs * HALO,
-        [&](int i) {
-          const long o = at(i / HALO, i % HALO);
-          return o < 0 ? from_f32<T>(0.f) : x[o];
-        },
-        [&](int i, T v) { xs[xoff<T>(i % HALO, i / HALO, cs)] = v; });
-  }
+  fill<8, float>(
+      cs * HALO,
+      [&](int i) {
+        const int ci = i / HALO, pos = i - ci * HALO;
+        const int rr = pos / RW, cc = pos - rr * RW;
+        const int gy = p.row0 + rr - 1, gx = p.col0 + cc - 1;
+        if (ci >= cin || gy < 0 || gy >= h || gx < 0 || gx >= wd) return 0.f;
+        return x[((long)p.n * cin + ci) * plane + (long)gy * wd + gx];
+      },
+      [&](int i, float v) { xs[xoff<float>(i % HALO, i / HALO, cs)] = v; });
 }
 
+// 32-bit word i of a register vector
+template <typename V>
+__device__ __forceinline__ unsigned& word(V& v, int i) {
+  return reinterpret_cast<unsigned*>(&v)[i];
+}
+template <typename V>
+__device__ __forceinline__ unsigned word(const V& v, int i) {
+  return reinterpret_cast<const unsigned*>(&v)[i];
+}
+
+// bf16: the haloed input of a tile, staged through registers, so that the
+// next tile's loads fly while the current one is computed (load(), then
+// store() after the MMAs). The cs / 8 groups of 8 channels split into
+// tasks, at most one of each kind a thread:
+// - interior: PIX pixels of one staged row (columns col0 + PIX k ...) in
+//   8 channels, one PIX-element load per channel (a vector where `vec`:
+//   W % 8 == 0 and x 16-byte aligned, so a run is aligned and wholly in
+//   or out of the image; else element by element), transposed by byte
+//   permutes into PIX 16-byte channel-innermost stores;
+// - edge: the halo column col0 - 1 or col0 + TW of one row in 8 channels,
+//   eight 2-byte loads and one 16-byte store.
+// Rows vary fastest over the threads, then the 8-channel half of a slab,
+// so 8 neighbouring threads store to 4 distinct 32-byte position phases
+// in both halves: 2-way conflicts.
+template <int PIX, int THREADS>
+struct XStager {
+  using Vec = typename std::conditional<PIX == 8, uint4, uint2>::type;
+  static constexpr int CHUNKS = TW / PIX;
+  Vec v[8];  // v[c]: PIX pixels of channel 8 g + c
+  uint4 e;   // the edge task's 8 channels
+  int rr, g, k, er, eg, ecol;
+  bool interior, edge;
+
+  __device__ __forceinline__ XStager(int tid, int cs) {
+    const int groups = cs / 8;
+    interior = tid < (TH + 2) * CHUNKS * groups;
+    rr = tid & 3;
+    k = (tid >> 3) % CHUNKS;
+    g = (tid >> 3) / CHUNKS * 2 + ((tid >> 2) & 1);
+    const int et = tid - (THREADS - (TH + 2) * 2 * groups);
+    edge = et >= 0;
+    er = et & 3;
+    ecol = (et >> 2) & 1 ? RW - 1 : 0;  // staged column
+    eg = et >> 3;
+  }
+
+  __device__ __forceinline__ void load(const __nv_bfloat16* __restrict__ x,
+                                       const Tile& p, int cin, int h, int wd,
+                                       bool vec) {
+    const long plane = (long)h * wd;
+    const unsigned short* xb = reinterpret_cast<const unsigned short*>(x);
+    if (interior) {
+      const int gy = p.row0 + rr - 1, gx = p.col0 + PIX * k;
+      const bool row = gy >= 0 && gy < h && gx < wd;
+      const unsigned short* src = xb + ((long)p.n * cin + 8 * g) * plane +
+                                  (row ? (long)gy * wd + gx : 0);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const bool ok = row && 8 * g + c < cin;
+        if (vec) {
+          v[c] = ok ? *reinterpret_cast<const Vec*>(src + c * plane) : Vec{};
+        } else {
+#pragma unroll
+          for (int q = 0; q < PIX / 2; ++q) {
+            const unsigned lo =
+                ok && gx + 2 * q < wd ? src[c * plane + 2 * q] : 0u;
+            const unsigned hi =
+                ok && gx + 2 * q + 1 < wd ? src[c * plane + 2 * q + 1] : 0u;
+            word(v[c], q) = lo | hi << 16;
+          }
+        }
+      }
+    }
+    if (edge) {
+      const int gy = p.row0 + er - 1, gx = p.col0 + ecol - 1;
+      const bool ok = gy >= 0 && gy < h && gx >= 0 && gx < wd;
+      const unsigned short* src = xb + ((long)p.n * cin + 8 * eg) * plane +
+                                  (ok ? (long)gy * wd + gx : 0);
+      unsigned b[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        b[c] = ok && 8 * eg + c < cin ? src[c * plane] : 0u;
+      e = make_uint4(b[0] | b[1] << 16, b[2] | b[3] << 16, b[4] | b[5] << 16,
+                     b[6] | b[7] << 16);
+    }
+  }
+
+  __device__ __forceinline__ void store(__nv_bfloat16* xs, int cs) const {
+    if (interior) {
+      __nv_bfloat16* dst =
+          xs + xoff<__nv_bfloat16>(rr * RW + 1 + PIX * k, 8 * g, cs);
+#pragma unroll
+      for (int q = 0; q < PIX; ++q) {
+        // pixel q of channels 2j (low half) and 2j + 1 (high half)
+        const unsigned sel = q & 1 ? 0x7632 : 0x5410;
+        *reinterpret_cast<uint4*>(dst + 16 * q) = make_uint4(
+            __byte_perm(word(v[0], q >> 1), word(v[1], q >> 1), sel),
+            __byte_perm(word(v[2], q >> 1), word(v[3], q >> 1), sel),
+            __byte_perm(word(v[4], q >> 1), word(v[5], q >> 1), sel),
+            __byte_perm(word(v[6], q >> 1), word(v[7], q >> 1), sel));
+      }
+    }
+    if (edge)
+      *reinterpret_cast<uint4*>(
+          xs + xoff<__nv_bfloat16>(er * RW + ecol, 8 * eg, cs)) = e;
+  }
+};
+
+// Forward: the packed weight, the staged input tile and (bf16) one 16 x 16
+// fp32 epilogue tile a warp.
 template <typename T>
 size_t fwd_smem(int cin) {
-  const size_t ws = (size_t)9 * kstride<T>(cin) *
-                    (Bf16<T>::value ? LDW : BN) * sizeof(T);
+  const size_t ws = (size_t)9 * wrows(cin) * wld<T>() * sizeof(T);
   const size_t xs = (size_t)HALO * xstride<T>(cin) * sizeof(T);
-  // bf16: the fp32 epilogue reuses the input tile's space
-  const size_t cst = Bf16<T>::value ? (size_t)BN * LDC * sizeof(float) : 0;
-  return ws + (xs > cst ? xs : cst);
+  const size_t ep =
+      Bf16<T>::value ? (size_t)FWD_THREADS / 32 * 256 * sizeof(float) : 0;
+  return ws + xs + ep;
+}
+
+// wp[((cb * 9 + tap) * wrows(cin) + ci) * wld + c] = w[cb * BN + c, ci,
+// tap], zero where ci >= cin, c >= BN or cb * BN + c >= cout: the layout
+// that Cout block cb copies into shared memory as it is.
+template <typename T>
+__global__ void pack_thin_weight(const T* __restrict__ w, T* __restrict__ wp,
+                                 int cin, int cout, int total) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int ks = wrows(cin), c = i % wld<T>(), r = i / wld<T>();
+  const int ci = r % ks, tap = r / ks % 9, co = r / ks / 9 * BN + c;
+  wp[i] = c < BN && co < cout && ci < cin ? w[((long)co * cin + ci) * 9 + tap]
+                                          : from_f32<T>(0.f);
 }
 
 // y[n, co, p] = sum_(r, s, ci) w[co, ci, r, s] x[n, ci, p + (r - 1, s - 1)]
 // for the 64 output channels of blockIdx.y, over tiles blockIdx.x,
-// blockIdx.x + gridDim.x, ...
+// blockIdx.x + gridDim.x, ... (vec: W % 8 == 0 and x, y 16-byte aligned)
 template <typename T>
 __global__ void __launch_bounds__(FWD_THREADS)
-    thin_fwd(const T* __restrict__ x, const T* __restrict__ w,
-             T* __restrict__ y, int cin, int h, int wd, int cout,
-             int tiles) {
+    thin_fwd(const T* __restrict__ x, const T* __restrict__ wp,
+             T* __restrict__ y, int cin, int h, int wd, int cout, int tiles,
+             bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr bool kTensorCores = Bf16<T>::value;
-  const int ks = kstride<T>(cin), cs = xstride<T>(cin);
-  const int ldw = kTensorCores ? LDW : BN;
+  const int ks = wrows(cin), cs = xstride<T>(cin), wsize = 9 * ks * wld<T>();
   T* ws = reinterpret_cast<T*>(smem);
-  T* xs = ws + 9 * ks * ldw;
+  T* xs = ws + wsize;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int co0 = blockIdx.y * BN;
 
-  // the block's weights, ws[(tap * ks + ci) * ldw + co], zero past cin
-  // and cout: zeros first, then the weight read in its own (co, ci, tap)
-  // order, so a warp's loads are contiguous
-  for (int i = tid; i < 9 * ks * ldw; i += blockDim.x)
-    ws[i] = from_f32<T>(0.f);
-  __syncthreads();
-  fill<8, T>(
-      min(BN, cout - co0) * 9 * cin,
-      [&](int i) { return w[(long)co0 * cin * 9 + i]; },
-      [&](int i, T v) {
-        const int c = i / (9 * cin), r = i - c * 9 * cin;
-        ws[(r % 9 * ks + r / 9) * ldw + c] = v;
-      });
+  // the block's packed weight, once: a contiguous slab of 16-byte chunks
+  {
+    const char* src =
+        reinterpret_cast<const char*>(wp + (long)blockIdx.y * wsize);
+    char* dst = reinterpret_cast<char*>(ws);
+    for (int i = tid; i < wsize * (int)sizeof(T) / 16; i += FWD_THREADS)
+      cp_async16(dst + 16 * i, src + 16 * i, true);
+    cp_async_commit();
+  }
 
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const Tile p = tile_at(t, h, wd);
-    stage_x(x, xs, p, cin, h, wd, cs);
+  if constexpr (Bf16<T>::value) {
+    using namespace nvcuda;
+    float* ep = reinterpret_cast<float*>(xs + HALO * cs) + warp * 256;
+    XStager<8, FWD_THREADS> st(tid, cs);
+    int t = blockIdx.x;
+    if (t < tiles) {
+      st.load(x, tile_at(t, h, wd), cin, h, wd, vec);
+      st.store(xs, cs);
+    }
+    cp_async_wait_all();
     __syncthreads();
-    if constexpr (kTensorCores) {
-      // warp: output row (warp >> 1) of the tile, 32 columns, 64 channels
-      using namespace nvcuda;
-      const int rowl = warp >> 1, cb = (warp & 1) * 32;
+    // warp: output row (warp >> 1) of the tile, 32 columns, 64 channels
+    const int rowl = warp >> 1, cb = (warp & 1) * 32;
+    for (; t < tiles; t += gridDim.x) {
+      const Tile p = tile_at(t, h, wd);
+      const bool more = t + gridDim.x < tiles;
+      // the next tile's loads fly during this tile's MMAs
+      if (more) st.load(x, tile_at(t + gridDim.x, h, wd), cin, h, wd, vec);
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -230,8 +351,7 @@ __global__ void __launch_bounds__(FWD_THREADS)
 #pragma unroll
           for (int i = 0; i < 2; ++i)
             wmma::load_matrix_sync(
-                a[i],
-                xs + xoff<T>((rowl + r) * (TW + 2) + cb + 16 * i + s, c0, cs),
+                a[i], xs + xoff<T>((rowl + r) * RW + cb + 16 * i + s, c0, cs),
                 16);
 #pragma unroll
           for (int j = 0; j < 4; ++j)
@@ -244,23 +364,50 @@ __global__ void __launch_bounds__(FWD_THREADS)
               wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
         }
       }
-      __syncthreads();  // every warp is done with xs, which cs reuses
-      float* cst = reinterpret_cast<float*>(xs);  // cst[co * LDC + pixel]
+      // epilogue, each warp on its own: a 16 x 16 result goes through the
+      // warp's ep[co * 16 + pixel], then lane (co, half) writes 8 pixels
+      // of one channel
+      const int cl = lane >> 1, hf = lane & 1, gy = p.row0 + rowl;
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::store_matrix_sync(cst + 16 * j * LDC + rowl * TW + cb + 16 * i,
-                                  acc[i][j], LDC, wmma::mem_col_major);
+        for (int j = 0; j < 4; ++j) {
+          wmma::store_matrix_sync(ep, acc[i][j], 16, wmma::mem_col_major);
+          __syncwarp();
+          const float4 lo =
+              *reinterpret_cast<const float4*>(ep + cl * 16 + 8 * hf);
+          const float4 hi =
+              *reinterpret_cast<const float4*>(ep + cl * 16 + 8 * hf + 4);
+          __syncwarp();
+          const int co = co0 + 16 * j + cl;
+          const int gx = p.col0 + cb + 16 * i + 8 * hf;
+          if (co < cout && gy < h && gx < wd) {
+            T* dst = y + (((long)p.n * cout + co) * h + gy) * wd + gx;
+            const __nv_bfloat162 o[4] = {__floats2bfloat162_rn(lo.x, lo.y),
+                                         __floats2bfloat162_rn(lo.z, lo.w),
+                                         __floats2bfloat162_rn(hi.x, hi.y),
+                                         __floats2bfloat162_rn(hi.z, hi.w)};
+            if (vec) {
+              *reinterpret_cast<uint4*>(dst) = make_uint4(
+                  word(o[0], 0), word(o[1], 0), word(o[2], 0), word(o[3], 0));
+            } else {
+#pragma unroll
+              for (int q = 0; q < 8; ++q)
+                if (gx + q < wd) dst[q] = q & 1 ? o[q >> 1].y : o[q >> 1].x;
+            }
+          }
+        }
+      __syncthreads();  // every warp is done with xs
+      if (more) st.store(xs, cs);
+      __syncthreads();  // the next tile is staged
+    }
+  } else {
+    cp_async_wait_all();
+    __syncthreads();
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const Tile p = tile_at(t, h, wd);
+      stage_x_fp32(x, xs, p, cin, h, wd, cs);
       __syncthreads();
-      for (int idx = tid; idx < BN * TM; idx += blockDim.x) {
-        const int c = idx / TM, m = idx - c * TM;
-        const int gy = p.row0 + m / TW, gx = p.col0 + m % TW, co = co0 + c;
-        if (gy < h && gx < wd && co < cout)
-          y[(((long)p.n * cout + co) * h + gy) * wd + gx] =
-              from_f32<T>(cst[c * LDC + m]);
-      }
-    } else {
       // thread: pixels lane + 32 i of the tile, channels warp * 16 + j
       float acc[4][16];
 #pragma unroll
@@ -271,18 +418,18 @@ __global__ void __launch_bounds__(FWD_THREADS)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int m = lane + 32 * i;
-        base[i] = ((m / TW) * (TW + 2) + m % TW) * cs;
+        base[i] = ((m / TW) * RW + m % TW) * cs;
       }
       for (int tap = 0; tap < 9; ++tap) {
-        const int toff = (tap / 3 * (TW + 2) + tap % 3) * cs;
+        const int toff = (tap / 3 * RW + tap % 3) * cs;
         for (int ci = 0; ci < cin; ++ci) {
           float a[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = to_f32(xs[base[i] + toff + ci]);
-          const T* wr = ws + (tap * ks + ci) * BN + warp * 16;
+          for (int i = 0; i < 4; ++i) a[i] = xs[base[i] + toff + ci];
+          const float* wr = ws + (tap * ks + ci) * BN + warp * 16;
 #pragma unroll
           for (int j = 0; j < 16; ++j) {
-            const float b = to_f32(wr[j]);
+            const float b = wr[j];
 #pragma unroll
             for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
           }
@@ -296,25 +443,26 @@ __global__ void __launch_bounds__(FWD_THREADS)
           const int m = lane + 32 * i;
           const int gy = p.row0 + m / TW, gx = p.col0 + m % TW;
           if (co < cout && gy < h && gx < wd)
-            y[(((long)p.n * cout + co) * h + gy) * wd + gx] =
-                from_f32<T>(acc[i][j]);
+            y[(((long)p.n * cout + co) * h + gy) * wd + gx] = acc[i][j];
         }
       }
+      __syncthreads();  // before the next tile restages xs
     }
-    __syncthreads();  // before the next tile restages xs
   }
 }
 
+// Wgrad: bf16, two dy stages and the staged input tile; fp32, one dy tile
+// (pixel-major fp32) and the input tile.
 template <typename T>
 size_t wgrad_smem(int cin) {
-  const size_t dys = Bf16<T>::value ? (size_t)BN * LDD * sizeof(T)
+  const size_t dys = Bf16<T>::value ? (size_t)2 * BN * LDD * sizeof(T)
                                     : (size_t)TM * LDF * sizeof(float);
   return dys + (size_t)HALO * xstride<T>(cin) * sizeof(T);
 }
 
 // Partial weight gradient of the 64 output channels of blockIdx.y over the
-// tiles blockIdx.x, blockIdx.x + gridDim.x, ... (vec: dy may be read 8
-// pixels at a time):
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ... (vec: W % 8 == 0 and x, dy
+// 16-byte aligned):
 //   part[blk][co][tap * ks + ci] = sum_pixels dy[n, co, p] x[n, ci, p + tap]
 // with blk = blockIdx.x * gridDim.y + blockIdx.y, fp32.
 template <typename T>
@@ -324,15 +472,26 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
                int tiles, bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr bool kTensorCores = Bf16<T>::value;
+  constexpr int DY_STAGE = BN * LDD;  // bf16 elements of a dy stage
   const int ks = kstride<T>(cin), cs = xstride<T>(cin), kp = 9 * ks;
   T* dys = reinterpret_cast<T*>(smem);
   T* xs = reinterpret_cast<T*>(
-      smem + (kTensorCores ? BN * LDD * sizeof(T) : TM * LDF * sizeof(float)));
+      smem + (kTensorCores ? 2 * DY_STAGE * sizeof(T)
+                           : TM * LDF * sizeof(float)));
   float* dyf = reinterpret_cast<float*>(smem);  // fp32: dyf[m * LDF + co]
   const int tid = threadIdx.x, warp = tid >> 5;
   const int co0 = blockIdx.y * BN;
   float* out =
       part + ((long)blockIdx.x * gridDim.y + blockIdx.y) * BN * (long)kp;
+
+  // element i = (channel, pixel) of a tile's dy, or -1 outside the image
+  // and past cout
+  auto dy_at = [&](const Tile& p, int i) -> long {
+    const int c = i / TM, m = i - c * TM;
+    const int gy = p.row0 + m / TW, gx = p.col0 + m % TW, co = co0 + c;
+    if (gy >= h || gx >= wd || co >= cout) return -1;
+    return (((long)p.n * cout + co) * h + gy) * wd + gx;
+  };
 
   using namespace nvcuda;
   // bf16: warp owns channel rows 16 cf.. and every other 16-column block
@@ -346,62 +505,50 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
   if constexpr (kTensorCores) {
 #pragma unroll
     for (int q = 0; q < MAX_KF; ++q) wmma::fill_fragment(acc[q], 0.f);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 2 * MAX_KF; ++j) {
-      const int k = kg + 16 * j, tap = k / cin, ci = k - tap * cin;
-      off[j] = k < kdim ? (tap / 3 * (TW + 2) + tap % 3) * cs + ci : 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) accf[i][j] = 0.f;
-    }
-  }
-
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const Tile p = tile_at(t, h, wd);
-    stage_x(x, xs, p, cin, h, wd, cs);
-    // dy of the tile, zero outside the image and past cout
-    auto dy_at = [&](int i) -> long {   // element i = (channel, pixel)
-      const int c = i / TM, m = i - c * TM;
-      const int gy = p.row0 + m / TW, gx = p.col0 + m % TW, co = co0 + c;
-      if (gy >= h || gx >= wd || co >= cout) return -1;
-      return (((long)p.n * cout + co) * h + gy) * wd + gx;
+    XStager<4, WG_THREADS> st(tid, cs);
+    // a tile's dy -> stage d: 8 pixels a 16-byte cp.async where vec (zero
+    // outside the image and past cout), else element by element
+    auto stage_dy = [&](T* d, const Tile& p) {
+      if (vec) {
+        for (int i = tid; i < BN * TM / 8; i += WG_THREADS) {
+          const long o = dy_at(p, 8 * i);
+          const int c = 8 * i / TM, m = 8 * i - c * TM;
+          cp_async16(d + c * LDD + m, o < 0 ? dy : dy + o, o >= 0);
+        }
+        cp_async_commit();
+      } else {
+        fill<8, T>(
+            BN * TM,
+            [&](int i) {
+              const long o = dy_at(p, i);
+              return o < 0 ? from_f32<T>(0.f) : dy[o];
+            },
+            [&](int i, T v) { d[i / TM * LDD + i % TM] = v; });
+      }
     };
-    if (kTensorCores && vec) {
-      // 8 pixels of a row a task, one 16-byte load and store
-      fill<4, uint4>(
-          BN * TM / 8,
-          [&](int i) {
-            const long o = dy_at(8 * i);
-            return o < 0 ? make_uint4(0u, 0u, 0u, 0u)
-                         : *reinterpret_cast<const uint4*>(dy + o);
-          },
-          [&](int i, uint4 v) {
-            const int c = 8 * i / TM, m = 8 * i - c * TM;
-            *reinterpret_cast<uint4*>(dys + c * LDD + m) = v;
-          });
-    } else {
-      fill<8, T>(
-          BN * TM,
-          [&](int i) {
-            const long o = dy_at(i);
-            return o < 0 ? from_f32<T>(0.f) : dy[o];
-          },
-          [&](int i, T v) {
-            const int c = i / TM, m = i - c * TM;
-            if constexpr (kTensorCores)
-              dys[c * LDD + m] = v;
-            else
-              dyf[m * LDF + c] = to_f32(v);
-          });
+    int t = blockIdx.x, s = 0;
+    if (t < tiles) {
+      const Tile p = tile_at(t, h, wd);
+      stage_dy(dys, p);
+      st.load(x, p, cin, h, wd, vec);
+      st.store(xs, cs);
     }
+    cp_async_wait_all();
     __syncthreads();
-    if constexpr (kTensorCores) {
+    for (; t < tiles; t += gridDim.x) {
+      const bool more = t + gridDim.x < tiles;
+      if (more) {  // the next tile's loads fly during this tile's MMAs
+        const Tile pn = tile_at(t + gridDim.x, h, wd);
+        stage_dy(dys + (s ^ 1) * DY_STAGE, pn);
+        st.load(x, pn, cin, h, wd, vec);
+      }
+      const T* d = dys + s * DY_STAGE;
       for (int m0 = 0; m0 < TM; m0 += 16) {
         const int rowl = m0 / TW, col = m0 % TW;
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                        wmma::row_major>
             a;
-        wmma::load_matrix_sync(a, dys + 16 * cf * LDD + m0, LDD);
+        wmma::load_matrix_sync(a, d + 16 * cf * LDD + m0, LDD);
 #pragma unroll
         for (int q = 0; q < MAX_KF; ++q) {
           const int kf = half + 2 * q;
@@ -411,33 +558,18 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
                            wmma::row_major>
                 b;
             wmma::load_matrix_sync(
-                b,
-                xs + xoff<T>((rowl + tap / 3) * (TW + 2) + col + tap % 3, c0,
-                             cs),
+                b, xs + xoff<T>((rowl + tap / 3) * RW + col + tap % 3, c0, cs),
                 16);
             wmma::mma_sync(acc[q], a, b, acc[q]);
           }
         }
       }
-    } else {
-      for (int m = 0; m < TM; ++m) {
-        const int xb = ((m / TW) * (TW + 2) + m % TW) * cs;
-        const float4 d = *reinterpret_cast<const float4*>(dyf + m * LDF +
-                                                          4 * cg);
-#pragma unroll
-        for (int j = 0; j < 2 * MAX_KF; ++j) {
-          const float a = to_f32(xs[xb + off[j]]);
-          accf[0][j] = fmaf(d.x, a, accf[0][j]);
-          accf[1][j] = fmaf(d.y, a, accf[1][j]);
-          accf[2][j] = fmaf(d.z, a, accf[2][j]);
-          accf[3][j] = fmaf(d.w, a, accf[3][j]);
-        }
-      }
+      __syncthreads();  // every warp is done with xs and stage s
+      if (more) st.store(xs, cs);
+      cp_async_wait_all();
+      __syncthreads();  // the next tile is staged
+      s ^= 1;
     }
-    __syncthreads();  // before the next tile restages dys and xs
-  }
-
-  if constexpr (kTensorCores) {
 #pragma unroll
     for (int q = 0; q < MAX_KF; ++q) {
       const int kf = half + 2 * q;
@@ -446,6 +578,39 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
                                 wmma::mem_row_major);
     }
   } else {
+#pragma unroll
+    for (int j = 0; j < 2 * MAX_KF; ++j) {
+      const int k = kg + 16 * j, tap = k / cin, ci = k - tap * cin;
+      off[j] = k < kdim ? (tap / 3 * RW + tap % 3) * cs + ci : 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) accf[i][j] = 0.f;
+    }
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const Tile p = tile_at(t, h, wd);
+      stage_x_fp32(x, xs, p, cin, h, wd, cs);
+      fill<8, float>(
+          BN * TM,
+          [&](int i) {
+            const long o = dy_at(p, i);
+            return o < 0 ? 0.f : dy[o];
+          },
+          [&](int i, float v) { dyf[i % TM * LDF + i / TM] = v; });
+      __syncthreads();
+      for (int m = 0; m < TM; ++m) {
+        const int xb = ((m / TW) * RW + m % TW) * cs;
+        const float4 d = *reinterpret_cast<const float4*>(dyf + m * LDF +
+                                                          4 * cg);
+#pragma unroll
+        for (int j = 0; j < 2 * MAX_KF; ++j) {
+          const float a = xs[xb + off[j]];
+          accf[0][j] = fmaf(d.x, a, accf[0][j]);
+          accf[1][j] = fmaf(d.y, a, accf[1][j]);
+          accf[2][j] = fmaf(d.z, a, accf[2][j]);
+          accf[3][j] = fmaf(d.w, a, accf[3][j]);
+        }
+      }
+      __syncthreads();  // before the next tile restages dyf and xs
+    }
 #pragma unroll
     for (int j = 0; j < 2 * MAX_KF; ++j) {
       const int k = kg + 16 * j;
@@ -517,7 +682,8 @@ dim3 persistent_grid(K kernel, int threads, size_t smem, size_t smem_max,
 }
 
 template <typename T>
-dim3 fwd_grid(int n, int cin, int h, int wd, int cout, int* per_sm = nullptr) {
+dim3 fwd_grid(int n, int cin, int h, int wd, int cout,
+              int* per_sm = nullptr) {
   static int cache[MAX_CIN + 1][MAX_DEVICES];
   return persistent_grid(thin_fwd<T>, FWD_THREADS, fwd_smem<T>(cin),
                          fwd_smem<T>(MAX_CIN), cache[cin], tiles_of(n, h, wd),
@@ -533,13 +699,33 @@ dim3 wgrad_grid(int n, int cin, int h, int wd, int cout,
                          tiles_of(n, h, wd), cout, per_sm);
 }
 
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+inline int packed_size(int cin, int cout, bool bf16) {
+  return (cout + BN - 1) / BN * 9 * wrows(cin) *
+         (bf16 ? wld<__nv_bfloat16>() : wld<float>());
+}
+
 template <typename T>
-int run_fwd(const void* x, const void* w, void* y, int n, int cin, int h,
-            int wd, int cout, cudaStream_t st) {
-  const dim3 grid = fwd_grid<T>(n, cin, h, wd, cout);
-  thin_fwd<T><<<grid, FWD_THREADS, fwd_smem<T>(cin), st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      cin, h, wd, cout, tiles_of(n, h, wd));
+int pack(const void* w, void* wp, int cin, int cout, cudaStream_t st) {
+  const int total = packed_size(cin, cout, Bf16<T>::value);
+  pack_thin_weight<T><<<(total + 255) / 256, 256, 0, st>>>(
+      static_cast<const T*>(w), static_cast<T*>(wp), cin, cout, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int run_fwd(const void* x, const void* w, void* wp, void* y, int n, int cin,
+            int h, int wd, int cout, cudaStream_t st) {
+  const int rc = pack<T>(w, wp, cin, cout, st);
+  if (rc != 0) return rc;
+  thin_fwd<T><<<fwd_grid<T>(n, cin, h, wd, cout), FWD_THREADS,
+                fwd_smem<T>(cin), st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wp), static_cast<T*>(y),
+      cin, h, wd, cout, tiles_of(n, h, wd),
+      wd % 8 == 0 && aligned16(x) && aligned16(y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -550,8 +736,7 @@ int run_wgrad(const void* x, const void* dy, void* part, void* dw, int n,
   thin_wgrad<T><<<grid, WG_THREADS, wgrad_smem<T>(cin), st>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy),
       static_cast<float*>(part), cin, h, wd, cout, tiles_of(n, h, wd),
-      // 16-byte dy loads: every 8-pixel run of a row is aligned and whole
-      wd % 8 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0);
+      wd % 8 == 0 && aligned16(x) && aligned16(dy));
   const long outs = (long)cout * 9 * kstride<T>(cin);
   thin_wgrad_reduce<<<(outs + 31) / 32, dim3(32, RED_ROWS), 0, st>>>(
       static_cast<const float*>(part), static_cast<float*>(dw), grid.x,
@@ -566,21 +751,42 @@ inline bool valid(int n, int cin, int h, int wd, int cout) {
 }  // namespace thin
 }  // namespace pgt
 
+// Elements of the forward's packed weight, the output of
+// pgt_thin_conv_pack and the scratch wp of pgt_thin_conv_fwd:
+// [ceil(Cout / 64)][9][Cin rounded up to 16][72 bf16 or 64 fp32].
+extern "C" int pgt_thin_conv_packed_size(int cin, int cout, int bf16) {
+  return pgt::thin::packed_size(cin, cout, bf16 != 0);
+}
+
+// The pack kernel alone: w [Cout, Cin, 3, 3] -> wp (16-byte aligned), bf16
+// (bf16 != 0) or fp32. Returns cudaGetLastError().
+extern "C" int pgt_thin_conv_pack(const void* w, void* wp, int cin, int cout,
+                                  int bf16, void* stream) {
+  using namespace pgt::thin;
+  if (!valid(1, cin, 1, 1, cout)) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) return pack<__nv_bfloat16>(w, wp, cin, cout, st);
+  return pack<float>(w, wp, cin, cout, st);
+}
+
 // x [N, Cin, H, W], w [Cout, Cin, 3, 3], y [N, Cout, H, W], all bf16
-// (bf16 != 0) or all fp32; 1 <= Cin <= 32. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for shapes the kernel does not take.
-extern "C" int pgt_thin_conv_fwd(const void* x, const void* w, void* y,
-                                 int n, int cin, int h, int wd, int cout,
-                                 int bf16, void* stream) {
+// (bf16 != 0) or all fp32; 1 <= Cin <= 32; wp: 16-byte aligned scratch of
+// pgt_thin_conv_packed_size() elements. Launches the pack, then the conv.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for shapes the
+// kernel does not take.
+extern "C" int pgt_thin_conv_fwd(const void* x, const void* w, void* wp,
+                                 void* y, int n, int cin, int h, int wd,
+                                 int cout, int bf16, void* stream) {
   using namespace pgt::thin;
   if (!valid(n, cin, h, wd, cout)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return run_fwd<__nv_bfloat16>(x, w, y, n, cin, h, wd, cout, st);
-  return run_fwd<float>(x, w, y, n, cin, h, wd, cout, st);
+    return run_fwd<__nv_bfloat16>(x, w, wp, y, n, cin, h, wd, cout, st);
+  return run_fwd<float>(x, w, wp, y, n, cin, h, wd, cout, st);
 }
 
-// fp32 elements of the scratch `part` that pgt_thin_conv_wgrad needs.
+// fp32 elements of the scratch `part` that pgt_thin_conv_wgrad needs on
+// the current device: one partial a block of its grid.
 extern "C" long pgt_thin_conv_wgrad_scratch(int n, int cin, int h, int wd,
                                             int cout, int bf16) {
   using namespace pgt::thin;

@@ -8,7 +8,11 @@ gradient is a cuDNN conv, as the JAX package's ``_dgrad`` is an XLA conv
 (``thin_conv.py:179-188, 233-238``). ``thin_conv3x3_plain`` and
 ``thin_conv3x3_wgrad_plain`` are the same functions in plain PyTorch,
 which the wrappers use for CPU tensors and the tests and ``chip_smoke.py``
-hold the kernels against. ``ThinConv3x3`` is the custom VJP
+hold the kernels against. Each forward launch first packs the weight
+into the layout its blocks copy to shared memory
+(``pack_thin_weight_plain`` is that layout in plain PyTorch,
+``pack_thin_weight`` the pack kernel alone; both for tests and
+``chip_smoke.py``). ``ThinConv3x3`` is the custom VJP
 (``thin_conv.py:241-263``): residuals (x, w); dw by K4-wgrad in fp32,
 cast to w's dtype; dx by the conv of dy with the flipped kernel.
 """
@@ -25,6 +29,9 @@ from .norm_act import dtype_flag, needs_graph, require
 # widest input the kernels take: the upper edge of the JAX gate's thin
 # regime (thin_conv.py:98)
 MAX_CIN = 32
+BLOCK_N = 64   # output channels of a kernel block (BN of csrc/thin_conv.cu)
+# row stride of the packed weight: bf16 pads 8 channels (LDW), fp32 none
+PACKED_ROW = {torch.bfloat16: BLOCK_N + 8, torch.float32: BLOCK_N}
 
 
 def thin_conv3x3_plain(x, w):
@@ -42,12 +49,32 @@ def thin_conv3x3_wgrad_plain(x, dy):
     return dw.reshape(cout, cin, 3, 3)
 
 
+def pack_thin_weight_plain(w, dtype):
+    """K4's packed weight in ``dtype``: (ceil(Cout / 64), 9, Ks, ldw) with
+    wp[cb, tap, ci, c] = w[64 cb + c, ci, tap // 3, tap % 3], Ks = Cin
+    rounded up to 16 and ldw = ``PACKED_ROW[dtype]``; zero where ci >=
+    Cin, c >= 64 or 64 cb + c >= Cout."""
+    cout, cin = w.shape[:2]
+    ks = -(-cin // 16) * 16
+    cblks = -(-cout // BLOCK_N)
+    full = torch.zeros(cblks * BLOCK_N, ks, 9, dtype=dtype, device=w.device)
+    full[:cout, :cin] = w.reshape(cout, cin, 9).to(dtype)
+    wp = full.reshape(cblks, BLOCK_N, ks, 9).permute(0, 3, 2, 1)
+    return F.pad(wp, (0, PACKED_ROW[dtype] - BLOCK_N)).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load('thin_conv')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pgt_thin_conv_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.pgt_thin_conv_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.pgt_thin_conv_fwd.restype = i
+    lib.pgt_thin_conv_pack.argtypes = [p, p, i, i, i, p]
+    lib.pgt_thin_conv_pack.restype = i
+    lib.pgt_thin_conv_packed_size.argtypes = [i, i, i]
+    lib.pgt_thin_conv_packed_size.restype = i
+    lib.pgt_thin_conv_grid.argtypes = [i] * 7 + [ctypes.POINTER(i)]
+    lib.pgt_thin_conv_grid.restype = i
     lib.pgt_thin_conv_wgrad_scratch.argtypes = [i] * 6
     lib.pgt_thin_conv_wgrad_scratch.restype = ctypes.c_long
     lib.pgt_thin_conv_wgrad.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
@@ -59,6 +86,44 @@ def _require_thin(x):
     if x.shape[1] > MAX_CIN:
         raise ValueError(f"thin conv takes at most {MAX_CIN} input "
                          f"channels, got {x.shape[1]}")
+
+
+def _packed(lib, w):
+    """An empty buffer for w's packed form."""
+    cout, cin = w.shape[:2]
+    return torch.empty(lib.pgt_thin_conv_packed_size(cin, cout,
+                                                     dtype_flag(w)),
+                       dtype=w.dtype, device=w.device)
+
+
+def pack_thin_weight(w):
+    """The pack kernel alone on a CUDA weight (Cout, Cin, 3, 3): what K4
+    packs before its conv, in the shape of ``pack_thin_weight_plain``, to
+    hold against it. Not a K4 launch."""
+    require(w, 'w', 4)
+    if w.shape[2:] != (3, 3) or w.shape[1] > MAX_CIN:
+        raise ValueError(f"w must be (Cout, Cin <= {MAX_CIN}, 3, 3), got "
+                         f"{tuple(w.shape)}")
+    lib = _lib()
+    cout, cin = w.shape[:2]
+    wp = _packed(lib, w)
+    with torch.cuda.device(w.device):
+        rc = lib.pgt_thin_conv_pack(w.data_ptr(), wp.data_ptr(), cin, cout,
+                                    dtype_flag(w), _build.stream_of(w))
+    _build.check(rc, 'thin conv pack')
+    return wp.view(-(-cout // BLOCK_N), 9, -(-cin // 16) * 16,
+                   PACKED_ROW[w.dtype])
+
+
+def thin_conv_grid(x, cout, wgrad=False):
+    """(blocks along the tiles, blocks an SM holds) of the K4 (or, with
+    ``wgrad``, K4-wgrad) launch for CUDA input x and Cout on x's card."""
+    lib = _lib()
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        grid = lib.pgt_thin_conv_grid(*x.shape, cout, dtype_flag(x),
+                                      int(wgrad), ctypes.byref(per_sm))
+    return grid, per_sm.value
 
 
 def _forward(x, w):
@@ -75,11 +140,13 @@ def _forward(x, w):
     if tuple(w.shape) != (cout, cin, 3, 3):
         raise ValueError(f"w must be ({cout}, {cin}, 3, 3), got "
                          f"{tuple(w.shape)}")
+    lib = _lib()
     y = torch.empty((n, cout, h, wd), dtype=x.dtype, device=x.device)
+    wp = _packed(lib, w)
     with torch.cuda.device(x.device):
-        rc = _lib().pgt_thin_conv_fwd(x.data_ptr(), w.data_ptr(),
-                                      y.data_ptr(), n, cin, h, wd, cout,
-                                      flag, _build.stream_of(x))
+        rc = lib.pgt_thin_conv_fwd(x.data_ptr(), w.data_ptr(), wp.data_ptr(),
+                                   y.data_ptr(), n, cin, h, wd, cout, flag,
+                                   _build.stream_of(x))
     _build.check(rc, 'thin_conv3x3')
     thin_conv3x3.launches += 1
     return y
@@ -101,12 +168,13 @@ def thin_conv3x3_wgrad(x, dy):
         raise ValueError(f"dy {tuple(dy.shape)} does not match x "
                          f"{tuple(x.shape)}")
     lib = _lib()
-    part = torch.empty(lib.pgt_thin_conv_wgrad_scratch(n, cin, h, wd, cout,
-                                                       flag),
-                       dtype=torch.float32, device=x.device)
     dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32,
                      device=x.device)
     with torch.cuda.device(x.device):
+        # one partial per block of the grid, which is sized for this card
+        part = torch.empty(lib.pgt_thin_conv_wgrad_scratch(n, cin, h, wd,
+                                                           cout, flag),
+                           dtype=torch.float32, device=x.device)
         rc = lib.pgt_thin_conv_wgrad(x.data_ptr(), dy.data_ptr(),
                                      part.data_ptr(), dw.data_ptr(), n, cin,
                                      h, wd, cout, flag, _build.stream_of(x))

@@ -25,7 +25,8 @@ from patchgan_tpu_torch.ops.kernels import (
     WRAPPERS, conv_norm_act, conv_norm_act_plain, convt_norm_act,
     convt_norm_act_plain, instance_norm_act, instance_norm_act_backward,
     instance_norm_act_backward_plain, instance_norm_act_plain,
-    pack_convt_weight_plain, thin_conv3x3, thin_conv3x3_plain,
+    pack_convt_weight_plain, pack_thin_weight_plain, thin_conv3x3,
+    thin_conv3x3_plain,
     thin_conv3x3_wgrad, thin_conv3x3_wgrad_plain)
 
 torch.set_num_threads(2)
@@ -131,6 +132,45 @@ def test_packed_convt_weight_products(act):
         1e-5, act, jnp.asarray(_nhwc(skip)))
     np.testing.assert_allclose(_nhwc(ours), np.asarray(theirs), rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize('cin,cout', [(5, 40), (12, 64), (28, 64)])
+def test_packed_thin_weight_products(cin, cout, monkeypatch):
+    """K4's packed weight, read as its blocks read it: the 3x3 conv is the
+    sum over the 9 shifted, zero-padded windows of x (channels padded to
+    the packed rows with ones) times the packed [tap][ci][co] slices, and
+    equals F.conv2d (fp32, atol 1e-5) only if every padding entry is 0;
+    the same output equals the JAX thin_conv3x3 in interpret mode, and
+    the padding entries (ci >= Cin, co >= Cout, the row pad) are exactly
+    0 in both dtypes."""
+    monkeypatch.setenv('PATCHGAN_THIN_CONV', 'interpret')
+    from patchgan_tpu.ops.pallas.thin_conv import thin_conv3x3 as jax_thin
+    rng = np.random.default_rng(33)
+    xa = rng.normal(size=(2, 32, 24, cin)).astype(np.float32)
+    wa = (rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32)
+    x = torch.from_numpy(np.transpose(xa, (0, 3, 1, 2)).copy())
+    w = torch.from_numpy(np.transpose(wa, (3, 2, 0, 1)).copy())
+    wp = pack_thin_weight_plain(w, torch.float32)
+    ks = -(-cin // 16) * 16
+    assert wp.shape == (1, 9, ks, 64)
+    n, _, h, wd = x.shape
+    xp = F.pad(torch.cat([x, torch.ones(n, ks - cin, h, wd)], 1),
+               (1, 1, 1, 1))
+    got = sum(torch.einsum('nkhw,kc->nchw',
+                           xp[:, :, r:r + h, s:s + wd], wp[0, 3 * r + s])
+              for r in range(3) for s in range(3))
+    torch.testing.assert_close(got[:, :cout],
+                               F.conv2d(x, w, padding=1), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(_nhwc(got[:, :cout]),
+                               np.asarray(jax_thin(jnp.asarray(xa),
+                                                   jnp.asarray(wa))),
+                               rtol=1e-4, atol=1e-5)
+    for dt in (torch.float32, torch.bfloat16):
+        wp = pack_thin_weight_plain(w, dt)
+        assert wp.dtype == dt
+        assert not wp[:, :, cin:].any() and not wp[..., cout:].any()
+        assert torch.equal(wp[0, :, :cin, :cout],
+                           w.to(dt).reshape(cout, cin, 9).permute(2, 1, 0))
 
 
 def test_cpu_tensors_never_launch():
