@@ -19,12 +19,13 @@ validation batch (32, 12) and (32, 28), all 128 x 128 -> 64. It prints
 each row as JSON, cuDNN's times at the same shapes, the card's name and
 power limit, and the mean over the two turns of each library.
 
-``--split OLD.cu`` splits the time of the kernels of PR 6's
-``thin_conv.cu`` (``git show 1e710de:patchgan_tpu_torch/csrc/thin_conv.cu
-> OLD.cu``): it writes a copy with compile-time switches (the MMA loop
-skipped, the staging done for a block's first tile only, the forward's
-weight fill skipped, the forward's epilogue skipped, the wgrad's reduce
-skipped) and runs the variants of it.
+``--split OLD.cu`` splits the time of the kernels of the
+``thin_conv.cu`` before the persistent-grid redesign (``git show
+1e710de:patchgan_tpu_torch/csrc/thin_conv.cu > OLD.cu``): it writes a
+copy with compile-time switches (the MMA loop skipped, the staging done
+for a block's first tile only, the forward's weight fill skipped, the
+forward's epilogue skipped, the wgrad's reduce skipped) and runs the
+variants of it.
 """
 import ctypes
 import json
@@ -49,8 +50,8 @@ CHECK = TIMED + [('ragged', 3, 4, 40, 70, 28),
                  ('few tiles', 1, 12, 6, 8, 64),
                  ('max cin', 4, 32, 16, 64, 64),
                  ('cout 130', 2, 12, 10, 16, 130)]
-# --split: (anchor in PR 6's source, text put before it, text put after
-# it); each anchor occurs once
+# --split: (anchor in the 1e710de source, text put before it, text put
+# after it); each anchor occurs once
 SPLIT_EDITS = [
     ('  for (int i = tid; i < 9 * ks * ldw; i += blockDim.x)\n',
      '#ifndef SKIP_WFILL\n', ''),
@@ -76,7 +77,7 @@ SPLIT_EDITS = [
     ('  thin_wgrad_reduce<<<', '#ifndef SKIP_REDUCE\n', ''),
     ('      cin, cout, kstride<T>(cin));\n', '', '#endif\n'),
 ]
-# appended to the split copy: blocks an SM holds of PR 6's bf16 kernels
+# appended to the split copy: blocks an SM holds of its bf16 kernels
 SPLIT_OCCUPANCY = """
 extern "C" int pgt_thin_occupancy(int cin, int wgrad) {
   using namespace pgt::thin;
@@ -138,7 +139,7 @@ def build(specs):
 def load(name):
     lib = ctypes.CDLL(os.path.join(BUILD, f'{name}.so'))
     p, i = ctypes.c_void_p, ctypes.c_int
-    # the packed-weight forward (this PR on) takes a scratch wp after w
+    # the packed-weight forward takes a scratch wp after w
     lib.packed = hasattr(lib, 'pgt_thin_conv_pack')
     lib.pgt_thin_conv_fwd.argtypes = [p] * (4 if lib.packed else 3) + \
         [i] * 6 + [p]
