@@ -19,10 +19,17 @@ Run from the root of the repository. In order:
    multiple of 8 and one K step holds x, skip and the zero-filled tail;
    40 output channels; 12 x 20), and every kernel all four activations at
    one shape. K3's weight pack kernel is held exactly against
-   ``pack_convt_weight_plain`` at every K3 case, in both dtypes.
-   Times (CUDA events): the kernel, its plain version, and a library
-   yardstick (cuDNN conv + F.instance_norm + activation, which the port
-   never calls), beside the bound max(FLOPs / peak, bytes / 3.35 TB/s);
+   ``pack_convt_weight_plain`` at every K3 case, in both dtypes. K1 also
+   runs check-only cases at the edges of its launch classes
+   (``norm_edge_cases``: planes of 16, 64, 256, 1024, 4096 and 65536
+   elements, a plane count no multiple of a block's planes, 1x1, 1x3 and
+   6x10 planes, inputs one element past a 16-byte boundary; all four
+   activations at 4x4), and two launches on the same inputs must give
+   equal bits. Times (CUDA events): the kernel, its plain version, and a
+   library yardstick (cuDNN conv + F.instance_norm + activation, which
+   the port never calls), beside the bound max(FLOPs / peak, bytes / 3.35
+   TB/s); K1's row also carries its device time (a CUDA graph's
+   replay, without the wrapper's host work) and launch geometry;
    then K4 (the thin 3x3 conv of the s2d boundary form) and K4-wgrad (its
    weight gradient) at every shape of the s2d paths: enc0 of an 8-tile
    inference chunk (12 -> 64 channels on the 128 x 128 s2d grid), the
@@ -61,9 +68,13 @@ Run from the root of the repository. In order:
    middle value normalises to exactly 0, against the plain backward on
    the same inputs (fp32 max |err| <= 1e-3 max(1, max |dx|); bf16
    against the fp32 plain version on the bf16-rounded inputs, <= 3e-2
-   max(1, max |dx|)). Times: kernel, plain, and ATen's backward of
-   F.instance_norm + relu through torch.autograd.grad (never called by
-   the port), beside the bytes bound;
+   max(1, max |dx|)), then K1's edge cases (both dtypes, all four
+   activations at 4x4) and the equal-bits check of two launches. Times:
+   kernel (CUDA events, host work included), its device time (a CUDA
+   graph's replay),
+   plain, and ATen's backward of F.instance_norm + relu through
+   torch.autograd.grad (never called by the port), beside the bytes
+   bound, with each level's launch geometry (class, grid, group);
 7. step parity, plain form and s2d form: one G+D loss and the generator's
    and discriminator's gradients at nf=64, 256 px, batch 2, fp32, TF32
    off, dropout off, from the same weights and batch, through the kernel
@@ -82,7 +93,8 @@ Run from the root of the repository. In order:
 9. training img/s of the bf16 step at batch 16 on a device-resident
    batch, plain and s2d form in turns, five windows of at least 2 s each
    (every reading and the medians), peak device memory, and a profiler
-   breakdown of three steps of each form.
+   breakdown of three steps of each form (the top kernels, then each of
+   the port's kernels).
 
 It prints a JSON summary of the kernels (launches from the s2d training
 run, which drives all six; every path's counts beside them), the card's
@@ -149,6 +161,66 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20):
+    """Time per call on the card without the host's share: CUDA events
+    around the replay of a CUDA graph of ``iters`` calls (captured after
+    a warm-up on a side stream); the card's gaps between launches are
+    included."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
+def norm_geometry(shape, dtype):
+    """K1's / K1-bwd's launch geometry at an (N, C, H, W) shape, for a
+    timed row."""
+    from patchgan_tpu_torch.ops.kernels.norm_act import plane_geometry
+    n, c, h, w = shape
+    return plane_geometry(n * c, h * w, dtype)._asdict()
+
+
+def norm_edge_cases(torch, gen):
+    """(label, pair) at the instance-norm kernels' edge shapes, where
+    pair(dtype) gives (x, g) in that dtype: planes of each launch class's
+    edge, a plane count no multiple of the planes a block takes, planes of
+    3 and 60 elements (no multiple of 16 bytes in bf16: element by
+    element), planes larger than the registers hold (read again from
+    memory), and x, g one element past a 16-byte boundary (element by
+    element)."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device='cuda')
+
+    out = []
+    for shape in ((3, 5, 4, 4), (2, 8, 8, 8), (2, 4, 16, 16), (2, 8, 1, 3),
+                  (2, 8, 6, 10), (1, 33, 32, 32), (1, 3, 64, 64),
+                  (4, 8, 1, 1), (2, 3, 256, 256)):
+        x, g = rand(*shape), rand(*shape)
+        out.append((f'{shape}', lambda dt, x=x, g=g: (x.to(dt), g.to(dt))))
+    shape = (2, 8, 16, 16)
+    x, g = rand(2 * 8 * 16 * 16 + 1), rand(2 * 8 * 16 * 16 + 1)
+    out.append((f'{shape} one element past 16 bytes',
+                lambda dt: (x.to(dt)[1:].view(shape),
+                            g.to(dt)[1:].view(shape))))
+    return out
 
 
 @contextlib.contextmanager
@@ -246,6 +318,24 @@ def make_cases(torch, F, kernels):
     return cases
 
 
+def repeat_check(torch, wrapper, args_of, gen):
+    """Two launches on the same inputs give the same bits (fixed-order
+    reductions, no atomics), in both dtypes, at one plane of each launch
+    class: lanes (16 x 16), block (128 x 128), stream (256 x 256)."""
+    for shape in ((16, 512, 16, 16), (16, 64, 128, 128), (2, 3, 256, 256)):
+        x = torch.randn(*shape, generator=gen, device='cuda')
+        g = torch.randn(*shape, generator=gen, device='cuda')
+        for dt in (torch.bfloat16, torch.float32):
+            args = args_of(x.to(dt), g.to(dt))
+            a, b = wrapper(*args), wrapper(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f'{wrapper.__name__} {shape} {dt}: two '
+                                     f'launches differ')
+        print(f'  {wrapper.__name__} {shape}: two launches equal in bf16 '
+              f'and fp32', flush=True)
+
+
 def kernel_phase(torch, F, kernels):
     from patchgan_tpu_torch.ops.kernels import (pack_convt_weight,
                                                 pack_convt_weight_plain)
@@ -295,8 +385,26 @@ def kernel_phase(torch, F, kernels):
                'bound_ms': b_ms, 'bound_by': b_by,
                'max_abs_err_bf16': errs['bfloat16'],
                'max_abs_err_fp32': errs['float32']}
+        if kernel.name == 'instance_norm_act':
+            row.update(device_ms=device_ms(lambda: kernel.wrapper(*args)),
+                       **norm_geometry(args[0].shape, torch.bfloat16))
         kernel.rows.append(row)
         print(json.dumps(row), flush=True)
+    k1 = kernels[0]
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    for label, pair in norm_edge_cases(torch, gen):
+        for dname, dt in (('bfloat16', torch.bfloat16),
+                          ('float32', torch.float32)):
+            x = pair(dt)[0]
+            for act in (ACTS if label == '(3, 5, 4, 4)' else ('relu',)):
+                e = err(k1, (x.float(), 1e-5, act), (x, 1e-5, act))
+                print(f'  {k1.name} edge {label} {dname} act={act}: '
+                      f'max_abs_err {e:.3e} (tol {TOL[dname]:.0e})',
+                      flush=True)
+                if not e <= TOL[dname]:
+                    raise AssertionError(f'{k1.name} edge {label} {dname} '
+                                         f'act={act}: {e} > {TOL[dname]}')
+    repeat_check(torch, k1.wrapper, lambda xd, gd: (xd, 1e-5, 'relu'), gen)
 
 
 def thin_conv_phase(torch, F, k4, k4w):
@@ -450,11 +558,11 @@ def backward_phase(torch, F, kernel):
     def rand(shape):
         return torch.randn(*shape, generator=gen, device='cuda')
 
-    def check(label, x, g, act):
+    def check(label, x, g, act, pair=None):
         errs = {}
         for dname, dt in (('bfloat16', torch.bfloat16),
                           ('float32', torch.float32)):
-            xd, gd = x.to(dt), g.to(dt)
+            xd, gd = pair(dt) if pair else (x.to(dt), g.to(dt))
             got = kernel.wrapper(gd, xd, 1e-5, act).float()
             want = kernel.plain(gd.float(), xd.float(), 1e-5, act)
             torch.cuda.synchronize()
@@ -481,12 +589,19 @@ def backward_phase(torch, F, kernel):
         numel = x.numel()
         b_ms, b_by = bound(BWD_FLOPS * numel, 3 * 2 * numel, PEAK_FP32)
         row = {'kernel': kernel.name, 'case': f'{label} {shape}',
-               'dtype': 'bfloat16', 'kernel_ms': k_ms, 'plain_ms': p_ms,
-               'library_ms': lib_ms, 'bound_ms': b_ms, 'bound_by': b_by,
-               'max_abs_err_bf16': errs['bfloat16'],
-               'max_abs_err_fp32': errs['float32']}
+               'dtype': 'bfloat16', 'kernel_ms': k_ms,
+               'device_ms': device_ms(lambda: kernel.wrapper(*args)),
+               'plain_ms': p_ms, 'library_ms': lib_ms, 'bound_ms': b_ms,
+               'bound_by': b_by, 'max_abs_err_bf16': errs['bfloat16'],
+               'max_abs_err_fp32': errs['float32'],
+               **norm_geometry(shape, torch.bfloat16)}
         kernel.rows.append(row)
         print(json.dumps(row), flush=True)
+    total = {k: sum(r[k] for r in kernel.rows)
+             for k in ('kernel_ms', 'device_ms', 'bound_ms')}
+    print(f'  {kernel.name}, the 12 calls: kernel_ms {total["kernel_ms"]:.4f}'
+          f', device_ms {total["device_ms"]:.4f}, bound_ms '
+          f'{total["bound_ms"]:.4f}', flush=True)
     x, g = rand((TRAIN_B, 4 * NF, 32, 32)), rand((TRAIN_B, 4 * NF, 32, 32))
     for act in ACTS:
         check('dec3 shape', x, g, act)
@@ -499,6 +614,11 @@ def backward_phase(torch, F, kernel):
     g = rand((TRAIN_B, NF, 1, 3))
     for act in ACTS:
         check('xhat=0 (16, 64, 1, 3)', x, g, act)
+    for label, pair in norm_edge_cases(torch, gen):
+        for act in (ACTS if label == '(3, 5, 4, 4)' else ('relu',)):
+            check(f'edge {label}', None, None, act, pair)
+    repeat_check(torch, kernel.wrapper,
+                 lambda xd, gd: (gd, xd, 1e-5, 'relu'), gen)
 
 
 def train_batch(torch, np, n, size, device, seed):
@@ -767,6 +887,11 @@ def throughput_phase(torch, np, card):
         for dev, n, key in rows[:15]:
             print(f'    {dev / 3e3:8.3f} ms/step {n // 3:5d}/step  '
                   f'{key[:90]}')
+        print('  the port\'s kernels:')
+        for dev, n, key in rows:
+            if 'pgt::' in key:
+                print(f'    {dev / 3e3:8.3f} ms/step {n // 3:5d}/step  '
+                      f'{key[:90]}')
         r.update(profile_busy_ms_per_step=busy / 3e3,
                  profile_port_kernels_ms_per_step=ours / 3e3,
                  profile_wall_ms_per_step=wall_us / 3e3)

@@ -7,56 +7,128 @@
 // rstd = rsqrt(var + eps), y = act((x - mean) * rstd), act in
 // {none, tanh, relu, leakyrelu(0.2)}.
 //
-// Bound on the H100: bytes. It reads each element once for the statistics
-// and once more to normalise (the second read mostly hits L2), and writes
-// once; a handful of fp32 operations per element is far below the
-// tensor-free fp32 rate, so the floor is (read + write) / 3.35 TB/s.
+// Bound on the H100: bytes. It must read x and write y once; a handful of
+// fp32 operations per element is far below the fp32 rate, so the floor is
+// (read + write) / 3.35 TB/s.
 //
-// Design: NCHW keeps each plane contiguous, so one block owns one plane
-// end to end. Pass 1 accumulates fp32 (sum, sum of squares) per thread
-// and reduces with warp shuffles in a fixed order (no atomics, so runs are
-// bit-reproducible); pass 2 is pgt::normalize_plane, the finishing pass
-// shared with the fused conv kernels (in_common.cuh). CUDA C++ rather
-// than Triton so that one header carries the finishing pass for all three
-// kernels.
+// Design (norm_plane.cuh, shared with K1-bwd): a group of threads sized to
+// the plane by the host (plane_geometry) loads its plane once, in 16-byte
+// chunks, into registers, reduces (sum, sum of squares) over the group in
+// a fixed order (no atomics, so runs are bit-reproducible), and writes y
+// from that copy with 16-byte stores. A plane larger than the registers
+// hold reads the rest again from memory; a plane whose bytes are no
+// multiple of 16 goes element by element. The fused conv kernels keep
+// their own finishing pass (in_common.cuh's normalize_plane).
 
-#include "in_common.cuh"
+#include "norm_plane.cuh"
 
 namespace pgt {
 
-constexpr int IN_THREADS = 256;
+template <typename T, int C, bool VEC>
+__global__ void __launch_bounds__(norm::MAX_THREADS)
+    in_act_kernel(const T* __restrict__ x, T* __restrict__ y, long planes,
+                  long plane, int group, float eps, int act) {
+  using Ch = norm::Chunk<T, VEC>;
+  constexpr int W = Ch::W;
+  __shared__ float2 part[32];
+  const norm::Place at = norm::place<W>(planes, plane, group);
+  const T* xp = x + at.off;
+  T* yp = y + at.off;
+  const int held = C * group;
 
-template <typename T>
-__global__ void __launch_bounds__(IN_THREADS)
-    in_act_kernel(const T* __restrict__ x, T* __restrict__ y, long plane,
-                  float eps, int act) {
-  const T* xp = x + blockIdx.x * plane;
-  T* yp = y + blockIdx.x * plane;
-  float s = 0.f, ss = 0.f;
-  for (long i = threadIdx.x; i < plane; i += blockDim.x) {
-    const float v = to_f32(xp[i]);
-    s += v;
-    ss += v * v;
+  Ch xr[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int i = k * group + at.lane;
+    if (i < at.chunks) xr[k].load(xp + (long)i * W);
   }
-  const float2 t = block_sum2(s, ss);
-  normalize_plane(xp, yp, plane, t.x, t.y, eps, act);
+  float s = 0.f, ss = 0.f;
+  auto add = [&](const Ch& c) {
+    float f[W];
+    c.unpack(f);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      s += f[j];
+      ss += f[j] * f[j];
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < C; ++k) add(xr[k]);
+  for (int i = held + at.lane; i < at.chunks; i += group) {
+    Ch c;
+    c.load(xp + (long)i * W);
+    add(c);
+  }
+  const float2 st =
+      norm::mean_rstd(norm::group_sum2(s, ss, group, part), plane, eps);
+
+  auto write = [&](const Ch& c, long i) {
+    float f[W];
+    c.unpack(f);
+#pragma unroll
+    for (int j = 0; j < W; ++j) f[j] = activate((f[j] - st.x) * st.y, act);
+    Ch::store(yp + i * W, f);
+  };
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int i = k * group + at.lane;
+    if (i < at.chunks) write(xr[k], i);
+  }
+  for (int i = held + at.lane; i < at.chunks; i += group) {
+    Ch c;
+    c.load(xp + (long)i * W);
+    write(c, i);
+  }
+}
+
+template <typename T, bool VEC>
+void launch_fwd(const T* x, T* y, long planes, long plane, int group,
+                int per_thread, int threads, long grid, float eps, int act,
+                cudaStream_t st) {
+#define PGT_FWD(C)                                                          \
+  in_act_kernel<T, C, VEC>                                                  \
+      <<<grid, threads, 0, st>>>(x, y, planes, plane, group, eps, act)
+  switch (per_thread) {
+    case 1: PGT_FWD(1); break;
+    case 4: PGT_FWD(4); break;
+    default: PGT_FWD(8); break;
+  }
+#undef PGT_FWD
 }
 
 }  // namespace pgt
 
 // x, y: [planes, plane] contiguous, both bf16 (bf16 != 0) or both fp32.
-// Returns cudaGetLastError() after the launch.
+// vec, group, per_thread, threads: the launch geometry (norm_plane.cuh),
+// chosen by plane_geometry in ops/kernels/norm_act.py. Returns
+// cudaErrorInvalidValue for a geometry the kernel cannot take, else
+// cudaGetLastError() after the launch.
 extern "C" int pgt_in_act(const void* x, void* y, long planes, long plane,
-                          int act, float eps, int bf16, void* stream) {
+                          int act, float eps, int bf16, int vec, int group,
+                          int per_thread, int threads, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long grid = pgt::norm::grid_of(planes, plane, bf16 ? 2 : 4, vec,
+                                        group, per_thread, threads, {x, y});
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
-    pgt::in_act_kernel<__nv_bfloat16><<<planes, pgt::IN_THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
-        plane, eps, act);
+    using T = __nv_bfloat16;
+    const T* xt = static_cast<const T*>(x);
+    T* yt = static_cast<T*>(y);
+    if (vec)
+      pgt::launch_fwd<T, true>(xt, yt, planes, plane, group, per_thread,
+                               threads, grid, eps, act, st);
+    else
+      pgt::launch_fwd<T, false>(xt, yt, planes, plane, group, per_thread,
+                                threads, grid, eps, act, st);
   } else {
-    pgt::in_act_kernel<float><<<planes, pgt::IN_THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), plane, eps,
-        act);
+    const float* xt = static_cast<const float*>(x);
+    float* yt = static_cast<float*>(y);
+    if (vec)
+      pgt::launch_fwd<float, true>(xt, yt, planes, plane, group, per_thread,
+                                   threads, grid, eps, act, st);
+    else
+      pgt::launch_fwd<float, false>(xt, yt, planes, plane, group,
+                                    per_thread, threads, grid, eps, act, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,82 +18,169 @@
 // arithmetic (a few fp32 operations per element, one tanh at most) is far
 // below the fp32 rate, so the floor is 3 tensors / 3.35 TB/s.
 //
-// Design: one block owns one plane, in three passes, as K1 does:
-//   1. (sum, sum of squares) of x, reduced with pgt::block_sum2;
-//   2. (sum gm, sum gm * xhat), reduced the same way;
-//   3. dx.
-// Both reductions run in a fixed order with no atomics, so a run is
-// bit-reproducible. Passes 2 and 3 read the plane again, mostly from L1/L2
-// (a 128 x 128 bf16 plane of x and g is 64 KB). The block has as many
-// threads as a quarter of the plane, between one warp and 256, so the deep
-// levels' 2 x 2 to 16 x 16 planes do not leave 7 of 8 warps idle.
+// Design (norm_plane.cuh): as the TPU kernel holds a (1, H, W, cb) block
+// in VMEM and takes its passes from there, a group of threads here loads
+// its plane's x and g once, in 16-byte chunks, into registers, and takes
+// both reductions and dx from that copy: 6 bytes an element in bf16, what
+// the bound counts. The group is sized to the plane by the host
+// (plane_geometry): a few lanes for the deep levels' 2 x 2 to 16 x 16
+// planes, which then share a warp and reduce with shuffles alone; a warp
+// for 32 x 32; a block for 64 x 64 and 128 x 128. Both reductions run in
+// a fixed order with no atomics, so a run is bit-reproducible. A plane
+// larger than the registers hold (group * per_thread chunks) reads the
+// rest from memory in each pass; a plane whose bytes are no multiple of
+// 16 goes element by element.
 
-#include "in_common.cuh"
+#include "norm_plane.cuh"
 
 namespace pgt {
 
-constexpr int BWD_MAX_THREADS = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(BWD_MAX_THREADS)
+template <typename T, int C, bool VEC>
+__global__ void __launch_bounds__(norm::MAX_THREADS)
     in_act_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                      T* __restrict__ dx, long plane, float eps, int act) {
-  const long off = (long)blockIdx.x * plane;
-  const T* gp = g + off;
-  const T* xp = x + off;
-  T* dp = dx + off;
-  const float inv_n = 1.f / (float)plane;
+                      T* __restrict__ dx, long planes, long plane, int group,
+                      float eps, int act) {
+  using Ch = norm::Chunk<T, VEC>;
+  constexpr int W = Ch::W;
+  __shared__ float2 part[2][32];
+  const norm::Place at = norm::place<W>(planes, plane, group);
+  const T* xp = x + at.off;
+  const T* gp = g + at.off;
+  T* dp = dx + at.off;
+  const int held = C * group;   // chunks the group's registers hold
 
+  Ch xr[C], gr[C];   // zero where the plane has no chunk
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int i = k * group + at.lane;
+    if (i < at.chunks) {
+      xr[k].load(xp + (long)i * W);
+      gr[k].load(gp + (long)i * W);
+    }
+  }
   float s = 0.f, ss = 0.f;
-  for (long i = threadIdx.x; i < plane; i += blockDim.x) {
-    const float v = to_f32(xp[i]);
-    s += v;
-    ss += v * v;
+  auto add = [&](const Ch& c) {
+    float f[W];
+    c.unpack(f);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      s += f[j];
+      ss += f[j] * f[j];
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < C; ++k) add(xr[k]);
+  for (int i = held + at.lane; i < at.chunks; i += group) {
+    Ch c;
+    c.load(xp + (long)i * W);
+    add(c);
   }
-  const float2 t = block_sum2(s, ss);
-  const float mean = t.x * inv_n;
-  const float var = t.y * inv_n - mean * mean;
-  const float rstd = rsqrtf(var + eps);
+  const float2 st =
+      norm::mean_rstd(norm::group_sum2(s, ss, group, part[0]), plane, eps);
+  const float mean = st.x, rstd = st.y;
 
+  // (sum gm, sum gm * xhat); a missing chunk has g = 0, so adds 0
   float s1 = 0.f, s2 = 0.f;
-  for (long i = threadIdx.x; i < plane; i += blockDim.x) {
-    const float xh = (to_f32(xp[i]) - mean) * rstd;
-    const float gm = to_f32(gp[i]) * activate_grad(xh, act);
-    s1 += gm;
-    s2 += gm * xh;
+  auto sums = [&](const Ch& xc, const Ch& gc) {
+    float xf[W], gf[W];
+    xc.unpack(xf);
+    gc.unpack(gf);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const float xh = (xf[j] - mean) * rstd;
+      const float gm = gf[j] * activate_grad(xh, act);
+      s1 += gm;
+      s2 += gm * xh;
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < C; ++k) sums(xr[k], gr[k]);
+  for (int i = held + at.lane; i < at.chunks; i += group) {
+    Ch xc, gc;
+    xc.load(xp + (long)i * W);
+    gc.load(gp + (long)i * W);
+    sums(xc, gc);
   }
-  __syncthreads();  // every thread has read block_sum2's slot before reuse
-  const float2 u = block_sum2(s1, s2);
-  const float m1 = u.x * inv_n, m2 = u.y * inv_n;
+  const float2 u = norm::group_sum2(s1, s2, group, part[1]);
+  const float m1 = u.x / (float)plane, m2 = u.y / (float)plane;
 
-  for (long i = threadIdx.x; i < plane; i += blockDim.x) {
-    const float xh = (to_f32(xp[i]) - mean) * rstd;
-    const float gm = to_f32(gp[i]) * activate_grad(xh, act);
-    dp[i] = from_f32<T>(rstd * (gm - m1 - xh * m2));
+  auto write = [&](const Ch& xc, const Ch& gc, long i) {
+    float xf[W], gf[W], d[W];
+    xc.unpack(xf);
+    gc.unpack(gf);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const float xh = (xf[j] - mean) * rstd;
+      const float gm = gf[j] * activate_grad(xh, act);
+      d[j] = rstd * (gm - m1 - xh * m2);
+    }
+    Ch::store(dp + i * W, d);
+  };
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int i = k * group + at.lane;
+    if (i < at.chunks) write(xr[k], gr[k], i);
   }
+  for (int i = held + at.lane; i < at.chunks; i += group) {
+    Ch xc, gc;
+    xc.load(xp + (long)i * W);
+    gc.load(gp + (long)i * W);
+    write(xc, gc, i);
+  }
+}
+
+template <typename T, bool VEC>
+void launch_bwd(const T* g, const T* x, T* dx, long planes, long plane,
+                int group, int per_thread, int threads, long grid, float eps,
+                int act, cudaStream_t st) {
+#define PGT_BWD(C)                                                        \
+  in_act_bwd_kernel<T, C, VEC>                                            \
+      <<<grid, threads, 0, st>>>(g, x, dx, planes, plane, group, eps, act)
+  switch (per_thread) {
+    case 1: PGT_BWD(1); break;
+    case 4: PGT_BWD(4); break;
+    default: PGT_BWD(8); break;
+  }
+#undef PGT_BWD
 }
 
 }  // namespace pgt
 
 // g, x, dx: [planes, plane] contiguous, all bf16 (bf16 != 0) or all fp32.
-// Returns cudaGetLastError() after the launch.
+// vec, group, per_thread, threads: the launch geometry (norm_plane.cuh),
+// chosen by plane_geometry in ops/kernels/norm_act.py. Returns
+// cudaErrorInvalidValue for a geometry the kernel cannot take, else
+// cudaGetLastError() after the launch.
 extern "C" int pgt_in_act_bwd(const void* g, const void* x, void* dx,
                               long planes, long plane, int act, float eps,
-                              int bf16, void* stream) {
+                              int bf16, int vec, int group, int per_thread,
+                              int threads, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  long threads = ((plane / 4 + 31) / 32) * 32;
-  threads = threads < 32 ? 32
-            : threads > pgt::BWD_MAX_THREADS ? pgt::BWD_MAX_THREADS
-                                             : threads;
+  const long grid = pgt::norm::grid_of(planes, plane, bf16 ? 2 : 4, vec,
+                                        group, per_thread, threads,
+                                        {g, x, dx});
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
-    pgt::in_act_bwd_kernel<__nv_bfloat16><<<planes, threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(g),
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<__nv_bfloat16*>(dx), plane, eps, act);
+    using T = __nv_bfloat16;
+    const T* gt = static_cast<const T*>(g);
+    const T* xt = static_cast<const T*>(x);
+    T* dt = static_cast<T*>(dx);
+    if (vec)
+      pgt::launch_bwd<T, true>(gt, xt, dt, planes, plane, group, per_thread,
+                               threads, grid, eps, act, st);
+    else
+      pgt::launch_bwd<T, false>(gt, xt, dt, planes, plane, group, per_thread,
+                                threads, grid, eps, act, st);
   } else {
-    pgt::in_act_bwd_kernel<float><<<planes, threads, 0, st>>>(
-        static_cast<const float*>(g), static_cast<const float*>(x),
-        static_cast<float*>(dx), plane, eps, act);
+    const float* gt = static_cast<const float*>(g);
+    const float* xt = static_cast<const float*>(x);
+    float* dt = static_cast<float*>(dx);
+    if (vec)
+      pgt::launch_bwd<float, true>(gt, xt, dt, planes, plane, group,
+                                   per_thread, threads, grid, eps, act, st);
+    else
+      pgt::launch_bwd<float, false>(gt, xt, dt, planes, plane, group,
+                                    per_thread, threads, grid, eps, act, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,7 @@ starts one nvcc per source at once and waits for all of them. Nothing is
 downloaded; a failed build raises with nvcc's output.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -99,5 +100,18 @@ def check(rc, what):
 
 
 def stream_of(t):
+    """The raw handle of the current stream on t's device (the integer
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    building a Stream object on every launch)."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def device_guard(t):
+    """The device guard a launch on t's device needs: none when that
+    device is already the current one."""
+    import torch
+    index = t.get_device()
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)

@@ -8,9 +8,13 @@ and ``instance_norm_act_backward_plain`` are the same functions in plain
 PyTorch, which the wrappers use for CPU tensors and the tests and
 ``chip_smoke.py`` hold the kernels against. ``InstanceNormAct`` is the
 custom VJP (``norm_act.py:290-303``): its only residual is the input x,
-and its backward recomputes the statistics from x.
+and its backward recomputes the statistics from x. ``plane_geometry``
+chooses both kernels' launch geometry (how many threads own a plane, how
+much of it each holds in registers), which the wrappers pass to the C
+entry points.
 """
 
+import collections
 import ctypes
 import functools
 
@@ -112,12 +116,70 @@ def instance_norm_act_backward_plain(g, x, eps=1e-5, activation=None):
     return (rstd * (gm - m1 - xhat * m2)).to(g.dtype)
 
 
+# K1's and K1-bwd's launch geometry (csrc/norm_plane.cuh): the block size
+# where several planes share a block, the most threads on one plane, and
+# the 16-byte chunks of each input a thread holds in registers, by the
+# plane's chunk count; set from the variants timed by
+# ``tools/norm_act_variants.py --sweep`` (PERF.md, PR 8)
+SMALL_BLOCK = 256
+MAX_GROUP = 512
+HELD = (1, 4, 8)      # the chunk counts the kernels are built for
+
+
+def per_thread_for(chunks):
+    """Chunks a thread holds: 1 up to 16 chunks a plane (more lanes
+    for the deep levels' 2 x 2 to 8 x 8 planes), 4 up to 1024 (16 x 16
+    to 64 x 64 in bf16), 8 above (128 x 128: 256 threads a plane)."""
+    return 1 if chunks <= 16 else 4 if chunks <= 1024 else 8
+
+
+Geometry = collections.namedtuple(
+    'Geometry', 'vec group per_thread threads cls grid')
+
+
+@functools.lru_cache(maxsize=None)
+def plane_geometry(planes, plane, dtype, aligned=True, per_thread=None):
+    """K1's and K1-bwd's launch geometry for ``planes`` contiguous planes
+    of ``plane`` elements of ``dtype``; its first four fields are the C
+    entry points' geometry arguments.
+
+    The vector path (``vec``: 16-byte chunks) needs a plane whose bytes
+    are a multiple of 16 and ``aligned`` base pointers; otherwise a chunk
+    is one element. A group of ``group`` threads (a power of two) owns a
+    plane, each thread holding up to ``per_thread`` chunks of each input
+    (``per_thread_for`` unless given): the group is the fewest threads
+    that hold the whole plane, up to MAX_GROUP. Class ``lanes``: group
+    <= 32, SMALL_BLOCK threads a block, several planes a warp or one a
+    warp, reduced by shuffles. ``block``: one plane a block of
+    ``group`` threads. ``stream``: a block whose plane is larger than its
+    registers hold; the rest is read again in each pass."""
+    esize = dtype.itemsize
+    vec = aligned and plane * esize % 16 == 0
+    chunks = plane // (16 // esize) if vec else plane
+    per_thread = per_thread or per_thread_for(chunks)
+    group = 1
+    while group < MAX_GROUP and group * per_thread < chunks:
+        group *= 2
+    need = -(-chunks // group)
+    held = min(h for h in HELD if h >= min(max(need, 1), per_thread))
+    if group <= 32:
+        cls, threads = 'lanes', SMALL_BLOCK
+    else:
+        cls, threads = ('block' if need <= per_thread else 'stream'), group
+    grid = -(-planes // (threads // group))
+    return Geometry(vec, group, held, threads, cls, grid)
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load('norm_act')
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pgt_in_act.argtypes = [p, p, ctypes.c_long, ctypes.c_long, i,
-                               ctypes.c_float, i, p]
+                               ctypes.c_float, i, i, i, i, i, p]
     lib.pgt_in_act.restype = i
     return lib
 
@@ -127,7 +189,7 @@ def _bwd_lib():
     lib = _build.load('norm_act_bwd')
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pgt_in_act_bwd.argtypes = [p, p, p, ctypes.c_long, ctypes.c_long,
-                                   i, ctypes.c_float, i, p]
+                                   i, ctypes.c_float, i, i, i, i, i, p]
     lib.pgt_in_act_bwd.restype = i
     return lib
 
@@ -135,16 +197,19 @@ def _bwd_lib():
 def _forward(x, eps, activation):
     """K1 on a CUDA tensor, the plain version on a CPU tensor; never
     recorded by autograd."""
-    if x.device.type == 'cpu':
+    if x.is_cpu:
         return instance_norm_act_plain(x, eps, activation)
     act = act_code(activation)
     require(x, 'x', 4)
     flag = dtype_flag(x)
     n, c, h, w = x.shape
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    if not n * c * h * w:
+        return y
+    geo = plane_geometry(n * c, h * w, x.dtype, _aligned(x, y))
+    with _build.device_guard(x):
         rc = _lib().pgt_in_act(x.data_ptr(), y.data_ptr(), n * c, h * w,
-                               act, eps, flag, _build.stream_of(x))
+                               act, eps, flag, *geo[:4], _build.stream_of(x))
     _build.check(rc, 'instance_norm_act')
     instance_norm_act.launches += 1
     return y
@@ -153,7 +218,7 @@ def _forward(x, eps, activation):
 def instance_norm_act_backward(g, x, eps=1e-5, activation=None):
     """dx from g and x, both (N, C, H, W) of one dtype. A CPU tensor
     takes the plain version; a CUDA tensor launches K1-bwd."""
-    if g.device.type == 'cpu':
+    if g.is_cpu:
         return instance_norm_act_backward_plain(g, x, eps, activation)
     act = act_code(activation)
     require(g, 'g', 4)
@@ -164,10 +229,13 @@ def instance_norm_act_backward(g, x, eps=1e-5, activation=None):
     flag = dtype_flag(g)
     n, c, h, w = g.shape
     dx = torch.empty_like(g)
-    with torch.cuda.device(g.device):
+    if not n * c * h * w:
+        return dx
+    geo = plane_geometry(n * c, h * w, g.dtype, _aligned(g, x, dx))
+    with _build.device_guard(g):
         rc = _bwd_lib().pgt_in_act_bwd(
             g.data_ptr(), x.data_ptr(), dx.data_ptr(), n * c, h * w, act,
-            eps, flag, _build.stream_of(g))
+            eps, flag, *geo[:4], _build.stream_of(g))
     _build.check(rc, 'instance_norm_act_backward')
     instance_norm_act_backward.launches += 1
     return dx

@@ -54,11 +54,25 @@ def _inputs(shape, tdtype, seed, scale=1.0):
     return torch.from_numpy(a * scale).to(tdtype)
 
 
+# (N, C, H, W) beside an 8x12 plane: the edges of K1's and K1-bwd's launch
+# classes (plane_geometry): 4x4 (16 elements: a lane a plane, in a plane
+# count no multiple of the planes a block takes), 8x8 and 16x16 (a few
+# lanes a plane), 1x3 (no multiple of 16 bytes: element by element)
+EDGE_SHAPES = [(3, 5, 4, 4), (2, 8, 8, 8), (2, 4, 16, 16), (2, 8, 1, 3)]
+
+
+def _shape_id(s):
+    """The plane (H x W); the whole shape for the 4x4 edge case."""
+    return 'x'.join(map(str, s if s == EDGE_SHAPES[0] else s[2:]))
+
+
+@pytest.mark.parametrize('shape', [(2, 24, 8, 12)] + EDGE_SHAPES,
+                         ids=_shape_id)
 @pytest.mark.parametrize('dt', DTYPES, ids=lambda d: d[0])
 @pytest.mark.parametrize('act', ACTS)
-def test_instance_norm_act_matches_pallas(act, dt):
+def test_instance_norm_act_matches_pallas(act, dt, shape):
     name, tdt, jdt = dt
-    x = _inputs((2, 24, 8, 12), tdt, 0, scale=3.0) + 1.5
+    x = _inputs(shape, tdt, 0, scale=3.0) + 1.5
     got = instance_norm_act(x, 1e-5, act)
     want = instance_norm_act_pallas(jnp.asarray(_nhwc(x), jdt), 1e-5, act)
     assert got.dtype == tdt
@@ -220,12 +234,11 @@ def _vjp_nhwc(fn, primals, g):
 
 # (N, C, H, W): H != W, enc6's 2x2 plane at 256 px, its 1x1 plane at
 # 128 px (xhat = 0 exactly, where relu' and leakyrelu' differ between
-# conventions)
-BWD_SHAPES = [(2, 8, 6, 10), (3, 16, 2, 2), (4, 8, 1, 1)]
+# conventions), and the launch classes' edges
+BWD_SHAPES = [(2, 8, 6, 10), (3, 16, 2, 2), (4, 8, 1, 1)] + EDGE_SHAPES
 
 
-@pytest.mark.parametrize('shape', BWD_SHAPES, ids=lambda s: 'x'.join(
-    map(str, s[2:])))
+@pytest.mark.parametrize('shape', BWD_SHAPES, ids=_shape_id)
 @pytest.mark.parametrize('dt', DTYPES, ids=lambda d: d[0])
 @pytest.mark.parametrize('act', ACTS)
 def test_instance_norm_act_backward_matches_pallas(act, dt, shape):

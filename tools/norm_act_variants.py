@@ -1,0 +1,324 @@
+#!/usr/bin/env python3
+"""Time versions of the instance-norm kernels K1 and K1-bwd on one CUDA
+card, each version in its own process, in turns.
+
+    python3 tools/norm_act_variants.py NAME=CHECKOUT ... [--sweep]
+
+Each NAME=CHECKOUT is a checkout of this repository (``.`` for the
+working tree; another revision unpacked with ``git archive`` into an
+ignored directory such as ``chip_scratch/``). Its own
+``patchgan_tpu_torch`` is imported in a child process, which builds the
+kernels from that checkout's sources and, in the order given and then
+reversed:
+
+- holds K1-bwd at the 12 shapes of one generator backward (batch 16,
+  256 px, nf=64) and K1 at enc0 (the 8-tile inference chunk and the
+  batch-16 step) against their plain versions in bf16 and fp32;
+- times each call in bf16 four ways: ``cuda_ms``, CUDA events around 20
+  back-to-back wrapper calls (as ``chip_smoke.py`` does); ``device_ms``,
+  the kernels' own durations in a ``torch.profiler`` trace of 20 calls;
+  ``graph_ms``, CUDA events around the replay of a CUDA graph of 20
+  calls (no host work, launch gaps on the card included); and
+  ``host_us``, the host's time to enqueue one call;
+- splits the wrapper's host work at the smallest level into the output
+  allocation, the device guard, the stream lookup and the rest (the
+  ctypes call and the checks);
+- prints the bytes bound beside each row, and the launch geometry where
+  the version chooses one in Python (``plane_geometry``).
+
+``--sweep`` also times, for each version that has ``plane_geometry``,
+every level under each ``per_thread`` it can be given (the chunks a
+thread holds, which sets the threads on a plane), so that the
+thresholds can be set from one call.
+
+It prints the card's name and power limit and, per version, the mean of
+its two turns.
+"""
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HBM_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+BWD_FLOPS, FWD_FLOPS = 14, 6          # fp32 operations per element
+ITERS = 20
+SWEEP_PER_THREAD = (1, 2, 4, 8)
+
+
+def levels():
+    """(label, (N, C, H, W)) of the 12 K1-bwd calls of one generator
+    backward at batch 16, 256 px, nf=64 (``chip_smoke.bwd_shapes``)."""
+    b, f = 16, 64
+    out = [('enc0', (b, f, 128, 128))]
+    for lvl, (c, hw) in enumerate([(2 * f, 64), (4 * f, 32), (8 * f, 16),
+                                   (8 * f, 8), (8 * f, 4), (8 * f, 2)], 1):
+        out.append((f'enc{lvl}', (b, c, hw, hw)))
+    for lvl, (c, hw) in enumerate([(8 * f, 8), (8 * f, 16), (4 * f, 32),
+                                   (2 * f, 64), (f, 128)], 1):
+        out.append((f'dec{lvl}', (b, c, hw, hw)))
+    return out
+
+
+FWD_CASES = [('K1 enc0 infer chunk', (8, 64, 128, 128)),
+             ('K1 enc0 step', (16, 64, 128, 128))]
+
+
+def bound_ms(flops, nbytes):
+    return max(flops / PEAK_FP32, nbytes / HBM_BYTES) * 1e3
+
+
+def cuda_ms(torch, fn):
+    for _ in range(3):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(ITERS):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / ITERS
+
+
+def device_ms(torch, fn):
+    """Kernel time per call from a profiler trace of ITERS calls: the
+    entries with device time and no host time of their own."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.self_device_time_total > 0 and e.self_cpu_time_total == 0)
+    return us / ITERS / 1e3
+
+
+def graph_ms(torch, fn):
+    """CUDA events around the replay of a graph of ITERS calls."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(ITERS):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(5):
+        g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (5 * ITERS)
+
+
+def host_us(torch, fn, n=200):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def host_split(torch, na, x, g):
+    """Host microseconds of the wrapper's parts at one call."""
+    from patchgan_tpu_torch.ops.kernels import _build
+    n = 2000
+
+    def each(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def guard():     # the guard the version's wrapper takes
+        with (_build.device_guard(x) if hasattr(_build, 'device_guard')
+              else torch.cuda.device(x.device)):
+            pass
+    parts = {'empty_like_us': each(lambda: torch.empty_like(x)),
+             'device_guard_us': each(guard),
+             'stream_of_us': each(lambda: _build.stream_of(x)),
+             'wrapper_us': host_us(torch, lambda: na.instance_norm_act_backward(
+                 g, x, 1e-5, 'relu'), n)}
+    if hasattr(na, 'plane_geometry'):
+        parts['plane_geometry_us'] = each(lambda: na.plane_geometry(
+            x.shape[0] * x.shape[1], x.shape[2] * x.shape[3], x.dtype))
+    parts['rest_us'] = parts['wrapper_us'] - sum(
+        v for k, v in parts.items() if k != 'wrapper_us')
+    return parts
+
+
+def geometry(na, shape, dtype):
+    if not hasattr(na, 'plane_geometry'):
+        return {}
+    n, c, h, w = shape
+    return na.plane_geometry(n * c, h * w, dtype)._asdict()
+
+
+def run_child(checkout, name, rep, sweep):
+    sys.path.insert(0, os.path.abspath(checkout))
+    import torch
+    from patchgan_tpu_torch.ops.kernels import _build
+    from patchgan_tpu_torch.ops.kernels import norm_act as na
+    _build.build(('norm_act', 'norm_act_bwd'))
+    for lib, log in _build.build_log.items():
+        for line in log.splitlines():
+            if 'registers' in line or 'spill' in line or 'Compiling' in line:
+                print(f'  ptxas {lib}: {line.strip()}', flush=True)
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    ok = True
+
+    def emit(row):
+        row.update(version=name, rep=rep)
+        print(json.dumps(row), flush=True)
+
+    def check(label, fn, plain, args, tol):
+        nonlocal ok
+        for dt, t in ((torch.bfloat16, tol[0]), (torch.float32, tol[1])):
+            a = [v.to(dt) for v in args]
+            got = fn(*a, 1e-5, 'relu').float()
+            want = plain(*[v.float() for v in a], 1e-5, 'relu')
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            lim = t * max(1.0, want.abs().max().item())
+            if not e <= lim:
+                ok = False
+                print(f'  {name} {label} {dt}: {e} > {lim}  FAIL',
+                      flush=True)
+
+    def timed(kind, label, shape, fn, flops, nbytes, extra=None):
+        row = {'kernel': kind, 'case': label, 'shape': shape,
+               'cuda_ms': cuda_ms(torch, fn),
+               'device_ms': device_ms(torch, fn),
+               'graph_ms': graph_ms(torch, fn),
+               'host_us': host_us(torch, fn),
+               'bound_ms': bound_ms(flops, nbytes)}
+        row.update(extra or {})
+        emit(row)
+
+    data = {}
+    for label, shape in levels():
+        x = torch.randn(*shape, generator=gen, device='cuda')
+        g = torch.randn(*shape, generator=gen, device='cuda')
+        data[label] = (x, g)
+        if rep == 0:
+            check(label, na.instance_norm_act_backward,
+                  na.instance_norm_act_backward_plain, (g, x), (3e-2, 1e-3))
+    for label, shape in FWD_CASES:
+        x = torch.randn(*shape, generator=gen, device='cuda')
+        data[label] = (x,)
+        if rep == 0:
+            check(label, na.instance_norm_act, na.instance_norm_act_plain,
+                  (x,), (3e-2, 1e-3))
+    with torch.inference_mode():
+        for label, shape in levels():
+            x, g = (t.bfloat16() for t in data[label])
+            numel = x.numel()
+            timed('K1-bwd', label, shape,
+                  lambda: na.instance_norm_act_backward(g, x, 1e-5, 'relu'),
+                  BWD_FLOPS * numel, 6 * numel,
+                  {'geometry': geometry(na, shape, torch.bfloat16)})
+        for label, shape in FWD_CASES:
+            x = data[label][0].bfloat16()
+            numel = x.numel()
+            timed('K1', label, shape,
+                  lambda: na.instance_norm_act(x, 1e-5, 'relu'),
+                  FWD_FLOPS * numel, 4 * numel,
+                  {'geometry': geometry(na, shape, torch.bfloat16)})
+        x, g = (t.bfloat16() for t in data['enc6'])
+        emit({'kernel': 'K1-bwd', 'case': 'host split enc6',
+              **host_split(torch, na, x, g)})
+        if sweep and hasattr(na, 'plane_geometry'):
+            chosen = na.plane_geometry
+            cases = [('K1-bwd', label, shape) for label, shape in levels()] \
+                + [('K1', label, shape) for label, shape in FWD_CASES]
+            for kind, label, shape in cases:
+                x = data[label][0].bfloat16()
+                g = data[label][1].bfloat16() if kind == 'K1-bwd' else None
+                seen = set()
+                for pt in SWEEP_PER_THREAD:
+                    na.plane_geometry = functools.partial(chosen,
+                                                          per_thread=pt)
+                    geo = geometry(na, shape, torch.bfloat16)
+                    key = tuple(sorted(geo.items()))
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    if kind == 'K1-bwd':
+                        def fn():
+                            return na.instance_norm_act_backward(
+                                g, x, 1e-5, 'relu')
+                    else:
+                        def fn():
+                            return na.instance_norm_act(x, 1e-5, 'relu')
+                    emit({'kernel': kind, 'case': f'sweep {label}',
+                          'per_thread': pt, 'geometry': geo,
+                          'device_ms': device_ms(torch, fn),
+                          'graph_ms': graph_ms(torch, fn)})
+                na.plane_geometry = chosen
+    return ok
+
+
+def main():
+    args = sys.argv[1:]
+    if args and args[0] == '--child':
+        ok = run_child(args[1], args[2], int(args[3]), args[4] == 'sweep')
+        return 0 if ok else 1
+    sweep = '--sweep' in args
+    specs = [a.split('=', 1) for a in args if '=' in a]
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    rows, ok = [], True
+    for rep in range(2):
+        for name, checkout in (specs if rep == 0 else specs[::-1]):
+            t0 = time.time()
+            out = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), '--child',
+                 checkout, name, str(rep),
+                 'sweep' if sweep and rep == 0 else 'time'],
+                capture_output=True, text=True, cwd=ROOT)
+            print(f'== {name} turn {rep} ({time.time() - t0:.1f} s, rc '
+                  f'{out.returncode})', flush=True)
+            print(out.stdout + out.stderr[-3000:], flush=True)
+            ok &= out.returncode == 0
+            rows += [json.loads(line) for line in out.stdout.splitlines()
+                     if line.startswith('{')]
+    print('mean of the two turns, bf16 (cuda_ms / device_ms / graph_ms '
+          '/ host_us; bound_ms):')
+    for name, _ in specs:
+        total = [0.0, 0.0, 0.0]
+        for label, _ in levels() + FWD_CASES:
+            rs = [r for r in rows if r['version'] == name
+                  and r['case'] == label]
+            if not rs:
+                continue
+            m = [sum(r[k] for r in rs) / len(rs)
+                 for k in ('cuda_ms', 'device_ms', 'graph_ms', 'host_us')]
+            if rs[0]['kernel'] == 'K1-bwd':
+                total = [t + v for t, v in zip(total, m)]
+            print(f'  {name} {label}: {m[0]:.4f} / {m[1]:.4f} / {m[2]:.4f} '
+                  f'/ {m[3]:.1f}; {rs[0]["bound_ms"]:.4f}')
+        print(f'  {name} K1-bwd, 12 calls: {total[0]:.4f} / {total[1]:.4f} '
+              f'/ {total[2]:.4f}')
+    return 0 if ok else 1
+
+
+if __name__ == '__main__':
+    sys.exit(main())
