@@ -120,7 +120,7 @@ def instance_norm_act_backward_plain(g, x, eps=1e-5, activation=None):
 # where several planes share a block, the most threads on one plane, and
 # the 16-byte chunks of each input a thread holds in registers, by the
 # plane's chunk count; set from the variants timed by
-# ``tools/norm_act_variants.py --sweep`` (PERF.md, PR 8)
+# ``tools/norm_act_variants.py --sweep`` (its times are in PERF.md)
 SMALL_BLOCK = 256
 MAX_GROUP = 512
 HELD = (1, 4, 8)      # the chunk counts the kernels are built for
