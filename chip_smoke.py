@@ -80,21 +80,40 @@ Run from the root of the repository. In order:
    off, dropout off, from the same weights and batch, through the kernel
    path on the card and the plain path on the CPU: losses within rtol
    2e-3 / atol 2e-4, every gradient within 1e-3 of that tensor's max
-   |g|;
+   |g|; then the fine-tune step's parity: the encoder frozen
+   (``('enc',)``), accumulation every 2, two fp32 micro-batches of 2 on
+   both devices: losses as above, no parameter moved after the first,
+   the encoder bit-equal to its initial weights after the second on both
+   devices, every other parameter within Adam's sign-flip bound of the
+   CPU's (``assert_update_close``);
 8. the training path: ``patchgan_train -d cuda`` (bf16, batch 16, 2
    epochs, nf=64 / ndf=64, 256 px, tversky * 200 + BCE) on a synthetic
    npz folder (64 training and 16 validation images, 7 classes), then a
    resume with ``load_last_checkpoint`` to epoch 3: finite losses, all
    four epoch files, the resume at epoch 3 with the fast-forwarded LR,
    and K1 / K2 / K3 / K1-bwd at 1 / 6 / 5 / 12 launches per train step
-   (1 / 6 / 5 / 0 per validation batch); then the same under
+   (1 / 6 / 5 / 0 per validation batch) and 11 K2 / K3 recomputes; then
+   the fine-tune of BASELINE.json config 3 (``FT_STEP``): the epoch-3
+   weights as torch .pth files, ``transfer_learn.freeze_encoder``,
+   ``accumulate_steps: 2``, one epoch: K1-bwd 5 a step, no K2
+   recompute, the encoder bit-equal to the .pth; all of it again under
    ``PATCHGAN_S2D=on``, where a train step also launches K4 6 times and
-   K4-wgrad 4 times (see ``S2D_STEP``) and a validation batch K4 5 times;
-9. training img/s of the bf16 step at batch 16 on a device-resident
-   batch, plain and s2d form in turns, five windows of at least 2 s each
-   (every reading and the medians), peak device memory, and a profiler
-   breakdown of three steps of each form (the top kernels, then each of
-   the port's kernels).
+   K4-wgrad 4 times (3 in the fine-tune: the frozen enc0 takes none) and
+   a validation batch K4 5 times;
+9. the evaluation path: ``patchgan_eval -d cuda`` (bf16, batch 8) with
+   the training config on its 16 validation images, so the newest epoch
+   file is evaluated: the JSON line's keys, n_images 16, values in [0,
+   1], K1 / K2 / K3 1 / 6 / 5 a batch, images/s of its loop; ``-d cuda
+   --dtype float32`` against ``-d cpu --dtype float32``, IoU, Dice and
+   boundary F1 within 2e-3;
+10. training img/s of the bf16 step on a device-resident batch, in
+   turns, five windows of at least 2 s each (every reading and the
+   medians): the full step at batch 16 in the plain and the s2d form,
+   the fine-tune step (encoder frozen) in both forms, and the fine-tune
+   step accumulating two micro-batches of 8; peak device memory, and a
+   profiler breakdown of three steps of each (the top kernels, then each
+   of the port's kernels, and the device kernels launched a step, fewer
+   for a frozen step than a full one of its form).
 
 It prints a JSON summary of the kernels (launches from the s2d training
 run, which drives all six; every path's counts beside them), the card's
@@ -139,6 +158,15 @@ BWD_FLOPS = 14
 # real and fake pair 2.
 STEP = {'off': [1, 6, 5, 12, 0, 0], 'on': [1, 6, 5, 12, 6, 4]}
 EVAL = {'off': [1, 6, 5, 0, 0, 0], 'on': [1, 6, 5, 0, 5, 0]}
+# the same per fine-tune step with the encoder frozen ('enc',): the
+# encoder runs forward only, so K1-bwd runs at dec1-dec5 alone, K2 takes
+# no recompute, and the s2d enc0's K4 takes no weight gradient (the
+# discriminator's three conv0 parts still do)
+FREEZE = ('enc',)
+FT_STEP = {'off': [1, 6, 5, 5, 0, 0], 'on': [1, 6, 5, 5, 6, 3]}
+# K2 + K3 recomputes (recompute_grads) per full and per frozen step
+RECOMPUTES = {'full': 6 + 5, 'frozen': 5}
+LR = 1e-3
 
 
 def card_line():
@@ -235,6 +263,16 @@ def s2d_env(flag):
             os.environ.pop('PATCHGAN_S2D')
         else:
             os.environ['PATCHGAN_S2D'] = old
+
+
+@contextlib.contextmanager
+def in_dir(path):
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
 
 
 def bound(flops, nbytes, peak):
@@ -652,7 +690,7 @@ def step_parity_phase(torch, np, wrappers, s2d):
     def run(g, d, x, y):
         if form:
             x, y = space_to_depth(x), space_to_depth(y)
-        with constant_params(d):
+        with constant_params(d.parameters()):
             g_loss, gen_img, gdisc = gan_losses(g, d, seg, x, y, form)
         g_grads = torch.autograd.grad(g_loss, list(g.parameters()))
         d_loss, real, fake = disc_loss(*disc_real_fake(
@@ -746,48 +784,48 @@ def write_train_inputs(tmp, np):
     return paths
 
 
-def train_path_phase(torch, np, wrappers, card, s2d):
+def train_path_phase(torch, np, wrappers, card, s2d, tmp):
     """patchgan_train -d cuda for 2 epochs, then a resume to epoch 3,
-    under PATCHGAN_S2D=``s2d``; returns the launch counts of the first
-    run and the epoch times."""
+    under PATCHGAN_S2D=``s2d``, on a synthetic folder written into
+    ``tmp``; returns the launch counts of the first run, the epoch times
+    and the training config."""
     from patchgan_tpu_torch.cli.train import patchgan_train
+    from patchgan_tpu_torch.ops.kernels.conv_norm_act import recompute_grads
     per_step, per_eval = STEP[s2d], EVAL[s2d]
-    cwd = os.getcwd()
     runs = []
-    with tempfile.TemporaryDirectory() as tmp:
-        train_cfg, resume_cfg = write_train_inputs(tmp, np)
-        os.chdir(tmp)
-        try:
-            for cfg, epochs in ((train_cfg, 2), (resume_cfg, 3)):
-                for w in wrappers:
-                    w.launches = 0
-                tee = Tee(sys.stdout)
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(tee), s2d_env(s2d):
-                    g_hist, d_hist = patchgan_train(
-                        ['-c', cfg, '-n', str(epochs), '-b', str(TRAIN_B),
-                         '-d', 'cuda', '--no-summary'])
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                runs.append(([w.launches for w in wrappers], g_hist, d_hist,
-                             tee.getvalue(), wall))
-        finally:
-            os.chdir(cwd)
-        files = sorted(os.listdir(os.path.join(tmp, 'ck')))
+    train_cfg, resume_cfg = write_train_inputs(tmp, np)
+    with in_dir(tmp):
+        for cfg, epochs in ((train_cfg, 2), (resume_cfg, 3)):
+            for w in wrappers + [recompute_grads]:
+                w.launches = 0
+            tee = Tee(sys.stdout)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee), s2d_env(s2d):
+                g_hist, d_hist = patchgan_train(
+                    ['-c', cfg, '-n', str(epochs), '-b', str(TRAIN_B),
+                     '-d', 'cuda', '--no-summary'])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs.append(([w.launches for w in wrappers], g_hist, d_hist,
+                         tee.getvalue(), wall, recompute_grads.launches))
+    files = sorted(os.listdir(os.path.join(tmp, 'ck')))
     want_files = [f'{p}_ep_{e:03d}.npz' for p in ('discriminator',
                                                    'generator')
                   for e in (1, 2, 3)]
     if files != want_files:
         raise AssertionError(f'checkpoints {files}, expected {want_files}')
     epoch_s = []
-    for (launches, g_hist, d_hist, out, wall), epochs in zip(runs, (2, 1)):
+    for (launches, g_hist, d_hist, out, wall, recomputes), epochs in zip(
+            runs, (2, 1)):
         steps, evals = 4 * epochs, epochs     # 64 / 16 and 16 / 16
         want = [steps * a + evals * b for a, b in zip(per_step, per_eval)]
         print(f'  run of {epochs} epoch(s): wall {wall:.2f} s, launches '
-              f'{launches} (expected {want}), G losses {g_hist}, D losses '
-              f'{d_hist}', flush=True)
-        if launches != want:
-            raise AssertionError(f'launches {launches}, expected {want}')
+              f'{launches} (expected {want}), recomputes {recomputes} '
+              f'(expected {steps * RECOMPUTES["full"]}), G losses {g_hist}, '
+              f'D losses {d_hist}', flush=True)
+        if launches != want or recomputes != steps * RECOMPUTES['full']:
+            raise AssertionError(f'launches {launches}, expected {want}; '
+                                 f'recomputes {recomputes}')
         if not all(np.isfinite(g_hist + d_hist)) or \
                 len(g_hist) != epochs:
             raise AssertionError(f'losses {g_hist} {d_hist}')
@@ -804,72 +842,305 @@ def train_path_phase(torch, np, wrappers, card, s2d):
     print(f'  s2d {s2d}: resumed at epoch 3 with lr {lr:5.3e}; training '
           f'epoch wall times (64 images, loader included) {epoch_s} s on '
           f'{card}', flush=True)
-    return runs[0][0], epoch_s
+    return runs[0][0], epoch_s, train_cfg
+
+
+def assert_update_close(name, got, want):
+    """Parameters after one Adam update, card against CPU: an element
+    whose gradient is at rounding-noise level can flip its update's sign
+    (about lr * sign(g)), so 99.9% of the elements within 5e-5 + 5e-3 |w|
+    and every one within 2.5 lr (tests/torch_parity.py)."""
+    diff = (got - want).abs()
+    tight = (diff <= 5e-5 + 5e-3 * want.abs()).float().mean().item()
+    worst = diff.max().item()
+    if not (tight >= 0.999 and worst <= 2.5 * LR):
+        raise AssertionError(f'{name}: {1 - tight:.3%} loose, max diff '
+                             f'{worst:.3e}')
+    return 1.0 - tight, worst
+
+
+def finetune_parity_phase(torch, np, wrappers, s2d):
+    """Two micro-steps of the frozen (('enc',)) step with accumulation
+    every 2, fp32, TF32 off, dropout off, in the form ``s2d`` selects:
+    the kernel path on the card against the plain path on the CPU from
+    the same weights and batches. Losses of both micro-steps within rtol
+    2e-3 / atol 2e-4; after the first no parameter has moved on either
+    device; after the second the encoder is bit-equal to its initial
+    weights on both, every other parameter within Adam's sign-flip bound
+    of the CPU's (``assert_update_close``); 2 x ``FT_STEP`` launches."""
+    from patchgan_tpu_torch.models import Discriminator, UNet
+    from patchgan_tpu_torch.train.steps import (make_optimizer,
+                                                make_train_step,
+                                                trainable_params)
+    init = torch.Generator().manual_seed(4)
+    gen = UNet(IN_C, OUT_C, nf=NF, activation='relu', final_act='softmax',
+               generator=init)
+    disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3, generator=init)
+    names = [f'G {n}' for n, _ in gen.named_parameters()] + \
+        [f'D {n}' for n, _ in disc.named_parameters()]
+    start = [p.detach().clone() for p in list(gen.parameters())
+             + list(disc.parameters())]
+    batches = [train_batch(torch, np, 2, SIZE, 'cpu', seed)
+               for seed in (5, 6)]
+    models = {'cpu': ('cpu', gen, disc),
+              'card': ('cuda', copy.deepcopy(gen).cuda(),
+                       copy.deepcopy(disc).cuda())}
+    out = {}
+    for where, (device, g, d) in models.items():
+        step = make_train_step(
+            g, d, make_optimizer(trainable_params(g, FREEZE), LR, every_k=2),
+            make_optimizer(d.parameters(), LR, every_k=2), s2d=s2d == 'on',
+            freeze_patterns=FREEZE)
+        params = list(g.parameters()) + list(d.parameters())
+        for w in wrappers:
+            w.launches = 0
+        t0 = time.perf_counter()
+        runs = []
+        for x, y in batches:
+            losses = step(x.to(device), y.to(device))
+            runs.append(({k: v.item() for k, v in losses.items()},
+                          [p.detach().cpu().clone() for p in params]))
+        out[where] = runs
+        print(f'  s2d {s2d}, {where}: two micro-steps in '
+              f'{time.perf_counter() - t0:.1f} s', flush=True)
+    launches = [w.launches for w in wrappers]
+    want = [2 * n for n in FT_STEP[s2d]]
+    if launches != want:
+        raise AssertionError(f'fine-tune parity launches {launches}, '
+                             f'expected {want}')
+    for i in range(2):
+        for k, want_v in out['cpu'][i][0].items():
+            got = out['card'][i][0][k]
+            if not abs(got - want_v) <= 2e-4 + 2e-3 * abs(want_v):
+                raise AssertionError(f'micro-step {i + 1} loss {k}: card '
+                                     f'{got} vs CPU {want_v}')
+    for where in ('cpu', 'card'):
+        first, second = out[where][0][1], out[where][1][1]
+        for name, p0, p1, p2 in zip(names, start, first, second):
+            if not torch.equal(p1, p0):
+                raise AssertionError(f'{where}: {name} moved at the first '
+                                     f'micro-step')
+            if torch.equal(p2, p0) != name.startswith('G encoder'):
+                raise AssertionError(f'{where}: {name} frozen: '
+                                     f'{name.startswith("G encoder")}, '
+                                     f'equal after the update: '
+                                     f'{torch.equal(p2, p0)}')
+    worst = {'loose': 0.0, 'max_diff': 0.0}
+    for name, got, want_p in zip(names, out['card'][1][1], out['cpu'][1][1]):
+        if not name.startswith('G encoder'):
+            loose, diff = assert_update_close(name, got, want_p)
+            worst = {'loose': max(worst['loose'], loose),
+                     'max_diff': max(worst['max_diff'], diff)}
+    print(f'  s2d {s2d}: launches {launches}; losses of both micro-steps '
+          f'{[r[0]["gen"] for r in out["card"]]} (card) vs '
+          f'{[r[0]["gen"] for r in out["cpu"]]} (CPU); nothing moved at the '
+          f'first; encoder bit-equal to its initial weights on both devices; '
+          f'decoder and D after the update: loose share {worst["loose"]:.2e},'
+          f' max |diff| {worst["max_diff"]:.3e} (bound 2.5 lr)', flush=True)
+    return worst
+
+
+def finetune_path_phase(torch, np, wrappers, s2d, tmp, train_cfg):
+    """The fine-tune of BASELINE.json config 3 through ``patchgan_train -d
+    cuda`` (bf16, batch 16, 1 epoch): the training run's epoch-3 weights
+    saved as torch .pth files, loaded by ``transfer_learn`` with
+    ``freeze_encoder``, and ``accumulate_steps: 2``. Checks the launches
+    (4 steps of ``FT_STEP``, one validation batch of ``EVAL``, 4 x 5
+    recomputes), that the epoch file holds the .pth's encoder bit for
+    bit and a moved decoder. Returns the launches by kernel."""
+    import yaml
+    from patchgan_tpu_torch.cli.train import patchgan_train
+    from patchgan_tpu_torch.ops.kernels.conv_norm_act import recompute_grads
+    from patchgan_tpu_torch.utils.checkpoint import load_state_dict
+    pth = {}
+    for net in ('generator', 'discriminator'):
+        pth[net] = os.path.join(tmp, f'{net}.pth')
+        torch.save(load_state_dict(os.path.join(tmp, 'ck',
+                                                f'{net}_ep_003.npz')),
+                   pth[net])
+    with open(train_cfg) as f:
+        cfg = yaml.safe_load(f)
+    cfg['checkpoint_path'] = os.path.join(tmp, f'ft_{s2d}')
+    cfg['load_last_checkpoint'] = False
+    cfg['transfer_learn'] = {'generator_checkpoint': pth['generator'],
+                             'discriminator_checkpoint': pth['discriminator'],
+                             'freeze_encoder': True}
+    cfg['train_params']['accumulate_steps'] = 2
+    path = os.path.join(tmp, 'finetune.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    with in_dir(tmp), s2d_env(s2d):
+        for w in wrappers + [recompute_grads]:
+            w.launches = 0
+        t0 = time.perf_counter()
+        g_hist, d_hist = patchgan_train(['-c', path, '-n', '1', '-b',
+                                         str(TRAIN_B), '-d', 'cuda',
+                                         '--no-summary'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = [w.launches for w in wrappers]
+        recomputes = recompute_grads.launches
+    want = [4 * a + b for a, b in zip(FT_STEP[s2d], EVAL[s2d])]
+    print(f'  s2d {s2d}: wall {wall:.2f} s, launches {launches} (expected '
+          f'{want}), recomputes {recomputes} (expected '
+          f'{4 * RECOMPUTES["frozen"]}), G losses {g_hist}, D losses '
+          f'{d_hist}', flush=True)
+    if launches != want or recomputes != 4 * RECOMPUTES['frozen']:
+        raise AssertionError(f'fine-tune launches {launches}, recomputes '
+                             f'{recomputes}')
+    if not all(np.isfinite(g_hist + d_hist)):
+        raise AssertionError(f'losses {g_hist} {d_hist}')
+    before = torch.load(pth['generator'])
+    after = load_state_dict(os.path.join(cfg['checkpoint_path'],
+                                         'generator_ep_001.npz'))
+    for k, v in before.items():
+        if torch.equal(after[k], v) != k.startswith('encoder'):
+            raise AssertionError(f'fine-tune: {k} equal to the .pth: '
+                                 f'{torch.equal(after[k], v)}')
+    print(f'  s2d {s2d}: encoder bit-equal to the .pth, decoder moved',
+          flush=True)
+    return launches
+
+
+def eval_path_phase(torch, wrappers, card, tmp, train_cfg):
+    """``patchgan_eval`` on the training folder's 16 validation images
+    with the training config, so the newest epoch file (3) is evaluated:
+    ``-d cuda`` (bf16) with the launch counts (K1 / K2 / K3 1 / 6 / 5 a
+    batch of 8), the JSON line's keys, n_images 16 and values in [0, 1];
+    then ``-d cuda --dtype float32`` against ``-d cpu --dtype float32``,
+    every metric within 2e-3. The bf16 run is made twice; its loop's
+    images/s are printed for both. Returns (launches, images/s of the
+    second bf16 run's loop, the three results)."""
+    from patchgan_tpu_torch.cli.evaluate import patchgan_eval
+    args = ['-c', train_cfg, '-b', '8', '--metrics', 'iou,dice,bf1']
+    keys = ['metric', 'value', 'n_images', 'checkpoint', 'mean_dice',
+            'mean_boundary_f1']
+    with in_dir(tmp):
+        for w in wrappers:
+            w.launches = 0
+        tee = Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            bf16 = patchgan_eval(args + ['-d', 'cuda'])
+            torch.cuda.synchronize()
+            launches = [w.launches for w in wrappers]
+            again = patchgan_eval(args + ['-d', 'cuda'])
+        if again != bf16:
+            raise AssertionError(f'eval bf16 runs differ: {bf16}, {again}')
+        fp32 = patchgan_eval(args + ['-d', 'cuda', '--dtype', 'float32'])
+        cpu = patchgan_eval(args + ['-d', 'cpu', '--dtype', 'float32'])
+    want = [2 * n for n in EVAL['off']]
+    if launches != want:
+        raise AssertionError(f'eval launches {launches}, expected {want}')
+    for r in (bf16, fp32, cpu):
+        if list(r) != keys or r['n_images'] != 16 or \
+                not r['checkpoint'].endswith('generator_ep_003.npz') or \
+                not all(0.0 <= r[k] <= 1.0 for k in keys[4:] + ['value']):
+            raise AssertionError(f'eval result {r}')
+    diffs = {k: abs(fp32[k] - cpu[k])
+             for k in ('value', 'mean_dice', 'mean_boundary_f1')}
+    if not all(d <= 2e-3 for d in diffs.values()):
+        raise AssertionError(f'eval fp32 card vs CPU: {diffs}')
+    img_s = [int(ln.split()[1]) / float(ln.split(' in ')[1].split('s')[0])
+             for ln in tee.getvalue().splitlines()
+             if ln.startswith('Evaluated ')]
+    print(f'  launches {launches}; bf16 {bf16}; fp32 card vs CPU |diff| '
+          f'{diffs} (tol 2e-3); bf16 loop {img_s} images/s (first, second '
+          f'run) on {card}', flush=True)
+    return launches, img_s[1], {'bf16': bf16, 'fp32': fp32, 'cpu': cpu}
+
+
+# the throughput phase's configurations: (form, frozen, batch, every_k);
+# 'off' and 'on' are the full step, the rest the fine-tune of config 3
+TRAIN_CONFIGS = {'off': ('off', False, TRAIN_B, 1),
+                 'on': ('on', False, TRAIN_B, 1),
+                 'frozen off': ('off', True, TRAIN_B, 1),
+                 'frozen on': ('on', True, TRAIN_B, 1),
+                 'frozen off k=2 b=8': ('off', True, TRAIN_B // 2, 2)}
 
 
 def throughput_phase(torch, np, card):
-    """img/s of the bf16 train step at batch 16 on a device-resident
-    batch, plain and s2d form in turns, peak memory, and a profiler
-    breakdown of three steps of each form."""
+    """img/s of the bf16 train step on a device-resident batch in each of
+    ``TRAIN_CONFIGS``: the full step at batch 16, plain and s2d form, the
+    frozen (('enc',)) step at batch 16 in both forms, and the frozen step
+    accumulating 2 micro-batches of 8 (img/s counts the images of each
+    micro-step); all in turns, five windows of at least 2 s each. Peak
+    memory (absolute, and above what was allocated before the
+    configuration's first step), and a profiler breakdown of three steps
+    of each (four micro-steps at k=2) with the device kernels launched a
+    step: a frozen step must launch fewer than the full one of its
+    form."""
     from patchgan_tpu_torch.models import Discriminator, UNet
     from patchgan_tpu_torch.train.steps import (make_optimizer,
-                                                make_train_step)
+                                                make_train_step,
+                                                trainable_params)
     bf16 = torch.bfloat16
     x, y = train_batch(torch, np, TRAIN_B, SIZE, 'cuda', 8)
     x, y = x.to(bf16), y.to(bf16)
     steps, out = {}, {}
-    for form in ('off', 'on'):
+    for name, (form, frozen, batch, every_k) in TRAIN_CONFIGS.items():
         init = torch.Generator().manual_seed(7)
         gen = UNet(IN_C, OUT_C, nf=NF, use_dropout=True, activation='relu',
                    final_act='softmax', dtype=bf16, generator=init).cuda()
         disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3, dtype=bf16,
                              generator=init).cuda()
         gen.dropout_generator = torch.Generator(device='cuda').manual_seed(0)
-        steps[form] = make_train_step(
-            gen, disc, make_optimizer(gen.parameters(), 1e-3,
-                                      mu_dtype=bf16),
-            make_optimizer(disc.parameters(), 1e-3, mu_dtype=bf16),
-            s2d=form == 'on')
+        freeze = FREEZE if frozen else ()
+        step = make_train_step(
+            gen, disc, make_optimizer(trainable_params(gen, freeze), LR,
+                                      mu_dtype=bf16, every_k=every_k),
+            make_optimizer(disc.parameters(), LR, mu_dtype=bf16,
+                           every_k=every_k),
+            s2d=form == 'on', freeze_patterns=freeze)
+        steps[name] = (lambda step=step, b=batch: step(x[:b], y[:b]), batch,
+                       every_k)
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         for _ in range(3):
-            losses = steps[form](x, y)
+            losses = steps[name][0]()
         torch.cuda.synchronize()
-        out[form] = {'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+        peak = torch.cuda.max_memory_allocated()
+        out[name] = {'peak_memory_bytes': peak,
+                     'step_memory_bytes': peak - base,
+                     'batch': batch, 'every_k': every_k,
                      'img_per_s_windows': []}
         loss = {k: float(v) for k, v in losses.items()}
         if not all(np.isfinite(list(loss.values()))):
-            raise AssertionError(f'losses {loss}')
+            raise AssertionError(f'{name}: losses {loss}')
+    names = list(TRAIN_CONFIGS)
     for i in range(WINDOWS):
-        for form in (('off', 'on') if i % 2 == 0 else ('on', 'off')):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            fn, batch, _ = steps[name]
             count, t0 = 0, time.perf_counter()
             while True:
                 for _ in range(5):
-                    steps[form](x, y)
+                    fn()
                 torch.cuda.synchronize()
                 count += 5
                 dt = time.perf_counter() - t0
                 if dt >= WINDOW_S:
                     break
-            out[form]['img_per_s_windows'].append(TRAIN_B * count / dt)
-            print(f'  window {i} s2d {form}: {count} steps in {dt:.3f} s, '
-                  f'{TRAIN_B * count / dt:.3f} img/s', flush=True)
+            out[name]['img_per_s_windows'].append(batch * count / dt)
+            print(f'  window {i} {name}: {count} steps in {dt:.3f} s, '
+                  f'{batch * count / dt:.3f} img/s', flush=True)
     from torch.profiler import ProfilerActivity, profile
-    for form in ('off', 'on'):
-        r = out[form]
+    for name, (fn, batch, every_k) in steps.items():
+        r = out[name]
         readings = r['img_per_s_windows']
         img_s = statistics.median(readings)
-        r.update(img_per_s=img_s, ms_per_step=1e3 * TRAIN_B / img_s)
-        print(f'  bf16 step, batch {TRAIN_B}, s2d {form}: median '
+        r.update(img_per_s=img_s, ms_per_step=1e3 * batch / img_s)
+        print(f'  bf16 step {name}, batch {batch}, every_k {every_k}: median '
               f'{img_s:.3f} img/s (min {min(readings):.3f}, max '
               f'{max(readings):.3f}), {r["ms_per_step"]:.3f} ms/step, peak '
-              f'memory {r["peak_memory_bytes"] / 2**30:.3f} GiB on {card}',
-              flush=True)
+              f'memory {r["peak_memory_bytes"] / 2**30:.3f} GiB '
+              f'({r["step_memory_bytes"] / 2**30:.3f} GiB above the '
+              f'resident models) on {card}', flush=True)
+        n_steps = 3 if every_k == 1 else 4
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(3):
-                steps[form](x, y)
+            for _ in range(n_steps):
+                fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         # device kernels are the entries with no CPU time of their own (an
@@ -880,21 +1151,33 @@ def throughput_phase(torch, np, card):
                        and e.self_cpu_time_total == 0), reverse=True)
         busy = sum(row[0] for row in rows)
         ours = sum(row[0] for row in rows if 'pgt::' in row[2])
-        print(f'  profile of 3 steps, s2d {form}: wall {wall_us / 3e3:.3f} '
-              f'ms/step, kernels {busy / 3e3:.3f} ms/step (device busy '
+        n_kernels = sum(row[1] for row in rows) / n_steps
+        print(f'  profile of {n_steps} steps, {name}: wall '
+              f'{wall_us / n_steps / 1e3:.3f} ms/step, kernels '
+              f'{busy / n_steps / 1e3:.3f} ms/step (device busy '
               f'{100 * busy / wall_us:.1f}%), the port\'s kernels '
-              f'{ours / 3e3:.3f} ms/step; top kernels:', flush=True)
+              f'{ours / n_steps / 1e3:.3f} ms/step, {n_kernels:.1f} device '
+              f'kernels launched a step; top kernels:', flush=True)
         for dev, n, key in rows[:15]:
-            print(f'    {dev / 3e3:8.3f} ms/step {n // 3:5d}/step  '
-                  f'{key[:90]}')
+            print(f'    {dev / n_steps / 1e3:8.3f} ms/step '
+                  f'{n / n_steps:7.1f}/step  {key[:90]}')
         print('  the port\'s kernels:')
         for dev, n, key in rows:
             if 'pgt::' in key:
-                print(f'    {dev / 3e3:8.3f} ms/step {n // 3:5d}/step  '
-                      f'{key[:90]}')
-        r.update(profile_busy_ms_per_step=busy / 3e3,
-                 profile_port_kernels_ms_per_step=ours / 3e3,
-                 profile_wall_ms_per_step=wall_us / 3e3)
+                print(f'    {dev / n_steps / 1e3:8.3f} ms/step '
+                      f'{n / n_steps:7.1f}/step  {key[:90]}')
+        r.update(profile_busy_ms_per_step=busy / n_steps / 1e3,
+                 profile_port_kernels_ms_per_step=ours / n_steps / 1e3,
+                 profile_wall_ms_per_step=wall_us / n_steps / 1e3,
+                 profile_kernels_per_step=n_kernels)
+    for form in ('off', 'on'):
+        full, frozen = (out[form]['profile_kernels_per_step'],
+                        out[f'frozen {form}']['profile_kernels_per_step'])
+        print(f'  s2d {form}: device kernels a step, full {full:.1f}, frozen '
+              f'{frozen:.1f}', flush=True)
+        if not frozen < full:
+            raise AssertionError(f's2d {form}: the frozen step launched '
+                                 f'{frozen} kernels, the full {full}')
     return out
 
 
@@ -903,11 +1186,9 @@ def infer_path_phase(torch, np, kernels, s2d):
     PATCHGAN_S2D=``s2d``; checks each mask and the launch counts per
     forward chunk. Returns (launches by kernel name, the model, masks)."""
     from patchgan_tpu_torch.cli.infer import patchgan_infer
-    cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         cfg, sizes, model = write_inputs(tmp, torch, np)
-        os.chdir(tmp)
-        try:
+        with in_dir(tmp):
             for k in kernels:
                 k.wrapper.launches = 0
             t0 = time.perf_counter()
@@ -916,8 +1197,6 @@ def infer_path_phase(torch, np, kernels, s2d):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {k.name: k.wrapper.launches for k in kernels}
-        finally:
-            os.chdir(cwd)
         chunks = expected_chunks(sizes)
         print(f'  s2d {s2d}: wall {wall:.2f} s, {chunks} forward chunks, '
               f'launches {launches}', flush=True)
@@ -1094,20 +1373,45 @@ def main():
     print(f'== K1-bwd at the training shapes (batch {TRAIN_B}, 256 px, '
           f'nf={NF})', flush=True)
     backward_phase(torch, F, kernels[3])
-    epoch_s = {}
+    epoch_s, finetune = {}, {}
+    names = [k.name for k in kernels]
     for s2d in ('off', 'on'):
         print('== step parity: kernel path on the card vs plain path on '
               f'the CPU (nf=64, 256 px, batch 2, fp32), s2d {s2d}',
               flush=True)
         step_parity_phase(torch, np, wrappers, s2d)
-        print(f'== training path: patchgan_train -d cuda, then resume, '
-              f'PATCHGAN_S2D={s2d}', flush=True)
-        launches, epoch_s[s2d] = train_path_phase(torch, np, wrappers, card,
-                                                  s2d)
-        paths[f'train_s2d_{s2d}'] = dict(zip([k.name for k in kernels],
-                                             launches))
-    print(f'== training throughput (bf16, batch {TRAIN_B}), plain and s2d '
-          'in turns', flush=True)
+        print('== fine-tune step parity: encoder frozen, accumulate 2, '
+              'kernel path on the card vs plain path on the CPU (nf=64, '
+              f'256 px, two micro-batches of 2, fp32), s2d {s2d}',
+              flush=True)
+        finetune[f'parity_s2d_{s2d}'] = finetune_parity_phase(
+            torch, np, wrappers, s2d)
+        with tempfile.TemporaryDirectory() as tmp:
+            print(f'== training path: patchgan_train -d cuda, then resume, '
+                  f'PATCHGAN_S2D={s2d}', flush=True)
+            launches, epoch_s[s2d], train_cfg = train_path_phase(
+                torch, np, wrappers, card, s2d, tmp)
+            paths[f'train_s2d_{s2d}'] = dict(zip(names, launches))
+            print('== fine-tune path: patchgan_train -d cuda from .pth '
+                  'files, freeze_encoder, accumulate_steps 2, '
+                  f'PATCHGAN_S2D={s2d}', flush=True)
+            paths[f'finetune_s2d_{s2d}'] = dict(zip(names, finetune_path_phase(
+                torch, np, wrappers, s2d, tmp, train_cfg)))
+            if s2d == 'off':
+                print('== evaluation path: patchgan_eval -d cuda on the '
+                      'training folder\'s validation images', flush=True)
+                launches, eval_img_s, results = eval_path_phase(
+                    torch, wrappers, card, tmp, train_cfg)
+                paths['eval'] = dict(zip(names, launches))
+    for s2d in ('off', 'on'):
+        print(f'  s2d {s2d}, per step as counted in the runs above: the '
+              f'port\'s kernels {STEP[s2d]} full, {FT_STEP[s2d]} frozen; '
+              f'recomputes {RECOMPUTES["full"]} full, '
+              f'{RECOMPUTES["frozen"]} frozen', flush=True)
+    print(json.dumps({'eval': results, 'eval_img_per_s': eval_img_s,
+                      'finetune': finetune, 'card': card}))
+    print(f'== training throughput (bf16): the full step at batch {TRAIN_B} '
+          'and the fine-tune step, plain and s2d, in turns', flush=True)
     train = throughput_phase(torch, np, card)
     train.update({'epoch_s': epoch_s, 'card': card})
     print(json.dumps(train))

@@ -11,6 +11,13 @@ the card and raise without one; ``-d cpu`` trains on the CPU.
 ``--dtype auto`` is bfloat16 on the card, where Adam's first moment is
 then kept in bfloat16 too (``cli/train.py:150-153``).
 
+Fine-tuning (BASELINE.json config 3): ``transfer_learn.generator_checkpoint``
+and ``discriminator_checkpoint`` (npz, or a torch ``.pth`` / ``.pt``
+state_dict) load shape-matched; ``transfer_learn.freeze_encoder: true``
+freezes the encoder (``('enc',)``), or ``transfer_learn.freeze`` lists
+JAX path prefixes (``[enc0, dec6]``); ``train_params.accumulate_steps``
+applies each update on the mean gradient of that many batches.
+
 ``PATCHGAN_S2D=on|off`` selects the space-to-depth boundary form of the
 step, as in the JAX package (``ops/s2d.py``).
 

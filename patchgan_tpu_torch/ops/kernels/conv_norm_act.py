@@ -86,18 +86,22 @@ def recompute_grads(ctx, g, conv, inputs):
     """The shared backward of K2 and K3: ``conv(*inputs)`` recomputed in
     the compute dtype, K1-bwd on it, then the input gradients that
     ``ctx.needs_input_grad`` asks for through the recomputed conv (None
-    for the rest)."""
+    for the rest). ``recompute_grads.launches`` counts the recomputes."""
     want = [t is not None and need
             for t, need in zip(inputs, ctx.needs_input_grad)]
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(need) if t is not None else None
                   for t, need in zip(inputs, want)]
         out = conv(*leaves)
+    recompute_grads.launches += 1
     dout = instance_norm_act_backward(g.to(out.dtype).contiguous(),
                                       out.detach(), ctx.eps, ctx.activation)
     wanted = [t for t, need in zip(leaves, want) if need]
     found = iter(torch.autograd.grad(out, wanted, dout)) if wanted else None
     return [next(found) if need else None for need in want]
+
+
+recompute_grads.launches = 0
 
 
 def _conv(x, w):

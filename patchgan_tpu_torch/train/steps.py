@@ -15,6 +15,11 @@ space-to-depth form at entry, run both models in that form and give the
 segmentation loss and the IoU ``fold_blocks`` of the s2d tensors
 (``ops/s2d.py``).
 
+``freeze_patterns`` (JAX ``:41-71``) hold the generator parameters whose
+JAX path starts with a pattern constant through the step, and
+``make_optimizer(every_k=k)`` applies the update every k-th step on the
+running mean of the gradients (``optax.MultiSteps``, ``:114-115``).
+
 Steps return their losses as 0-d tensors on the device under the
 reference's keys ``gen, gen_loss, gdisc, discr, discf, disc``; nothing
 in a step waits for the device.
@@ -30,6 +35,7 @@ from ..models.disc import Discriminator
 from ..ops.losses import bce_loss, fc_tversky, mae_loss, weighted_bce_loss
 from ..ops.s2d import fold_blocks, space_to_depth
 from ..utils.metrics import iou
+from ..utils.transfer import unet_jax_path
 
 LOSS_KEYS = ('gen', 'gen_loss', 'gdisc', 'discr', 'discf', 'disc')
 
@@ -89,11 +95,63 @@ class Adam:
             torch._foreach_copy_(self.mu, mu)
 
 
+class MultiSteps:
+    """Gradient accumulation around an ``Adam``: ``optax.MultiSteps`` with
+    ``use_grad_mean=True``. Each call folds the gradients into one fp32
+    accumulator per parameter, acc <- acc + (g - acc) / (mini_step + 1);
+    the k-th call runs the inner ``step`` on it, then zeroes it. The
+    k-th call is counted on the host, so nothing waits for the card."""
+
+    def __init__(self, inner, every_k):
+        self.inner, self.every_k = inner, every_k
+        self.acc = [torch.zeros_like(p, dtype=torch.float32)
+                    for p in inner.params]
+        self.mini_step = 0
+
+    @property
+    def lr(self):
+        return self.inner.lr
+
+    @lr.setter
+    def lr(self, value):
+        self.inner.lr = value
+
+    @torch.no_grad()
+    def step(self, grads):
+        delta = torch._foreach_sub([g.float() for g in grads], self.acc)
+        torch._foreach_div_(delta, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc, delta)
+        del delta   # freed before the inner step's own temporaries
+        self.mini_step += 1
+        if self.mini_step == self.every_k:
+            self.inner.step(self.acc)
+            torch._foreach_zero_(self.acc)
+            self.mini_step = 0
+
+
 def make_optimizer(params, learning_rate=1e-3, b1=0.9, b2=0.999,
-                   mu_dtype=None):
+                   mu_dtype=None, every_k=1):
     """Adam(b1, b2) with eps 1e-8 over ``params`` (``:74-116``); its
-    ``lr`` attribute is the learning rate, changed between epochs."""
-    return Adam(params, learning_rate, b1, b2, mu_dtype=mu_dtype)
+    ``lr`` attribute is the learning rate, changed between epochs. With
+    ``every_k`` > 1, the ``MultiSteps`` around it."""
+    opt = Adam(params, learning_rate, b1, b2, mu_dtype=mu_dtype)
+    return MultiSteps(opt, every_k) if every_k and every_k > 1 else opt
+
+
+def is_frozen(name, freeze_patterns):
+    """Whether the generator parameter ``name`` (a state_dict key) is
+    frozen: its JAX path starts with one of ``freeze_patterns``, as the
+    JAX step's ``_is_frozen`` tests it. A pattern that matches no path
+    freezes nothing."""
+    path = unet_jax_path(name)
+    return any(path.startswith(pat) for pat in freeze_patterns)
+
+
+def trainable_params(generator, freeze_patterns=()):
+    """The generator's parameters that ``freeze_patterns`` leave
+    trainable, in ``parameters()`` order: what its optimizer holds."""
+    return [p for n, p in generator.named_parameters()
+            if not is_frozen(n, freeze_patterns)]
 
 
 def make_seg_loss(loss_type, seg_alpha, tversky_beta=0.75,
@@ -135,14 +193,17 @@ def make_seg_loss(loss_type, seg_alpha, tversky_beta=0.75,
 
 
 @contextlib.contextmanager
-def constant_params(module):
-    """``module``'s parameters as constants for the block: the generator's
-    loss reads the discriminator but takes no gradient for it, as JAX's
-    ``value_and_grad`` over the generator's parameters does. A custom
+def constant_params(params):
+    """``params`` as constants for the block, every ``requires_grad`` flag
+    as it was after it: the generator's loss reads the discriminator but
+    takes no gradient for it, as JAX's ``value_and_grad`` over the
+    generator's parameters does, and frozen generator parameters take
+    none, as JAX's ``freeze_stop_gradients``. A custom
     ``autograd.Function`` fixes which gradients its backward computes at
     the forward (``ctx.needs_input_grad``), so without this the fake
-    conv0 would launch K4-wgrad for a gradient that is thrown away."""
-    params = [p for p in module.parameters() if p.requires_grad]
+    conv0 would launch K4-wgrad, and a frozen encoder K2's recompute and
+    K1-bwd, for gradients that are thrown away."""
+    params = [p for p in params if p.requires_grad]
     for p in params:
         p.requires_grad_(False)
     try:
@@ -199,25 +260,33 @@ def disc_loss(disc_real, disc_fake):
 def make_train_step(generator, discriminator, gen_opt, disc_opt,
                     loss_type='tversky', seg_alpha=200.0, tversky_beta=0.75,
                     tversky_gamma=0.75, bce_weighting='complement',
-                    s2d=False):
+                    s2d=False, freeze_patterns=()):
     """``step(x, y) -> losses``: one G+D update in place on the models
-    and the two ``Adam``s. x and y are NCHW; ``s2d`` runs the step in
-    the space-to-depth form. The discriminator step takes the paired
-    form ``resolve_paired_disc`` picks, else two separate forwards."""
+    and their optimizers (``make_optimizer``). x and y are NCHW; ``s2d``
+    runs the step in the space-to-depth form. The discriminator step
+    takes the paired form ``resolve_paired_disc`` picks, else two
+    separate forwards. ``freeze_patterns`` must be those the generator's
+    optimizer was built for (``trainable_params``): the generator's
+    gradient is taken over its trainable parameters only, with the
+    frozen ones constant through its forward and backward, so autograd
+    records no node that only a frozen gradient needs."""
     seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
                              tversky_gamma, bce_weighting)
     paired = resolve_paired_disc(discriminator)
-    g_params = list(generator.parameters())
+    g_params = trainable_params(generator, freeze_patterns)
     d_params = list(discriminator.parameters())
+    constants = d_params + [p for n, p in generator.named_parameters()
+                            if is_frozen(n, freeze_patterns)]
 
     def train_step(x, y):
         generator.train()
         if s2d:
             x, y = space_to_depth(x), space_to_depth(y)
-        with constant_params(discriminator):
+        with constant_params(constants):
             g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
                                                 seg_loss, x, y, s2d)
-        gen_opt.step(torch.autograd.grad(g_loss, g_params))
+            g_grads = torch.autograd.grad(g_loss, g_params)
+        gen_opt.step(g_grads)
         gen_img = gen_img.detach()
         d_loss, loss_real, loss_fake = disc_loss(*disc_real_fake(
             discriminator, x, y, gen_img, merged=False, paired=paired,

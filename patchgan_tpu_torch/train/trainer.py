@@ -1,12 +1,15 @@
 """Training runtime: the epoch loop, LR schedules, checkpoints and resume.
 
 Port of the part of ``patchgan_tpu/train/trainer.py`` that epochs,
-checkpoints and resume need: the class attributes (``:71-90``),
-``batch()``, ``train()`` with the LR fast-forward on resume, exponential
-decay and plateau schedules, ``_run_epoch`` with the losses fetched one
-step late (``:485-525``), ``save`` / ``load`` / ``load_last_checkpoint``
-(npz epoch files with torch state_dict keys, which the JAX Trainer reads
-and writes too) and ``load_transfer_checkpoints``.
+checkpoints, resume and fine-tuning need: the class attributes
+(``:71-97``), ``batch()``, ``train()`` with the LR fast-forward on
+resume, exponential decay and plateau schedules, ``_run_epoch`` with the
+losses fetched one step late (``:485-525``), ``save`` / ``load`` /
+``load_last_checkpoint`` (npz epoch files with torch state_dict keys,
+which the JAX Trainer reads and writes too), ``load_transfer_checkpoints``,
+and ``freeze_generator`` / ``accumulate_steps`` (``:91-97, 154-160``),
+which, as in the JAX Trainer, take effect when ``train()`` rebuilds the
+optimizers.
 
 ``generator`` and ``discriminator`` are the port's ``nn.Module``s with
 fp32 parameters; they compute in their own ``dtype``. Batches are NCHW
@@ -30,8 +33,8 @@ from ..utils import checkpoint as ckpt
 from ..utils.transfer import load_transfer_data
 from .schedulers import (ConstantLR, ExponentialDecay, ReduceLROnPlateau,
                          resume_fast_forward)
-from .steps import LOSS_KEYS, make_eval_step, make_optimizer, \
-    make_train_step
+from .steps import (LOSS_KEYS, make_eval_step, make_optimizer,
+                    make_train_step, trainable_params)
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1 item 5)"
 
@@ -52,8 +55,9 @@ class Trainer:
     checkpoint_format = 'msgpack'
     save_every_steps = None
     adam_mu_dtype = None   # torch.bfloat16 stores Adam's first moment
-    freeze_generator = ()
-    accumulate_steps = 1
+    freeze_generator = ()  # JAX path prefixes to freeze, e.g. ('enc',)
+    accumulate_steps = 1   # apply the update every N batches on the
+    #                        running mean of their gradients
 
     def __init__(self, generator, discriminator, savefolder, device=None,
                  seed=0):
@@ -75,18 +79,23 @@ class Trainer:
         self._make_optimizers(1e-3, 1e-3)
 
     def _make_optimizers(self, gen_lr, dsc_lr):
-        self.gen_opt = make_optimizer(self.generator.parameters(), gen_lr,
-                                      mu_dtype=self.adam_mu_dtype)
+        """Both optimizers, accumulating in lockstep; the generator's over
+        the parameters ``freeze_generator`` leaves trainable, which the
+        steps then freeze (``self._frozen``)."""
+        self._frozen = tuple(self.freeze_generator)
+        every_k = self.accumulate_steps or 1
+        self.gen_opt = make_optimizer(
+            trainable_params(self.generator, self._frozen), gen_lr,
+            mu_dtype=self.adam_mu_dtype, every_k=every_k)
         self.disc_opt = make_optimizer(self.discriminator.parameters(),
-                                       dsc_lr, mu_dtype=self.adam_mu_dtype)
+                                       dsc_lr, mu_dtype=self.adam_mu_dtype,
+                                       every_k=every_k)
 
     def _check_ported(self):
         unported = {
             'save_optimizer_state': self.save_optimizer_state,
             'checkpoint_format': self.checkpoint_format != 'msgpack',
             'save_every_steps': self.save_every_steps,
-            'accumulate_steps': (self.accumulate_steps or 1) > 1,
-            'freeze_generator': self.freeze_generator,
             'neptune_config': self.neptune_config is not None,
             'profile_dir': self.profile_dir,
         }
@@ -116,6 +125,7 @@ class Trainer:
                 forms[s2d] = (
                     make_train_step(self.generator, self.discriminator,
                                     self.gen_opt, self.disc_opt, s2d=s2d,
+                                    freeze_patterns=self._frozen,
                                     **loss_kwargs),
                     make_eval_step(self.generator, self.discriminator,
                                    compute_iou=self.compute_iou, s2d=s2d,
@@ -147,7 +157,7 @@ class Trainer:
         '''The epoch loop from ``self.start`` to ``epochs``; returns the
         per-epoch mean (G, D) training losses. A resumed run starts from
         the fast-forwarded LR; Adam starts afresh each call, as in the
-        reference.'''
+        reference; an accumulator carries across the call's epochs.'''
         self._check_ported()
         if (lr_decay is not None) and not reduce_on_plateau:
             gen_lr = resume_fast_forward(gen_learning_rate, lr_decay,

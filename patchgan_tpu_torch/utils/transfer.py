@@ -24,6 +24,15 @@ def unet_key_map(n_levels=7):
                for i in range(n_levels)])
 
 
+def unet_jax_path(key):
+    """The JAX parameter path of a generator state_dict key, as the JAX
+    package's freeze patterns match it: 'enc{i}/kernel' for
+    ``encoder.{i}.model.DownConv{i}.weight``, 'dec{i}/kernel' for
+    ``decoder.{i}.model.UpConv{i}.weight``."""
+    part, level = key.split('.')[:2]
+    return f"{part[:3]}{level}/kernel"
+
+
 def disc_key_map(n_layers=3, norm=False):
     """The discriminator's state_dict keys, by JAX parameter name:
     {'conv0_kernel': 'model.0.weight', ...}. The Sequential indices follow

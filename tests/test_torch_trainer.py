@@ -1,7 +1,8 @@
 """Checkpoints carry across: the port's Trainer resumes from epoch files
 a JAX Trainer wrote, and the other way round, at the next epoch with the
-fast-forwarded learning rate (lr * decay ** ((start - 1) / decay_freq)).
-Options that are not ported raise."""
+fast-forwarded learning rate (lr * decay ** ((start - 1) / decay_freq)),
+a frozen, accumulated fine-tune's files too. Options that are not ported
+raise."""
 
 import os
 
@@ -22,6 +23,9 @@ torch.set_num_threads(2)
 
 NF, SIZE = 4, 128
 SCHEDULE = dict(save_freq=1, lr_decay=0.5, decay_freq=1)
+# at 128 px enc6's plane is 1x1, so its normalised output is exactly 0:
+# enc6 and dec0 take a zero gradient and never move
+STILL = ('encoder.6.', 'decoder.0.')
 
 
 @pytest.fixture
@@ -99,8 +103,7 @@ def test_jax_resumes_port_checkpoint(tmp_path, jax_env, capsys):
 
 @pytest.mark.parametrize('name,value', [
     ('save_optimizer_state', True), ('checkpoint_format', 'orbax'),
-    ('save_every_steps', 5), ('accumulate_steps', 2),
-    ('freeze_generator', ('enc',)), ('neptune_config', {}),
+    ('save_every_steps', 5), ('neptune_config', {}),
     ('profile_dir', 'trace')])
 def test_unported_trainer_options_raise(tmp_path, name, value):
     pt = _port_trainer(tmp_path)
@@ -108,6 +111,42 @@ def test_unported_trainer_options_raise(tmp_path, name, value):
     _, port_data = _batches(52)
     with pytest.raises(NotImplementedError, match=f'{name}.*ROADMAP'):
         pt.train(port_data, [], epochs=1)
+
+
+def test_frozen_accumulated_fine_tune_resumes_across_packages(
+        tmp_path, jax_env):
+    """freeze_generator=('enc',) and accumulate_steps=2 in both Trainers:
+    the port's epoch of two batches (one update) leaves the encoder
+    bit-equal and moves the decoder; the JAX Trainer resumes its files
+    with the same weights and fine-tunes a second epoch alike; the port
+    resumes those, the encoder still the initial one."""
+    jax_data, port_data = zip(*(_batches(s) for s in (54, 55)))
+    jax_data, port_data = jax_data[0] + jax_data[1], \
+        port_data[0] + port_data[1]
+    pt = _port_trainer(tmp_path)
+    init = {k: v.clone() for k, v in pt.generator.state_dict().items()}
+    pt.freeze_generator, pt.accumulate_steps = ('enc',), 2
+    pt.train(port_data, [], epochs=1, **SCHEDULE)
+    _assert_only_unfrozen_moved(pt.generator.state_dict(), init)
+    jt = _jax_trainer(tmp_path)
+    jt.freeze_generator, jt.accumulate_steps = ('enc',), 2
+    jt.load_last_checkpoint()
+    assert jt.start == 2
+    _assert_same_weights(jt.state, pt)
+    jt.train(jax_data, [], epochs=2, **SCHEDULE)
+    pt = _port_trainer(tmp_path)
+    pt.load_last_checkpoint()
+    assert pt.start == 3
+    _assert_same_weights(jt.state, pt)
+    _assert_only_unfrozen_moved(pt.generator.state_dict(), init)
+
+
+def _assert_only_unfrozen_moved(now, init):
+    for k, v in now.items():
+        if k.startswith('encoder'):
+            assert torch.equal(v, init[k]), k
+        elif not k.startswith(STILL):
+            assert not torch.equal(v, init[k]), k
 
 
 def test_batch_keys_and_eval_leaves_weights(tmp_path):

@@ -18,10 +18,12 @@ BATCH = 2
 
 
 @functools.lru_cache(maxsize=None)
-def jax_case(size, act, out_c, final_act, s2d=False):
+def jax_case(size, act, out_c, final_act, s2d=False, freeze=(), every_k=1):
     """(initial JAX TrainState, jitted JAX step) of one configuration,
     built once per process; ``s2d`` steps through clones of the models in
-    the space-to-depth form (the same parameter tree)."""
+    the space-to-depth form (the same parameter tree); ``freeze`` and
+    ``every_k`` go to both optimizers and the step as the JAX Trainer
+    passes them."""
     from patchgan_tpu.models import Discriminator, UNet
     from patchgan_tpu.train.steps import (init_train_state, make_optimizer,
                                           make_train_step)
@@ -29,13 +31,14 @@ def jax_case(size, act, out_c, final_act, s2d=False):
                final_act=final_act, use_dropout=False, use_pallas=False)
     disc = Discriminator(input_nc=3 + out_c, ndf=NF, n_layers=3,
                          use_pallas=False)
-    gtx, dtx = make_optimizer(LR), make_optimizer(LR)
+    gtx = make_optimizer(LR, freeze_patterns=freeze, every_k=every_k)
+    dtx = make_optimizer(LR, every_k=every_k)
     state = init_train_state(gen, disc, (1, size, size, 3), out_c, gtx,
                              dtx, seed=0)
     if s2d:
         gen, disc = gen.clone(s2d=True), disc.clone(s2d=True)
     step = jax.jit(make_train_step(gen, disc, gtx, dtx, loss_type='tversky',
-                                   seg_alpha=200.0))
+                                   seg_alpha=200.0, freeze_patterns=freeze))
     return state, step
 
 
