@@ -23,7 +23,10 @@ JAX CLI searches the current directory.
 """
 
 import argparse
+import glob
 import json
+import os
+import re
 import time
 
 import numpy as np
@@ -42,11 +45,16 @@ LONG_NAMES = {'dice': 'mean_dice', 'bf1': 'mean_boundary_f1'}
 
 
 def newest_generator(folder):
-    """The ``generator_ep_*.npz`` of the largest epoch under ``folder``."""
-    epochs = {} if not folder else {
-        epoch: path for epoch, path in
-        ckpt.checkpoint_epochs(folder, ckpt.GEN_PREFIX).items()
-        if path.endswith('.npz')}
+    """The ``generator_ep_*.npz`` of the largest epoch under ``folder``;
+    files of other suffixes are not considered, as in the JAX CLI."""
+    epochs = {}
+    if folder:
+        for path in glob.glob(os.path.join(folder,
+                                           f'{ckpt.GEN_PREFIX}*.npz')):
+            m = re.fullmatch(rf'{re.escape(ckpt.GEN_PREFIX)}(\d+)\.npz',
+                             os.path.basename(path))
+            if m:
+                epochs[int(m.group(1))] = path
     if not epochs:
         raise ValueError(
             "No generator checkpoint: set checkpoint_paths.generator, or "
@@ -142,6 +150,8 @@ def patchgan_eval(argv=None):
             scores.append(torch.stack([METRICS[m](y, pred)
                                        for m in wanted]).tolist())
             weights.append(int(x.shape[0]))
+            if len(weights) == 1:
+                first_s = time.perf_counter() - t0
     elapsed = time.perf_counter() - t0
     if not weights:
         raise ValueError(
@@ -151,8 +161,13 @@ def patchgan_eval(argv=None):
     means = dict(zip(wanted, np.average(np.asarray(scores), axis=0,
                                         weights=weights)))
     n_images = sum(weights)
+    # the loader's start and the first batch's set-up kept apart
+    rest = n_images - weights[0]
     print(f"Evaluated {n_images} images in {elapsed:.3f}s "
-          f"({n_images / elapsed:.1f} img/s)")
+          f"({n_images / elapsed:.1f} img/s)" + (
+              f"; after the first batch {rest} images in "
+              f"{elapsed - first_s:.6f}s "
+              f"({rest / (elapsed - first_s):.1f} img/s)" if rest else ""))
 
     result = {
         'metric': 'mean_iou',

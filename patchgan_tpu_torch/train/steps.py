@@ -15,10 +15,12 @@ space-to-depth form at entry, run both models in that form and give the
 segmentation loss and the IoU ``fold_blocks`` of the s2d tensors
 (``ops/s2d.py``).
 
-``freeze_patterns`` (JAX ``:41-71``) hold the generator parameters whose
-JAX path starts with a pattern constant through the step, and
-``make_optimizer(every_k=k)`` applies the update every k-th step on the
-running mean of the gradients (``optax.MultiSteps``, ``:114-115``).
+A generator optimizer built over ``trainable_params(generator,
+freeze_patterns)`` freezes the parameters whose JAX path starts with a
+pattern (JAX ``:41-71``): the step holds every generator parameter its
+optimizer lacks constant. ``make_optimizer(every_k=k)`` applies the
+update every k-th step on the running mean of the gradients
+(``optax.MultiSteps``, ``:114-115``).
 
 Steps return their losses as 0-d tensors on the device under the
 reference's keys ``gen, gen_loss, gdisc, discr, discf, disc``; nothing
@@ -107,6 +109,10 @@ class MultiSteps:
         self.acc = [torch.zeros_like(p, dtype=torch.float32)
                     for p in inner.params]
         self.mini_step = 0
+
+    @property
+    def params(self):
+        return self.inner.params
 
     @property
     def lr(self):
@@ -260,23 +266,23 @@ def disc_loss(disc_real, disc_fake):
 def make_train_step(generator, discriminator, gen_opt, disc_opt,
                     loss_type='tversky', seg_alpha=200.0, tversky_beta=0.75,
                     tversky_gamma=0.75, bce_weighting='complement',
-                    s2d=False, freeze_patterns=()):
+                    s2d=False):
     """``step(x, y) -> losses``: one G+D update in place on the models
     and their optimizers (``make_optimizer``). x and y are NCHW; ``s2d``
     runs the step in the space-to-depth form. The discriminator step
     takes the paired form ``resolve_paired_disc`` picks, else two
-    separate forwards. ``freeze_patterns`` must be those the generator's
-    optimizer was built for (``trainable_params``): the generator's
-    gradient is taken over its trainable parameters only, with the
-    frozen ones constant through its forward and backward, so autograd
+    separate forwards. The generator's gradient is taken over the
+    parameters its optimizer holds (``trainable_params``) only, the
+    others constant through its forward and backward, so autograd
     records no node that only a frozen gradient needs."""
     seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
                              tversky_gamma, bce_weighting)
     paired = resolve_paired_disc(discriminator)
-    g_params = trainable_params(generator, freeze_patterns)
+    g_params = list(gen_opt.params)
+    trainable = {id(p) for p in g_params}
     d_params = list(discriminator.parameters())
-    constants = d_params + [p for n, p in generator.named_parameters()
-                            if is_frozen(n, freeze_patterns)]
+    constants = d_params + [p for p in generator.parameters()
+                            if id(p) not in trainable]
 
     def train_step(x, y):
         generator.train()

@@ -80,13 +80,12 @@ class Trainer:
 
     def _make_optimizers(self, gen_lr, dsc_lr):
         """Both optimizers, accumulating in lockstep; the generator's over
-        the parameters ``freeze_generator`` leaves trainable, which the
-        steps then freeze (``self._frozen``)."""
-        self._frozen = tuple(self.freeze_generator)
+        the parameters ``freeze_generator`` leaves trainable; the steps
+        hold the others constant."""
         every_k = self.accumulate_steps or 1
         self.gen_opt = make_optimizer(
-            trainable_params(self.generator, self._frozen), gen_lr,
-            mu_dtype=self.adam_mu_dtype, every_k=every_k)
+            trainable_params(self.generator, tuple(self.freeze_generator)),
+            gen_lr, mu_dtype=self.adam_mu_dtype, every_k=every_k)
         self.disc_opt = make_optimizer(self.discriminator.parameters(),
                                        dsc_lr, mu_dtype=self.adam_mu_dtype,
                                        every_k=every_k)
@@ -125,7 +124,6 @@ class Trainer:
                 forms[s2d] = (
                     make_train_step(self.generator, self.discriminator,
                                     self.gen_opt, self.disc_opt, s2d=s2d,
-                                    freeze_patterns=self._frozen,
                                     **loss_kwargs),
                     make_eval_step(self.generator, self.discriminator,
                                    compute_iou=self.compute_iou, s2d=s2d,

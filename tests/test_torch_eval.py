@@ -213,6 +213,21 @@ def test_eval_cli_picks_the_newest_epoch(eval_dir, capsys):
     assert 'Evaluating newest checkpoint' in capsys.readouterr().out
 
 
+def test_eval_cli_newest_epoch_is_an_npz(eval_dir):
+    """Only generator_ep_*.npz files count: a torch .pth beside the npz of
+    the same epoch, or of a later one, changes nothing."""
+    (eval_dir / 'ck').mkdir()
+    for epoch in ('002', '003'):
+        _save_generator(eval_dir / 'ck' / f'generator_ep_{epoch}.npz', 1)
+    for epoch in ('003', '004'):
+        torch.save(UNet(3, 1, nf=8).state_dict(),
+                   eval_dir / 'ck' / f'generator_ep_{epoch}.pth')
+    got = patchgan_eval(['-c', _eval_config(eval_dir, 1,
+                                            checkpoint_path='ck')]
+                        + CLI_ARGS[:-2])
+    assert got['checkpoint'].endswith('generator_ep_003.npz')
+
+
 @pytest.mark.parametrize('device', ['cuda', 'auto'])
 def test_eval_cli_without_gpu_raises(eval_dir, device, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)

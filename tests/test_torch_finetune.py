@@ -61,8 +61,7 @@ def _run(steps, s2d=False, freeze=(), every_k=1):
         make_optimizer(trainable_params(gen, freeze), torch_parity.LR,
                        every_k=every_k),
         make_optimizer(disc.parameters(), torch_parity.LR, every_k=every_k),
-        loss_type='tversky', seg_alpha=200.0, s2d=s2d,
-        freeze_patterns=freeze)
+        loss_type='tversky', seg_alpha=200.0, s2d=s2d)
     jl, pl, first = [], [], None
     for i, (x, y) in enumerate(torch_parity.batches(SIZE, OUT_C, steps)):
         state, losses = step(state, x, y)
@@ -255,7 +254,7 @@ def test_frozen_encoder_records_no_encoder_backward(s2d, monkeypatch):
         opt = make_optimizer(trainable_params(gen, freeze), 1e-3)
         step = make_train_step(gen, disc, opt,
                                make_optimizer(disc.parameters(), 1e-3),
-                               s2d=s2d, freeze_patterns=freeze)
+                               s2d=s2d)
         del losses[:], wants[:]
         step(x, y)
         names = graph_names(losses[0])
