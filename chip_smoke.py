@@ -118,10 +118,37 @@ Run from the root of the repository. In order:
    step accumulating two micro-batches of 8; peak device memory, and a
    profiler breakdown of three steps of each (the top kernels, then each
    of the port's kernels, and the device kernels launched a step, fewer
-   for a frozen step than a full one of its form).
+   for a frozen step than a full one of its form);
+11. spatial mode (one whole-image forward, the plain form): the fp32
+   forward of a 640x480 image (padded to 640x512) through the kernels on
+   the card against the same model on the CPU, max |dprob| <= 1e-3 and
+   the argmax masks equal on >= 99.9% of pixels, K1 / K2 / K3 1 / 6 / 5
+   launches an image; K1-K3 at the shapes of one 1280x960 image (padded
+   1280x1024: K1 at 64 planes of 512 x 640, K2 at enc1-enc6, K3 at
+   dec1-dec5) against their plain versions in bf16 and fp32 at phase 2's
+   tolerances, timed with their library yardsticks and bounds; that a
+   mask's ``.result()`` returns while a forward queued after it still
+   runs; masks/s of spatial and tiled mode on the 1280x960 image (bf16),
+   five windows of at least 2 s each, in turns;
+12. the serve path, ``patchgan_serve -d cuda`` (bf16) on the four
+   inference images as files (1280x960 and 640x480 JPEG, 256x256 and
+   200x150 PNG) and a corrupt .jpg: ``--watch --once`` (every mask's
+   shape and labels, the corrupt file an ERROR, a second pass serving
+   0, launches per forward chunk as in phase 3), again with ``--batch
+   4`` (the same masks) and in spatial mode; ``--stdin`` with a missing
+   path among the four (output in order, ERROR in its place); ``--http``
+   in process at ``--batch 0`` and ``--batch 4`` (/healthz 200, every
+   image's PNG equal to the watch mask, bad bytes 400), then 8 clients
+   in a process of their own posting the 1280x960 JPEG and then the
+   256x256 PNG, five windows of at least 2 s per server in turns
+   (requests/s, p50 and p95 latency); the stitch's share of the
+   1280x960 tiled pipeline (its wall time minus its forward chunks); and
+   the SIGTERM drain of ``python -m patchgan_tpu_torch.cli.serve --http
+   -d cuda`` signalled with requests in flight (all answered, exit 0).
 
 It prints a JSON summary of the kernels (launches from the s2d training
-run, which drives all six; every path's counts beside them), the card's
+run, which drives all six; every path's counts beside them, the spatial
+and serve paths' too; K1-K3's totals at the spatial shapes), the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
@@ -137,6 +164,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -173,6 +201,12 @@ FT_STEP = {'off': [1, 6, 5, 5, 0, 0], 'on': [1, 6, 5, 5, 6, 3]}
 RECOMPUTES = {'full': 6 + 5, 'frozen': 5}
 LR = 1e-3
 EVAL_TIMED = 384   # images of the folder the eval loop is timed on
+# the 1280x960 image of the inference phases as spatial mode runs it:
+# (H, W) zero-padded to multiples of 128
+SPATIAL_HW, SPATIAL_PAD = (960, 1280), (1024, 1280)
+# launches of K1, K2, K3, K1-bwd, K4, K4-wgrad per spatial-mode image:
+# one whole-image forward in the plain form
+SPATIAL_IMAGE = [1, 6, 5, 0, 0, 0]
 
 
 def card_line():
@@ -294,71 +328,82 @@ class Kernel:
     def __init__(self, name, source, replaces, wrapper, plain):
         self.name, self.source, self.replaces = name, source, replaces
         self.wrapper, self.plain = wrapper, plain
-        self.rows = []
+        self.rows, self.spatial_rows = [], []
 
 
-def make_cases(torch, F, kernels):
-    """The kernel phase's cases at the nf=64 main-path shapes, 8 tiles:
-    (kernel, label, make(dtype, act) -> wrapper args, library(*args),
-    FLOPs, elements read + written, whether to try every activation)."""
+def make_cases(torch, F, kernels, n=B, h=SIZE, w=SIZE):
+    """The kernel phase's cases at the nf=64 generator's shapes for ``n``
+    images of ``h`` x ``w`` (by default the 8-tile bucket of 256 px, which
+    adds a K3 case with H != W, a ragged one and every activation at one
+    level of each kernel): (kernel, label, make(dtype, act) -> wrapper
+    args, library(*args), FLOPs, elements read + written, whether to try
+    every activation)."""
     k1, k2, k3 = kernels
+    tiles = (n, h, w) == (B, SIZE, SIZE)
     gen = torch.Generator(device='cuda').manual_seed(0)
 
     def rand(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device='cuda') * scale
 
+    def plane(c, hh, ww):
+        return f'{c}x{hh}^2' if hh == ww else f'{c}x{hh}x{ww}'
+
     cases = []
-    # K1: enc0's epilogue, after the 3 -> 64 conv at 128 x 128
-    shape = (B, NF, SIZE // 2, SIZE // 2)
+    # K1: enc0's epilogue, after the 3 -> 64 conv at half the resolution
+    shape = (n, NF, h // 2, w // 2)
     x = rand(*shape)
     numel = x.numel()
     cases.append((k1, f'enc0 {shape}', lambda dt, a=None, x=x: (
         x.to(dt), 1e-5, a or 'relu'),
         lambda x, eps, a: F.relu(F.instance_norm(x, eps=eps)),
-        6 * numel, 2 * numel, True))
+        6 * numel, 2 * numel, tiles))
     # K2: enc1-enc6
     filts = [NF, 2 * NF, 4 * NF, 8 * NF, 8 * NF, 8 * NF, 8 * NF]
-    hw = SIZE // 2
+    hh, ww = h // 2, w // 2
     for lvl in range(1, 7):
         cin, cout = filts[lvl - 1], filts[lvl]
-        x = rand(B, cin, hw, hw)
-        w = rand(cout, cin, 4, 4, scale=(2.0 / (32 * (cin + cout))) ** 0.5)
-        ho = hw // 2
-        macs = B * ho * ho * cout * 16 * cin
-        elems = x.numel() + w.numel() + B * cout * ho * ho
-        cases.append((k2, f'enc{lvl} {cin}x{hw}^2->{cout}x{ho}^2',
-                      lambda dt, a=None, x=x, w=w: (
-                          x.to(dt), w.to(dt), 1e-5, a or 'relu'),
-                      lambda x, w, eps, a: F.relu(F.instance_norm(
-                          F.conv2d(x, w, stride=2, padding=1), eps=eps)),
-                      2 * macs, elems, lvl == 3))
-        hw = ho
+        x = rand(n, cin, hh, ww)
+        wt = rand(cout, cin, 4, 4, scale=(2.0 / (32 * (cin + cout))) ** 0.5)
+        ho, wo = hh // 2, ww // 2
+        macs = n * ho * wo * cout * 16 * cin
+        elems = x.numel() + wt.numel() + n * cout * ho * wo
+        cases.append((k2, f'enc{lvl} {plane(cin, hh, ww)}->'
+                      f'{plane(cout, ho, wo)}',
+                      lambda dt, a=None, x=x, wt=wt: (
+                          x.to(dt), wt.to(dt), 1e-5, a or 'relu'),
+                      lambda x, wt, eps, a: F.relu(F.instance_norm(
+                          F.conv2d(x, wt, stride=2, padding=1), eps=eps)),
+                      2 * macs, elems, tiles and lvl == 3))
+        hh, ww = ho, wo
     # K3: dec1-dec5, (level, H, W, x channels, skip channels, Cout): dec1
-    # reads dec0's 4x4 output and the 4x4 enc5 skip, dec5 reads 64x64
-    shapes = [(1, 4, 4, 8 * NF, 8 * NF, 8 * NF),
-              (2, 8, 8, 8 * NF, 8 * NF, 8 * NF),
-              (3, 16, 16, 8 * NF, 8 * NF, 4 * NF),
-              (4, 32, 32, 4 * NF, 4 * NF, 2 * NF),
-              (5, 64, 64, 2 * NF, 2 * NF, NF),
-              ('H!=W', 24, 40, 2 * NF, 2 * NF, NF),
-              ('ragged', 12, 20, 13, 6, 40)]
-    for lvl, h, wd, cx, cs, cout in shapes:
-        x = rand(B, cx, h, wd)
-        s = rand(B, cs, h, wd)
-        w = rand(cx + cs, cout, 4, 4,
-                 scale=(2.0 / (16 * (cx + cs + cout))) ** 0.5)
-        macs = B * 4 * h * wd * cout * 4 * (cx + cs)
-        elems = x.numel() + s.numel() + w.numel() + B * cout * 4 * h * wd
+    # reads dec0's output and the enc5 skip at 1/64 of the input's size,
+    # dec5 reads 1/4 of it
+    shapes = [(lvl, h // 2 ** (7 - lvl), w // 2 ** (7 - lvl), cx, cs, cout)
+              for lvl, cx, cs, cout in [(1, 8 * NF, 8 * NF, 8 * NF),
+                                        (2, 8 * NF, 8 * NF, 8 * NF),
+                                        (3, 8 * NF, 8 * NF, 4 * NF),
+                                        (4, 4 * NF, 4 * NF, 2 * NF),
+                                        (5, 2 * NF, 2 * NF, NF)]]
+    if tiles:
+        shapes += [('H!=W', 24, 40, 2 * NF, 2 * NF, NF),
+                   ('ragged', 12, 20, 13, 6, 40)]
+    for lvl, hh, ww, cx, cs, cout in shapes:
+        x = rand(n, cx, hh, ww)
+        s = rand(n, cs, hh, ww)
+        wt = rand(cx + cs, cout, 4, 4,
+                  scale=(2.0 / (16 * (cx + cs + cout))) ** 0.5)
+        macs = n * 4 * hh * ww * cout * 4 * (cx + cs)
+        elems = x.numel() + s.numel() + wt.numel() + n * cout * 4 * hh * ww
         label = (f'dec{lvl} ' if isinstance(lvl, int) else f'{lvl} ') + \
-            f'({cx}+{cs})x{h}x{wd}->{cout}x{2 * h}x{2 * wd}'
+            f'({cx}+{cs})x{hh}x{ww}->{cout}x{2 * hh}x{2 * ww}'
         cases.append((k3, label,
-                      lambda dt, a=None, x=x, s=s, w=w: (
-                          x.to(dt), w.to(dt), 1e-5, a or 'relu', s.to(dt)),
-                      lambda x, w, eps, a, s: F.relu(F.instance_norm(
-                          F.conv_transpose2d(torch.cat([x, s], 1), w,
+                      lambda dt, a=None, x=x, s=s, wt=wt: (
+                          x.to(dt), wt.to(dt), 1e-5, a or 'relu', s.to(dt)),
+                      lambda x, wt, eps, a, s: F.relu(F.instance_norm(
+                          F.conv_transpose2d(torch.cat([x, s], 1), wt,
                                              stride=2, padding=1),
                           eps=eps)),
-                      2 * macs, elems, lvl == 3))
+                      2 * macs, elems, tiles and lvl == 3))
     return cases
 
 
@@ -380,9 +425,14 @@ def repeat_check(torch, wrapper, args_of, gen):
               f'and fp32', flush=True)
 
 
-def kernel_phase(torch, F, kernels):
+def kernel_phase(torch, F, kernels, spatial=False):
+    """K1-K3 against their plain versions at ``make_cases``'s shapes, with
+    timing rows in ``kernel.rows``; ``spatial``: at the shapes of one
+    whole 1280 x 960 image (``SPATIAL_PAD``), rows in
+    ``kernel.spatial_rows``, without the K1 edge cases."""
     from patchgan_tpu_torch.ops.kernels import (pack_convt_weight,
                                                 pack_convt_weight_plain)
+    shapes = (1,) + SPATIAL_PAD if spatial else (B, SIZE, SIZE)
 
     def err(kernel, args32, args):
         got = kernel.wrapper(*args).float()
@@ -394,7 +444,7 @@ def kernel_phase(torch, F, kernels):
         return tuple(a.float() if torch.is_tensor(a) else a for a in args)
 
     for kernel, label, make, library, flops, elems, all_acts in \
-            make_cases(torch, F, kernels):
+            make_cases(torch, F, kernels, *shapes):
         errs = {}
         for dname, dt in (('bfloat16', torch.bfloat16),
                           ('float32', torch.float32)):
@@ -432,8 +482,10 @@ def kernel_phase(torch, F, kernels):
         if kernel.name == 'instance_norm_act':
             row.update(device_ms=device_ms(lambda: kernel.wrapper(*args)),
                        **norm_geometry(args[0].shape, torch.bfloat16))
-        kernel.rows.append(row)
+        (kernel.spatial_rows if spatial else kernel.rows).append(row)
         print(json.dumps(row), flush=True)
+    if spatial:
+        return
     k1 = kernels[0]
     gen = torch.Generator(device='cuda').manual_seed(11)
     for label, pair in norm_edge_cases(torch, gen):
@@ -1333,30 +1385,42 @@ def infer_path_phase(torch, np, kernels, s2d):
     return launches, model, masks
 
 
+def masks_per_s(fns, label):
+    """Masks/s of each of ``fns`` ({name: a call that returns one image's
+    mask}) after three warm-up calls each: WINDOWS windows of at least
+    WINDOW_S each, in turns (the order reversed every other window), every
+    reading printed. Returns {name: readings}."""
+    names = list(fns)
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    readings = {name: [] for name in names}
+    for i in range(WINDOWS):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            count, t0 = 0, time.perf_counter()
+            while True:
+                fns[name]()
+                count += 1
+                dt = time.perf_counter() - t0
+                if dt >= WINDOW_S:
+                    break
+            readings[name].append(count / dt)
+            print(f'  {label} window {i} {name}: {count} masks in '
+                  f'{dt:.3f} s, {count / dt:.3f} masks/s', flush=True)
+    return readings
+
+
 def infer_throughput_phase(torch, np, engines, card):
     """masks/s of the 1280x960 image, one image at a time, plain and s2d
     engine in turns; tiles/s of each form's forward at buckets 8 and
     32."""
     big = np.random.default_rng(2).random((960, 1280, IN_C),
                                           dtype=np.float32)
-    readings = {form: [] for form in engines}
-    for eng in engines.values():
-        for _ in range(3):
-            eng.predict_image(big)
-    for i in range(WINDOWS):
-        for form in (('off', 'on') if i % 2 == 0 else ('on', 'off')):
-            count, t0 = 0, time.perf_counter()
-            while True:
-                engines[form].predict_image(big)   # .result() waits
-                count += 1
-                dt = time.perf_counter() - t0
-                if dt >= WINDOW_S:
-                    break
-            readings[form].append(count / dt)
-            print(f'  1280x960 window {i} s2d {form}: {count} masks in '
-                  f'{dt:.3f} s, {count / dt:.3f} masks/s', flush=True)
+    readings = masks_per_s({f's2d {form}': (lambda e=eng: e.predict_image(
+        big)) for form, eng in engines.items()}, '1280x960')
     out = {'card': card}
-    for form, r in readings.items():
+    for form in engines:
+        r = readings[f's2d {form}']
         med = statistics.median(r)
         print(f'  1280x960 s2d {form}: median {med:.3f} masks/s (min '
               f'{min(r):.3f}, max {max(r):.3f}) over {WINDOWS} windows of '
@@ -1378,6 +1442,590 @@ def infer_throughput_phase(torch, np, engines, card):
                       f'{out[form]["tiles_per_s"][bs]:.1f} tiles/s on '
                       f'{card}', flush=True)
     return out
+
+
+def spatial_phase(torch, np, F, kernels, model, card):
+    """Whole-image spatial mode with the nf=64 3 -> 7-class generator:
+    the fp32 forward of a 640x480 image (padded to 640x512) on the card
+    against the same model on the CPU (max |dprob| <= 1e-3, argmax masks
+    equal on >= 99.9% of pixels, K1 / K2 / K3 1 / 6 / 5 launches); K1-K3
+    at the 1280x960 image's shapes against their plain versions; that a
+    mask's copy waits for its own image only; then masks/s of spatial and
+    tiled mode (bf16, plain form) on the 1280x960 image, in turns. Returns
+    (the bf16 spatial run's launches, the throughput readings)."""
+    from patchgan_tpu_torch.inference import InferenceEngine
+    wrappers = [k.wrapper for k in kernels]
+    img = np.random.default_rng(12).random((480, 640, IN_C),
+                                           dtype=np.float32)
+    x = np.zeros((512, 640, IN_C), np.float32)
+    x[:480] = img
+    xt = torch.from_numpy(x).permute(2, 0, 1)[None].contiguous()
+    model = model.to(torch.float32).eval()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = model(xt)                                  # plain path, CPU
+    cpu_s = time.perf_counter() - t0
+    with s2d_env('off'):
+        eng32 = InferenceEngine(model, dtype=torch.float32)
+        eng = InferenceEngine(model, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        p32 = eng32.model(xt.cuda()).float().cpu()
+    d32 = (p32 - ref).abs().max().item()
+    for w in wrappers:
+        w.launches = 0
+    mask = eng32.predict_image(img, mode='spatial')
+    launches = [w.launches for w in wrappers]
+    want = ref[0, :, :480].argmax(0).numpy()
+    agree = float(np.mean(mask == want))
+    print(f'  fp32 spatial 640x480 (padded 640x512): kernels vs plain on '
+          f'the CPU ({cpu_s:.1f} s) max |dprob| {d32:.3e} (tol 1e-3); '
+          f'argmax agreement {agree:.5f} (>= 0.999); mask {mask.shape} '
+          f'{mask.dtype}; launches {launches}', flush=True)
+    if not (d32 <= 1e-3 and agree >= 0.999 and mask.shape == (480, 640)
+            and mask.dtype == np.int64 and launches == SPATIAL_IMAGE):
+        raise AssertionError(f'spatial parity: {d32}, {agree}, '
+                             f'{mask.shape} {mask.dtype}, {launches}')
+    del eng32
+
+    print(f'  K1-K3 at the shapes of one {SPATIAL_HW[1]}x{SPATIAL_HW[0]} '
+          f'image (padded {SPATIAL_PAD[1]}x{SPATIAL_PAD[0]})', flush=True)
+    with torch.inference_mode():
+        kernel_phase(torch, F, kernels[:3], spatial=True)
+
+    big = (np.random.default_rng(2).random(SPATIAL_HW + (IN_C,)) * 255) \
+        .astype(np.uint8)
+    small = big[:SIZE, :SIZE].copy()
+    for w in wrappers:
+        w.launches = 0
+    mask = eng.predict_image(big, mode='spatial')
+    torch.cuda.synchronize()
+    main_launches = [w.launches for w in wrappers]
+    print(f'  bf16 spatial {SPATIAL_HW[1]}x{SPATIAL_HW[0]}: mask {mask.shape}'
+          f' {mask.dtype}, labels {mask.min()}..{mask.max()}, launches '
+          f'{main_launches}', flush=True)
+    if main_launches != SPATIAL_IMAGE or mask.shape != SPATIAL_HW or \
+            mask.min() < 0 or mask.max() >= OUT_C:
+        raise AssertionError(f'bf16 spatial: {main_launches}, {mask.shape}')
+    fetch_check(torch, eng, small, big)
+
+    readings = masks_per_s(
+        {mode: (lambda m=mode: eng.predict_image(big, mode=m))
+         for mode in ('spatial', 'tiled')},
+        f'{SPATIAL_HW[1]}x{SPATIAL_HW[0]}')
+    out = {'card': card}
+    for mode, r in readings.items():
+        med = statistics.median(r)
+        print(f'  {SPATIAL_HW[1]}x{SPATIAL_HW[0]} bf16 {mode}: median '
+              f'{med:.3f} masks/s (min {min(r):.3f}, max {max(r):.3f}) over '
+              f'{WINDOWS} windows of >= {WINDOW_S} s on {card}', flush=True)
+        out[mode] = {'masks_per_s': med, 'masks_per_s_windows': r}
+    return main_launches, out
+
+
+def fetch_check(torch, eng, small, big):
+    """A mask's ``.result()`` waits for its own image only: image A (one
+    small tiled image) is dispatched, then four 1280x960 tiled images
+    (B), and A's result must come back while B's work is still running
+    on the card. Events recorded after A's and after B's dispatch show
+    it."""
+    for im in (small, big):      # warm the memory pools for both shapes
+        eng.predict_image(im)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    ev_a = torch.cuda.Event(enable_timing=True)
+    ev_b = torch.cuda.Event(enable_timing=True)
+    start.record()
+    a = eng.predict_image_async(small)
+    ev_a.record()
+    bs = eng.predict_images_async([big] * 4)
+    ev_b.record()
+    t0 = time.perf_counter()
+    a.result()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    a_done, b_done = ev_a.query(), ev_b.query()
+    for h in bs:
+        h.result()
+    ev_b.synchronize()
+    print(f'  per-image copy: A.result() returned after {host_ms:.3f} ms '
+          f'with A\'s event done {a_done} and B\'s done {b_done}; on the '
+          f'card A ended at {start.elapsed_time(ev_a):.3f} ms, B at '
+          f'{start.elapsed_time(ev_b):.3f} ms', flush=True)
+    if b_done:
+        raise AssertionError('A\'s result waited for B\'s forward')
+
+
+def write_serve_inputs(tmp, np, model):
+    """The four inference images as files (1280x960 and 640x480 JPEG,
+    256x256 and 200x150 PNG), smooth like photographs (a seeded coarse
+    grid, bicubic-upsampled, plus a little noise), a corrupt .jpg beside
+    them, the nf=64 generator's checkpoint, and serve configs for tiled
+    and spatial mode. Returns (image dir, {name: (h, w)}, config path by
+    mode, paths of the good images)."""
+    import yaml
+    from PIL import Image
+
+    from patchgan_tpu_torch.utils.checkpoint import save_state_dict
+    src = os.path.join(tmp, 'in')
+    os.makedirs(src)
+    rng = np.random.default_rng(13)
+    sizes = {}
+    for (h, w), ext in zip([(960, 1280), (480, 640), (256, 256),
+                            (150, 200)], ('jpg', 'jpg', 'png', 'png')):
+        coarse = (rng.random((h // 32 + 2, w // 32 + 2, IN_C)) * 255)
+        im = Image.fromarray(coarse.astype(np.uint8)).resize(
+            (w, h), Image.BICUBIC)
+        arr = np.asarray(im, np.float32) + rng.normal(0, 4, (h, w, IN_C))
+        name = f'{len(sizes):03d}.{ext}'
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            os.path.join(src, name), quality=90)
+        sizes[name] = (h, w)
+    with open(os.path.join(src, 'bad.jpg'), 'wb') as f:
+        f.write(b'not a jpeg')
+    ckpt = os.path.join(tmp, 'serve_generator.npz')
+    save_state_dict(ckpt, model.state_dict())
+    cfgs = {}
+    for mode in ('tiled', 'spatial'):
+        cfg = {'dataset': {'type': 'COCOStuff', 'size': SIZE,
+                           'in_channels': IN_C, 'out_channels': OUT_C},
+               'model_params': {'gen_filts': NF, 'activation': 'relu',
+                                'final_activation': 'softmax'},
+               'checkpoint_paths': {'generator': ckpt},
+               'infer_params': {'output_path': os.path.join(tmp, mode),
+                                'threshold': 0, 'overlap': 0.9,
+                                'mode': mode}}
+        cfgs[mode] = os.path.join(tmp, f'serve_{mode}.yaml')
+        with open(cfgs[mode], 'w') as f:
+            yaml.safe_dump(cfg, f)
+    return src, sizes, cfgs, [os.path.join(src, n) for n in sizes]
+
+
+def read_masks(np, out_dir, sizes):
+    """The served PNG masks by image name; each must have its image's
+    shape and labels < OUT_C."""
+    from PIL import Image
+    masks = {}
+    for name, hw in sizes.items():
+        path = os.path.join(out_dir, os.path.splitext(name)[0] + '.png')
+        mask = np.asarray(Image.open(path))
+        if mask.shape != hw or mask.dtype != np.uint8 or \
+                mask.max() >= OUT_C:
+            raise AssertionError(f'{path}: {mask.shape} {mask.dtype} '
+                                 f'max {mask.max()}')
+        masks[name] = mask
+    return masks
+
+
+def serve_phase(torch, np, kernels, model, card, tmp):
+    """``patchgan_serve`` on the card (bf16) with the nf=64 generator:
+    --watch --once (tiled, then --batch 4, then spatial mode), --stdin,
+    --http in process (correctness, then load at --batch 0 and --batch 4
+    in turns), the stitch's share of a 1280x960 tiled image, and the
+    SIGTERM drain of a ``-d cuda`` subprocess under load. Returns
+    (launches by path, the load readings)."""
+    import yaml
+    from PIL import Image
+
+    from patchgan_tpu_torch.cli.serve import (_build_engine, _http_loop,
+                                              _warmup, patchgan_serve)
+    wrappers = [k.wrapper for k in kernels]
+    names = [k.name for k in kernels]
+    src, sizes, cfgs, good = write_serve_inputs(tmp, np, model)
+    # the warmup forward is one 256 x 256 image of uint8 zeros
+    warm = [(SIZE, SIZE)]
+
+    def run(argv, stdin=None):
+        for w in wrappers:
+            w.launches = 0
+        tee = Tee(sys.stdout)
+        old = sys.stdin
+        if stdin is not None:
+            sys.stdin = io.StringIO(stdin)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(tee):
+                n = patchgan_serve(argv + ['-d', 'cuda'])
+            torch.cuda.synchronize()
+        finally:
+            sys.stdin = old
+        wall = time.perf_counter() - t0
+        return n, [w.launches for w in wrappers], tee.getvalue(), wall
+
+    def per_chunk(chunks):
+        return [chunks, 6 * chunks, 5 * chunks, 0, 0, 0]
+
+    paths, masks = {}, {}
+    for label, mode, extra, out_dir in (
+            ('serve_watch', 'tiled', [], 'tiled'),
+            ('serve_watch_batch4', 'tiled', ['--batch', '4'], 'tiled_b4'),
+            ('serve_watch_spatial', 'spatial', [], 'spatial')):
+        cfg = cfgs[mode]
+        if out_dir != mode:     # the same config, another output folder
+            with open(cfg) as f:
+                doc = yaml.safe_load(f)
+            doc['infer_params']['output_path'] = os.path.join(tmp, out_dir)
+            cfg = os.path.join(tmp, f'serve_{out_dir}.yaml')
+            with open(cfg, 'w') as f:
+                yaml.safe_dump(doc, f)
+        n, launches, out, wall = run(['-c', cfg, '--watch', src, '--once']
+                                     + extra)
+        if mode == 'tiled':
+            want = per_chunk(expected_chunks(list(sizes.values()) + warm))
+        else:
+            want = [(len(sizes) + 1) * k for k in SPATIAL_IMAGE]
+        print(f'  {label}: served {n} in {wall:.2f} s (warmup included), '
+              f'launches {launches} (expected {want})', flush=True)
+        if n != len(sizes) or launches != want or 'warmup:' not in out or \
+                not any(line.startswith('ERROR') and 'bad.jpg' in line
+                        for line in out.splitlines()):
+            raise AssertionError(f'{label}: served {n}, launches '
+                                 f'{launches}, output:\n{out}')
+        if extra and 'batch 4' not in out:
+            raise AssertionError(f'{label}: no group of 4 in\n{out}')
+        masks[out_dir] = read_masks(np, os.path.join(tmp, out_dir), sizes)
+        n, _, out, _ = run(['-c', cfg, '--watch', src, '--once',
+                            '--no-warmup'])
+        if n != 0:
+            raise AssertionError(f'{label}: the second pass served {n}')
+        paths[label] = dict(zip(names, launches))
+    for name in sizes:
+        if not np.array_equal(masks['tiled'][name],
+                              masks['tiled_b4'][name]):
+            raise AssertionError(f'{name}: --batch 4 mask differs')
+    print('  watch: every mask of its image\'s shape, labels < 7; a second '
+          'pass served 0; bad.jpg an ERROR; --batch 4 masks equal to '
+          'unbatched', flush=True)
+
+    lines = good[:2] + [os.path.join(src, 'missing.jpg')] + good[2:]
+    n, launches, out, wall = run(['-c', cfgs['tiled'], '--stdin',
+                                  '--no-warmup'],
+                                 stdin='\n'.join(lines) + '\n')
+    echoed = [line for line in out.splitlines()
+              if line.startswith(('ERROR', tmp))]
+    want = per_chunk(expected_chunks(list(sizes.values())))
+    print(f'  stdin: {echoed}, launches {launches} (expected {want}) in '
+          f'{wall:.2f} s', flush=True)
+    stems = [os.path.splitext(os.path.basename(p))[0] for p in lines]
+    if len(echoed) != 5 or not echoed[2].startswith('ERROR') or \
+            launches != want or any(
+                not echoed[i].endswith(f'{stems[i]}.png')
+                for i in (0, 1, 3, 4)):
+        raise AssertionError(f'stdin output {echoed}, launches {launches}')
+    paths['serve_stdin'] = dict(zip(names, launches))
+
+    with open(cfgs['tiled']) as f:
+        engine, _, _ = _build_engine(yaml.safe_load(f), torch.bfloat16,
+                                     torch.device('cuda'))
+    _warmup(engine, 'tiled', all_buckets=True)
+    servers = {}
+    for batch in (0, 4):
+        ready = threading.Event()
+        holder = {}
+
+        def on_ready(server, holder=holder, ready=ready):
+            holder['server'] = server
+            ready.set()
+        th = threading.Thread(target=_http_loop, args=(
+            engine, 'tiled', '127.0.0.1:0'), kwargs={
+            'server_ready': on_ready, 'batch': batch}, daemon=True)
+        th.start()
+        if not ready.wait(timeout=60):
+            raise AssertionError(f'HTTP server --batch {batch} not up')
+        host, port = holder['server'].server_address
+        servers[batch] = (f'http://{host}:{port}', holder['server'], th)
+    try:
+        for batch, (base, _, _) in servers.items():
+            status, _ = http_call(f'{base}/healthz')
+            if status != 200:
+                raise AssertionError(f'/healthz answered {status}')
+            for w in wrappers:
+                w.launches = 0
+            for name in sizes:
+                with open(os.path.join(src, name), 'rb') as f:
+                    status, body = http_call(f'{base}/predict', f.read())
+                got = np.asarray(Image.open(io.BytesIO(body)))
+                if status != 200 or not np.array_equal(
+                        got, masks['tiled'][name]):
+                    raise AssertionError(f'--http --batch {batch} {name}: '
+                                         f'{status}, not the watch mask')
+            launches = [w.launches for w in wrappers]
+            want = per_chunk(expected_chunks(list(sizes.values())))
+            if launches != want:
+                raise AssertionError(f'--http --batch {batch}: launches '
+                                     f'{launches}, expected {want}')
+            paths[f'serve_http_batch{batch}'] = dict(zip(names, launches))
+            status, _ = http_call(f'{base}/predict', b'not an image')
+            if status != 400:
+                raise AssertionError(f'bad bytes answered {status}')
+        print('  http: /healthz 200; every image\'s PNG equal to the mask '
+              '--watch wrote, at --batch 0 and 4; bad bytes 400',
+              flush=True)
+        load = http_load(np, servers, src, card)
+    finally:
+        for _, server, th in servers.values():
+            server.shutdown()
+            th.join(timeout=30)
+    load['stitch'] = stitch_share(torch, np, engine, src, card)
+    load['request_split'] = request_split(np, engine, src, card)
+    del engine
+    load['sigterm'] = sigterm_drain(cfgs['tiled'], src)
+    return paths, load
+
+
+def http_call(url, body=None, timeout=120):
+    """(status, body) of one GET, or POST when ``body`` is given."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=body,
+                                 method='POST' if body else 'GET')
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+# the load clients of ``http_load``, in a process of their own so that
+# they take none of the server's interpreter lock. argv: url, body file,
+# clients, seconds. Each client posts the body in a loop until the
+# seconds are up; prints one JSON line: (finish, latency) in seconds from
+# the start of each answered request, and the count of failed ones
+LOAD_CLIENT = r"""
+import json, sys, threading, time, urllib.error, urllib.request
+url, path, clients, secs = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
+    float(sys.argv[4])
+with open(path, 'rb') as f:
+    body = f.read()
+lat, bad, lock = [], [], threading.Lock()
+t0 = time.perf_counter()
+def client():
+    while time.perf_counter() < t0 + secs:
+        s = time.perf_counter()
+        try:
+            req = urllib.request.Request(url, data=body, method='POST')
+            with urllib.request.urlopen(req, timeout=120) as r:
+                r.read()
+                ok = r.status == 200
+        except OSError:
+            ok = False
+        e = time.perf_counter()
+        with lock:
+            (lat if ok else bad).append((e - t0, e - s))
+threads = [threading.Thread(target=client) for _ in range(clients)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({'lat': lat, 'bad': len(bad)}))
+"""
+
+
+def http_load(np, servers, src, card, clients=8):
+    """requests/s and p50 / p95 latency of ``clients`` threads (in a
+    process of their own, ``LOAD_CLIENT``) posting one image in a loop
+    for a window of at least WINDOW_S, WINDOWS windows per server
+    (--batch 0 and --batch 4 in turns); the 1280x960 JPEG, then the
+    256x256 PNG."""
+    out = {'card': card, 'clients': clients}
+    for name, label in (('000.jpg', '1280x960 jpg'),
+                        ('002.png', '256x256 png')):
+        res = out[label] = {b: {'req_per_s': [], 'p50_ms': [], 'p95_ms': []}
+                            for b in servers}
+        order = list(servers)
+        for i in range(WINDOWS):
+            for batch in (order if i % 2 == 0 else order[::-1]):
+                run = subprocess.run(
+                    [sys.executable, '-c', LOAD_CLIENT,
+                     f'{servers[batch][0]}/predict',
+                     os.path.join(src, name), str(clients), str(WINDOW_S)],
+                    capture_output=True, text=True, timeout=600)
+                if run.returncode != 0:
+                    raise AssertionError(f'load clients: {run.stderr}')
+                doc = json.loads(run.stdout)
+                lat = doc['lat']
+                if doc['bad'] or not lat:
+                    raise AssertionError(f'load {label} --batch {batch}: '
+                                         f'{doc["bad"]} failed requests')
+                dt = max(t for t, _ in lat)
+                ms = np.array([d for _, d in lat]) * 1e3
+                r = res[batch]
+                r['req_per_s'].append(len(lat) / dt)
+                r['p50_ms'].append(float(np.percentile(ms, 50)))
+                r['p95_ms'].append(float(np.percentile(ms, 95)))
+                print(f'  load {label} window {i} --batch {batch}: '
+                      f'{len(lat)} requests in {dt:.3f} s, '
+                      f'{len(lat) / dt:.3f} req/s, p50 {r["p50_ms"][-1]:.3f}'
+                      f' ms, p95 {r["p95_ms"][-1]:.3f} ms', flush=True)
+        for batch, r in res.items():
+            print(f'  load {label} --batch {batch}, {clients} clients: '
+                  f'median {statistics.median(r["req_per_s"]):.3f} req/s, '
+                  f'p50 {statistics.median(r["p50_ms"]):.3f} ms, p95 '
+                  f'{statistics.median(r["p95_ms"]):.3f} ms on {card}',
+                  flush=True)
+    return out
+
+
+def stitch_share(torch, np, engine, src, card, runs=20):
+    """The 1280x960 tiled image's pipeline (upload, gather, forward
+    chunks, stitch, argmax, copy back, crop) by the host's clock, against
+    its forward chunks alone (CUDA events around the same chunks on
+    resident tiles): the rest is the stitch's share."""
+    from PIL import Image
+
+    from patchgan_tpu_torch.inference.engine import _pick_bucket
+    from patchgan_tpu_torch.inference.tiling import crop_positions
+    with Image.open(os.path.join(src, '000.jpg')) as im:
+        big = np.asarray(im.convert('RGB'), np.uint8)
+    n = len(crop_positions(*big.shape[:2], SIZE, 0.9))
+    bs = _pick_bucket(n, engine.batch_size)
+    chunks = -(-n // bs)
+    walls = []
+    for _ in range(runs + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.predict_image(big)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls[3:])
+    x = torch.rand(bs, IN_C, SIZE, SIZE, device='cuda')
+    with torch.inference_mode():
+        fwd = cuda_ms(lambda: [engine._forward(x) for _ in range(chunks)],
+                      iters=10)
+    print(f'  stitch share, 1280x960 tiled bf16: {n} tiles in {chunks} '
+          f'chunk(s) of {bs}; pipeline {wall:.3f} ms (median of {runs}), '
+          f'forward chunks {fwd:.3f} ms, the rest {wall - fwd:.3f} ms = '
+          f'{100 * (wall - fwd) / wall:.1f}% on {card}', flush=True)
+    return {'tiles': n, 'bucket': bs, 'chunks': chunks, 'pipeline_ms': wall,
+            'forward_ms': fwd, 'rest_ms': wall - fwd,
+            'rest_share': (wall - fwd) / wall}
+
+
+def request_split(np, engine, src, card, runs=20):
+    """Where one request's host time goes, one request at a time: the
+    decode of the posted bytes (PIL), the dispatch (until
+    ``predict_image_async`` returns), the wait for the mask (``.result()``)
+    and the PNG encode; medians of ``runs`` after two warm-ups, for the
+    1280x960 JPEG and the 256x256 PNG. The random weights give a mask of
+    near noise, which PNG compresses slowly; ``encode_smooth`` encodes a
+    7-label map of the same size cut from the smooth input image, as a
+    trained model's mask would be more nearly."""
+    from PIL import Image
+
+    from patchgan_tpu_torch.cli.serve import _encode_mask_png
+    out = {}
+    for name, label in (('000.jpg', '1280x960 jpg'),
+                        ('002.png', '256x256 png')):
+        with open(os.path.join(src, name), 'rb') as f:
+            body = f.read()
+        parts = {'decode': [], 'dispatch': [], 'wait': [], 'encode': [],
+                 'encode_smooth': []}
+        for i in range(runs + 2):
+            t0 = time.perf_counter()
+            with Image.open(io.BytesIO(body)) as im:
+                image = np.asarray(im.convert('RGB'), np.uint8)
+            t1 = time.perf_counter()
+            handle = engine.predict_image_async(image)
+            t2 = time.perf_counter()
+            mask = handle.result()
+            t3 = time.perf_counter()
+            _encode_mask_png(mask)
+            t4 = time.perf_counter()
+            _encode_mask_png(image.sum(-1, dtype=np.int32) * OUT_C // 766)
+            t5 = time.perf_counter()
+            if i >= 2:
+                for key, a, b in (('decode', t0, t1), ('dispatch', t1, t2),
+                                  ('wait', t2, t3), ('encode', t3, t4),
+                                  ('encode_smooth', t4, t5)):
+                    parts[key].append((b - a) * 1e3)
+        out[label] = {k: statistics.median(v) for k, v in parts.items()}
+        print(f'  one request at a time, {label} ({len(body)} B): '
+              + ', '.join(f'{k} {v:.3f} ms' for k, v in out[label].items())
+              + f' (medians of {runs}) on {card}', flush=True)
+    return out
+
+
+def sigterm_drain(cfg, src, clients=4):
+    """``python -m patchgan_tpu_torch.cli.serve --http ... -d cuda`` as a
+    subprocess: ``clients`` requests of the 1280x960 JPEG are sent, and
+    SIGTERM goes out once all are sent and half answered; every request
+    must be answered 200 and the process exit 0. ``clients`` stays within
+    the server's listen backlog (``ThreadingHTTPServer``'s
+    request_queue_size, 5), so every connection is accepted before the
+    signal: a connection beyond it whose handshake the kernel has not
+    completed is never accepted and is reset when the server closes,
+    which is no request in flight."""
+    import http.client
+    import queue
+    import signal
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'patchgan_tpu_torch.cli.serve', '-c', cfg,
+         '--http', '127.0.0.1:0', '-d', 'cuda'], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        lines = queue.Queue()
+
+        def reader():
+            for line in proc.stdout:
+                lines.put(line)
+            lines.put(None)
+        threading.Thread(target=reader, daemon=True).start()
+        out, port = [], None
+        t0 = time.perf_counter()
+        while port is None:
+            line = lines.get(timeout=300)
+            if line is None:
+                raise AssertionError('serve exited:\n' + ''.join(out))
+            out.append(line)
+            if 'HTTP serving on' in line:
+                port = int(line.split()[3].rsplit(':', 1)[1])
+        up_s = time.perf_counter() - t0
+        with open(os.path.join(src, '000.jpg'), 'rb') as f:
+            body = f.read()
+        sent, answered = threading.Semaphore(0), threading.Semaphore(0)
+        status = {}
+
+        def client(i):
+            conn = http.client.HTTPConnection('127.0.0.1', port, timeout=300)
+            try:
+                try:
+                    conn.request('POST', '/predict', body)
+                finally:
+                    sent.release()
+                status[i] = conn.getresponse().status
+            except OSError as e:
+                status[i] = repr(e)
+            finally:
+                conn.close()
+                answered.release()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(clients)]
+        for t in threads:
+            t.start()
+        # every request is on the wire before any wait for answers
+        for sem, n in ((sent, clients), (answered, clients // 2)):
+            for _ in range(n):
+                if not sem.acquire(timeout=300):
+                    raise AssertionError('SIGTERM drain: a request was '
+                                         'not sent or answered in 300 s')
+        in_flight = clients - len(status)
+        proc.send_signal(signal.SIGTERM)
+        for t in threads:
+            t.join(timeout=300)
+        rc = proc.wait(timeout=300)
+        while (line := lines.get(timeout=60)) is not None:
+            out.append(line)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    ok = sum(s == 200 for s in status.values())
+    print(f'  SIGTERM drain: the server up in {up_s:.1f} s (warmup '
+          f'included); signalled with {in_flight} of {clients} requests in '
+          f'flight; {ok} answered 200; exit code {rc}', flush=True)
+    if ok != clients or rc != 0 or in_flight < 1 or \
+            'draining in-flight requests' not in ''.join(out):
+        raise AssertionError(f'SIGTERM drain: statuses {status}, rc {rc}, '
+                             f'output:\n{"".join(out)}')
+    return {'clients': clients, 'in_flight_at_signal': in_flight,
+            'answered_200': ok, 'exit_code': rc}
 
 
 def main():
@@ -1531,6 +2179,20 @@ def main():
     train.update({'epoch_s': epoch_s, 'card': card})
     print(json.dumps(train))
 
+    print('== spatial mode: whole-image forward (nf=64), parity on the CPU, '
+          'K1-K3 at the 1280x960 image\'s shapes, masks/s against tiled',
+          flush=True)
+    launches, spatial = spatial_phase(torch, np, F, kernels, model, card)
+    paths['spatial'] = dict(zip(names, launches))
+    print(json.dumps(spatial))
+    with tempfile.TemporaryDirectory() as tmp:
+        print('== serve path: patchgan_serve -d cuda (bf16): --watch, '
+              '--stdin, --http, load, SIGTERM drain', flush=True)
+        serve_paths, serve = serve_phase(torch, np, kernels, model, card,
+                                         tmp)
+    paths.update(serve_paths)
+    print(json.dumps(serve))
+
     summary = []
     for k in kernels:
         rows = [r for r in k.rows if r.get('calls', 1)]
@@ -1547,6 +2209,11 @@ def main():
             'bound_ms': total('bound_ms'),
             'bound_by': max(rows, key=lambda r: r['bound_ms'])['bound_by'],
             'library_ms': total('library_ms')})
+        if k.spatial_rows:
+            summary[-1]['spatial_1280x960'] = {
+                key: sum(r[key] for r in k.spatial_rows)
+                for key in ('kernel_ms', 'plain_ms', 'bound_ms',
+                            'library_ms')}
     print(json.dumps({'kernels': summary}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

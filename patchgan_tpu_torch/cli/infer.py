@@ -1,10 +1,12 @@
-"""Tiled inference entry point: ``python -m patchgan_tpu_torch.cli.infer``.
+"""Inference entry point: ``python -m patchgan_tpu_torch.cli.infer``.
 
 Port of ``patchgan_tpu/cli/infer.py:34-162``: the same flags and config
 keys (flat or nested ``model_params``, ``checkpoint_paths.generator``,
-``infer_params.{output_path, threshold, overlap, batch_size}``), the
-``get_filename`` / ``save_mask`` dataset protocol, overlap tiling with
-the averaging stitch, and image decode/save overlapped with the device.
+``infer_params.{output_path, threshold, overlap, batch_size, mode}``),
+the ``get_filename`` / ``save_mask`` dataset protocol, overlap tiling
+with the averaging stitch (``mode: tiled``, the default) or one
+whole-image forward (``mode: spatial``), and image decode/save
+overlapped with the device.
 ``-d auto`` (the default) and ``-d cuda`` run on the card and raise
 without one; ``-d cpu`` runs on the CPU.
 """
@@ -18,6 +20,7 @@ import torch
 import tqdm
 
 from ..inference import InferenceEngine
+from ..inference.engine import _ReadyMask
 from ..models import UNet
 from ..utils import checkpoint as ckpt
 from ..utils.config import load_config, model_params
@@ -63,11 +66,7 @@ def patchgan_infer(argv=None):
     datagen = Dataset(dataset_path, **ds_kwargs)
 
     infer_params = config.get('infer_params', {})
-    mode = infer_params.get('mode', 'tiled')
-    if mode != 'tiled':
-        raise NotImplementedError(
-            f"infer_params.mode={mode!r} is not ported yet (ROADMAP.md, "
-            f"queue 1); use 'tiled'")
+    mode = infer_params.get('mode', 'tiled')  # tiled | spatial
 
     gen_cfg, _ = model_params(config)
     generator = UNet(input_nc=in_channels, output_nc=out_channels,
@@ -121,7 +120,10 @@ def patchgan_infer(argv=None):
                 pending.append(pool.submit(fetch, next_submit))
                 next_submit += 1
             out_fname, _ = os.path.splitext(datagen.get_filename(i))
-            handle = engine.predict_image_async(image)
+            if mode == 'tiled':
+                handle = engine.predict_image_async(image)
+            else:
+                handle = _ReadyMask(engine.predict_image(image, mode=mode))
             if prev is not None:
                 Dataset.save_mask(prev[0].result(), output_path, prev[1])
             prev = (handle, out_fname)

@@ -1,26 +1,41 @@
-"""Batched tiled-inference engine on one device.
+"""Batched tiled and whole-image inference engine on one device.
 
-Port of ``patchgan_tpu/inference/engine.py:184-594`` (the single-device,
-on-device-stitch path). Per image: the (uint8 or float32) HWC image is
-uploaded once and normalised on the device; tiles are gathered from the
-resident image; the generator runs over them in power-of-two bucket
-chunks; the averaging stitch scatter-adds each tile into a canvas and a
-hit count in the host loop's tile order, so every pixel's float sums run
-in the same order as ``tiling.build_mask``; threshold and argmax run on
-the device; the mask comes back as uint8 labels, or bit-packed rows for
-a binary mask, in one device-to-host copy when ``.result()`` is called.
-``predict_image_async`` returns before that copy, so a caller can decode
-and save neighbouring images while the device works. When
-``PATCHGAN_S2D`` selects it and the tile size is even, the tiled forward
-runs the generator in its space-to-depth boundary form
+Port of ``patchgan_tpu/inference/engine.py`` (the single-device paths).
+Tiled mode, per image: the (uint8 or float32) HWC image is uploaded once
+and normalised on the device; tiles are gathered from the resident
+image; the generator runs over them in power-of-two bucket chunks; the
+averaging stitch scatter-adds each tile into a canvas and a hit count in
+the host loop's tile order, so every pixel's float sums run in the same
+order as ``tiling.build_mask``; threshold and argmax run on the device.
+When ``PATCHGAN_S2D`` selects it and the tile size is even, the tiled
+forward runs the generator in its space-to-depth boundary form
 (``engine.py:269-297``, ``ops/s2d.py``) on the uploaded tiles and turns
 its output back before the stitch.
 
-The JAX package's whole-image ``mode='spatial'`` and multi-device meshes
-are not ported yet (ROADMAP, queue 1).
+Spatial mode (``predict_image(mode='spatial')``, JAX ``engine.py:299-334,
+596-656``): the whole image, zero-padded bottom and right to multiples of
+128, goes through one plain-form forward (whatever ``PATCHGAN_S2D``
+says), with the same threshold / argmax on the device; instance-norm
+statistics are then the whole image's.
+
+Either way the mask comes back as uint8 labels (int64 above 256
+classes), or bit-packed rows for a binary mask, in one device-to-host
+copy per image: the engine queues it into pinned host memory right
+after the image's work and records a CUDA event behind it, and the
+handle's ``.result()`` waits on that event alone, not on the work other
+images have queued on the device since (another request's forward, say).
+``predict_image_async`` returns before that copy, so a caller can decode
+and save neighbouring images while the device works.
+
+The bucket chunk size is the cheapest for the tile count by a table of
+measured forward throughput (``bucket_rates.json``, written on the card
+by ``tools/bucket_rates.py``). Multi-device meshes are not ported yet
+(ROADMAP, queue 1 item 11).
 """
 
 import copy
+import json
+import os
 
 import numpy as np
 import torch
@@ -29,20 +44,39 @@ from ..models.unet import UNet
 from ..ops.s2d import depth_to_space, s2d_enabled, space_to_depth
 from .tiling import crop_positions
 
-_NOT_PORTED = ("is not ported yet: see ROADMAP.md, queue 1 "
-               "('cli/serve, cli/evaluate and spatial mode', 'parallel')")
+_MESH_NOT_PORTED = ("a multi-device mesh is not ported yet: see "
+                    "ROADMAP.md, queue 1 item 11 ('parallel')")
 
 
 def _round_up(n, m):
     return ((n + m - 1) // m) * m
 
 
-# Generator-forward throughput by bucket size, relative; only the ratios
-# pick the cheapest bucket for a tile count. Uniform until it is measured
-# on the card (the JAX package's table was measured on another chip); a
-# uniform table always yields bucket 8, the least padding, for any cap of
-# at least 8.
-_BUCKET_REL_RATE = {8: 1.0, 16: 1.0, 32: 1.0, 64: 1.0, 128: 1.0}
+# Generator-forward throughput by bucket size relative to bucket 16, as
+# measured on the card and written to bucket_rates.json beside this
+# module by ``python tools/bucket_rates.py --write``; PATCHGAN_BUCKET_RATES
+# names another file. Only the ratios are used, to pick the cheapest
+# bucket for a tile count. A missing or unreadable file falls back to a
+# uniform table, which always yields bucket 8, the least padding, for
+# any cap of at least 8.
+_FALLBACK_BUCKET_REL_RATE = {8: 1.0, 16: 1.0, 32: 1.0, 64: 1.0, 128: 1.0}
+
+
+def _load_bucket_rates():
+    path = os.environ.get('PATCHGAN_BUCKET_RATES') or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), 'bucket_rates.json')
+    try:
+        with open(path) as f:
+            rates = {int(k): float(v)
+                     for k, v in json.load(f)['rel_rate'].items()}
+    except (OSError, ValueError, KeyError, TypeError, AttributeError):
+        rates = {}
+    if rates and all(v > 0 for v in rates.values()):
+        return rates
+    return dict(_FALLBACK_BUCKET_REL_RATE)
+
+
+_BUCKET_REL_RATE = _load_bucket_rates()
 
 
 def _pick_bucket(n, cap):
@@ -92,26 +126,42 @@ def _as_input(image):
 
 
 class _PendingMask:
-    """In-flight device mask; ``.result()`` is the one host copy. The
-    device returns compact uint8 labels or packed bits; ``cast`` restores
-    the host dtype of ``build_mask`` (int64 labels, float32 binary)."""
+    """In-flight mask; ``.result()`` waits for its one host copy. ``host``
+    is a CPU tensor: on the card, the pinned buffer the engine queued the
+    compact mask's copy into, with ``event`` recorded behind the copy; on
+    the CPU, the mask itself. ``cast`` restores the host dtype of
+    ``build_mask`` (int64 labels, float32 binary); ``packed`` marks
+    bit-packed rows."""
 
-    def __init__(self, dev, h, w, cast=None, packed=False):
-        self._dev, self._h, self._w = dev, h, w
+    def __init__(self, host, h, w, cast=None, packed=False, event=None):
+        self._host, self._h, self._w = host, h, w
         self._cast = cast
         self._packed = packed
+        self._event = event
 
     def result(self):
-        arr = self._dev.cpu().numpy()
+        if self._event is not None:
+            self._event.synchronize()
+        arr = self._host.numpy()
         if self._packed:
             arr = np.unpackbits(arr, axis=1)
         arr = arr[:self._h, :self._w]
         return arr.astype(self._cast) if self._cast is not None else arr
 
 
+class _ReadyMask:
+    """A finished mask in the same handle interface."""
+
+    def __init__(self, mask):
+        self._mask = mask
+
+    def result(self):
+        return self._mask
+
+
 class InferenceEngine:
-    """Tiled inference with ``generator`` (a UNet, or any module mapping
-    (N, C, size, size) to (N, out_C, size, size)).
+    """Tiled and whole-image inference with ``generator`` (a UNet, or any
+    module mapping (N, C, H, W) to (N, out_C, H, W)).
 
     ``params``: a state_dict or a module whose weights to load (None keeps
     the generator's own). The engine works on its own copy, with the
@@ -123,7 +173,7 @@ class InferenceEngine:
                  threshold=0, batch_size=128, dtype=None, device='cuda',
                  mesh=None):
         if mesh is not None:
-            raise NotImplementedError(f"a multi-device mesh {_NOT_PORTED}")
+            raise NotImplementedError(_MESH_NOT_PORTED)
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no GPU is "
@@ -161,6 +211,37 @@ class InferenceEngine:
             return depth_to_space(self.model(x, s2d=True)).float()
         return self.model(tiles).float()
 
+    def _fetch(self, dev, h, w, cast=None, packed=False):
+        """Handle of the compact device mask ``dev``: on the card its copy
+        into pinned host memory is queued now, behind this image's work,
+        and an event recorded after it."""
+        if dev.device.type == 'cpu':
+            return _PendingMask(dev, h, w, cast, packed)
+        host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        host.copy_(dev, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev.device))
+        return _PendingMask(host, h, w, cast, packed, event)
+
+    def _postprocess(self, probs, h, w):
+        """(C, H, W) fp32 map on the device -> handle of its (h, w) mask:
+        threshold, then argmax to uint8 labels (int64 above 256 classes);
+        a binary mask bit-packed when its width is a multiple of 8; host
+        dtypes as ``build_mask``'s."""
+        if self.threshold > 0:
+            probs = (probs >= self.threshold).to(torch.float32)
+        out_c = probs.shape[0]
+        if out_c > 1:
+            lab = probs.argmax(dim=0)
+            return self._fetch(lab.to(torch.uint8) if out_c <= 256 else lab,
+                               h, w, np.int64)
+        if self.threshold > 0:
+            if probs.shape[-1] % 8 == 0:
+                return self._fetch(_pack_bits(probs[0]), h, w, np.float32,
+                                   packed=True)
+            return self._fetch(probs[0].to(torch.uint8), h, w, np.float32)
+        return self._fetch(probs[0], h, w)
+
     @torch.inference_mode()
     def predict_tiles(self, crops):
         """(N, size, size, C) -> (N, size, size, out_C) numpy, in bucket
@@ -181,7 +262,7 @@ class InferenceEngine:
     @torch.inference_mode()
     def predict_image_async(self, image):
         """Run one image's tiled pipeline on the device; the handle's
-        ``.result()`` copies the (H, W) mask to the host."""
+        ``.result()`` waits for its (H, W) mask's copy to the host."""
         image, (h, w) = _pad_min_size(_as_input(image), self.size)
         hp, wp, _ = image.shape
         size = self.size
@@ -206,29 +287,33 @@ class InferenceEngine:
                 canvas[:, y:y + size, x:x + size] += preds[i]
                 count[:, y:y + size, x:x + size] += 1.0
         # full coverage gives count >= 1 on every pixel
-        avg = canvas / count.clamp_min(1.0)
-        if self.threshold > 0:
-            avg = (avg >= self.threshold).to(torch.float32)
-        out_c = avg.shape[0]
-        if out_c > 1:
-            lab = avg.argmax(dim=0)
-            dev = lab.to(torch.uint8) if out_c <= 256 else lab
-            return _PendingMask(dev, h, w, np.int64)
-        if self.threshold > 0:
-            if wp % 8 == 0:
-                return _PendingMask(_pack_bits(avg[0]), h, w, np.float32,
-                                    packed=True)
-            return _PendingMask(avg[0].to(torch.uint8), h, w, np.float32)
-        return _PendingMask(avg[0], h, w)
+        return self._postprocess(canvas / count.clamp_min(1.0), h, w)
+
+    @torch.inference_mode()
+    def predict_image_spatial(self, image):
+        """(H, W, C) image -> (H, W) mask from one whole-image forward in
+        the plain form: zero-padded bottom and right to multiples of 128,
+        threshold / argmax on the device, one copy back, cropped."""
+        image = _as_input(image)
+        h, w = image.shape[:2]
+        ph, pw = _round_up(h, 128), _round_up(w, 128)
+        padded = np.zeros((ph, pw, image.shape[2]), image.dtype)
+        padded[:h, :w] = image
+        x = self._upload(padded).permute(2, 0, 1)[None].contiguous()
+        probs = self.model(x).float()[0]
+        return self._postprocess(probs, h, w).result()
 
     def predict_image(self, image, mode='tiled'):
-        """(H, W, C) image of any size -> (H, W) mask."""
-        if mode != 'tiled':
-            raise NotImplementedError(f"mode={mode!r} {_NOT_PORTED}")
+        """(H, W, C) image of any size -> (H, W) mask. mode='tiled': the
+        overlap tiling and averaging stitch (each tile normalised by its
+        own statistics); mode='spatial': one whole-image forward."""
+        if mode == 'spatial':
+            return self.predict_image_spatial(image)
         return self.predict_image_async(image).result()
 
     def predict_images_async(self, images):
-        """One handle per image, every pipeline started before any copy."""
+        """One handle per image, every pipeline started before any copy
+        is waited for."""
         return [self.predict_image_async(im) for im in images]
 
     def predict_images(self, images):

@@ -1,5 +1,6 @@
 """The port's ``patchgan_infer`` against the JAX package's on the same
-npz-plugin folder and checkpoint: masks agree on >= 99.9% of pixels.
+npz-plugin folder and checkpoint: masks agree on >= 99.9% of pixels;
+its spatial mode writes the engine's spatial masks.
 The port's ``patchgan_train`` on an npz-plugin folder: it trains, writes
 checkpoints the JAX package reads, and resumes; it fine-tunes from
 torch ``.pth`` checkpoints with the encoder frozen and accumulated
@@ -77,6 +78,27 @@ def test_infer_cli_without_gpu_raises(infer_dir, device, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='-d cpu'):
         patchgan_infer(['-c', _config(infer_dir, 'x'), '-d', device])
+
+
+def test_infer_cli_spatial_mode(infer_dir):
+    """infer_params.mode: spatial writes the masks that
+    engine.predict_image(mode='spatial') gives."""
+    from patchgan_tpu_torch.cli.serve import _build_engine
+    path = _config(infer_dir, 'spatial')
+    cfg = yaml.safe_load(open(path))
+    cfg['infer_params']['mode'] = 'spatial'
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    patchgan_infer(['-c', path, '-d', 'cpu', '--dtype', 'float32',
+                    '--dataloader_workers', '1'])
+    engine, mode, _ = _build_engine(cfg, torch.float32, torch.device('cpu'))
+    assert mode == 'spatial'
+    for i, (h, w) in enumerate([(200, 150), (160, 300)]):
+        image = np.load(infer_dir / 'data' / f'{i:03d}.npz')['image']
+        got = np.load(infer_dir / 'spatial' / f'{i:03d}.npy')
+        want = engine.predict_image(image, mode='spatial')
+        assert got.shape == (h, w) and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
 
 
 def test_infer_cli_rejects_partial_checkpoint(infer_dir, tmp_path):
