@@ -144,13 +144,36 @@ Run from the root of the repository. In order:
    (requests/s, p50 and p95 latency); the stitch's share of the
    1280x960 tiled pipeline (its wall time minus its forward chunks); and
    the SIGTERM drain of ``python -m patchgan_tpu_torch.cli.serve --http
-   -d cuda`` signalled with requests in flight (all answered, exit 0).
+   -d cuda`` signalled with requests in flight (all answered, exit 0);
+13. the input pipeline and exact resume, on 256 seeded smooth 640x480
+   JPEGs with 7-label PNG masks (COCO-Stuff layout, 16 more for
+   validation) and the same pairs as 4 tar shards: whether the native
+   decode built (the machine may lack the libjpeg / libpng headers; then
+   PIL decodes, as in the JAX package) and host ms per pair at 256 px;
+   the loader alone (batch 16, bf16, 'randomcrop+flip', batches landed
+   on the card, one synchronize per epoch) in turns: thread x4 with
+   PATCHGAN_NATIVE_IO=off, thread x4 native, process x4, thread x4 with
+   the RAM cache at epoch 2 and later (the decoder called no time), and
+   TarShards thread x4, every reading and the medians; ``patchgan_train
+   -d cuda`` at config 2 with the default loader and the fastest one,
+   epoch 2's img/s beside phase 10's step alone, launches per step as in
+   ``STEP['off']``; one epoch from the shards and one from the folder
+   (PIL on both, flips on, ``--deterministic``): bit-equal epoch files;
+   exact resume (use_dropout, accumulate_steps 2, 2 epochs of 64
+   images): two uninterrupted ``python -m patchgan_tpu_torch.cli.train
+   -d cuda --deterministic`` runs (the control, run beside the first cut
+   run), then one with save_every_steps 1 killed (SIGKILL) when its
+   rolling metadata shows epoch 2 with 1 batch done, resumed and killed
+   at 3, resumed to the end: its epoch files equal the control's bits,
+   or differ by no more than the control's two runs do; the ms of one
+   rolling save at config 2; and ``--profile_dir``: one trace, of epoch
+   1, naming K2's and K3's kernels.
 
 It prints a JSON summary of the kernels (launches from the s2d training
-run, which drives all six; every path's counts beside them, the spatial
-and serve paths' too; K1-K3's totals at the spatial shapes), the card's
-name and power limit, and as its last line ``{"ok": true, "device":
-{...}}``. Any failure exits non-zero before that line; without a CUDA
+run, which drives all six; every path's counts beside them, the
+spatial, serve and pipeline paths' too; K1-K3's totals at the spatial
+shapes), the card's name and power limit, and as its last line ``{"ok":
+true, "device": {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
 """
 
@@ -2028,6 +2051,522 @@ def sigterm_drain(cfg, src, clients=4):
             'answered_200': ok, 'exit_code': rc}
 
 
+# phase 13: the input pipeline and exact resume. A COCO-Stuff layout of
+# PIPE_N smooth PIPE_HW JPEGs with 7-label PNG masks (PIPE_VAL for
+# validation), the training pairs also as PIPE_SHARDS tar shards
+PIPE_N, PIPE_VAL, PIPE_SHARDS, PIPE_HW = 256, 16, 4, (480, 640)
+PIPE_TURNS = 3        # loader-rate readings per configuration, in turns
+RESUME_N = 64         # training pairs of the exact-resume runs
+# the loader-rate configurations: (DataLoader kwargs, PATCHGAN_NATIVE_IO,
+# dataset); each has its patchgan_train form in pipeline_config
+LOADERS = {
+    'thread x4 PIL': ({'num_workers': 4}, 'off', 'folder'),
+    'thread x4 native': ({'num_workers': 4}, 'on', 'folder'),
+    'process x4': ({'num_workers': 4, 'worker_type': 'process'}, 'on',
+                   'folder'),
+    'thread x4 cache': ({'num_workers': 4, 'cache': True}, 'on', 'folder'),
+    'TarShards thread x4': ({'num_workers': 4}, 'on', 'shards'),
+}
+
+
+@contextlib.contextmanager
+def env_var(name, value):
+    """``name`` set to ``value`` for the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = old
+
+
+@contextlib.contextmanager
+def cudnn_flags_kept(torch):
+    """cuDNN's deterministic and benchmark flags as they were before the
+    block (``--deterministic`` sets them in this process)."""
+    b = torch.backends.cudnn
+    old = b.deterministic, b.benchmark
+    try:
+        yield
+    finally:
+        b.deterministic, b.benchmark = old
+
+
+def write_pipeline_inputs(tmp, np):
+    """The pairs in ``tmp``: train/{images,masks}, val/{images,masks},
+    resume/{images,masks} (the first RESUME_N training pairs),
+    shards/shard-{0..3}.tar (the training pairs in sorted order, an
+    equal run each) and val_shards/val.tar (the validation pairs).
+    Images are smooth like photographs (a seeded coarse grid,
+    bicubic-upsampled, plus a little noise), masks 7 labels on a coarse
+    grid, NEAREST-upsampled."""
+    import tarfile
+
+    from PIL import Image
+    h, w = PIPE_HW
+    rng = np.random.default_rng(14)
+    noise = rng.normal(0, 4, (h + 32, w + 32, IN_C)).astype(np.float32)
+    for split, n in (('train', PIPE_N), ('val', PIPE_VAL)):
+        for sub in ('images', 'masks'):
+            os.makedirs(os.path.join(tmp, split, sub))
+        for i in range(n):
+            coarse = rng.random((h // 32 + 2, w // 32 + 2, IN_C)) * 255
+            im = Image.fromarray(coarse.astype(np.uint8)).resize(
+                (w, h), Image.BICUBIC)
+            dy, dx = rng.integers(0, 32, 2)
+            arr = np.asarray(im, np.float32) + noise[dy:dy + h, dx:dx + w]
+            Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+                os.path.join(tmp, split, 'images', f'{i:012d}.jpg'),
+                quality=90)
+            labels = rng.integers(0, OUT_C, (h // 40, w // 40), np.uint8)
+            Image.fromarray(labels, mode='L').resize(
+                (w, h), Image.NEAREST).save(
+                os.path.join(tmp, split, 'masks', f'{i:012d}.png'))
+    for sub in ('images', 'masks'):
+        os.makedirs(os.path.join(tmp, 'resume', sub))
+        ext = 'jpg' if sub == 'images' else 'png'
+        for i in range(RESUME_N):
+            os.link(os.path.join(tmp, 'train', sub, f'{i:012d}.{ext}'),
+                    os.path.join(tmp, 'resume', sub, f'{i:012d}.{ext}'))
+    per = PIPE_N // PIPE_SHARDS
+    tars = [('train', f'shards/shard-{si}.tar', range(si * per, (si + 1) * per))
+            for si in range(PIPE_SHARDS)]
+    tars.append(('val', 'val_shards/val.tar', range(PIPE_VAL)))
+    for split, name, ids in tars:
+        os.makedirs(os.path.dirname(os.path.join(tmp, name)), exist_ok=True)
+        with tarfile.open(os.path.join(tmp, name), 'w') as tf:
+            for i in ids:
+                for sub, ext in (('images', 'jpg'), ('masks', 'png')):
+                    tf.add(os.path.join(tmp, split, sub, f'{i:012d}.{ext}'),
+                           arcname=f'{i:012d}.{ext}')
+
+
+def pipeline_config(tmp, name, data='folder', cache=False, train='train',
+                    ck=None, **train_params):
+    """A patchgan_train config at BASELINE.json config 2's widths (nf=64,
+    ndf=64, 256 px, 7 classes, relu / softmax, tversky * 200 + BCE,
+    'randomcrop+flip') on the phase's folder (``train``) or shards;
+    returns its path."""
+    import yaml
+    images = os.path.join(tmp, 'shards', 'shard-*.tar') \
+        if data == 'shards' else os.path.join(tmp, train, 'images')
+    masks = None if data == 'shards' else os.path.join(tmp, train, 'masks')
+    cfg = {
+        'dataset': {'type': 'TarShards' if data == 'shards' else 'COCOStuff',
+                    'size': SIZE, 'labels': list(range(1, OUT_C + 1)),
+                    'augmentation': 'randomcrop+flip', 'cache': cache,
+                    'train_data': {'images': images, 'masks': masks},
+                    'validation_data': {
+                        'images': os.path.join(tmp, 'val', 'images'),
+                        'masks': os.path.join(tmp, 'val', 'masks')}},
+        'model_params': {'generator': {'filters': NF, 'activation': 'relu',
+                                       'final_activation': 'softmax',
+                                       'use_dropout': True},
+                         'discriminator': {'filters': NDF, 'n_layers': 3}},
+        'checkpoint_path': os.path.join(tmp, ck or f'ck_{name}'),
+        'train_params': {'loss_type': 'tversky', 'seg_alpha': 200,
+                         'gen_learning_rate': 1e-3,
+                         'disc_learning_rate': 1e-3, 'decay_rate': 0.5,
+                         'save_freq': 1, **train_params},
+    }
+    if data == 'shards':
+        cfg['dataset']['validation_data'] = {
+            'images': os.path.join(tmp, 'val_shards', 'val.tar'),
+            'masks': None}
+    path = os.path.join(tmp, f'{name}.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def epoch_lines(out):
+    """(images, seconds) of each training epoch's " N images in Xs" line."""
+    got = []
+    for line in out.splitlines():
+        if ' images in ' in line:
+            n, rest = line.strip().split(' images in ')
+            got.append((int(n), float(rest.split('s')[0])))
+    return got
+
+
+def run_train(torch, wrappers, args, env=None):
+    """patchgan_train in this process with ``args`` (+ -d cuda, no
+    summary), the counts set to 0 before; (output, launches, wall s)."""
+    from patchgan_tpu_torch.cli.train import patchgan_train
+    for w in wrappers:
+        w.launches = 0
+    tee = Tee(sys.stdout)
+    with contextlib.ExitStack() as stack:
+        for k, v in (env or {}).items():
+            stack.enter_context(env_var(k, v))
+        stack.enter_context(s2d_env('off'))
+        stack.enter_context(contextlib.redirect_stdout(tee))
+        t0 = time.perf_counter()
+        patchgan_train(args + ['-d', 'cuda', '--no-summary'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return tee.getvalue(), [w.launches for w in wrappers], wall
+
+
+def npz_equal(np, a, b):
+    """(equal bits, max |a - b|) over the arrays of two npz files."""
+    with np.load(a) as fa, np.load(b) as fb:
+        if sorted(fa.files) != sorted(fb.files):
+            raise AssertionError(f'{a} and {b} hold other keys')
+        diffs = [float(np.max(np.abs(fa[k].astype(np.float64)
+                                     - fb[k].astype(np.float64))))
+                 for k in fa.files]
+        same = all(np.array_equal(fa[k], fb[k]) for k in fa.files)
+    return same, max(diffs)
+
+
+def weights_diff(np, ck_a, ck_b, epoch):
+    """equal bits and max |diff| over both models' files of ``epoch``."""
+    same, diff = True, 0.0
+    for prefix in ('generator', 'discriminator'):
+        name = f'{prefix}_ep_{epoch:03d}.npz'
+        s, d = npz_equal(np, os.path.join(ck_a, name),
+                         os.path.join(ck_b, name))
+        same, diff = same and s, max(diff, d)
+    return same, diff
+
+
+def decoder_phase(np, tmp, native_built):
+    """Host ms per pair of the COCO reader's uint8 decode at 256 px: the
+    native library (where it built) and PIL (PATCHGAN_NATIVE_IO=off), 32
+    pairs each, two turns."""
+    from patchgan_tpu_torch.data import COCOStuffDataset
+    ds = COCOStuffDataset(os.path.join(tmp, 'train', 'images'),
+                          os.path.join(tmp, 'train', 'masks'),
+                          labels=list(range(1, OUT_C + 1)), size=SIZE,
+                          augmentation='randomcrop+flip')
+    ms = {'native': [], 'PIL': []} if native_built else {'PIL': []}
+    for turn in range(2):
+        for name in list(ms)[::1 - 2 * turn]:
+            with env_var('PATCHGAN_NATIVE_IO',
+                         'on' if name == 'native' else 'off'):
+                t0 = time.perf_counter()
+                for i in range(32):
+                    img, mask = ds.load_raw_u8(i)
+                ms[name].append((time.perf_counter() - t0) * 1e3 / 32)
+            if img.shape != (SIZE, SIZE, IN_C) or mask.max() >= OUT_C:
+                raise AssertionError(f'decode {img.shape} {mask.max()}')
+    return {k: statistics.median(v) for k, v in ms.items()}, ms
+
+
+def loader_rate_phase(torch, tmp, card):
+    """images/s of each ``LOADERS`` configuration alone: batch 16, bf16,
+    'randomcrop+flip', batches landed on the card, one synchronize per
+    epoch of PIPE_N images; a warm-up epoch each (it fills the cache and
+    starts the process pool), then PIPE_TURNS epochs each in turns. The
+    cached configuration counts its decoder's calls after the warm-up:
+    none."""
+    from patchgan_tpu_torch.data import (COCOStuffDataset, DataLoader,
+                                         TarShardDataset)
+
+    class Counting(COCOStuffDataset):
+        decodes = 0
+
+        def load_raw_u8(self, index):
+            Counting.decodes += 1
+            return super().load_raw_u8(index)
+
+    kw = dict(labels=list(range(1, OUT_C + 1)), size=SIZE,
+              augmentation='randomcrop+flip')
+    folder = (os.path.join(tmp, 'train', 'images'),
+              os.path.join(tmp, 'train', 'masks'))
+    loaders = {}
+    for name, (opts, _, data) in LOADERS.items():
+        if data == 'shards':
+            ds = TarShardDataset(os.path.join(tmp, 'shards', 'shard-*.tar'),
+                                 **kw)
+        elif opts.get('cache'):
+            ds = Counting(*folder, **kw)
+        else:
+            ds = COCOStuffDataset(*folder, **kw)
+        loaders[name] = DataLoader(ds, batch_size=TRAIN_B, device='cuda',
+                                   dtype=torch.bfloat16, seed=0, **opts)
+
+    def epoch(name):
+        with env_var('PATCHGAN_NATIVE_IO', LOADERS[name][1]):
+            t0 = time.perf_counter()
+            n = 0
+            for x, y in loaders[name]:
+                n += x.shape[0]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        if n != PIPE_N or x.dtype != torch.bfloat16 or \
+                x.shape[1:] != (IN_C, SIZE, SIZE) or \
+                not bool((y.float().sum(1) == 1).all()):
+            raise AssertionError(f'{name}: {n} images, {x.shape} {x.dtype}')
+        return n / dt
+
+    try:
+        for name in LOADERS:
+            epoch(name)
+        Counting.decodes = 0
+        rates = {name: [] for name in LOADERS}
+        names = list(LOADERS)
+        for turn in range(PIPE_TURNS):
+            for name in (names if turn % 2 == 0 else names[::-1]):
+                rates[name].append(epoch(name))
+                print(f'  turn {turn} {name}: {rates[name][-1]:.3f} '
+                      f'images/s', flush=True)
+    finally:
+        for loader in loaders.values():
+            loader.close()
+    if Counting.decodes:
+        raise AssertionError(f'the cached loader decoded {Counting.decodes} '
+                             f'pairs after its first epoch')
+    medians = {k: statistics.median(v) for k, v in rates.items()}
+    for name, v in rates.items():
+        print(f'  loader {name}: median {medians[name]:.3f} images/s '
+              f'(readings {[round(r, 3) for r in v]}) on {card}',
+              flush=True)
+    return medians, rates
+
+
+def kill_at(cmd, cwd, env, meta_path, target, log, timeout=300):
+    """Run ``cmd`` and SIGKILL it once ``meta_path`` (the rolling
+    metadata) shows (epoch, batches_done) == ``target``: SIGSTOP first,
+    then the metadata read again, then SIGKILL. Returns the metadata it
+    was killed at."""
+    import signal
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            if proc.poll() is not None:
+                raise AssertionError(f'{cmd} exited {proc.returncode} before '
+                                     f'its metadata showed {target}')
+            try:
+                with open(meta_path) as f:
+                    meta = json.load(f)
+            except (OSError, ValueError):
+                meta = None
+            if meta and (meta['epoch'], meta['batches_done']) == target:
+                os.kill(proc.pid, signal.SIGSTOP)
+                with open(meta_path) as f:
+                    meta = json.load(f)
+                os.kill(proc.pid, signal.SIGKILL)
+                proc.wait()
+                return meta
+            time.sleep(0.005)
+        raise AssertionError(f'{cmd} did not reach {target} in {timeout} s')
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def resume_phase(torch, np, tmp, card):
+    """Exact resume on the card (use_dropout, accumulate_steps 2, 2
+    epochs of RESUME_N images, ``--deterministic``), every run a ``python
+    -m patchgan_tpu_torch.cli.train -d cuda`` process of its own: two
+    uninterrupted runs (the control, beside the first cut run on the same
+    card), then a run with save_every_steps 1 killed once its rolling
+    metadata shows epoch 2 with 1 batch done (inside an accumulation
+    window), resumed and killed again at 3 batches done (a resume of a
+    resumed run), and resumed to the end. The epoch files must equal the
+    control's bits, or differ by no more than the two controls do. Then
+    the ms of one rolling save at config 2."""
+    path = os.environ.get('PYTHONPATH')
+    env = dict(os.environ, PYTHONPATH=ROOT + (os.pathsep + path if path
+                                              else ''))
+
+    def cmd(cfg):
+        return [sys.executable, '-m', 'patchgan_tpu_torch.cli.train', '-c',
+                cfg, '-d', 'cuda', '--no-summary', '-n', '2', '-b',
+                str(TRAIN_B), '--deterministic']
+
+    cfg = pipeline_config(tmp, 'cut', train='resume', accumulate_steps=2,
+                          save_every_steps=1)
+    ck = os.path.join(tmp, 'ck_cut')
+    meta_path = os.path.join(ck, 'step_state_torch.json')
+    cuts, controls = [], {}
+    log_path = os.path.join(tmp, 'resume.log')
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, 'w') as log:
+            for name in ('ctl_a', 'ctl_b'):
+                controls[name] = subprocess.Popen(
+                    cmd(pipeline_config(tmp, name, train='resume',
+                                        accumulate_steps=2)),
+                    cwd=tmp, env=env, stdout=log, stderr=subprocess.STDOUT)
+            cuts.append(kill_at(cmd(cfg), tmp, env, meta_path, (2, 1), log))
+            with open(cfg, 'a') as f:
+                f.write('load_last_checkpoint: true\n')
+            cuts.append(kill_at(cmd(cfg), tmp, env, meta_path, (2, 3), log))
+            rc = subprocess.run(cmd(cfg), cwd=tmp, env=env, stdout=log,
+                                stderr=subprocess.STDOUT).returncode
+            rcs = [p.wait() for p in controls.values()]
+    except AssertionError:
+        with open(log_path) as f:
+            print(f.read()[-4000:])
+        raise
+    finally:
+        for p in controls.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        log_text = f.read()
+    if rc != 0 or rcs != [0, 0] or any(
+            f'Found mid-epoch checkpoint: epoch 2, {n} batches done'
+            not in log_text for n in (1, 3)):
+        print(log_text[-3000:])
+        raise AssertionError(f'the resumed runs: rc {rc}, controls {rcs}')
+    ctl_same, ctl_diff = weights_diff(np, os.path.join(tmp, 'ck_ctl_a'),
+                                      os.path.join(tmp, 'ck_ctl_b'), 2)
+    results = {epoch: weights_diff(np, os.path.join(tmp, 'ck_ctl_a'), ck,
+                                   epoch) for epoch in (1, 2)}
+    same, diff = results[2]
+    print(f'  control: two uninterrupted runs, epoch-2 weights equal bits '
+          f'{ctl_same}, max |diff| {ctl_diff:.3e}; cut at '
+          f'{[(m["epoch"], m["batches_done"]) for m in cuts]} (accumulate '
+          f'2: the window open), resumed twice; epoch-1 weights equal bits '
+          f'{results[1][0]} (max |diff| {results[1][1]:.3e}), epoch-2 equal '
+          f'bits {same} (max |diff| {diff:.3e}); the five runs took '
+          f'{wall:.3f} s', flush=True)
+    if not all(s or d <= ctl_diff for s, d in results.values()):
+        raise AssertionError(f'the resumed run differs from the control by '
+                             f'{results} (control {ctl_diff})')
+    for name in ('ck_cut', 'ck_ctl_a', 'ck_ctl_b'):
+        shutil.rmtree(os.path.join(tmp, name))
+
+    # one rolling save at config 2 (bf16 moments, an accumulator)
+    from patchgan_tpu_torch.models import Discriminator, UNet
+    from patchgan_tpu_torch.train import Trainer
+    init = torch.Generator().manual_seed(3)
+    gen = UNet(IN_C, OUT_C, nf=NF, use_dropout=True, activation='relu',
+               final_act='softmax', dtype=torch.bfloat16, generator=init)
+    disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3,
+                         dtype=torch.bfloat16, generator=init)
+    trainer = Trainer(gen, disc, os.path.join(tmp, 'ck_save'), device='cuda')
+    trainer.adam_mu_dtype, trainer.accumulate_steps = torch.bfloat16, 2
+    trainer._make_optimizers(1e-3, 1e-3)
+    save_ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._save_step_state(1, i + 1)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    nbytes = os.path.getsize(os.path.join(tmp, 'ck_save',
+                                          'training_state_step_a.pt'))
+    print(f'  one rolling save at config 2: {[round(m, 3) for m in save_ms]} '
+          f'ms, {nbytes} bytes, on {card}', flush=True)
+    del trainer, gen, disc
+    shutil.rmtree(os.path.join(tmp, 'ck_save'))
+    return {'control_equal_bits': ctl_same, 'control_max_abs_diff': ctl_diff,
+            'resumed_equal_bits': same, 'resumed_max_abs_diff': diff,
+            'cuts': [(m['epoch'], m['batches_done']) for m in cuts],
+            'runs_wall_s': wall,
+            'rolling_save_ms': statistics.median(save_ms),
+            'rolling_save_ms_readings': save_ms,
+            'rolling_save_bytes': nbytes}
+
+
+def pipeline_phase(torch, np, wrappers, card, step_img_s, tmp):
+    """Phase 13: the input pipeline and exact resume (see the module
+    docstring). Returns (the default loader's training launches, the
+    summary)."""
+    from patchgan_tpu_torch.data import native
+    t0 = time.perf_counter()
+    write_pipeline_inputs(tmp, np)
+    status = native.native_status()
+    print(f'  wrote {PIPE_N} + {PIPE_VAL} pairs of {PIPE_HW[1]}x{PIPE_HW[0]} '
+          f'and {PIPE_SHARDS} shards in {time.perf_counter() - t0:.2f} s; '
+          f'native decode: {status}', flush=True)
+    out = {'native_decode': status, 'card': card}
+    out['decode_ms_per_pair'], out['decode_ms_readings'] = decoder_phase(
+        np, tmp, status == 'built')
+    print(f'  decode + resize to {SIZE} px, host ms per pair: '
+          f'{out["decode_ms_per_pair"]}', flush=True)
+    if status != 'built':
+        print('  the native library is unavailable here: the loader rows '
+              'named "native" decode with PIL', flush=True)
+    out['loader_img_per_s'], out['loader_readings'] = loader_rate_phase(
+        torch, tmp, card)
+
+    # the epoch: patchgan_train at config 2 with the default loader and
+    # with the fastest one, 2 epochs; the second epoch's rate is read
+    fastest = max(out['loader_img_per_s'], key=out['loader_img_per_s'].get)
+    opts, io_mode, data = LOADERS[fastest]
+    runs = {'default (thread x4 native)': ([], 'on', 'folder', False)}
+    if fastest != 'thread x4 native':
+        extra = ['--dataloader_worker_type', 'process'] \
+            if opts.get('worker_type') == 'process' else []
+        runs[f'fastest ({fastest})'] = (extra, io_mode, data,
+                                        bool(opts.get('cache')))
+    epoch_rate, launches = {}, None
+    per_run = 2 * (PIPE_N // TRAIN_B)
+    want = [per_run * a + 2 * b for a, b in zip(STEP['off'], EVAL['off'])]
+    for name, (extra, mode, data, cache) in runs.items():
+        cfg = pipeline_config(tmp, 'epoch', data=data, cache=cache)
+        text, counts, wall = run_train(
+            torch, wrappers, ['-c', cfg, '-n', '2', '-b', str(TRAIN_B)]
+            + extra, env={'PATCHGAN_NATIVE_IO': mode})
+        epochs = epoch_lines(text)
+        if counts != want or len(epochs) != 2:
+            raise AssertionError(f'{name}: launches {counts}, expected '
+                                 f'{want}; epochs {epochs}')
+        launches = launches or counts
+        n, secs = epochs[1]
+        epoch_rate[name] = {'epoch_s': secs, 'img_per_s': n / secs,
+                            'first_epoch_s': epochs[0][1], 'run_wall_s': wall}
+        print(f'  patchgan_train, {name}: epoch 2 {n} images in {secs:.3f} '
+              f's, {n / secs:.3f} img/s (epoch 1 {epochs[0][1]:.3f} s); the '
+              f'step alone (phase 10) {step_img_s:.3f} img/s; launches '
+              f'{counts} (expected {want}) on {card}', flush=True)
+        shutil.rmtree(os.path.join(tmp, 'ck_epoch'))
+    out['epoch'] = epoch_rate
+    out['step_only_img_per_s'] = step_img_s
+
+    # shards against the folder: one epoch each, PIL decode on both (the
+    # shard members decode with PIL, as in the JAX package), flips on,
+    # deterministic cuDNN: bit-equal epoch files
+    with cudnn_flags_kept(torch):
+        for data in ('folder', 'shards'):
+            cfg = pipeline_config(tmp, f'eq_{data}', data=data)
+            run_train(torch, wrappers, ['-c', cfg, '-n', '1', '-b',
+                                        str(TRAIN_B), '--deterministic'],
+                      env={'PATCHGAN_NATIVE_IO': 'off'})
+    same, diff = weights_diff(np, os.path.join(tmp, 'ck_eq_folder'),
+                              os.path.join(tmp, 'ck_eq_shards'), 1)
+    print(f'  one epoch from the shards and from the folder: equal bits '
+          f'{same} (max |diff| {diff:.3e})', flush=True)
+    if not same:
+        raise AssertionError(f'shards and folder differ by {diff}')
+    out['shards_equal_folder'] = same
+    for data in ('folder', 'shards'):
+        shutil.rmtree(os.path.join(tmp, f'ck_eq_{data}'))
+
+    out['resume'] = resume_phase(torch, np, tmp, card)
+
+    # --profile_dir: a trace of epoch 1 only, naming K2's and K3's kernels
+    cfg = pipeline_config(tmp, 'profile', train='resume')
+    trace_dir = os.path.join(tmp, 'trace')
+    run_train(torch, wrappers, ['-c', cfg, '-n', '2', '-b', str(TRAIN_B),
+                                '--profile_dir', trace_dir])
+    traces = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        text = f.read()
+    found = {k: k in text for k in ('pgt::conv_gemm_kernel',
+                                    'pgt::ConvProblem<',
+                                    'pgt::ConvTProblem<')}
+    print(f'  --profile_dir: {len(traces)} trace(s), {len(text)} bytes, '
+          f'names {found}', flush=True)
+    if len(traces) != 1 or not all(found.values()):
+        raise AssertionError(f'profile traces {traces}, names {found}')
+    out['profile_trace_bytes'] = len(text)
+    return launches, out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2044,6 +2583,7 @@ def main():
         thin_conv3x3, thin_conv3x3_plain, thin_conv3x3_wgrad,
         thin_conv3x3_wgrad_plain)
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f'card: {card}')
     print(f'python {sys.version.split()[0]} torch {torch.__version__} '
@@ -2192,6 +2732,18 @@ def main():
                                          tmp)
     paths.update(serve_paths)
     print(json.dumps(serve))
+    with tempfile.TemporaryDirectory() as tmp:
+        print('== input pipeline and exact resume: native decode, loader '
+              'images/s, epoch img/s at config 2, shards against the '
+              'folder, a killed run resumed twice, --profile_dir',
+              flush=True)
+        t13 = time.perf_counter()
+        launches, pipeline = pipeline_phase(
+            torch, np, wrappers, card, train['off']['img_per_s'], tmp)
+        pipeline['phase_wall_s'] = time.perf_counter() - t13
+    paths['pipeline'] = dict(zip(names, launches))
+    print(json.dumps(pipeline))
+    print(f'phases 1-13: {time.perf_counter() - t_start:.3f} s', flush=True)
 
     summary = []
     for k in kernels:

@@ -36,19 +36,18 @@ def compute_dtype(name, device):
 def build_dataset_factory(dataset_params):
     """Resolve the Dataset class and channel counts from the config's
     ``dataset`` section."""
-    from ..data import COCOStuffDataset, load_dataset_class
+    from ..data import COCOStuffDataset, TarShardDataset, load_dataset_class
 
     kwargs = {}
-    if dataset_params['type'] == 'COCOStuff':
-        cls = COCOStuffDataset
+    if dataset_params['type'] in ('COCOStuff', 'TarShards'):
+        # TarShards: the images path(s) are tar files or a glob of them,
+        # and the masks live inside the shards (data/shards.py)
+        cls = COCOStuffDataset if dataset_params['type'] == 'COCOStuff' \
+            else TarShardDataset
         in_channels = 3
         labels = dataset_params.get('labels', [1])
         out_channels = len(labels)
         kwargs['labels'] = labels
-    elif dataset_params['type'] == 'TarShards':
-        raise NotImplementedError(
-            "dataset type 'TarShards' is not ported yet (ROADMAP.md, "
-            "queue 1 item 6)")
     else:
         cls = load_dataset_class(dataset_params['type'])
         in_channels = dataset_params.get('in_channels', 3)

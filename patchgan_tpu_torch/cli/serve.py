@@ -85,10 +85,14 @@ def _build_engine(config, dtype, device):
 
 
 def _decode(path):
-    """HWC uint8 RGB (the engine divides by 255 on the device). PIL
-    decodes JPEG and PNG alike; the JAX package's native libjpeg decode is
-    not ported yet (ROADMAP.md, queue 1 item 6)."""
+    """HWC uint8 RGB (the engine divides by 255 on the device): a JPEG
+    through the native decode (``data/native.py``), anything else through
+    PIL, as the JAX server decodes (``cli/serve.py:104-109``)."""
     import numpy as np
+
+    from ..data import native
+    if path.lower().endswith(('.jpg', '.jpeg')):
+        return native.decode_jpeg_rgb_u8(path, None)
     from PIL import Image
     with Image.open(path) as im:
         return np.asarray(im.convert('RGB'), np.uint8)

@@ -18,13 +18,23 @@ freezes the encoder (``('enc',)``), or ``transfer_learn.freeze`` lists
 JAX path prefixes (``[enc0, dec6]``); ``train_params.accumulate_steps``
 applies each update on the mean gradient of that many batches.
 
+The input pipeline: ``dataset.type: TarShards`` reads tar shards
+(``train_data.images`` a shard path or glob); ``--dataloader_worker_type
+process`` decodes in forkserver worker processes; ``dataset.cache: true``
+(or a byte budget) keeps decoded pairs in RAM, so epochs after the first
+decode nothing. ``train_params.save_every_steps: N`` writes a rolling
+exact-resume state every N batches, and ``load_last_checkpoint: true``
+then continues a killed run bit for bit. ``--profile_dir DIR`` writes a
+profiler trace of the first epoch. ``--deterministic`` (the port's own)
+makes cuDNN pick deterministic algorithms, so two runs from one seed, or
+a run and its resumed continuation, give the same bits on the card.
+
 ``PATCHGAN_S2D=on|off`` selects the space-to-depth boundary form of the
 step, as in the JAX package (``ops/s2d.py``).
 
 Not ported yet, and refused with NotImplementedError naming ROADMAP.md:
-``train_params.spatial_parallelism`` > 1, the TarShards dataset,
-``--dataloader_worker_type process``, ``dataset.cache``,
-``--profile_dir``, and the Trainer options the Trainer itself refuses.
+``train_params.spatial_parallelism`` > 1 and the Trainer's orbax
+``checkpoint_format``.
 """
 
 import argparse
@@ -38,11 +48,6 @@ from ..train import Trainer
 from ..utils.config import dataset_paths, load_config, model_params
 from ..utils.summary import summarize
 from .common import build_dataset_factory, compute_dtype, select_device
-
-
-def _refuse(what, item):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                              f"queue 1 item {item})")
 
 
 def patchgan_train(argv=None):
@@ -59,7 +64,9 @@ def patchgan_train(argv=None):
                              'producer thread)')
     parser.add_argument('--dataloader_worker_type', default='thread',
                         choices=['thread', 'process'],
-                        help="'thread' (ported) or 'process' (not yet)")
+                        help="'thread' (GIL-free native decode, supports "
+                             "the RAM cache) or 'process' (forkserver "
+                             "worker processes)")
     parser.add_argument('-n', '--n_epochs', required=True, type=int,
                         help='Number of epochs to train the model')
     parser.add_argument('-d', '--device', default='auto',
@@ -76,20 +83,28 @@ def patchgan_train(argv=None):
                              'fp32 on the CPU)')
     parser.add_argument('--seed', default=0, type=int)
     parser.add_argument('--profile_dir', default=None,
-                        help='Profiler trace directory (not ported yet)')
+                        help='Write a profiler trace of the first training '
+                             'epoch into this directory')
+    parser.add_argument('--deterministic', action='store_true',
+                        help="cuDNN's deterministic algorithms: the same "
+                             "seed gives the same bits, a resume continues "
+                             "bit for bit")
     args = parser.parse_args(argv)
 
     device = select_device(args.device)
     dtype = compute_dtype(args.dtype, device)
     print(f"Running with {device}")
-    if args.profile_dir:
-        _refuse("--profile_dir", 7)
+    if args.deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
 
     config = load_config(args.config_file)
     dataset_params = config['dataset']
     train_params = config['train_params']
     if int(train_params.get('spatial_parallelism') or 1) > 1:
-        _refuse("train_params.spatial_parallelism", 11)
+        raise NotImplementedError(
+            "train_params.spatial_parallelism is not ported yet "
+            "(ROADMAP.md, queue 1 item 11)")
     train_paths, val_paths, data_paths, split = dataset_paths(config)
     size = dataset_params.get('size', 256)
     augmentation = dataset_params.get('augmentation', 'randomcrop')
@@ -108,7 +123,8 @@ def patchgan_train(argv=None):
         train_datagen, val_datagen = random_split(make_ds(data_paths),
                                                   split, seed=args.seed)
 
-    # the loader refuses the RAM cache and process workers (not ported)
+    # dataset.cache: true for an unbounded decoded-image RAM cache, or a
+    # byte budget; epochs after the first then skip the decoder
     loader_kwargs = dict(batch_size=args.batch_size, shuffle=True,
                          num_workers=args.dataloader_workers,
                          device=device, dtype=dtype, seed=args.seed,
@@ -161,13 +177,18 @@ def patchgan_train(argv=None):
     trainer.compute_iou = train_params.get('compute_iou', False)
     trainer.save_every_steps = train_params.get('save_every_steps')
     trainer.accumulate_steps = train_params.get('accumulate_steps', 1)
+    trainer.profile_dir = args.profile_dir
 
-    return trainer.train(
-        train_data, val_data, args.n_epochs,
-        dsc_learning_rate=train_params['disc_learning_rate'],
-        gen_learning_rate=train_params['gen_learning_rate'],
-        lr_decay=train_params.get('decay_rate', None),
-        save_freq=train_params.get('save_freq', 10))
+    try:
+        return trainer.train(
+            train_data, val_data, args.n_epochs,
+            dsc_learning_rate=train_params['disc_learning_rate'],
+            gen_learning_rate=train_params['gen_learning_rate'],
+            lr_decay=train_params.get('decay_rate', None),
+            save_freq=train_params.get('save_freq', 10))
+    finally:
+        train_data.close()
+        val_data.close()
 
 
 if __name__ == '__main__':

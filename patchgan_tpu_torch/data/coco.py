@@ -9,15 +9,19 @@ mask labels are the PNG grey value + 1, one-hot over the sorted
 (size, size) (bilinear image, NEAREST mask), 'randomcrop+flip' resizes
 and flips (on the device in the loader, on the host in
 ``__getitem__``), anything else ('resize', the default) leaves the
-image as it is. Decoding uses PIL, imported when first needed; the JAX
-package's native libjpeg path is not ported. ``get_filename``,
-``get_image`` and ``save_mask`` serve inference.
+image as it is. Decoding goes through ``data/native.py`` (libjpeg /
+libpng with a fused resize, as ``coco.py:74-96`` does; PIL where the
+library is unavailable), so both packages decode a file to the same
+pixels. ``get_filename``, ``get_image`` and ``save_mask`` serve
+inference.
 """
 
 import glob
 import os
 
 import numpy as np
+
+from . import native
 
 
 class COCOStuffDataset:
@@ -51,34 +55,19 @@ class COCOStuffDataset:
             return self.size
         return None
 
-    def _decode(self, index):
-        """(uint8 HWC RGB image, uint8 HW raw grey mask), resized when the
-        augmentation asks for it."""
-        from PIL import Image
-        size = self._resize_to()
-        with Image.open(self.images[index]) as im:
-            image = im.convert('RGB')
-            if size:
-                image = image.resize((size, size), Image.BILINEAR)
-            image = np.asarray(image, dtype=np.uint8)
-        with Image.open(self.masks[index]) as im:
-            mask = im.convert('L')
-            if size:
-                mask = mask.resize((size, size), Image.NEAREST)
-            mask = np.asarray(mask, dtype=np.uint8)
-        return image, mask
-
     def load_raw(self, index):
         """(image HWC float32 in [0, 1], labelmap HW int32 = grey + 1)."""
-        image, mask = self._decode(index)
-        return (image.astype(np.float32) / 255.0,
-                mask.astype(np.int32) + 1)
+        size = self._resize_to()
+        return (native.decode_jpeg_rgb(self.images[index], size),
+                native.decode_png_gray(self.masks[index], size) + 1)
 
     def load_raw_u8(self, index):
         """(image HWC uint8, labelmap HW uint8 WITHOUT the +1): a quarter
         of the float32 bytes over the host-to-device copy; the loader
         normalises and one-hots on the device."""
-        return self._decode(index)
+        size = self._resize_to()
+        return (native.decode_jpeg_rgb_u8(self.images[index], size),
+                native.decode_png_gray_u8(self.masks[index], size))
 
     def one_hot(self, labelmap):
         """(H, W) labelmap -> (H, W, n_labels) float32 one-hot."""
@@ -102,9 +91,7 @@ class COCOStuffDataset:
 
     def get_image(self, index):
         """HWC uint8 RGB at the original resolution."""
-        from PIL import Image
-        with Image.open(self.images[index]) as im:
-            return np.asarray(im.convert('RGB'), dtype=np.uint8)
+        return native.decode_jpeg_rgb_u8(self.images[index], None)
 
     @staticmethod
     def save_mask(mask, output_path, fname):

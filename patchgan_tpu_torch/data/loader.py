@@ -1,34 +1,67 @@
-"""Input pipeline: thread-pool host decode -> pinned host batch -> the
-card, where it is normalised, one-hot encoded and flipped.
+"""Input pipeline: host decode (threads or processes, an optional RAM
+cache) -> pinned host batch -> the card, where it is normalised, one-hot
+encoded and flipped.
 
-Port of the single-process part of ``patchgan_tpu/data/loader.py``:
+Port of ``patchgan_tpu/data/loader.py`` but its per-host slicing:
 
 - the batch order comes from ``np.random.default_rng(seed)``, shuffled
   once per epoch exactly as ``loader.py:237-256`` does, so both packages
-  see the same batches from the same seed;
-- a thread pool decodes (``num_workers``; 0 decodes in the producer
-  thread) into a bounded prefetch queue;
+  see the same batches from the same seed; ``fast_forward(n)`` consumes
+  that generator as ``n`` epochs would, without decoding, and
+  ``skip_next(n)`` leaves out the first ``n`` batches of the next epoch
+  before they are decoded (``:215-236``): exact mid-epoch resume;
+- ``num_workers`` decode threads (0 decodes in the producer thread), or
+  with ``worker_type='process'`` a persistent forkserver process pool
+  that receives the dataset once, through its initializer
+  (``:301-325``); ``close()`` stops it;
+- ``cache=True`` keeps every decoded pair in RAM (an int caps it at that
+  many bytes, inserting no more once full), so later epochs decode
+  nothing (``:163-174, 263-279``);
 - datasets with ``load_raw`` (or ``load_raw_u8``) ship uint8 or float
   images and integer labelmaps; the batch is pinned and copied to the
   device with ``non_blocking``, and the normalise / one-hot / flip
   (p = 0.25 horizontal and vertical, only for 'randomcrop+flip',
-  ``loader.py:65-87, 354-355``) run there, the flips drawn from an
-  explicit ``torch.Generator`` seeded with ``seed``;
+  ``:65-87, 354-355``) run there. Each batch's flips come from a
+  generator seeded with ``SeedSequence((seed, epoch, batch index))``, so
+  a skipped prefix leaves the later batches' flips as they were (the
+  JAX loader folds the batch index into its key, ``:375-376``, for the
+  same reason; the two packages' draws differ);
 - other datasets' ``__getitem__`` pairs (image, one-hot mask) are
   stacked and copied as they are.
 
-Batches are NCHW. The process pool, the RAM cache, ``fast_forward`` /
-``skip_next`` and per-host slicing are not ported and raise.
+Batches are NCHW. ``process_index`` / ``process_count`` raise
+``NotImplementedError``.
 """
 
+import pickle
 import queue
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1 item 6)"
+# a process worker holds the dataset as a global, set once by the pool's
+# initializer
+_WORKER_DS = None
+
+
+def _init_worker(dataset):
+    global _WORKER_DS
+    _WORKER_DS = dataset
+
+
+def _worker_load_raw(index):
+    return _raw_fn(_WORKER_DS)(index)
+
+
+def _worker_getitem(index):
+    return _WORKER_DS[index]
+
+
+def _raw_fn(dataset):
+    """The uint8 decode where the dataset has one, else ``load_raw``."""
+    return getattr(dataset, 'load_raw_u8', None) or dataset.load_raw
 
 
 class _SyncPool:
@@ -39,6 +72,13 @@ class _SyncPool:
 
     def shutdown(self, wait=False):
         pass
+
+
+def flip_seed(seed, epoch, batch_index):
+    """The seed of one batch's flip draws: a function of (seed, epoch,
+    batch index) alone."""
+    return int(np.random.SeedSequence((seed, epoch, batch_index))
+               .generate_state(1, np.uint64)[0])
 
 
 def augment_batch(images, labelmaps, labels, generator=None, flip=False,
@@ -65,18 +105,28 @@ def augment_batch(images, labelmaps, labels, generator=None, flip=False,
 
 class DataLoader:
     """Shuffling, batching, prefetching loader yielding (x, y) NCHW
-    batches on ``device``."""
+    batches on ``device``. ``epoch`` counts the iterations begun (and
+    the epochs ``fast_forward`` passed over)."""
 
     def __init__(self, dataset, batch_size=16, shuffle=True,
                  drop_last=True, num_workers=4, prefetch=2, device='cpu',
                  dtype=torch.float32, seed=0, cache=False,
-                 worker_type='thread'):
-        if cache:
-            raise NotImplementedError(f"the decoded-image cache "
-                                      f"(dataset.cache) {_NOT_PORTED}")
-        if worker_type != 'thread':
+                 worker_type='thread', process_index=None,
+                 process_count=None):
+        if process_index is not None or process_count is not None:
             raise NotImplementedError(
-                f"worker_type {worker_type!r} {_NOT_PORTED}; use 'thread'")
+                "per-host slicing (process_index / process_count) is not "
+                "ported yet (ROADMAP.md, queue 1 item 11)")
+        if worker_type not in ('thread', 'process'):
+            raise ValueError(f"worker_type {worker_type!r} not in "
+                             "('thread', 'process')")
+        if worker_type == 'process' and num_workers <= 0:
+            raise ValueError("num_workers=0 (synchronous decode) requires "
+                             "worker_type='thread'")
+        if worker_type == 'process' and cache:
+            raise ValueError("the decoded-image RAM cache lives in the "
+                             "parent process; use worker_type='thread' "
+                             "with cache")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle_enabled = shuffle
@@ -85,10 +135,19 @@ class DataLoader:
         self.prefetch = prefetch
         self.device = torch.device(device)
         self.dtype = dtype
+        self.worker_type = worker_type
+        self.seed = seed
+        self.epoch = 0
         self._rng = np.random.default_rng(seed)
-        self._flip_gen = torch.Generator(device=self.device).manual_seed(
-            seed)
+        self._skip_next = 0
+        self._flip_gen = torch.Generator(device=self.device)
         self.device_augment = hasattr(dataset, 'load_raw')
+        self._cache = {} if cache else None
+        self._cache_budget = cache if isinstance(cache, int) and \
+            not isinstance(cache, bool) else None
+        self._cache_bytes = 0
+        self._cache_lock = threading.Lock()
+        self._proc_pool = None
 
     def __len__(self):
         full, rem = divmod(len(self.dataset), self.batch_size)
@@ -97,6 +156,22 @@ class DataLoader:
     def shuffle(self):
         """The Trainer's per-epoch hook; shuffling happens in
         ``__iter__``."""
+
+    def fast_forward(self, n_epochs):
+        """Advance the epoch counter and the shuffle generator as
+        ``n_epochs`` iterations would, decoding nothing: the next
+        iteration gives the batches (and flips) of epoch
+        ``epoch + n_epochs + 1`` of an uninterrupted run."""
+        for _ in range(int(n_epochs)):
+            self.epoch += 1
+            if self.shuffle_enabled:
+                self._rng.shuffle(np.arange(len(self.dataset)))
+
+    def skip_next(self, n_batches):
+        """Leave out the first ``n_batches`` of the next iteration, before
+        they are decoded. The later batches keep their indices, and so
+        their flips: the rest of the epoch is the uninterrupted one's."""
+        self._skip_next = int(n_batches)
 
     def _index_batches(self):
         idx = np.arange(len(self.dataset))
@@ -109,14 +184,71 @@ class DataLoader:
             batches.append(idx[-rem:])
         return batches
 
-    def _host_batch(self, pool, indices):
+    def _load_raw_cached(self, index):
+        hit = self._cache.get(index)
+        if hit is not None:
+            return hit
+        pair = _raw_fn(self.dataset)(index)
+        nbytes = pair[0].nbytes + pair[1].nbytes
+        # a racing second decode of one index is harmless; the budget's
+        # check and the insert are one step, so racing misses cannot
+        # overshoot it
+        with self._cache_lock:
+            if index not in self._cache and (
+                    self._cache_budget is None or
+                    self._cache_bytes + nbytes <= self._cache_budget):
+                self._cache[index] = pair
+                self._cache_bytes += nbytes
+        return pair
+
+    def _decode_fn(self):
+        if self.worker_type == 'process':
+            return _worker_load_raw if self.device_augment \
+                else _worker_getitem
+        if not self.device_augment:
+            return self.dataset.__getitem__
+        if self._cache is not None:
+            return self._load_raw_cached
+        return _raw_fn(self.dataset)
+
+    def _process_pool(self):
+        """The persistent forkserver pool: workers fork from a clean
+        server process, not from this threaded one, and get the dataset
+        once, through the initializer, for the loader's lifetime."""
+        if self._proc_pool is None:
+            try:
+                pickle.dumps(self.dataset)
+            except (pickle.PicklingError, AttributeError, TypeError) as e:
+                raise ValueError(
+                    f"worker_type='process' sends the dataset to each "
+                    f"worker by pickle, and "
+                    f"{type(self.dataset).__module__}."
+                    f"{type(self.dataset).__qualname__} does not pickle "
+                    f"({e}); a class from a cwd io.py plugin cannot be "
+                    f"imported by a worker. Use worker_type='thread'.") \
+                    from e
+            import multiprocessing
+            self._proc_pool = ProcessPoolExecutor(
+                max_workers=self.num_workers,
+                mp_context=multiprocessing.get_context('forkserver'),
+                initializer=_init_worker, initargs=(self.dataset,))
+        return self._proc_pool
+
+    def close(self, wait=True):
+        """Stop the process workers (they persist across epochs)."""
+        if self._proc_pool is not None:
+            self._proc_pool.shutdown(wait=wait, cancel_futures=True)
+            self._proc_pool = None
+
+    def __del__(self):
+        try:
+            self.close(wait=False)
+        except Exception:
+            pass
+
+    def _host_batch(self, pool, fn, indices):
         """Decode one batch into two stacked host arrays, pinned when the
         device is a card."""
-        if self.device_augment:
-            fn = getattr(self.dataset, 'load_raw_u8', None) or \
-                self.dataset.load_raw
-        else:
-            fn = self.dataset.__getitem__
         pairs = list(pool.map(fn, [int(i) for i in indices]))
         out = tuple(torch.from_numpy(np.stack([p[k] for p in pairs]))
                     for k in (0, 1))
@@ -124,16 +256,21 @@ class DataLoader:
             out = tuple(t.pin_memory() for t in out)
         return out
 
-    def _to_device(self, batch, labels, flip):
+    def _to_device(self, batch, labels, flip, epoch, bi):
         a, b = (t.to(self.device, non_blocking=True) for t in batch)
         if self.device_augment:
+            if flip:
+                self._flip_gen.manual_seed(flip_seed(self.seed, epoch, bi))
             return augment_batch(a, b, labels, self._flip_gen, flip,
                                  self.dtype)
         return a.permute(0, 3, 1, 2).contiguous(), \
             b.permute(0, 3, 1, 2).contiguous()
 
     def __iter__(self):
+        self.epoch += 1
+        epoch = self.epoch
         batches = self._index_batches()
+        skip, self._skip_next = self._skip_next, 0
         flip = self.device_augment and \
             getattr(self.dataset, 'augmentation', None) == 'randomcrop+flip'
         labels = None
@@ -147,8 +284,13 @@ class DataLoader:
         out_q = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         stop = threading.Event()
-        pool = _SyncPool() if self.num_workers == 0 else \
-            ThreadPoolExecutor(max_workers=self.num_workers)
+        if self.worker_type == 'process':
+            pool = self._process_pool()
+        elif self.num_workers == 0:
+            pool = _SyncPool()
+        else:
+            pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        fn = self._decode_fn()
 
         def put(item):
             # bounded put that gives up once the consumer has stopped
@@ -162,9 +304,9 @@ class DataLoader:
 
         def producer():
             try:
-                for indices in batches:
-                    if stop.is_set() or not put(self._host_batch(
-                            pool, indices)):
+                for bi in range(skip, len(batches)):
+                    if stop.is_set() or not put(
+                            (bi, self._host_batch(pool, fn, batches[bi]))):
                         return
             except Exception as e:  # surfaced to the consumer
                 put(e)
@@ -180,7 +322,11 @@ class DataLoader:
                     break
                 if isinstance(item, Exception):
                     raise item
-                yield self._to_device(item, labels, flip)
+                bi, batch = item
+                yield self._to_device(batch, labels, flip, epoch, bi)
         finally:
             stop.set()
-            pool.shutdown(wait=False)
+            if pool is not self._proc_pool:
+                # thread pools live for one epoch, the process pool for
+                # the loader
+                pool.shutdown(wait=False)

@@ -96,6 +96,33 @@ class Adam:
         if low:
             torch._foreach_copy_(self.mu, mu)
 
+    def state_dict(self):
+        """The moments (the optimizer's own tensors), the step count and
+        the learning rate."""
+        return {'mu': self.mu, 'nu': self.nu, 'count': self.count,
+                'lr': float(self.lr)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        """Copy a ``state_dict`` into this optimizer's tensors; they must
+        match in number and shape."""
+        if 'mu' not in state:
+            raise ValueError("optimizer state saved with gradient "
+                             "accumulation; set accumulate_steps as it was")
+        _copy_tensors('mu', self.mu, state['mu'])
+        _copy_tensors('nu', self.nu, state['nu'])
+        self.count, self.lr = int(state['count']), state['lr']
+
+
+def _copy_tensors(name, dst, src):
+    if len(dst) != len(src) or any(d.shape != s.shape
+                                   for d, s in zip(dst, src)):
+        raise ValueError(f"optimizer state {name!r} holds {len(src)} "
+                         f"tensors that do not match the optimizer's "
+                         f"{len(dst)} parameters")
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
 
 class MultiSteps:
     """Gradient accumulation around an ``Adam``: ``optax.MultiSteps`` with
@@ -133,6 +160,21 @@ class MultiSteps:
             self.inner.step(self.acc)
             torch._foreach_zero_(self.acc)
             self.mini_step = 0
+
+    def state_dict(self):
+        """The inner Adam's state, the running mean and the mini-step
+        count of the open window."""
+        return {'inner': self.inner.state_dict(), 'acc': self.acc,
+                'mini_step': self.mini_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        if 'acc' not in state:
+            raise ValueError("optimizer state saved without gradient "
+                             "accumulation; set accumulate_steps as it was")
+        self.inner.load_state_dict(state['inner'])
+        _copy_tensors('acc', self.acc, state['acc'])
+        self.mini_step = int(state['mini_step'])
 
 
 def make_optimizer(params, learning_rate=1e-3, b1=0.9, b2=0.999,

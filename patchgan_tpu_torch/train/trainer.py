@@ -1,26 +1,47 @@
 """Training runtime: the epoch loop, LR schedules, checkpoints and resume.
 
-Port of the part of ``patchgan_tpu/train/trainer.py`` that epochs,
-checkpoints, resume and fine-tuning need: the class attributes
+Port of ``patchgan_tpu/train/trainer.py``: the class attributes
 (``:71-97``), ``batch()``, ``train()`` with the LR fast-forward on
 resume, exponential decay and plateau schedules, ``_run_epoch`` with the
-losses fetched one step late (``:485-525``), ``save`` / ``load`` /
+losses fetched one step late (``:478-528``), ``save`` / ``load`` /
 ``load_last_checkpoint`` (npz epoch files with torch state_dict keys,
 which the JAX Trainer reads and writes too), ``load_transfer_checkpoints``,
-and ``freeze_generator`` / ``accumulate_steps`` (``:91-97, 154-160``),
-which, as in the JAX Trainer, take effect when ``train()`` rebuilds the
-optimizers.
+``freeze_generator`` / ``accumulate_steps`` (``:91-97, 154-160``), which,
+as in the JAX Trainer, take effect when ``train()`` rebuilds the
+optimizers, ``neptune_config`` (a dict-like whose metric keys hold lists,
+``:329-333, 392-403, 435-449``) and ``profile_dir`` (a profiler trace of
+the first train epoch, ``:420-425``).
+
+Exact resume (``:336-386, 455-529, 543-647``): ``save_optimizer_state``
+writes ``training_state_ep_###.pt`` beside each epoch's npz files (both
+models, both optimizers' moments, step counts, learning rates and
+accumulation windows, the dropout generator's state and the step count),
+which ``load_last_checkpoint`` finds and ``train()`` restores once it has
+rebuilt the optimizers. ``save_every_steps = N`` writes the same state
+every N train batches into one of two slots,
+``training_state_step_{a,b}.pt``, then ``step_state_torch.json`` naming
+it (epoch, batches done, the loader iteration the epoch consumes): the
+metadata is written last and never names the slot being written, so a
+kill at any point leaves a consistent pair. On resume the loader replays
+its order (``fast_forward``) and leaves out the trained batches
+(``skip_next``), so the run continues bit for bit. The file names are
+not the JAX Trainer's (``.msgpack``, ``step_state.json``): neither
+package reads the other's exact-resume files, and both resume each
+other's folders from the epoch npz files.
 
 ``generator`` and ``discriminator`` are the port's ``nn.Module``s with
 fp32 parameters; they compute in their own ``dtype``. Batches are NCHW
 tensors (or numpy arrays), moved to the models' device. Each batch runs
 the space-to-depth boundary form (``ops/s2d.py``) when ``PATCHGAN_S2D``
 selects it and its H and W are even (``:232-251``); the checkpoints are
-the same in both forms. Options of the JAX Trainer that are not ported
-raise ``NotImplementedError`` at ``train()`` rather than being ignored.
+the same in both forms. ``checkpoint_format`` other than 'msgpack' (the
+JAX name of the default store; the port writes torch files) raises
+``NotImplementedError``.
 """
 
+import json
 import os
+import re
 import time
 from collections import defaultdict
 
@@ -30,13 +51,14 @@ import tqdm
 
 from ..ops.s2d import s2d_enabled
 from ..utils import checkpoint as ckpt
+from ..utils.profiling import maybe_trace
 from ..utils.transfer import load_transfer_data
 from .schedulers import (ConstantLR, ExponentialDecay, ReduceLROnPlateau,
                          resume_fast_forward)
 from .steps import (LOSS_KEYS, make_eval_step, make_optimizer,
                     make_train_step, trainable_params)
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1 item 5)"
+STEP_META = 'step_state_torch.json'
 
 
 class Trainer:
@@ -48,12 +70,13 @@ class Trainer:
     tversky_gamma = 0.75
     bce_weighting = 'complement'
 
-    neptune_config = None
+    neptune_config = None  # e.g. a neptune run: run[key] = value for
+    #                        parameters, run[key].append(v) for metrics
     compute_iou = False
-    profile_dir = None
-    save_optimizer_state = False
+    profile_dir = None     # profiler trace of the first train epoch
+    save_optimizer_state = False   # training_state_ep_###.pt per save
     checkpoint_format = 'msgpack'
-    save_every_steps = None
+    save_every_steps = None  # rolling exact-resume state every N batches
     adam_mu_dtype = None   # torch.bfloat16 stores Adam's first moment
     freeze_generator = ()  # JAX path prefixes to freeze, e.g. ('enc',)
     accumulate_steps = 1   # apply the update every N batches on the
@@ -76,6 +99,13 @@ class Trainer:
         os.makedirs(savefolder, exist_ok=True)
         self.seed = seed
         self.start = 1
+        self.step = 0   # train batches run, carried by exact resume
+        self._pending_training_state = None
+        self._resume_skip_batches = 0
+        self._resume_skip_delegated = False
+        self._resume_loader_epoch = None
+        self._step_slot = None
+        self._scheds = None   # train()'s LR schedules, saved with the state
         self._make_optimizers(1e-3, 1e-3)
 
     def _make_optimizers(self, gen_lr, dsc_lr):
@@ -91,16 +121,11 @@ class Trainer:
                                        every_k=every_k)
 
     def _check_ported(self):
-        unported = {
-            'save_optimizer_state': self.save_optimizer_state,
-            'checkpoint_format': self.checkpoint_format != 'msgpack',
-            'save_every_steps': self.save_every_steps,
-            'neptune_config': self.neptune_config is not None,
-            'profile_dir': self.profile_dir,
-        }
-        for name, is_set in unported.items():
-            if is_set:
-                raise NotImplementedError(f"Trainer.{name} {_NOT_PORTED}")
+        if self.checkpoint_format != 'msgpack':
+            raise NotImplementedError(
+                f"Trainer.checkpoint_format {self.checkpoint_format!r} is "
+                f"not ported yet (ROADMAP.md, queue 1 item 12); use "
+                f"'msgpack'")
 
     @staticmethod
     def _use_s2d(x):
@@ -147,6 +172,7 @@ class Trainer:
         train_step, eval_step = self._steps()
         x, y = self._place_batch(x, y)
         losses = (train_step if train else eval_step)(x, y)
+        self.step += bool(train)
         return {k: float(v) for k, v in losses.items()}
 
     def train(self, train_data, val_data, epochs, dsc_learning_rate=1.e-3,
@@ -155,7 +181,9 @@ class Trainer:
         '''The epoch loop from ``self.start`` to ``epochs``; returns the
         per-epoch mean (G, D) training losses. A resumed run starts from
         the fast-forwarded LR; Adam starts afresh each call, as in the
-        reference; an accumulator carries across the call's epochs.'''
+        reference, unless ``load_last_checkpoint`` found exact-resume
+        state, which also carries the LR schedules on from where they
+        were; an accumulator carries across the call's epochs.'''
         self._check_ported()
         if (lr_decay is not None) and not reduce_on_plateau:
             gen_lr = resume_fast_forward(gen_learning_rate, lr_decay,
@@ -164,16 +192,33 @@ class Trainer:
                                          self.start, decay_freq)
         else:
             gen_lr, dsc_lr = gen_learning_rate, dsc_learning_rate
+        neptune = self.neptune_config
+        if neptune is not None:
+            neptune['model/parameters/gen_learning_rate'] = gen_lr
+            neptune['model/parameters/dsc_learning_rate'] = dsc_lr
+            neptune['model/parameters/start'] = self.start
+            neptune['model/parameters/n_epochs'] = epochs
         self._make_optimizers(gen_lr, dsc_lr)
 
         if reduce_on_plateau:
             gen_sched = ReduceLROnPlateau(gen_lr)
             dsc_sched = ReduceLROnPlateau(dsc_lr)
+            if neptune is not None:
+                neptune['model/parameters/scheduler'] = 'ReduceLROnPlateau'
         elif lr_decay is not None:
             gen_sched = ExponentialDecay(gen_lr, lr_decay, decay_freq)
             dsc_sched = ExponentialDecay(dsc_lr, lr_decay, decay_freq)
+            if neptune is not None:
+                neptune['model/parameters/scheduler'] = 'ExponentialLR'
+                neptune['model/parameters/decay_freq'] = decay_freq
+                neptune['model/parameters/lr_decay'] = lr_decay
         else:
             gen_sched, dsc_sched = ConstantLR(gen_lr), ConstantLR(dsc_lr)
+        self._scheds = gen_sched, dsc_sched
+        if self._pending_training_state is not None:
+            self._restore_training_state(self._pending_training_state)
+            self._pending_training_state = None
+        self._resume_loader(train_data)
 
         train_step, eval_step = self._steps()
         D_loss_ep, G_loss_ep = [], []
@@ -182,30 +227,76 @@ class Trainer:
             print(f"Epoch {epoch} -- lr: {gen_sched.lr:5.3e}, "
                   f"{dsc_sched.lr:5.3e}")
             print("-------------------------------------------------------")
-            loss_mean, n_images, elapsed = self._run_epoch(
-                train_data, train_step, 'Training: ')
+            with maybe_trace(self.profile_dir, enabled=epoch == self.start):
+                loss_mean, n_images, elapsed = self._run_epoch(
+                    train_data, train_step, 'Training: ', epoch=epoch)
+            # a resume can find every batch of its epoch trained already:
+            # then there are no fresh means
             D_loss_ep.append(loss_mean.get('disc', float('nan')))
             G_loss_ep.append(loss_mean.get('gen', float('nan')))
             if elapsed > 0:
                 print(f"  {n_images} images in {elapsed:.3f}s "
                       f"({n_images / elapsed:.1f} img/s)")
+            if neptune is not None and loss_mean:
+                neptune['train/gen_loss'].append(loss_mean['gen'])
+                neptune['train/disc_loss'].append(loss_mean['disc'])
             loss_mean, _, _ = self._run_epoch(val_data, eval_step,
                                               'Validation: ')
+            if neptune is not None and loss_mean:
+                neptune['eval/gen_loss'].append(loss_mean['gen'])
+                neptune['eval/disc_loss'].append(loss_mean['disc'])
             # plateau steps on the validation means, exponential on the
             # epoch count
             gen_sched.epoch_end(epoch, loss_mean.get('gen'))
             dsc_sched.epoch_end(epoch, loss_mean.get('disc'))
             if epoch % save_freq == 0:
                 self.save(epoch)
+            if self.save_every_steps:
+                # the epoch is complete: the rolling state says "next
+                # epoch, nothing done", so a kill between epochs resumes
+                # cleanly; the next epoch consumes the next loader
+                # iteration
+                le = getattr(train_data, 'epoch', None)
+                self._save_step_state(
+                    epoch + 1, 0, loader_epoch=None if le is None else le + 1)
         self.start = epochs + 1
         return G_loss_ep, D_loss_ep
 
-    def _run_epoch(self, data, step, desc):
-        '''One pass over ``data``. Each step's losses are stacked into one
-        device tensor and read one step later, while the next step is
-        queued, so the host never waits on the step it just queued.'''
+    def _resume_loader(self, train_data):
+        """Mid-epoch resume: replay the interrupted run's loader order
+        (``fast_forward`` to the loader iteration the epoch consumed, as
+        the metadata records it, else the calendar epoch) and leave out
+        the trained batches (``skip_next``, before they are decoded; a
+        loader without it has them dropped in ``_run_epoch``)."""
+        if not (self._resume_skip_batches or self._resume_loader_epoch):
+            return
+        if self._resume_skip_batches:
+            print(f"Resuming mid-epoch: skipping the "
+                  f"{self._resume_skip_batches} already-trained batches of "
+                  f"epoch {self.start}")
+        if hasattr(train_data, 'fast_forward'):
+            train_data.fast_forward(
+                (self._resume_loader_epoch or self.start) - 1)
+        if self._resume_skip_batches and hasattr(train_data, 'skip_next'):
+            train_data.skip_next(self._resume_skip_batches)
+            self._resume_skip_delegated = True
+        self._resume_loader_epoch = None
+
+    def _run_epoch(self, data, step, desc, epoch=None):
+        '''One pass over ``data``; a train pass when ``epoch`` is given.
+        Each step's losses are stacked into one device tensor and read one
+        step later, while the next step is queued, so the host never waits
+        on the step it just queued (a rolling save waits for it).'''
+        train = epoch is not None
         if hasattr(data, 'shuffle'):
             data.shuffle()
+        # a mid-epoch resume: batches_done counts the trained batches
+        # too, which the loader left out (skip_next) or this loop drops
+        batches_done = self._resume_skip_batches if train else 0
+        skip = 0 if self._resume_skip_delegated else batches_done
+        if train:
+            self._resume_skip_batches = 0
+            self._resume_skip_delegated = False
         pbar = tqdm.tqdm(data, desc=desc, dynamic_ncols=True)
         sums = defaultdict(float)
         count = n_images = 0
@@ -222,6 +313,9 @@ class Trainer:
 
         t0 = time.perf_counter()
         for input_img, target_mask in pbar:
+            if skip > 0:
+                skip -= 1
+                continue
             n_images += int(input_img.shape[0])
             losses = step(*self._place_batch(input_img, target_mask))
             if pending is not None:
@@ -229,6 +323,14 @@ class Trainer:
             keys = list(LOSS_KEYS) + [k for k in losses if k not in
                                       LOSS_KEYS]
             pending = (keys, torch.stack([losses[k].float() for k in keys]))
+            if train:
+                self.step += 1
+                batches_done += 1
+                if self.save_every_steps and \
+                        batches_done % self.save_every_steps == 0:
+                    self._save_step_state(
+                        epoch, batches_done,
+                        loader_epoch=getattr(data, 'epoch', None))
         if pending is not None:
             accumulate()
         if self.device.type == 'cuda':
@@ -245,6 +347,97 @@ class Trainer:
         print(f"Saving to {gen_savefile} and {disc_savefile}")
         ckpt.save_state_dict(gen_savefile, self.generator.state_dict())
         ckpt.save_state_dict(disc_savefile, self.discriminator.state_dict())
+        if self.save_optimizer_state:
+            self._write_training_state(
+                f'{self.savefolder}training_state_ep_{epoch:03d}.pt')
+
+    def training_state(self):
+        """Everything a continuation needs that the epoch files lack: both
+        models' weights, both optimizers' states, the dropout generator's
+        state, the step count and, inside ``train()``, the LR schedules'
+        state (as the next epoch starts from it)."""
+        scheds = self._scheds
+        return {'generator': self.generator.state_dict(),
+                'discriminator': self.discriminator.state_dict(),
+                'gen_opt': self.gen_opt.state_dict(),
+                'disc_opt': self.disc_opt.state_dict(),
+                'dropout_rng': self.generator.dropout_generator.get_state(),
+                'step': self.step,
+                'schedules': None if scheds is None else [
+                    [type(s).__name__, vars(s)] for s in scheds]}
+
+    def _write_training_state(self, path):
+        """torch.save into a file of its own, then an atomic rename: a
+        kill mid-write leaves the old file whole."""
+        tmp = f'{path}.tmp'
+        torch.save(self.training_state(), tmp)
+        os.replace(tmp, path)
+
+    def _restore_training_state(self, path):
+        # on the CPU first: a generator's state is a CPU tensor, and the
+        # copies below move the rest to the models' device
+        state = torch.load(path, map_location='cpu', weights_only=True)
+        self.generator.load_state_dict(state['generator'])
+        self.discriminator.load_state_dict(state['discriminator'])
+        self.gen_opt.load_state_dict(state['gen_opt'])
+        self.disc_opt.load_state_dict(state['disc_opt'])
+        self.generator.dropout_generator.set_state(state['dropout_rng'])
+        self.step = int(state['step'])
+        # the schedules continue where they were: the reference's LR
+        # fast-forward on resume (a fractional power of the decay) gives
+        # another LR than the uninterrupted run's
+        saved = state.get('schedules')
+        if saved and [name for name, _ in saved] == [
+                type(s).__name__ for s in self._scheds]:
+            for sched, (_, values) in zip(self._scheds, saved):
+                vars(sched).update(values)
+        elif saved:
+            print(f"note: the LR schedules of {os.path.basename(path)} "
+                  f"are {[name for name, _ in saved]}; these start from "
+                  f"the fast-forwarded LR")
+        print(f"Restored optimizer state from {os.path.basename(path)}")
+
+    def _save_step_state(self, epoch, batches_done, loader_epoch=None):
+        """The rolling mid-epoch checkpoint: the training state into the
+        slot the metadata does not name, then the metadata naming it
+        (``epoch``, ``batches_done``, and ``loader_epoch``, the loader
+        iteration the epoch consumes, so a resume of a resumed run replays
+        the right order). A kill at any point leaves the metadata naming
+        a whole state file."""
+        self._step_slot = 'b' if self._step_slot == 'a' else 'a'
+        name = f'training_state_step_{self._step_slot}.pt'
+        self._write_training_state(os.path.join(self.savefolder, name))
+        meta = os.path.join(self.savefolder, STEP_META)
+        with open(f'{meta}.tmp', 'w') as f:
+            json.dump({'epoch': int(epoch), 'batches_done': int(batches_done),
+                       'loader_epoch': loader_epoch, 'state': name}, f)
+        os.replace(f'{meta}.tmp', meta)
+
+    def _check_step_state(self):
+        """Take up the rolling checkpoint when it is further along than
+        the epoch files (progress into an epoch not saved yet)."""
+        meta_path = os.path.join(self.savefolder, STEP_META)
+        if not os.path.exists(meta_path):
+            return
+        try:
+            with open(meta_path) as f:
+                meta = json.load(f)
+            state_path = os.path.join(self.savefolder, meta['state'])
+            if meta['epoch'] < self.start or not os.path.exists(state_path):
+                return
+            self._pending_training_state = state_path
+            self.start = int(meta['epoch'])
+            self._resume_skip_batches = int(meta['batches_done'])
+            self._resume_loader_epoch = meta.get('loader_epoch')
+            # the next save writes the other slot, never the one the
+            # metadata names
+            slot = re.search(r'_([ab])\.pt$', meta['state'])
+            if slot:
+                self._step_slot = slot.group(1)
+            print(f"Found mid-epoch checkpoint: epoch {self.start}, "
+                  f"{self._resume_skip_batches} batches done")
+        except Exception as e:
+            print(f"Ignoring unreadable step checkpoint: {e}")
 
     def load(self, generator_save, discriminator_save):
         print(generator_save, discriminator_save)
@@ -263,23 +456,29 @@ class Trainer:
               f"and {os.path.basename(discriminator_save)}")
 
     def load_last_checkpoint(self):
-        '''Resume from the latest epoch files; without any (or with a
-        broken pair) training starts afresh, as in the JAX package.'''
+        '''Resume from the latest epoch files, with their
+        ``training_state_ep_###.pt`` when there is one; without any (or
+        with a broken pair) training starts afresh, as in the JAX
+        package. A rolling checkpoint further along supersedes them.'''
         try:
             last, gen_path, disc_path = ckpt.find_last_checkpoint(
                 self.savefolder)
             self.load(gen_path, disc_path)
             self.start = last + 1
+            state_path = f'{self.savefolder}training_state_ep_{last:03d}.pt'
+            if os.path.exists(state_path):
+                # restored in train(), once the optimizers exist
+                self._pending_training_state = state_path
+            for jax_file in (f'training_state_ep_{last:03d}.msgpack',
+                             'step_state.json'):
+                if os.path.exists(os.path.join(self.savefolder, jax_file)):
+                    print(f"note: {jax_file} is the JAX package's "
+                          f"exact-resume state, which this package does "
+                          f"not read")
         except Exception as e:   # e.g. a file cut short by a killed save
             print(e)
             print("Checkpoints not loaded")
-            return
-        for extra in (f'training_state_ep_{last:03d}.msgpack',
-                      'step_state.json'):
-            if os.path.exists(os.path.join(self.savefolder, extra)):
-                print(f"note: {extra} holds exact-resume state, which "
-                      f"{_NOT_PORTED}; resuming from the epoch weights "
-                      f"with fresh Adam moments")
+        self._check_step_state()
 
     def load_transfer_checkpoints(self, gen_checkpoint, disc_checkpoint):
         '''Shape-matched partial load for transfer learning.'''

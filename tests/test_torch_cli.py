@@ -4,7 +4,9 @@ its spatial mode writes the engine's spatial masks.
 The port's ``patchgan_train`` on an npz-plugin folder: it trains, writes
 checkpoints the JAX package reads, and resumes; it fine-tunes from
 torch ``.pth`` checkpoints with the encoder frozen and accumulated
-gradients; options that are not ported raise. ``-d cuda`` / ``-d auto``
+gradients; on a COCO folder it trains with the RAM cache, from tar
+shards, with process workers, a profile and rolling checkpoints;
+``spatial_parallelism``, not ported, raises. ``-d cuda`` / ``-d auto``
 without a GPU raise."""
 
 import os
@@ -192,17 +194,80 @@ def test_train_cli_without_gpu_raises(train_dir, device, monkeypatch):
 
 @pytest.mark.parametrize('extra,args', [
     ({'train_params.spatial_parallelism': 2}, []),
-    ({'dataset.cache': True}, []),
-    ({'dataset.type': 'TarShards'}, []),
-    ({}, ['--dataloader_worker_type', 'process']),
-    ({}, ['--profile_dir', 'trace']),
-    ({'train_params.save_every_steps': 2}, []),
-], ids=['spatial', 'cache', 'tarshards', 'process', 'profile',
-        'save_every_steps'])
+], ids=['spatial'])
 def test_train_cli_deferred_keys_raise(train_dir, extra, args):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         patchgan_train(['-c', _train_config(train_dir, **extra), '-n',
                         '1'] + TRAIN_ARGS + args)
+
+
+def test_train_cli_process_workers_refuse_a_plugin(train_dir):
+    """The cwd io.py plugin's classes cannot be unpickled by a worker
+    process: the loader says so (the JAX loader raises a bare
+    PicklingError)."""
+    with pytest.raises(ValueError, match='io.py'):
+        patchgan_train(['-c', _train_config(train_dir), '-n', '1',
+                        '--dataloader_worker_type', 'process'] + TRAIN_ARGS)
+
+
+@pytest.fixture
+def coco_train_dir(tmp_path, monkeypatch):
+    """Four 128-px JPEG / PNG pairs as a folder and as two tar shards."""
+    import tarfile
+
+    from PIL import Image
+    rng = np.random.default_rng(61)
+    for name in ('images', 'masks', 'shards'):
+        (tmp_path / name).mkdir()
+    for i in range(4):
+        Image.fromarray((rng.uniform(size=(128, 128, 3)) * 255)
+                        .astype(np.uint8)).save(tmp_path / 'images'
+                                                / f'{i:04d}.jpg')
+        Image.fromarray(rng.integers(0, 3, (128, 128)).astype(np.uint8),
+                        mode='L').save(tmp_path / 'masks' / f'{i:04d}.png')
+    for si in range(2):
+        with tarfile.open(tmp_path / 'shards' / f's-{si}.tar', 'w') as tf:
+            for i in (2 * si, 2 * si + 1):
+                tf.add(tmp_path / 'images' / f'{i:04d}.jpg',
+                       arcname=f'{i:04d}.jpg')
+                tf.add(tmp_path / 'masks' / f'{i:04d}.png',
+                       arcname=f'{i:04d}.png')
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
+@pytest.mark.parametrize('extra,args', [
+    ({'dataset.cache': True}, []),
+    ({'dataset.type': 'TarShards',
+      'dataset.train_data': {'images': 'shards/s-*.tar', 'masks': None},
+      'dataset.validation_data': {'images': 'shards/s-1.tar',
+                                  'masks': None}}, []),
+    ({}, ['--dataloader_worker_type', 'process']),
+    ({}, ['--profile_dir', 'trace']),
+    ({'train_params.save_every_steps': 1}, []),
+], ids=['cache', 'tarshards', 'process', 'profile', 'save_every_steps'])
+def test_train_cli_input_options_run(coco_train_dir, extra, args):
+    """Each input-pipeline and resume option on a COCO folder, 2 epochs:
+    finite losses and both epochs' files; the profile traces epoch 1
+    only; the rolling metadata ends at "epoch 3, nothing done"."""
+    import glob
+    import json
+    folder = {'images': 'images', 'masks': 'masks'}
+    extra = {'dataset.type': 'COCOStuff', 'dataset.train_data': folder,
+             'dataset.validation_data': folder,
+             'dataset.augmentation': 'randomcrop+flip', **extra}
+    g_hist, d_hist = patchgan_train(['-c', _train_config(
+        coco_train_dir, **extra), '-n', '2'] + TRAIN_ARGS + args)
+    assert len(g_hist) == 2 and np.isfinite(g_hist + d_hist).all()
+    for ep in (1, 2):
+        assert (coco_train_dir / 'ck' / f'generator_ep_{ep:03d}.npz').exists()
+    if '--profile_dir' in args:
+        assert len(glob.glob('trace/trace_*.json')) == 1
+    if 'train_params.save_every_steps' in extra:
+        meta = json.loads((coco_train_dir / 'ck' / 'step_state_torch.json')
+                          .read_text())
+        assert (meta['epoch'], meta['batches_done'],
+                meta['loader_epoch']) == (3, 0, 3)
 
 
 @pytest.mark.parametrize('freeze', [{'freeze_encoder': True},
