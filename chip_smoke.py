@@ -96,7 +96,14 @@ Run from the root of the repository. In order:
    resume with ``load_last_checkpoint`` to epoch 3: finite losses, all
    four epoch files, the resume at epoch 3 with the fast-forwarded LR,
    and K1 / K2 / K3 / K1-bwd at 1 / 6 / 5 / 12 launches per train step
-   (1 / 6 / 5 / 0 per validation batch) and 11 K2 / K3 recomputes; then
+   (1 / 6 / 5 / 0 per validation batch) and 11 K2 / K3 recomputes for
+   each step the wrappers ran: the Trainer's captured step
+   (``train/graph.py``) runs its first step eagerly and launches the
+   kernels again into the graph at its capture, and the steps after
+   that are replays, which call no wrapper: the Trainer's
+   ``graph_counts`` (eager steps, captures, replays) must read (1, 1, 7)
+   and (1, 1, 3), and phase 10 holds a replay's kernels against the
+   same table; then
    the fine-tune of BASELINE.json config 3 (``FT_STEP``): the epoch-3
    weights as torch .pth files, ``transfer_learn.freeze_encoder``,
    ``accumulate_steps: 2``, one epoch: K1-bwd 5 a step, no K2
@@ -111,14 +118,30 @@ Run from the root of the repository. In order:
    against ``-d cpu --dtype float32``, IoU, Dice and boundary F1 within
    2e-3; then images/s of the bf16 loop on ``EVAL_TIMED`` seeded images
    (batch 8, the first batch left out), in two runs;
-10. training img/s of the bf16 step on a device-resident batch, in
-   turns, five windows of at least 2 s each (every reading and the
-   medians): the full step at batch 16 in the plain and the s2d form,
-   the fine-tune step (encoder frozen) in both forms, and the fine-tune
-   step accumulating two micro-batches of 8; peak device memory, and a
-   profiler breakdown of three steps of each (the top kernels, then each
-   of the port's kernels, and the device kernels launched a step, fewer
-   for a frozen step than a full one of its form);
+10. the captured step (``train/graph.py``) against the eager step, bit
+   for bit (bf16, batch 16, dropout on, deterministic cuDNN): the full
+   and the frozen step in both forms and the frozen step accumulating two
+   micro-batches of 8, 4 steps (4 updates) each way from the same weights
+   and batches, then an LR written between two more: every step's
+   losses, every parameter, Adam moment, count and LR tensor,
+   accumulator and the dropout generator's state equal; a Trainer's
+   captured step restored with ``_restore_training_state`` and stepped
+   again equal to an eager Trainer's. Then training img/s of the bf16
+   step on a device-resident batch, in turns, five windows of at least 2
+   s each (every reading and the medians): the full step at batch 16 in
+   the plain and the s2d form, the fine-tune step (encoder frozen) in
+   both forms, the fine-tune step accumulating two micro-batches of 8,
+   and the plain, s2d and accumulating steps captured; host ms a step,
+   peak device memory, and a profiler breakdown of three steps of each
+   (the top kernels, then each of the port's kernels, the device busy
+   share and the device kernels launched a step, fewer for a frozen step
+   than a full one of its form), where each config's K1 / K2 / K3 /
+   K1-bwd / K4 / K4-wgrad kernels a step, counted by the profiler (a
+   captured step's in its replays), must equal ``STEP`` or
+   ``FT_STEP``; then ``python -m
+   patchgan_tpu_torch.cli.aot -d cuda`` at config 2 (batch 16): the JAX
+   CLI's keys, fits, its peak within 10% of the captured plain step's
+   own peak above; at batch 4096: does not fit, exit 0;
 11. spatial mode (one whole-image forward, the plain form): the fp32
    forward of a 640x480 image (padded to 640x512) through the kernels on
    the card against the same model on the CPU, max |dprob| <= 1e-3 and
@@ -156,18 +179,26 @@ Run from the root of the repository. In order:
    the RAM cache at epoch 2 and later (the decoder called no time), and
    TarShards thread x4, every reading and the medians; ``patchgan_train
    -d cuda`` at config 2 with the default loader and the fastest one,
-   epoch 2's img/s beside phase 10's step alone, launches per step as in
-   ``STEP['off']``; one epoch from the shards and one from the folder
+   and with the RAM cache four times, the step captured and
+   ``PATCHGAN_CUDA_GRAPH=off`` in turns, epoch 2's img/s beside phase
+   10's captured step alone, launches per step the wrappers ran as in
+   ``STEP['off']``, the Trainer's ``graph_counts`` (1, 1, 31) captured
+   and (0, 0, 0) when off; one epoch from
+   the shards and one from the folder
    (PIL on both, flips on, ``--deterministic``): bit-equal epoch files;
    exact resume (use_dropout, accumulate_steps 2, 2 epochs of 64
-   images): two uninterrupted ``python -m patchgan_tpu_torch.cli.train
-   -d cuda --deterministic`` runs (the control, run beside the first cut
-   run), then one with save_every_steps 1 killed (SIGKILL) when its
+   images), each run ``patchgan_train -d cuda --deterministic`` in a
+   process of its own (``train_child``): two uninterrupted runs (the
+   control, run beside the first cut run), then one with
+   save_every_steps 1 killed (SIGKILL) when its
    rolling metadata shows epoch 2 with 1 batch done, resumed and killed
    at 3, resumed to the end: its epoch files equal the control's bits,
-   or differ by no more than the control's two runs do; the ms of one
+   or differ by no more than the control's two runs do (each process
+   that ends prints its Trainer's ``graph_counts``, the controls' (2, 2,
+   6)); the ms of one
    rolling save at config 2; and ``--profile_dir``: one trace, of epoch
-   1, naming K2's and K3's kernels.
+   1, naming K2's and K3's kernels. Every Trainer here runs the captured
+   step, its default on the card.
 
 It prints a JSON summary of the kernels (launches from the s2d training
 run, which drives all six; every path's counts beside them, the
@@ -179,9 +210,11 @@ device it exits 2.
 
 import contextlib
 import copy
+import gc
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -222,6 +255,13 @@ FREEZE = ('enc',)
 FT_STEP = {'off': [1, 6, 5, 5, 0, 0], 'on': [1, 6, 5, 5, 6, 3]}
 # K2 + K3 recomputes (recompute_grads) per full and per frozen step
 RECOMPUTES = {'full': 6 + 5, 'frozen': 5}
+# the device kernel of each of K1, K2, K3, K1-bwd, K4, K4-wgrad, one a
+# wrapper's launch, as the profiler names it (every part must appear)
+PROFILE_NAMES = (('pgt::in_act_kernel<',),
+                 ('pgt::conv_gemm_kernel<', 'pgt::ConvProblem<'),
+                 ('pgt::conv_gemm_kernel<', 'pgt::ConvTProblem<'),
+                 ('pgt::in_act_bwd_kernel<',), ('pgt::thin::thin_fwd<',),
+                 ('pgt::thin::thin_wgrad<',))
 LR = 1e-3
 EVAL_TIMED = 384   # images of the folder the eval loop is timed on
 # the 1280x960 image of the inference phases as spatial mode runs it:
@@ -875,6 +915,38 @@ def write_train_inputs(tmp, np):
     return paths
 
 
+@contextlib.contextmanager
+def graph_counts():
+    """(eager steps, captures, replays) of the captured train steps of
+    the Trainers built inside the block, summed; the list is filled when
+    the block ends, and holds no Trainer after it."""
+    from patchgan_tpu_torch.train import Trainer
+    built, counts, init = [], [], Trainer.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        built.append(self)
+
+    Trainer.__init__ = record
+    try:
+        yield counts
+    finally:
+        Trainer.__init__ = init
+        counts += [sum(c) for c in zip((0, 0, 0), *(
+            t.graph_counts() for t in built))]
+        built.clear()
+
+
+def train_child():
+    """``python -c 'import chip_smoke; chip_smoke.train_child()' ARGS``:
+    patchgan_train with ARGS in a process of its own, then its Trainers'
+    ``graph_counts`` on a line of their own."""
+    from patchgan_tpu_torch.cli.train import patchgan_train
+    with graph_counts() as counts:
+        patchgan_train(sys.argv[1:])
+    print(f'graph counts {tuple(counts)}', flush=True)
+
+
 def train_path_phase(torch, np, wrappers, card, s2d, tmp):
     """patchgan_train -d cuda for 2 epochs, then a resume to epoch 3,
     under PATCHGAN_S2D=``s2d``, on a synthetic folder written into
@@ -891,14 +963,16 @@ def train_path_phase(torch, np, wrappers, card, s2d, tmp):
                 w.launches = 0
             tee = Tee(sys.stdout)
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(tee), s2d_env(s2d):
+            with contextlib.redirect_stdout(tee), s2d_env(s2d), \
+                    graph_counts() as counts:
                 g_hist, d_hist = patchgan_train(
                     ['-c', cfg, '-n', str(epochs), '-b', str(TRAIN_B),
                      '-d', 'cuda', '--no-summary'])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             runs.append(([w.launches for w in wrappers], g_hist, d_hist,
-                         tee.getvalue(), wall, recompute_grads.launches))
+                         tee.getvalue(), wall, recompute_grads.launches,
+                         tuple(counts)))
     files = sorted(os.listdir(os.path.join(tmp, 'ck')))
     want_files = [f'{p}_ep_{e:03d}.npz' for p in ('discriminator',
                                                    'generator')
@@ -906,17 +980,24 @@ def train_path_phase(torch, np, wrappers, card, s2d, tmp):
     if files != want_files:
         raise AssertionError(f'checkpoints {files}, expected {want_files}')
     epoch_s = []
-    for (launches, g_hist, d_hist, out, wall, recomputes), epochs in zip(
-            runs, (2, 1)):
+    for (launches, g_hist, d_hist, out, wall, recomputes, counts), epochs \
+            in zip(runs, (2, 1)):
         steps, evals = 4 * epochs, epochs     # 64 / 16 and 16 / 16
-        want = [steps * a + evals * b for a, b in zip(per_step, per_eval)]
-        print(f'  run of {epochs} epoch(s): wall {wall:.2f} s, launches '
-              f'{launches} (expected {want}), recomputes {recomputes} '
-              f'(expected {steps * RECOMPUTES["full"]}), G losses {g_hist}, '
-              f'D losses {d_hist}', flush=True)
-        if launches != want or recomputes != steps * RECOMPUTES['full']:
-            raise AssertionError(f'launches {launches}, expected {want}; '
-                                 f'recomputes {recomputes}')
+        # the captured step: one eager step, one capture, then replays;
+        # the wrappers launch in the first two only
+        want_counts = (1, 1, steps - 1)
+        ran = counts[0] + counts[1]
+        want = [ran * a + evals * b for a, b in zip(per_step, per_eval)]
+        print(f'  run of {epochs} epoch(s): wall {wall:.2f} s, eager steps '
+              f'/ captures / replays {counts} (expected {want_counts}), '
+              f'launches {launches} (expected {want}), recomputes '
+              f'{recomputes} (expected {ran * RECOMPUTES["full"]}), G '
+              f'losses {g_hist}, D losses {d_hist}', flush=True)
+        if counts != want_counts or launches != want or \
+                recomputes != ran * RECOMPUTES['full']:
+            raise AssertionError(f'graph counts {counts}, launches '
+                                 f'{launches}, expected {want}; recomputes '
+                                 f'{recomputes}')
         if not all(np.isfinite(g_hist + d_hist)) or \
                 len(g_hist) != epochs:
             raise AssertionError(f'losses {g_hist} {d_hist}')
@@ -953,20 +1034,21 @@ def assert_update_close(name, got, want):
 def record_grads(opt, micro, applied):
     """Make ``opt`` (a ``MultiSteps``) copy to the host the gradients of
     each call, appended to ``micro``, and the mean its k-th call hands its
-    inner Adam, appended to ``applied``."""
-    outer_step, inner_step = opt.step, opt.inner.step
+    inner Adam, appended to ``applied`` (the eager step calls each
+    optimizer's ``update``)."""
+    outer_update, inner_update = opt.update, opt.inner.update
 
     def host(grads):
         return [g.detach().float().cpu().clone() for g in grads]
 
-    def step(grads):
+    def update(grads):
         micro.append(host(grads))
-        outer_step(grads)
+        outer_update(grads)
 
     def inner(grads):
         applied.append(host(grads))
-        inner_step(grads)
-    opt.step, opt.inner.step = step, inner
+        inner_update(grads)
+    opt.update, opt.inner.update = update, inner
 
 
 def grad_errors(names, got, ref):
@@ -1137,7 +1219,7 @@ def finetune_path_phase(torch, np, wrappers, s2d, tmp, train_cfg):
     path = os.path.join(tmp, 'finetune.yaml')
     with open(path, 'w') as f:
         yaml.safe_dump(cfg, f)
-    with in_dir(tmp), s2d_env(s2d):
+    with in_dir(tmp), s2d_env(s2d), graph_counts() as counts:
         for w in wrappers + [recompute_grads]:
             w.launches = 0
         t0 = time.perf_counter()
@@ -1148,14 +1230,18 @@ def finetune_path_phase(torch, np, wrappers, s2d, tmp, train_cfg):
         wall = time.perf_counter() - t0
         launches = [w.launches for w in wrappers]
         recomputes = recompute_grads.launches
+    # 4 micro-steps, one captured program per window position: each
+    # position's first call eager, its second the capture and a replay
     want = [4 * a + b for a, b in zip(FT_STEP[s2d], EVAL[s2d])]
-    print(f'  s2d {s2d}: wall {wall:.2f} s, launches {launches} (expected '
-          f'{want}), recomputes {recomputes} (expected '
+    print(f'  s2d {s2d}: wall {wall:.2f} s, eager steps / captures / '
+          f'replays {tuple(counts)} (expected (2, 2, 2)), launches '
+          f'{launches} (expected {want}), recomputes {recomputes} (expected '
           f'{4 * RECOMPUTES["frozen"]}), G losses {g_hist}, D losses '
           f'{d_hist}', flush=True)
-    if launches != want or recomputes != 4 * RECOMPUTES['frozen']:
+    if launches != want or recomputes != 4 * RECOMPUTES['frozen'] or \
+            tuple(counts) != (2, 2, 2):
         raise AssertionError(f'fine-tune launches {launches}, recomputes '
-                             f'{recomputes}')
+                             f'{recomputes}, graph counts {counts}')
     if not all(np.isfinite(g_hist + d_hist)):
         raise AssertionError(f'losses {g_hist} {d_hist}')
     before = torch.load(pth['generator'])
@@ -1239,13 +1325,172 @@ def eval_path_phase(torch, np, wrappers, card, tmp, train_cfg):
     return launches, img_s, {'bf16': bf16, 'fp32': fp32, 'cpu': cpu}
 
 
-# the throughput phase's configurations: (form, frozen, batch, every_k);
-# 'off' and 'on' are the full step, the rest the fine-tune of config 3
-TRAIN_CONFIGS = {'off': ('off', False, TRAIN_B, 1),
-                 'on': ('on', False, TRAIN_B, 1),
-                 'frozen off': ('off', True, TRAIN_B, 1),
-                 'frozen on': ('on', True, TRAIN_B, 1),
-                 'frozen off k=2 b=8': ('off', True, TRAIN_B // 2, 2)}
+# the throughput phase's configurations: (form, frozen, batch, every_k,
+# captured); 'off' and 'on' are the full step, the rest the fine-tune of
+# config 3; ' graph' the same step captured (train/graph.py)
+TRAIN_CONFIGS = {'off': ('off', False, TRAIN_B, 1, False),
+                 'on': ('on', False, TRAIN_B, 1, False),
+                 'frozen off': ('off', True, TRAIN_B, 1, False),
+                 'frozen on': ('on', True, TRAIN_B, 1, False),
+                 'frozen off k=2 b=8': ('off', True, TRAIN_B // 2, 2, False),
+                 'off graph': ('off', False, TRAIN_B, 1, True),
+                 'on graph': ('on', False, TRAIN_B, 1, True),
+                 'frozen off k=2 b=8 graph': ('off', True, TRAIN_B // 2, 2,
+                                              True)}
+# steps of each case of the graph-parity phase (micro-steps at k=2)
+PARITY_STEPS = 4
+
+
+def train_models(torch, seed=7):
+    """Config 2's bf16 generator (dropout on) and discriminator from a
+    seed, on the card, the dropout generator seeded."""
+    from patchgan_tpu_torch.models import Discriminator, UNet
+    bf16 = torch.bfloat16
+    init = torch.Generator().manual_seed(seed)
+    gen = UNet(IN_C, OUT_C, nf=NF, use_dropout=True, activation='relu',
+               final_act='softmax', dtype=bf16, generator=init).cuda()
+    disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3, dtype=bf16,
+                         generator=init).cuda()
+    gen.dropout_generator = torch.Generator(device='cuda').manual_seed(0)
+    return gen, disc
+
+
+def config_step(torch, gen, disc, form, frozen, every_k, graph):
+    """The bf16 train step of one ``TRAIN_CONFIGS`` entry and its two
+    optimizers (Adam's first moment in bf16, as patchgan_train keeps
+    it)."""
+    from patchgan_tpu_torch.train.steps import (make_optimizer,
+                                                make_train_step,
+                                                trainable_params)
+    opts = (make_optimizer(trainable_params(gen, FREEZE if frozen else ()),
+                           LR, mu_dtype=torch.bfloat16, every_k=every_k),
+            make_optimizer(disc.parameters(), LR, mu_dtype=torch.bfloat16,
+                           every_k=every_k))
+    return make_train_step(gen, disc, *opts, s2d=form == 'on',
+                           graph=graph), opts
+
+
+def step_state(torch, gen, disc, opts):
+    """Every tensor a step changes, on the host: parameters, Adam's
+    moments, step counts and learning rates, accumulators, the dropout
+    generator's state; and the host counters."""
+    tensors = [p for p in gen.parameters()] + \
+        [p for p in disc.parameters()]
+    counters = []
+    for opt in opts:
+        inner = getattr(opt, 'inner', opt)
+        tensors += inner.mu + inner.nu + [inner.count_t, inner.neg_lr_t] + \
+            list(getattr(opt, 'acc', []))
+        counters += [inner.count, getattr(opt, 'mini_step', 0)]
+    tensors.append(gen.dropout_generator.get_state())
+    return [t.detach().cpu() for t in tensors], counters
+
+
+def graph_parity_phase(torch, np, wrappers):
+    """The captured step (train/graph.py) against the eager step, bit for
+    bit: for the full step in both forms, the frozen step in both forms
+    and the frozen step accumulating 2 micro-batches of 8, bf16 at batch
+    16, dropout on, deterministic cuDNN, each from the same weights and
+    batches, ``PARITY_STEPS`` steps eagerly and as many through the
+    captured path (its eager first steps, its capture, its replays; at
+    k=2 as many updates, twice the micro-steps), then an LR written
+    between two more steps of each: every step's losses, then every
+    parameter, Adam moment, count, learning rate, accumulator and the
+    dropout generator's state must be equal. Then a Trainer's captured
+    step restored (``_restore_training_state``) to an earlier state and
+    stepped again must equal an eager Trainer that never left it."""
+    rows = {}
+    with cudnn_flags_kept(torch):
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        for name, (form, frozen, batch, every_k, _) in TRAIN_CONFIGS.items():
+            if name.endswith(' graph'):
+                continue
+            n = PARITY_STEPS * every_k
+            batches = [tuple(t.to(torch.bfloat16) for t in train_batch(
+                torch, np, batch, SIZE, 'cuda', 40 + i)) for i in range(n + 2)]
+            result = {}
+            for graph in (False, True):
+                gen, disc = train_models(torch)
+                step, opts = config_step(torch, gen, disc, form, frozen,
+                                         every_k, graph)
+                losses = [step(*b) for b in batches[:n]]
+                for opt in opts:
+                    opt.lr = LR / 3
+                losses += [step(*b) for b in batches[n:]]
+                torch.cuda.synchronize()
+                result[graph] = ([torch.stack(list(l.values())).cpu()
+                                  for l in losses],
+                                 step_state(torch, gen, disc, opts))
+                if graph:
+                    counts = (step.eager_steps, step.captures, step.replays)
+                del gen, disc, step, opts
+            (l_e, (t_e, c_e)), (l_g, (t_g, c_g)) = result[False], result[True]
+            same_losses = all(torch.equal(a, b) for a, b in zip(l_e, l_g))
+            same = [torch.equal(a, b) for a, b in zip(t_e, t_g)]
+            rows[name] = {'losses_equal': same_losses,
+                          'tensors_equal': sum(same), 'tensors': len(same),
+                          'counters': c_g, 'eager_capture_replay': counts}
+            print(f'  {name}: {n + 2} steps, eager / captures / replays '
+                  f'{counts}, losses equal {same_losses}, tensors equal '
+                  f'{sum(same)} of {len(same)}, counters {c_g} (eager '
+                  f'{c_e}), the dropout generator equal {same[-1]}',
+                  flush=True)
+            if not (same_losses and all(same) and c_e == c_g) or \
+                    counts != (every_k, every_k, n + 2 - every_k):
+                raise AssertionError(f'{name}: the captured step differs '
+                                     f'from the eager one: {rows[name]}')
+        rows['restore'] = restore_parity(torch, np)
+    return rows
+
+
+def restore_parity(torch, np):
+    """A Trainer on the captured step: 2 steps, its training state saved,
+    2 more, the state restored in place, the same 2 again; against a
+    Trainer on the eager step (PATCHGAN_CUDA_GRAPH=off) that ran the 4
+    steps once: the repeated steps' losses, then every tensor and the
+    counters, equal."""
+    from patchgan_tpu_torch.train import Trainer
+    batches = [tuple(t.to(torch.bfloat16) for t in train_batch(
+        torch, np, TRAIN_B, SIZE, 'cuda', 60 + i)) for i in range(4)]
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(name):
+            gen, disc = train_models(torch)
+            t = Trainer(gen, disc, os.path.join(tmp, name), device='cuda')
+            t.adam_mu_dtype = torch.bfloat16
+            t._make_optimizers(LR, LR)
+            return t
+
+        def state(t):
+            return step_state(torch, t.generator, t.discriminator,
+                              (t.gen_opt, t.disc_opt))
+
+        with env_var('PATCHGAN_CUDA_GRAPH', 'off'):
+            eager = trainer('eager')
+            want = [eager.batch(*b, train=True) for b in batches]
+        captured = trainer('captured')
+        for b in batches[:2]:
+            captured.batch(*b, train=True)
+        path = os.path.join(tmp, 'state.pt')
+        captured._write_training_state(path)
+        for b in batches[2:]:
+            captured.batch(*b, train=True)
+        captured._restore_training_state(path)
+        got = [captured.batch(*b, train=True) for b in batches[2:]]
+        counts = captured.graph_counts()
+        (t_e, c_e), (t_g, c_g) = state(eager), state(captured)
+    same = [torch.equal(a, b) for a, b in zip(t_e, t_g)]
+    print(f'  restore: the captured Trainer restored after step 4 to step '
+          f'2 and stepped again: losses equal {got == want[2:]}, tensors '
+          f'equal {sum(same)} of {len(same)}, counters {c_g} (eager {c_e}), '
+          f'eager steps / captures / replays {counts}', flush=True)
+    if got != want[2:] or not all(same) or c_e != c_g or \
+            counts != (1, 1, 5):
+        raise AssertionError(f'the restored captured step differs: losses '
+                             f'{got} vs {want[2:]}, tensors {sum(same)}, '
+                             f'graph counts {counts}')
+    return {'losses_equal': True, 'tensors_equal': sum(same),
+            'graph_counts': counts}
 
 
 def throughput_phase(torch, np, card):
@@ -1253,47 +1498,44 @@ def throughput_phase(torch, np, card):
     ``TRAIN_CONFIGS``: the full step at batch 16, plain and s2d form, the
     frozen (('enc',)) step at batch 16 in both forms, and the frozen step
     accumulating 2 micro-batches of 8 (img/s counts the images of each
-    micro-step); all in turns, five windows of at least 2 s each. Peak
-    memory (absolute, and above what was allocated before the
-    configuration's first step), and a profiler breakdown of three steps
-    of each (four micro-steps at k=2) with the device kernels launched a
-    step: a frozen step must launch fewer than the full one of its
-    form."""
-    from patchgan_tpu_torch.models import Discriminator, UNet
-    from patchgan_tpu_torch.train.steps import (make_optimizer,
-                                                make_train_step,
-                                                trainable_params)
+    micro-step), then the plain, s2d and accumulating steps captured; all
+    in turns, five windows of at least 2 s each, with the host's ms per
+    step (the wall of the call that queues it; for a captured step the
+    copy in, the replay and the copy out). Peak memory (absolute, above
+    what was allocated before the configuration's first steps, and its
+    own: its models, optimizers, batch and steps), and a profiler
+    breakdown of three steps of each (four micro-steps at k=2) with the
+    device kernels launched a step: a frozen step must launch fewer than
+    the full one of its form, a captured step as many as its eager
+    counterpart."""
     bf16 = torch.bfloat16
     x, y = train_batch(torch, np, TRAIN_B, SIZE, 'cuda', 8)
     x, y = x.to(bf16), y.to(bf16)
     steps, out = {}, {}
-    for name, (form, frozen, batch, every_k) in TRAIN_CONFIGS.items():
-        init = torch.Generator().manual_seed(7)
-        gen = UNet(IN_C, OUT_C, nf=NF, use_dropout=True, activation='relu',
-                   final_act='softmax', dtype=bf16, generator=init).cuda()
-        disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3, dtype=bf16,
-                             generator=init).cuda()
-        gen.dropout_generator = torch.Generator(device='cuda').manual_seed(0)
-        freeze = FREEZE if frozen else ()
-        step = make_train_step(
-            gen, disc, make_optimizer(trainable_params(gen, freeze), LR,
-                                      mu_dtype=bf16, every_k=every_k),
-            make_optimizer(disc.parameters(), LR, mu_dtype=bf16,
-                           every_k=every_k),
-            s2d=form == 'on')
+    for name, (form, frozen, batch, every_k, graph) in TRAIN_CONFIGS.items():
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        gen, disc = train_models(torch)
+        step, _ = config_step(torch, gen, disc, form, frozen, every_k, graph)
         steps[name] = (lambda step=step, b=batch: step(x[:b], y[:b]), batch,
                        every_k)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(3):
+        # the captured step's eager steps, its capture and a replay
+        for _ in range(2 * every_k + 1):
             losses = steps[name][0]()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         out[name] = {'peak_memory_bytes': peak,
                      'step_memory_bytes': peak - base,
-                     'batch': batch, 'every_k': every_k,
-                     'img_per_s_windows': []}
+                     'own_peak_memory_bytes': peak - before + (
+                         x[:batch].nbytes + y[:batch].nbytes),
+                     'batch': batch, 'every_k': every_k, 'captured': graph,
+                     'img_per_s_windows': [], 'host_ms_windows': []}
+        if graph and not step.replays:
+            raise AssertionError(f'{name}: no replay')
         loss = {k: float(v) for k, v in losses.items()}
         if not all(np.isfinite(list(loss.values()))):
             raise AssertionError(f'{name}: losses {loss}')
@@ -1301,30 +1543,38 @@ def throughput_phase(torch, np, card):
     for i in range(WINDOWS):
         for name in (names if i % 2 == 0 else names[::-1]):
             fn, batch, _ = steps[name]
-            count, t0 = 0, time.perf_counter()
+            count, host, t0 = 0, 0.0, time.perf_counter()
             while True:
                 for _ in range(5):
+                    t1 = time.perf_counter()
                     fn()
+                    host += time.perf_counter() - t1
                 torch.cuda.synchronize()
                 count += 5
                 dt = time.perf_counter() - t0
                 if dt >= WINDOW_S:
                     break
             out[name]['img_per_s_windows'].append(batch * count / dt)
+            out[name]['host_ms_windows'].append(1e3 * host / count)
             print(f'  window {i} {name}: {count} steps in {dt:.3f} s, '
-                  f'{batch * count / dt:.3f} img/s', flush=True)
+                  f'{batch * count / dt:.3f} img/s, host '
+                  f'{1e3 * host / count:.3f} ms a step', flush=True)
     from torch.profiler import ProfilerActivity, profile
     for name, (fn, batch, every_k) in steps.items():
         r = out[name]
         readings = r['img_per_s_windows']
         img_s = statistics.median(readings)
-        r.update(img_per_s=img_s, ms_per_step=1e3 * batch / img_s)
+        r.update(img_per_s=img_s, ms_per_step=1e3 * batch / img_s,
+                 host_ms_per_step=statistics.median(r['host_ms_windows']))
         print(f'  bf16 step {name}, batch {batch}, every_k {every_k}: median '
               f'{img_s:.3f} img/s (min {min(readings):.3f}, max '
-              f'{max(readings):.3f}), {r["ms_per_step"]:.3f} ms/step, peak '
-              f'memory {r["peak_memory_bytes"] / 2**30:.3f} GiB '
+              f'{max(readings):.3f}), {r["ms_per_step"]:.3f} ms/step, host '
+              f'{r["host_ms_per_step"]:.3f} ms/step, peak memory '
+              f'{r["peak_memory_bytes"] / 2**30:.3f} GiB '
               f'({r["step_memory_bytes"] / 2**30:.3f} GiB above the '
-              f'resident models) on {card}', flush=True)
+              f'resident models; its own '
+              f'{r["own_peak_memory_bytes"] / 2**30:.3f} GiB) on {card}',
+              flush=True)
         n_steps = 3 if every_k == 1 else 4
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1342,6 +1592,13 @@ def throughput_phase(torch, np, card):
         busy = sum(row[0] for row in rows)
         ours = sum(row[0] for row in rows if 'pgt::' in row[2])
         n_kernels = sum(row[1] for row in rows) / n_steps
+        # K1-K4 a step as the device ran them (a captured step's in its
+        # replays, which call no wrapper), against the table
+        form, frozen = TRAIN_CONFIGS[name][:2]
+        want = (FT_STEP if frozen else STEP)[form]
+        ported = [sum(n for _, n, key in rows
+                      if all(part in key for part in parts)) / n_steps
+                  for parts in PROFILE_NAMES]
         print(f'  profile of {n_steps} steps, {name}: wall '
               f'{wall_us / n_steps / 1e3:.3f} ms/step, kernels '
               f'{busy / n_steps / 1e3:.3f} ms/step (device busy '
@@ -1356,10 +1613,22 @@ def throughput_phase(torch, np, card):
             if 'pgt::' in key:
                 print(f'    {dev / n_steps / 1e3:8.3f} ms/step '
                       f'{n / n_steps:7.1f}/step  {key[:90]}')
+        print(f'  K1 / K2 / K3 / K1-bwd / K4 / K4-wgrad a step on the device: '
+              f'{ported} (expected {want})', flush=True)
+        if ported != want:
+            raise AssertionError(f'{name}: the device ran {ported} of the '
+                                 f'port\'s kernels a step, expected {want}')
+        # the busy share is the profiled window's; the profiler slows the
+        # host's side of a step, so the profiled kernel ms over the
+        # unprofiled step's ms is read beside it (two windows: it can
+        # pass 1)
         r.update(profile_busy_ms_per_step=busy / n_steps / 1e3,
                  profile_port_kernels_ms_per_step=ours / n_steps / 1e3,
                  profile_wall_ms_per_step=wall_us / n_steps / 1e3,
-                 profile_kernels_per_step=n_kernels)
+                 profile_busy_share=busy / wall_us,
+                 kernel_ms_over_step=busy / n_steps / 1e3 / r['ms_per_step'],
+                 profile_kernels_per_step=n_kernels,
+                 profile_ported_kernels_per_step=ported)
     for form in ('off', 'on'):
         full, frozen = (out[form]['profile_kernels_per_step'],
                         out[f'frozen {form}']['profile_kernels_per_step'])
@@ -1368,7 +1637,90 @@ def throughput_phase(torch, np, card):
         if not frozen < full:
             raise AssertionError(f's2d {form}: the frozen step launched '
                                  f'{frozen} kernels, the full {full}')
+    for name in names:
+        if name.endswith(' graph'):
+            eager = out[name[:-len(' graph')]]
+            r = out[name]
+            ratio = r['img_per_s'] / eager['img_per_s']
+            print(f'  {name} / eager: img/s {ratio:.3f}x, host ms '
+                  f'{r["host_ms_per_step"]:.3f} / '
+                  f'{eager["host_ms_per_step"]:.3f}, busy (profiled) '
+                  f'{100 * r["profile_busy_share"]:.1f}% / '
+                  f'{100 * eager["profile_busy_share"]:.1f}% (profiled kernel '
+                  f'ms over the unprofiled step '
+                  f'{100 * r["kernel_ms_over_step"]:.1f}% / '
+                  f'{100 * eager["kernel_ms_over_step"]:.1f}%), device kernels '
+                  f'a step {r["profile_kernels_per_step"]:.1f} / '
+                  f'{eager["profile_kernels_per_step"]:.1f}, own peak '
+                  f'{r["own_peak_memory_bytes"] / 2**30:.3f} / '
+                  f'{eager["own_peak_memory_bytes"] / 2**30:.3f} GiB',
+                  flush=True)
     return out
+
+
+def write_aot_config(tmp):
+    """Config 2 at phase 10's widths (nf=64, ndf=64, 7 classes, relu,
+    dropout, softmax, tversky * 200, 256 px) as a train YAML."""
+    path = os.path.join(tmp, 'aot.yaml')
+    with open(path, 'w') as f:
+        f.write(f"""dataset: {{type: COCOStuff, size: {SIZE},
+          labels: {list(range(1, OUT_C + 1))}}}
+model_params:
+  generator: {{filters: {NF}, activation: relu, use_dropout: true,
+              final_activation: softmax}}
+  discriminator: {{filters: {NDF}, n_layers: 3}}
+train_params: {{loss_type: tversky, seg_alpha: 200}}
+""")
+    return path
+
+
+def aot_phase(torch, card, captured_peak):
+    """``python -m patchgan_tpu_torch.cli.aot -d cuda`` at config 2
+    (batch 16, bf16, the plain form): fits, its peak within 10% of phase
+    10's captured plain step's own peak, the JAX CLI's keys; then at
+    batch 4096: does not fit, exit 0."""
+    path = os.environ.get('PYTHONPATH')
+    env = dict(os.environ, PYTHONPATH=ROOT + (os.pathsep + path if path
+                                              else ''), PATCHGAN_S2D='off')
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_aot_config(tmp)
+        for batch in (TRAIN_B, 4096):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, '-m', 'patchgan_tpu_torch.cli.aot', '-c',
+                 cfg, '--batch', str(batch), '-d', 'cuda'], cwd=tmp, env=env,
+                capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            print(proc.stdout[-2000:], end='')
+            if proc.returncode != 0:
+                print(proc.stderr[-3000:])
+                raise AssertionError(f'aot at batch {batch} exited '
+                                     f'{proc.returncode}')
+            rec = json.loads(proc.stdout.strip().splitlines()[-1])
+            rec['wall_s'] = wall
+            out[batch] = rec
+    keys = ['metric', 'topology', 'device_kind', 'devices', 'mesh', 'batch',
+            'size', 'dtype', 's2d', 'shadow', 'gen_filts', 'disc_filts',
+            'compile_ok', 'cost', 'memory_per_device']
+    fit, big = out[TRAIN_B], out[4096]
+    peak = fit['memory_per_device']['peak_bytes']
+    ratio = peak / captured_peak
+    print(f'  aot at batch {TRAIN_B}: compile_ok {fit["compile_ok"]}, fits '
+          f'{fit["memory_per_device"]["fits"]}, peak {peak} bytes = '
+          f'{ratio:.3f} x phase 10\'s captured step ({captured_peak}), '
+          f'{fit["cost"]["flops_per_device"] / 1e9:.1f} GFLOP a step, bound '
+          f'{fit["cost"]["optimal_seconds"] * 1e3:.3f} ms '
+          f'({fit["cost"]["img_per_s_ceiling"]:.1f} img/s); at batch 4096: '
+          f'fits {big["memory_per_device"]["fits"]}; walls '
+          f'{fit["wall_s"]:.1f} / {big["wall_s"]:.1f} s on {card}',
+          flush=True)
+    if list(fit) != keys + ['wall_s'] or fit['compile_ok'] is not True or \
+            fit['memory_per_device']['fits'] is not True or \
+            not 0.9 <= ratio <= 1.1 or \
+            big['memory_per_device']['fits'] is not False:
+        raise AssertionError(f'aot: {out}')
+    return {'batch_16': fit, 'batch_4096': big, 'peak_ratio': ratio}
 
 
 def infer_path_phase(torch, np, kernels, s2d):
@@ -2194,7 +2546,8 @@ def epoch_lines(out):
 
 def run_train(torch, wrappers, args, env=None):
     """patchgan_train in this process with ``args`` (+ -d cuda, no
-    summary), the counts set to 0 before; (output, launches, wall s)."""
+    summary), the counts set to 0 before; (output, launches, wall s,
+    the Trainers' graph counts)."""
     from patchgan_tpu_torch.cli.train import patchgan_train
     for w in wrappers:
         w.launches = 0
@@ -2204,11 +2557,13 @@ def run_train(torch, wrappers, args, env=None):
             stack.enter_context(env_var(k, v))
         stack.enter_context(s2d_env('off'))
         stack.enter_context(contextlib.redirect_stdout(tee))
+        counts = stack.enter_context(graph_counts())
         t0 = time.perf_counter()
         patchgan_train(args + ['-d', 'cuda', '--no-summary'])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return tee.getvalue(), [w.launches for w in wrappers], wall
+    return tee.getvalue(), [w.launches for w in wrappers], wall, \
+        tuple(counts)
 
 
 def npz_equal(np, a, b):
@@ -2365,8 +2720,9 @@ def kill_at(cmd, cwd, env, meta_path, target, log, timeout=300):
 
 def resume_phase(torch, np, tmp, card):
     """Exact resume on the card (use_dropout, accumulate_steps 2, 2
-    epochs of RESUME_N images, ``--deterministic``), every run a ``python
-    -m patchgan_tpu_torch.cli.train -d cuda`` process of its own: two
+    epochs of RESUME_N images, ``--deterministic``), every run
+    ``patchgan_train -d cuda`` in a process of its own (``train_child``,
+    which prints the Trainer's graph counts when the run ends): two
     uninterrupted runs (the control, beside the first cut run on the same
     card), then a run with save_every_steps 1 killed once its rolling
     metadata shows epoch 2 with 1 batch done (inside an accumulation
@@ -2379,9 +2735,10 @@ def resume_phase(torch, np, tmp, card):
                                               else ''))
 
     def cmd(cfg):
-        return [sys.executable, '-m', 'patchgan_tpu_torch.cli.train', '-c',
-                cfg, '-d', 'cuda', '--no-summary', '-n', '2', '-b',
-                str(TRAIN_B), '--deterministic']
+        return [sys.executable, '-c',
+                'import chip_smoke; chip_smoke.train_child()', '-c', cfg,
+                '-d', 'cuda', '--no-summary', '-n', '2', '-b', str(TRAIN_B),
+                '--deterministic']
 
     cfg = pipeline_config(tmp, 'cut', train='resume', accumulate_steps=2,
                           save_every_steps=1)
@@ -2416,11 +2773,18 @@ def resume_phase(torch, np, tmp, card):
     wall = time.perf_counter() - t0
     with open(log_path) as f:
         log_text = f.read()
+    # the processes that ended: the two controls (8 micro-steps each: an
+    # eager step and a capture per window position, then replays) and
+    # the last resumed one, in the order they ended (a progress bar may
+    # share the line)
+    counts = re.findall(r'graph counts (\(\d+, \d+, \d+\))', log_text)
     if rc != 0 or rcs != [0, 0] or any(
             f'Found mid-epoch checkpoint: epoch 2, {n} batches done'
-            not in log_text for n in (1, 3)):
+            not in log_text for n in (1, 3)) or len(counts) != 3 or \
+            counts.count('(2, 2, 6)') < 2:
         print(log_text[-3000:])
-        raise AssertionError(f'the resumed runs: rc {rc}, controls {rcs}')
+        raise AssertionError(f'the resumed runs: rc {rc}, controls {rcs}, '
+                             f'graph counts {counts}')
     ctl_same, ctl_diff = weights_diff(np, os.path.join(tmp, 'ck_ctl_a'),
                                       os.path.join(tmp, 'ck_ctl_b'), 2)
     results = {epoch: weights_diff(np, os.path.join(tmp, 'ck_ctl_a'), ck,
@@ -2431,8 +2795,9 @@ def resume_phase(torch, np, tmp, card):
           f'{[(m["epoch"], m["batches_done"]) for m in cuts]} (accumulate '
           f'2: the window open), resumed twice; epoch-1 weights equal bits '
           f'{results[1][0]} (max |diff| {results[1][1]:.3e}), epoch-2 equal '
-          f'bits {same} (max |diff| {diff:.3e}); the five runs took '
-          f'{wall:.3f} s', flush=True)
+          f'bits {same} (max |diff| {diff:.3e}); eager steps / captures / '
+          f'replays of the processes that ended {counts}; the five runs '
+          f'took {wall:.3f} s', flush=True)
     if not all(s or d <= ctl_diff for s, d in results.values()):
         raise AssertionError(f'the resumed run differs from the control by '
                              f'{results} (control {ctl_diff})')
@@ -2465,7 +2830,7 @@ def resume_phase(torch, np, tmp, card):
     return {'control_equal_bits': ctl_same, 'control_max_abs_diff': ctl_diff,
             'resumed_equal_bits': same, 'resumed_max_abs_diff': diff,
             'cuts': [(m['epoch'], m['batches_done']) for m in cuts],
-            'runs_wall_s': wall,
+            'graph_counts': counts, 'runs_wall_s': wall,
             'rolling_save_ms': statistics.median(save_ms),
             'rolling_save_ms_readings': save_ms,
             'rolling_save_bytes': nbytes}
@@ -2494,38 +2859,59 @@ def pipeline_phase(torch, np, wrappers, card, step_img_s, tmp):
         torch, tmp, card)
 
     # the epoch: patchgan_train at config 2 with the default loader and
-    # with the fastest one, 2 epochs; the second epoch's rate is read
+    # with the fastest one, 2 epochs; the second epoch's rate is read.
+    # The Trainer's step is the captured one; the cached loader's epoch
+    # also with PATCHGAN_CUDA_GRAPH=off, in turns
     fastest = max(out['loader_img_per_s'], key=out['loader_img_per_s'].get)
-    opts, io_mode, data = LOADERS[fastest]
-    runs = {'default (thread x4 native)': ([], 'on', 'folder', False)}
-    if fastest != 'thread x4 native':
+    runs = [('default (thread x4 native)', [], 'on', 'folder', False, 'on')]
+    if fastest not in ('thread x4 native', 'thread x4 cache'):
+        opts, io_mode, data = LOADERS[fastest]
         extra = ['--dataloader_worker_type', 'process'] \
             if opts.get('worker_type') == 'process' else []
-        runs[f'fastest ({fastest})'] = (extra, io_mode, data,
-                                        bool(opts.get('cache')))
+        runs.append((f'fastest ({fastest})', extra, io_mode, data,
+                     bool(opts.get('cache')), 'on'))
+    runs += [(f'thread x4 cache, graph {graph} {turn}', [], 'on', 'folder',
+              True, graph) for turn, graph in enumerate(('on', 'off', 'off',
+                                                         'on'))]
     epoch_rate, launches = {}, None
     per_run = 2 * (PIPE_N // TRAIN_B)
-    want = [per_run * a + 2 * b for a, b in zip(STEP['off'], EVAL['off'])]
-    for name, (extra, mode, data, cache) in runs.items():
+    for name, extra, mode, data, cache, graph in runs:
         cfg = pipeline_config(tmp, 'epoch', data=data, cache=cache)
-        text, counts, wall = run_train(
+        text, counts, wall, replays = run_train(
             torch, wrappers, ['-c', cfg, '-n', '2', '-b', str(TRAIN_B)]
-            + extra, env={'PATCHGAN_NATIVE_IO': mode})
+            + extra, env={'PATCHGAN_NATIVE_IO': mode,
+                          'PATCHGAN_CUDA_GRAPH': graph})
         epochs = epoch_lines(text)
-        if counts != want or len(epochs) != 2:
+        # captured: one eager step, one capture, then replays, which call
+        # no wrapper; eager: every step through the wrappers
+        want_replays = (1, 1, per_run - 1) if graph == 'on' else (0, 0, 0)
+        ran = 2 if graph == 'on' else per_run
+        want = [ran * a + 2 * b for a, b in zip(STEP['off'], EVAL['off'])]
+        if counts != want or len(epochs) != 2 or replays != want_replays:
             raise AssertionError(f'{name}: launches {counts}, expected '
-                                 f'{want}; epochs {epochs}')
+                                 f'{want}; epochs {epochs}; eager steps / '
+                                 f'captures / replays {replays}, expected '
+                                 f'{want_replays}')
         launches = launches or counts
         n, secs = epochs[1]
         epoch_rate[name] = {'epoch_s': secs, 'img_per_s': n / secs,
-                            'first_epoch_s': epochs[0][1], 'run_wall_s': wall}
+                            'first_epoch_s': epochs[0][1], 'run_wall_s': wall,
+                            'graph_replays': replays}
         print(f'  patchgan_train, {name}: epoch 2 {n} images in {secs:.3f} '
               f's, {n / secs:.3f} img/s (epoch 1 {epochs[0][1]:.3f} s); the '
-              f'step alone (phase 10) {step_img_s:.3f} img/s; launches '
-              f'{counts} (expected {want}) on {card}', flush=True)
+              f'captured step alone (phase 10) {step_img_s:.3f} img/s; '
+              f'launches {counts} (expected {want}); eager steps / '
+              f'captures / replays {replays} on {card}', flush=True)
         shutil.rmtree(os.path.join(tmp, 'ck_epoch'))
     out['epoch'] = epoch_rate
     out['step_only_img_per_s'] = step_img_s
+    for graph in ('on', 'off'):
+        rates = [r['img_per_s'] for k, r in epoch_rate.items()
+                 if k.startswith(f'thread x4 cache, graph {graph} ')]
+        out[f'cache_epoch_graph_{graph}_img_per_s'] = rates
+    print(f'  the cached loader\'s epoch 2, img/s: captured step '
+          f'{out["cache_epoch_graph_on_img_per_s"]}, eager step '
+          f'{out["cache_epoch_graph_off_img_per_s"]} on {card}', flush=True)
 
     # shards against the folder: one epoch each, PIL decode on both (the
     # shard members decode with PIL, as in the JAX package), flips on,
@@ -2713,11 +3099,27 @@ def main():
               f'{RECOMPUTES["frozen"]} frozen', flush=True)
     print(json.dumps({'eval': results, 'eval_img_per_s': eval_img_s,
                       'finetune': finetune, 'card': card}))
+    print('== the captured step against the eager step, bit for bit (bf16, '
+          'dropout on, deterministic cuDNN): full and frozen in both forms, '
+          'accumulating 2 x 8; an LR written between steps; a restore',
+          flush=True)
+    t10 = time.perf_counter()
+    parity = graph_parity_phase(torch, np, wrappers)
+    print(json.dumps({'graph_parity': parity,
+                      'phase_wall_s': time.perf_counter() - t10}))
     print(f'== training throughput (bf16): the full step at batch {TRAIN_B} '
-          'and the fine-tune step, plain and s2d, in turns', flush=True)
+          'and the fine-tune step, plain and s2d, eager and captured, in '
+          'turns', flush=True)
+    t10 = time.perf_counter()
     train = throughput_phase(torch, np, card)
-    train.update({'epoch_s': epoch_s, 'card': card})
+    train.update({'epoch_s': epoch_s, 'card': card,
+                  'phase_wall_s': time.perf_counter() - t10})
     print(json.dumps(train))
+    print('== patchgan_aot -d cuda: config 2 at batch 16 and 4096',
+          flush=True)
+    aot = aot_phase(torch, card,
+                    train['off graph']['own_peak_memory_bytes'])
+    print(json.dumps({'aot': aot}))
 
     print('== spatial mode: whole-image forward (nf=64), parity on the CPU, '
           'K1-K3 at the 1280x960 image\'s shapes, masks/s against tiled',
@@ -2739,7 +3141,7 @@ def main():
               flush=True)
         t13 = time.perf_counter()
         launches, pipeline = pipeline_phase(
-            torch, np, wrappers, card, train['off']['img_per_s'], tmp)
+            torch, np, wrappers, card, train['off graph']['img_per_s'], tmp)
         pipeline['phase_wall_s'] = time.perf_counter() - t13
     paths['pipeline'] = dict(zip(names, launches))
     print(json.dumps(pipeline))

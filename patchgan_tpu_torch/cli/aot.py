@@ -1,0 +1,269 @@
+"""``patchgan_aot`` on the card: the pre-flight of a training config.
+
+    python -m patchgan_tpu_torch.cli.aot -c train.yaml -d cuda
+    python -m patchgan_tpu_torch.cli.aot --batch 64 --size 512 --gen-filts 128
+
+Port of ``patchgan_tpu/cli/aot.py``. The JAX CLI compiles the train step
+for a detached TPU topology; CUDA has no compile against a card that is
+not there, so this pre-flight runs on the card it checks. It builds the
+models and optimizers at the config as ``patchgan_train`` does, runs the
+captured step (``train/graph.py``) on a seeded synthetic batch (its
+eager steps, the capture, one replay) and reports:
+
+- whether the step captured and replayed (``compile_ok``);
+- FLOPs per step, counted by ``FlopCounterMode`` through the plain path
+  on the CPU at batch 1, times the batch: the counter cannot see the
+  hand-written kernels, whose plain versions do the same products. The
+  count holds every conv and convT forward, the recompute of K2's and
+  K3's levels in their backward, and every gradient product the step
+  takes. From it the step's bound, FLOPs over the card's peak (989
+  TFLOP/s in bf16, 67 in fp32), and the img/s ceiling it implies. The
+  recompute is work the port chooses to do, not the model's: a human
+  line gives its FLOPs and the count and bound without it;
+- ``torch.cuda.max_memory_allocated`` against the card's memory ("will
+  it fit"). An out-of-memory error in the eager steps, before any
+  capture is open, reports ``fits: false`` and exits 0; any other
+  failure reports ``compile_ok: false`` and exits 1.
+
+The flags are the JAX CLI's (-c, --batch (global), --size, --dtype,
+--gen-filts, --disc-filts, --no-s2d), plus -d (``cuda``, the default,
+needs a card; ``cpu`` runs the same steps eagerly on the CPU and reports
+no memory). ``--dp`` / ``--tp`` above 1 raise NotImplementedError
+(ROADMAP.md, queue 1 item 11); ``--topology`` and ``--shadow`` are not
+taken (no detached topology, no shadow parameters). The form is the
+Trainer's: space-to-depth when ``PATCHGAN_S2D`` selects it and
+``--no-s2d`` is not given.
+
+Prints human-readable lines, then ONE JSON line with the JAX CLI's keys
+(``topology`` null, ``shadow`` false).
+"""
+
+import argparse
+import json
+import sys
+
+import torch
+
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}   # H100 SXM, dense
+
+
+def _models(in_c, out_c, gen_cfg, disc_cfg, dtype, device, seed=0):
+    from ..models import Discriminator, UNet
+    init = torch.Generator().manual_seed(seed)
+    gen = UNet(input_nc=in_c, output_nc=out_c, nf=gen_cfg['filters'],
+               use_dropout=gen_cfg['use_dropout'],
+               activation=gen_cfg['activation'],
+               final_act=gen_cfg['final_activation'], dtype=dtype,
+               generator=init).to(device)
+    disc = Discriminator(input_nc=in_c + out_c, ndf=disc_cfg['filters'],
+                         norm=disc_cfg['norm'], n_layers=disc_cfg['n_layers'],
+                         dtype=dtype, generator=init).to(device)
+    gen.dropout_generator = torch.Generator(device=device).manual_seed(seed)
+    return gen, disc
+
+
+def _step(gen, disc, mu_dtype, s2d, loss_kwargs, graph):
+    from ..train.steps import make_optimizer, make_train_step
+    return make_train_step(
+        gen, disc, make_optimizer(gen.parameters(), mu_dtype=mu_dtype),
+        make_optimizer(disc.parameters(), mu_dtype=mu_dtype), s2d=s2d,
+        graph=graph, **loss_kwargs)
+
+
+def _batch(n, in_c, out_c, size, dtype, device, seed=0):
+    """Seeded uniform images and one-hot masks, made on the device."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((n, in_c, size, size), generator=g, device=device)
+    labels = torch.randint(0, out_c, (n, 1, size, size), generator=g,
+                           device=device)
+    y = labels == torch.arange(out_c, device=device).view(1, out_c, 1, 1)
+    return x.to(dtype), y.to(dtype)
+
+
+def step_flops(in_c, out_c, size, gen_cfg, disc_cfg, s2d, loss_kwargs):
+    """(FLOPs of one train step, FLOPs of its recompute) at batch 1,
+    counted through the plain path on the CPU in fp32. The step runs the
+    generator's forward once, so the recompute is the generator's
+    forward convs in the step less those of a forward alone."""
+    from torch.utils.flop_counter import FlopCounterMode
+    gen, disc = _models(in_c, out_c, gen_cfg, disc_cfg, torch.float32,
+                        torch.device('cpu'))
+    step = _step(gen, disc, None, s2d, loss_kwargs, graph=False)
+    x, y = _batch(1, in_c, out_c, size, torch.float32, torch.device('cpu'))
+    conv = torch.ops.aten.convolution
+    with FlopCounterMode(display=False) as counter:
+        step(x, y)
+    in_step = counter.get_flop_counts()['UNet'][conv]
+    with FlopCounterMode(display=False) as alone, torch.no_grad():
+        gen(x, s2d=s2d)
+    return (counter.get_total_flops(),
+            in_step - alone.get_flop_counts()['UNet'][conv])
+
+
+def _config(args):
+    """(in_c, out_c, size, generator config, discriminator config, loss
+    kwargs) from the YAML and the flags, as ``patchgan_train`` reads
+    them."""
+    from ..utils.config import load_config, model_params
+    config = load_config(args.config_file) if args.config_file else {}
+    gen_cfg, disc_cfg = model_params(config)
+    ds = config.get('dataset', {})
+    in_c, size = ds.get('in_channels', 3), ds.get('size', 256)
+    out_c = len(ds.get('labels', [1])) \
+        if ds.get('type') in ('COCOStuff', 'TarShards') \
+        else ds.get('out_channels', 1)
+    tp = config.get('train_params', {})
+    loss_kwargs = dict(loss_type=tp.get('loss_type', 'tversky'),
+                       seg_alpha=float(tp.get('seg_alpha', 200.0)),
+                       bce_weighting=tp.get('bce_weighting', 'complement'))
+    if loss_kwargs['loss_type'] == 'fc_tversky':
+        loss_kwargs['loss_type'] = 'tversky'
+    if args.gen_filts:
+        gen_cfg['filters'] = args.gen_filts
+    if args.disc_filts:
+        disc_cfg['filters'] = args.disc_filts
+    if args.size:
+        size = args.size
+    return in_c, out_c, size, gen_cfg, disc_cfg, loss_kwargs
+
+
+def patchgan_aot(argv=None):
+    parser = argparse.ArgumentParser(
+        prog='patchgan_aot',
+        description='Pre-flight a training config on the card: capture '
+                    'its train step, count its FLOPs, check its memory')
+    parser.add_argument('-c', '--config_file', default=None,
+                        help='train YAML (dataset / model_params / '
+                             'train_params); the flags below override it')
+    parser.add_argument('--dp', type=int, default=None,
+                        help='data-parallel ways (only 1 is ported)')
+    parser.add_argument('--tp', type=int, default=1,
+                        help='tensor-parallel ways (only 1 is ported)')
+    parser.add_argument('--batch', type=int, default=16,
+                        help='GLOBAL batch size')
+    parser.add_argument('--size', type=int, default=None,
+                        help='image size (default: dataset.size or 256)')
+    parser.add_argument('--dtype', default='bfloat16',
+                        choices=['float32', 'bfloat16'])
+    parser.add_argument('--gen-filts', type=int, default=None)
+    parser.add_argument('--disc-filts', type=int, default=None)
+    parser.add_argument('--no-s2d', action='store_true',
+                        help='the plain boundary form even when '
+                             'PATCHGAN_S2D selects the space-to-depth one')
+    parser.add_argument('-d', '--device', default='cuda',
+                        help="'cuda' (the card; raises without one) or "
+                             "'cpu' (eager, no memory report)")
+    args = parser.parse_args(argv)
+    if (args.dp or 1) > 1 or args.tp > 1:
+        raise NotImplementedError(
+            "--dp / --tp above 1: the parallel modes are not ported yet "
+            "(ROADMAP.md, queue 1 item 11)")
+
+    from ..ops.s2d import s2d_enabled
+    from .common import compute_dtype, select_device
+    device = select_device(args.device)
+    dtype = compute_dtype(args.dtype, device)
+    in_c, out_c, size, gen_cfg, disc_cfg, loss_kwargs = _config(args)
+    s2d = not args.no_s2d and s2d_enabled() and size % 2 == 0
+    on_card = device.type == 'cuda'
+    kind = torch.cuda.get_device_name(device) if on_card else 'cpu'
+    result = {'metric': 'aot_compile', 'topology': None,
+              'device_kind': kind, 'devices': 1,
+              'mesh': {'data': 1, 'model': 1}, 'batch': args.batch,
+              'size': size, 'dtype': args.dtype, 's2d': s2d,
+              'shadow': False, 'gen_filts': gen_cfg['filters'],
+              'disc_filts': disc_cfg['filters']}
+
+    flops, recompute = (f * args.batch for f in step_flops(
+        in_c, out_c, size, gen_cfg, disc_cfg, s2d, loss_kwargs))
+    opt_s = flops / PEAK_FLOPS[args.dtype]
+    cost = {'flops_per_device': flops, 'hbm_bytes_per_device': None,
+            'optimal_seconds': opt_s,
+            'img_per_s_ceiling': args.batch / opt_s}
+    capacity = torch.cuda.get_device_properties(device).total_memory \
+        if on_card else None
+
+    # the models, the optimizers (Adam's first moment in bf16 beside a
+    # bf16 step, as patchgan_train keeps it) and the batch, then the
+    # eager steps: an out-of-memory error here means "does not fit"
+    mu_dtype = torch.bfloat16 if dtype == torch.bfloat16 else None
+    try:
+        gen, disc = _models(in_c, out_c, gen_cfg, disc_cfg, dtype, device)
+        step = _step(gen, disc, mu_dtype, s2d, loss_kwargs,
+                     graph=on_card)
+        x, y = _batch(args.batch, in_c, out_c, size, dtype, device)
+        if on_card:
+            # the peak from here on: what the models, the optimizers, the
+            # batch and the step hold
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        args_bytes = torch.cuda.memory_allocated(device) if on_card \
+            else None
+        for _ in range(step.warmup if on_card else 1):
+            step(x, y)
+    except torch.cuda.OutOfMemoryError as e:
+        gen = disc = step = x = y = None
+        torch.cuda.empty_cache()
+        result.update(compile_ok=None, cost=cost, error=str(e)[:400])
+        result['memory_per_device'] = {
+            'arguments_bytes': None, 'temp_bytes': None,
+            'output_bytes': None, 'peak_bytes': None,
+            'hbm_capacity_bytes': capacity, 'fits': False}
+        _report(result, args, 'out of memory in the eager step', recompute)
+        return result
+    try:
+        losses = step(x, y)   # the capture and its first replay
+        values = [float(v) for v in losses.values()]
+        if not all(v == v and abs(v) != float('inf') for v in values):
+            raise FloatingPointError(f'losses {values}')
+        if on_card and not step.replays:
+            raise RuntimeError('the step was not replayed')
+    except Exception as e:
+        result.update(compile_ok=False,
+                      error=f'{type(e).__name__}: {e}'[:400])
+        print(f'CAPTURE FAILED: {e}', file=sys.stderr)
+        print(json.dumps(result))
+        raise SystemExit(1)
+    result.update(compile_ok=True, cost=cost)
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    result['memory_per_device'] = {
+        'arguments_bytes': args_bytes,
+        'temp_bytes': peak - args_bytes if on_card else None,
+        'output_bytes': 4 * len(values),
+        'peak_bytes': peak, 'hbm_capacity_bytes': capacity,
+        'fits': peak < capacity if on_card else None}
+    _report(result, args, 'captured and replayed' if on_card
+            else 'eager on the CPU (no capture)', recompute)
+    return result
+
+
+def _report(result, args, status, recompute):
+    gib = 1 << 30
+    cost, mem = result['cost'], result['memory_per_device']
+    model = cost['flops_per_device'] - recompute
+    print(f"{result['device_kind']}, batch {args.batch}, {result['size']}px, "
+          f"{args.dtype}, s2d={result['s2d']}, gen_filts "
+          f"{result['gen_filts']}, disc_filts {result['disc_filts']}")
+    print(f'  step: {status}')
+    print(f"  cost: {cost['flops_per_device'] / 1e9:.1f} GFLOP a step; "
+          f"bound on an H100 {cost['optimal_seconds'] * 1e3:.3f} ms "
+          f"(<= {cost['img_per_s_ceiling']:.0f} img/s)")
+    print(f"  of it the recompute of K2's and K3's levels "
+          f"{recompute / 1e9:.1f} GFLOP; without it {model / 1e9:.1f} "
+          f"GFLOP, bound {model / PEAK_FLOPS[args.dtype] * 1e3:.3f} ms")
+    if mem['fits'] is None:
+        print('  memory: not measured (no card)')
+    elif mem['peak_bytes'] is None:
+        print(f"  memory: DOES NOT FIT in "
+              f"{mem['hbm_capacity_bytes'] / gib:.1f} GiB")
+    else:
+        print(f"  memory: models, optimizers and batch "
+              f"{mem['arguments_bytes'] / gib:.2f} GiB, peak "
+              f"{mem['peak_bytes'] / gib:.2f} GiB of "
+              f"{mem['hbm_capacity_bytes'] / gib:.1f} GiB -> "
+              + ('FITS' if mem['fits'] else 'DOES NOT FIT'))
+    print(json.dumps(result))
+
+
+if __name__ == '__main__':
+    patchgan_aot()

@@ -30,7 +30,11 @@ makes cuDNN pick deterministic algorithms, so two runs from one seed, or
 a run and its resumed continuation, give the same bits on the card.
 
 ``PATCHGAN_S2D=on|off`` selects the space-to-depth boundary form of the
-step, as in the JAX package (``ops/s2d.py``).
+step, as in the JAX package (``ops/s2d.py``). On the card each batch
+shape's train step runs eagerly once, is then captured as one CUDA graph
+and replayed (``train/graph.py``, the counterpart of the JAX package's
+jitted step); ``PATCHGAN_CUDA_GRAPH=off`` (or 0, false) runs every step
+eagerly. ``--deterministic`` holds for both.
 
 Not ported yet, and refused with NotImplementedError naming ROADMAP.md:
 ``train_params.spatial_parallelism`` > 1 and the Trainer's orbax
@@ -53,7 +57,11 @@ from .common import build_dataset_factory, compute_dtype, select_device
 def patchgan_train(argv=None):
     parser = argparse.ArgumentParser(
         prog='PatchGAN',
-        description='Train the PatchGAN architecture'
+        description='Train the PatchGAN architecture',
+        epilog='Environment: PATCHGAN_S2D=on|off selects the '
+               'space-to-depth form of the step (default off); '
+               'PATCHGAN_CUDA_GRAPH=on|off runs the train step on the card '
+               'as a captured CUDA graph (default on) or eagerly.'
     )
     parser.add_argument('-c', '--config_file', required=True, type=str,
                         help='Location of the config YAML file')

@@ -22,6 +22,10 @@ optimizer lacks constant. ``make_optimizer(every_k=k)`` applies the
 update every k-th step on the running mean of the gradients
 (``optax.MultiSteps``, ``:114-115``).
 
+``make_train_step(..., graph=True)`` is the counterpart of the JAX
+Trainer's jitted step: the same step captured as a CUDA graph
+(``train/graph.py``).
+
 Steps return their losses as 0-d tensors on the device under the
 reference's keys ``gen, gen_loss, gdisc, discr, discf, disc``; nothing
 in a step waits for the device.
@@ -59,42 +63,77 @@ class Adam:
     fp32 parameters, as optax's ``mu_dtype`` does: the moment update and
     the step run in fp32 from the stored value, and only the stored
     moment is rounded (``optax.scale_by_adam``). ``torch.optim.Adam``
-    keeps its moments in the parameters' dtype."""
+    keeps its moments in the parameters' dtype.
+
+    The update reads the step count t (``count_t``) and the learning rate
+    (as ``neg_lr_t`` = -lr) from device tensors beside the moments, as
+    ``inject_hyperparams`` keeps the learning rate in the optimizer state
+    (``:98-104``): a captured step (``train/graph.py``) reads them at
+    every replay, so an LR write or a restored state reaches it without a
+    recapture. ``step`` is
+    ``update`` (the device work, which advances the device count) then
+    ``advance`` (the host's ``count``); a captured step runs ``update``
+    in the graph and ``advance`` after each replay."""
 
     def __init__(self, params, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
                  mu_dtype=None):
         self.params = [p for p in params]
-        self.lr = lr
         self.b1, self.b2, self.eps = _f32(b1), _f32(b2), _f32(eps)
         self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype)
                    for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        device = self.params[0].device if self.params else None
+        self.count_t = torch.zeros((), dtype=torch.int32, device=device)
+        # -lr, the factor of the update
+        self.neg_lr_t = torch.zeros((), dtype=torch.float32, device=device)
+        self._betas = torch.tensor([self.b1, self.b2], dtype=torch.float32,
+                                   device=device)
         self.count = 0
+        self.lr = lr
+
+    @property
+    def lr(self):
+        return self._lr
+
+    @lr.setter
+    def lr(self, value):
+        self._lr = value
+        self.neg_lr_t.fill_(-_f32(value))
 
     @torch.no_grad()
     def step(self, grads):
         """Apply one update from ``grads`` (one per parameter, in the
         parameters' dtype)."""
-        self.count += 1
+        self.update(grads)
+        self.advance()
+
+    @torch.no_grad()
+    def update(self, grads):
+        """The device work of one step; reads no host state that a step
+        changes."""
+        self.count_t.add_(1)
+        bc1, bc2 = 1 - torch.pow(self._betas, self.count_t)
         one = np.float32(1)
-        b1, b2 = np.float32(self.b1), np.float32(self.b2)
-        bc1 = float(one - b1 ** np.float32(self.count))
-        bc2 = float(one - b2 ** np.float32(self.count))
         low = self.mu[0].dtype != self.params[0].dtype if self.mu else False
         mu = [m.float() for m in self.mu] if low else self.mu
         torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, grads, alpha=float(one - b1))
+        torch._foreach_add_(mu, grads, alpha=float(one - np.float32(self.b1)))
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_addcmul_(self.nu, grads, grads,
-                                value=float(one - b2))
+                                value=float(one - np.float32(self.b2)))
         den = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, den)
-        torch._foreach_add_(self.params, upd, alpha=-_f32(self.lr))
+        torch._foreach_mul_(upd, self.neg_lr_t)
+        torch._foreach_add_(self.params, upd)
         if low:
             torch._foreach_copy_(self.mu, mu)
+
+    def advance(self):
+        """The host's part of one step."""
+        self.count += 1
 
     def state_dict(self):
         """The moments (the optimizer's own tensors), the step count and
@@ -104,14 +143,15 @@ class Adam:
 
     @torch.no_grad()
     def load_state_dict(self, state):
-        """Copy a ``state_dict`` into this optimizer's tensors; they must
-        match in number and shape."""
+        """Copy a ``state_dict`` into this optimizer's tensors, in place;
+        they must match in number and shape."""
         if 'mu' not in state:
             raise ValueError("optimizer state saved with gradient "
                              "accumulation; set accumulate_steps as it was")
         _copy_tensors('mu', self.mu, state['mu'])
         _copy_tensors('nu', self.nu, state['nu'])
         self.count, self.lr = int(state['count']), state['lr']
+        self.count_t.fill_(self.count)
 
 
 def _copy_tensors(name, dst, src):
@@ -128,8 +168,10 @@ class MultiSteps:
     """Gradient accumulation around an ``Adam``: ``optax.MultiSteps`` with
     ``use_grad_mean=True``. Each call folds the gradients into one fp32
     accumulator per parameter, acc <- acc + (g - acc) / (mini_step + 1);
-    the k-th call runs the inner ``step`` on it, then zeroes it. The
-    k-th call is counted on the host, so nothing waits for the card."""
+    the k-th call runs the inner ``update`` on it, then zeroes it. The
+    k-th call is counted on the host, so nothing waits for the card: a
+    captured step keeps one program per ``mini_step`` (``train/graph.py``).
+    ``step`` is ``update`` then ``advance``, as in ``Adam``."""
 
     def __init__(self, inner, every_k):
         self.inner, self.every_k = inner, every_k
@@ -151,14 +193,23 @@ class MultiSteps:
 
     @torch.no_grad()
     def step(self, grads):
+        self.update(grads)
+        self.advance()
+
+    @torch.no_grad()
+    def update(self, grads):
         delta = torch._foreach_sub([g.float() for g in grads], self.acc)
         torch._foreach_div_(delta, float(self.mini_step + 1))
         torch._foreach_add_(self.acc, delta)
         del delta   # freed before the inner step's own temporaries
+        if self.mini_step + 1 == self.every_k:
+            self.inner.update(self.acc)
+            torch._foreach_zero_(self.acc)
+
+    def advance(self):
         self.mini_step += 1
         if self.mini_step == self.every_k:
-            self.inner.step(self.acc)
-            torch._foreach_zero_(self.acc)
+            self.inner.advance()
             self.mini_step = 0
 
     def state_dict(self):
@@ -308,7 +359,7 @@ def disc_loss(disc_real, disc_fake):
 def make_train_step(generator, discriminator, gen_opt, disc_opt,
                     loss_type='tversky', seg_alpha=200.0, tversky_beta=0.75,
                     tversky_gamma=0.75, bce_weighting='complement',
-                    s2d=False):
+                    s2d=False, graph=False):
     """``step(x, y) -> losses``: one G+D update in place on the models
     and their optimizers (``make_optimizer``). x and y are NCHW; ``s2d``
     runs the step in the space-to-depth form. The discriminator step
@@ -316,7 +367,10 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
     separate forwards. The generator's gradient is taken over the
     parameters its optimizer holds (``trainable_params``) only, the
     others constant through its forward and backward, so autograd
-    records no node that only a frozen gradient needs."""
+    records no node that only a frozen gradient needs. ``graph=True``
+    returns the step as a ``CapturedStep`` (``train/graph.py``): the
+    same arithmetic, replayed as one CUDA graph per batch shape on the
+    card."""
     seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
                              tversky_gamma, bce_weighting)
     paired = resolve_paired_disc(discriminator)
@@ -326,7 +380,8 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
     constants = d_params + [p for p in generator.parameters()
                             if id(p) not in trainable]
 
-    def train_step(x, y):
+    def run(x, y):
+        # the device work of one step: no host counter moves here
         generator.train()
         if s2d:
             x, y = space_to_depth(x), space_to_depth(y)
@@ -334,16 +389,33 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
             g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
                                                 seg_loss, x, y, s2d)
             g_grads = torch.autograd.grad(g_loss, g_params)
-        gen_opt.step(g_grads)
+        gen_opt.update(g_grads)
         gen_img = gen_img.detach()
         d_loss, loss_real, loss_fake = disc_loss(*disc_real_fake(
             discriminator, x, y, gen_img, merged=False, paired=paired,
             s2d=s2d))
-        disc_opt.step(torch.autograd.grad(d_loss, d_params))
+        disc_opt.update(torch.autograd.grad(d_loss, d_params))
         g_loss, gdisc = g_loss.detach(), gdisc.detach()
         return dict(zip(LOSS_KEYS, (g_loss, g_loss, gdisc,
                                     loss_real.detach(), loss_fake.detach(),
                                     d_loss.detach())))
+
+    def advance():
+        gen_opt.advance()
+        disc_opt.advance()
+
+    if graph:
+        from .graph import CapturedStep
+        return CapturedStep(
+            run, advance,
+            position=lambda: (getattr(gen_opt, 'mini_step', 0),
+                              getattr(disc_opt, 'mini_step', 0)),
+            generators=lambda: [generator.dropout_generator])
+
+    def train_step(x, y):
+        losses = run(x, y)
+        advance()
+        return losses
 
     return train_step
 

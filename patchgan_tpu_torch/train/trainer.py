@@ -29,6 +29,15 @@ not the JAX Trainer's (``.msgpack``, ``step_state.json``): neither
 package reads the other's exact-resume files, and both resume each
 other's folders from the epoch npz files.
 
+The train step on the card is the captured one (``train/graph.py``),
+the counterpart of the JAX Trainer's jitted step, unless
+``PATCHGAN_CUDA_GRAPH`` is off, 0 or false when the Trainer is built;
+CPU batches take the eager step. The steps are built once per optimizer
+set and loss settings and kept, as the JAX Trainer's ``_get_step`` keeps
+its jitted steps (``:173-219``); ``_make_optimizers`` drops them. The per-epoch LR write,
+``_restore_training_state`` and ``load`` copy into the tensors a
+captured step reads, so none of them recaptures.
+
 ``generator`` and ``discriminator`` are the port's ``nn.Module``s with
 fp32 parameters; they compute in their own ``dtype``. Batches are NCHW
 tensors (or numpy arrays), moved to the models' device. Each batch runs
@@ -53,6 +62,7 @@ from ..ops.s2d import s2d_enabled
 from ..utils import checkpoint as ckpt
 from ..utils.profiling import maybe_trace
 from ..utils.transfer import load_transfer_data
+from .graph import CapturedStep, cuda_graph_enabled
 from .schedulers import (ConstantLR, ExponentialDecay, ReduceLROnPlateau,
                          resume_fast_forward)
 from .steps import (LOSS_KEYS, make_eval_step, make_optimizer,
@@ -106,6 +116,8 @@ class Trainer:
         self._resume_loader_epoch = None
         self._step_slot = None
         self._scheds = None   # train()'s LR schedules, saved with the state
+        self._step_cache = None   # (settings, steps, forms) of _steps()
+        self._cuda_graph = cuda_graph_enabled()
         self._make_optimizers(1e-3, 1e-3)
 
     def _make_optimizers(self, gen_lr, dsc_lr):
@@ -113,6 +125,7 @@ class Trainer:
         the parameters ``freeze_generator`` leaves trainable; the steps
         hold the others constant."""
         every_k = self.accumulate_steps or 1
+        self._step_cache = None   # its steps update the old optimizers
         self.gen_opt = make_optimizer(
             trainable_params(self.generator, tuple(self.freeze_generator)),
             gen_lr, mu_dtype=self.adam_mu_dtype, every_k=every_k)
@@ -135,28 +148,48 @@ class Trainer:
 
     def _steps(self):
         """(train step, eval step), each running a batch in the form
-        ``_use_s2d`` picks for it."""
+        ``_use_s2d`` picks for it; built at first use and kept while the
+        optimizers and the loss settings stay. The train step is the
+        captured one unless ``PATCHGAN_CUDA_GRAPH`` said off when the
+        Trainer was built."""
         loss_kwargs = dict(loss_type=self.loss_type,
                            seg_alpha=self.seg_alpha,
                            tversky_beta=self.tversky_beta,
                            tversky_gamma=self.tversky_gamma,
                            bce_weighting=self.bce_weighting)
+        settings = (tuple(loss_kwargs.values()), self.compute_iou)
+        if self._step_cache is not None and self._step_cache[0] == settings:
+            return self._step_cache[1]
         forms = {}
+        # the closures hold what they use, not the Trainer: a Trainer that
+        # is dropped frees its models at once, with no cycle to collect
+        gen, disc = self.generator, self.discriminator
+        gen_opt, disc_opt = self.gen_opt, self.disc_opt
+        use_s2d, compute_iou = self._use_s2d, self.compute_iou
+        cuda_graph = self._cuda_graph
 
         def form(x):
-            s2d = self._use_s2d(x)
+            s2d = use_s2d(x)
             if s2d not in forms:
                 forms[s2d] = (
-                    make_train_step(self.generator, self.discriminator,
-                                    self.gen_opt, self.disc_opt, s2d=s2d,
-                                    **loss_kwargs),
-                    make_eval_step(self.generator, self.discriminator,
-                                   compute_iou=self.compute_iou, s2d=s2d,
-                                   **loss_kwargs))
+                    make_train_step(gen, disc, gen_opt, disc_opt, s2d=s2d,
+                                    graph=cuda_graph, **loss_kwargs),
+                    make_eval_step(gen, disc, compute_iou=compute_iou,
+                                   s2d=s2d, **loss_kwargs))
             return forms[s2d]
 
-        return (lambda x, y: form(x)[0](x, y),
-                lambda x, y: form(x)[1](x, y))
+        steps = (lambda x, y: form(x)[0](x, y),
+                 lambda x, y: form(x)[1](x, y))
+        self._step_cache = (settings, steps, forms)
+        return steps
+
+    def graph_counts(self):
+        """(eager steps, captures, replays) of the current captured train
+        steps, both forms; zeros for the eager step."""
+        forms = self._step_cache[2] if self._step_cache else {}
+        steps = [t for t, _ in forms.values() if isinstance(t, CapturedStep)]
+        return tuple(sum(getattr(s, k) for s in steps)
+                     for k in ('eager_steps', 'captures', 'replays'))
 
     def _place_batch(self, x, y):
         def place(a):
