@@ -138,7 +138,10 @@ Run from the root of the repository. In order:
    than a full one of its form), where each config's K1 / K2 / K3 /
    K1-bwd / K4 / K4-wgrad kernels a step, counted by the profiler (a
    captured step's in its replays), must equal ``STEP`` or
-   ``FT_STEP``; then ``python -m
+   ``FT_STEP``; an eager step's wrappers must launch exactly those
+   counts over the profiled steps, and its trace may then count fewer,
+   never more (the tracer loses a run of records now and then; the run
+   prints so); then ``python -m
    patchgan_tpu_torch.cli.aot -d cuda`` at config 2 (batch 16): the JAX
    CLI's keys, fits, its peak within 10% of the captured plain step's
    own peak above; at batch 4096: does not fit, exit 0;
@@ -198,12 +201,38 @@ Run from the root of the repository. In order:
    6)); the ms of one
    rolling save at config 2; and ``--profile_dir``: one trace, of epoch
    1, naming K2's and K3's kernels. Every Trainer here runs the captured
-   step, its default on the card.
+   step, its default on the card;
+14. data parallelism (BASELINE.json config 5; ``parallel/``): (a) NCCL
+   at world size 1 in this process: three captured DP steps (bf16,
+   batch 16, dropout on, deterministic cuDNN) against three captured
+   single-process steps from the same state, every loss and every
+   tensor the step changes bit-equal, the DP run's launches (the eager
+   step and the capture, 2 x ``STEP``); img/s and host ms of both in
+   turns, the device kernels of a replay (NCCL's among them), the
+   dropout draws' ms for a rank's rows and for the global batch; (b)
+   two gloo ranks sharing the card (``dp_gloo_child``), fp32, eager,
+   flips and dropout on, tanh, three steps of the loader's global batch
+   of 16: the ranks' losses and weights bit-equal after every step; one
+   process on the whole batch: losses within rtol 2e-4 / atol 1e-5, the
+   first update's gradients within 1e-3 of each tensor's max |g|, at
+   most ``DP_WEIGHTS_LOOSE`` weights outside rtol 5e-3 / atol 2e-4 and
+   all within 2.5 lr (``dp_gloo_phase`` says why; ReLU's cross-rank
+   path is held bit for bit only at world size 1, in (a)); each rank's launches 3 x ``STEP`` at
+   batch 8, the gloo all-reduce of the 178.4 MB gradient bucket; (c)
+   ``patchgan_train -d cuda --deterministic`` under ``python -m
+   torch.distributed.run --nproc_per_node K`` (K = min(cards, 4)) on
+   phase 13's first 64 JPEGs, two epochs: one set of epoch files, which
+   a single-process Trainer loads, each rank's graph counts (1, 1, 7); a
+   run killed (every process of it) at epoch 2's first rolling save and
+   resumed ends bit-equal; (d) where there are two or more cards, NCCL
+   over 1, 2 (and 4) cards, captured, bf16: img/s per card and the
+   captured all-reduce's ms against ``patchgan_aot``'s NVLink bound; on
+   one card a line says why it did not run.
 
 It prints a JSON summary of the kernels (launches from the s2d training
 run, which drives all six; every path's counts beside them, the
-spatial, serve and pipeline paths' too; K1-K3's totals at the spatial
-shapes), the card's name and power limit, and as its last line ``{"ok":
+spatial, serve, pipeline and data-parallel paths' too; K1-K3's totals
+at the spatial shapes), the card's name and power limit, and as its last line ``{"ok":
 true, "device": {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
 """
@@ -1355,10 +1384,10 @@ def train_models(torch, seed=7):
     return gen, disc
 
 
-def config_step(torch, gen, disc, form, frozen, every_k, graph):
+def config_step(torch, gen, disc, form, frozen, every_k, graph, mesh=None):
     """The bf16 train step of one ``TRAIN_CONFIGS`` entry and its two
     optimizers (Adam's first moment in bf16, as patchgan_train keeps
-    it)."""
+    it); data-parallel over ``mesh`` when one is given."""
     from patchgan_tpu_torch.train.steps import (make_optimizer,
                                                 make_train_step,
                                                 trainable_params)
@@ -1367,7 +1396,7 @@ def config_step(torch, gen, disc, form, frozen, every_k, graph):
             make_optimizer(disc.parameters(), LR, mu_dtype=torch.bfloat16,
                            every_k=every_k))
     return make_train_step(gen, disc, *opts, s2d=form == 'on',
-                           graph=graph), opts
+                           graph=graph, mesh=mesh), opts
 
 
 def step_state(torch, gen, disc, opts):
@@ -1493,6 +1522,35 @@ def restore_parity(torch, np):
             'graph_counts': counts}
 
 
+def profile_config(torch, profile, activity, fn, name, n_steps):
+    """A profile of ``n_steps`` calls of ``fn``: (its device kernels as
+    (device us, count, name), largest first; the wall us; K1-K4 a step
+    as the device ran them, a captured step's in its replays, which call
+    no wrapper; the table's counts for the configuration; K1-K4 a step
+    as the wrappers counted their launches over the same steps)."""
+    wrappers = kernel_wrappers()
+    before = [w.launches for w in wrappers]
+    with profile(activities=[activity.CPU, activity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device kernels are the entries with no CPU time of their own (an
+    # operator's entry repeats its kernels' device time)
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and e.self_cpu_time_total == 0), reverse=True)
+    form, frozen = TRAIN_CONFIGS[name][:2]
+    want = (FT_STEP if frozen else STEP)[form]
+    ported = [sum(n for _, n, key in rows
+                  if all(part in key for part in parts)) / n_steps
+              for parts in PROFILE_NAMES]
+    launched = [(w.launches - n) / n_steps for w, n in zip(wrappers, before)]
+    return rows, wall_us, ported, want, launched
+
+
 def throughput_phase(torch, np, card):
     """img/s of the bf16 train step on a device-resident batch in each of
     ``TRAIN_CONFIGS``: the full step at batch 16, plain and s2d form, the
@@ -1576,29 +1634,16 @@ def throughput_phase(torch, np, card):
               f'{r["own_peak_memory_bytes"] / 2**30:.3f} GiB) on {card}',
               flush=True)
         n_steps = 3 if every_k == 1 else 4
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        # device kernels are the entries with no CPU time of their own (an
-        # operator's entry repeats its kernels' device time)
-        rows = sorted(((e.self_device_time_total, e.count, e.key)
-                       for e in prof.key_averages()
-                       if e.self_device_time_total > 0
-                       and e.self_cpu_time_total == 0), reverse=True)
+        captured = TRAIN_CONFIGS[name][4]
+        rows, wall_us, ported, want, launched = profile_config(
+            torch, profile, ProfilerActivity, fn, name, n_steps)
+        if not captured and launched != want:
+            raise AssertionError(f'{name}: the wrappers launched {launched} '
+                                 f'of the port\'s kernels a step, expected '
+                                 f'{want}')
         busy = sum(row[0] for row in rows)
         ours = sum(row[0] for row in rows if 'pgt::' in row[2])
         n_kernels = sum(row[1] for row in rows) / n_steps
-        # K1-K4 a step as the device ran them (a captured step's in its
-        # replays, which call no wrapper), against the table
-        form, frozen = TRAIN_CONFIGS[name][:2]
-        want = (FT_STEP if frozen else STEP)[form]
-        ported = [sum(n for _, n, key in rows
-                      if all(part in key for part in parts)) / n_steps
-                  for parts in PROFILE_NAMES]
         print(f'  profile of {n_steps} steps, {name}: wall '
               f'{wall_us / n_steps / 1e3:.3f} ms/step, kernels '
               f'{busy / n_steps / 1e3:.3f} ms/step (device busy '
@@ -1614,10 +1659,20 @@ def throughput_phase(torch, np, card):
                 print(f'    {dev / n_steps / 1e3:8.3f} ms/step '
                       f'{n / n_steps:7.1f}/step  {key[:90]}')
         print(f'  K1 / K2 / K3 / K1-bwd / K4 / K4-wgrad a step on the device: '
-              f'{ported} (expected {want})', flush=True)
-        if ported != want:
+              f'{ported} (expected {want}; the wrappers launched '
+              f'{"none: replays" if captured else launched})', flush=True)
+        # the tracer now and then loses a run of records (a step's first
+        # few kernels): an eager step's trace may count fewer than the
+        # table, never more, where its wrappers launched exactly the
+        # table's counts over the same steps. A captured step's replays
+        # call no wrapper, so its trace must count them all
+        lost = not captured and all(p <= w for p, w in zip(ported, want))
+        if ported != want and not lost:
             raise AssertionError(f'{name}: the device ran {ported} of the '
                                  f'port\'s kernels a step, expected {want}')
+        if ported != want:
+            print(f'  {name}: the trace lost records of kernels the '
+                  f'wrappers launched', flush=True)
         # the busy share is the profiled window's; the profiler slows the
         # host's side of a step, so the profiled kernel ms over the
         # unprofiled step's ms is read beside it (two windows: it can
@@ -1628,7 +1683,8 @@ def throughput_phase(torch, np, card):
                  profile_busy_share=busy / wall_us,
                  kernel_ms_over_step=busy / n_steps / 1e3 / r['ms_per_step'],
                  profile_kernels_per_step=n_kernels,
-                 profile_ported_kernels_per_step=ported)
+                 profile_ported_kernels_per_step=ported,
+                 profile_trace_lost=ported != want)
     for form in ('off', 'on'):
         full, frozen = (out[form]['profile_kernels_per_step'],
                         out[f'frozen {form}']['profile_kernels_per_step'])
@@ -2684,11 +2740,39 @@ def loader_rate_phase(torch, tmp, card):
     return medians, rates
 
 
+def process_tree(pid):
+    """``pid`` and its descendants, from /proc: a launcher's workers may
+    sit in sessions of their own, out of reach of its process group."""
+    children = {}
+    for entry in os.listdir('/proc'):
+        if entry.isdigit():
+            try:
+                with open(f'/proc/{entry}/stat') as f:
+                    ppid = int(f.read().rsplit(')', 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                continue
+            children.setdefault(ppid, []).append(int(entry))
+    tree, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        tree.append(p)
+        todo += children.get(p, [])
+    return tree
+
+
+def signal_tree(pids, sig):
+    for p in pids:
+        try:
+            os.kill(p, sig)
+        except ProcessLookupError:
+            pass
+
+
 def kill_at(cmd, cwd, env, meta_path, target, log, timeout=300):
-    """Run ``cmd`` and SIGKILL it once ``meta_path`` (the rolling
-    metadata) shows (epoch, batches_done) == ``target``: SIGSTOP first,
-    then the metadata read again, then SIGKILL. Returns the metadata it
-    was killed at."""
+    """Run ``cmd`` and SIGKILL it and every process it started once
+    ``meta_path`` (the rolling metadata) shows (epoch, batches_done) ==
+    ``target``: SIGSTOP first, then the metadata read again, then
+    SIGKILL. Returns the metadata it was killed at."""
     import signal
     proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=log,
                             stderr=subprocess.STDOUT)
@@ -2704,17 +2788,18 @@ def kill_at(cmd, cwd, env, meta_path, target, log, timeout=300):
             except (OSError, ValueError):
                 meta = None
             if meta and (meta['epoch'], meta['batches_done']) == target:
-                os.kill(proc.pid, signal.SIGSTOP)
+                tree = process_tree(proc.pid)
+                signal_tree(tree, signal.SIGSTOP)
                 with open(meta_path) as f:
                     meta = json.load(f)
-                os.kill(proc.pid, signal.SIGKILL)
+                signal_tree(tree, signal.SIGKILL)
                 proc.wait()
                 return meta
             time.sleep(0.005)
         raise AssertionError(f'{cmd} did not reach {target} in {timeout} s')
     finally:
         if proc.poll() is None:
-            proc.kill()
+            signal_tree(process_tree(proc.pid), signal.SIGKILL)
             proc.wait()
 
 
@@ -2953,6 +3038,633 @@ def pipeline_phase(torch, np, wrappers, card, step_img_s, tmp):
     return launches, out
 
 
+# phase 14: data parallelism (BASELINE.json config 5)
+DP_STEPS = 3            # steps of each parity run
+DP_WINDOWS, DP_WINDOW_S = 3, 1.5   # img/s windows per configuration
+DP_JOIN_S = 600         # a spawned rank that has not ended by then hung
+# 14b: the most weights that may fall outside rtol 5e-3 / atol 2e-4 of
+# one process's after DP_STEPS steps: five times the sound reading on
+# the H100 (34 of 44,600,385)
+DP_WEIGHTS_LOOSE = 170
+DP_SCALE_STEPS = 50     # steps of each of 14d's windows: a count, not a
+#                         time, so that every rank runs as many collectives
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def kernel_wrappers():
+    """The six kernel wrappers in the order of ``main``'s table."""
+    from patchgan_tpu_torch.ops.kernels import (
+        conv_norm_act, convt_norm_act, instance_norm_act,
+        instance_norm_act_backward, thin_conv3x3, thin_conv3x3_wgrad)
+    return [instance_norm_act, conv_norm_act, convt_norm_act,
+            instance_norm_act_backward, thin_conv3x3, thin_conv3x3_wgrad]
+
+
+class FlipPairs:
+    """Seeded 256-px uint8 images with 7-label labelmaps and
+    'randomcrop+flip': the loader normalises, one-hots and flips them on
+    the card (phase 14b)."""
+    augmentation = 'randomcrop+flip'
+    labels = list(range(1, OUT_C + 1))
+
+    def __init__(self, n, seed=21):
+        import numpy as np
+        rng = np.random.default_rng(seed)
+        self.images = rng.integers(0, 256, (n, SIZE, SIZE, IN_C), np.uint8)
+        self.maps = rng.integers(1, OUT_C + 1, (n, SIZE, SIZE)).astype(
+            np.int64)
+
+    def __len__(self):
+        return len(self.images)
+
+    def load_raw(self, index):
+        return self.images[index], self.maps[index]
+
+
+def params_digest(modules):
+    import hashlib
+    h = hashlib.sha256()
+    for m in modules:
+        for p in m.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def kernel_rows(prof, n_steps):
+    """(device ms, launches, name) a step of each device kernel in a
+    profile, largest first: the entries with no CPU time of their own."""
+    return sorted(((e.self_device_time_total / n_steps / 1e3,
+                    e.count / n_steps, e.key)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and e.self_cpu_time_total == 0), reverse=True)
+
+
+def profile_steps(torch, fn, n_steps=3):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            fn()
+        torch.cuda.synchronize()
+    return kernel_rows(prof, n_steps)
+
+
+def rates_in_turns(torch, fns, batch, card):
+    """img/s of each of ``fns`` (name -> one step on ``batch`` images), in
+    turns, ``DP_WINDOWS`` windows of at least ``DP_WINDOW_S`` s; the host
+    ms a step beside them; (medians, readings)."""
+    readings = {name: [] for name in fns}
+    host = {name: [] for name in fns}
+    names = list(fns)
+    for i in range(DP_WINDOWS):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            count, spent, t0 = 0, 0.0, time.perf_counter()
+            while time.perf_counter() - t0 < DP_WINDOW_S:
+                for _ in range(5):
+                    t1 = time.perf_counter()
+                    fns[name]()
+                    spent += time.perf_counter() - t1
+                torch.cuda.synchronize()
+                count += 5
+            dt = time.perf_counter() - t0
+            readings[name].append(batch * count / dt)
+            host[name].append(1e3 * spent / count)
+    med = {name: {'img_per_s': statistics.median(readings[name]),
+                  'host_ms_per_step': statistics.median(host[name])}
+           for name in fns}
+    for name in fns:
+        print(f'  {name}: img/s {[round(r, 3) for r in readings[name]]} '
+              f'(median {med[name]["img_per_s"]:.3f}), host '
+              f'{med[name]["host_ms_per_step"]:.3f} ms a step on {card}',
+              flush=True)
+    return med, readings
+
+
+def dropout_draw_ms(torch, gen, world=2):
+    """Device ms of one step's dropout draws at batch TRAIN_B / world a
+    rank: drawn for the rank's rows alone, and for the global batch
+    with the rank keeping its rows (what a rank of ``world`` draws); the
+    shapes from one training forward."""
+    from patchgan_tpu_torch.models import blocks
+    from patchgan_tpu_torch.parallel import DataMesh
+    shapes, draw = [], blocks.dropout
+
+    def record(x, generator, mesh=None):
+        shapes.append(tuple(x.shape))
+        return draw(x, generator, mesh)
+
+    blocks.dropout = record
+    try:
+        with torch.no_grad():
+            gen.train()
+            gen(torch.zeros((TRAIN_B // world, IN_C, SIZE, SIZE),
+                            device='cuda'))
+    finally:
+        blocks.dropout = draw
+    mesh = object.__new__(DataMesh)   # rank 0 of ``world``: its rows only
+    mesh.rank, mesh.size = 0, world
+    xs = [torch.zeros(s, device='cuda', dtype=torch.bfloat16) for s in shapes]
+    out = {}
+    for name, m in (('own rows', None), ('global batch', mesh)):
+        # the card's time alone (a graph's replay; the default generator,
+        # which a capture takes without registering it)
+        out[name] = device_ms(lambda: [draw(x, None, m) for x in xs])
+    return out, len(shapes)
+
+
+def dp_world1_phase(torch, np, wrappers, card):
+    """14a: NCCL at world size 1, in this process: DP_STEPS captured DP
+    steps (the eager first, the capture, a replay) against as many
+    captured single-process steps from the same state, bf16, batch 16,
+    dropout on, deterministic cuDNN: every loss and every tensor the
+    step changes bit-equal. The DP run's launches (the counts set to 0
+    just before it). Then img/s and host ms of both in turns, the device
+    kernels of a replay (NCCL's among them), and the dropout draws' ms
+    at a rank's batch of 8, for the rank's rows and for the global
+    batch."""
+    import torch.distributed as dist
+    from patchgan_tpu_torch.parallel import DataMesh
+    bf16 = torch.bfloat16
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:'
+                            f'{free_port()}', rank=0, world_size=1,
+                            device_id=torch.device('cuda', 0))
+    mesh = None
+    try:
+        mesh = DataMesh('cuda:0')
+        batches = [tuple(t.to(bf16) for t in train_batch(
+            torch, np, TRAIN_B, SIZE, 'cuda', 70 + i))
+            for i in range(DP_STEPS)]
+        runs = {}
+        with cudnn_flags_kept(torch):
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+            for name, m in (('single', None), ('dp', mesh)):
+                gen, disc = train_models(torch)
+                step, opts = config_step(torch, gen, disc, 'off', False, 1,
+                                         True, mesh=m)
+                for w in wrappers:
+                    w.launches = 0
+                losses = [step(*b) for b in batches]
+                torch.cuda.synchronize()
+                launches = [w.launches for w in wrappers]
+                runs[name] = dict(
+                    step=step, gen=gen, launches=launches,
+                    losses=[torch.stack(list(l.values())).cpu()
+                            for l in losses],
+                    state=step_state(torch, gen, disc, opts),
+                    counts=(step.eager_steps, step.captures, step.replays))
+        one, dp = runs['single'], runs['dp']
+        same_losses = all(torch.equal(a, b)
+                          for a, b in zip(one['losses'], dp['losses']))
+        same = [torch.equal(a, b)
+                for a, b in zip(one['state'][0], dp['state'][0])]
+        want = [2 * n for n in STEP['off']]
+        print(f'  {mesh}: {DP_STEPS} captured DP steps against the '
+              f'single-process captured step: losses equal {same_losses}, '
+              f'tensors equal {sum(same)} of {len(same)}, counters '
+              f'{dp["state"][1]} ({one["state"][1]}); eager steps / '
+              f'captures / replays {dp["counts"]}; launches {dp["launches"]} '
+              f'(the eager step and the capture: {want})', flush=True)
+        if not (same_losses and all(same)) or \
+                dp['state'][1] != one['state'][1] or \
+                dp['counts'] != (1, 1, DP_STEPS - 1) or \
+                dp['launches'] != want:
+            raise AssertionError('14a: the DP step at world size 1 differs '
+                                 'from the single-process step')
+        x, y = batches[0]
+        fns = {name: (lambda r=r: r['step'](x, y))
+               for name, r in (('single captured', one),
+                               ('dp world 1 captured', dp))}
+        med, readings = rates_in_turns(torch, fns, TRAIN_B, card)
+        kernels = {}
+        for name, fn in fns.items():
+            rows = profile_steps(torch, fn)
+            nccl = [r for r in rows if 'nccl' in r[2].lower()]
+            kernels[name] = {
+                'device_kernels_per_step': sum(r[1] for r in rows),
+                'busy_ms_per_step': sum(r[0] for r in rows),
+                'nccl_kernels_per_step': sum(r[1] for r in nccl),
+                'nccl_ms_per_step': sum(r[0] for r in nccl),
+                'nccl_names': sorted({r[2][:60] for r in nccl})}
+            print(f'  {name}: {kernels[name]}', flush=True)
+        draws, n_draws = dropout_draw_ms(torch, one['gen'])
+        print(f'  dropout draws of one step ({n_draws} levels) at a rank\'s '
+              f'batch of {TRAIN_B // 2}: {draws["own rows"]:.4f} ms for its '
+              f'rows, {draws["global batch"]:.4f} ms for the global batch of '
+              f'{TRAIN_B} on {card}', flush=True)
+        del runs, one, dp, fns
+    finally:
+        if mesh is not None:
+            mesh.release_graphs()
+        dist.destroy_process_group()
+    return launches, {'bit_equal': True, 'graph_counts': (1, 1, DP_STEPS - 1),
+                      'rates': med, 'readings': readings,
+                      'kernels': kernels, 'dropout_draw_ms': draws}
+
+
+def dp_gloo_run(torch, np, mesh, activation='tanh'):
+    """DP_STEPS fp32 eager steps at config 2's widths from fixed seeds on
+    the batches of a loader with flips (global batch 16: this rank's
+    rows with a ``mesh``), dropout on, tanh: the activation of the JAX
+    DP test whose limits 14b takes (with relu, rounding alone moves the
+    weights past them: ``tools/dp_rounding.py``). Returns (each step's
+    losses, each step's parameter digest, generator, discriminator, the
+    gradients G's and D's optimizers were handed at the first step, on
+    the host)."""
+    from patchgan_tpu_torch.data import DataLoader
+    from patchgan_tpu_torch.models import Discriminator, UNet
+    from patchgan_tpu_torch.train.steps import make_optimizer, \
+        make_train_step
+    init = torch.Generator().manual_seed(9)
+    gen = UNet(IN_C, OUT_C, nf=NF, use_dropout=True, activation=activation,
+               final_act='softmax', generator=init).cuda()
+    disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3,
+                         generator=init).cuda()
+    gen.dropout_generator = torch.Generator(device='cuda').manual_seed(1)
+    opts = [make_optimizer(m.parameters(), LR) for m in (gen, disc)]
+    grads = []
+    for opt in opts:
+        def record(gs, update=opt.update):
+            if len(grads) < 2:
+                grads.append([g.detach().cpu() for g in gs])
+            return update(gs)
+        opt.update = record
+    step = make_train_step(gen, disc, *opts, mesh=mesh)
+    slicing = {} if mesh is None else dict(process_index=mesh.rank,
+                                           process_count=mesh.size)
+    loader = DataLoader(FlipPairs(DP_STEPS * TRAIN_B), batch_size=TRAIN_B,
+                        num_workers=0, device='cuda', seed=5, **slicing)
+    losses, digests = [], []
+    for x, y in loader:
+        losses.append({k: float(v) for k, v in step(x, y).items()})
+        digests.append(params_digest((gen, disc)))
+    return losses, digests, gen, disc, grads
+
+
+def dp_gloo_child():
+    """``python -c 'import chip_smoke; chip_smoke.dp_gloo_child()' RANK
+    PORT OUT``: one of 14b's two gloo ranks on card 0; writes
+    OUT/rank_RANK.json (losses and digests of each step, its launches,
+    the ms of the gloo all-reduce of the gradient bucket) and, rank 0,
+    OUT/state.pt (its final weights)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from patchgan_tpu_torch.parallel import DataMesh
+    rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
+                            rank=rank, world_size=2)
+    mesh = DataMesh('cuda:0')
+    wrappers = kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    losses, digests, gen, disc, grads = dp_gloo_run(torch, np, mesh)
+    torch.cuda.synchronize()
+    launches = [w.launches for w in wrappers]
+    bucket = [torch.ones_like(p) for m in (gen, disc) for p in m.parameters()]
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.sum_(bucket)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if rank == 0:
+        torch.save({'generator': gen.state_dict(),
+                    'discriminator': disc.state_dict(), 'grads': grads},
+                   os.path.join(out, 'state.pt'))
+    with open(os.path.join(out, f'rank_{rank}.json'), 'w') as f:
+        json.dump({'losses': losses, 'digests': digests,
+                   'launches': launches, 'allreduce_ms': ms,
+                   'bucket_values': sum(b.numel() for b in bucket)}, f)
+    dist.destroy_process_group()
+
+
+def run_ranks(cmds, tmp, name, timeout=DP_JOIN_S):
+    """Start the commands at once, wait for each (``timeout`` s), kill
+    what is left; raise with the log's tail unless every one exits 0."""
+    path = os.environ.get('PYTHONPATH')
+    env = dict(os.environ, PYTHONPATH=ROOT + (os.pathsep + path if path
+                                              else ''))
+    log_path = os.path.join(tmp, f'{name}.log')
+    with open(log_path, 'w') as log:
+        procs = [subprocess.Popen(c, cwd=tmp, env=env, stdout=log,
+                                  stderr=subprocess.STDOUT) for c in cmds]
+        try:
+            rcs = [p.wait(timeout=timeout) for p in procs]
+        except subprocess.TimeoutExpired:
+            rcs = None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    with open(log_path) as f:
+        text = f.read()
+    if rcs is None or any(rcs):
+        print(text[-4000:])
+        raise AssertionError(f'{name}: exit codes {rcs}')
+    return text
+
+
+def dp_gloo_phase(torch, np, card, tmp):
+    """14b: two gloo ranks sharing card 0, fp32, eager, flips and dropout
+    on, DP_STEPS steps of config 2's widths (tanh) at a global batch of
+    16: the two ranks' losses and weights bit-equal after every step; one
+    process on the whole batch on the same card, the same seeds: losses
+    within rtol 2e-4 / atol 1e-5 (JAX ``tests/test_distributed.py:53-55``),
+    the first update's summed gradients within 1e-3 of each tensor's max
+    |g| (phase 7's gradient limit), and the weights within Adam's
+    sign-flip bound around the JAX test's limits (``:57-64``): at most
+    DP_WEIGHTS_LOOSE of them outside rtol 5e-3 / atol 2e-4 and every one
+    within 2.5 lr, as ``tests/test_train_step_parity.py:111-128`` holds an Adam
+    update (an element whose gradient is at rounding level can flip the
+    sign of an Adam step; one process against itself with only cuDNN's
+    algorithms changed flips some too: ``tools/dp_rounding.py``); each
+    rank's launches against ``STEP`` at batch 8; the gloo all-reduce of
+    the gradient bucket."""
+    out_dir = os.path.join(tmp, 'dp_gloo')
+    os.makedirs(out_dir)
+    port = free_port()
+    t0 = time.perf_counter()
+    run_ranks([[sys.executable, '-c',
+                'import chip_smoke; chip_smoke.dp_gloo_child()', str(rank),
+                str(port), out_dir] for rank in range(2)], tmp, 'dp_gloo',
+              timeout=300)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(out_dir, f'rank_{rank}.json')) as f:
+            ranks.append(json.load(f))
+    equal = [a == b for a, b in zip(ranks[0]['digests'], ranks[1]['digests'])]
+    equal_losses = ranks[0]['losses'] == ranks[1]['losses']
+    with cudnn_flags_kept(torch):
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        losses, _, gen, disc, grads = dp_gloo_run(torch, np, None)
+    worst = {}
+    for i, (want, got) in enumerate(zip(losses, ranks[0]['losses'])):
+        for k in want:
+            err = abs(got[k] - want[k]) - 2e-4 * abs(want[k])
+            worst[f'{k}@{i + 1}'] = err
+    state = torch.load(os.path.join(out_dir, 'state.pt'), weights_only=True)
+    grad_err = max(float((a - b).abs().max()) / float(b.abs().max())
+                   for got, want in zip(state['grads'], grads)
+                   for a, b in zip(got, want))
+    loose, total, max_diff = 0, 0, 0.0
+    for name, module in (('generator', gen), ('discriminator', disc)):
+        for k, want in module.state_dict().items():
+            got = state[name][k].cuda()
+            diff = (got - want).abs()
+            loose += int((diff > 2e-4 + 5e-3 * want.abs()).sum())
+            total += want.numel()
+            max_diff = max(max_diff, float(diff.max()))
+    launches = [r['launches'] for r in ranks]
+    want_launches = [DP_STEPS * n for n in STEP['off']]
+    ms = statistics.median(ranks[0]['allreduce_ms'])
+    mb = 4 * ranks[0]['bucket_values'] / 1e6
+    print(f'  two gloo ranks on one card ({wall:.1f} s): weights bit-equal '
+          f'after each step {equal}, losses equal {equal_losses}; against '
+          f'one process on the whole batch: worst loss excess over rtol '
+          f'2e-4 {max(worst.values()):.3e} (atol 1e-5), the first update\'s '
+          f'gradients within {grad_err:.3e} of each tensor\'s max |g| (limit '
+          f'1e-3), weights outside rtol 5e-3 / atol 2e-4: {loose} of {total} '
+          f'(at most {DP_WEIGHTS_LOOSE}; max |diff| {max_diff:.3e}, limit '
+          f'2.5 lr); '
+          f'launches a rank {launches} (expected '
+          f'{want_launches}); the gloo all-reduce of the {mb:.1f} MB '
+          f'bucket {[round(m, 3) for m in ranks[0]["allreduce_ms"]]} ms '
+          f'on {card}', flush=True)
+    if not (all(equal) and equal_losses) or max(worst.values()) > 1e-5 or \
+            grad_err > 1e-3 or loose > DP_WEIGHTS_LOOSE or max_diff > 2.5 * LR \
+            or any(l != want_launches for l in launches):
+        raise AssertionError('14b: the gloo ranks disagree with each other '
+                             'or with one process')
+    return launches[0], {'ranks_bit_equal': True, 'loss_excess':
+                         max(worst.values()), 'grad_err': grad_err,
+                         'weights_loose': loose,
+                         'weights_max_abs_diff': max_diff,
+                         'launches_per_rank': launches,
+                         'gloo_allreduce_ms': ms, 'bucket_mb': mb,
+                         'wall_s': wall}
+
+
+def dp_torchrun_phase(torch, np, tmp, card):
+    """14c: ``patchgan_train -d cuda --deterministic`` under ``python -m
+    torch.distributed.run --nproc_per_node K`` (K = min(cards, 4)) at
+    config 2 on the first RESUME_N of phase 13's JPEGs, two epochs: one
+    set of epoch files, which a single-process Trainer loads; a run with
+    save_every_steps 1 killed (every process of it) once its rolling
+    metadata shows epoch 2 with 1 batch done and resumed ends bit-equal
+    to the uninterrupted run. Each rank prints its Trainer's graph
+    counts."""
+    k = min(torch.cuda.device_count(), 4)
+
+    def cmd(cfg):
+        return [sys.executable, '-m', 'torch.distributed.run', '--nnodes',
+                '1', '--nproc_per_node', str(k), '--master_addr',
+                '127.0.0.1', '--master_port', str(free_port()),
+                os.path.join(ROOT, 'chip_smoke.py'), '--train-child', '-c',
+                cfg, '-d', 'cuda', '--no-summary', '-n', '2', '-b',
+                str(TRAIN_B), '--deterministic']
+
+    path = os.environ.get('PYTHONPATH')
+    env = dict(os.environ, PYTHONPATH=ROOT + (os.pathsep + path if path
+                                              else ''))
+    whole = pipeline_config(tmp, 'dp_whole', train='resume')
+    cut = pipeline_config(tmp, 'dp_cut', train='resume', save_every_steps=1)
+    ck_whole, ck_cut = (os.path.join(tmp, f'ck_{n}')
+                        for n in ('dp_whole', 'dp_cut'))
+    log_path = os.path.join(tmp, 'dp_torchrun.log')
+    t0 = time.perf_counter()
+    with open(log_path, 'w') as log:
+        control = subprocess.Popen(cmd(whole), cwd=tmp, env=env, stdout=log,
+                                   stderr=subprocess.STDOUT)
+        try:
+            meta = kill_at(cmd(cut), tmp, env, os.path.join(
+                ck_cut, 'step_state_torch.json'), (2, 1), log)
+            with open(cut, 'a') as f:
+                f.write('load_last_checkpoint: true\n')
+            rc = subprocess.run(cmd(cut), cwd=tmp, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                timeout=DP_JOIN_S).returncode
+            rc_control = control.wait(timeout=DP_JOIN_S)
+        finally:
+            if control.poll() is None:
+                control.kill()
+                control.wait()
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    counts = re.findall(r'graph counts (\(\d+, \d+, \d+\))', text)
+    per_run = 2 * (RESUME_N // TRAIN_B)
+    files = sorted(os.listdir(ck_whole))
+    want_files = [f'{m}_ep_{e:03d}.npz' for m in ('discriminator',
+                                                  'generator')
+                  for e in (1, 2)]
+    same, diff = weights_diff(np, ck_whole, ck_cut, 2)
+    from patchgan_tpu_torch.models import Discriminator, UNet
+    from patchgan_tpu_torch.train import Trainer
+    loaded = Trainer(UNet(IN_C, OUT_C, nf=NF), Discriminator(
+        IN_C + OUT_C, ndf=NDF, n_layers=3), ck_whole, device='cpu')
+    loaded.load_last_checkpoint()
+    print(f'  torchrun --nproc_per_node {k}: files {files}; a '
+          f'single-process Trainer loads them at epoch {loaded.start}; cut '
+          f'at {(meta["epoch"], meta["batches_done"])}, resumed: epoch-2 '
+          f'weights equal bits {same} (max |diff| {diff:.3e}); graph counts '
+          f'of the ranks that ended {counts}; the three runs took '
+          f'{wall:.1f} s on {card}', flush=True)
+    if rc or rc_control or files != want_files or loaded.start != 3 or \
+            not same or counts.count(f'(1, 1, {per_run - 1})') != k or \
+            'Found mid-epoch checkpoint: epoch 2, 1 batches done' not in text:
+        print(text[-4000:])
+        raise AssertionError(f'14c: rc {rc} / {rc_control}, files {files}, '
+                             f'start {loaded.start}, equal {same}, counts '
+                             f'{counts}')
+    for ck in (ck_whole, ck_cut):
+        shutil.rmtree(ck)
+    return {'ranks': k, 'files': files, 'resumed_equal_bits': same,
+            'graph_counts': counts, 'wall_s': wall}
+
+
+def dp_scale_child():
+    """``python -c 'import chip_smoke; chip_smoke.dp_scale_child()' RANK
+    WORLD PORT OUT``: one NCCL rank on card RANK of 14d: the captured bf16
+    DP step at config 2 (global batch 16), its img/s in windows of
+    DP_SCALE_STEPS steps, and the captured all-reduce of the gradient
+    bucket alone (CUDA events over 20 replays); rank 0 writes
+    OUT/world_WORLD.json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from patchgan_tpu_torch.cli.aot import allreduce_bound
+    from patchgan_tpu_torch.parallel import DataMesh, shutdown
+    rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
+                              int(sys.argv[3]), sys.argv[4])
+    device = torch.device('cuda', rank)
+
+    def stage(text):
+        # the log shows where a rank that hangs stopped
+        print(f'  rank {rank} of {world}: {text}', flush=True)
+
+    torch.cuda.set_device(device)
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:{port}',
+                            rank=rank, world_size=world, device_id=device)
+    mesh = DataMesh(device)
+    stage('the group formed')
+    mesh.barrier()
+    stage('a barrier passed')
+    gen, disc = train_models(torch)
+    step, opts = config_step(torch, gen, disc, 'off', False, 1, True,
+                             mesh=mesh)
+    x, y = (t.to(torch.bfloat16) for t in mesh.local_rows(train_batch(
+        torch, np, TRAIN_B, SIZE, 'cuda', 8)))
+    for i in range(3):
+        step(x, y)
+        torch.cuda.synchronize()
+        stage(f'step {i + 1} (eager, capture, replay) done')
+    rates = []
+    for i in range(DP_WINDOWS):
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(DP_SCALE_STEPS):
+            step(x, y)
+        torch.cuda.synchronize()
+        rates.append(TRAIN_B * DP_SCALE_STEPS / (time.perf_counter() - t0)
+                     / world)
+        stage(f'window {i + 1} done')
+    bucket = [torch.zeros_like(p) for m in (gen, disc)
+              for p in m.parameters()]
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        mesh.sum_(bucket)
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph, capture_error_mode='thread_local'):
+        mesh.sum_(bucket)
+    ms = cuda_ms(graph.replay, iters=20)
+    stage('the bucket\'s captured all-reduce timed')
+    if rank == 0:
+        with open(os.path.join(out, f'world_{world}.json'), 'w') as f:
+            json.dump({'img_per_s_per_card': rates, 'allreduce_ms': ms,
+                       'bound': allreduce_bound(opts, world),
+                       'replays': step.replays}, f)
+    # NCCL's teardown waits for the graphs that hold its work
+    graph.reset()
+    shutdown(mesh)
+    stage('the group destroyed')
+
+
+def dp_scale_phase(torch, tmp, card):
+    """14d, where the machine has two or more cards: the captured bf16 DP
+    step at config 2 over 1, 2 and (where there are 4) 4 cards, world 1
+    again after them; img/s per card and the captured all-reduce's ms
+    against aot's NVLink bound."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f'  14d not run: this machine has {n} card; NCCL refuses two '
+              f'ranks on one device, so scaling over cards needs two or '
+              f'more', flush=True)
+        return {'run': False, 'cards': n}
+    out_dir = os.path.join(tmp, 'dp_scale')
+    os.makedirs(out_dir)
+    worlds = [1, 2] + ([4] if n >= 4 else []) + [1]
+    rows = []
+    for world in worlds:
+        port = free_port()
+        run_ranks([[sys.executable, '-c',
+                    'import chip_smoke; chip_smoke.dp_scale_child()',
+                    str(rank), str(world), str(port), out_dir]
+                   for rank in range(world)], tmp, f'dp_scale_{world}',
+                  timeout=120)
+        with open(os.path.join(out_dir, f'world_{world}.json')) as f:
+            r = json.load(f)
+        r['world'] = world
+        rows.append(r)
+        print(f'  world {world}: img/s per card '
+              f'{[round(v, 3) for v in r["img_per_s_per_card"]]}, the '
+              f'captured all-reduce of {r["bound"]["bucket_bytes"] / 1e6:.1f}'
+              f' MB {r["allreduce_ms"]:.4f} ms (NVLink ring bound '
+              f'{r["bound"]["nvlink_bound_ms"]:.4f} ms) on {card}',
+              flush=True)
+    return {'run': True, 'cards': n, 'worlds': rows}
+
+
+def dp_phase(torch, np, wrappers, card, tmp):
+    """Phase 14: data parallelism (see the module's docstring). Returns
+    (14a's launches, 14b's rank-0 launches, the summary)."""
+    out = {'card': card}
+    t0 = time.perf_counter()
+    print('  14a: NCCL at world size 1, in this process', flush=True)
+    launches_a, out['nccl_world_1'] = dp_world1_phase(torch, np, wrappers,
+                                                      card)
+    print('  14b: two gloo ranks sharing the card', flush=True)
+    launches_b, out['gloo_two_ranks'] = dp_gloo_phase(torch, np, card, tmp)
+    print('  14c: patchgan_train under torch.distributed.run', flush=True)
+    out['torchrun'] = dp_torchrun_phase(torch, np, tmp, card)
+    print('  14d: NCCL across cards', flush=True)
+    out['across_cards'] = dp_scale_phase(torch, tmp, card)
+    out['phase_wall_s'] = time.perf_counter() - t0
+    return launches_a, launches_b, out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3143,9 +3855,19 @@ def main():
         launches, pipeline = pipeline_phase(
             torch, np, wrappers, card, train['off graph']['img_per_s'], tmp)
         pipeline['phase_wall_s'] = time.perf_counter() - t13
-    paths['pipeline'] = dict(zip(names, launches))
-    print(json.dumps(pipeline))
-    print(f'phases 1-13: {time.perf_counter() - t_start:.3f} s', flush=True)
+        paths['pipeline'] = dict(zip(names, launches))
+        print(json.dumps(pipeline))
+        print(f'phases 1-13: {time.perf_counter() - t_start:.3f} s',
+              flush=True)
+        print('== data parallel (BASELINE.json config 5): NCCL at world '
+              'size 1 captured, two gloo ranks on the card, patchgan_train '
+              'under torch.distributed.run with a kill and resume, NCCL '
+              'across cards where there are several', flush=True)
+        launches_a, launches_b, dp = dp_phase(torch, np, wrappers, card, tmp)
+    paths['dp_nccl_world_1'] = dict(zip(names, launches_a))
+    paths['dp_gloo_rank_0'] = dict(zip(names, launches_b))
+    print(json.dumps({'data_parallel': dp}))
+    print(f'phases 1-14: {time.perf_counter() - t_start:.3f} s', flush=True)
 
     summary = []
     for k in kernels:
@@ -3177,4 +3899,9 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--train-child']:
+        # a rank of phase 14c, started by torch.distributed.run
+        del sys.argv[1]
+        train_child()
+        sys.exit(0)
     sys.exit(main())

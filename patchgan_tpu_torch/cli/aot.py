@@ -28,11 +28,18 @@ eager steps, the capture, one replay) and reports:
 The flags are the JAX CLI's (-c, --batch (global), --size, --dtype,
 --gen-filts, --disc-filts, --no-s2d), plus -d (``cuda``, the default,
 needs a card; ``cpu`` runs the same steps eagerly on the CPU and reports
-no memory). ``--dp`` / ``--tp`` above 1 raise NotImplementedError
-(ROADMAP.md, queue 1 item 11); ``--topology`` and ``--shadow`` are not
-taken (no detached topology, no shadow parameters). The form is the
-Trainer's: space-to-depth when ``PATCHGAN_S2D`` selects it and
-``--no-s2d`` is not given.
+no memory). ``--dp N`` pre-flights data-parallel training over N cards
+(``torchrun``, one process per card) on this one card: the step at the
+per-rank batch (``--batch`` / N, which must divide), its FLOPs, bound
+and peak memory per rank, the gradient bucket each step all-reduces
+(the generator's and the discriminator's fp32 gradients) and the ring
+all-reduce's lower bound, 2 (N - 1) / N of the bucket's bytes over
+NVLink's 450 GB/s each way (an H100 host's cards, all to all).
+``--tp`` above 1 raises NotImplementedError (ROADMAP.md, queue 1 item
+11c); ``--topology`` and ``--shadow`` are not taken (no detached
+topology, no shadow parameters). The form is the Trainer's:
+space-to-depth when ``PATCHGAN_S2D`` selects it and ``--no-s2d`` is not
+given.
 
 Prints human-readable lines, then ONE JSON line with the JAX CLI's keys
 (``topology`` null, ``shadow`` false).
@@ -45,6 +52,7 @@ import sys
 import torch
 
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}   # H100 SXM, dense
+NVLINK_BYTES = 450e9   # bytes/s each way between an H100 host's cards
 
 
 def _models(in_c, out_c, gen_cfg, disc_cfg, dtype, device, seed=0):
@@ -63,11 +71,12 @@ def _models(in_c, out_c, gen_cfg, disc_cfg, dtype, device, seed=0):
 
 
 def _step(gen, disc, mu_dtype, s2d, loss_kwargs, graph):
+    """(the train step, its G and D optimizers)."""
     from ..train.steps import make_optimizer, make_train_step
-    return make_train_step(
-        gen, disc, make_optimizer(gen.parameters(), mu_dtype=mu_dtype),
-        make_optimizer(disc.parameters(), mu_dtype=mu_dtype), s2d=s2d,
-        graph=graph, **loss_kwargs)
+    opts = (make_optimizer(gen.parameters(), mu_dtype=mu_dtype),
+            make_optimizer(disc.parameters(), mu_dtype=mu_dtype))
+    return make_train_step(gen, disc, *opts, s2d=s2d, graph=graph,
+                           **loss_kwargs), opts
 
 
 def _batch(n, in_c, out_c, size, dtype, device, seed=0):
@@ -88,7 +97,7 @@ def step_flops(in_c, out_c, size, gen_cfg, disc_cfg, s2d, loss_kwargs):
     from torch.utils.flop_counter import FlopCounterMode
     gen, disc = _models(in_c, out_c, gen_cfg, disc_cfg, torch.float32,
                         torch.device('cpu'))
-    step = _step(gen, disc, None, s2d, loss_kwargs, graph=False)
+    step, _ = _step(gen, disc, None, s2d, loss_kwargs, graph=False)
     x, y = _batch(1, in_c, out_c, size, torch.float32, torch.device('cpu'))
     conv = torch.ops.aten.convolution
     with FlopCounterMode(display=False) as counter:
@@ -136,7 +145,7 @@ def patchgan_aot(argv=None):
                         help='train YAML (dataset / model_params / '
                              'train_params); the flags below override it')
     parser.add_argument('--dp', type=int, default=None,
-                        help='data-parallel ways (only 1 is ported)')
+                        help='data-parallel ways: ranks, one card each')
     parser.add_argument('--tp', type=int, default=1,
                         help='tensor-parallel ways (only 1 is ported)')
     parser.add_argument('--batch', type=int, default=16,
@@ -154,10 +163,15 @@ def patchgan_aot(argv=None):
                         help="'cuda' (the card; raises without one) or "
                              "'cpu' (eager, no memory report)")
     args = parser.parse_args(argv)
-    if (args.dp or 1) > 1 or args.tp > 1:
+    if args.tp > 1:
         raise NotImplementedError(
-            "--dp / --tp above 1: the parallel modes are not ported yet "
-            "(ROADMAP.md, queue 1 item 11)")
+            "--tp above 1: dp x tp sharding is not ported yet "
+            "(ROADMAP.md, queue 1 item 11c)")
+    dp = args.dp or 1
+    if dp < 1 or args.batch % dp:
+        raise ValueError(f"--batch {args.batch} (the global batch) does "
+                         f"not divide across --dp {dp} ranks")
+    batch = args.batch // dp
 
     from ..ops.s2d import s2d_enabled
     from .common import compute_dtype, select_device
@@ -168,13 +182,13 @@ def patchgan_aot(argv=None):
     on_card = device.type == 'cuda'
     kind = torch.cuda.get_device_name(device) if on_card else 'cpu'
     result = {'metric': 'aot_compile', 'topology': None,
-              'device_kind': kind, 'devices': 1,
-              'mesh': {'data': 1, 'model': 1}, 'batch': args.batch,
+              'device_kind': kind, 'devices': dp,
+              'mesh': {'data': dp, 'model': 1}, 'batch': args.batch,
               'size': size, 'dtype': args.dtype, 's2d': s2d,
               'shadow': False, 'gen_filts': gen_cfg['filters'],
               'disc_filts': disc_cfg['filters']}
 
-    flops, recompute = (f * args.batch for f in step_flops(
+    flops, recompute = (f * batch for f in step_flops(
         in_c, out_c, size, gen_cfg, disc_cfg, s2d, loss_kwargs))
     opt_s = flops / PEAK_FLOPS[args.dtype]
     cost = {'flops_per_device': flops, 'hbm_bytes_per_device': None,
@@ -189,9 +203,9 @@ def patchgan_aot(argv=None):
     mu_dtype = torch.bfloat16 if dtype == torch.bfloat16 else None
     try:
         gen, disc = _models(in_c, out_c, gen_cfg, disc_cfg, dtype, device)
-        step = _step(gen, disc, mu_dtype, s2d, loss_kwargs,
-                     graph=on_card)
-        x, y = _batch(args.batch, in_c, out_c, size, dtype, device)
+        step, opts = _step(gen, disc, mu_dtype, s2d, loss_kwargs,
+                           graph=on_card)
+        x, y = _batch(batch, in_c, out_c, size, dtype, device)
         if on_card:
             # the peak from here on: what the models, the optimizers, the
             # batch and the step hold
@@ -202,7 +216,7 @@ def patchgan_aot(argv=None):
         for _ in range(step.warmup if on_card else 1):
             step(x, y)
     except torch.cuda.OutOfMemoryError as e:
-        gen = disc = step = x = y = None
+        gen = disc = step = opts = x = y = None
         torch.cuda.empty_cache()
         result.update(compile_ok=None, cost=cost, error=str(e)[:400])
         result['memory_per_device'] = {
@@ -233,24 +247,49 @@ def patchgan_aot(argv=None):
         'peak_bytes': peak, 'hbm_capacity_bytes': capacity,
         'fits': peak < capacity if on_card else None}
     _report(result, args, 'captured and replayed' if on_card
-            else 'eager on the CPU (no capture)', recompute)
+            else 'eager on the CPU (no capture)', recompute,
+            allreduce_bound(opts, dp))
     return result
 
 
-def _report(result, args, status, recompute):
+def allreduce_bound(opts, ranks):
+    """The gradient bucket a data-parallel step sums over ``ranks`` (the
+    fp32 gradients of the parameters that ``opts``, the G and D
+    optimizers, hold: a frozen parameter takes none) and the ring
+    all-reduce's lower bound: each rank sends and receives 2 (N - 1) / N
+    of the bucket over NVLink."""
+    values = sum(p.numel() for opt in opts for p in opt.params)
+    ring = 2 * (ranks - 1) / ranks * 4 * values
+    return {'ranks': ranks, 'bucket_values': values,
+            'bucket_bytes': 4 * values, 'ring_bytes_per_rank': ring,
+            'nvlink_bound_ms': ring / NVLINK_BYTES * 1e3}
+
+
+def _report(result, args, status, recompute, allreduce=None):
     gib = 1 << 30
     cost, mem = result['cost'], result['memory_per_device']
     model = cost['flops_per_device'] - recompute
-    print(f"{result['device_kind']}, batch {args.batch}, {result['size']}px, "
+    ranks = result['devices']
+    print(f"{result['device_kind']}, batch {args.batch} "
+          f"({args.batch // ranks} a rank, {ranks} ranks), "
+          f"{result['size']}px, "
           f"{args.dtype}, s2d={result['s2d']}, gen_filts "
           f"{result['gen_filts']}, disc_filts {result['disc_filts']}")
     print(f'  step: {status}')
-    print(f"  cost: {cost['flops_per_device'] / 1e9:.1f} GFLOP a step; "
+    print(f"  cost: {cost['flops_per_device'] / 1e9:.1f} GFLOP a step"
+          f"{' per rank' if ranks > 1 else ''}; "
           f"bound on an H100 {cost['optimal_seconds'] * 1e3:.3f} ms "
           f"(<= {cost['img_per_s_ceiling']:.0f} img/s)")
     print(f"  of it the recompute of K2's and K3's levels "
           f"{recompute / 1e9:.1f} GFLOP; without it {model / 1e9:.1f} "
           f"GFLOP, bound {model / PEAK_FLOPS[args.dtype] * 1e3:.3f} ms")
+    if allreduce and ranks > 1:
+        print(f"  gradient all-reduce: {allreduce['bucket_values']} fp32 "
+              f"values, {allreduce['bucket_bytes'] / 1e6:.1f} MB a step; "
+              f"over {ranks} ranks the ring bound is "
+              f"{allreduce['nvlink_bound_ms']:.3f} ms "
+              f"({allreduce['ring_bytes_per_rank'] / 1e6:.1f} MB a rank "
+              f"at {NVLINK_BYTES / 1e9:.0f} GB/s each way)")
     if mem['fits'] is None:
         print('  memory: not measured (no card)')
     elif mem['peak_bytes'] is None:

@@ -3,12 +3,15 @@
 Port of ``patchgan_tpu/cli/common.py``.
 """
 
+import os
+
 import torch
 
 
 def select_device(name):
     """'auto' and 'cuda' mean the card, and raise without one; only 'cpu'
-    runs on the CPU."""
+    runs on the CPU. Under a process group they mean this rank's card,
+    ``cuda:LOCAL_RANK``."""
     if name == 'cpu':
         return torch.device('cpu')
     if name in ('auto', 'cuda') or name.startswith('cuda:'):
@@ -16,8 +19,23 @@ def select_device(name):
             raise RuntimeError(f"device {name!r} needs a CUDA GPU and none "
                                f"is available; pass -d cpu to run on the "
                                f"CPU")
+        if name in ('auto', 'cuda') and torch.distributed.is_available() \
+                and torch.distributed.is_initialized():
+            return torch.device('cuda', int(os.environ.get('LOCAL_RANK',
+                                                           0)))
         return torch.device('cuda' if name == 'auto' else name)
     raise ValueError(f"Unknown device {name!r}")
+
+
+def refuse_ranks(cli):
+    """``cli`` runs one process's job: under torchrun with more than one
+    rank it raises, instead of running the same job on every rank."""
+    size = int(os.environ.get('WORLD_SIZE', 1))
+    if size > 1:
+        raise NotImplementedError(
+            f"{cli} across {size} ranks (the engine sharded over cards) "
+            f"is not ported yet (ROADMAP.md, queue 1 item 11b); run one "
+            f"process")
 
 
 def compute_dtype(name, device):

@@ -8,7 +8,8 @@ with the averaging stitch (``mode: tiled``, the default) or one
 whole-image forward (``mode: spatial``), and image decode/save
 overlapped with the device.
 ``-d auto`` (the default) and ``-d cuda`` run on the card and raise
-without one; ``-d cpu`` runs on the CPU.
+without one; ``-d cpu`` runs on the CPU. Under torchrun with more than
+one rank it raises (the engine across cards, ROADMAP.md item 11b).
 """
 
 import argparse
@@ -26,7 +27,8 @@ from ..utils import checkpoint as ckpt
 from ..utils.config import load_config, model_params
 from ..utils.summary import summarize
 from ..utils.transfer import load_transfer_data, unet_key_map
-from .common import build_dataset_factory, compute_dtype, select_device
+from .common import (build_dataset_factory, compute_dtype, refuse_ranks,
+                     select_device)
 
 
 def patchgan_infer(argv=None):
@@ -47,6 +49,7 @@ def patchgan_infer(argv=None):
                         choices=['auto', 'float32', 'bfloat16'])
     args = parser.parse_args(argv)
 
+    refuse_ranks('patchgan_infer')
     device = select_device(args.device)
     dtype = compute_dtype(args.dtype, device)
     print(f"Running with {device}")

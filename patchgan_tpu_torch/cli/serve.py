@@ -32,7 +32,8 @@ Config: the infer CLI's schema (flat or nested ``model_params``,
 ``infer_params`` (``output_path``, ``threshold``, ``overlap``,
 ``batch_size``, ``mode: tiled|spatial``). ``-d auto`` (the default) and
 ``-d cuda`` run on the card and raise without one; ``-d cpu`` runs on
-the CPU.
+the CPU. Under torchrun with more than one rank it raises (the engine
+across cards, ROADMAP.md item 11b).
 """
 
 import argparse
@@ -679,8 +680,9 @@ def patchgan_serve(argv=None):
             'exactly one of --watch / --stdin / --http is required')
 
     from ..utils.config import load_config
-    from .common import compute_dtype, select_device
+    from .common import compute_dtype, refuse_ranks, select_device
 
+    refuse_ranks('patchgan_serve')
     device = select_device(args.device)
     dtype = compute_dtype(args.dtype, device)
     config = load_config(args.config_file)

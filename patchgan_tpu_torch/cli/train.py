@@ -36,9 +36,22 @@ and replayed (``train/graph.py``, the counterpart of the JAX package's
 jitted step); ``PATCHGAN_CUDA_GRAPH=off`` (or 0, false) runs every step
 eagerly. ``--deterministic`` holds for both.
 
+Data parallelism (BASELINE.json config 5): launched by ``torchrun``,
+one process per card,
+
+    torchrun --nproc_per_node 4 -m patchgan_tpu_torch.cli.train -c train.yaml -n 10 -b 16
+
+each rank trains on ``cuda:LOCAL_RANK`` over NCCL (``-d cpu``: gloo on
+the CPU) with ``-b`` the global batch, as in the JAX CLI: each rank
+decodes and steps on ``b / ranks`` rows of every batch, the losses and
+updates are those of one process on the whole batch, and rank 0 alone
+writes the checkpoints (``train/trainer.py``). A ``-b`` that does not
+divide across the ranks raises. Without torchrun's environment nothing
+of this applies.
+
 Not ported yet, and refused with NotImplementedError naming ROADMAP.md:
-``train_params.spatial_parallelism`` > 1 and the Trainer's orbax
-``checkpoint_format``.
+``train_params.spatial_parallelism`` > 1 (item 11d) and the Trainer's
+orbax ``checkpoint_format`` (item 12).
 """
 
 import argparse
@@ -48,6 +61,7 @@ import torch
 from ..data import DataLoader
 from ..data.split import random_split
 from ..models import Discriminator, UNet
+from ..parallel import init_from_env, shutdown, torchrun_env
 from ..train import Trainer
 from ..utils.config import dataset_paths, load_config, model_params
 from ..utils.summary import summarize
@@ -66,7 +80,8 @@ def patchgan_train(argv=None):
     parser.add_argument('-c', '--config_file', required=True, type=str,
                         help='Location of the config YAML file')
     parser.add_argument('-b', '--batch_size', default=16, type=int,
-                        help='Number of images per batch')
+                        help='Number of images per batch (the global '
+                             'batch under torchrun)')
     parser.add_argument('--dataloader_workers', default=4, type=int,
                         help='Number of decode threads (0 decodes in the '
                              'producer thread)')
@@ -99,9 +114,27 @@ def patchgan_train(argv=None):
                              "bit for bit")
     args = parser.parse_args(argv)
 
+    env = torchrun_env()
+    if env is not None and args.batch_size % env[1]:
+        raise ValueError(
+            f"-b {args.batch_size} is the global batch and does not "
+            f"divide across {env[1]} ranks")
+    mesh = init_from_env(on_cpu=args.device == 'cpu')
+    try:
+        return _train(args, mesh)
+    finally:
+        shutdown(mesh)
+
+
+def _train(args, mesh):
     device = select_device(args.device)
     dtype = compute_dtype(args.dtype, device)
-    print(f"Running with {device}")
+    slicing = {}
+    if mesh is None:
+        print(f"Running with {device}")
+    else:
+        print(f"Running with {device}, rank {mesh.rank} of {mesh.size}")
+        slicing = dict(process_index=mesh.rank, process_count=mesh.size)
     if args.deterministic:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
@@ -112,7 +145,7 @@ def patchgan_train(argv=None):
     if int(train_params.get('spatial_parallelism') or 1) > 1:
         raise NotImplementedError(
             "train_params.spatial_parallelism is not ported yet "
-            "(ROADMAP.md, queue 1 item 11)")
+            "(ROADMAP.md, queue 1 item 11d)")
     train_paths, val_paths, data_paths, split = dataset_paths(config)
     size = dataset_params.get('size', 256)
     augmentation = dataset_params.get('augmentation', 'randomcrop')
@@ -137,7 +170,7 @@ def patchgan_train(argv=None):
                          num_workers=args.dataloader_workers,
                          device=device, dtype=dtype, seed=args.seed,
                          cache=dataset_params.get('cache', False),
-                         worker_type=args.dataloader_worker_type)
+                         worker_type=args.dataloader_worker_type, **slicing)
     train_data = DataLoader(train_datagen, drop_last=True, **loader_kwargs)
     val_data = DataLoader(val_datagen, drop_last=False, **loader_kwargs)
 
@@ -158,11 +191,11 @@ def patchgan_train(argv=None):
     trainer = Trainer(generator, discriminator,
                       savefolder=config.get('checkpoint_path',
                                             './checkpoints/'),
-                      device=device, seed=args.seed)
+                      device=device, seed=args.seed, mesh=mesh)
     if dtype == torch.bfloat16:
         trainer.adam_mu_dtype = torch.bfloat16
 
-    if args.summary:
+    if args.summary and trainer.is_main:
         summarize('UNet generator', generator, (1, in_channels, size, size))
         summarize('Discriminator', discriminator,
                   (1, in_channels + out_channels, size, size))

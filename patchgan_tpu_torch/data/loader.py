@@ -2,7 +2,7 @@
 cache) -> pinned host batch -> the card, where it is normalised, one-hot
 encoded and flipped.
 
-Port of ``patchgan_tpu/data/loader.py`` but its per-host slicing:
+Port of ``patchgan_tpu/data/loader.py``:
 
 - the batch order comes from ``np.random.default_rng(seed)``, shuffled
   once per epoch exactly as ``loader.py:237-256`` does, so both packages
@@ -29,8 +29,15 @@ Port of ``patchgan_tpu/data/loader.py`` but its per-host slicing:
 - other datasets' ``__getitem__`` pairs (image, one-hot mask) are
   stacked and copied as they are.
 
-Batches are NCHW. ``process_index`` / ``process_count`` raise
-``NotImplementedError``.
+Batches are NCHW. Per-rank slicing (``process_index`` /
+``process_count``, ``:121-150, 177-253, 356-420``): ``batch_size`` is
+the global batch, and each rank decodes only its
+``process_local_range`` rows of every global batch. The shuffle order,
+``fast_forward`` and ``skip_next`` are the same on every rank; each
+batch's flips are drawn for the global batch and the rank keeps its
+rows, so the ranks' batches, concatenated, are one process's batch bit
+for bit. A remainder batch (``drop_last=False``) is kept only when it
+divides across the ranks, and otherwise dropped, with one printed line.
 """
 
 import pickle
@@ -40,6 +47,8 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from ..parallel.multihost import process_local_range
 
 # a process worker holds the dataset as a global, set once by the pool's
 # initializer
@@ -82,19 +91,22 @@ def flip_seed(seed, epoch, batch_index):
 
 
 def augment_batch(images, labelmaps, labels, generator=None, flip=False,
-                  dtype=torch.float32):
+                  dtype=torch.float32, rows=None):
     """images: (N, H, W, C) uint8 or float in [0, 1]; labelmaps: (N, H, W)
     integers; labels: (L,) integers in the labelmaps' encoding, all on
     one device. Returns NCHW (x, y): x in ``dtype`` (uint8 divided by 255
-    in it), y the one-hot over ``labels``, both flipped alike."""
+    in it), y the one-hot over ``labels``, both flipped alike. ``rows``
+    = (start, global batch): the N samples are these rows of a global
+    batch, whose flips are drawn in full."""
     x = images.permute(0, 3, 1, 2).to(dtype)
     if images.dtype == torch.uint8:
         x = x / torch.tensor(255.0, dtype=dtype, device=x.device)
     y = (labelmaps.long()[:, None] == labels.view(1, -1, 1, 1)).to(dtype)
     if flip:
         n = x.shape[0]
-        hflip, vflip = (torch.rand((n, 1, 1, 1), generator=generator,
-                                   device=x.device) < 0.25
+        lo, total = rows or (0, n)
+        hflip, vflip = (torch.rand((total, 1, 1, 1), generator=generator,
+                                   device=x.device)[lo:lo + n] < 0.25
                         for _ in range(2))
         x = torch.where(hflip, x.flip(3), x)
         y = torch.where(hflip, y.flip(3), y)
@@ -113,10 +125,13 @@ class DataLoader:
                  dtype=torch.float32, seed=0, cache=False,
                  worker_type='thread', process_index=None,
                  process_count=None):
-        if process_index is not None or process_count is not None:
-            raise NotImplementedError(
-                "per-host slicing (process_index / process_count) is not "
-                "ported yet (ROADMAP.md, queue 1 item 11)")
+        if process_count and process_count > 1 and process_index is None:
+            # defaulting to 0 would decode rank 0's rows on every rank
+            raise ValueError("process_index is required when "
+                             "process_count > 1 is given")
+        if process_count and batch_size % process_count:
+            raise ValueError(f"batch {batch_size} must divide across "
+                             f"{process_count} hosts")
         if worker_type not in ('thread', 'process'):
             raise ValueError(f"worker_type {worker_type!r} not in "
                              "('thread', 'process')")
@@ -136,6 +151,9 @@ class DataLoader:
         self.device = torch.device(device)
         self.dtype = dtype
         self.worker_type = worker_type
+        self.process_count = process_count
+        self.process_index = process_index or 0
+        self._warned_remainder = False
         self.seed = seed
         self.epoch = 0
         self._rng = np.random.default_rng(seed)
@@ -151,7 +169,9 @@ class DataLoader:
 
     def __len__(self):
         full, rem = divmod(len(self.dataset), self.batch_size)
-        return full + (1 if rem and not self.drop_last else 0)
+        keep = rem and not self.drop_last and \
+            rem % (self.process_count or 1) == 0
+        return full + (1 if keep else 0)
 
     def shuffle(self):
         """The Trainer's per-epoch hook; shuffling happens in
@@ -181,8 +201,24 @@ class DataLoader:
         batches = [idx[i * bs:(i + 1) * bs] for i in range(len(idx) // bs)]
         rem = len(idx) % bs
         if rem and not self.drop_last:
-            batches.append(idx[-rem:])
+            divisor = self.process_count or 1
+            if rem % divisor == 0:
+                batches.append(idx[-rem:])
+            elif not self._warned_remainder:
+                print(f"DataLoader: dropping the {rem}-sample remainder "
+                      f"batch each epoch (not divisible by {divisor} "
+                      f"ranks)")
+                self._warned_remainder = True
         return batches
+
+    def _local(self, indices):
+        """(this rank's indices of a global batch, (start, global
+        size))."""
+        if not self.process_count:
+            return indices, (0, len(indices))
+        lo, hi = process_local_range(len(indices), self.process_index,
+                                     self.process_count)
+        return indices[lo:hi], (lo, len(indices))
 
     def _load_raw_cached(self, index):
         hit = self._cache.get(index)
@@ -256,13 +292,13 @@ class DataLoader:
             out = tuple(t.pin_memory() for t in out)
         return out
 
-    def _to_device(self, batch, labels, flip, epoch, bi):
+    def _to_device(self, batch, labels, flip, epoch, bi, rows):
         a, b = (t.to(self.device, non_blocking=True) for t in batch)
         if self.device_augment:
             if flip:
                 self._flip_gen.manual_seed(flip_seed(self.seed, epoch, bi))
             return augment_batch(a, b, labels, self._flip_gen, flip,
-                                 self.dtype)
+                                 self.dtype, rows)
         return a.permute(0, 3, 1, 2).contiguous(), \
             b.permute(0, 3, 1, 2).contiguous()
 
@@ -305,8 +341,9 @@ class DataLoader:
         def producer():
             try:
                 for bi in range(skip, len(batches)):
+                    indices, rows = self._local(batches[bi])
                     if stop.is_set() or not put(
-                            (bi, self._host_batch(pool, fn, batches[bi]))):
+                            (bi, rows, self._host_batch(pool, fn, indices))):
                         return
             except Exception as e:  # surfaced to the consumer
                 put(e)
@@ -322,8 +359,8 @@ class DataLoader:
                     break
                 if isinstance(item, Exception):
                     raise item
-                bi, batch = item
-                yield self._to_device(batch, labels, flip, epoch, bi)
+                bi, rows, batch = item
+                yield self._to_device(batch, labels, flip, epoch, bi, rows)
         finally:
             stop.set()
             if pool is not self._proc_pool:

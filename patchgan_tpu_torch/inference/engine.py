@@ -29,8 +29,8 @@ and save neighbouring images while the device works.
 
 The bucket chunk size is the cheapest for the tile count by a table of
 measured forward throughput (``bucket_rates.json``, written on the card
-by ``tools/bucket_rates.py``). Multi-device meshes are not ported yet
-(ROADMAP, queue 1 item 11).
+by ``tools/bucket_rates.py``). Multi-device meshes (the engine sharded
+over cards) are not ported yet (ROADMAP, queue 1 item 11b).
 """
 
 import copy
@@ -44,8 +44,8 @@ from ..models.unet import UNet
 from ..ops.s2d import depth_to_space, s2d_enabled, space_to_depth
 from .tiling import crop_positions
 
-_MESH_NOT_PORTED = ("a multi-device mesh is not ported yet: see "
-                    "ROADMAP.md, queue 1 item 11 ('parallel')")
+_MESH_NOT_PORTED = ("a multi-device mesh (the engine sharded over cards) "
+                    "is not ported yet: see ROADMAP.md, queue 1 item 11b")
 
 
 def _round_up(n, m):

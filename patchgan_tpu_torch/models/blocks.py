@@ -45,12 +45,21 @@ NORM_EPS = 1e-5
 FUSED_CONV_MIN_CIN = 16
 
 
-def dropout(x, generator):
+def dropout(x, generator, mesh=None):
     """Flax ``nn.Dropout(0.2)`` in train mode: keep each element with
     probability 0.8 and scale it by 1/0.8, the mask drawn from
-    ``generator`` (an explicit ``torch.Generator`` on x's device)."""
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) >= DROPOUT_RATE
+    ``generator`` (an explicit ``torch.Generator`` on x's device). With
+    a ``mesh`` (``parallel.mesh.DataMesh``) x is this rank's rows of the
+    global batch: the mask is drawn for the global batch and the rank
+    keeps its rows, as JAX draws it over a sharded batch, so a sample's
+    mask depends on the seed and its global row only and every rank's
+    generator advances alike."""
+    shape = x.shape if mesh is None else \
+        (x.shape[0] * mesh.size,) + tuple(x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=x.device)
+    if mesh is not None:
+        keep = mesh.local_rows(keep)
+    keep = keep >= DROPOUT_RATE
     return torch.where(keep, x / (1.0 - DROPOUT_RATE), 0.0).to(x.dtype)
 
 
@@ -71,8 +80,9 @@ class DownBlock(nn.Module):
     def weight(self):
         return self.model[self.name].weight
 
-    def forward(self, x, generator=None, s2d_in=False):
-        """``s2d_in``: x is the s2d form [N, 4C, H/2, W/2] of the input."""
+    def forward(self, x, generator=None, s2d_in=False, mesh=None):
+        """``s2d_in``: x is the s2d form [N, 4C, H/2, W/2] of the input;
+        ``mesh``: x is a rank's rows, for the dropout draw."""
         w = self.weight.to(x.dtype)
         if s2d_in:
             x = conv2d_s2d(x, w)
@@ -85,7 +95,7 @@ class DownBlock(nn.Module):
         else:
             x = apply_activation(conv2d(x, w), self.activation)
         if self.use_dropout and self.training:
-            x = dropout(x, generator)
+            x = dropout(x, generator, mesh)
         return x
 
 
@@ -110,9 +120,10 @@ class UpBlock(nn.Module):
     def weight(self):
         return self.model[self.name].weight
 
-    def forward(self, x, skip=None, generator=None, s2d_out=False):
+    def forward(self, x, skip=None, generator=None, s2d_out=False,
+                mesh=None):
         """``s2d_out``: produce the s2d form [N, 4 Cout, H, W] of the
-        output (the output head only)."""
+        output (the output head only); ``mesh`` as in DownBlock."""
         w = self.weight.to(x.dtype)
         skip = skip.to(x.dtype) if skip is not None else None
         if s2d_out:
@@ -130,5 +141,5 @@ class UpBlock(nn.Module):
                 out = out.float()
             x = apply_activation(out, self.activation)
         if self.use_dropout and self.training:
-            x = dropout(x, generator)
+            x = dropout(x, generator, mesh)
         return x

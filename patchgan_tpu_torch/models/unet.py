@@ -13,7 +13,9 @@ also returns the bottleneck.
 block computes in it; parameters stay as they are (fp32 from init or a
 checkpoint; the inference engine pre-casts its copy once).
 ``dropout_generator`` is the ``torch.Generator`` the dropout masks are
-drawn from in train mode (the Trainer seeds one on the model's device).
+drawn from in train mode (the Trainer seeds one on the model's device);
+``forward(..., mesh=)`` draws them for the global batch of a
+data-parallel step (``models/blocks.py``).
 
 ``forward(..., s2d=True)`` (JAX ``unet.py:45-52``) runs the
 space-to-depth boundary form, whose input is ``[N, 4 input_nc, H/2,
@@ -68,9 +70,10 @@ class UNet(nn.Module):
             for p in self.parameters():
                 nn.init.xavier_uniform_(p, generator=generator)
 
-    def forward(self, x, return_hidden=False, s2d=False):
+    def forward(self, x, return_hidden=False, s2d=False, mesh=None):
         """x: (N, input_nc, H, W) with H, W multiples of 128 -> (N,
-        output_nc, H, W) float32; with ``s2d`` both in their s2d form."""
+        output_nc, H, W) float32; with ``s2d`` both in their s2d form;
+        ``mesh``: x is a rank's rows of the global batch."""
         h, w = x.shape[2], x.shape[3]
         if s2d:
             h, w = 2 * h, 2 * w   # x is the s2d form of a 2h x 2w input
@@ -83,15 +86,15 @@ class UNet(nn.Module):
         gen = self.dropout_generator
         skips = []
         for i, block in enumerate(self.encoder):
-            x = block(x, generator=gen, s2d_in=s2d and i == 0)
+            x = block(x, generator=gen, s2d_in=s2d and i == 0, mesh=mesh)
             skips.append(x)
         hidden = skips[-1]
         rev = skips[::-1]
-        x = self.decoder[0](hidden, generator=gen)
+        x = self.decoder[0](hidden, generator=gen, mesh=mesh)
         last = len(self.decoder) - 1
         for i in range(1, last + 1):
             x = self.decoder[i](x, skip=rev[i], generator=gen,
-                                s2d_out=s2d and i == last)
+                                s2d_out=s2d and i == last, mesh=mesh)
         if return_hidden:
             return x, hidden
         return x

@@ -12,6 +12,13 @@ Port of ``patchgan_tpu/ops/losses.py``:
 - ``weighted_bce_loss``: elementwise-weighted BCE.
 
 Every reduction runs in float32 whatever the input dtype.
+
+Under data parallelism each rank holds a slice of the global batch, and
+``mesh`` (a ``parallel.mesh.DataMesh``) makes each batch mean the global
+batch's: ``mesh.mean`` of the rank's mean, whose backward hands the rank
+its own samples' share of the gradient. The gamma of ``fc_tversky`` then
+applies to the global mean, as it does in the JAX package's step on a
+sharded batch. Without a mesh each loss is the local batch's.
 """
 
 import torch
@@ -30,24 +37,32 @@ def _tversky_terms(y_true, y_pred):
     return tp, fn, fp
 
 
-def tversky(y_true, y_pred, beta, batch_mean=True):
+def global_mean(x, mesh=None):
+    """The mean of ``x`` over the global batch: ``x.mean()``, then the
+    mean over the ranks when there is a ``mesh``."""
+    m = x.mean()
+    return m if mesh is None else mesh.mean(m)
+
+
+def tversky(y_true, y_pred, beta, batch_mean=True, mesh=None):
     tp, fn, fp = _tversky_terms(y_true, y_pred)
     loss = 1.0 - tp / (tp + beta * fn + (1.0 - beta) * fp)
-    return loss.mean() if batch_mean else loss
+    return global_mean(loss, mesh) if batch_mean else loss
 
 
-def fc_tversky(y_true, y_pred, beta, gamma=0.75, batch_mean=True):
+def fc_tversky(y_true, y_pred, beta, gamma=0.75, batch_mean=True,
+               mesh=None):
     smooth = 1.0
     tp, fn, fp = _tversky_terms(y_true, y_pred)
     index = (tp + smooth) / (tp + beta * fn + (1.0 - beta) * fp + smooth)
     focal = 1.0 - index
     if batch_mean:
-        return torch.pow(focal.mean(), gamma)
+        return torch.pow(global_mean(focal, mesh), gamma)
     return torch.pow(focal, gamma)
 
 
-def mae_loss(y_true, y_pred):
-    return (y_true.float() - y_pred.float()).abs().mean()
+def mae_loss(y_true, y_pred, mesh=None):
+    return global_mean((y_true.float() - y_pred.float()).abs(), mesh)
 
 
 def _clamped_log(p):
@@ -58,14 +73,15 @@ def _clamped_log(p):
                        torch.full_like(p, -100.0))
 
 
-def bce_loss(y_pred, y_true):
+def bce_loss(y_pred, y_true, mesh=None):
     """(input = predicted probabilities, target), torch's order."""
     p, t = y_pred.float(), y_true.float()
-    return (-(t * _clamped_log(p) + (1.0 - t) * _clamped_log(1.0 - p))).mean()
+    return global_mean(-(t * _clamped_log(p)
+                        + (1.0 - t) * _clamped_log(1.0 - p)), mesh)
 
 
-def weighted_bce_loss(y_pred, y_true, weight):
+def weighted_bce_loss(y_pred, y_true, weight, mesh=None):
     p, t = y_pred.float(), y_true.float()
     w = weight.float().expand_as(p)
-    return (-w * (t * _clamped_log(p)
-                  + (1.0 - t) * _clamped_log(1.0 - p))).mean()
+    return global_mean(-w * (t * _clamped_log(p)
+                            + (1.0 - t) * _clamped_log(1.0 - p)), mesh)

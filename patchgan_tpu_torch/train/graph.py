@@ -32,8 +32,12 @@ into a CUDA graph and replays it, and every later call replays it:
   runs the recorded kernels without calling a wrapper; ``replays``
   counts those.
 
-A capture or a replay that fails raises; the step never falls back to
-eager. CPU tensors take the eager step, as graphs exist only on the card.
+A data-parallel step's collectives (``parallel/mesh.py``) are captured
+with the rest under NCCL, on a communicator that no eager collective
+uses; the mesh holds the step, and ``parallel.shutdown`` frees its
+graphs (``release``) before the process group goes. A gloo group cannot be captured (the Trainer then steps
+eagerly). A capture or a replay that fails raises; the step never falls
+back to eager. CPU tensors take the eager step, as graphs exist only on the card.
 ``PATCHGAN_CUDA_GRAPH`` (``cuda_graph_enabled``), read when a Trainer is
 built, selects this step in the Trainer.
 """
@@ -52,6 +56,12 @@ def cuda_graph_enabled():
     false select the eager step, any other value the captured one."""
     flag = os.environ.get('PATCHGAN_CUDA_GRAPH', DEFAULT).lower()
     return flag not in ('off', '0', 'false')
+
+
+def graph_flag_given():
+    """Whether ``PATCHGAN_CUDA_GRAPH`` asks for the captured step
+    explicitly (set, and not off)."""
+    return 'PATCHGAN_CUDA_GRAPH' in os.environ and cuda_graph_enabled()
 
 
 def capturable(x):
@@ -73,6 +83,7 @@ class CapturedStep:
         self._run, self._advance = run, advance
         self._position, self._generators = position, generators
         self._graphs = {}    # key -> replay(x, y) -> (keys, losses)
+        self._cuda_graphs = []
         self._eager = {}     # key -> eager steps run
         self._pool = None
         self._stream = None
@@ -96,6 +107,18 @@ class CapturedStep:
         self._advance()
         self.replays += 1
         return dict(zip(keys, losses.unbind()))
+
+    def release(self):
+        """Free the captured graphs; a later call warms up and captures
+        anew. NCCL's teardown waits for every graph that holds a
+        communicator's work, so a data-parallel step releases its graphs
+        before its process group goes (``parallel.shutdown``)."""
+        for graph in self._cuda_graphs:
+            graph.reset()
+        self._cuda_graphs.clear()
+        self._graphs.clear()
+        self._eager.clear()
+        self._pool = None
 
     def _step(self, x, y):
         losses = self._run(x, y)
@@ -138,6 +161,7 @@ class CapturedStep:
                 f'PATCHGAN_CUDA_GRAPH=off runs it eagerly') from e
         if self._pool is None:
             self._pool = graph.pool()
+        self._cuda_graphs.append(graph)
 
         def replay(x, y):
             static_x.copy_(x)

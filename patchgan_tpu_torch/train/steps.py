@@ -26,6 +26,18 @@ update every k-th step on the running mean of the gradients
 Trainer's jitted step: the same step captured as a CUDA graph
 (``train/graph.py``).
 
+``mesh`` (a ``parallel.mesh.DataMesh``) makes a step data-parallel, the
+counterpart of the JAX step on a batch sharded over a mesh (JAX
+``tests/test_distributed.py``): each rank steps on its rows of the
+global batch, every batch mean and batch statistic of the losses is the
+global batch's (``ops/losses.py``, ``utils/metrics.py``; the dropout
+masks too, ``models/blocks.py``), and the generator's trainable
+gradients and the discriminator's are summed over the ranks, one bucket
+each, between ``autograd.grad`` and the optimizer's update (at every
+micro-step under ``MultiSteps``, as the JAX step psums inside each
+call). So every rank applies the update one process would apply on the
+concatenated batch, and reports the global losses.
+
 Steps return their losses as 0-d tensors on the device under the
 reference's keys ``gen, gen_loss, gdisc, discr, discf, disc``; nothing
 in a step waits for the device.
@@ -254,14 +266,15 @@ def trainable_params(generator, freeze_patterns=()):
 
 
 def make_seg_loss(loss_type, seg_alpha, tversky_beta=0.75,
-                  tversky_gamma=0.75, bce_weighting='complement'):
+                  tversky_gamma=0.75, bce_weighting='complement', mesh=None):
     """Segmentation loss dispatch (``:160-213``), NCHW: 'tversky' (focal
     Tversky), 'weighted_bce' with 'complement' / 'inverse' / 'none'
-    class weights, 'MAE'; each scaled by ``seg_alpha``."""
+    class weights, 'MAE'; each scaled by ``seg_alpha``. With a ``mesh``
+    the class weights come from the global batch's sums."""
     if loss_type == 'tversky':
         def seg(gen_img, y):
             return fc_tversky(y, gen_img, beta=tversky_beta,
-                              gamma=tversky_gamma) * seg_alpha
+                              gamma=tversky_gamma, mesh=mesh) * seg_alpha
     elif loss_type == 'weighted_bce':
         if bce_weighting not in ('complement', 'inverse', 'none'):
             raise ValueError(
@@ -274,18 +287,24 @@ def make_seg_loss(loss_type, seg_alpha, tversky_beta=0.75,
             if c > 1 and bce_weighting == 'inverse':
                 # batch-level shares, floored so absent classes cannot
                 # absorb all the gradient signal
-                share = yf.sum(dim=(0, 2, 3), keepdim=True) / yf.sum()
+                sums = torch.cat([yf.sum(dim=(0, 2, 3)), yf.sum().view(1)])
+                if mesh is not None:
+                    sums = mesh.stat(sums)
+                share = sums[:c].view(1, c, 1, 1) / sums[c]
                 inv = 1.0 / share.clamp(min=1.0 / (100.0 * c))
                 weight = (c * inv / inv.sum()).expand(y.shape[0], c, 1, 1)
             elif c > 1 and bce_weighting == 'complement':
-                share = yf.sum(dim=(2, 3), keepdim=True) / yf.sum()
+                total = yf.sum()
+                if mesh is not None:
+                    total = mesh.stat(total)
+                share = yf.sum(dim=(2, 3), keepdim=True) / total
                 weight = 1.0 - share
             else:
                 weight = torch.ones_like(yf)
-            return weighted_bce_loss(gen_img, y, weight) * seg_alpha
+            return weighted_bce_loss(gen_img, y, weight, mesh) * seg_alpha
     elif loss_type == 'MAE':
         def seg(gen_img, y):
-            return mae_loss(gen_img, y) * seg_alpha
+            return mae_loss(gen_img, y, mesh) * seg_alpha
     else:
         raise ValueError(f"Unknown loss_type: {loss_type!r}")
     return seg
@@ -312,14 +331,15 @@ def constant_params(params):
             p.requires_grad_(True)
 
 
-def gan_losses(generator, discriminator, seg_loss, x, y, s2d=False):
+def gan_losses(generator, discriminator, seg_loss, x, y, s2d=False,
+               mesh=None):
     """The generator's loss: segmentation + BCE(D(x, gen_img), 1), x and
     y in the form ``s2d`` says. Returns (loss, gen_img, gdisc)."""
-    gen_img = generator(x, s2d=s2d)
+    gen_img = generator(x, s2d=s2d, mesh=mesh)
     disc_fake = discriminator(x, gen_img, s2d=s2d)
     seg = seg_loss(fold_blocks(gen_img), fold_blocks(y)) if s2d else \
         seg_loss(gen_img, y)
-    gdisc = bce_loss(disc_fake, torch.ones_like(disc_fake))
+    gdisc = bce_loss(disc_fake, torch.ones_like(disc_fake), mesh)
     return seg + gdisc, gen_img, gdisc
 
 
@@ -349,17 +369,17 @@ def resolve_paired_disc(discriminator):
             not in ('off', '0', 'false'))
 
 
-def disc_loss(disc_real, disc_fake):
+def disc_loss(disc_real, disc_fake, mesh=None):
     """(mean of the two, real, fake) BCE losses of the discriminator."""
-    loss_real = bce_loss(disc_real, torch.ones_like(disc_real))
-    loss_fake = bce_loss(disc_fake, torch.zeros_like(disc_fake))
+    loss_real = bce_loss(disc_real, torch.ones_like(disc_real), mesh)
+    loss_fake = bce_loss(disc_fake, torch.zeros_like(disc_fake), mesh)
     return (loss_fake + loss_real) / 2.0, loss_real, loss_fake
 
 
 def make_train_step(generator, discriminator, gen_opt, disc_opt,
                     loss_type='tversky', seg_alpha=200.0, tversky_beta=0.75,
                     tversky_gamma=0.75, bce_weighting='complement',
-                    s2d=False, graph=False):
+                    s2d=False, graph=False, mesh=None):
     """``step(x, y) -> losses``: one G+D update in place on the models
     and their optimizers (``make_optimizer``). x and y are NCHW; ``s2d``
     runs the step in the space-to-depth form. The discriminator step
@@ -370,9 +390,14 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
     records no node that only a frozen gradient needs. ``graph=True``
     returns the step as a ``CapturedStep`` (``train/graph.py``): the
     same arithmetic, replayed as one CUDA graph per batch shape on the
-    card."""
+    card. ``mesh`` makes it data-parallel (the module's docstring); its
+    collectives are captured too, which NCCL's can be and gloo's not."""
+    if graph and mesh is not None and not mesh.capturable:
+        raise ValueError(f"a {mesh.backend} process group cannot be "
+                         f"captured into a CUDA graph; build the step "
+                         f"with graph=False")
     seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
-                             tversky_gamma, bce_weighting)
+                             tversky_gamma, bce_weighting, mesh)
     paired = resolve_paired_disc(discriminator)
     g_params = list(gen_opt.params)
     trainable = {id(p) for p in g_params}
@@ -387,14 +412,19 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
             x, y = space_to_depth(x), space_to_depth(y)
         with constant_params(constants):
             g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
-                                                seg_loss, x, y, s2d)
+                                                seg_loss, x, y, s2d, mesh)
             g_grads = torch.autograd.grad(g_loss, g_params)
+        if mesh is not None:
+            mesh.sum_(g_grads)
         gen_opt.update(g_grads)
         gen_img = gen_img.detach()
         d_loss, loss_real, loss_fake = disc_loss(*disc_real_fake(
             discriminator, x, y, gen_img, merged=False, paired=paired,
-            s2d=s2d))
-        disc_opt.update(torch.autograd.grad(d_loss, d_params))
+            s2d=s2d), mesh)
+        d_grads = torch.autograd.grad(d_loss, d_params)
+        if mesh is not None:
+            mesh.sum_(d_grads)
+        disc_opt.update(d_grads)
         g_loss, gdisc = g_loss.detach(), gdisc.detach()
         return dict(zip(LOSS_KEYS, (g_loss, g_loss, gdisc,
                                     loss_real.detach(), loss_fake.detach(),
@@ -406,11 +436,14 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
 
     if graph:
         from .graph import CapturedStep
-        return CapturedStep(
+        step = CapturedStep(
             run, advance,
             position=lambda: (getattr(gen_opt, 'mini_step', 0),
                               getattr(disc_opt, 'mini_step', 0)),
             generators=lambda: [generator.dropout_generator])
+        if mesh is not None:
+            mesh.hold(step)
+        return step
 
     def train_step(x, y):
         losses = run(x, y)
@@ -422,12 +455,15 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
 
 def make_eval_step(generator, discriminator, loss_type='tversky',
                    seg_alpha=200.0, tversky_beta=0.75, tversky_gamma=0.75,
-                   compute_iou=False, bce_weighting='complement', s2d=False):
+                   compute_iou=False, bce_weighting='complement', s2d=False,
+                   mesh=None):
     """``step(x, y) -> losses``: the same losses with dropout off and no
     update (``:431-466``), the discriminator in the merged form, plus
-    'iou' when ``compute_iou``; ``s2d`` as in ``make_train_step``."""
+    'iou' when ``compute_iou``; ``s2d`` and ``mesh`` as in
+    ``make_train_step``: with a mesh, the global batch's losses and
+    IoU."""
     seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
-                             tversky_gamma, bce_weighting)
+                             tversky_gamma, bce_weighting, mesh)
 
     @torch.no_grad()
     def eval_step(x, y):
@@ -435,14 +471,15 @@ def make_eval_step(generator, discriminator, loss_type='tversky',
         if s2d:
             x, y = space_to_depth(x), space_to_depth(y)
         g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
-                                            seg_loss, x, y, s2d)
+                                            seg_loss, x, y, s2d, mesh)
         d_loss, loss_real, loss_fake = disc_loss(*disc_real_fake(
-            discriminator, x, y, gen_img, s2d=s2d))
+            discriminator, x, y, gen_img, s2d=s2d), mesh)
         losses = dict(zip(LOSS_KEYS, (g_loss, g_loss, gdisc, loss_real,
                                       loss_fake, d_loss)))
         if compute_iou:
-            losses['iou'] = iou(fold_blocks(y), fold_blocks(gen_img)) \
-                if s2d else iou(y, gen_img)
+            losses['iou'] = iou(fold_blocks(y), fold_blocks(gen_img),
+                                mesh=mesh) if s2d else \
+                iou(y, gen_img, mesh=mesh)
         return losses
 
     return eval_step

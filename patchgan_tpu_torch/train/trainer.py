@@ -46,6 +46,21 @@ selects it and its H and W are even (``:232-251``); the checkpoints are
 the same in both forms. ``checkpoint_format`` other than 'msgpack' (the
 JAX name of the default store; the port writes torch files) raises
 ``NotImplementedError``.
+
+Data parallelism (``mesh=``, a ``parallel.mesh.DataMesh``; JAX
+``Trainer(mesh=...)``): every rank runs this Trainer on its rows of each
+global batch (the loader's ``process_index`` / ``process_count``), and
+its steps are the data-parallel ones (``train/steps.py``), so the
+replicas stay equal. ``train()`` first checks that every rank holds rank
+0's weights (the same seed, the same loaded files). Only rank 0 writes
+the epoch files, the exact-resume state and its metadata, and every
+rank waits at a barrier after each write; every rank reads them on
+resume. The losses a step reports are the global batch's on every rank,
+so the plateau schedule reads the same validation means everywhere.
+Rank 0 alone prints the progress, profiles and reports to
+``neptune_config``. Under gloo on the card the step runs eagerly (gloo
+cannot be captured); ``PATCHGAN_CUDA_GRAPH=on`` given explicitly then
+raises.
 """
 
 import json
@@ -62,7 +77,7 @@ from ..ops.s2d import s2d_enabled
 from ..utils import checkpoint as ckpt
 from ..utils.profiling import maybe_trace
 from ..utils.transfer import load_transfer_data
-from .graph import CapturedStep, cuda_graph_enabled
+from .graph import CapturedStep, cuda_graph_enabled, graph_flag_given
 from .schedulers import (ConstantLR, ExponentialDecay, ReduceLROnPlateau,
                          resume_fast_forward)
 from .steps import (LOSS_KEYS, make_eval_step, make_optimizer,
@@ -93,9 +108,10 @@ class Trainer:
     #                        running mean of their gradients
 
     def __init__(self, generator, discriminator, savefolder, device=None,
-                 seed=0):
+                 seed=0, mesh=None):
         '''savefolder is created if missing. ``device`` defaults to the
-        generator's; ``seed`` seeds the dropout generator on it.'''
+        generator's; ``seed`` seeds the dropout generator on it; ``mesh``
+        makes the training data-parallel (see the module's docstring).'''
         if device is None:
             device = next(generator.parameters()).device
         self.device = torch.device(device)
@@ -106,6 +122,8 @@ class Trainer:
         if savefolder[-1] != '/':
             savefolder += '/'
         self.savefolder = savefolder
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
         os.makedirs(savefolder, exist_ok=True)
         self.seed = seed
         self.start = 1
@@ -118,6 +136,12 @@ class Trainer:
         self._scheds = None   # train()'s LR schedules, saved with the state
         self._step_cache = None   # (settings, steps, forms) of _steps()
         self._cuda_graph = cuda_graph_enabled()
+        if mesh is not None and not mesh.capturable and self._cuda_graph:
+            if self.device.type == 'cuda' and graph_flag_given():
+                raise ValueError(
+                    f"PATCHGAN_CUDA_GRAPH=on: a {mesh.backend} process "
+                    f"group cannot be captured into a CUDA graph")
+            self._cuda_graph = False
         self._make_optimizers(1e-3, 1e-3)
 
     def _make_optimizers(self, gen_lr, dsc_lr):
@@ -166,16 +190,17 @@ class Trainer:
         gen, disc = self.generator, self.discriminator
         gen_opt, disc_opt = self.gen_opt, self.disc_opt
         use_s2d, compute_iou = self._use_s2d, self.compute_iou
-        cuda_graph = self._cuda_graph
+        cuda_graph, mesh = self._cuda_graph, self.mesh
 
         def form(x):
             s2d = use_s2d(x)
             if s2d not in forms:
                 forms[s2d] = (
                     make_train_step(gen, disc, gen_opt, disc_opt, s2d=s2d,
-                                    graph=cuda_graph, **loss_kwargs),
+                                    graph=cuda_graph, mesh=mesh,
+                                    **loss_kwargs),
                     make_eval_step(gen, disc, compute_iou=compute_iou,
-                                   s2d=s2d, **loss_kwargs))
+                                   s2d=s2d, mesh=mesh, **loss_kwargs))
             return forms[s2d]
 
         steps = (lambda x, y: form(x)[0](x, y),
@@ -225,7 +250,7 @@ class Trainer:
                                          self.start, decay_freq)
         else:
             gen_lr, dsc_lr = gen_learning_rate, dsc_learning_rate
-        neptune = self.neptune_config
+        neptune = self.neptune_config if self.is_main else None
         if neptune is not None:
             neptune['model/parameters/gen_learning_rate'] = gen_lr
             neptune['model/parameters/dsc_learning_rate'] = dsc_lr
@@ -252,15 +277,27 @@ class Trainer:
             self._restore_training_state(self._pending_training_state)
             self._pending_training_state = None
         self._resume_loader(train_data)
+        if self.mesh is not None:
+            on_card = self.device.type == 'cuda'
+            how = 'captured' if self._cuda_graph and on_card else 'eager'
+            if on_card and not self.mesh.capturable:
+                how += f' (a {self.mesh.backend} group cannot be captured)'
+            self._say(f"Data parallel: {self.mesh.size} ranks "
+                      f"({self.mesh.backend}), the step {how}")
+            self.mesh.check_replicated(
+                list(self.generator.parameters())
+                + list(self.discriminator.parameters()), 'weights')
 
         train_step, eval_step = self._steps()
         D_loss_ep, G_loss_ep = [], []
         for epoch in range(self.start, epochs + 1):
             self.gen_opt.lr, self.disc_opt.lr = gen_sched.lr, dsc_sched.lr
-            print(f"Epoch {epoch} -- lr: {gen_sched.lr:5.3e}, "
-                  f"{dsc_sched.lr:5.3e}")
-            print("-------------------------------------------------------")
-            with maybe_trace(self.profile_dir, enabled=epoch == self.start):
+            self._say(f"Epoch {epoch} -- lr: {gen_sched.lr:5.3e}, "
+                      f"{dsc_sched.lr:5.3e}")
+            self._say("---------------------------------------------------"
+                      "----")
+            with maybe_trace(self.profile_dir,
+                             enabled=epoch == self.start and self.is_main):
                 loss_mean, n_images, elapsed = self._run_epoch(
                     train_data, train_step, 'Training: ', epoch=epoch)
             # a resume can find every batch of its epoch trained already:
@@ -268,8 +305,8 @@ class Trainer:
             D_loss_ep.append(loss_mean.get('disc', float('nan')))
             G_loss_ep.append(loss_mean.get('gen', float('nan')))
             if elapsed > 0:
-                print(f"  {n_images} images in {elapsed:.3f}s "
-                      f"({n_images / elapsed:.1f} img/s)")
+                self._say(f"  {n_images} images in {elapsed:.3f}s "
+                          f"({n_images / elapsed:.1f} img/s)")
             if neptune is not None and loss_mean:
                 neptune['train/gen_loss'].append(loss_mean['gen'])
                 neptune['train/disc_loss'].append(loss_mean['disc'])
@@ -295,6 +332,16 @@ class Trainer:
         self.start = epochs + 1
         return G_loss_ep, D_loss_ep
 
+    def _say(self, line):
+        """Print on rank 0 only (every rank without a mesh)."""
+        if self.is_main:
+            print(line)
+
+    def _written(self):
+        """After rank 0's write: every rank waits until it is on disk."""
+        if self.mesh is not None:
+            self.mesh.barrier()
+
     def _resume_loader(self, train_data):
         """Mid-epoch resume: replay the interrupted run's loader order
         (``fast_forward`` to the loader iteration the epoch consumed, as
@@ -304,9 +351,9 @@ class Trainer:
         if not (self._resume_skip_batches or self._resume_loader_epoch):
             return
         if self._resume_skip_batches:
-            print(f"Resuming mid-epoch: skipping the "
-                  f"{self._resume_skip_batches} already-trained batches of "
-                  f"epoch {self.start}")
+            self._say(f"Resuming mid-epoch: skipping the "
+                      f"{self._resume_skip_batches} already-trained "
+                      f"batches of epoch {self.start}")
         if hasattr(train_data, 'fast_forward'):
             train_data.fast_forward(
                 (self._resume_loader_epoch or self.start) - 1)
@@ -319,7 +366,8 @@ class Trainer:
         '''One pass over ``data``; a train pass when ``epoch`` is given.
         Each step's losses are stacked into one device tensor and read one
         step later, while the next step is queued, so the host never waits
-        on the step it just queued (a rolling save waits for it).'''
+        on the step it just queued (a rolling save waits for it). Under a
+        mesh the image count is the global batches'.'''
         train = epoch is not None
         if hasattr(data, 'shuffle'):
             data.shuffle()
@@ -330,7 +378,9 @@ class Trainer:
         if train:
             self._resume_skip_batches = 0
             self._resume_skip_delegated = False
-        pbar = tqdm.tqdm(data, desc=desc, dynamic_ncols=True)
+        pbar = tqdm.tqdm(data, desc=desc, dynamic_ncols=True,
+                         disable=not self.is_main)
+        ranks = 1 if self.mesh is None else self.mesh.size
         sums = defaultdict(float)
         count = n_images = 0
         pending = None   # (keys, stacked losses) of the previous step
@@ -349,7 +399,7 @@ class Trainer:
             if skip > 0:
                 skip -= 1
                 continue
-            n_images += int(input_img.shape[0])
+            n_images += int(input_img.shape[0]) * ranks
             losses = step(*self._place_batch(input_img, target_mask))
             if pending is not None:
                 accumulate()
@@ -377,12 +427,15 @@ class Trainer:
     def save(self, epoch):
         gen_savefile = f'{self.savefolder}generator_ep_{epoch:03d}.npz'
         disc_savefile = f'{self.savefolder}discriminator_ep_{epoch:03d}.npz'
-        print(f"Saving to {gen_savefile} and {disc_savefile}")
-        ckpt.save_state_dict(gen_savefile, self.generator.state_dict())
-        ckpt.save_state_dict(disc_savefile, self.discriminator.state_dict())
-        if self.save_optimizer_state:
-            self._write_training_state(
-                f'{self.savefolder}training_state_ep_{epoch:03d}.pt')
+        if self.is_main:
+            print(f"Saving to {gen_savefile} and {disc_savefile}")
+            ckpt.save_state_dict(gen_savefile, self.generator.state_dict())
+            ckpt.save_state_dict(disc_savefile,
+                                 self.discriminator.state_dict())
+            if self.save_optimizer_state:
+                self._write_training_state(
+                    f'{self.savefolder}training_state_ep_{epoch:03d}.pt')
+        self._written()
 
     def training_state(self):
         """Everything a continuation needs that the epoch files lack: both
@@ -425,10 +478,10 @@ class Trainer:
             for sched, (_, values) in zip(self._scheds, saved):
                 vars(sched).update(values)
         elif saved:
-            print(f"note: the LR schedules of {os.path.basename(path)} "
-                  f"are {[name for name, _ in saved]}; these start from "
-                  f"the fast-forwarded LR")
-        print(f"Restored optimizer state from {os.path.basename(path)}")
+            self._say(f"note: the LR schedules of {os.path.basename(path)} "
+                      f"are {[name for name, _ in saved]}; these start "
+                      f"from the fast-forwarded LR")
+        self._say(f"Restored optimizer state from {os.path.basename(path)}")
 
     def _save_step_state(self, epoch, batches_done, loader_epoch=None):
         """The rolling mid-epoch checkpoint: the training state into the
@@ -439,12 +492,15 @@ class Trainer:
         a whole state file."""
         self._step_slot = 'b' if self._step_slot == 'a' else 'a'
         name = f'training_state_step_{self._step_slot}.pt'
-        self._write_training_state(os.path.join(self.savefolder, name))
-        meta = os.path.join(self.savefolder, STEP_META)
-        with open(f'{meta}.tmp', 'w') as f:
-            json.dump({'epoch': int(epoch), 'batches_done': int(batches_done),
-                       'loader_epoch': loader_epoch, 'state': name}, f)
-        os.replace(f'{meta}.tmp', meta)
+        if self.is_main:
+            self._write_training_state(os.path.join(self.savefolder, name))
+            meta = os.path.join(self.savefolder, STEP_META)
+            with open(f'{meta}.tmp', 'w') as f:
+                json.dump({'epoch': int(epoch),
+                           'batches_done': int(batches_done),
+                           'loader_epoch': loader_epoch, 'state': name}, f)
+            os.replace(f'{meta}.tmp', meta)
+        self._written()
 
     def _check_step_state(self):
         """Take up the rolling checkpoint when it is further along than
@@ -467,13 +523,13 @@ class Trainer:
             slot = re.search(r'_([ab])\.pt$', meta['state'])
             if slot:
                 self._step_slot = slot.group(1)
-            print(f"Found mid-epoch checkpoint: epoch {self.start}, "
-                  f"{self._resume_skip_batches} batches done")
+            self._say(f"Found mid-epoch checkpoint: epoch {self.start}, "
+                      f"{self._resume_skip_batches} batches done")
         except Exception as e:
             print(f"Ignoring unreadable step checkpoint: {e}")
 
     def load(self, generator_save, discriminator_save):
-        print(generator_save, discriminator_save)
+        self._say(f'{generator_save} {discriminator_save}')
         counts = []
         for module, path in ((self.generator, generator_save),
                              (self.discriminator, discriminator_save)):
@@ -485,8 +541,9 @@ class Trainer:
             raise ValueError(
                 f"Checkpoint mismatch: loaded {g_count}/{g_total} "
                 f"generator and {d_count}/{d_total} discriminator weights")
-        print(f"Loaded checkpoints from {os.path.basename(generator_save)} "
-              f"and {os.path.basename(discriminator_save)}")
+        self._say(f"Loaded checkpoints from "
+                  f"{os.path.basename(generator_save)} and "
+                  f"{os.path.basename(discriminator_save)}")
 
     def load_last_checkpoint(self):
         '''Resume from the latest epoch files, with their
@@ -505,7 +562,7 @@ class Trainer:
             for jax_file in (f'training_state_ep_{last:03d}.msgpack',
                              'step_state.json'):
                 if os.path.exists(os.path.join(self.savefolder, jax_file)):
-                    print(f"note: {jax_file} is the JAX package's "
+                    self._say(f"note: {jax_file} is the JAX package's "
                           f"exact-resume state, which this package does "
                           f"not read")
         except Exception as e:   # e.g. a file cut short by a killed save

@@ -6,6 +6,8 @@ arg-maxed over the channels (C > 1) or thresholded (C == 1); IoU, Dice
 and boundary F1 are per (sample, class), averaged over the pairs that
 are present (a non-empty union, a non-empty size sum, a non-empty
 boundary in either mask), each a 0-d fp32 tensor on the inputs' device.
+``iou(..., mesh=)`` takes the mean over the global batch's present pairs
+under data parallelism: the ranks' sums and counts are summed first.
 """
 
 import torch
@@ -21,19 +23,23 @@ def _harden(y_pred, threshold):
     return (y_pred >= threshold).float()
 
 
-def _present_mean(per_class, present):
+def _present_mean(per_class, present, mesh=None):
     present = present.float()
-    return (per_class * present).sum() / present.sum().clamp(min=1.0)
+    total, count = (per_class * present).sum(), present.sum()
+    if mesh is not None:
+        total, count = mesh.stat(torch.stack([total, count]))
+    return total / count.clamp(min=1.0)
 
 
-def iou(y_true, y_pred, threshold=0.5, eps=1e-7):
+def iou(y_true, y_pred, threshold=0.5, eps=1e-7, mesh=None):
     """y_true: (N, C, H, W) one-hot, y_pred: (N, C, H, W) probabilities;
-    a 0-d fp32 tensor."""
+    a 0-d fp32 tensor. With a ``mesh`` (``parallel.mesh.DataMesh``), the
+    global batch's IoU on every rank."""
     y_true = y_true.float()
     hard = _harden(y_pred, threshold)
     inter = (hard * y_true).sum(dim=(2, 3))
     union = hard.sum(dim=(2, 3)) + y_true.sum(dim=(2, 3)) - inter
-    return _present_mean(inter / (union + eps), union > 0)
+    return _present_mean(inter / (union + eps), union > 0, mesh)
 
 
 def dice(y_true, y_pred, threshold=0.5, eps=1e-7):

@@ -156,10 +156,14 @@ def test_random_split_matches_jax(npz_ds):
                                           b.load_raw(0)[1])
 
 
-@pytest.mark.parametrize('kwargs', [{'process_index': 0,
-                                     'process_count': 2},
-                                    {'process_count': 1}],
-                         ids=['per-host', 'one-host'])
-def test_unported_loader_options_raise(npz_ds, kwargs):
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 11'):
+@pytest.mark.parametrize('kwargs,match', [
+    ({'process_index': 0, 'process_count': 3}, 'batch 16 must divide'),
+    ({'process_count': 2}, 'process_index is required')],
+    ids=['per-host', 'one-host'])
+def test_unported_loader_options_raise(npz_ds, kwargs, match):
+    """Per-rank slicing is ported (tests/test_torch_parallel.py); what it
+    cannot slice raises, as in the JAX loader: a global batch that does
+    not divide across the ranks, and a count given without this
+    process's index (which would decode rank 0's rows everywhere)."""
+    with pytest.raises(ValueError, match=match):
         DataLoader(npz_ds, **kwargs)

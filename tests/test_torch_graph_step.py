@@ -497,9 +497,15 @@ def test_aot_flops_match_the_analytic_count(tmp_path, capsys):
 
 @pytest.mark.parametrize('flag', ['--dp', '--tp'])
 def test_aot_parallel_modes_raise(flag):
+    """--tp is not ported (item 11c); --dp runs, but a global batch that
+    does not divide across its ranks raises, naming both."""
     from patchgan_tpu_torch.cli.aot import patchgan_aot
-    with pytest.raises(NotImplementedError, match='item 11'):
-        patchgan_aot([flag, '2', '-d', 'cpu'])
+    if flag == '--tp':
+        with pytest.raises(NotImplementedError, match='item 11c'):
+            patchgan_aot([flag, '2', '-d', 'cpu'])
+    else:
+        with pytest.raises(ValueError, match='--batch 16 .* --dp 3'):
+            patchgan_aot([flag, '3', '-d', 'cpu'])
 
 
 def test_aot_on_cuda_needs_a_card():
