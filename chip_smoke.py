@@ -227,11 +227,34 @@ Run from the root of the repository. In order:
    resumed ends bit-equal; (d) where there are two or more cards, NCCL
    over 1, 2 (and 4) cards, captured, bf16: img/s per card and the
    captured all-reduce's ms against ``patchgan_aot``'s NVLink bound; on
-   one card a line says why it did not run.
+   one card a line says why it did not run;
+15. the inference engine over the cards of one process
+   (``parallel.DeviceMesh``), with phase 3's generator and images: (a)
+   a mesh of the one card listed twice, always; (b) where there are two
+   or more cards, meshes of 2 and of min(cards, 4) cards (on one card a
+   line says why not). On each: the fp32 ``predict_tiles`` of one
+   32-tile bucket against the one-card engine's, max |dprob| <= 1e-3
+   (bit-equality printed); the bf16 masks of the four images, one at a
+   time and as one ``predict_images`` group, equal to the one-card
+   engine's on >= 99.9% of pixels; K1 / K2 / K3 1 / 6 / 5 launches a
+   device a chunk, and K4 1 under ``PATCHGAN_S2D=on``; the host ms to
+   issue one device's share of a 32-tile chunk against that share's
+   device ms. Then spatial mode on a 2-device mesh (the warning naming
+   item 11d, the mask equal to the one-card spatial mask); masks/s of
+   the 1280x960 image one at a time and in groups of 4 at 1, 2 and 4
+   cards (on one card: 1 card and the card twice), with the widest
+   mesh's groups also pending on the home card's copy, three windows of
+   at least 2 s each in turns; ``python -m
+   patchgan_tpu_torch.cli.infer -d cuda`` over every card (its header
+   names the mesh, masks equal to phase 3's on >= 99.9%) and
+   ``patchgan_serve -d cuda --watch --once`` (masks equal to phase
+   12's on >= 99.9%, launches a device a chunk).
+   ``python3 chip_smoke.py --mesh-only`` runs phase 15 alone, after
+   phase 3 and a one-card serve run for its references.
 
 It prints a JSON summary of the kernels (launches from the s2d training
 run, which drives all six; every path's counts beside them, the
-spatial, serve, pipeline and data-parallel paths' too; K1-K3's totals
+spatial, serve, pipeline, data-parallel and mesh paths' too; K1-K3's totals
 at the spatial shapes), the card's name and power limit, and as its last line ``{"ok":
 true, "device": {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
@@ -336,7 +359,9 @@ def device_ms(fn, iters=20):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the current device's side stream: torch.cuda.graph's
+    # default capture stream belongs to the device of its first use
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -711,16 +736,28 @@ def write_inputs(tmp, torch, np):
     return path, sizes, model
 
 
-def expected_chunks(sizes):
-    from patchgan_tpu_torch.inference.engine import _pick_bucket
+def expected_chunks(sizes, k=1, group=False):
+    """Forward chunks of the images of ``sizes`` through an engine over
+    ``k`` devices at the default batch_size, times ``k`` (each device
+    runs its share of every chunk): one image at a time, or (``group``)
+    one ``predict_images`` group, which shares buckets only over several
+    devices. ``patchgan_infer`` / ``patchgan_serve -d cuda`` run over
+    ``torch.cuda.device_count()`` cards."""
+    from patchgan_tpu_torch.inference.engine import _pick_bucket, _round_up
     from patchgan_tpu_torch.inference.tiling import crop_positions
-    total = 0
-    for h, w in sizes:
-        hp, wp = max(h, SIZE), max(w, SIZE)
-        n = len(crop_positions(hp, wp, SIZE, 0.9))
-        bs = _pick_bucket(n, 128)
-        total += -(-n // bs)
-    return total
+    counts = [len(crop_positions(max(h, SIZE), max(w, SIZE), SIZE, 0.9))
+              for h, w in sizes]
+    if group and k > 1:
+        counts = [sum(counts)]
+    cap = _round_up(128, k)
+    return k * sum(-(-n // _pick_bucket(n, cap, k)) for n in counts)
+
+
+def per_chunk(chunks, s2d=False):
+    """The six wrappers' launches of ``chunks`` forward chunks (a
+    device's share counted as one): K1 / K2 / K3 1 / 6 / 5 each, K4 1 in
+    the s2d form."""
+    return [chunks, 6 * chunks, 5 * chunks, 0, chunks if s2d else 0, 0]
 
 
 def bwd_shapes():
@@ -1779,10 +1816,11 @@ def aot_phase(torch, card, captured_peak):
     return {'batch_16': fit, 'batch_4096': big, 'peak_ratio': ratio}
 
 
-def infer_path_phase(torch, np, kernels, s2d):
-    """patchgan_infer -d cuda on the four images under
-    PATCHGAN_S2D=``s2d``; checks each mask and the launch counts per
-    forward chunk. Returns (launches by kernel name, the model, masks)."""
+def infer_path_phase(torch, np, kernels, s2d, device='cuda'):
+    """patchgan_infer -d ``device`` (every card, or one) on the four
+    images under PATCHGAN_S2D=``s2d``; checks each mask and the launch
+    counts per forward chunk. Returns (launches by kernel name, the
+    model, masks)."""
     from patchgan_tpu_torch.cli.infer import patchgan_infer
     with tempfile.TemporaryDirectory() as tmp:
         cfg, sizes, model = write_inputs(tmp, torch, np)
@@ -1791,11 +1829,12 @@ def infer_path_phase(torch, np, kernels, s2d):
                 k.wrapper.launches = 0
             t0 = time.perf_counter()
             with s2d_env(s2d):
-                patchgan_infer(['-c', cfg, '-d', 'cuda'])
+                patchgan_infer(['-c', cfg, '-d', device])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {k.name: k.wrapper.launches for k in kernels}
-        chunks = expected_chunks(sizes)
+        chunks = expected_chunks(sizes, torch.cuda.device_count()
+                                 if device == 'cuda' else 1)
         print(f'  s2d {s2d}: wall {wall:.2f} s, {chunks} forward chunks, '
               f'launches {launches}', flush=True)
         want = dict(zip([k.name for k in kernels],
@@ -2052,7 +2091,8 @@ def serve_phase(torch, np, kernels, model, card, tmp):
     --http in process (correctness, then load at --batch 0 and --batch 4
     in turns), the stitch's share of a 1280x960 tiled image, and the
     SIGTERM drain of a ``-d cuda`` subprocess under load. Returns
-    (launches by path, the load readings)."""
+    (launches by path, the load readings, the --watch masks by image
+    name)."""
     import yaml
     from PIL import Image
 
@@ -2081,9 +2121,8 @@ def serve_phase(torch, np, kernels, model, card, tmp):
         wall = time.perf_counter() - t0
         return n, [w.launches for w in wrappers], tee.getvalue(), wall
 
-    def per_chunk(chunks):
-        return [chunks, 6 * chunks, 5 * chunks, 0, 0, 0]
-
+    # -d cuda: every card
+    cards = torch.cuda.device_count()
     paths, masks = {}, {}
     for label, mode, extra, out_dir in (
             ('serve_watch', 'tiled', [], 'tiled'),
@@ -2100,7 +2139,9 @@ def serve_phase(torch, np, kernels, model, card, tmp):
         n, launches, out, wall = run(['-c', cfg, '--watch', src, '--once']
                                      + extra)
         if mode == 'tiled':
-            want = per_chunk(expected_chunks(list(sizes.values()) + warm))
+            want = per_chunk(expected_chunks(list(sizes.values()), cards,
+                                             group=bool(extra))
+                             + expected_chunks(warm, cards))
         else:
             want = [(len(sizes) + 1) * k for k in SPATIAL_IMAGE]
         print(f'  {label}: served {n} in {wall:.2f} s (warmup included), '
@@ -2132,7 +2173,7 @@ def serve_phase(torch, np, kernels, model, card, tmp):
                                  stdin='\n'.join(lines) + '\n')
     echoed = [line for line in out.splitlines()
               if line.startswith(('ERROR', tmp))]
-    want = per_chunk(expected_chunks(list(sizes.values())))
+    want = per_chunk(expected_chunks(list(sizes.values()), cards))
     print(f'  stdin: {echoed}, launches {launches} (expected {want}) in '
           f'{wall:.2f} s', flush=True)
     stems = [os.path.splitext(os.path.basename(p))[0] for p in lines]
@@ -2199,7 +2240,7 @@ def serve_phase(torch, np, kernels, model, card, tmp):
     load['request_split'] = request_split(np, engine, src, card)
     del engine
     load['sigterm'] = sigterm_drain(cfgs['tiled'], src)
-    return paths, load
+    return paths, load, masks['tiled']
 
 
 def http_call(url, body=None, timeout=120):
@@ -3665,7 +3706,382 @@ def dp_phase(torch, np, wrappers, card, tmp):
     return launches_a, launches_b, out
 
 
-def main():
+# phase 15: the inference engine over the cards of one process
+MESH_WINDOWS = 3       # masks/s windows per configuration, in turns
+MESH_GROUP = 4         # images per predict_images group
+MESH_AGREE = 0.999     # label agreement with the one-card engine
+
+
+def mesh_layouts(torch):
+    """{label: devices} of phase 15: (a) one card listed twice, always;
+    (b) 2 cards and min(cards, 4) where there are two or more."""
+    n = torch.cuda.device_count()
+    layouts = {'cuda:0 x2': ['cuda:0', 'cuda:0']}
+    if n >= 2:
+        for k in sorted({2, min(n, 4)}):
+            layouts[f'{k} cards'] = [f'cuda:{i}' for i in range(k)]
+    return layouts
+
+
+def split_check(torch, F, kernels):
+    """K2 and K3 at the nf=64 generator's shapes for a bucket of 32
+    tiles, at the K split of ``SPLIT_BATCH`` tiles (the engine's; another
+    split than the bucket's own at the deep levels): against their plain
+    versions at phase 2's tolerances, and rows 0-7 bit-equal to the same
+    kernel on those 8 rows alone."""
+    from patchgan_tpu_torch.inference.engine import SPLIT_BATCH
+    worst = {}
+    for kernel, label, make, *_ in make_cases(torch, F, kernels, n=32):
+        if kernel.name == 'instance_norm_act':
+            continue
+        for dname, dt in (('bfloat16', torch.bfloat16),
+                          ('float32', torch.float32)):
+            args = make(dt)
+            got = kernel.wrapper(*args, split_batch=SPLIT_BATCH)
+            want = kernel.plain(*(a.float() if torch.is_tensor(a) else a
+                                  for a in args))
+            err = (got.float() - want.float()).abs().max().item()
+            rows = kernel.wrapper(*(a[:8] if torch.is_tensor(a) and
+                                    a.dim() == 4 and a.shape[0] == 32 else a
+                                    for a in args), split_batch=SPLIT_BATCH)
+            same = torch.equal(rows, got[:8])
+            worst[kernel.name] = max(worst.get(kernel.name, 0.0), err)
+            if err > TOL[dname] or not same:
+                raise AssertionError(f'{kernel.name} {label} {dname} at '
+                                     f'split_batch {SPLIT_BATCH}: err {err} '
+                                     f'(tol {TOL[dname]}), rows 0-7 equal '
+                                     f'to 8 alone {same}')
+    print(f'  K2 / K3 at 32 tiles, split_batch {SPLIT_BATCH}: max_abs_err '
+          f'{worst} (tol {TOL}); rows 0-7 bit-equal to the 8 rows alone at '
+          f'every level, both dtypes', flush=True)
+    return worst
+
+
+def counted(wrappers, fn):
+    """(fn's result, the wrappers' launches during it), the card
+    synchronised after it."""
+    import torch
+    for w in wrappers:
+        w.launches = 0
+    out = fn()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    return out, [w.launches for w in wrappers]
+
+
+def mesh_rates(fns, label):
+    """Masks/s of each of ``fns`` ({name: a call that returns the masks
+    it finished}, with an optional ``flush`` attribute that finishes what
+    is still in flight) after two warm-up calls each: MESH_WINDOWS
+    windows of at least WINDOW_S each, in turns (the order reversed
+    every other window), every reading printed. Returns {name:
+    readings}."""
+    names = list(fns)
+    for fn in fns.values():
+        for _ in range(2):
+            fn()
+        getattr(fn, 'flush', lambda: 0)()
+    readings = {name: [] for name in names}
+    for i in range(MESH_WINDOWS):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            fn, count, t0 = fns[name], 0, time.perf_counter()
+            while time.perf_counter() - t0 < WINDOW_S:
+                count += fn()
+            count += getattr(fn, 'flush', lambda: 0)()
+            dt = time.perf_counter() - t0
+            readings[name].append(count / dt)
+            print(f'  {label} window {i} {name}: {count} masks in '
+                  f'{dt:.3f} s, {count / dt:.3f} masks/s', flush=True)
+    return readings
+
+
+class PendingGroups:
+    """Groups through ``predict_images_async``, group i's handles resolved
+    after group i + 1 is dispatched (the serve micro-batcher's pattern:
+    handles pending on the home card's copy)."""
+
+    def __init__(self, engine, images):
+        self.engine, self.images, self.prev = engine, images, None
+
+    def __call__(self):
+        handles = self.engine.predict_images_async(self.images)
+        done = self.flush()
+        self.prev = handles
+        return done
+
+    def flush(self):
+        if self.prev is None:
+            return 0
+        for h in self.prev:
+            h.result()
+        done, self.prev = len(self.prev), None
+        return done
+
+
+def share_pace(torch, engine, card):
+    """Host ms to issue one mesh device's share of a 32-tile chunk (its
+    forward queued, nothing waited for), against the device ms of that
+    share's forward (a CUDA graph's replay on its card): whether the host
+    or the cards set the pace."""
+    k = engine.n_devices
+    x = torch.rand(32, IN_C, SIZE, SIZE, device=engine.device)
+    shares = [s.to(d) for s, d in zip(x.chunk(k), engine._devices)]
+    rows = []
+    with torch.inference_mode():
+        for i, share in enumerate(shares):
+            host = []
+            for _ in range(13):
+                torch.cuda.synchronize(share.device)
+                t0 = time.perf_counter()
+                engine._forward(share, i)
+                host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize(share.device)
+            with torch.cuda.device(share.device):
+                dev = device_ms(lambda: engine._forward(share, i), iters=10)
+            rows.append({'device': str(share.device), 'tiles': share.shape[0],
+                         'host_issue_ms': statistics.median(host[3:]),
+                         'device_ms': dev})
+    issue = sum(r['host_issue_ms'] for r in rows)
+    slowest = max(r['device_ms'] for r in rows)
+    bound = 'host' if issue > slowest else 'cards'
+    print(f'  pace, {k} devices, a 32-tile chunk: host issue ms a share '
+          f'{[round(r["host_issue_ms"], 3) for r in rows]} (sum '
+          f'{issue:.3f}), device ms a share '
+          f'{[round(r["device_ms"], 3) for r in rows]} (slowest '
+          f'{slowest:.3f}): the {bound} set the pace on {card}', flush=True)
+    return {'shares': rows, 'host_issue_ms_sum': issue,
+            'slowest_device_ms': slowest, 'bound_by': bound}
+
+
+def mesh_check(torch, np, wrappers, model, images, sizes, devices, refs,
+               card):
+    """One mesh of phase 15: the fp32 predict_tiles of one 32-tile bucket
+    against the one-card engine's (max |dprob| <= 1e-3); the bf16 masks
+    of the four images one at a time and as one group against the
+    one-card engine's (>= MESH_AGREE of pixels); the launches a device a
+    chunk, K4 too under PATCHGAN_S2D=on; the host's pace. Returns (the
+    bf16 engine, the launches of each run, the summary)."""
+    from patchgan_tpu_torch.inference import InferenceEngine
+    from patchgan_tpu_torch.parallel import default_mesh
+    mesh = default_mesh(devices)
+    k = len(mesh)
+    out = {'mesh': mesh.describe()}
+    tiles = np.random.default_rng(1).random((32, SIZE, SIZE, IN_C),
+                                            dtype=np.float32)
+    with s2d_env('off'):
+        eng32 = InferenceEngine(model, dtype=torch.float32, mesh=mesh)
+        eng = InferenceEngine(model, dtype=torch.bfloat16, mesh=mesh)
+    got = eng32.predict_tiles(tiles)
+    d32 = float(np.abs(got - refs['tiles32']).max())
+    out['fp32_tiles_max_abs'] = d32
+    out['fp32_tiles_bit_equal'] = bool(np.array_equal(got,
+                                                      refs['tiles32']))
+    del eng32
+    singles, l_single = counted(wrappers, lambda: [eng.predict_image(im)
+                                                   for im in images])
+    group, l_group = counted(wrappers, lambda: eng.predict_images(images))
+    with s2d_env('on'):
+        eng_s2d = InferenceEngine(model, dtype=torch.bfloat16, mesh=mesh)
+    _, l_s2d = counted(wrappers, lambda: [eng_s2d.predict_image(im)
+                                          for im in images])
+    del eng_s2d
+    agree = {'single': [float(np.mean(a == b))
+                        for a, b in zip(singles, refs['masks16'])],
+             'group': [float(np.mean(a == b))
+                       for a, b in zip(group, refs['masks16'])]}
+    want = {'single': per_chunk(expected_chunks(sizes, k)),
+            'group': per_chunk(expected_chunks(sizes, k, group=True)),
+            's2d': per_chunk(expected_chunks(sizes, k), s2d=True)}
+    got_l = {'single': l_single, 'group': l_group, 's2d': l_s2d}
+    equal = {'single': [bool(np.array_equal(a, b))
+                        for a, b in zip(singles, refs['masks16'])],
+             'group': [bool(np.array_equal(a, b))
+                       for a, b in zip(group, refs['masks16'])]}
+    out.update({'agreement': agree, 'bit_equal': equal, 'launches': got_l})
+    print(f'  {mesh.describe()}: fp32 predict_tiles (32 tiles) vs one card '
+          f'max |dprob| {d32:.3e} (tol 1e-3), bit-equal '
+          f'{out["fp32_tiles_bit_equal"]}; bf16 label agreement with one '
+          f'card, one at a time {agree["single"]}, as a group '
+          f'{agree["group"]} (>= {MESH_AGREE}), bit-equal {equal}; '
+          f'launches {got_l} (expected {want})', flush=True)
+    if not d32 <= 1e-3 or got_l != want or any(
+            a < MESH_AGREE for v in agree.values() for a in v) or any(
+            m.shape != hw for m, hw in zip(singles + group, sizes * 2)):
+        raise AssertionError(f'{mesh}: {d32}, {agree}, launches {got_l} '
+                             f'(expected {want})')
+    out['pace'] = share_pace(torch, eng, card)
+    return eng, got_l, out
+
+
+def mesh_cli_phase(torch, np, wrappers, model, plain_masks, watch_masks,
+                   card):
+    """``python -m patchgan_tpu_torch.cli.infer -d cuda`` and
+    ``patchgan_serve -d cuda --watch --once`` over every visible card:
+    the header names the mesh, the masks agree with phase 3's and phase
+    12's on >= MESH_AGREE of pixels, the serve run's launches a device a
+    chunk. Returns the serve run's launches."""
+    from patchgan_tpu_torch.cli.serve import patchgan_serve
+    from patchgan_tpu_torch.parallel import default_mesh
+    mesh = default_mesh()
+    k = len(mesh)
+    path = os.environ.get('PYTHONPATH')
+    env = dict(os.environ, PYTHONPATH=ROOT + (os.pathsep + path if path
+                                              else ''), PATCHGAN_S2D='off')
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, sizes, _ = write_inputs(tmp, torch, np)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'patchgan_tpu_torch.cli.infer', '-c', cfg,
+             '-d', 'cuda'], cwd=tmp, env=env, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        header = f'Running on {mesh.describe()}'
+        if proc.returncode != 0 or header not in proc.stdout:
+            print(proc.stdout[-2000:], proc.stderr[-3000:])
+            raise AssertionError(f'patchgan_infer -d cuda exited '
+                                 f'{proc.returncode}, header {header!r} '
+                                 f'printed: {header in proc.stdout}')
+        infer_agree = [float(np.mean(np.load(os.path.join(
+            tmp, 'masks', f'{i:03d}.npy')) == want))
+            for i, want in enumerate(plain_masks)]
+        print(f'  python -m patchgan_tpu_torch.cli.infer -d cuda: "{header}"'
+              f', {wall:.2f} s; label agreement with phase 3 {infer_agree}',
+              flush=True)
+        if any(a < MESH_AGREE for a in infer_agree):
+            raise AssertionError(f'infer -d cuda over {k} cards: '
+                                 f'{infer_agree}')
+    with tempfile.TemporaryDirectory() as tmp:
+        src, sizes, cfgs, _ = write_serve_inputs(tmp, np, model)
+        tee = Tee(sys.stdout)
+        with s2d_env('off'), contextlib.redirect_stdout(tee):
+            n, launches = counted(wrappers, lambda: patchgan_serve(
+                ['-c', cfgs['tiled'], '--watch', src, '--once', '-d',
+                 'cuda']))
+        masks = read_masks(np, os.path.join(tmp, 'tiled'), sizes)
+    want = per_chunk(expected_chunks(list(sizes.values()) + [(SIZE, SIZE)],
+                                     k))
+    agree = {name: float(np.mean(masks[name] == watch_masks[name]))
+             for name in sizes}
+    print(f'  patchgan_serve -d cuda --watch --once on {mesh.describe()}: '
+          f'served {n}; label agreement with phase 12 {agree}; launches '
+          f'{launches} (expected {want})', flush=True)
+    if n != len(sizes) or launches != want or \
+            f'Serving on {mesh.describe()}' not in tee.getvalue() or \
+            any(a < MESH_AGREE for a in agree.values()):
+        raise AssertionError(f'serve -d cuda over {k} cards: {n}, {agree}, '
+                             f'{launches}')
+    return launches, {'mesh': mesh.describe(), 'infer_agreement': infer_agree,
+                      'infer_wall_s': wall, 'serve_agreement': agree}
+
+
+def mesh_phase(torch, np, F, kernels, model, plain_masks, watch_masks,
+               card):
+    """Phase 15: the engine over the cards of one process (see the
+    module's docstring). Returns (launches by path, the summary)."""
+    import warnings
+
+    from patchgan_tpu_torch.inference import InferenceEngine
+    wrappers = [k.wrapper for k in kernels]
+    names = [k.name for k in kernels]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = {'card': card, 'split_check': split_check(torch, F,
+                                                        kernels[:3])}
+    model = model.to(torch.float32).eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, sizes, _ = write_inputs(tmp, torch, np)
+        images = [np.load(os.path.join(tmp, 'images', f'{i:03d}.npz'))
+                  ['image'] for i in range(len(sizes))]
+    with s2d_env('off'):
+        one32 = InferenceEngine(model, dtype=torch.float32)
+        one = InferenceEngine(model, dtype=torch.bfloat16)
+    refs = {'tiles32': one32.predict_tiles(np.random.default_rng(1).random(
+        (32, SIZE, SIZE, IN_C), dtype=np.float32)),
+        'masks16': [one.predict_image(im) for im in images]}
+    del one32
+    paths, engines = {}, {}
+    layouts = mesh_layouts(torch)
+    if len(layouts) == 1:
+        print(f'  15b not run: this machine has {torch.cuda.device_count()} '
+              f'card; meshes of 2 and 4 cards need as many', flush=True)
+    for label, devices in layouts.items():
+        engines[label], launches, out[label] = mesh_check(
+            torch, np, wrappers, model, images, sizes, devices, refs, card)
+        tag = label.replace(' ', '_').replace(':', '')
+        paths.update({f'mesh_{tag}_{run}': dict(zip(names, n))
+                      for run, n in launches.items()})
+
+    big = images[0]
+    spatial_label = '2 cards' if '2 cards' in layouts else 'cuda:0 x2'
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        got = engines[spatial_label].predict_image(big, mode='spatial')
+    warned = any('item 11d' in str(w.message) for w in caught)
+    want = one.predict_image(big, mode='spatial')
+    agree = float(np.mean(got == want))
+    print(f'  spatial mode on {spatial_label}: warned naming item 11d '
+          f'{warned}; agreement with the one-card spatial mask {agree} '
+          f'(bit-equal {bool(np.array_equal(got, want))})', flush=True)
+    if not warned or agree < MESH_AGREE:
+        raise AssertionError(f'spatial on a mesh: warned {warned}, {agree}')
+    out['spatial'] = {'mesh': spatial_label, 'warned': warned,
+                      'agreement': agree}
+
+    timed = {'1 card': one}
+    timed.update({label: eng for label, eng in engines.items()
+                  if len(layouts) == 1 or label != 'cuda:0 x2'})
+    group = [big] * MESH_GROUP
+
+    def single(eng):
+        eng.predict_image(big)
+        return 1
+
+    fns = {}
+    for label, eng in timed.items():
+        fns[f'{label} single'] = (lambda e=eng: single(e))
+        fns[f'{label} group'] = (lambda e=eng: len(e.predict_images(group)))
+    widest = list(timed)[-1]
+    fns[f'{widest} group pending'] = PendingGroups(timed[widest], group)
+    readings = mesh_rates(fns, f'{SPATIAL_HW[1]}x{SPATIAL_HW[0]}')
+    out['masks_per_s'] = {}
+    for name, r in readings.items():
+        med = statistics.median(r)
+        out['masks_per_s'][name] = {'median': med, 'windows': r}
+        print(f'  1280x960 bf16 {name}: median {med:.3f} masks/s (min '
+              f'{min(r):.3f}, max {max(r):.3f}) over {MESH_WINDOWS} windows '
+              f'of >= {WINDOW_S} s on {card}', flush=True)
+    del engines, timed, fns
+    launches, out['cli'] = mesh_cli_phase(torch, np, wrappers, model,
+                                          plain_masks, watch_masks, card)
+    paths['mesh_serve_watch'] = dict(zip(names, launches))
+    out['phase_wall_s'] = time.perf_counter() - t0
+    return paths, out
+
+
+def mesh_only(torch, np, F, kernels, card):
+    """``python3 chip_smoke.py --mesh-only``: phase 15 alone, after the
+    references it holds the engine against, both on one card (``-d
+    cuda:0``): phase 3's patchgan_infer masks and a patchgan_serve
+    --watch run's."""
+    from patchgan_tpu_torch.cli.serve import patchgan_serve
+    print('== phase 3 (the reference masks): patchgan_infer -d cuda:0',
+          flush=True)
+    _, model, plain_masks = infer_path_phase(torch, np, kernels, 'off',
+                                             'cuda:0')
+    with tempfile.TemporaryDirectory() as tmp:
+        src, sizes, cfgs, _ = write_serve_inputs(tmp, np, model)
+        with s2d_env('off'):
+            patchgan_serve(['-c', cfgs['tiled'], '--watch', src, '--once',
+                            '-d', 'cuda:0'])
+        watch_masks = read_masks(np, os.path.join(tmp, 'tiled'), sizes)
+    print('== the engine over the cards of one process', flush=True)
+    _, mesh = mesh_phase(torch, np, F, kernels, model, plain_masks,
+                         watch_masks, card)
+    print(json.dumps({'mesh': mesh}))
+    print(card)
+
+
+def main(only_mesh=False):
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -3718,6 +4134,9 @@ def main():
                'patchgan_tpu/ops/pallas/thin_conv.py:216',
                thin_conv3x3_wgrad, thin_conv3x3_wgrad_plain))
     wrappers = [k.wrapper for k in kernels]
+    if only_mesh:
+        mesh_only(torch, np, F, kernels, card)
+        return 0
     print('== kernel phase (8 tiles of 256 px, nf=64; the s2d paths\' '
           'thin convs)', flush=True)
     with torch.inference_mode():
@@ -3842,8 +4261,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         print('== serve path: patchgan_serve -d cuda (bf16): --watch, '
               '--stdin, --http, load, SIGTERM drain', flush=True)
-        serve_paths, serve = serve_phase(torch, np, kernels, model, card,
-                                         tmp)
+        serve_paths, serve, watch_masks = serve_phase(torch, np, kernels,
+                                                      model, card, tmp)
     paths.update(serve_paths)
     print(json.dumps(serve))
     with tempfile.TemporaryDirectory() as tmp:
@@ -3868,6 +4287,14 @@ def main():
     paths['dp_gloo_rank_0'] = dict(zip(names, launches_b))
     print(json.dumps({'data_parallel': dp}))
     print(f'phases 1-14: {time.perf_counter() - t_start:.3f} s', flush=True)
+    print('== the engine over the cards of one process: one card listed '
+          'twice, 2 and 4 cards where there are several, patchgan_infer and '
+          'patchgan_serve -d cuda', flush=True)
+    mesh_paths, mesh = mesh_phase(torch, np, F, kernels, model, plain_masks,
+                                  watch_masks, card)
+    paths.update(mesh_paths)
+    print(json.dumps({'mesh': mesh}))
+    print(f'phases 1-15: {time.perf_counter() - t_start:.3f} s', flush=True)
 
     summary = []
     for k in kernels:
@@ -3904,4 +4331,4 @@ if __name__ == '__main__':
         del sys.argv[1]
         train_child()
         sys.exit(0)
-    sys.exit(main())
+    sys.exit(main(only_mesh=sys.argv[1:2] == ['--mesh-only']))

@@ -27,15 +27,29 @@ def select_device(name):
     raise ValueError(f"Unknown device {name!r}")
 
 
+def engine_devices(name):
+    """(device, mesh) of an inference engine for ``-d name``: 'auto' and
+    'cuda' mean every visible card (``CUDA_VISIBLE_DEVICES``) as one
+    ``DeviceMesh``, its first card the device, as the JAX CLIs build
+    ``default_mesh()`` over ``jax.devices()``; 'cuda:N' means that card
+    alone and 'cpu' the CPU, with no mesh. Raises as ``select_device``."""
+    from ..parallel import default_mesh
+    device = select_device(name)
+    if name in ('auto', 'cuda'):
+        mesh = default_mesh()
+        return mesh.home, mesh
+    return device, None
+
+
 def refuse_ranks(cli):
     """``cli`` runs one process's job: under torchrun with more than one
     rank it raises, instead of running the same job on every rank."""
     size = int(os.environ.get('WORLD_SIZE', 1))
     if size > 1:
         raise NotImplementedError(
-            f"{cli} across {size} ranks (the engine sharded over cards) "
-            f"is not ported yet (ROADMAP.md, queue 1 item 11b); run one "
-            f"process")
+            f"{cli} runs as one process, which already uses every visible "
+            f"card (-d cuda); it does not run across {size} ranks: start "
+            f"it without torchrun")
 
 
 def compute_dtype(name, device):

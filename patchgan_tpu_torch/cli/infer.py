@@ -7,9 +7,11 @@ the ``get_filename`` / ``save_mask`` dataset protocol, overlap tiling
 with the averaging stitch (``mode: tiled``, the default) or one
 whole-image forward (``mode: spatial``), and image decode/save
 overlapped with the device.
-``-d auto`` (the default) and ``-d cuda`` run on the card and raise
-without one; ``-d cpu`` runs on the CPU. Under torchrun with more than
-one rank it raises (the engine across cards, ROADMAP.md item 11b).
+``-d auto`` (the default) and ``-d cuda`` run one engine over every
+visible card (``CUDA_VISIBLE_DEVICES``), as the JAX CLI's
+``default_mesh()`` does, and raise without one; ``-d cuda:N`` runs on
+that card alone and ``-d cpu`` on the CPU. It runs as one process: under
+torchrun with more than one rank it raises.
 """
 
 import argparse
@@ -27,8 +29,8 @@ from ..utils import checkpoint as ckpt
 from ..utils.config import load_config, model_params
 from ..utils.summary import summarize
 from ..utils.transfer import load_transfer_data, unet_key_map
-from .common import (build_dataset_factory, compute_dtype, refuse_ranks,
-                     select_device)
+from .common import (build_dataset_factory, compute_dtype, engine_devices,
+                     refuse_ranks)
 
 
 def patchgan_infer(argv=None):
@@ -42,7 +44,8 @@ def patchgan_infer(argv=None):
                         help='Decode threads prefetching images ahead of '
                              'the device')
     parser.add_argument('-d', '--device', default='auto',
-                        help="Device to use: 'auto', 'cuda' or 'cpu'")
+                        help="Device to use: 'auto' or 'cuda' (every "
+                             "visible card), 'cuda:N' or 'cpu'")
     parser.add_argument('--summary', default=True, action='store_true',
                         help='Print summary of the models')
     parser.add_argument('--dtype', default='auto',
@@ -50,9 +53,10 @@ def patchgan_infer(argv=None):
     args = parser.parse_args(argv)
 
     refuse_ranks('patchgan_infer')
-    device = select_device(args.device)
+    device, mesh = engine_devices(args.device)
     dtype = compute_dtype(args.dtype, device)
-    print(f"Running with {device}")
+    print(f"Running on {mesh.describe()}" if mesh is not None
+          else f"Running with {device}")
 
     config = load_config(args.config_file)
 
@@ -98,7 +102,7 @@ def patchgan_infer(argv=None):
                              overlap=infer_params.get('overlap', 0.9),
                              threshold=infer_params.get('threshold', 0),
                              batch_size=infer_params.get('batch_size', 128),
-                             device=device)
+                             device=device, mesh=mesh)
 
     def fetch(i):
         if hasattr(datagen, 'get_image'):

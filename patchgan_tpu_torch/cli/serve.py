@@ -31,9 +31,11 @@ Config: the infer CLI's schema (flat or nested ``model_params``,
 ``checkpoint_paths.generator``), with ``dataset.size`` and
 ``infer_params`` (``output_path``, ``threshold``, ``overlap``,
 ``batch_size``, ``mode: tiled|spatial``). ``-d auto`` (the default) and
-``-d cuda`` run on the card and raise without one; ``-d cpu`` runs on
-the CPU. Under torchrun with more than one rank it raises (the engine
-across cards, ROADMAP.md item 11b).
+``-d cuda`` run one engine over every visible card
+(``CUDA_VISIBLE_DEVICES``), as the JAX server's ``default_mesh()`` does,
+and raise without one; ``-d cuda:N`` runs on that card alone and ``-d
+cpu`` on the CPU. It runs as one process: under torchrun with more than
+one rank it raises.
 """
 
 import argparse
@@ -44,7 +46,9 @@ import time
 IMAGE_EXTS = ('.jpg', '.jpeg', '.png')
 
 
-def _build_engine(config, dtype, device):
+def _build_engine(config, dtype, device, mesh=None):
+    """The engine, the mode and the output folder of ``config``, on
+    ``device`` or over ``mesh`` (``common.engine_devices``)."""
     import torch
 
     from ..inference import InferenceEngine
@@ -78,7 +82,8 @@ def _build_engine(config, dtype, device):
         generator, size=size,
         overlap=infer_params.get('overlap', 0.9),
         threshold=infer_params.get('threshold', 0),
-        batch_size=infer_params.get('batch_size', 128), device=device)
+        batch_size=infer_params.get('batch_size', 128), device=device,
+        mesh=mesh)
     mode = infer_params.get('mode', 'tiled')
     output_path = infer_params.get('output_path', 'predictions/')
     os.makedirs(output_path, exist_ok=True)
@@ -137,10 +142,12 @@ def _warmup(engine, mode, all_buckets=False):
     if all_buckets and mode != 'spatial':
         with torch.inference_mode():
             for b in sorted(b for b in _BUCKET_REL_RATE
-                            if b <= engine.batch_size):
-                engine._forward(torch.zeros((b, c, size, size),
-                                            device=engine.device))
+                            if b <= engine.batch_size
+                            and b % engine.n_devices == 0):
+                engine._forward_bucket(torch.zeros((b, c, size, size),
+                                                   device=engine.device))
         if engine.device.type == 'cuda':
+            # every card's share is copied back to home's stream
             torch.cuda.synchronize(engine.device)
     print(f"warmup: {mode} forward done in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -670,7 +677,8 @@ def patchgan_serve(argv=None):
     parser.add_argument('--no-warmup', action='store_true',
                         help='Skip the warmup forward at startup')
     parser.add_argument('-d', '--device', default='auto',
-                        help="Device to use: 'auto', 'cuda' or 'cpu'")
+                        help="Device to use: 'auto' or 'cuda' (every "
+                             "visible card), 'cuda:N' or 'cpu'")
     parser.add_argument('--dtype', default='auto',
                         choices=['auto', 'float32', 'bfloat16'])
     args = parser.parse_args(argv)
@@ -680,18 +688,18 @@ def patchgan_serve(argv=None):
             'exactly one of --watch / --stdin / --http is required')
 
     from ..utils.config import load_config
-    from .common import compute_dtype, refuse_ranks, select_device
+    from .common import compute_dtype, engine_devices, refuse_ranks
 
     refuse_ranks('patchgan_serve')
-    device = select_device(args.device)
+    device, mesh = engine_devices(args.device)
     dtype = compute_dtype(args.dtype, device)
     config = load_config(args.config_file)
-    engine, mode, output_path = _build_engine(config, dtype, device)
+    engine, mode, output_path = _build_engine(config, dtype, device, mesh)
     if not args.no_warmup:
         _warmup(engine, mode,
                 all_buckets=bool(args.http) and args.batch > 1)
-    print(f"Serving with {device} ({mode} mode) -> {output_path}",
-          flush=True)
+    where = mesh.describe() if mesh is not None else device
+    print(f"Serving on {where} ({mode} mode) -> {output_path}", flush=True)
 
     if args.http:
         _http_loop(engine, mode, args.http, batch=args.batch,

@@ -299,12 +299,17 @@ int splits_for(const P& p, int batch) {
 }
 
 // Runs the product, then the finishing pass over the N * Cout planes of
-// `plane` elements each, writing y. `acc` holds splits_for(p, batch)
-// slices of N * Cout * plane floats. Returns cudaGetLastError().
+// `plane` elements each, writing y. The K split is the one a batch of
+// `split_batch` samples takes: a sample's sums run in the same order
+// whatever `batch` is when `split_batch` is held fixed. `acc` holds
+// splits_for(p, split_batch) slices of N * Cout * plane floats. Returns
+// cudaGetLastError().
 template <typename T, typename P>
-int launch_conv_in_act(const P& p, int batch, float* acc, float2* part, T* y,
-                       long plane, int act, float eps, cudaStream_t st) {
-  const int splits = splits_for(p, batch);
+int launch_conv_in_act(const P& p, int batch, int split_batch, float* acc,
+                       float2* part, T* y, long plane, int act, float eps,
+                       cudaStream_t st) {
+  if (split_batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int splits = splits_for(p, split_batch);
   const long slice = (long)batch * p.Cout * plane;
   const dim3 grid((p.M + BM - 1) / BM, (p.Cout + BN - 1) / BN,
                   batch * p.G * splits);

@@ -104,18 +104,19 @@ ConvProblem<T> problem(const void* x, const void* w, int cin, int h, int wd,
 
 template <typename T>
 int run(const void* x, const void* w, void* y, void* acc, void* part,
-        int batch, int cin, int h, int wd, int cout, int act, float eps,
-        cudaStream_t st) {
+        int batch, int split_batch, int cin, int h, int wd, int cout,
+        int act, float eps, cudaStream_t st) {
   const ConvProblem<T> p = problem<T>(x, w, cin, h, wd, cout);
-  return launch_conv_in_act<T>(p, batch, static_cast<float*>(acc),
+  return launch_conv_in_act<T>(p, batch, split_batch,
+                               static_cast<float*>(acc),
                                static_cast<float2*>(part), static_cast<T*>(y),
                                (long)p.M, act, eps, st);
 }
 
 }  // namespace pgt
 
-// K split the launch below takes for this shape: acc holds that many
-// fp32 copies of y's shape.
+// K split the launch below takes for this shape when its split_batch is
+// `batch`: acc holds that many fp32 copies of y's shape.
 extern "C" int pgt_conv_splits(int batch, int cin, int h, int wd, int cout) {
   return pgt::splits_for(pgt::problem<float>(nullptr, nullptr, cin, h, wd,
                                              cout),
@@ -123,18 +124,20 @@ extern "C" int pgt_conv_splits(int batch, int cin, int h, int wd, int cout) {
 }
 
 // x [N, Cin, H, W], w [Cout, Cin, 4, 4] (16-byte aligned), y [N, Cout,
-// Ho, Wo], all bf16 (bf16 != 0) or all fp32; acc: fp32 scratch of
-// pgt_conv_splits() times y's shape; part: fp32 pairs, N * Cout *
-// ceil(Ho*Wo / pgt_tile_m()).
+// Ho, Wo], all bf16 (bf16 != 0) or all fp32; split_batch: the batch
+// whose K split to take (N for the fastest split); acc: fp32 scratch of
+// pgt_conv_splits(split_batch, ...) times y's shape; part: fp32 pairs,
+// N * Cout * ceil(Ho*Wo / pgt_tile_m()).
 // Returns cudaGetLastError().
 extern "C" int pgt_conv_in_act(const void* x, const void* w, void* y,
-                               void* acc, void* part, int batch, int cin,
-                               int h, int wd, int cout, int act, float eps,
-                               int bf16, void* stream) {
+                               void* acc, void* part, int batch,
+                               int split_batch, int cin, int h, int wd,
+                               int cout, int act, float eps, int bf16,
+                               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return pgt::run<__nv_bfloat16>(x, w, y, acc, part, batch, cin, h, wd,
-                                   cout, act, eps, st);
-  return pgt::run<float>(x, w, y, acc, part, batch, cin, h, wd, cout, act,
-                         eps, st);
+    return pgt::run<__nv_bfloat16>(x, w, y, acc, part, batch, split_batch,
+                                   cin, h, wd, cout, act, eps, st);
+  return pgt::run<float>(x, w, y, acc, part, batch, split_batch, cin, h, wd,
+                         cout, act, eps, st);
 }

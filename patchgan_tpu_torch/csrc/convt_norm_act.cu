@@ -152,20 +152,21 @@ ConvTProblem<T> problem(const void* x, const void* s, const void* wp, int cx,
 
 template <typename T>
 int run(const void* x, const void* s, const void* w, void* wp, void* y,
-        void* acc, void* part, int batch, int cx, int cs, int h, int wd,
-        int cout, int act, float eps, cudaStream_t st) {
+        void* acc, void* part, int batch, int split_batch, int cx, int cs,
+        int h, int wd, int cout, int act, float eps, cudaStream_t st) {
   const int rc = pack<T>(w, wp, cx, cs, cout, st);
   if (rc != 0) return rc;
   const ConvTProblem<T> p = problem<T>(x, s, wp, cx, cs, h, wd, cout);
-  return launch_conv_in_act<T>(p, batch, static_cast<float*>(acc),
+  return launch_conv_in_act<T>(p, batch, split_batch,
+                               static_cast<float*>(acc),
                                static_cast<float2*>(part), static_cast<T*>(y),
                                4L * p.M, act, eps, st);
 }
 
 }  // namespace pgt
 
-// K split the launch below takes for this shape: acc holds that many
-// fp32 copies of y's shape.
+// K split the launch below takes for this shape when its split_batch is
+// `batch`: acc holds that many fp32 copies of y's shape.
 extern "C" int pgt_convt_splits(int batch, int cx, int cs, int h, int wd,
                                 int cout) {
   return pgt::splits_for(pgt::problem<float>(nullptr, nullptr, nullptr, cx,
@@ -191,19 +192,21 @@ extern "C" int pgt_convt_pack(const void* w, void* wp, int cx, int cs,
 // x [N, Cx, H, W], skip [N, Cs, H, W] (Cs may be 0, skip then unused),
 // w [Cx + Cs, Cout, 4, 4] (16-byte aligned), y [N, Cout, 2H, 2W], all bf16
 // (bf16 != 0) or all fp32; wp: scratch of the packed weight, 4 * Cout *
-// pgt_convt_packed_k() elements; acc: fp32 scratch of pgt_convt_splits()
-// times y's shape; part: fp32 pairs, N * Cout * 4 * ceil(H*W /
-// pgt_tile_m()). Launches the pack, the GEMM and the finishing pass.
-// Returns cudaGetLastError().
+// pgt_convt_packed_k() elements; split_batch: the batch whose K split
+// to take (N for the fastest split); acc: fp32 scratch of
+// pgt_convt_splits(split_batch, ...) times y's shape; part: fp32 pairs,
+// N * Cout * 4 * ceil(H*W / pgt_tile_m()). Launches the pack, the GEMM
+// and the finishing pass. Returns cudaGetLastError().
 extern "C" int pgt_convt_in_act(const void* x, const void* skip,
                                 const void* w, void* wp, void* y, void* acc,
-                                void* part, int batch, int cx, int cs, int h,
-                                int wd, int cout, int act, float eps,
-                                int bf16, void* stream) {
+                                void* part, int batch, int split_batch,
+                                int cx, int cs, int h, int wd, int cout,
+                                int act, float eps, int bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return pgt::run<__nv_bfloat16>(x, skip, w, wp, y, acc, part, batch, cx,
-                                   cs, h, wd, cout, act, eps, st);
-  return pgt::run<float>(x, skip, w, wp, y, acc, part, batch, cx, cs, h, wd,
-                         cout, act, eps, st);
+    return pgt::run<__nv_bfloat16>(x, skip, w, wp, y, acc, part, batch,
+                                   split_batch, cx, cs, h, wd, cout, act,
+                                   eps, st);
+  return pgt::run<float>(x, skip, w, wp, y, acc, part, batch, split_batch,
+                         cx, cs, h, wd, cout, act, eps, st);
 }

@@ -1,22 +1,41 @@
-"""Batched tiled and whole-image inference engine on one device.
+"""Batched tiled and whole-image inference engine on one device or over
+the cards of one process.
 
-Port of ``patchgan_tpu/inference/engine.py`` (the single-device paths).
-Tiled mode, per image: the (uint8 or float32) HWC image is uploaded once
-and normalised on the device; tiles are gathered from the resident
-image; the generator runs over them in power-of-two bucket chunks; the
-averaging stitch scatter-adds each tile into a canvas and a hit count in
-the host loop's tile order, so every pixel's float sums run in the same
-order as ``tiling.build_mask``; threshold and argmax run on the device.
-When ``PATCHGAN_S2D`` selects it and the tile size is even, the tiled
-forward runs the generator in its space-to-depth boundary form
+Port of ``patchgan_tpu/inference/engine.py``. Tiled mode, per image: the
+(uint8 or float32) HWC image is uploaded once and normalised on the
+device; tiles are gathered from the resident image; the generator runs
+over them in power-of-two bucket chunks; the averaging stitch
+scatter-adds each tile into a canvas and a hit count in the host loop's
+tile order, so every pixel's float sums run in the same order as
+``tiling.build_mask``; threshold and argmax run on the device. When
+``PATCHGAN_S2D`` selects it and the tile size is even, the tiled forward
+runs the generator in its space-to-depth boundary form
 (``engine.py:269-297``, ``ops/s2d.py``) on the uploaded tiles and turns
 its output back before the stitch.
+
+Over a ``DeviceMesh`` of several devices (``parallel.default_mesh``, the
+counterpart of JAX ``engine.py:185-240, 336-364, 538-578``), the engine
+keeps one copy of the weights on each distinct device, rounds
+``batch_size`` up to a multiple of the mesh size, and picks each bucket
+as such a multiple. Every bucket is gathered on the mesh's first (home)
+device and split into equal, contiguous shares, share k running on
+device k; every share's forward is issued before any output is copied
+back to home, where the stitch, the postprocess and the mask's copy run
+as on one device, in the same order. ``predict_images`` concatenates the
+tiles of a group of images through one bucketed forward, so a serve
+micro-batch fills mesh-wide buckets, and stitches each image in its tile
+order. The tiled forward takes the fused conv kernels' K split of
+``SPLIT_BATCH`` tiles in every bucket and share, so a tile's output, and
+so a mask, is the same bits on one card and over a mesh, alone or in a
+group.
 
 Spatial mode (``predict_image(mode='spatial')``, JAX ``engine.py:299-334,
 596-656``): the whole image, zero-padded bottom and right to multiples of
 128, goes through one plain-form forward (whatever ``PATCHGAN_S2D``
 says), with the same threshold / argmax on the device; instance-norm
-statistics are then the whole image's.
+statistics are then the whole image's. On a mesh of several devices it
+runs on the home device and warns: the forward sharded by rows is
+ROADMAP item 11d.
 
 Either way the mask comes back as uint8 labels (int64 above 256
 classes), or bit-packed rows for a binary mask, in one device-to-host
@@ -29,23 +48,23 @@ and save neighbouring images while the device works.
 
 The bucket chunk size is the cheapest for the tile count by a table of
 measured forward throughput (``bucket_rates.json``, written on the card
-by ``tools/bucket_rates.py``). Multi-device meshes (the engine sharded
-over cards) are not ported yet (ROADMAP, queue 1 item 11b).
+by ``tools/bucket_rates.py``).
 """
 
 import copy
 import json
+import math
 import os
+
+import warnings
 
 import numpy as np
 import torch
 
 from ..models.unet import UNet
 from ..ops.s2d import depth_to_space, s2d_enabled, space_to_depth
+from ..parallel.mesh import DeviceMesh
 from .tiling import crop_positions
-
-_MESH_NOT_PORTED = ("a multi-device mesh (the engine sharded over cards) "
-                    "is not ported yet: see ROADMAP.md, queue 1 item 11b")
 
 
 def _round_up(n, m):
@@ -78,20 +97,30 @@ def _load_bucket_rates():
 
 _BUCKET_REL_RATE = _load_bucket_rates()
 
+# The tiled forward runs the fused conv kernels (K2, K3) at the K split a
+# batch of this many tiles takes, whatever its bucket or share: their
+# sums then run in one order for a tile wherever it runs (alone, in a
+# bucket of one card, a card's share of one, a group's), so its mask is
+# the same bits. 8 is the least split that runs the buckets 8-128 as
+# fast as each bucket's own split (``tools/split_batch.py``).
+SPLIT_BATCH = 8
 
-def _pick_bucket(n, cap):
+
+def _pick_bucket(n, cap, align=1):
     """Cheapest power-of-two bucket for an ``n``-tile batch: cost =
     padded tile count / relative throughput, over the buckets no larger
-    than ``cap``."""
+    than ``cap`` that are multiples of ``align`` (the mesh size); when
+    the table has none, the tile count rounded up to a multiple of 8 and
+    of ``align``, at most ``cap`` (JAX ``engine.py:78-100``)."""
     best = None
     for bs, rate in _BUCKET_REL_RATE.items():
-        if bs > cap:
+        if bs > cap or bs % align:
             continue
         cost = _round_up(n, bs) / rate
         if best is None or cost < best[0] - 1e-9:
             best = (cost, bs)
     if best is None:
-        return min(cap, _round_up(n, 8))
+        return min(cap, _round_up(n, math.lcm(8, align)))
     return best[1]
 
 
@@ -159,6 +188,15 @@ class _ReadyMask:
         return self._mask
 
 
+class _Job:
+    """One image of a tiled group: its uploaded (C, hp, wp) view, the
+    crop size (h, w), and its canvas and hit count on the home device."""
+
+    def __init__(self, img, h, w, count):
+        self.img, self.h, self.w, self.count = img, h, w, count
+        self.canvas = None
+
+
 class InferenceEngine:
     """Tiled and whole-image inference with ``generator`` (a UNet, or any
     module mapping (N, C, H, W) to (N, out_C, H, W)).
@@ -166,18 +204,32 @@ class InferenceEngine:
     ``params``: a state_dict or a module whose weights to load (None keeps
     the generator's own). The engine works on its own copy, with the
     weights cast once to the compute ``dtype`` (default: the generator's).
-    ``device``: 'cuda' (default) or 'cpu'.
+    ``device``: 'cuda' (default) or 'cpu'. ``mesh``: a ``DeviceMesh``
+    (``parallel.default_mesh``) to run over several devices; its first
+    device is then the engine's ``device``, and a ``device`` given beside
+    it must be that one.
     """
 
     def __init__(self, generator, params=None, size=256, overlap=0.9,
-                 threshold=0, batch_size=128, dtype=None, device='cuda',
+                 threshold=0, batch_size=128, dtype=None, device=None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
-        self.device = torch.device(device)
-        if self.device.type == 'cuda' and not torch.cuda.is_available():
+        if mesh is None:
+            devices = (torch.device(device or 'cuda'),)
+        elif not isinstance(mesh, DeviceMesh):
+            raise TypeError(f'mesh must be a DeviceMesh '
+                            f'(parallel.default_mesh), got '
+                            f'{type(mesh).__name__}')
+        else:
+            devices = mesh.devices
+            if device is not None and torch.device(device) != mesh.home:
+                raise ValueError(f'device {device} is not the first device '
+                                 f'of {mesh}')
+        if any(d.type == 'cuda' for d in devices) and \
+                not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no GPU is "
                                "available (pass device='cpu')")
+        self.device = devices[0]
+        self.n_devices = len(devices)
         model = copy.deepcopy(generator)
         if params is not None:
             if isinstance(params, torch.nn.Module):
@@ -186,18 +238,29 @@ class InferenceEngine:
         if dtype is not None:
             model.dtype = dtype
         dtype = getattr(model, 'dtype', torch.float32)
-        self.model = model.to(device=self.device, dtype=dtype).eval()
-        # only the UNet has the s2d form
+        # one eval copy a distinct device, cast once (JAX ``replicate``)
+        replicas = {}
+        for d in devices:
+            if d not in replicas:
+                src = model if not replicas else copy.deepcopy(model)
+                replicas[d] = src.to(device=d, dtype=dtype).eval()
+        self._devices = devices
+        self._models = [replicas[d] for d in devices]
+        self.model = self._models[0]
+        # only the UNet has the s2d form and the kernels' split
         self._s2d = (s2d_enabled() and size % 2 == 0
                      and isinstance(generator, UNet))
+        self._split = ({'split_batch': SPLIT_BATCH}
+                       if isinstance(generator, UNet) else {})
         self.size = size
         self.overlap = overlap
         self.threshold = threshold
-        self.batch_size = batch_size
+        self.batch_size = _round_up(batch_size, self.n_devices)
+        self._spatial_warned = False
 
     def _upload(self, arr):
-        """Host array -> device tensor, uint8 normalised to [0, 1] on the
-        device."""
+        """Host array -> home device tensor, uint8 normalised to [0, 1] on
+        the device."""
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type == 'cuda':
             t = t.pin_memory().to(self.device, non_blocking=True)
@@ -205,11 +268,33 @@ class InferenceEngine:
             t = t.to(torch.float32) / 255.0
         return t
 
-    def _forward(self, tiles):
+    def _forward(self, tiles, k=0):
+        """The fp32 output of mesh device ``k``'s replica on ``tiles``
+        (on that device)."""
+        model = self._models[k]
         if self._s2d:
-            x = space_to_depth(tiles.to(self.model.dtype))
-            return depth_to_space(self.model(x, s2d=True)).float()
-        return self.model(tiles).float()
+            x = space_to_depth(tiles.to(model.dtype))
+            return depth_to_space(model(x, s2d=True,
+                                        **self._split)).float()
+        return model(tiles, **self._split).float()
+
+    def _forward_bucket(self, tiles):
+        """A bucket's fp32 output on home. Over several devices the
+        bucket is split into equal, contiguous shares, share k for device
+        k. Every share's copy is queued on home before home's own forward
+        (a copy to another card runs on home's stream), every forward
+        before any output is copied back, and nothing here waits on the
+        host, so the devices run their shares at once."""
+        if self.n_devices == 1:
+            return self._forward(tiles)
+        shares = [share.to(d, non_blocking=True) for share, d in
+                  zip(tiles.chunk(self.n_devices), self._devices)]
+        outs = [self._forward(share, k) for k, share in enumerate(shares)]
+        preds = torch.empty((tiles.shape[0],) + outs[0].shape[1:],
+                            dtype=torch.float32, device=self.device)
+        for part, out in zip(preds.chunk(self.n_devices), outs):
+            part.copy_(out, non_blocking=True)
+        return preds
 
     def _fetch(self, dev, h, w, cast=None, packed=False):
         """Handle of the compact device mask ``dev``: on the card its copy
@@ -244,56 +329,78 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def predict_tiles(self, crops):
-        """(N, size, size, C) -> (N, size, size, out_C) numpy, in bucket
-        chunks."""
+        """(N, size, size, C) -> (N, size, size, out_C) numpy in input
+        order, in bucket chunks (each split over the mesh), every chunk
+        queued before the result is copied back."""
         crops = _as_input(crops)
         n = crops.shape[0]
-        bs = _pick_bucket(n, self.batch_size)
+        bs = _pick_bucket(n, self.batch_size, self.n_devices)
         padded = _round_up(n, bs)
         if padded != n:
             crops = np.concatenate(
                 [crops, np.zeros((padded - n,) + crops.shape[1:],
                                  crops.dtype)], axis=0)
         x = self._upload(crops).permute(0, 3, 1, 2)
-        outs = [self._forward(x[i:i + bs].contiguous())
+        outs = [self._forward_bucket(x[i:i + bs].contiguous())
                 for i in range(0, padded, bs)]
         return torch.cat(outs)[:n].permute(0, 2, 3, 1).cpu().numpy()
 
     @torch.inference_mode()
-    def predict_image_async(self, image):
-        """Run one image's tiled pipeline on the device; the handle's
-        ``.result()`` waits for its (H, W) mask's copy to the host."""
-        image, (h, w) = _pad_min_size(_as_input(image), self.size)
-        hp, wp, _ = image.shape
+    def _predict_tiled(self, images):
+        """Handles of ``images``' tiled pipelines. Their tiles, in image
+        order and each image's in tile order, run through the bucketed
+        forward; after each chunk its tiles are stitched into their
+        images' canvases on home, so every pixel's sums run in the order
+        of one image alone."""
         size = self.size
-        pos = crop_positions(hp, wp, size, self.overlap)
-        n = len(pos)
-        bs = _pick_bucket(n, self.batch_size)
-        img = self._upload(image).permute(2, 0, 1)  # (C, hp, wp) view
-        canvas = None
-        count = torch.zeros((1, hp, wp), dtype=torch.float32,
-                            device=self.device)
+        jobs, tiles = [], []
+        for image in images:
+            image, (h, w) = _pad_min_size(_as_input(image), size)
+            hp, wp, _ = image.shape
+            job = _Job(self._upload(image).permute(2, 0, 1), h, w,
+                       torch.zeros((1, hp, wp), dtype=torch.float32,
+                                   device=self.device))
+            jobs.append(job)
+            tiles += [(job, y, x)
+                      for y, x in crop_positions(hp, wp, size, self.overlap)]
+        n = len(tiles)
+        bs = _pick_bucket(n, self.batch_size, self.n_devices)
         for c0 in range(0, n, bs):
-            chunk = pos[c0:c0 + bs]
+            chunk = tiles[c0:c0 + bs]
             # bucket padding repeats the first tile; its output is unused
-            gather = chunk + [pos[0]] * (bs - len(chunk))
-            tiles = torch.stack([img[:, y:y + size, x:x + size]
-                                 for y, x in gather])
-            preds = self._forward(tiles)
-            if canvas is None:
-                canvas = torch.zeros((preds.shape[1], hp, wp),
-                                     dtype=torch.float32, device=self.device)
-            for i, (y, x) in enumerate(chunk):
-                canvas[:, y:y + size, x:x + size] += preds[i]
-                count[:, y:y + size, x:x + size] += 1.0
+            gather = chunk + [tiles[0]] * (bs - len(chunk))
+            preds = self._forward_bucket(torch.stack(
+                [job.img[:, y:y + size, x:x + size] for job, y, x in gather]))
+            for i, (job, y, x) in enumerate(chunk):
+                if job.canvas is None:
+                    job.canvas = torch.zeros(
+                        (preds.shape[1],) + job.count.shape[1:],
+                        dtype=torch.float32, device=self.device)
+                job.canvas[:, y:y + size, x:x + size] += preds[i]
+                job.count[:, y:y + size, x:x + size] += 1.0
         # full coverage gives count >= 1 on every pixel
-        return self._postprocess(canvas / count.clamp_min(1.0), h, w)
+        return [self._postprocess(job.canvas / job.count.clamp_min(1.0),
+                                  job.h, job.w) for job in jobs]
+
+    def predict_image_async(self, image):
+        """Run one image's tiled pipeline on the device(s); the handle's
+        ``.result()`` waits for its (H, W) mask's copy to the host."""
+        return self._predict_tiled([image])[0]
 
     @torch.inference_mode()
     def predict_image_spatial(self, image):
         """(H, W, C) image -> (H, W) mask from one whole-image forward in
         the plain form: zero-padded bottom and right to multiples of 128,
-        threshold / argmax on the device, one copy back, cropped."""
+        threshold / argmax on the device, one copy back, cropped. On the
+        home device, also over a mesh (it warns: item 11d)."""
+        if self.n_devices > 1 and not self._spatial_warned:
+            self._spatial_warned = True
+            warnings.warn(
+                f'spatial inference on a {self.n_devices}-device mesh runs '
+                f'the whole-image forward on its first device, '
+                f'{self.device}, alone: the forward sharded by rows is '
+                f'not ported yet (ROADMAP.md, queue 1 item 11d)',
+                stacklevel=3)
         image = _as_input(image)
         h, w = image.shape[:2]
         ph, pw = _round_up(h, 128), _round_up(w, 128)
@@ -313,7 +420,10 @@ class InferenceEngine:
 
     def predict_images_async(self, images):
         """One handle per image, every pipeline started before any copy
-        is waited for."""
+        is waited for. On one device each image runs its own chunks; over
+        several devices the group's tiles share mesh-wide buckets."""
+        if self.n_devices > 1:
+            return self._predict_tiled(images)
         return [self.predict_image_async(im) for im in images]
 
     def predict_images(self, images):

@@ -80,16 +80,18 @@ class DownBlock(nn.Module):
     def weight(self):
         return self.model[self.name].weight
 
-    def forward(self, x, generator=None, s2d_in=False, mesh=None):
+    def forward(self, x, generator=None, s2d_in=False, mesh=None,
+                split_batch=None):
         """``s2d_in``: x is the s2d form [N, 4C, H/2, W/2] of the input;
-        ``mesh``: x is a rank's rows, for the dropout draw."""
+        ``mesh``: x is a rank's rows, for the dropout draw;
+        ``split_batch``: the fused kernel's K split (``conv_norm_act``)."""
         w = self.weight.to(x.dtype)
         if s2d_in:
             x = conv2d_s2d(x, w)
             x = instance_norm(x, NORM_EPS, self.activation) \
                 if self.use_norm else apply_activation(x, self.activation)
         elif self.use_norm and x.shape[1] >= FUSED_CONV_MIN_CIN:
-            x = conv_norm_act(x, w, NORM_EPS, self.activation)
+            x = conv_norm_act(x, w, NORM_EPS, self.activation, split_batch)
         elif self.use_norm:
             x = instance_norm(conv2d(x, w), NORM_EPS, self.activation)
         else:
@@ -121,9 +123,10 @@ class UpBlock(nn.Module):
         return self.model[self.name].weight
 
     def forward(self, x, skip=None, generator=None, s2d_out=False,
-                mesh=None):
+                mesh=None, split_batch=None):
         """``s2d_out``: produce the s2d form [N, 4 Cout, H, W] of the
-        output (the output head only); ``mesh`` as in DownBlock."""
+        output (the output head only); ``mesh`` and ``split_batch`` as in
+        DownBlock."""
         w = self.weight.to(x.dtype)
         skip = skip.to(x.dtype) if skip is not None else None
         if s2d_out:
@@ -134,7 +137,8 @@ class UpBlock(nn.Module):
             x = apply_activation_s2d(out.float() if self.fp32_act else out,
                                      self.activation)
         elif self.use_norm:
-            x = convt_norm_act(x, w, NORM_EPS, self.activation, skip)
+            x = convt_norm_act(x, w, NORM_EPS, self.activation, skip,
+                               split_batch)
         else:
             out = conv_transpose2d(x, w, x2=skip)
             if self.fp32_act:

@@ -70,10 +70,13 @@ class UNet(nn.Module):
             for p in self.parameters():
                 nn.init.xavier_uniform_(p, generator=generator)
 
-    def forward(self, x, return_hidden=False, s2d=False, mesh=None):
+    def forward(self, x, return_hidden=False, s2d=False, mesh=None,
+                split_batch=None):
         """x: (N, input_nc, H, W) with H, W multiples of 128 -> (N,
         output_nc, H, W) float32; with ``s2d`` both in their s2d form;
-        ``mesh``: x is a rank's rows of the global batch."""
+        ``mesh``: x is a rank's rows of the global batch;
+        ``split_batch``: the K split of the fused conv kernels
+        (``ops.kernels.conv_norm_act``; default N)."""
         h, w = x.shape[2], x.shape[3]
         if s2d:
             h, w = 2 * h, 2 * w   # x is the s2d form of a 2h x 2w input
@@ -86,15 +89,18 @@ class UNet(nn.Module):
         gen = self.dropout_generator
         skips = []
         for i, block in enumerate(self.encoder):
-            x = block(x, generator=gen, s2d_in=s2d and i == 0, mesh=mesh)
+            x = block(x, generator=gen, s2d_in=s2d and i == 0, mesh=mesh,
+                      split_batch=split_batch)
             skips.append(x)
         hidden = skips[-1]
         rev = skips[::-1]
-        x = self.decoder[0](hidden, generator=gen, mesh=mesh)
+        x = self.decoder[0](hidden, generator=gen, mesh=mesh,
+                            split_batch=split_batch)
         last = len(self.decoder) - 1
         for i in range(1, last + 1):
             x = self.decoder[i](x, skip=rev[i], generator=gen,
-                                s2d_out=s2d and i == last, mesh=mesh)
+                                s2d_out=s2d and i == last, mesh=mesh,
+                                split_batch=split_batch)
         if return_hidden:
             return x, hidden
         return x

@@ -35,7 +35,7 @@ def conv_norm_act_plain(x, w, eps=1e-5, activation=None):
 def _lib():
     lib = _build.load('conv_norm_act')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pgt_conv_in_act.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+    lib.pgt_conv_in_act.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                     ctypes.c_float, i, p]
     lib.pgt_conv_in_act.restype = i
     lib.pgt_tile_m.argtypes = []
@@ -45,7 +45,7 @@ def _lib():
     return lib
 
 
-def _forward(x, w, eps, activation):
+def _forward(x, w, eps, activation, split_batch=None):
     """K2 on CUDA tensors, the plain version on CPU tensors; never
     recorded by autograd."""
     if x.device.type == 'cpu':
@@ -67,7 +67,8 @@ def _forward(x, w, eps, activation):
     tiles = -(-ho * wo // lib.pgt_tile_m())
     y = torch.empty((n, cout, ho, wo), dtype=x.dtype, device=x.device)
     # fp32 conv output, one copy per K split
-    splits = lib.pgt_conv_splits(n, cin, h, wd, cout)
+    split_batch = split_batch or n
+    splits = lib.pgt_conv_splits(split_batch, cin, h, wd, cout)
     acc = torch.empty((splits, n, cout, ho, wo), dtype=torch.float32,
                       device=x.device)
     part = torch.empty((n, cout, tiles, 2), dtype=torch.float32,
@@ -75,8 +76,8 @@ def _forward(x, w, eps, activation):
     with torch.cuda.device(x.device):
         rc = lib.pgt_conv_in_act(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), acc.data_ptr(),
-            part.data_ptr(), n, cin, h, wd, cout, act, eps, flag,
-            _build.stream_of(x))
+            part.data_ptr(), n, split_batch, cin, h, wd, cout, act, eps,
+            flag, _build.stream_of(x))
     _build.check(rc, 'conv_norm_act')
     conv_norm_act.launches += 1
     return y
@@ -112,25 +113,28 @@ class ConvNormAct(torch.autograd.Function):
     """K2 forward; backward by recompute + K1-bwd. Residuals (x, w)."""
 
     @staticmethod
-    def forward(ctx, x, w, eps, activation):
+    def forward(ctx, x, w, eps, activation, split_batch):
         ctx.save_for_backward(x, w)
         ctx.eps, ctx.activation = eps, activation
-        return _forward(x, w, eps, activation)
+        return _forward(x, w, eps, activation, split_batch)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx, dw = recompute_grads(ctx, g, _conv, (x, w))
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
-def conv_norm_act(x, w, eps=1e-5, activation=None):
+def conv_norm_act(x, w, eps=1e-5, activation=None, split_batch=None):
     """x: (N, Cin, H, W), w: (Cout, Cin, 4, 4) in x's dtype. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel.
-    Differentiable through ``ConvNormAct``."""
+    ``split_batch``: the kernel takes the K split of a batch of that many
+    samples (default N, the fastest); held fixed, each sample's output is
+    the same bits whatever batch it runs in. Differentiable through
+    ``ConvNormAct``."""
     if needs_graph(x, w):
-        return ConvNormAct.apply(x, w, eps, activation)
-    return _forward(x, w, eps, activation)
+        return ConvNormAct.apply(x, w, eps, activation, split_batch)
+    return _forward(x, w, eps, activation, split_batch)
 
 
 conv_norm_act.launches = 0

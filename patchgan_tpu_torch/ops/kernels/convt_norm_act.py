@@ -56,7 +56,7 @@ def pack_convt_weight_plain(w):
 def _lib():
     lib = _build.load('convt_norm_act')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pgt_convt_in_act.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+    lib.pgt_convt_in_act.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                      i, ctypes.c_float, i, p]
     lib.pgt_convt_in_act.restype = i
     lib.pgt_convt_pack.argtypes = [p, p, i, i, i, i, p]
@@ -93,7 +93,7 @@ def pack_convt_weight(w):
     return wp
 
 
-def _forward(x, w, eps, activation, skip):
+def _forward(x, w, eps, activation, skip, split_batch=None):
     """K3 on CUDA tensors, the plain version on CPU tensors; never
     recorded by autograd."""
     if x.device.type == 'cpu':
@@ -119,7 +119,8 @@ def _forward(x, w, eps, activation, skip):
     tiles = -(-h * wd // lib.pgt_tile_m())
     y = torch.empty((n, cout, 2 * h, 2 * wd), dtype=x.dtype, device=x.device)
     # fp32 conv output, one copy per K split
-    splits = lib.pgt_convt_splits(n, cx, cs, h, wd, cout)
+    split_batch = split_batch or n
+    splits = lib.pgt_convt_splits(split_batch, cx, cs, h, wd, cout)
     acc = torch.empty((splits,) + y.shape, dtype=torch.float32,
                       device=x.device)
     part = torch.empty((n, cout, 4 * tiles, 2), dtype=torch.float32,
@@ -129,8 +130,8 @@ def _forward(x, w, eps, activation, skip):
     with torch.cuda.device(x.device):
         rc = lib.pgt_convt_in_act(
             x.data_ptr(), skip_ptr, w.data_ptr(), wp.data_ptr(),
-            y.data_ptr(), acc.data_ptr(), part.data_ptr(), n, cx, cs, h, wd,
-            cout, act, eps, flag, _build.stream_of(x))
+            y.data_ptr(), acc.data_ptr(), part.data_ptr(), n, split_batch,
+            cx, cs, h, wd, cout, act, eps, flag, _build.stream_of(x))
     _build.check(rc, 'convt_norm_act')
     convt_norm_act.launches += 1
     return y
@@ -146,26 +147,27 @@ class ConvTNormAct(torch.autograd.Function):
     skip)."""
 
     @staticmethod
-    def forward(ctx, x, w, skip, eps, activation):
+    def forward(ctx, x, w, skip, eps, activation, split_batch):
         ctx.save_for_backward(x, w, skip)
         ctx.eps, ctx.activation = eps, activation
-        return _forward(x, w, eps, activation, skip)
+        return _forward(x, w, eps, activation, skip, split_batch)
 
     @staticmethod
     def backward(ctx, g):
         x, w, skip = ctx.saved_tensors
         dx, dw, dskip = recompute_grads(ctx, g, _convt, (x, w, skip))
-        return dx, dw, dskip, None, None
+        return dx, dw, dskip, None, None, None
 
 
-def convt_norm_act(x, w, eps=1e-5, activation=None, skip=None):
+def convt_norm_act(x, w, eps=1e-5, activation=None, skip=None,
+                   split_batch=None):
     """x: (N, Cx, H, W), optional skip: (N, Cs, H, W), w: (Cx + Cs, Cout,
     4, 4), all in x's dtype. Returns (N, Cout, 2H, 2W). A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel. Differentiable
-    through ``ConvTNormAct``."""
+    the plain version; a CUDA tensor launches the kernel. ``split_batch``
+    as in ``conv_norm_act``. Differentiable through ``ConvTNormAct``."""
     if needs_graph(x, w, skip):
-        return ConvTNormAct.apply(x, w, skip, eps, activation)
-    return _forward(x, w, eps, activation, skip)
+        return ConvTNormAct.apply(x, w, skip, eps, activation, split_batch)
+    return _forward(x, w, eps, activation, skip, split_batch)
 
 
 convt_norm_act.launches = 0

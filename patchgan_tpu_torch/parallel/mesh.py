@@ -1,5 +1,11 @@
-"""Data parallelism across processes: the counterpart of
-``patchgan_tpu/parallel/mesh.py``.
+"""Device meshes: the counterpart of ``patchgan_tpu/parallel/mesh.py``.
+
+Two meshes stand for the JAX package's one. ``DeviceMesh`` is the 1-D
+mesh over the cards of one process (``default_mesh``): the inference
+engine keeps a replica of its weights on each device of it (the
+counterpart of ``replicate``) and splits each bucket of tiles over them
+(the counterpart of ``shard_batch``). ``DataMesh`` is data parallelism
+across processes, described below.
 
 The JAX package lays a 1-D ``data`` mesh over the local devices, shards
 each batch on its leading axis, replicates the parameters and lets XLA
@@ -69,6 +75,56 @@ class _RankMean(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad / ctx.size, None, None
+
+
+class DeviceMesh:
+    """An ordered tuple of devices in one process. The first is the home
+    device, where a caller uploads inputs and gathers results. A device
+    may be listed more than once (one card standing for two)."""
+
+    def __init__(self, devices):
+        devices = tuple(torch.device(d) for d in devices)
+        if not devices:
+            raise ValueError('a DeviceMesh needs at least one device')
+        self.devices = devices
+
+    def __len__(self):
+        return len(self.devices)
+
+    def __iter__(self):
+        return iter(self.devices)
+
+    @property
+    def home(self):
+        return self.devices[0]
+
+    def __repr__(self):
+        return f'DeviceMesh({", ".join(map(str, self.devices))})'
+
+    def describe(self):
+        """'4 devices: cuda:0..cuda:3' for consecutive cards, else the
+        list."""
+        names = [str(d) for d in self.devices]
+        n = len(names)
+        idx = [d.index for d in self.devices]
+        if n > 2 and len({d.type for d in self.devices}) == 1 and \
+                None not in idx and idx == list(range(idx[0], idx[0] + n)):
+            names = [f'{names[0]}..{names[-1]}']
+        return f'{n} device{"s" if n > 1 else ""}: {", ".join(names)}'
+
+
+def default_mesh(devices=None):
+    """The ``DeviceMesh`` over ``devices``, or over every visible card
+    (``cuda:0`` .. ``cuda:{device_count - 1}``, as
+    ``CUDA_VISIBLE_DEVICES`` shows them) when None; without a card that
+    raises: a CPU mesh is made only from an explicit list."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError('default_mesh() covers the visible CUDA '
+                               'cards and none is available; pass a list '
+                               'of devices')
+        devices = [f'cuda:{i}' for i in range(torch.cuda.device_count())]
+    return DeviceMesh(devices)
 
 
 class DataMesh:

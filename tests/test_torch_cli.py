@@ -103,6 +103,49 @@ def test_infer_cli_spatial_mode(infer_dir):
         np.testing.assert_array_equal(got, want)
 
 
+class _Built(Exception):
+    """Raised by the engine stubs below once the CLI has resolved where
+    its engine runs."""
+
+
+@pytest.mark.parametrize('device,want', [
+    ('cuda', ('cuda:0', ['cuda:0', 'cuda:1', 'cuda:2', 'cuda:3'])),
+    ('auto', ('cuda:0', ['cuda:0', 'cuda:1', 'cuda:2', 'cuda:3'])),
+    ('cuda:1', ('cuda:1', None)),
+    ('cpu', ('cpu', None))])
+@pytest.mark.parametrize('cli', ['infer', 'serve'])
+def test_engine_clis_resolve_the_mesh(infer_dir, monkeypatch, capsys, cli,
+                                      device, want):
+    """-d cuda / auto: one engine over every visible card (four here, by
+    the monkeypatched count); -d cuda:N that card alone; -d cpu no mesh.
+    The engine stub stops the CLI before any tensor reaches a card."""
+    from patchgan_tpu_torch.cli import infer, serve
+    if device != 'cpu':
+        monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+        monkeypatch.setattr(torch.cuda, 'device_count', lambda: 4)
+    seen = {}
+
+    def stub(*args, device=None, mesh=None, **kwargs):
+        seen['device'], seen['mesh'] = device, mesh
+        raise _Built
+
+    monkeypatch.setattr(infer, 'InferenceEngine', stub)
+    monkeypatch.setattr('patchgan_tpu_torch.inference.InferenceEngine',
+                        stub)
+    args = ['-c', _config(infer_dir, 'x'), '-d', device]
+    with pytest.raises(_Built):
+        if cli == 'infer':
+            infer.patchgan_infer(args)
+        else:
+            serve.patchgan_serve(args + ['--watch', str(infer_dir)])
+    mesh = seen['mesh']
+    assert (str(seen['device']),
+            mesh and [str(d) for d in mesh]) == want
+    if mesh is not None and cli == 'infer':
+        assert 'Running on 4 devices: cuda:0..cuda:3' in \
+            capsys.readouterr().out
+
+
 def test_infer_cli_rejects_partial_checkpoint(infer_dir, tmp_path):
     model = UNet(3, CLASSES, nf=8)
     sd = {k: v for k, v in model.state_dict().items() if 'encoder' in k}

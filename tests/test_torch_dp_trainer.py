@@ -195,5 +195,6 @@ def test_engine_clis_refuse_several_ranks(cli, monkeypatch):
     monkeypatch.setenv('WORLD_SIZE', '2')
     args = ['-c', 'none.yaml', '-d', 'cpu'] + \
         (['--watch', 'x'] if cli == 'serve' else [])
-    with pytest.raises(NotImplementedError, match='item 11b'):
+    with pytest.raises(NotImplementedError,
+                       match='already uses every visible card'):
         (patchgan_infer if cli == 'infer' else patchgan_serve)(args)

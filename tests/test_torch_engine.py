@@ -92,7 +92,7 @@ def test_predict_tiles_and_bucket_padding():
 
 def test_unported_modes_and_missing_gpu_raise(monkeypatch):
     model = UNet(3, 1, nf=4)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(TypeError, match='DeviceMesh'):
         InferenceEngine(model, size=SIZE, device='cpu', mesh=object())
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no GPU'):
