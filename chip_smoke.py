@@ -250,11 +250,32 @@ Run from the root of the repository. In order:
    ``patchgan_serve -d cuda --watch --once`` (masks equal to phase
    12's on >= 99.9%, launches a device a chunk).
    ``python3 chip_smoke.py --mesh-only`` runs phase 15 alone, after
-   phase 3 and a one-card serve run for its references.
+   phase 3 and a one-card serve run for its references;
+16. data x model parallel training (``parallel/sharding.py``, ROADMAP
+   item 11c): every kernel at a rank's shard shapes of the step at batch
+   16 (the output channels over 2, and over 4 where K2 meets Cout 32),
+   bf16 and fp32 against its plain version, with the bf16 ms of K1-K3 at
+   tp 2; (a) always: two gloo ranks sharing the card, dp 1 x tp 2, fp32,
+   eager, dropout on, three steps of config 2's widths at a global batch
+   of 16 from one seeded state, against one process on the card: with
+   tanh (as 14b) in the plain and the s2d form losses within rtol 5e-4 /
+   atol 2e-5, every gathered tensor >= 99.9% within 2e-4 + 5e-3|b| and
+   all within 2.5e-3 (JAX's hybrid limits); with relu in the plain form
+   the same read, not held; in every run the replicated parameters
+   bit-equal over the model group and each rank's launches 3 x
+   ``STEP``; (b) where there are two or more cards, NCCL, captured, bf16
+   at config 2 over (dp, tp) = (1, 2) beside (2, 1), and at 4 cards (2,
+   2) beside (4, 1): img/s per card, the step's model-group all-gathers
+   and all-reduces and its gradient bucket alone, each captured and
+   timed, parameter, optimizer and peak bytes a rank, and
+   ``patchgan_aot --dp D --tp T -d cuda`` under torchrun (compile_ok,
+   fits, its NVLink bounds); on one card a line says why (b) did not
+   run. ``python3 chip_smoke.py
+   --tp-only`` runs phase 16 alone.
 
 It prints a JSON summary of the kernels (launches from the s2d training
 run, which drives all six; every path's counts beside them, the
-spatial, serve, pipeline, data-parallel and mesh paths' too; K1-K3's totals
+spatial, serve, pipeline, data-parallel, mesh and tp paths' too; K1-K3's totals
 at the spatial shapes), the card's name and power limit, and as its last line ``{"ok":
 true, "device": {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
@@ -448,13 +469,14 @@ class Kernel:
         self.rows, self.spatial_rows = [], []
 
 
-def make_cases(torch, F, kernels, n=B, h=SIZE, w=SIZE):
+def make_cases(torch, F, kernels, n=B, h=SIZE, w=SIZE, tp=1):
     """The kernel phase's cases at the nf=64 generator's shapes for ``n``
     images of ``h`` x ``w`` (by default the 8-tile bucket of 256 px, which
     adds a K3 case with H != W, a ragged one and every activation at one
-    level of each kernel): (kernel, label, make(dtype, act) -> wrapper
-    args, library(*args), FLOPs, elements read + written, whether to try
-    every activation)."""
+    level of each kernel); ``tp``: at a rank's shard of every level's
+    output channels over a model axis of ``tp`` ranks (phase 16):
+    (kernel, label, make(dtype, act) -> wrapper args, library(*args),
+    FLOPs, elements read + written, whether to try every activation)."""
     k1, k2, k3 = kernels
     tiles = (n, h, w) == (B, SIZE, SIZE)
     gen = torch.Generator(device='cuda').manual_seed(0)
@@ -467,7 +489,7 @@ def make_cases(torch, F, kernels, n=B, h=SIZE, w=SIZE):
 
     cases = []
     # K1: enc0's epilogue, after the 3 -> 64 conv at half the resolution
-    shape = (n, NF, h // 2, w // 2)
+    shape = (n, NF // tp, h // 2, w // 2)
     x = rand(*shape)
     numel = x.numel()
     cases.append((k1, f'enc0 {shape}', lambda dt, a=None, x=x: (
@@ -478,7 +500,7 @@ def make_cases(torch, F, kernels, n=B, h=SIZE, w=SIZE):
     filts = [NF, 2 * NF, 4 * NF, 8 * NF, 8 * NF, 8 * NF, 8 * NF]
     hh, ww = h // 2, w // 2
     for lvl in range(1, 7):
-        cin, cout = filts[lvl - 1], filts[lvl]
+        cin, cout = filts[lvl - 1], filts[lvl] // tp
         x = rand(n, cin, hh, ww)
         wt = rand(cout, cin, 4, 4, scale=(2.0 / (32 * (cin + cout))) ** 0.5)
         ho, wo = hh // 2, ww // 2
@@ -505,6 +527,7 @@ def make_cases(torch, F, kernels, n=B, h=SIZE, w=SIZE):
         shapes += [('H!=W', 24, 40, 2 * NF, 2 * NF, NF),
                    ('ragged', 12, 20, 13, 6, 40)]
     for lvl, hh, ww, cx, cs, cout in shapes:
+        cout //= tp
         x = rand(n, cx, hh, ww)
         s = rand(n, cs, hh, ww)
         wt = rand(cx + cs, cout, 4, 4,
@@ -3583,6 +3606,23 @@ def dp_torchrun_phase(torch, np, tmp, card):
             'graph_counts': counts, 'wall_s': wall}
 
 
+def captured_ms(torch, fn):
+    """Device ms of ``fn`` captured into a CUDA graph (warmed once on a
+    side stream), by CUDA events over 20 replays; the graph is freed."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode='thread_local'):
+        fn()
+    ms = cuda_ms(graph.replay, iters=20)
+    # NCCL's teardown waits for the graphs that hold its work
+    graph.reset()
+    return ms
+
+
 def dp_scale_child():
     """``python -c 'import chip_smoke; chip_smoke.dp_scale_child()' RANK
     WORLD PORT OUT``: one NCCL rank on card RANK of 14d: the captured bf16
@@ -3632,23 +3672,13 @@ def dp_scale_child():
         stage(f'window {i + 1} done')
     bucket = [torch.zeros_like(p) for m in (gen, disc)
               for p in m.parameters()]
-    graph = torch.cuda.CUDAGraph()
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        mesh.sum_(bucket)
-    torch.cuda.current_stream().wait_stream(stream)
-    with torch.cuda.graph(graph, capture_error_mode='thread_local'):
-        mesh.sum_(bucket)
-    ms = cuda_ms(graph.replay, iters=20)
+    ms = captured_ms(torch, lambda: mesh.sum_(bucket))
     stage('the bucket\'s captured all-reduce timed')
     if rank == 0:
         with open(os.path.join(out, f'world_{world}.json'), 'w') as f:
             json.dump({'img_per_s_per_card': rates, 'allreduce_ms': ms,
                        'bound': allreduce_bound(opts, world),
                        'replays': step.replays}, f)
-    # NCCL's teardown waits for the graphs that hold its work
-    graph.reset()
     shutdown(mesh)
     stage('the group destroyed')
 
@@ -4081,7 +4111,491 @@ def mesh_only(torch, np, F, kernels, card):
     print(card)
 
 
-def main(only_mesh=False):
+# phase 16: data x model parallel training (ROADMAP item 11c)
+TP = 2                  # the model axis of 16a and of 16b's grids
+TP_STEPS = 3            # steps of each 16a run
+# 16a's runs: (form, activation, held to the limits). tanh is held, as in
+# 14b; relu (config 2's) is read beside it: a shard's K split follows its
+# Cout, as a rank's follows its batch in 14b, and ReLU turns rounding into
+# gradient jumps (tools/dp_rounding.py)
+TP_RUNS = (('off', 'tanh', True), ('on', 'tanh', True),
+           ('off', 'relu', False))
+TP_JOIN_S = 300         # a spawned rank that has not ended by then hung
+
+
+def tp_kernel_phase(torch, F, kernels):
+    """16: each kernel at a rank's shard shapes of the step at batch
+    TRAIN_B, 256 px (every level's output channels over TP, and over 4,
+    where K2 meets Cout 32 and K3 16): K1 (enc0), K2 (enc1-enc6), K3
+    (dec1-dec5), K1-bwd (the 12 normed levels), K4 and K4-wgrad (the s2d
+    boundary convs), bf16 and fp32, against their plain versions with the
+    kernel phase's tolerances; at TP the bf16 ms of K1-K3 (kernel, plain,
+    library) beside the bound. Returns the timed rows."""
+    k1, k2, k3, k1b, k4, k4w = kernels
+    gen = torch.Generator(device='cuda').manual_seed(16)
+    rows = []
+
+    def check(kernel, label, args, plain_args, tol):
+        got = kernel.wrapper(*args).float()
+        want = kernel.plain(*plain_args).float()
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        tol = tol(want)
+        print(f'  {kernel.name} {label}: max_abs_err {e:.3e} (tol '
+              f'{tol:.3e})', flush=True)
+        if not e <= tol:
+            raise AssertionError(f'16: {kernel.name} {label}: {e} > {tol}')
+        return e
+
+    def fp32(args):
+        return tuple(a.float() if torch.is_tensor(a) else a for a in args)
+
+    for tp in (TP, 4):
+        for kernel, label, make, library, flops, elems, _ in make_cases(
+                torch, F, (k1, k2, k3), TRAIN_B, SIZE, SIZE, tp):
+            errs = {dname: check(kernel, f'tp {tp} {label} {dname}',
+                                 make(dt), fp32(make(dt)),
+                                 lambda want, d=dname: TOL[d])
+                    for dname, dt in (('bfloat16', torch.bfloat16),
+                                      ('float32', torch.float32))}
+            if tp != TP:
+                continue
+            args = make(torch.bfloat16)
+            peak = PEAK_FP32 if kernel is k1 else PEAK_BF16
+            b_ms, b_by = bound(flops, 2 * elems, peak)
+            row = {'kernel': kernel.name, 'case': f'tp {tp} {label}',
+                   'dtype': 'bfloat16',
+                   'kernel_ms': cuda_ms(lambda: kernel.wrapper(*args)),
+                   'plain_ms': cuda_ms(lambda: kernel.plain(*args)),
+                   'library_ms': cuda_ms(lambda: library(*args)),
+                   'bound_ms': b_ms, 'bound_by': b_by,
+                   'max_abs_err_bf16': errs['bfloat16'],
+                   'max_abs_err_fp32': errs['float32']}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        for label, (n, c, h, w) in bwd_shapes():
+            x = torch.randn(n, c // tp, h, w, generator=gen, device='cuda')
+            g = torch.randn(n, c // tp, h, w, generator=gen, device='cuda')
+            for dname, dt in (('bfloat16', torch.bfloat16),
+                              ('float32', torch.float32)):
+                check(k1b, f'tp {tp} {label} {tuple(x.shape)} {dname}',
+                      (g.to(dt), x.to(dt), 1e-5, 'relu'),
+                      (g.to(dt).float(), x.to(dt).float(), 1e-5, 'relu'),
+                      lambda want, d=dname: TOL_BWD[d] * max(
+                          1.0, want.abs().max().item()))
+        for label, cin in (('enc0 / D conv0 image', 4 * IN_C),
+                           ('D conv0 mask', 4 * OUT_C)):
+            cout, hw = NF // tp, SIZE // 2
+            x = torch.randn(TRAIN_B, cin, hw, hw, generator=gen,
+                            device='cuda')
+            w = torch.randn(cout, cin, 3, 3, generator=gen, device='cuda') \
+                * 0.5 / (9 * cin) ** 0.5
+            dy = torch.randn(TRAIN_B, cout, hw, hw, generator=gen,
+                             device='cuda')
+            for dname, dt in (('bfloat16', torch.bfloat16),
+                              ('float32', torch.float32)):
+                xd, wd, dyd = x.to(dt), w.to(dt), dy.to(dt)
+                check(k4, f'tp {tp} {label} -> {cout} {dname}', (xd, wd),
+                      (xd.float(), wd.float()), lambda want, d=dname: TOL[d])
+                check(k4w, f'tp {tp} {label} -> {cout} {dname}', (xd, dyd),
+                      (xd.float(), dyd.float()),
+                      lambda want: 1e-3 * max(1.0, want.abs().max().item()))
+    return rows
+
+
+def tp_run(torch, np, mesh, form, activation):
+    """TP_STEPS fp32 eager steps at config 2's widths from fixed seeds on
+    seeded global batches of TRAIN_B, dropout on, in the form ``form``
+    ('off' or 'on'); over a ``mesh`` (a ``HybridMesh``) the state placed
+    on it, this rank's data rows, and the replicated parameters checked
+    bit-equal over the model group. Returns (each step's losses, the
+    whole G and D state_dicts on the host, the replicated tensors)."""
+    from patchgan_tpu_torch.models import Discriminator, UNet
+    from patchgan_tpu_torch.parallel import (gather_hybrid_state,
+                                             model_parallel_shardings,
+                                             place_hybrid_state)
+    from patchgan_tpu_torch.train.steps import make_optimizer, \
+        make_train_step
+    init = torch.Generator().manual_seed(9)
+    gen = UNet(IN_C, OUT_C, nf=NF, use_dropout=True, activation=activation,
+               final_act='softmax', generator=init).cuda()
+    disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3,
+                         generator=init).cuda()
+    gen.dropout_generator = torch.Generator(device='cuda').manual_seed(1)
+    opts = [make_optimizer(m.parameters(), LR) for m in (gen, disc)]
+    if mesh is not None:
+        place_hybrid_state(gen, disc, opts, mesh)
+    step = make_train_step(gen, disc, *opts, s2d=form == 'on', mesh=mesh)
+    losses = []
+    for i in range(TP_STEPS):
+        x, y = train_batch(torch, np, TRAIN_B, SIZE, 'cuda', 90 + i)
+        if mesh is not None:
+            x, y = mesh.local_rows((x, y))
+        losses.append({k: float(v) for k, v in step(x, y).items()})
+    replicated = []
+    if mesh is None:
+        states = (gen.state_dict(), disc.state_dict())
+    else:
+        for m in (gen, disc):
+            dims = model_parallel_shardings(m, mesh.model.size)
+            replicated += [p for n, p in m.named_parameters()
+                           if dims[n] is None]
+        mesh.model.check_replicated(replicated, 'replicated parameters')
+        states = gather_hybrid_state(gen, disc, opts, mesh)[:2]
+    return (losses, [{k: v.cpu() for k, v in sd.items()} for sd in states],
+            len(replicated))
+
+
+def tp_gloo_child():
+    """``python -c 'import chip_smoke; chip_smoke.tp_gloo_child()' RANK
+    PORT OUT``: one of 16a's two gloo ranks (dp 1 x tp 2) on card 0: in
+    each run of TP_RUNS the launches of its TP_STEPS steps (the counts
+    set to 0 just before, read just after) and their seconds into
+    OUT/rank_RANK.json; rank 0 also its losses and the gathered state
+    into OUT/tp_FORM_ACTIVATION.pt."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from patchgan_tpu_torch.parallel import hybrid_mesh
+    rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
+                            rank=rank, world_size=TP)
+    mesh = hybrid_mesh(1, TP, 'cuda:0')
+    wrappers = kernel_wrappers()
+    record = {}
+    for form, activation, _ in TP_RUNS:
+        for w in wrappers:
+            w.launches = 0
+        t0 = time.perf_counter()
+        losses, states, n_repl = tp_run(torch, np, mesh, form, activation)
+        torch.cuda.synchronize()
+        name = f'{form}_{activation}'
+        record[name] = {'losses': losses, 'replicated': n_repl,
+                        'launches': [w.launches for w in wrappers],
+                        'seconds': time.perf_counter() - t0}
+        if rank == 0:
+            torch.save({'losses': losses, 'states': states},
+                       os.path.join(out, f'tp_{name}.pt'))
+    with open(os.path.join(out, f'rank_{rank}.json'), 'w') as f:
+        json.dump(record, f)
+    dist.destroy_process_group()
+
+
+def hybrid_limits(want, got):
+    """(losses' worst excess over rtol 5e-4 / atol 2e-5, the smallest
+    share of a tensor's values within 2e-4 + 5e-3 |b|, the largest |diff|)
+    of ``got`` (losses, states) against one process's ``want``: JAX's
+    hybrid limits (``tests/test_distributed.py:98-116``) are <= 0, >=
+    0.999 and <= 2.5e-3."""
+    excess = max(abs(g[k] - w[k]) - 2e-5 - 5e-4 * abs(w[k])
+                 for w, g in zip(want[0], got[0]) for k in w)
+    tight, worst = 1.0, 0.0
+    for w_sd, g_sd in zip(want[1], got[1]):
+        for k, b in w_sd.items():
+            diff = (g_sd[k] - b).abs()
+            tight = min(tight, float((diff <= 2e-4 + 5e-3 * b.abs())
+                                     .float().mean()))
+            worst = max(worst, float(diff.max()))
+    return excess, tight, worst
+
+
+def tp_gloo_phase(torch, np, card, tmp):
+    """16a: two gloo ranks sharing card 0 (dp 1 x tp 2), fp32, eager,
+    dropout on, TP_STEPS steps of config 2's widths at a global batch of
+    TRAIN_B in each run of TP_RUNS (tanh in the plain and the s2d form,
+    relu in the plain), from one seeded state, against one process on
+    the same card from the same seeds (deterministic cuDNN): each step's
+    losses and the gathered weights within JAX's hybrid limits
+    (``hybrid_limits``) in the held runs, read in the other; in every
+    run both ranks' losses equal, the replicated parameters bit-equal
+    over the model group (in the ranks), each rank's launches TP_STEPS x
+    ``STEP`` of the form. Returns ({form: rank 0's launches in its held
+    run}, the summary)."""
+    out_dir = os.path.join(tmp, 'tp_gloo')
+    os.makedirs(out_dir)
+    port = free_port()
+    t0 = time.perf_counter()
+    run_ranks([[sys.executable, '-c',
+                'import chip_smoke; chip_smoke.tp_gloo_child()', str(rank),
+                str(port), out_dir] for rank in range(TP)], tmp, 'tp_gloo',
+              timeout=TP_JOIN_S)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for rank in range(TP):
+        with open(os.path.join(out_dir, f'rank_{rank}.json')) as f:
+            ranks.append(json.load(f))
+    summary, launches, failed = {'wall_s': wall}, {}, []
+    with cudnn_flags_kept(torch):
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        for form, activation, held in TP_RUNS:
+            name = f'{form}_{activation}'
+            t1 = time.perf_counter()
+            losses, states, _ = tp_run(torch, np, None, form, activation)
+            one_s = time.perf_counter() - t1
+            got = torch.load(os.path.join(out_dir, f'tp_{name}.pt'),
+                             weights_only=True)
+            excess, tight, worst = hybrid_limits(
+                (losses, states), (got['losses'], got['states']))
+            want_launches = [TP_STEPS * n for n in STEP[form]]
+            per_rank = [r[name]['launches'] for r in ranks]
+            same = all(r[name]['losses'] == ranks[0][name]['losses']
+                       for r in ranks)
+            within = excess <= 0 and tight >= 0.999 and worst <= 2.5e-3
+            if held:
+                launches[form] = per_rank[0]
+            summary[name] = {
+                'held': held, 'within_limits': within,
+                'loss_excess': excess, 'min_tight_share': tight,
+                'max_abs_diff': worst, 'ranks_losses_equal': same,
+                'launches_per_rank': per_rank,
+                'replicated_tensors': ranks[0][name]['replicated'],
+                'rank_seconds': [r[name]['seconds'] for r in ranks],
+                'one_process_seconds': one_s}
+            print(f'  s2d {form}, {activation}'
+                  f'{"" if held else " (a reading, not held)"}: tp 2 '
+                  f'against one process over {TP_STEPS} steps: worst loss '
+                  f'excess over rtol 5e-4 / atol 2e-5 {excess:.3e} (<= 0), '
+                  f'the least share of a tensor within 2e-4 + 5e-3|b| '
+                  f'{tight:.6f} (>= 0.999), max |diff| {worst:.3e} (<= '
+                  f'2.5e-3): within the limits {within}; ranks\' losses '
+                  f'equal {same}; {ranks[0][name]["replicated"]} replicated '
+                  f'tensors bit-equal over the model group; launches a rank '
+                  f'{per_rank} (expected {want_launches}); the ranks took '
+                  f'{[round(r[name]["seconds"], 2) for r in ranks]} s, one '
+                  f'process {one_s:.2f} s on {card}', flush=True)
+            if not same or any(p != want_launches for p in per_rank) or \
+                    (held and not within):
+                failed.append(name)
+    if failed:
+        raise AssertionError(f'16a: the tp-2 step disagrees with one '
+                             f'process in {failed}')
+    return launches, summary
+
+
+def tp_scale_child():
+    """``python -c 'import chip_smoke; chip_smoke.tp_scale_child()' RANK
+    DP TP PORT OUT``: one NCCL rank on card RANK of 16b: the captured
+    bf16 step at config 2 (global batch 16) over a (DP, TP) grid (a
+    DataMesh at TP 1), its img/s a card in windows of DP_SCALE_STEPS
+    steps, the peak memory and the parameter and optimizer bytes of a
+    rank; then the step's collectives alone, each set captured on its
+    graph communicator and timed over 20 replays: the model group's
+    all-gathers and all-reduces at the shapes and dtypes the eager first
+    step issued, and the data group's gradient bucket; rank 0 writes
+    OUT/grid_DPxTP.json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from patchgan_tpu_torch.parallel import (DataMesh, hybrid_mesh,
+                                             place_hybrid_state, shutdown)
+    from patchgan_tpu_torch.parallel.sharding import optimizer_state
+    rank, dp, tp, port, out = (int(sys.argv[1]), int(sys.argv[2]),
+                               int(sys.argv[3]), int(sys.argv[4]),
+                               sys.argv[5])
+    world = dp * tp
+    device = torch.device('cuda', rank)
+
+    def stage(text):
+        print(f'  rank {rank} of ({dp}, {tp}): {text}', flush=True)
+
+    torch.cuda.set_device(device)
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:{port}',
+                            rank=rank, world_size=world, device_id=device)
+    mesh = hybrid_mesh(dp, tp, device) if tp > 1 else DataMesh(device)
+    stage('the groups formed')
+    gen, disc = train_models(torch)
+    step, opts = config_step(torch, gen, disc, 'off', False, 1, True,
+                             mesh=mesh)
+    if tp > 1:
+        place_hybrid_state(gen, disc, opts, mesh)
+    x, y = (t.to(torch.bfloat16) for t in mesh.local_rows(train_batch(
+        torch, np, TRAIN_B, SIZE, 'cuda', 8)))
+    # the model group's collectives of the eager first step: (gather or
+    # not, shape, dtype)
+    issued, model = [], mesh.model
+    if model is not None:
+        gather, reduce = model._all_gather, model._all_reduce
+        model._all_gather = lambda t, g: (
+            issued.append((True, t.shape, t.dtype)), gather(t, g))[1]
+        model._all_reduce = lambda t, g: (
+            issued.append((False, t.shape, t.dtype)), reduce(t, g))[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for i in range(3):
+        step(x, y)
+        torch.cuda.synchronize()
+        if i == 0 and model is not None:
+            del model._all_gather, model._all_reduce
+            first = list(issued)
+        stage(f'step {i + 1} (eager, capture, replay) done')
+    peak = torch.cuda.max_memory_allocated(device)
+    rates = []
+    for i in range(DP_WINDOWS):
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(DP_SCALE_STEPS):
+            step(x, y)
+        torch.cuda.synchronize()
+        rates.append(TRAIN_B * DP_SCALE_STEPS / (time.perf_counter() - t0)
+                     / world)
+    stage('windows done')
+    comm = {}
+    if model is not None:
+        for kind, gathers in (('all_gather', True), ('all_reduce', False)):
+            bufs = [torch.zeros(shape, dtype=dtype, device=device)
+                    for g, shape, dtype in first if g == gathers]
+            op = gather if gathers else reduce
+            mesh.barrier()
+            comm[kind] = {
+                'calls': len(bufs),
+                'mb': sum(b.numel() * b.element_size() for b in bufs)
+                * (tp if gathers else 1) / 1e6,
+                'ms': captured_ms(torch, lambda: [
+                    op(b, model.graph_group) for b in bufs])}
+    if mesh.data.size > 1:
+        bucket = [torch.zeros_like(p) for m in (gen, disc)
+                  for p in m.parameters()]
+        mesh.barrier()
+        comm['gradient_bucket'] = {
+            'mb': sum(b.numel() * 4 for b in bucket) / 1e6,
+            'ms': captured_ms(torch, lambda: mesh.data.sum_(bucket))}
+    stage('the collectives timed')
+    if rank == 0:
+        params = [p for m in (gen, disc) for p in m.parameters()]
+        state = [t for opt in opts for lst in optimizer_state(opt)[1]
+                 for t in lst]
+        with open(os.path.join(out, f'grid_{dp}x{tp}.json'), 'w') as f:
+            json.dump({'img_per_s_per_card': rates, 'peak_bytes': peak,
+                       'param_bytes': sum(p.numel() * p.element_size()
+                                          for p in params),
+                       'moment_bytes': sum(t.numel() * t.element_size()
+                                           for t in state),
+                       'collectives': comm, 'replays': step.replays}, f)
+    shutdown(mesh)
+    stage('the groups destroyed')
+
+
+def tp_aot(tmp, dp, tp, card):
+    """``patchgan_aot --dp DP --tp TP -d cuda`` at config 2 under
+    ``torch.distributed.run --nproc_per_node DP * TP``: compile_ok and
+    fits; its per-rank lines (the activation gathers' and their backward
+    sums' bytes and NVLink bounds) parsed."""
+    path = os.environ.get('PYTHONPATH')
+    env = dict(os.environ, PYTHONPATH=ROOT + (os.pathsep + path if path
+                                              else ''), PATCHGAN_S2D='off')
+    cfg = write_aot_config(tmp)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'torch.distributed.run', '--nnodes', '1',
+         '--nproc_per_node', str(dp * tp), '--master_addr', '127.0.0.1',
+         '--master_port', str(free_port()), '-m',
+         'patchgan_tpu_torch.cli.aot', '-c', cfg, '--dp', str(dp), '--tp',
+         str(tp), '-d', 'cuda'], cwd=tmp, env=env, capture_output=True,
+        text=True, timeout=TP_JOIN_S)
+    wall = time.perf_counter() - t0
+    print(proc.stdout[-2500:], end='')
+    if proc.returncode != 0:
+        print(proc.stderr[-3000:])
+        raise AssertionError(f'aot --dp {dp} --tp {tp} exited '
+                             f'{proc.returncode}')
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    gathers = re.search(r'activation gathers .*?: ([\d.]+) MB a step '
+                        r'gathered, ring bound ([\d.]+) ms .*?backward sums '
+                        r'([\d.]+) MB, ring bound ([\d.]+) ms', proc.stdout)
+    allreduce = re.search(r'gradient all-reduce: .*? ring bound is '
+                          r'([\d.]+) ms', proc.stdout)
+    if rec['compile_ok'] is not True or \
+            rec['memory_per_device']['fits'] is not True or \
+            rec['mesh'] != {'data': dp, 'model': tp} or gathers is None:
+        raise AssertionError(f'aot --dp {dp} --tp {tp}: {rec}')
+    out = {'json': rec, 'wall_s': wall,
+           'gather_mb': float(gathers[1]), 'gather_bound_ms':
+           float(gathers[2]), 'reduce_mb': float(gathers[3]),
+           'reduce_bound_ms': float(gathers[4]),
+           'grad_allreduce_bound_ms': float(allreduce[1]) if allreduce
+           else None}
+    print(f'  aot --dp {dp} --tp {tp}: compile_ok, fits, peak '
+          f'{rec["memory_per_device"]["peak_bytes"]} bytes a rank; '
+          f'{out} on {card}', flush=True)
+    return out
+
+
+def tp_scale_phase(torch, tmp, card):
+    """16b, where the machine has two or more cards: the captured bf16
+    step at config 2 under NCCL over a (1, TP) grid on 2 cards beside
+    data parallelism over 2, and where there are 4 over (2, TP) beside
+    data parallelism over 4 (14d's grids, again in this phase); after
+    each grid with a model axis ``patchgan_aot`` over it under
+    torchrun."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f'  16b not run: this machine has {n} card; NCCL refuses two '
+              f'ranks on one device, so a model axis over cards needs two '
+              f'or more', flush=True)
+        return {'run': False, 'cards': n}
+    out_dir = os.path.join(tmp, 'tp_scale')
+    os.makedirs(out_dir)
+    grids = [(1, TP), (2, 1)] + ([(2, TP), (4, 1)] if n >= 4 else [])
+    rows = []
+    for dp, tp in grids:
+        port = free_port()
+        run_ranks([[sys.executable, '-c',
+                    'import chip_smoke; chip_smoke.tp_scale_child()',
+                    str(rank), str(dp), str(tp), str(port), out_dir]
+                   for rank in range(dp * tp)], tmp, f'tp_scale_{dp}x{tp}',
+                  timeout=TP_JOIN_S)
+        with open(os.path.join(out_dir, f'grid_{dp}x{tp}.json')) as f:
+            r = json.load(f)
+        r['grid'] = [dp, tp]
+        if tp > 1:
+            r['aot'] = tp_aot(tmp, dp, tp, card)
+        rows.append(r)
+        print(f'  ({dp}, {tp}): img/s per card '
+              f'{[round(v, 3) for v in r["img_per_s_per_card"]]}; the '
+              f'step\'s collectives alone, captured (ms, MB): '
+              f'{r["collectives"]}; a rank holds parameters '
+              f'{r["param_bytes"] / 1e6:.1f} MB, optimizer state '
+              f'{r["moment_bytes"] / 1e6:.1f} MB, peak '
+              f'{r["peak_bytes"] / 2 ** 30:.2f} GiB on {card}', flush=True)
+    return {'run': True, 'cards': n, 'grids': rows}
+
+
+def tp_phase(torch, np, F, kernels, card):
+    """Phase 16: data x model parallelism (see the module's docstring).
+    Returns ({path: rank 0's launches}, the summary)."""
+    out = {'card': card}
+    t0 = time.perf_counter()
+    print('  16: the kernels at the shards\' shapes', flush=True)
+    with torch.inference_mode():
+        out['shard_kernels'] = tp_kernel_phase(torch, F, kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        print('  16a: two gloo ranks sharing the card (dp 1 x tp 2)',
+              flush=True)
+        launches, out['gloo_tp2'] = tp_gloo_phase(torch, np, card, tmp)
+        print('  16b: NCCL across cards', flush=True)
+        out['across_cards'] = tp_scale_phase(torch, tmp, card)
+    out['phase_wall_s'] = time.perf_counter() - t0
+    return {f'tp_gloo_rank_0_s2d_{form}': c
+            for form, c in launches.items()}, out
+
+
+def tp_only(torch, np, F, kernels, card):
+    """``python3 chip_smoke.py --tp-only``: phase 16 alone."""
+    print('== data x model parallel (ROADMAP item 11c)', flush=True)
+    paths, tp = tp_phase(torch, np, F, kernels, card)
+    print(json.dumps({'tp': tp, 'launches': paths}))
+    print(card)
+
+
+def main(only=None):
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -4134,8 +4648,11 @@ def main(only_mesh=False):
                'patchgan_tpu/ops/pallas/thin_conv.py:216',
                thin_conv3x3_wgrad, thin_conv3x3_wgrad_plain))
     wrappers = [k.wrapper for k in kernels]
-    if only_mesh:
+    if only == '--mesh-only':
         mesh_only(torch, np, F, kernels, card)
+        return 0
+    if only == '--tp-only':
+        tp_only(torch, np, F, kernels, card)
         return 0
     print('== kernel phase (8 tiles of 256 px, nf=64; the s2d paths\' '
           'thin convs)', flush=True)
@@ -4295,6 +4812,14 @@ def main(only_mesh=False):
     paths.update(mesh_paths)
     print(json.dumps({'mesh': mesh}))
     print(f'phases 1-15: {time.perf_counter() - t_start:.3f} s', flush=True)
+    print('== data x model parallel (ROADMAP item 11c): the kernels at the '
+          'shards\' shapes, two gloo ranks on the card (dp 1 x tp 2) against '
+          'one process, NCCL and patchgan_aot --tp across cards where there '
+          'are several', flush=True)
+    tp_paths, tp = tp_phase(torch, np, F, kernels, card)
+    paths.update({p: dict(zip(names, c)) for p, c in tp_paths.items()})
+    print(json.dumps({'tp': tp}))
+    print(f'phases 1-16: {time.perf_counter() - t_start:.3f} s', flush=True)
 
     summary = []
     for k in kernels:
@@ -4331,4 +4856,5 @@ if __name__ == '__main__':
         del sys.argv[1]
         train_child()
         sys.exit(0)
-    sys.exit(main(only_mesh=sys.argv[1:2] == ['--mesh-only']))
+    sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (
+        ['--mesh-only'], ['--tp-only']) else None))

@@ -35,8 +35,18 @@ and peak memory per rank, the gradient bucket each step all-reduces
 (the generator's and the discriminator's fp32 gradients) and the ring
 all-reduce's lower bound, 2 (N - 1) / N of the bucket's bytes over
 NVLink's 450 GB/s each way (an H100 host's cards, all to all).
-``--tp`` above 1 raises NotImplementedError (ROADMAP.md, queue 1 item
-11c); ``--topology`` and ``--shadow`` are not taken (no detached
+``--tp T`` above 1 pre-flights data x model parallel training
+(``parallel/sharding.py``) on a (D, T) grid of ranks, one process per
+card under ``torchrun`` with world size D x T (``--dp`` D, default
+world / T; NCCL on the card, gloo with ``-d cpu``): every rank builds
+the same models, keeps its shard of each conv whose output channels
+divide T, and runs the step at its data rank's rows; rank 0 reports,
+per rank, the FLOPs (the sharded convs' count over T, the replicated
+ones whole: counted on one rank's shards), the parameter and Adam
+moment bytes, the peak memory, the gradient all-reduce over the D ranks
+of a data group, and the activation gathers of a step over the T ranks
+of a model group with their backward sums, each beside its ring bound
+over NVLink. ``--topology`` and ``--shadow`` are not taken (no detached
 topology, no shadow parameters). The form is the Trainer's:
 space-to-depth when ``PATCHGAN_S2D`` selects it and ``--no-s2d`` is not
 given.
@@ -50,6 +60,8 @@ import json
 import sys
 
 import torch
+
+from ..parallel.mesh import ModelMesh
 
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}   # H100 SXM, dense
 NVLINK_BYTES = 450e9   # bytes/s each way between an H100 host's cards
@@ -70,13 +82,17 @@ def _models(in_c, out_c, gen_cfg, disc_cfg, dtype, device, seed=0):
     return gen, disc
 
 
-def _step(gen, disc, mu_dtype, s2d, loss_kwargs, graph):
-    """(the train step, its G and D optimizers)."""
+def _step(gen, disc, mu_dtype, s2d, loss_kwargs, graph, mesh=None):
+    """(the train step, its G and D optimizers); over a ``mesh`` with a
+    model axis, the state placed on it first."""
+    from ..parallel.sharding import place_hybrid_state
     from ..train.steps import make_optimizer, make_train_step
     opts = (make_optimizer(gen.parameters(), mu_dtype=mu_dtype),
             make_optimizer(disc.parameters(), mu_dtype=mu_dtype))
+    if mesh is not None and mesh.model is not None:
+        place_hybrid_state(gen, disc, opts, mesh)
     return make_train_step(gen, disc, *opts, s2d=s2d, graph=graph,
-                           **loss_kwargs), opts
+                           mesh=mesh, **loss_kwargs), opts
 
 
 def _batch(n, in_c, out_c, size, dtype, device, seed=0):
@@ -89,24 +105,65 @@ def _batch(n, in_c, out_c, size, dtype, device, seed=0):
     return x.to(dtype), y.to(dtype)
 
 
-def step_flops(in_c, out_c, size, gen_cfg, disc_cfg, s2d, loss_kwargs):
-    """(FLOPs of one train step, FLOPs of its recompute) at batch 1,
-    counted through the plain path on the CPU in fp32. The step runs the
+class _CountedAxis(ModelMesh):
+    """The model axis of one of ``size`` ranks as one process counts it:
+    the shapes a rank sees, no communication (a gather stacks copies of
+    this rank's shard). Counts the elements the gathers return
+    (``gathered``) and the backward sums reduce (``reduced``)."""
+
+    def __init__(self, size):
+        self.rank, self.size, self.backend = 0, size, 'none'
+        self.group = self.graph_group = None
+        self.gathered = self.reduced = 0
+
+    def _all_gather(self, t, group):
+        self.gathered += t.numel() * self.size
+        return [t] * self.size
+
+    def _all_reduce(self, t, group):
+        self.reduced += t.numel()
+
+
+class _CountedMesh:
+    """A step's mesh of one rank of a (1, ``mp``) grid, for counting: no
+    data axis, the model axis a ``_CountedAxis``."""
+
+    def __init__(self, mp):
+        self.data, self.model = None, _CountedAxis(mp)
+
+
+def rank_step_counts(in_c, out_c, size, gen_cfg, disc_cfg, s2d,
+                     loss_kwargs, mp=1):
+    """(FLOPs of one rank's train step, FLOPs of its recompute, the
+    elements its model axis gathers and sums (None at ``mp`` 1)) at
+    batch 1, counted through the plain path on the CPU in fp32 on one
+    rank's shards of a model axis of ``mp`` ranks. The step runs the
     generator's forward once, so the recompute is the generator's
     forward convs in the step less those of a forward alone."""
     from torch.utils.flop_counter import FlopCounterMode
     gen, disc = _models(in_c, out_c, gen_cfg, disc_cfg, torch.float32,
                         torch.device('cpu'))
-    step, _ = _step(gen, disc, None, s2d, loss_kwargs, graph=False)
+    mesh = _CountedMesh(mp) if mp > 1 else None
+    step, _ = _step(gen, disc, None, s2d, loss_kwargs, graph=False,
+                    mesh=mesh)
     x, y = _batch(1, in_c, out_c, size, torch.float32, torch.device('cpu'))
     conv = torch.ops.aten.convolution
     with FlopCounterMode(display=False) as counter:
         step(x, y)
     in_step = counter.get_flop_counts()['UNet'][conv]
+    traffic = None if mesh is None else \
+        {'gathered': mesh.model.gathered, 'reduced': mesh.model.reduced}
     with FlopCounterMode(display=False) as alone, torch.no_grad():
-        gen(x, s2d=s2d)
+        gen(x, s2d=s2d, mesh=mesh)
     return (counter.get_total_flops(),
-            in_step - alone.get_flop_counts()['UNet'][conv])
+            in_step - alone.get_flop_counts()['UNet'][conv], traffic)
+
+
+def step_flops(in_c, out_c, size, gen_cfg, disc_cfg, s2d, loss_kwargs):
+    """(FLOPs of one train step, FLOPs of its recompute) at batch 1
+    (``rank_step_counts`` of one process)."""
+    return rank_step_counts(in_c, out_c, size, gen_cfg, disc_cfg, s2d,
+                            loss_kwargs)[:2]
 
 
 def _config(args):
@@ -145,9 +202,12 @@ def patchgan_aot(argv=None):
                         help='train YAML (dataset / model_params / '
                              'train_params); the flags below override it')
     parser.add_argument('--dp', type=int, default=None,
-                        help='data-parallel ways: ranks, one card each')
+                        help='data-parallel ways: ranks, one card each '
+                             '(with --tp: default world size / tp)')
     parser.add_argument('--tp', type=int, default=1,
-                        help='tensor-parallel ways (only 1 is ported)')
+                        help='tensor-parallel ways: each conv\'s output '
+                             'channels split over this many ranks, one '
+                             'card each, under torchrun')
     parser.add_argument('--batch', type=int, default=16,
                         help='GLOBAL batch size')
     parser.add_argument('--size', type=int, default=None,
@@ -163,39 +223,80 @@ def patchgan_aot(argv=None):
                         help="'cuda' (the card; raises without one) or "
                              "'cpu' (eager, no memory report)")
     args = parser.parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp above 1: dp x tp sharding is not ported yet "
-            "(ROADMAP.md, queue 1 item 11c)")
-    dp = args.dp or 1
-    if dp < 1 or args.batch % dp:
+    dp, tp = _grid(args)
+    if args.batch % dp:
         raise ValueError(f"--batch {args.batch} (the global batch) does "
                          f"not divide across --dp {dp} ranks")
-    batch = args.batch // dp
+    mesh = None
+    if tp > 1:
+        from ..parallel.mesh import init_from_env, shutdown
+        mesh = init_from_env(on_cpu=args.device == 'cpu', mp=tp)
+    try:
+        return _preflight(args, dp, tp, mesh)
+    finally:
+        if mesh is not None:
+            shutdown(mesh)
 
+
+def _grid(args):
+    """(dp, tp) of the flags; ``--tp`` above 1 needs torchrun's world of
+    dp x tp ranks (``--dp`` defaults to world / tp)."""
+    tp = args.tp
+    if tp < 1:
+        raise ValueError(f"--tp {tp} must be 1 or more")
+    if tp == 1:
+        dp = args.dp or 1
+        if dp < 1:
+            raise ValueError(f"--dp {dp} must be 1 or more")
+        return dp, tp
+    from ..parallel.mesh import torchrun_env
+    env = torchrun_env()
+    if env is None:
+        dp = args.dp or 1
+        raise ValueError(
+            f"--tp {tp} runs one process per card: launch it under "
+            f"torchrun with {dp * tp} processes, e.g. python -m "
+            f"torch.distributed.run --nproc_per_node {dp * tp} -m "
+            f"patchgan_tpu_torch.cli.aot --dp {dp} --tp {tp} ...")
+    world = env[1]
+    dp = args.dp or world // tp
+    if dp < 1 or dp * tp != world:
+        raise ValueError(f"--dp {dp} x --tp {tp} needs {dp * tp} ranks, "
+                         f"but the world size is {world}")
+    return dp, tp
+
+
+def _preflight(args, dp, tp, mesh):
+    """The pre-flight on this process's card (or the CPU): one rank of a
+    (dp, tp) grid over ``mesh``, or one process (``mesh`` None) standing
+    for each of ``dp`` data-parallel ranks. Rank 0 reports."""
     from ..ops.s2d import s2d_enabled
     from .common import compute_dtype, select_device
-    device = select_device(args.device)
+    batch = args.batch // dp
+    device = select_device(args.device) if mesh is None else mesh.device
     dtype = compute_dtype(args.dtype, device)
     in_c, out_c, size, gen_cfg, disc_cfg, loss_kwargs = _config(args)
     s2d = not args.no_s2d and s2d_enabled() and size % 2 == 0
     on_card = device.type == 'cuda'
+    main = mesh is None or mesh.is_main
     kind = torch.cuda.get_device_name(device) if on_card else 'cpu'
     result = {'metric': 'aot_compile', 'topology': None,
-              'device_kind': kind, 'devices': dp,
-              'mesh': {'data': dp, 'model': 1}, 'batch': args.batch,
+              'device_kind': kind, 'devices': dp * tp,
+              'mesh': {'data': dp, 'model': tp}, 'batch': args.batch,
               'size': size, 'dtype': args.dtype, 's2d': s2d,
               'shadow': False, 'gen_filts': gen_cfg['filters'],
               'disc_filts': disc_cfg['filters']}
 
-    flops, recompute = (f * batch for f in step_flops(
-        in_c, out_c, size, gen_cfg, disc_cfg, s2d, loss_kwargs))
+    flops, recompute, traffic = rank_step_counts(
+        in_c, out_c, size, gen_cfg, disc_cfg, s2d, loss_kwargs, tp)
+    flops, recompute = flops * batch, recompute * batch
     opt_s = flops / PEAK_FLOPS[args.dtype]
     cost = {'flops_per_device': flops, 'hbm_bytes_per_device': None,
             'optimal_seconds': opt_s,
             'img_per_s_ceiling': args.batch / opt_s}
     capacity = torch.cuda.get_device_properties(device).total_memory \
         if on_card else None
+    report = _report if main else (lambda *a, **k: None)
 
     # the models, the optimizers (Adam's first moment in bf16 beside a
     # bf16 step, as patchgan_train keeps it) and the batch, then the
@@ -204,8 +305,11 @@ def patchgan_aot(argv=None):
     try:
         gen, disc = _models(in_c, out_c, gen_cfg, disc_cfg, dtype, device)
         step, opts = _step(gen, disc, mu_dtype, s2d, loss_kwargs,
-                           graph=on_card)
-        x, y = _batch(batch, in_c, out_c, size, dtype, device)
+                           graph=on_card, mesh=mesh)
+        x, y = _batch(args.batch if mesh else batch, in_c, out_c, size,
+                      dtype, device)
+        if mesh is not None:
+            x, y = mesh.local_rows((x, y))
         if on_card:
             # the peak from here on: what the models, the optimizers, the
             # batch and the step hold
@@ -223,7 +327,7 @@ def patchgan_aot(argv=None):
             'arguments_bytes': None, 'temp_bytes': None,
             'output_bytes': None, 'peak_bytes': None,
             'hbm_capacity_bytes': capacity, 'fits': False}
-        _report(result, args, 'out of memory in the eager step', recompute)
+        report(result, args, 'out of memory in the eager step', recompute)
         return result
     try:
         losses = step(x, y)   # the capture and its first replay
@@ -236,7 +340,8 @@ def patchgan_aot(argv=None):
         result.update(compile_ok=False,
                       error=f'{type(e).__name__}: {e}'[:400])
         print(f'CAPTURE FAILED: {e}', file=sys.stderr)
-        print(json.dumps(result))
+        if main:
+            print(json.dumps(result))
         raise SystemExit(1)
     result.update(compile_ok=True, cost=cost)
     peak = torch.cuda.max_memory_allocated(device) if on_card else None
@@ -246,9 +351,11 @@ def patchgan_aot(argv=None):
         'output_bytes': 4 * len(values),
         'peak_bytes': peak, 'hbm_capacity_bytes': capacity,
         'fits': peak < capacity if on_card else None}
-    _report(result, args, 'captured and replayed' if on_card
-            else 'eager on the CPU (no capture)', recompute,
-            allreduce_bound(opts, dp))
+    report(result, args, 'captured and replayed' if on_card
+           else 'eager on the CPU (no capture)', recompute,
+           allreduce_bound(opts, dp),
+           None if mesh is None else model_axis_bound(
+               traffic, batch, dtype, tp, (gen, disc), opts))
     return result
 
 
@@ -265,14 +372,41 @@ def allreduce_bound(opts, ranks):
             'nvlink_bound_ms': ring / NVLINK_BYTES * 1e3}
 
 
-def _report(result, args, status, recompute, allreduce=None):
+def model_axis_bound(traffic, batch, dtype, tp, modules, opts):
+    """What one rank of a model axis of ``tp`` ranks holds and moves a
+    step at ``batch`` rows: its parameters' and optimizer state's bytes,
+    the activations its gathers return (``traffic``, elements at batch 1,
+    in the compute ``dtype``) and the gradients their backward sums, each
+    with its ring's lower bound over NVLink: a gather receives (tp - 1) /
+    tp of the whole, an all-reduce sends and receives 2 (tp - 1) / tp."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    gathered = traffic['gathered'] * batch * size
+    reduced = traffic['reduced'] * batch * size
+    ring_gather = (tp - 1) / tp * gathered
+    ring_reduce = 2 * (tp - 1) / tp * reduced
+    from ..parallel.sharding import optimizer_state
+    moments = [t for opt in opts for state in optimizer_state(opt)[1]
+               for t in state]
+    return {'ranks': tp,
+            'param_bytes': sum(p.numel() * p.element_size()
+                               for m in modules for p in m.parameters()),
+            'moment_bytes': sum(t.numel() * t.element_size()
+                                for t in moments),
+            'gather_bytes': gathered, 'gather_ring_bytes_per_rank':
+            ring_gather, 'gather_nvlink_bound_ms':
+            ring_gather / NVLINK_BYTES * 1e3,
+            'reduce_bytes': reduced, 'reduce_ring_bytes_per_rank':
+            ring_reduce, 'reduce_nvlink_bound_ms':
+            ring_reduce / NVLINK_BYTES * 1e3}
+
+
+def _report(result, args, status, recompute, allreduce=None, model=None):
     gib = 1 << 30
     cost, mem = result['cost'], result['memory_per_device']
-    model = cost['flops_per_device'] - recompute
-    ranks = result['devices']
+    ranks, dp = result['devices'], result['mesh']['data']
     print(f"{result['device_kind']}, batch {args.batch} "
-          f"({args.batch // ranks} a rank, {ranks} ranks), "
-          f"{result['size']}px, "
+          f"({args.batch // dp} a rank, {ranks} ranks: "
+          f"{result['mesh']}), {result['size']}px, "
           f"{args.dtype}, s2d={result['s2d']}, gen_filts "
           f"{result['gen_filts']}, disc_filts {result['disc_filts']}")
     print(f'  step: {status}')
@@ -280,13 +414,26 @@ def _report(result, args, status, recompute, allreduce=None):
           f"{' per rank' if ranks > 1 else ''}; "
           f"bound on an H100 {cost['optimal_seconds'] * 1e3:.3f} ms "
           f"(<= {cost['img_per_s_ceiling']:.0f} img/s)")
+    without = cost['flops_per_device'] - recompute
     print(f"  of it the recompute of K2's and K3's levels "
-          f"{recompute / 1e9:.1f} GFLOP; without it {model / 1e9:.1f} "
-          f"GFLOP, bound {model / PEAK_FLOPS[args.dtype] * 1e3:.3f} ms")
-    if allreduce and ranks > 1:
+          f"{recompute / 1e9:.1f} GFLOP; without it {without / 1e9:.1f} "
+          f"GFLOP, bound {without / PEAK_FLOPS[args.dtype] * 1e3:.3f} ms")
+    if model is not None:
+        print(f"  per rank: parameters {model['param_bytes'] / 1e6:.1f} MB,"
+              f" optimizer state {model['moment_bytes'] / 1e6:.1f} MB")
+        print(f"  activation gathers over the {model['ranks']} ranks of a "
+              f"model group: {model['gather_bytes'] / 1e6:.1f} MB a step "
+              f"gathered, ring bound "
+              f"{model['gather_nvlink_bound_ms']:.3f} ms "
+              f"({model['gather_ring_bytes_per_rank'] / 1e6:.1f} MB a "
+              f"rank); their backward sums "
+              f"{model['reduce_bytes'] / 1e6:.1f} MB, ring bound "
+              f"{model['reduce_nvlink_bound_ms']:.3f} ms; NVLink at "
+              f"{NVLINK_BYTES / 1e9:.0f} GB/s each way")
+    if allreduce and allreduce['ranks'] > 1:
         print(f"  gradient all-reduce: {allreduce['bucket_values']} fp32 "
               f"values, {allreduce['bucket_bytes'] / 1e6:.1f} MB a step; "
-              f"over {ranks} ranks the ring bound is "
+              f"over {allreduce['ranks']} ranks the ring bound is "
               f"{allreduce['nvlink_bound_ms']:.3f} ms "
               f"({allreduce['ring_bytes_per_rank'] / 1e6:.1f} MB a rank "
               f"at {NVLINK_BYTES / 1e9:.0f} GB/s each way)")

@@ -26,6 +26,18 @@ parameter, same per-pixel output.
 Parameters sit under the reference's state_dict keys
 (``model.DownConv{i}.weight`` / ``model.UpConv{i}.weight``), held by
 torch conv modules that serve only as weight containers.
+
+A step's ``mesh`` (``parallel.mesh``) has a data axis, over which the
+dropout masks are drawn for the global batch, and, a ``HybridMesh``, a
+model axis. A block whose weight holds a shard of its output channels
+(``parallel.sharding.place_hybrid_state``) takes its whole input through
+``mesh.model.enter``, computes its channels through the same dispatch
+(K1-K4 run on the shard), and gathers them (``mesh.model.gather``)
+after the norm and activation, which are per channel, and before the
+dropout; the un-normed levels (dec0 and the output head) gather their
+conv's output before the activation (the head's softmax needs every
+class). A block whose output channels do not divide the model axis
+computes them whole on every rank.
 """
 
 import torch
@@ -49,11 +61,13 @@ def dropout(x, generator, mesh=None):
     """Flax ``nn.Dropout(0.2)`` in train mode: keep each element with
     probability 0.8 and scale it by 1/0.8, the mask drawn from
     ``generator`` (an explicit ``torch.Generator`` on x's device). With
-    a ``mesh`` (``parallel.mesh.DataMesh``) x is this rank's rows of the
-    global batch: the mask is drawn for the global batch and the rank
-    keeps its rows, as JAX draws it over a sharded batch, so a sample's
-    mask depends on the seed and its global row only and every rank's
-    generator advances alike."""
+    a ``mesh`` (``parallel.mesh``; its data axis) x is this rank's rows
+    of the global batch: the mask is drawn for the global batch and the
+    rank keeps its rows, as JAX draws it over a sharded batch, so a
+    sample's mask depends on the seed and its global row only and every
+    rank's generator advances alike. Every rank of a model group draws
+    the same mask."""
+    mesh = None if mesh is None else mesh.data
     shape = x.shape if mesh is None else \
         (x.shape[0] * mesh.size,) + tuple(x.shape[1:])
     keep = torch.rand(shape, generator=generator, device=x.device)
@@ -61,6 +75,16 @@ def dropout(x, generator, mesh=None):
         keep = mesh.local_rows(keep)
     keep = keep >= DROPOUT_RATE
     return torch.where(keep, x / (1.0 - DROPOUT_RATE), 0.0).to(x.dtype)
+
+
+def sharded_axis(mesh, conv):
+    """``mesh``'s model axis when ``conv`` (a Conv2d or ConvTranspose2d)
+    holds a shard of its output channels, else None."""
+    if mesh is None or mesh.model is None:
+        return None
+    dim = 1 if isinstance(conv, nn.ConvTranspose2d) else 0
+    return mesh.model if conv.weight.shape[dim] != conv.out_channels \
+        else None
 
 
 class DownBlock(nn.Module):
@@ -83,8 +107,12 @@ class DownBlock(nn.Module):
     def forward(self, x, generator=None, s2d_in=False, mesh=None,
                 split_batch=None):
         """``s2d_in``: x is the s2d form [N, 4C, H/2, W/2] of the input;
-        ``mesh``: x is a rank's rows, for the dropout draw;
-        ``split_batch``: the fused kernel's K split (``conv_norm_act``)."""
+        ``mesh``: x is a rank's rows, for the dropout draw, and the model
+        axis of a sharded weight; ``split_batch``: the fused kernel's K
+        split (``conv_norm_act``)."""
+        model = sharded_axis(mesh, self.model[self.name])
+        if model is not None:
+            x = model.enter(x)
         w = self.weight.to(x.dtype)
         if s2d_in:
             x = conv2d_s2d(x, w)
@@ -96,6 +124,8 @@ class DownBlock(nn.Module):
             x = instance_norm(conv2d(x, w), NORM_EPS, self.activation)
         else:
             x = apply_activation(conv2d(x, w), self.activation)
+        if model is not None:
+            x = model.gather(x)
         if self.use_dropout and self.training:
             x = dropout(x, generator, mesh)
         return x
@@ -129,18 +159,29 @@ class UpBlock(nn.Module):
         DownBlock."""
         w = self.weight.to(x.dtype)
         skip = skip.to(x.dtype) if skip is not None else None
+        model = sharded_axis(mesh, self.model[self.name])
+        if model is not None:
+            x = model.enter(x)
+            skip = model.enter(skip) if skip is not None else None
         if s2d_out:
             if self.use_norm:
                 raise ValueError("s2d_out is an output-head option "
                                  "(use_norm=False)")
             out = conv_transpose2d_s2d(x, w, x2=skip)
+            if model is not None:
+                # the s2d channels are (dy, dx, class): four blocks
+                out = model.gather(out, blocks=4)
             x = apply_activation_s2d(out.float() if self.fp32_act else out,
                                      self.activation)
         elif self.use_norm:
             x = convt_norm_act(x, w, NORM_EPS, self.activation, skip,
                                split_batch)
+            if model is not None:
+                x = model.gather(x)
         else:
             out = conv_transpose2d(x, w, x2=skip)
+            if model is not None:
+                out = model.gather(out)
             if self.fp32_act:
                 out = out.float()
             x = apply_activation(out, self.activation)

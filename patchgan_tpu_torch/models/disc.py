@@ -29,6 +29,14 @@ Two forms of conv0 (JAX ``disc.py:50-131``):
   conv0 runs ``conv2d_s2d``, the stride-1 3x3 equivalent over the s2d
   grid (kernel K4 on the card), with the same parameters. The layers
   after conv0 are unchanged.
+
+``forward(..., mesh=HybridMesh)`` runs each conv whose weight holds a
+shard of its output channels (``parallel.sharding``) as the blocks do
+(``models/blocks.py``): its whole input through ``mesh.model.enter``, its
+channels (and its bias's) with the activation and the norm, which are
+per channel, then ``mesh.model.gather``. conv0's image and mask parts
+each enter; ``conv_out`` (one channel) is replicated and computed whole
+on every rank.
 """
 
 import math
@@ -40,7 +48,7 @@ from ..ops.activations import apply_activation
 from ..ops.conv import conv2d
 from ..ops.norm import instance_norm
 from ..ops.s2d import conv2d_s2d
-from .blocks import KERNEL_SIZE, NORM_EPS
+from .blocks import KERNEL_SIZE, NORM_EPS, sharded_axis
 
 
 class Discriminator(nn.Module):
@@ -85,42 +93,63 @@ class Discriminator(nn.Module):
                     bound = 1.0 / math.sqrt(conv.weight[0].numel())
                     conv.bias.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, x, y=None, s2d=False):
+    def forward(self, x, y=None, s2d=False, mesh=None):
         """x: (N, Ci, H, W) image; y: optional (N, Cm, H, W) mask
         concatenated to it, or a tuple of such masks (the paired form).
-        With ``s2d`` x and y are in s2d form.
+        With ``s2d`` x and y are in s2d form; ``mesh``: the model axis of
+        the sharded convs (the module's docstring).
         Returns fp32 probabilities (N, 1, H', W'), a tuple of them when y
         is a tuple."""
         paired = isinstance(y, (tuple, list))
         x = x.to(self.dtype)
+        if paired:
+            y = tuple(m.to(self.dtype) for m in y)
+            if any(m.shape != y[0].shape for m in y):
+                raise ValueError("paired masks must share one shape")
+        elif y is not None:
+            y = y.to(self.dtype)
         conv0 = self.model[self.plan[0][0]]
+        model = sharded_axis(mesh, conv0)
+        if model is not None:
+            # entered in the compute dtype: their gradients sum in it
+            x = model.enter(x)
+            if paired:
+                y = tuple(model.enter(m) for m in y)
+            elif y is not None:
+                y = model.enter(y)
         w0 = conv0.weight.to(self.dtype)
         if paired:
-            ys = tuple(m.to(self.dtype) for m in y)
-            if any(m.shape != ys[0].shape for m in ys):
-                raise ValueError("paired masks must share one shape")
-            hs = conv2d_s2d(x, w0, bias=conv0.bias, x2s=ys) if s2d else \
-                conv2d(x, w0, stride=2, padding=1, bias=conv0.bias, x2s=ys)
+            hs = conv2d_s2d(x, w0, bias=conv0.bias, x2s=y) if s2d else \
+                conv2d(x, w0, stride=2, padding=1, bias=conv0.bias, x2s=y)
         elif s2d:
-            hs = (conv2d_s2d(x, w0, bias=conv0.bias,
-                             x2=y.to(self.dtype) if y is not None else None),)
+            hs = (conv2d_s2d(x, w0, bias=conv0.bias, x2=y),)
         else:
-            h = x if y is None else torch.cat([x, y.to(self.dtype)], dim=1)
+            h = x if y is None else torch.cat([x, y], dim=1)
             hs = (conv2d(h, w0, stride=2, padding=1, bias=conv0.bias),)
-        outs = tuple(self._tail(h) for h in hs)
+        outs = tuple(self._tail(h, model, mesh) for h in hs)
         return outs if paired else outs[0]
 
-    def _tail(self, h):
-        """conv0's activation and the layers after it."""
+    def _tail(self, h, model0, mesh):
+        """conv0's activation (and gather, over ``model0``) and the layers
+        after it."""
         h = apply_activation(h, self.plan[0][2])
+        if model0 is not None:
+            h = model0.gather(h)
         for idx, stride, act, normed in self.plan[1:]:
             conv = self.model[idx]
+            model = sharded_axis(mesh, conv)
+            if model is not None:
+                h = model.enter(h)
             h = conv2d(h, conv.weight, stride=stride, padding=1,
                        bias=conv.bias)
             if act == 'sigmoid':
+                if model is not None:
+                    h = model.gather(h)
                 # fp32 head: bf16 saturates to exact 0/1 at |logit| ~ 9
                 return apply_activation(h.float(), act)
             h = apply_activation(h, act)
             if normed:
                 h = instance_norm(h, NORM_EPS)
+            if model is not None:
+                h = model.gather(h)
         return h

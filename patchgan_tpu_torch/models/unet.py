@@ -15,7 +15,10 @@ checkpoint; the inference engine pre-casts its copy once).
 ``dropout_generator`` is the ``torch.Generator`` the dropout masks are
 drawn from in train mode (the Trainer seeds one on the model's device);
 ``forward(..., mesh=)`` draws them for the global batch of a
-data-parallel step (``models/blocks.py``).
+data-parallel step, and with a ``HybridMesh`` runs each level whose
+weight holds a shard of its output channels on the shard and gathers
+its output (``models/blocks.py``): a skip is gathered once, by its
+level, and feeds both the next level and the decoder's concat.
 
 ``forward(..., s2d=True)`` (JAX ``unet.py:45-52``) runs the
 space-to-depth boundary form, whose input is ``[N, 4 input_nc, H/2,
@@ -74,7 +77,8 @@ class UNet(nn.Module):
                 split_batch=None):
         """x: (N, input_nc, H, W) with H, W multiples of 128 -> (N,
         output_nc, H, W) float32; with ``s2d`` both in their s2d form;
-        ``mesh``: x is a rank's rows of the global batch;
+        ``mesh``: x is a rank's rows of the global batch (and the model
+        axis of the sharded levels);
         ``split_batch``: the K split of the fused conv kernels
         (``ops.kernels.conv_norm_act``; default N)."""
         h, w = x.shape[2], x.shape[3]

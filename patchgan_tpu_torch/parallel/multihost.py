@@ -17,7 +17,9 @@ def process_local_range(global_batch_size, process_index=None,
     """Contiguous [start, stop) slice of a global batch owned by this
     rank (JAX ``multihost.py:95-109``). The index and count default to
     the default process group's rank and size, or (0, 1) without one;
-    a batch that does not divide across the ranks raises ValueError."""
+    a batch that does not divide across the ranks raises ValueError.
+    Under a model axis the defaults are wrong: a rank's rows follow its
+    data rank (``HybridMesh.local_rows``), so pass them."""
     if process_index is None or process_count is None:
         grouped = dist.is_available() and dist.is_initialized()
         if process_index is None:

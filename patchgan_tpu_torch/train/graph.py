@@ -35,7 +35,12 @@ into a CUDA graph and replays it, and every later call replays it:
 A data-parallel step's collectives (``parallel/mesh.py``) are captured
 with the rest under NCCL, on a communicator that no eager collective
 uses; the mesh holds the step, and ``parallel.shutdown`` frees its
-graphs (``release``) before the process group goes. A gloo group cannot be captured (the Trainer then steps
+graphs (``release``) before the process group goes. A data x model
+parallel step (a ``HybridMesh``) captures the gradient sums on its data
+group's graph communicator and the activation gathers, and their
+backward sums, on its model group's: a sharded layer picks the
+communicator in its forward, so the backward that the capture records
+takes the same one. A gloo group cannot be captured (the Trainer then steps
 eagerly). A capture or a replay that fails raises; the step never falls
 back to eager. CPU tensors take the eager step, as graphs exist only on the card.
 ``PATCHGAN_CUDA_GRAPH`` (``cuda_graph_enabled``), read when a Trainer is

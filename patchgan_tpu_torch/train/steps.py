@@ -38,6 +38,15 @@ micro-step under ``MultiSteps``, as the JAX step psums inside each
 call). So every rank applies the update one process would apply on the
 concatenated batch, and reports the global losses.
 
+A ``parallel.HybridMesh`` adds a model axis (``parallel/sharding.py``,
+the counterpart of the JAX step on ``hybrid_mesh``): the models take the
+whole mesh and run each sharded conv on its output channels, gathering
+them within the model group in the forward and summing their inputs'
+gradients over it in the backward; the losses, their statistics and the
+gradient buckets go over the mesh's data axis (``mesh.data``, a
+``DataMesh``) only, since every rank of a model group computes them
+alike.
+
 Steps return their losses as 0-d tensors on the device under the
 reference's keys ``gen, gen_loss, gdisc, discr, discf, disc``; nothing
 in a step waits for the device.
@@ -331,32 +340,38 @@ def constant_params(params):
             p.requires_grad_(True)
 
 
+def _data(mesh):
+    """The data axis of a step's ``mesh``: what its losses reduce over."""
+    return None if mesh is None else mesh.data
+
+
 def gan_losses(generator, discriminator, seg_loss, x, y, s2d=False,
                mesh=None):
     """The generator's loss: segmentation + BCE(D(x, gen_img), 1), x and
     y in the form ``s2d`` says. Returns (loss, gen_img, gdisc)."""
     gen_img = generator(x, s2d=s2d, mesh=mesh)
-    disc_fake = discriminator(x, gen_img, s2d=s2d)
+    disc_fake = discriminator(x, gen_img, s2d=s2d, mesh=mesh)
     seg = seg_loss(fold_blocks(gen_img), fold_blocks(y)) if s2d else \
         seg_loss(gen_img, y)
-    gdisc = bce_loss(disc_fake, torch.ones_like(disc_fake), mesh)
+    gdisc = bce_loss(disc_fake, torch.ones_like(disc_fake), _data(mesh))
     return seg + gdisc, gen_img, gdisc
 
 
 def disc_real_fake(discriminator, x, y, gen_img, merged=True, paired=False,
-                   s2d=False):
+                   s2d=False, mesh=None):
     """The discriminator's outputs on (x, y) and (x, gen_img)
     (``:239-272``): ``paired`` runs the tuple-of-masks form, conv0's image
     part shared; ``merged`` one forward of the two pairs stacked along
     the batch; otherwise two forwards."""
     y = y.to(gen_img.dtype)
     if paired:
-        return discriminator(x, (y, gen_img), s2d=s2d)
+        return discriminator(x, (y, gen_img), s2d=s2d, mesh=mesh)
     if merged:
         both = discriminator(torch.cat([x, x]), torch.cat([y, gen_img]),
-                             s2d=s2d)
+                             s2d=s2d, mesh=mesh)
         return both.chunk(2)
-    return discriminator(x, y, s2d=s2d), discriminator(x, gen_img, s2d=s2d)
+    return (discriminator(x, y, s2d=s2d, mesh=mesh),
+            discriminator(x, gen_img, s2d=s2d, mesh=mesh))
 
 
 def resolve_paired_disc(discriminator):
@@ -390,14 +405,16 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
     records no node that only a frozen gradient needs. ``graph=True``
     returns the step as a ``CapturedStep`` (``train/graph.py``): the
     same arithmetic, replayed as one CUDA graph per batch shape on the
-    card. ``mesh`` makes it data-parallel (the module's docstring); its
-    collectives are captured too, which NCCL's can be and gloo's not."""
+    card. ``mesh`` makes it data-parallel, or data x model parallel (the
+    module's docstring); its collectives are captured too, which NCCL's
+    can be and gloo's not."""
     if graph and mesh is not None and not mesh.capturable:
         raise ValueError(f"a {mesh.backend} process group cannot be "
                          f"captured into a CUDA graph; build the step "
                          f"with graph=False")
+    data = _data(mesh)
     seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
-                             tversky_gamma, bce_weighting, mesh)
+                             tversky_gamma, bce_weighting, data)
     paired = resolve_paired_disc(discriminator)
     g_params = list(gen_opt.params)
     trainable = {id(p) for p in g_params}
@@ -414,16 +431,16 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
             g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
                                                 seg_loss, x, y, s2d, mesh)
             g_grads = torch.autograd.grad(g_loss, g_params)
-        if mesh is not None:
-            mesh.sum_(g_grads)
+        if data is not None:
+            data.sum_(g_grads)
         gen_opt.update(g_grads)
         gen_img = gen_img.detach()
         d_loss, loss_real, loss_fake = disc_loss(*disc_real_fake(
             discriminator, x, y, gen_img, merged=False, paired=paired,
-            s2d=s2d), mesh)
+            s2d=s2d, mesh=mesh), data)
         d_grads = torch.autograd.grad(d_loss, d_params)
-        if mesh is not None:
-            mesh.sum_(d_grads)
+        if data is not None:
+            data.sum_(d_grads)
         disc_opt.update(d_grads)
         g_loss, gdisc = g_loss.detach(), gdisc.detach()
         return dict(zip(LOSS_KEYS, (g_loss, g_loss, gdisc,
@@ -462,8 +479,9 @@ def make_eval_step(generator, discriminator, loss_type='tversky',
     'iou' when ``compute_iou``; ``s2d`` and ``mesh`` as in
     ``make_train_step``: with a mesh, the global batch's losses and
     IoU."""
+    data = _data(mesh)
     seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
-                             tversky_gamma, bce_weighting, mesh)
+                             tversky_gamma, bce_weighting, data)
 
     @torch.no_grad()
     def eval_step(x, y):
@@ -473,13 +491,13 @@ def make_eval_step(generator, discriminator, loss_type='tversky',
         g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
                                             seg_loss, x, y, s2d, mesh)
         d_loss, loss_real, loss_fake = disc_loss(*disc_real_fake(
-            discriminator, x, y, gen_img, s2d=s2d), mesh)
+            discriminator, x, y, gen_img, s2d=s2d, mesh=mesh), data)
         losses = dict(zip(LOSS_KEYS, (g_loss, g_loss, gdisc, loss_real,
                                       loss_fake, d_loss)))
         if compute_iou:
             losses['iou'] = iou(fold_blocks(y), fold_blocks(gen_img),
-                                mesh=mesh) if s2d else \
-                iou(y, gen_img, mesh=mesh)
+                                mesh=data) if s2d else \
+                iou(y, gen_img, mesh=data)
         return losses
 
     return eval_step

@@ -497,11 +497,12 @@ def test_aot_flops_match_the_analytic_count(tmp_path, capsys):
 
 @pytest.mark.parametrize('flag', ['--dp', '--tp'])
 def test_aot_parallel_modes_raise(flag):
-    """--tp is not ported (item 11c); --dp runs, but a global batch that
-    does not divide across its ranks raises, naming both."""
+    """--tp above 1 runs under torchrun only: outside it, it raises
+    saying how to launch it; --dp runs, but a global batch that does not
+    divide across its ranks raises, naming both."""
     from patchgan_tpu_torch.cli.aot import patchgan_aot
     if flag == '--tp':
-        with pytest.raises(NotImplementedError, match='item 11c'):
+        with pytest.raises(ValueError, match='under torchrun'):
             patchgan_aot([flag, '2', '-d', 'cpu'])
     else:
         with pytest.raises(ValueError, match='--batch 16 .* --dp 3'):

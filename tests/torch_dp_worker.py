@@ -48,12 +48,14 @@ def _rank_main(target, rank, world, port, outdir, args):
         raise
 
 
-def launch(target, world, outdir, *args, timeout=JOIN_S):
-    """Run ``target(mesh, outdir, *args)`` on ``world`` gloo ranks."""
+def launch(target, world, outdir, *args, timeout=JOIN_S, main=_rank_main):
+    """Run ``target(mesh, outdir, *args)`` on ``world`` gloo ranks;
+    ``main(target, rank, world, port, outdir, args)`` starts each (the
+    group and the mesh)."""
     import multiprocessing
     ctx = multiprocessing.get_context('spawn')
     port = free_port()
-    procs = [ctx.Process(target=_rank_main,
+    procs = [ctx.Process(target=main,
                          args=(target, rank, world, port, str(outdir), args))
              for rank in range(world)]
     for p in procs:
