@@ -272,11 +272,32 @@ Run from the root of the repository. In order:
    fits, its NVLink bounds); on one card a line says why (b) did not
    run. ``python3 chip_smoke.py
    --tp-only`` runs phase 16 alone.
+17. spatial parallelism (``parallel/spatial.py``, ROADMAP item 11d, the
+   training half): (a) each band entry point of K1, K1-bwd, K2 and K3
+   (``in_stats``, ``in_apply``, ``conv_band``, ``convt_band``,
+   ``in_bwd_sums``, ``in_bwd_apply``) against its plain stage version at
+   the nf=64 levels' bands of a 1024-px image, batch 2 (a top and a bottom
+   band at sp 2, a middle one at sp 4), bf16 and fp32, the kernel phase's
+   tolerances (a sum's times max(1, max |sum|)); the bands' stats summed,
+   applied and concatenated against the whole-plane kernel; two launches
+   equal; the bf16 ms of each on the top band beside its plain version,
+   its bound and the whole-plane kernel at the global shape; (b) two gloo
+   ranks sharing the card at (dp, sp) = (1, 2), fp32, TF32 off, tanh,
+   dropout off, one step at 256 px, global batch 2, against one process:
+   losses within rtol 2e-3 / atol 2e-4, every gradient within 1e-3 of its
+   tensor's max |g|, each rank's launches what ``band_plan`` plans; (c)
+   where there are two or more cards, ``patchgan_train`` with
+   ``spatial_parallelism: 2`` under ``torch.distributed.run`` (NCCL,
+   bf16, 1024 px, the captured step; one set of epoch files), then the
+   captured step over 2 cards beside one card's, in turns, in windows of
+   at least 2 s: img/s and the peak memory a rank; on one card a line says why (c) did not run. ``python3
+   chip_smoke.py --spatial-only`` runs phase 17 alone.
 
 It prints a JSON summary of the kernels (launches from the s2d training
 run, which drives all six; every path's counts beside them, the
-spatial, serve, pipeline, data-parallel, mesh and tp paths' too; K1-K3's totals
-at the spatial shapes), the card's name and power limit, and as its last line ``{"ok":
+spatial, serve, pipeline, data-parallel, mesh, tp and spatial-training
+paths' too; K1-K3's totals at the spatial shapes; then the six band entry
+points, launches from 17b's rank 0), the card's name and power limit, and as its last line ``{"ok":
 true, "device": {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
 """
@@ -1172,7 +1193,18 @@ def finetune_parity_phase(torch, np, wrappers, s2d):
     on either device; after the second the encoder is bit-equal to its
     initial weights on both, every other parameter within Adam's
     sign-flip bound of the CPU's (``assert_update_close``); 2 x
-    ``FT_STEP`` launches."""
+    ``FT_STEP`` launches. The card runs deterministic cuDNN, as phases
+    14b and 16a do: K3's backward recomputes a cuDNN transposed conv,
+    whose default algorithm adds with atomics, and K1-bwd reads its ReLU
+    mask from that recompute, so two runs on the card could otherwise
+    round a near-zero ReLU input to either side of 0."""
+    with cudnn_flags_kept(torch):
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        return _finetune_parity(torch, np, wrappers, s2d)
+
+
+def _finetune_parity(torch, np, wrappers, s2d):
     from patchgan_tpu_torch.models import Discriminator, UNet
     from patchgan_tpu_torch.train.steps import (make_optimizer,
                                                 make_train_step,
@@ -4595,6 +4627,681 @@ def tp_only(torch, np, F, kernels, card):
     print(card)
 
 
+# phase 17: spatial parallelism (ROADMAP item 11d, the training half)
+SP = 2                  # the spatial axis of 17a's timed bands, 17b and 17c
+SP_SIZE = 1024          # 17a's and 17c's image height and width
+SP_B = 2                # 17a's batch and 17b's and 17c's global batch
+SP_JOIN_S = 300         # a spawned rank that has not ended by then hung
+# 17a's bands: (label, sp, rank)
+SP_BANDS = (('sp 2 top', 2, 0), ('sp 2 bottom', 2, 1), ('sp 4 middle', 4, 1))
+# the band entry points: name, source, the TPU kernel whose band form it is
+BAND_KERNELS = (
+    ('in_stats', 'patchgan_tpu_torch/csrc/norm_act.cu',
+     'patchgan_tpu/ops/pallas/norm_act.py:211'),
+    ('in_apply', 'patchgan_tpu_torch/csrc/norm_act.cu',
+     'patchgan_tpu/ops/pallas/norm_act.py:211'),
+    ('conv_band', 'patchgan_tpu_torch/csrc/conv_norm_act.cu',
+     'patchgan_tpu/ops/pallas/conv_norm_act.py:176'),
+    ('convt_band', 'patchgan_tpu_torch/csrc/convt_norm_act.cu',
+     'patchgan_tpu/ops/pallas/convt_norm_act.py:178'),
+    ('in_bwd_sums', 'patchgan_tpu_torch/csrc/norm_act_bwd.cu',
+     'patchgan_tpu/ops/pallas/norm_act.py:253'),
+    ('in_bwd_apply', 'patchgan_tpu_torch/csrc/norm_act_bwd.cu',
+     'patchgan_tpu/ops/pallas/norm_act.py:253'))
+
+
+def band_wrappers():
+    """The band entry points' wrappers in ``BAND_KERNELS``'s order."""
+    from patchgan_tpu_torch.ops import kernels
+    return [getattr(kernels, name) for name, _, _ in BAND_KERNELS]
+
+
+def band_rows(h, sp, rank):
+    n = h // sp
+    return rank * n, (rank + 1) * n
+
+
+def band_plan(h, sp):
+    """The launches of each wrapper on a rank in one plain-form spatial
+    train step of the UNet at height ``h`` over ``sp`` (the discriminator
+    without norm, which launches none): {wrapper name: count}, and
+    'gather_level'. Normed levels on bands take the band forms (K1 band at
+    enc0, K2 band at enc1-6, K3 band at dec1-5, each ending in
+    ``in_apply``; K1-bwd band in their backward), the whole ones the
+    whole-plane kernels."""
+    from patchgan_tpu_torch.models.unet import N_LEVELS, gather_level
+    level = gather_level(h, sp)
+    enc = level                               # encoder levels on bands
+    dec = 5 - max(0, 6 - level)               # dec1-dec5 on bands
+    normed = 7 + 5
+    return {'gather_level': level,
+            'in_stats': 1, 'in_apply': enc + dec,
+            'conv_band': enc - 1, 'convt_band': dec,
+            'in_bwd_sums': enc + dec, 'in_bwd_apply': enc + dec,
+            'instance_norm_act': 0,
+            'conv_norm_act': N_LEVELS - enc,
+            'convt_norm_act': 5 - dec,
+            'instance_norm_act_backward': normed - enc - dec,
+            'thin_conv3x3': 0, 'thin_conv3x3_wgrad': 0}
+
+
+def sp_levels(torch, n=SP_B, size=SP_SIZE):
+    """The nf=64 generator's normed levels at ``size`` px for ``n``
+    images: ('enc' or 'dec', level, input shape(s), output shape). K2's
+    input is enc(l-1)'s output, K3's x and skip share a shape."""
+    filts = [NF, 2 * NF, 4 * NF, 8 * NF, 8 * NF, 8 * NF, 8 * NF]
+    out = [('enc', 0, None, (n, NF, size // 2, size // 2))]
+    for lvl in range(1, 7):
+        hh = size >> lvl
+        out.append(('enc', lvl, (n, filts[lvl - 1], hh, hh),
+                    (n, filts[lvl], hh // 2, hh // 2)))
+    for lvl, cx, cs, cout in ((1, 8 * NF, 8 * NF, 8 * NF),
+                              (2, 8 * NF, 8 * NF, 8 * NF),
+                              (3, 8 * NF, 8 * NF, 4 * NF),
+                              (4, 4 * NF, 4 * NF, 2 * NF),
+                              (5, 2 * NF, 2 * NF, NF)):
+        hh = size >> (7 - lvl)
+        out.append(('dec', lvl, ((n, cx, hh, hh), (n, cs, hh, hh)),
+                    (n, cout, 2 * hh, 2 * hh)))
+    return out
+
+
+def band_kernel_phase(torch, F, whole):
+    """17a: each band entry point against its plain stage version at the
+    nf=64 levels' band shapes at SP_SIZE px, batch SP_B (a top and a bottom
+    band at sp 2 and a middle one at sp 4), bf16 and fp32, with the kernel
+    phase's tolerances (sums: times max(1, max |sum|)); the recombination
+    at sp 2 (both bands' stats summed, each band applied, the bands
+    concatenated) against the whole-plane K1 / K2 / K3 / K1-bwd; two
+    launches on the same inputs equal; the bf16 ms of each entry on the
+    top band beside its plain version's, its bound, and the whole-plane
+    kernel's at the global shape. Returns {entry: {'rows': [...],
+    'max_abs_err': the outputs' worst, 'max_sum_err': the sums' worst over
+    max(1, max |sum|), 'max_sum_abs_err': the sums' worst}}."""
+    from patchgan_tpu_torch.ops import kernels as kn
+    k1, k2, k3, k1b = whole
+    gen = torch.Generator(device='cuda').manual_seed(17)
+    res = {name: {'rows': [], 'max_abs_err': 0.0, 'max_sum_err': 0.0,
+                  'max_sum_abs_err': 0.0} for name, _, _ in BAND_KERNELS}
+    eps, act = 1e-5, 'relu'
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device='cuda') * scale
+
+    def haloed(t, lo, hi):
+        return F.pad(t, (0, 0, 1, 1))[:, :, lo:hi + 2].contiguous()
+
+    def check(name, label, got, want, tol, key='max_abs_err'):
+        """``key``: 'max_sum_err' for a sum, whose error is kept over
+        max(1, max |sum|)."""
+        e = (got.float() - want.float()).abs().max().item()
+        print(f'  {name} {label}: max_abs_err {e:.3e} (tol {tol:.3e})',
+              flush=True)
+        if not e <= tol:
+            raise AssertionError(f'17a: {name} {label}: {e} > {tol}')
+        if key == 'max_sum_err':
+            res[name]['max_sum_abs_err'] = max(
+                res[name]['max_sum_abs_err'], e)
+            e /= max(1.0, want.abs().max().item())
+        res[name][key] = max(res[name][key], e)
+
+    def scaled(want, dname):
+        return TOL[dname] * max(1.0, want.abs().max().item())
+
+    def same_bits(name, fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+        if not all(torch.equal(u, v) for u, v in pairs):
+            raise AssertionError(f'17a: {name}: two launches differ')
+
+    def row(name, label, fn, plain, whole_ms, flops, nbytes, peak):
+        b_ms, b_by = bound(flops, nbytes, peak)
+        r = {'kernel': name, 'case': label, 'dtype': 'bfloat16',
+             'kernel_ms': cuda_ms(fn, iters=10),
+             'plain_ms': cuda_ms(plain, iters=10), 'whole_ms': whole_ms,
+             'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
+        res[name]['rows'].append(r)
+        print(json.dumps(r), flush=True)
+
+    dts = (('bfloat16', torch.bfloat16), ('float32', torch.float32))
+    for kind, lvl, shape_in, shape_out in sp_levels(torch):
+        label = f'{kind}{lvl}'
+        n, c, h, w = shape_out
+        count = h * w
+        if kind == 'enc' and lvl == 0:
+            # K1 band: stats and apply on enc0's conv output
+            x = rand(*shape_out)
+            for dname, dt in dts:
+                xd = x.to(dt)
+                parts = []
+                for blabel, sp, s in SP_BANDS:
+                    lo, hi = band_rows(h, sp, s)
+                    xb = xd[:, :, lo:hi].contiguous()
+                    st = kn.in_stats(xb)
+                    want = kn.in_stats_plain(xb.float())
+                    check('in_stats', f'{label} {blabel} {dname}', st, want,
+                          scaled(want, dname), 'max_sum_err')
+                    whole_st = kn.in_stats_plain(xd.float())
+                    check('in_apply', f'{label} {blabel} {dname}',
+                          kn.in_apply(xb, whole_st, count, eps, act),
+                          kn.in_apply_plain(xb.float(), whole_st, count, eps,
+                                            act), TOL[dname])
+                    if sp == SP:
+                        parts.append((xb, st))
+                total = sum(st for _, st in parts)
+                y = torch.cat([kn.in_apply(xb, total, count, eps, act)
+                               for xb, _ in parts], dim=2)
+                check('in_apply', f'{label} recombined vs K1 {dname}', y,
+                      k1.wrapper(xd, eps, act), TOL[dname])
+                xb = parts[0][0]
+                same_bits('in_stats', lambda: kn.in_stats(xb))
+                same_bits('in_apply', lambda: kn.in_apply(
+                    xb, total, count, eps, act))
+            xd = x.to(torch.bfloat16)
+            lo, hi = band_rows(h, SP, 0)
+            xb = xd[:, :, lo:hi].contiguous()
+            st = kn.in_stats_plain(xd.float())
+            numel = xb.numel()
+            k1_ms = cuda_ms(lambda: k1.wrapper(xd, eps, act), iters=10)
+            row('in_stats', f'{label} {tuple(xb.shape)}',
+                lambda: kn.in_stats(xb), lambda: kn.in_stats_plain(xb),
+                k1_ms, 3 * numel, 2 * numel, PEAK_FP32)
+            row('in_apply', f'{label} {tuple(xb.shape)} bf16 -> bf16',
+                lambda: kn.in_apply(xb, st, count, eps, act),
+                lambda: kn.in_apply_plain(xb, st, count, eps, act), k1_ms,
+                4 * numel, 4 * numel, PEAK_FP32)
+        elif kind == 'enc':
+            # K2 band on enc(lvl)'s input band with its halo rows
+            cin, cout = shape_in[1], c
+            x = rand(*shape_in)
+            wt = rand(cout, cin, 4, 4,
+                      scale=(2.0 / (32 * (cin + cout))) ** 0.5)
+            for dname, dt in dts:
+                xd, wd = x.to(dt), wt.to(dt)
+                parts = []
+                for blabel, sp, s in SP_BANDS:
+                    lo, hi = band_rows(shape_in[2], sp, s)
+                    xh = haloed(xd, lo, hi)
+                    acc, st = kn.conv_band(xh, wd)
+                    want_acc, want_st = kn.conv_band_plain(xh.float(),
+                                                           wd.float())
+                    check('conv_band', f'{label} {blabel} {dname}', acc,
+                          want_acc, TOL[dname])
+                    check('conv_band', f'{label} {blabel} stats {dname}',
+                          st, want_st, scaled(want_st, dname), 'max_sum_err')
+                    if sp == SP:
+                        parts.append((xh, acc, st))
+                total = sum(st for _, _, st in parts)
+                check('in_apply', f'{label} fp32 -> {dname}',
+                      kn.in_apply(parts[0][1], total, count, eps, act, dt),
+                      kn.in_apply_plain(parts[0][1], total, count, eps,
+                                        act), TOL[dname])
+                y = torch.cat([kn.in_apply(acc, total, count, eps, act, dt)
+                               for _, acc, _ in parts], dim=2)
+                check('conv_band', f'{label} recombined vs K2 {dname}', y,
+                      k2.wrapper(xd, wd, eps, act), TOL[dname])
+                xh = parts[0][0]
+                same_bits('conv_band', lambda: kn.conv_band(xh, wd))
+            xd, wd = x.to(torch.bfloat16), wt.to(torch.bfloat16)
+            lo, hi = band_rows(shape_in[2], SP, 0)
+            xh = haloed(xd, lo, hi)
+            acc, st = kn.conv_band(xh, wd)
+            k2_ms = cuda_ms(lambda: k2.wrapper(xd, wd, eps, act), iters=10)
+            macs = acc.numel() * 16 * cin
+            row('conv_band', f'{label} {tuple(xh.shape)}->{tuple(acc.shape)}',
+                lambda: kn.conv_band(xh, wd),
+                lambda: kn.conv_band_plain(xh, wd), k2_ms, 2 * macs,
+                2 * (xh.numel() + wd.numel()) + 4 * acc.numel(), PEAK_BF16)
+            row('in_apply', f'{label} {tuple(acc.shape)} fp32 -> bf16',
+                lambda: kn.in_apply(acc, st, count, eps, act,
+                                    torch.bfloat16),
+                lambda: kn.in_apply_plain(acc, st, count, eps, act,
+                                          torch.bfloat16), k2_ms,
+                4 * acc.numel(), 6 * acc.numel(), PEAK_FP32)
+        else:
+            # K3 band on dec(lvl)'s x and skip bands with their halo rows
+            (_, cx, hh, _), (_, cs, _, _) = shape_in
+            x, sk = rand(*shape_in[0]), rand(*shape_in[1])
+            wt = rand(cx + cs, c, 4, 4,
+                      scale=(2.0 / (16 * (cx + cs + c))) ** 0.5)
+            for dname, dt in dts:
+                xd, sd, wd = x.to(dt), sk.to(dt), wt.to(dt)
+                parts = []
+                for blabel, sp, s in SP_BANDS:
+                    lo, hi = band_rows(hh, sp, s)
+                    xh, sh = haloed(xd, lo, hi), haloed(sd, lo, hi)
+                    acc, st = kn.convt_band(xh, wd, sh)
+                    want_acc, want_st = kn.convt_band_plain(
+                        xh.float(), wd.float(), sh.float())
+                    check('convt_band', f'{label} {blabel} {dname}', acc,
+                          want_acc, TOL[dname])
+                    check('convt_band', f'{label} {blabel} stats {dname}',
+                          st, want_st, scaled(want_st, dname), 'max_sum_err')
+                    if sp == SP:
+                        parts.append((xh, sh, acc, st))
+                total = sum(p[3] for p in parts)
+                y = torch.cat([kn.in_apply(acc, total, count, eps, act, dt)
+                               for _, _, acc, _ in parts], dim=2)
+                check('convt_band', f'{label} recombined vs K3 {dname}', y,
+                      k3.wrapper(xd, wd, eps, act, sd), TOL[dname])
+                xh, sh = parts[0][:2]
+                same_bits('convt_band', lambda: kn.convt_band(xh, wd, sh))
+            xd, sd, wd = (t.to(torch.bfloat16) for t in (x, sk, wt))
+            lo, hi = band_rows(hh, SP, 0)
+            xh, sh = haloed(xd, lo, hi), haloed(sd, lo, hi)
+            acc, st = kn.convt_band(xh, wd, sh)
+            k3_ms = cuda_ms(lambda: k3.wrapper(xd, wd, eps, act, sd),
+                            iters=10)
+            macs = acc.numel() * 4 * (cx + cs)
+            row('convt_band',
+                f'{label} ({cx}+{cs})x{tuple(xh.shape[2:])}->'
+                f'{tuple(acc.shape)}',
+                lambda: kn.convt_band(xh, wd, sh),
+                lambda: kn.convt_band_plain(xh, wd, sh), k3_ms, 2 * macs,
+                2 * (xh.numel() + sh.numel() + wd.numel())
+                + 4 * acc.numel(), PEAK_BF16)
+            row('in_apply', f'{label} {tuple(acc.shape)} fp32 -> bf16',
+                lambda: kn.in_apply(acc, st, count, eps, act,
+                                    torch.bfloat16),
+                lambda: kn.in_apply_plain(acc, st, count, eps, act,
+                                          torch.bfloat16), k3_ms,
+                4 * acc.numel(), 6 * acc.numel(), PEAK_FP32)
+        # K1-bwd band at this level's output plane
+        x, g = rand(*shape_out), rand(*shape_out)
+        for dname, dt in dts:
+            xd, gd = x.to(dt), g.to(dt)
+            st = kn.in_stats_plain(xd.float())
+            parts = []
+            for blabel, sp, s in SP_BANDS:
+                lo, hi = band_rows(h, sp, s)
+                xb, gb = xd[:, :, lo:hi].contiguous(), \
+                    gd[:, :, lo:hi].contiguous()
+                u = kn.in_bwd_sums(gb, xb, st, count, eps, act)
+                want = kn.in_bwd_sums_plain(gb.float(), xb.float(), st,
+                                            count, eps, act)
+                check('in_bwd_sums', f'{label} {blabel} {dname}', u, want,
+                      scaled(want, dname), 'max_sum_err')
+                if sp == SP:
+                    parts.append((xb, gb, u))
+            total = sum(p[2] for p in parts)
+            xb, gb = parts[0][:2]
+            want = kn.in_bwd_apply_plain(gb.float(), xb.float(), st, total,
+                                         count, eps, act)
+            check('in_bwd_apply', f'{label} {dname}',
+                  kn.in_bwd_apply(gb, xb, st, total, count, eps, act), want,
+                  TOL_BWD[dname] * max(1.0, want.abs().max().item()))
+            dx = torch.cat([kn.in_bwd_apply(gb, xb, st, total, count, eps,
+                                            act) for xb, gb, _ in parts],
+                           dim=2)
+            want = k1b.wrapper(gd, xd, eps, act)
+            check('in_bwd_apply', f'{label} recombined vs K1-bwd {dname}',
+                  dx, want, TOL_BWD[dname] * max(1.0, want.float().abs()
+                                                 .max().item()))
+            same_bits('in_bwd_sums', lambda: kn.in_bwd_sums(
+                gb, xb, st, count, eps, act))
+            same_bits('in_bwd_apply', lambda: kn.in_bwd_apply(
+                gb, xb, st, total, count, eps, act))
+        xd, gd = x.to(torch.bfloat16), g.to(torch.bfloat16)
+        lo, hi = band_rows(h, SP, 0)
+        xb, gb = xd[:, :, lo:hi].contiguous(), gd[:, :, lo:hi].contiguous()
+        st = kn.in_stats_plain(xd.float())
+        u = kn.in_bwd_sums(gb, xb, st, count, eps, act)
+        numel = xb.numel()
+        kb_ms = cuda_ms(lambda: k1b.wrapper(gd, xd, eps, act), iters=10)
+        row('in_bwd_sums', f'{label} {tuple(xb.shape)}',
+            lambda: kn.in_bwd_sums(gb, xb, st, count, eps, act),
+            lambda: kn.in_bwd_sums_plain(gb, xb, st, count, eps, act),
+            kb_ms, 9 * numel, 4 * numel, PEAK_FP32)
+        row('in_bwd_apply', f'{label} {tuple(xb.shape)}',
+            lambda: kn.in_bwd_apply(gb, xb, st, u, count, eps, act),
+            lambda: kn.in_bwd_apply_plain(gb, xb, st, u, count, eps, act),
+            kb_ms, 8 * numel, 6 * numel, PEAK_FP32)
+    return res
+
+
+def sp_run(torch, np, mesh):
+    """17b's step: one fp32 eager step at config 2's widths (tanh, dropout
+    off) on a seeded global batch of SP_B at SIZE px, over ``mesh`` (a
+    (1, SP) SpatialMesh) or one process; the launches of every wrapper in
+    the step alone (the counts set to 0 just before, read just after).
+    Returns (losses, the gradients the optimizers are handed, on the
+    host, {wrapper: launches})."""
+    from patchgan_tpu_torch.models import Discriminator, UNet
+    from patchgan_tpu_torch.train.steps import make_optimizer, \
+        make_train_step
+    init = torch.Generator().manual_seed(9)
+    gen = UNet(IN_C, OUT_C, nf=NF, use_dropout=False, activation='tanh',
+               final_act='softmax', generator=init).cuda()
+    disc = Discriminator(IN_C + OUT_C, ndf=NDF, n_layers=3,
+                         generator=init).cuda()
+    opts = [make_optimizer(m.parameters(), LR) for m in (gen, disc)]
+    grads = []
+    for opt in opts:
+        def update(gs, opt=opt, update=opt.update):
+            grads.append([t.detach().cpu() for t in gs])
+            return update(gs)
+        opt.update = update
+    step = make_train_step(gen, disc, *opts, mesh=mesh)
+    x, y = train_batch(torch, np, SP_B, SIZE, 'cuda', 170)
+    if mesh is not None:
+        x, y = mesh.local_rows((x, y))
+    wrappers = kernel_wrappers() + band_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    losses = {k: float(v) for k, v in step(x, y).items()}
+    torch.cuda.synchronize()
+    return losses, grads, {w.__name__: w.launches for w in wrappers}
+
+
+def sp_gloo_child():
+    """``python -c 'import chip_smoke; chip_smoke.sp_gloo_child()' RANK
+    PORT OUT``: one of 17b's two gloo ranks (dp 1 x sp 2) on card 0:
+    ``sp_run`` over the spatial mesh into OUT/rank_RANK.pt."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from patchgan_tpu_torch.parallel import spatial_mesh
+    rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
+                            rank=rank, world_size=SP)
+    mesh = spatial_mesh(1, SP, 'cuda:0')
+    t0 = time.perf_counter()
+    losses, grads, launches = sp_run(torch, np, mesh)
+    torch.save({'losses': losses, 'grads': grads, 'launches': launches,
+                'seconds': time.perf_counter() - t0},
+               os.path.join(out, f'rank_{rank}.pt'))
+    dist.destroy_process_group()
+
+
+def sp_gloo_phase(torch, np, card, tmp):
+    """17b: two gloo ranks sharing card 0 at (dp, sp) = (1, SP), against
+    one process on the same card from the same seeds (fp32, TF32 off,
+    deterministic cuDNN, tanh: the reason phases 14b and 16a give):
+    losses within rtol 2e-3 / atol 2e-4 (phase 7's), every gradient
+    within 1e-3 of that tensor's max |g|, both ranks' losses and
+    gradients equal, and each rank's launches in the step what
+    ``band_plan`` plans. Returns (rank 0's launches, the summary)."""
+    out_dir = os.path.join(tmp, 'sp_gloo')
+    os.makedirs(out_dir)
+    port = free_port()
+    t0 = time.perf_counter()
+    run_ranks([[sys.executable, '-c',
+                'import chip_smoke; chip_smoke.sp_gloo_child()', str(rank),
+                str(port), out_dir] for rank in range(SP)], tmp, 'sp_gloo',
+              timeout=SP_JOIN_S)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f'rank_{r}.pt'),
+                        weights_only=False) for r in range(SP)]
+    with cudnn_flags_kept(torch):
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        t1 = time.perf_counter()
+        losses, grads, _ = sp_run(torch, np, None)
+        one_s = time.perf_counter() - t1
+    plan = band_plan(SIZE, SP)
+    want = {k: v for k, v in plan.items() if k != 'gather_level'}
+    excess = max(abs(ranks[0]['losses'][k] - v) - 2e-4 - 2e-3 * abs(v)
+                 for k, v in losses.items())
+    worst = 0.0
+    for got_set, want_set in zip(ranks[0]['grads'], grads):
+        for a, b in zip(got_set, want_set):
+            worst = max(worst, float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30))
+    same = ranks[0]['losses'] == ranks[1]['losses'] and all(
+        torch.equal(a, b) for sa, sb in zip(ranks[0]['grads'],
+                                            ranks[1]['grads'])
+        for a, b in zip(sa, sb))
+    counts = [r['launches'] for r in ranks]
+    summary = {'wall_s': wall, 'loss_excess': excess,
+               'max_grad_err_over_max_g': worst, 'ranks_equal': same,
+               'launches_per_rank': counts, 'planned': want,
+               'gather_level': plan['gather_level'],
+               'rank_seconds': [r['seconds'] for r in ranks],
+               'one_process_seconds': one_s, 'losses': ranks[0]['losses'],
+               'one_process_losses': losses}
+    print(f'  (1, {SP}) against one process at {SIZE} px, batch {SP_B}, '
+          f'fp32: worst loss excess over rtol 2e-3 / atol 2e-4 '
+          f'{excess:.3e} (<= 0), the worst gradient error over its '
+          f'tensor\'s max |g| {worst:.3e} (<= 1e-3); ranks equal {same}; '
+          f'launches a rank {counts[0]} (planned {want}, gather level '
+          f'{plan["gather_level"]}); ranks {wall:.1f} s wall, one process '
+          f'{one_s:.2f} s on {card}', flush=True)
+    if not (excess <= 0 and worst <= 1e-3 and same
+            and all(c == want for c in counts)):
+        raise AssertionError(f'17b: the spatial step disagrees: {summary}')
+    return counts[0], summary
+
+
+def write_sp_inputs(tmp, np):
+    """17c's npz folder at SP_SIZE px (4 training, 2 validation pairs) and
+    its config: config 2's widths, spatial_parallelism SP."""
+    import yaml
+    shutil.copy(os.path.join(ROOT, 'examples', 'io_plugin_example.py'),
+                os.path.join(tmp, 'io.py'))
+    rng = np.random.default_rng(17)
+    for split, n in (('train', 4), ('val', 2)):
+        os.makedirs(os.path.join(tmp, split))
+        for i in range(n):
+            np.savez(os.path.join(tmp, split, f'{i:03d}.npz'),
+                     image=rng.random((SP_SIZE, SP_SIZE, IN_C),
+                                      dtype=np.float32),
+                     labels=rng.integers(1, OUT_C + 1, (SP_SIZE, SP_SIZE))
+                     .astype(np.int32))
+    cfg = {
+        'dataset': {'type': 'NpzSegmentationDataset', 'size': SP_SIZE,
+                    'in_channels': IN_C, 'out_channels': OUT_C,
+                    'labels': list(range(1, OUT_C + 1)),
+                    'train_data': {'images': 'train', 'masks': 'train'},
+                    'validation_data': {'images': 'val', 'masks': 'val'}},
+        'model_params': {'generator': {'filters': NF, 'activation': 'relu',
+                                       'final_activation': 'softmax'},
+                         'discriminator': {'filters': NDF, 'n_layers': 3}},
+        'checkpoint_path': os.path.join(tmp, 'ck'),
+        'train_params': {'loss_type': 'tversky', 'seg_alpha': 200,
+                         'gen_learning_rate': 1e-3,
+                         'disc_learning_rate': 1e-3, 'save_freq': 1,
+                         'spatial_parallelism': SP}}
+    path = os.path.join(tmp, 'sp_train.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def sp_capture_step(torch, np, mesh, device):
+    """The captured bf16 step of config 2 at SP_SIZE px, global batch SP_B,
+    over ``mesh`` (or one card), after three steps (eager, capture,
+    replay) with finite losses. Returns (a function running one step, the
+    peak bytes on this card those steps took above what it held before)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    gen, disc = train_models(torch)
+    step, _ = config_step(torch, gen, disc, 'off', False, 1, True,
+                          mesh=mesh)
+    x, y = (t.to(torch.bfloat16) for t in train_batch(
+        torch, np, SP_B, SP_SIZE, 'cuda', 18))
+    if mesh is not None:
+        x, y = mesh.local_rows((x, y))
+    for _ in range(3):
+        losses = step(x, y)
+    torch.cuda.synchronize()
+    if not all(np.isfinite(float(v)) for v in losses.values()):
+        raise AssertionError(f'17c: losses {losses}')
+    peak = torch.cuda.max_memory_allocated(device) - held
+    return (lambda: step(x, y)), peak
+
+
+def sp_window(torch, run, mesh=None):
+    """img/s (global batch SP_B) of one window of at least WINDOW_S s of
+    ``run``, five steps at a time. Over a ``mesh`` the ranks start at a
+    barrier, and rank 0's clock ends the window (a one-float broadcast
+    after each five steps), so every rank runs the same steps."""
+    import torch.distributed as dist
+    if mesh is not None:
+        mesh.barrier()
+    count, t0 = 0, time.perf_counter()
+    while True:
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+        count += 5
+        done = time.perf_counter() - t0 >= WINDOW_S
+        if mesh is not None:
+            flag = torch.tensor([float(done)], device=mesh.device)
+            dist.broadcast(flag, 0)
+            done = bool(flag.item())
+        if done:
+            return SP_B * count / (time.perf_counter() - t0)
+
+
+def sp_scale_child():
+    """``python -c 'import chip_smoke; chip_smoke.sp_scale_child()' RANK
+    PORT OUT``: one NCCL rank on card RANK of 17c's (1, SP) grid. Every
+    rank builds the captured step over the spatial mesh, rank 0 also one
+    card's on its card (``sp_capture_step``); then WINDOWS windows of
+    each, in turns (the order reversed every other window), the grid's
+    on every rank, one card's on rank 0 while the others wait at the next
+    window's barrier; rank 0 writes OUT/spatial.json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from patchgan_tpu_torch.parallel import shutdown, spatial_mesh
+    rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    device = torch.device('cuda', rank)
+    torch.cuda.set_device(device)
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:{port}',
+                            rank=rank, world_size=SP, device_id=device)
+    mesh = spatial_mesh(1, SP, device)
+    runs, peaks = {}, {}
+    runs['grid'], peaks['grid'] = sp_capture_step(torch, np, mesh, device)
+    if rank == 0:
+        runs['one'], peaks['one'] = sp_capture_step(torch, np, None, device)
+    rates = {'grid': [], 'one': []}
+    for i in range(WINDOWS):
+        for side in (('grid', 'one') if i % 2 == 0 else ('one', 'grid')):
+            if side == 'grid':
+                rates['grid'].append(sp_window(torch, runs['grid'], mesh))
+            elif rank == 0:
+                rates['one'].append(sp_window(torch, runs['one']))
+    if rank == 0:
+        with open(os.path.join(out, 'spatial.json'), 'w') as f:
+            json.dump({'img_per_s': rates['grid'], 'peak_bytes': peaks['grid'],
+                       'one_card_img_per_s': rates['one'],
+                       'one_card_peak_bytes': peaks['one']}, f)
+    del runs
+    shutdown(mesh)
+
+
+def sp_nccl_phase(torch, np, card, tmp):
+    """17c, where the machine has two or more cards: ``patchgan_train``
+    under ``torch.distributed.run --nproc_per_node SP`` with
+    ``spatial_parallelism: SP`` (bf16, config 2's widths, SP_SIZE px,
+    global batch SP_B, the captured step, two steps): exit 0, the spatial
+    line, finite losses and weights, one set of epoch files; then the
+    captured step over (1, SP) cards beside one card's at the same config:
+    img/s and the peak memory a rank."""
+    n = torch.cuda.device_count()
+    if n < SP:
+        print(f'  17c not run: this machine has {n} card; NCCL refuses two '
+              f'ranks on one device, so a spatial axis over cards needs '
+              f'{SP} or more', flush=True)
+        return {'run': False, 'cards': n}
+    cfg = write_sp_inputs(tmp, np)
+    path = os.environ.get('PYTHONPATH')
+    env = dict(os.environ, PYTHONPATH=ROOT + (os.pathsep + path if path
+                                              else ''))
+    t0 = time.perf_counter()
+    log_path = os.path.join(tmp, 'sp_train.log')
+    with open(log_path, 'w') as log:
+        try:
+            rc = subprocess.run(
+                [sys.executable, '-m', 'torch.distributed.run', '--nnodes',
+                 '1', '--nproc_per_node', str(SP), '--master_addr',
+                 '127.0.0.1', '--master_port', str(free_port()), '-m',
+                 'patchgan_tpu_torch.cli.train', '-c', cfg, '-n', '1', '-b',
+                 str(SP_B), '-d', 'cuda', '--no-summary',
+                 '--dataloader_workers', '1'], cwd=tmp, env=env, stdout=log,
+                stderr=subprocess.STDOUT, timeout=SP_JOIN_S).returncode
+        except subprocess.TimeoutExpired:
+            rc = 'a timeout'
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    print(text[-2000:], end='')
+    ck = os.path.join(tmp, 'ck')
+    files = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+    finite = all(np.isfinite(v).all() for f in files
+                 for v in np.load(os.path.join(ck, f)).values())
+    if rc != 0 or f'Spatial parallel: 1 x {SP} ranks' not in text or \
+            re.search(r'\bnan\b', text.lower()) or not finite or \
+            files != ['discriminator_ep_001.npz', 'generator_ep_001.npz']:
+        print(text[-6000:])
+        raise AssertionError(f'17c: patchgan_train under torchrun: exit '
+                             f'{rc}, files {files}')
+    out_dir = os.path.join(tmp, 'sp_scale')
+    os.makedirs(out_dir)
+    port = free_port()
+    run_ranks([[sys.executable, '-c',
+                'import chip_smoke; chip_smoke.sp_scale_child()', str(rank),
+                str(port), out_dir] for rank in range(SP)], tmp, 'sp_scale',
+              timeout=SP_JOIN_S)
+    with open(os.path.join(out_dir, 'spatial.json')) as f:
+        grid = json.load(f)
+    med = {k: statistics.median(grid[k])
+           for k in ('img_per_s', 'one_card_img_per_s')}
+    out = {'run': True, 'cards': n, 'train_cli_wall_s': wall,
+           'median_img_per_s': med['img_per_s'],
+           'one_card_median_img_per_s': med['one_card_img_per_s'], **grid}
+    print(f'  (1, {SP}) captured bf16 step at {SP_SIZE} px, batch {SP_B}, '
+          f'{WINDOWS} windows of >= {WINDOW_S} s a side in turns: img/s '
+          f'{[round(v, 3) for v in grid["img_per_s"]]} (median '
+          f'{med["img_per_s"]:.3f}) against one card '
+          f'{[round(v, 3) for v in grid["one_card_img_per_s"]]} (median '
+          f'{med["one_card_img_per_s"]:.3f}); peak a rank '
+          f'{grid["peak_bytes"] / 2 ** 30:.3f} GiB against one card '
+          f'{grid["one_card_peak_bytes"] / 2 ** 30:.3f} GiB on {card}',
+          flush=True)
+    return out
+
+
+def sp_phase(torch, np, F, kernels, card):
+    """Phase 17: spatial parallelism (see the module's docstring). Returns
+    (rank 0's launches in 17b's step, the summary, 17a's rows by band
+    entry)."""
+    out = {'card': card}
+    t0 = time.perf_counter()
+    print('  17a: the band kernels at the bands of a 1024-px image',
+          flush=True)
+    with torch.inference_mode():
+        bands = band_kernel_phase(torch, F, kernels[:4])
+    out['band_kernel_s'] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f'  17b: two gloo ranks sharing the card (dp 1 x sp {SP})',
+              flush=True)
+        launches, out['gloo_sp2'] = sp_gloo_phase(torch, np, card, tmp)
+        print('  17c: NCCL across cards', flush=True)
+        out['across_cards'] = sp_nccl_phase(torch, np, card, tmp)
+    out['phase_wall_s'] = time.perf_counter() - t0
+    return launches, out, bands
+
+
+def sp_only(torch, np, F, kernels, card):
+    """``python3 chip_smoke.py --spatial-only``: phase 17 alone."""
+    print('== spatial parallelism (ROADMAP item 11d)', flush=True)
+    launches, sp, bands = sp_phase(torch, np, F, kernels, card)
+    print(json.dumps({'spatial': sp, 'launches': launches,
+                      'band_kernels': bands}))
+    print(card)
+
+
 def main(only=None):
     import torch
     if not torch.cuda.is_available():
@@ -4653,6 +5360,9 @@ def main(only=None):
         return 0
     if only == '--tp-only':
         tp_only(torch, np, F, kernels, card)
+        return 0
+    if only == '--spatial-only':
+        sp_only(torch, np, F, kernels, card)
         return 0
     print('== kernel phase (8 tiles of 256 px, nf=64; the s2d paths\' '
           'thin convs)', flush=True)
@@ -4820,6 +5530,14 @@ def main(only=None):
     paths.update({p: dict(zip(names, c)) for p, c in tp_paths.items()})
     print(json.dumps({'tp': tp}))
     print(f'phases 1-16: {time.perf_counter() - t_start:.3f} s', flush=True)
+    print('== spatial parallelism (ROADMAP item 11d): the band kernels at '
+          'the bands of a 1024-px image, two gloo ranks on the card (dp 1 x '
+          'sp 2) against one process, NCCL and patchgan_train across cards '
+          'where there are several', flush=True)
+    sp_launches, sp, bands = sp_phase(torch, np, F, kernels, card)
+    paths['spatial_train_gloo_rank_0'] = {n: sp_launches[n] for n in names}
+    print(json.dumps({'spatial': sp}))
+    print(f'phases 1-17: {time.perf_counter() - t_start:.3f} s', flush=True)
 
     summary = []
     for k in kernels:
@@ -4842,6 +5560,24 @@ def main(only=None):
                 key: sum(r[key] for r in k.spatial_rows)
                 for key in ('kernel_ms', 'plain_ms', 'bound_ms',
                             'library_ms')}
+    for name, source, replaces in BAND_KERNELS:
+        rows = bands[name]['rows']
+        summary.append({
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'form': 'band (spatial parallelism)',
+            'launches': sp_launches[name],
+            'launches_by_path': {'spatial_train_gloo_rank_0':
+                                 sp_launches[name]},
+            # in_stats and in_bwd_sums write sums only: their sums' error
+            'max_abs_err': bands[name]['max_abs_err'] or
+            bands[name]['max_sum_abs_err'],
+            'max_sum_err_over_max_sum': bands[name]['max_sum_err'],
+            'ms': sum(r['kernel_ms'] for r in rows),
+            'plain_ms': sum(r['plain_ms'] for r in rows),
+            'bound_ms': sum(r['bound_ms'] for r in rows),
+            'bound_by': max(rows, key=lambda r: r['bound_ms'])['bound_by'],
+            'library_ms': None,
+            'whole_plane_ms': sum(r['whole_ms'] for r in rows)})
     print(json.dumps({'kernels': summary}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
@@ -4857,4 +5593,4 @@ if __name__ == '__main__':
         train_child()
         sys.exit(0)
     sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (
-        ['--mesh-only'], ['--tp-only']) else None))
+        ['--mesh-only'], ['--tp-only'], ['--spatial-only']) else None))

@@ -49,9 +49,15 @@ writes the checkpoints (``train/trainer.py``). A ``-b`` that does not
 divide across the ranks raises. Without torchrun's environment nothing
 of this applies.
 
+Spatial parallelism (JAX ``cli/train.py:105-118``):
+``train_params.spatial_parallelism: sp`` under torchrun splits every
+image's rows over ``sp`` ranks and the batch over world size / ``sp``
+(``parallel/spatial.py``); ``sp`` must divide the world size (one process
+is a world of 1), and ``-b`` the data ranks. The epoch lines say
+"Spatial parallel: dp x sp ranks".
+
 Not ported yet, and refused with NotImplementedError naming ROADMAP.md:
-``train_params.spatial_parallelism`` > 1 (item 11d) and the Trainer's
-orbax ``checkpoint_format`` (item 12).
+the Trainer's orbax ``checkpoint_format`` (item 12).
 """
 
 import argparse
@@ -114,19 +120,26 @@ def patchgan_train(argv=None):
                              "bit for bit")
     args = parser.parse_args(argv)
 
+    config = load_config(args.config_file)
+    sp = int(config['train_params'].get('spatial_parallelism') or 1)
     env = torchrun_env()
-    if env is not None and args.batch_size % env[1]:
+    world = 1 if env is None else env[1]
+    if world % sp:
+        raise ValueError(f"spatial_parallelism {sp} must divide the world "
+                         f"size {world}")
+    if args.batch_size % (world // sp):
+        ranks = f'{world} ranks' if sp == 1 else f'{world // sp} data ranks'
         raise ValueError(
             f"-b {args.batch_size} is the global batch and does not "
-            f"divide across {env[1]} ranks")
-    mesh = init_from_env(on_cpu=args.device == 'cpu')
+            f"divide across {ranks}")
+    mesh = init_from_env(on_cpu=args.device == 'cpu', sp=sp)
     try:
-        return _train(args, mesh)
+        return _train(args, mesh, config)
     finally:
         shutdown(mesh)
 
 
-def _train(args, mesh):
+def _train(args, mesh, config):
     device = select_device(args.device)
     dtype = compute_dtype(args.dtype, device)
     slicing = {}
@@ -134,18 +147,16 @@ def _train(args, mesh):
         print(f"Running with {device}")
     else:
         print(f"Running with {device}, rank {mesh.rank} of {mesh.size}")
-        slicing = dict(process_index=mesh.rank, process_count=mesh.size)
+        # each rank decodes its data rank's rows (a spatial step takes its
+        # band of them)
+        slicing = dict(process_index=mesh.data.rank,
+                       process_count=mesh.data.size)
     if args.deterministic:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
 
-    config = load_config(args.config_file)
     dataset_params = config['dataset']
     train_params = config['train_params']
-    if int(train_params.get('spatial_parallelism') or 1) > 1:
-        raise NotImplementedError(
-            "train_params.spatial_parallelism is not ported yet "
-            "(ROADMAP.md, queue 1 item 11d)")
     train_paths, val_paths, data_paths, split = dataset_paths(config)
     size = dataset_params.get('size', 256)
     augmentation = dataset_params.get('augmentation', 'randomcrop')

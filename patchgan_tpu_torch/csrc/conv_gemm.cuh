@@ -46,6 +46,7 @@
 
 #include <type_traits>
 
+#include "band.cuh"
 #include "in_common.cuh"
 
 namespace pgt {
@@ -321,6 +322,35 @@ int launch_conv_in_act(const P& p, int batch, int split_batch, float* acc,
   } else {
     finish_split<T><<<(long)batch * p.Cout, FINISH_THREADS, 0, st>>>(
         acc, splits, slice, y, plane, eps, act);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Band form (spatial parallelism, band.cuh): the product as above, then
+// the per-plane (sum, sum of squares) of the fp32 output into `stats`
+// (from the tiles' partials, or after adding a K split's slices into slice
+// 0) and no finishing pass: the caller sums the stats over the spatial
+// group and normalises slice 0 of `acc` with band::apply_kernel. The K
+// split is the one this band's product takes at `split_batch` samples.
+template <typename T, typename P>
+int launch_conv_band(const P& p, int batch, int split_batch, float* acc,
+                     float2* part, float2* stats, long plane,
+                     cudaStream_t st) {
+  if (split_batch < 1 || p.M < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int splits = splits_for(p, split_batch);
+  const long slice = (long)batch * p.Cout * plane;
+  const long planes = (long)batch * p.Cout;
+  const dim3 grid((p.M + BM - 1) / BM, (p.Cout + BN - 1) / BN,
+                  batch * p.G * splits);
+  conv_gemm_kernel<T, P><<<grid, GEMM_THREADS, 0, st>>>(p, splits, slice,
+                                                         acc, part);
+  if (splits == 1) {
+    band::stats_from_partials<<<(planes + 255) / 256, 256, 0, st>>>(
+        part, stats, planes, p.G * grid.x);
+  } else {
+    band::split_stats<<<planes, band::THREADS, 0, st>>>(acc, splits, slice,
+                                                         stats, plane);
   }
   return static_cast<int>(cudaGetLastError());
 }

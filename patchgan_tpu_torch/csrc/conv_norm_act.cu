@@ -27,6 +27,13 @@
 // thread's kx = ak0 + 2 (j & 1) alternates, ky = (j >> 1) & 3 steps and ci
 // every eighth j: its four row and two column masks and its base offset
 // are set up once a block.
+//
+// Band form (spatial parallelism): pgt_conv_band takes a rank's band of
+// rows with its halo rows (parallel/spatial.py; the halo holds the zero
+// rows at the image's edges, so the band pads no row of H); it writes the
+// fp32 conv output of the band's own output rows and their per-plane
+// stats (conv_gemm.cuh's launch_conv_band), and norm_act.cu's pgt_in_apply
+// finishes it from the stats summed over the spatial group.
 
 #include "conv_gemm.cuh"
 
@@ -37,6 +44,7 @@ struct ConvProblem {
   const T* x;   // [N, Cin, H, W]
   const T* bw;  // [Cout, Cin, 4, 4], row co is B[:, co]
   int Cin, H, W, Cout, Ho, Wo;
+  int pt;  // zero rows padded above the input: 1, or 0 for a haloed band
   int M, Mw, K, G, ldb;
 
   struct Gather {
@@ -46,7 +54,7 @@ struct ConvProblem {
   };
   __device__ __forceinline__ Gather gather(int n, int, bool valid, int r,
                                            int c, int ax) const {
-    const int iy = 2 * r - 1, ix = 2 * c - 1 + ax;
+    const int iy = 2 * r - pt, ix = 2 * c - 1 + ax;
     Gather t;
     t.xs = x + (long)n * Cin * H * W;
     t.base = iy * W + ix;
@@ -84,7 +92,7 @@ struct ConvProblem {
 
 template <typename T>
 ConvProblem<T> problem(const void* x, const void* w, int cin, int h, int wd,
-                       int cout) {
+                       int cout, bool band = false) {
   ConvProblem<T> p;
   p.x = static_cast<const T*>(x);
   p.bw = static_cast<const T*>(w);
@@ -92,7 +100,8 @@ ConvProblem<T> problem(const void* x, const void* w, int cin, int h, int wd,
   p.H = h;
   p.W = wd;
   p.Cout = cout;
-  p.Ho = (h + 2 - 4) / 2 + 1;
+  p.pt = band ? 0 : 1;
+  p.Ho = (h + 2 * p.pt - 4) / 2 + 1;
   p.Wo = (wd + 2 - 4) / 2 + 1;
   p.M = p.Ho * p.Wo;
   p.Mw = p.Wo;
@@ -111,6 +120,16 @@ int run(const void* x, const void* w, void* y, void* acc, void* part,
                                static_cast<float*>(acc),
                                static_cast<float2*>(part), static_cast<T*>(y),
                                (long)p.M, act, eps, st);
+}
+
+template <typename T>
+int run_band(const void* x, const void* w, void* acc, void* part,
+             void* stats, int batch, int split_batch, int cin, int h, int wd,
+             int cout, cudaStream_t st) {
+  const ConvProblem<T> p = problem<T>(x, w, cin, h, wd, cout, true);
+  return launch_conv_band<T>(p, batch, split_batch, static_cast<float*>(acc),
+                             static_cast<float2*>(part),
+                             static_cast<float2*>(stats), (long)p.M, st);
 }
 
 }  // namespace pgt
@@ -140,4 +159,30 @@ extern "C" int pgt_conv_in_act(const void* x, const void* w, void* y,
                                    cin, h, wd, cout, act, eps, st);
   return pgt::run<float>(x, w, y, acc, part, batch, split_batch, cin, h, wd,
                          cout, act, eps, st);
+}
+
+// Band form: the K split pgt_conv_band takes for this band at split_batch
+// `batch`.
+extern "C" int pgt_conv_band_splits(int batch, int cin, int h, int wd,
+                                    int cout) {
+  return pgt::splits_for(
+      pgt::problem<float>(nullptr, nullptr, cin, h, wd, cout, true), batch);
+}
+
+// Band form. x [N, Cin, H, W]: a band with one halo row above and below
+// (H counts them), H unpadded and W padded by one each side; w as
+// pgt_conv_in_act's. acc: fp32 scratch of pgt_conv_band_splits(split_batch,
+// ...) times [N, Cout, Ho, Wo] with Ho = (H - 4) / 2 + 1, slice 0 the
+// band's conv output on return; part: fp32 pairs, N * Cout * ceil(Ho*Wo /
+// pgt_tile_m()); stats: fp32 pairs, N * Cout. Returns cudaGetLastError().
+extern "C" int pgt_conv_band(const void* x, const void* w, void* acc,
+                             void* part, void* stats, int batch,
+                             int split_batch, int cin, int h, int wd,
+                             int cout, int bf16, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return pgt::run_band<__nv_bfloat16>(x, w, acc, part, stats, batch,
+                                        split_batch, cin, h, wd, cout, st);
+  return pgt::run_band<float>(x, w, acc, part, stats, batch, split_batch, cin,
+                              h, wd, cout, st);
 }

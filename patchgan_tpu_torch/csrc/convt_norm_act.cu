@@ -32,6 +32,14 @@
 // fixed, ay = j & 1 alternates and ci steps every second j: its column
 // mask, two row masks and two in-plane offsets are set up once a block,
 // and each element costs one predicated 2-byte load.
+//
+// Band form (spatial parallelism): pgt_convt_band takes a rank's band of
+// x and skip rows with one halo row above and below (parallel/spatial.py;
+// the halo holds the zero rows at the image's edges); class row r of the
+// band's output reads input row r + dy - ay + 1 (row0 = 1, where the whole
+// plane's is 0 and its missing rows read as zero). It writes the fp32 output of the band's own 2 * Hc rows and their
+// per-plane stats (conv_gemm.cuh's launch_conv_band); norm_act.cu's
+// pgt_in_apply finishes it from the stats summed over the spatial group.
 
 #include "conv_gemm.cuh"
 
@@ -43,6 +51,8 @@ struct ConvTProblem {
   const T* s;   // [N, Cs, H, W], or unused when Cs == 0
   const T* bw;  // packed weight [4][Cout][ldb]
   int Cx, Cs, H, W, Cout;
+  int Hc;    // output rows of one parity class (H for the whole plane)
+  int row0;  // input row of class row 0's tap ay = 0 at dy = 0
   int M, Mw, K, G, ldb;
 
   struct Gather {
@@ -53,7 +63,7 @@ struct ConvTProblem {
   };
   __device__ __forceinline__ Gather gather(int n, int g, bool valid, int r,
                                            int c, int ax) const {
-    const int iy = r + (g >> 1), ix = c + (g & 1) - ax;
+    const int iy = r + (g >> 1) + row0, ix = c + (g & 1) - ax;
     const bool col = valid && ix >= 0 && ix < W;
     Gather t;
     t.xs = x + (long)n * Cx * H * W;
@@ -83,7 +93,7 @@ struct ConvTProblem {
   }
   __device__ __forceinline__ long out(int n, int g, int r, int c,
                                       int co) const {
-    return (((long)n * Cout + co) * (2 * H) + 2 * r + (g >> 1)) * (2 * W) +
+    return (((long)n * Cout + co) * (2 * Hc) + 2 * r + (g >> 1)) * (2 * W) +
            2 * c + (g & 1);
   }
 };
@@ -132,7 +142,8 @@ int pack(const void* w, void* wp, int cx, int cs, int cout, cudaStream_t st) {
 
 template <typename T>
 ConvTProblem<T> problem(const void* x, const void* s, const void* wp, int cx,
-                        int cs, int h, int wd, int cout) {
+                        int cs, int h, int wd, int cout,
+                        bool band = false) {
   ConvTProblem<T> p;
   p.x = static_cast<const T*>(x);
   p.s = static_cast<const T*>(s);
@@ -142,7 +153,9 @@ ConvTProblem<T> problem(const void* x, const void* s, const void* wp, int cx,
   p.H = h;
   p.W = wd;
   p.Cout = cout;
-  p.M = h * wd;
+  p.Hc = band ? h - 2 : h;
+  p.row0 = band ? 1 : 0;
+  p.M = p.Hc * wd;
   p.Mw = wd;
   p.K = 4 * (cx + cs);
   p.G = 4;
@@ -161,6 +174,18 @@ int run(const void* x, const void* s, const void* w, void* wp, void* y,
                                static_cast<float*>(acc),
                                static_cast<float2*>(part), static_cast<T*>(y),
                                4L * p.M, act, eps, st);
+}
+
+template <typename T>
+int run_band(const void* x, const void* s, const void* w, void* wp,
+             void* acc, void* part, void* stats, int batch, int split_batch,
+             int cx, int cs, int h, int wd, int cout, cudaStream_t st) {
+  const int rc = pack<T>(w, wp, cx, cs, cout, st);
+  if (rc != 0) return rc;
+  const ConvTProblem<T> p = problem<T>(x, s, wp, cx, cs, h, wd, cout, true);
+  return launch_conv_band<T>(p, batch, split_batch, static_cast<float*>(acc),
+                             static_cast<float2*>(part),
+                             static_cast<float2*>(stats), 4L * p.M, st);
 }
 
 }  // namespace pgt
@@ -209,4 +234,34 @@ extern "C" int pgt_convt_in_act(const void* x, const void* skip,
                                    eps, st);
   return pgt::run<float>(x, skip, w, wp, y, acc, part, batch, split_batch,
                          cx, cs, h, wd, cout, act, eps, st);
+}
+
+// Band form: the K split pgt_convt_band takes for this band at split_batch
+// `batch`.
+extern "C" int pgt_convt_band_splits(int batch, int cx, int cs, int h,
+                                     int wd, int cout) {
+  return pgt::splits_for(pgt::problem<float>(nullptr, nullptr, nullptr, cx,
+                                             cs, h, wd, cout, true),
+                         batch);
+}
+
+// Band form. x [N, Cx, H, W], skip [N, Cs, H, W]: a band with one halo
+// row above and below (H counts them); w and wp as pgt_convt_in_act's.
+// The band's output has 2 * Hc rows, Hc = H - 2. acc: fp32 scratch of
+// pgt_convt_band_splits(split_batch, ...) times [N, Cout, 2 Hc, 2 W],
+// slice 0 the output on return; part: fp32 pairs, N * Cout * 4 *
+// ceil(Hc*W / pgt_tile_m()); stats: fp32 pairs, N * Cout. Launches the
+// pack, the GEMM and the stats. Returns cudaGetLastError().
+extern "C" int pgt_convt_band(const void* x, const void* skip, const void* w,
+                              void* wp, void* acc, void* part, void* stats,
+                              int batch, int split_batch, int cx, int cs,
+                              int h, int wd, int cout, int bf16,
+                              void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return pgt::run_band<__nv_bfloat16>(x, skip, w, wp, acc, part, stats,
+                                        batch, split_batch, cx, cs, h, wd,
+                                        cout, st);
+  return pgt::run_band<float>(x, skip, w, wp, acc, part, stats, batch,
+                              split_batch, cx, cs, h, wd, cout, st);
 }

@@ -19,7 +19,12 @@
 // hold reads the rest again from memory; a plane whose bytes are no
 // multiple of 16 goes element by element. The fused conv kernels keep
 // their own finishing pass (in_common.cuh's normalize_plane).
+//
+// Band form (spatial parallelism, band.cuh): pgt_in_stats gives a band's
+// per-plane (sum, sum of squares), and pgt_in_apply normalises a band from
+// the plane's stats summed over the spatial group and its global count.
 
+#include "band.cuh"
 #include "norm_plane.cuh"
 
 namespace pgt {
@@ -130,5 +135,61 @@ extern "C" int pgt_in_act(const void* x, void* y, long planes, long plane,
       pgt::launch_fwd<float, false>(xt, yt, planes, plane, group,
                                     per_thread, threads, grid, eps, act, st);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Band form. x: [planes, plane] contiguous, bf16 (bf16 != 0) or fp32;
+// stats: fp32 pairs, one a plane. Returns cudaGetLastError().
+extern "C" int pgt_in_stats(const void* x, void* stats, long planes,
+                            long plane, int bf16, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (planes <= 0 || plane <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float2* out = static_cast<float2*>(stats);
+  if (bf16)
+    pgt::band::stats_kernel<<<planes, pgt::band::THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), out, plane);
+  else
+    pgt::band::stats_kernel<<<planes, pgt::band::THREADS, 0, st>>>(
+        static_cast<const float*>(x), out, plane);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace pgt {
+template <typename Tin, typename Tout>
+void launch_apply(const void* x, const void* stats, void* y, long planes,
+                  long plane, float count, float eps, int act,
+                  cudaStream_t st) {
+  const int spans = band::spans_of(plane);
+  band::apply_kernel<Tin, Tout><<<planes * spans, band::THREADS, 0, st>>>(
+      static_cast<const Tin*>(x), static_cast<const float2*>(stats),
+      static_cast<Tout*>(y), plane, spans, count, eps, act);
+}
+}  // namespace pgt
+
+// Band form. x: [planes, plane] contiguous, fp32 or bf16 (x_bf16), y the
+// same shape in fp32 or bf16 (y_bf16): a fused conv's fp32 output is
+// normalised into the compute dtype. stats: the planes' fp32 (sum, sum of
+// squares) summed over the band's group, count: a plane's global element
+// count. Returns cudaGetLastError().
+extern "C" int pgt_in_apply(const void* x, const void* stats, void* y,
+                            long planes, long plane, float count, int act,
+                            float eps, int x_bf16, int y_bf16,
+                            void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (planes <= 0 || plane <= 0 || !(count > 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using B = __nv_bfloat16;
+  if (x_bf16 && y_bf16)
+    pgt::launch_apply<B, B>(x, stats, y, planes, plane, count, eps, act, st);
+  else if (x_bf16)
+    pgt::launch_apply<B, float>(x, stats, y, planes, plane, count, eps, act,
+                                st);
+  else if (y_bf16)
+    pgt::launch_apply<float, B>(x, stats, y, planes, plane, count, eps, act,
+                                st);
+  else
+    pgt::launch_apply<float, float>(x, stats, y, planes, plane, count, eps,
+                                    act, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,7 +30,13 @@
 // larger than the registers hold (group * per_thread chunks) reads the
 // rest from memory in each pass; a plane whose bytes are no multiple of
 // 16 goes element by element.
+//
+// Band form (spatial parallelism, band.cuh): pgt_in_bwd_sums gives a band's
+// per-plane (sum gm, sum gm * xhat) from the plane's global statistics, and
+// pgt_in_bwd_apply writes the band's dx from those sums summed over the
+// spatial group.
 
+#include "band.cuh"
 #include "norm_plane.cuh"
 
 namespace pgt {
@@ -181,6 +187,59 @@ extern "C" int pgt_in_act_bwd(const void* g, const void* x, void* dx,
     else
       pgt::launch_bwd<float, false>(gt, xt, dt, planes, plane, group,
                                     per_thread, threads, grid, eps, act, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Band form. g, x: [planes, plane] contiguous, both bf16 (bf16 != 0) or
+// fp32; stats: the planes' global fp32 (sum, sum of squares) of the
+// forward's input, count: a plane's global element count; sums: out, fp32
+// pairs. Returns cudaGetLastError().
+extern "C" int pgt_in_bwd_sums(const void* g, const void* x,
+                               const void* stats, void* sums, long planes,
+                               long plane, float count, int act, float eps,
+                               int bf16, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (planes <= 0 || plane <= 0 || !(count > 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float2* sp = static_cast<const float2*>(stats);
+  float2* out = static_cast<float2*>(sums);
+  if (bf16) {
+    using B = __nv_bfloat16;
+    pgt::band::bwd_sums_kernel<<<planes, pgt::band::THREADS, 0, st>>>(
+        static_cast<const B*>(g), static_cast<const B*>(x), sp, out, plane,
+        count, eps, act);
+  } else {
+    pgt::band::bwd_sums_kernel<<<planes, pgt::band::THREADS, 0, st>>>(
+        static_cast<const float*>(g), static_cast<const float*>(x), sp, out,
+        plane, count, eps, act);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Band form. dx from g, x, the global stats and the (sum gm, sum gm *
+// xhat) pairs summed over the band's group. Returns cudaGetLastError().
+extern "C" int pgt_in_bwd_apply(const void* g, const void* x,
+                                const void* stats, const void* sums, void* dx,
+                                long planes, long plane, float count, int act,
+                                float eps, int bf16, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (planes <= 0 || plane <= 0 || !(count > 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int spans = pgt::band::spans_of(plane);
+  const float2* sp = static_cast<const float2*>(stats);
+  const float2* up = static_cast<const float2*>(sums);
+  if (bf16) {
+    using B = __nv_bfloat16;
+    pgt::band::bwd_apply_kernel<<<planes * spans, pgt::band::THREADS, 0,
+                                  st>>>(
+        static_cast<const B*>(g), static_cast<const B*>(x), sp, up,
+        static_cast<B*>(dx), plane, spans, count, eps, act);
+  } else {
+    pgt::band::bwd_apply_kernel<<<planes * spans, pgt::band::THREADS, 0,
+                                  st>>>(
+        static_cast<const float*>(g), static_cast<const float*>(x), sp, up,
+        static_cast<float*>(dx), plane, spans, count, eps, act);
   }
   return static_cast<int>(cudaGetLastError());
 }

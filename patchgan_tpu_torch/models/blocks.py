@@ -38,6 +38,18 @@ dropout; the un-normed levels (dec0 and the output head) gather their
 conv's output before the activation (the head's softmax needs every
 class). A block whose output channels do not divide the model axis
 computes them whole on every rank.
+
+A ``parallel.spatial.SpatialMesh`` splits the rows over its spatial axis:
+a block called with ``band=True`` holds this rank's band of them. It takes
+its halo (``SpatialAxis.halo``: a row of each neighbour, of the skip too)
+and runs the band form of its kernel: K2's (``conv_norm_act_band``) or,
+at enc0, the conv then K1's (``instance_norm_act_band``), K3's
+(``convt_norm_act_band``) for a normed UpBlock, whose statistics are
+summed over the axis; the un-normed dec0 and the head run the transposed
+conv over the haloed band. The dropout mask is drawn for the global shape
+(every data rank's rows, every band's) and the rank keeps its own. A
+block called without ``band`` on such a mesh holds its level whole
+(``models/unet.py``'s ``gather_level``).
 """
 
 import torch
@@ -45,7 +57,8 @@ import torch.nn as nn
 
 from ..ops.activations import apply_activation
 from ..ops.conv import conv2d, conv_transpose2d
-from ..ops.kernels import conv_norm_act, convt_norm_act
+from ..ops.kernels import (conv_norm_act, conv_norm_act_band, convt_norm_act,
+                          convt_norm_act_band, instance_norm_act_band)
 from ..ops.norm import instance_norm
 from ..ops.s2d import apply_activation_s2d, conv2d_s2d, conv_transpose2d_s2d
 
@@ -57,7 +70,26 @@ NORM_EPS = 1e-5
 FUSED_CONV_MIN_CIN = 16
 
 
-def dropout(x, generator, mesh=None):
+def keep_mask(x, generator, mesh=None, band=False):
+    """The dropout's keep mask for x, drawn from ``generator`` for the
+    global shape: every data rank's rows with a ``mesh``, and every band's
+    rows when x is a ``band`` of a spatial axis; the rank keeps its own."""
+    data = None if mesh is None else mesh.data
+    spatial = mesh.spatial if band else None
+    shape = list(x.shape)
+    if data is not None:
+        shape[0] *= data.size
+    if spatial is not None:
+        shape[2] *= spatial.size
+    keep = torch.rand(shape, generator=generator, device=x.device)
+    if data is not None:
+        keep = data.local_rows(keep)
+    if spatial is not None:
+        keep = spatial.band(keep)
+    return keep >= DROPOUT_RATE
+
+
+def dropout(x, generator, mesh=None, band=False):
     """Flax ``nn.Dropout(0.2)`` in train mode: keep each element with
     probability 0.8 and scale it by 1/0.8, the mask drawn from
     ``generator`` (an explicit ``torch.Generator`` on x's device). With
@@ -66,14 +98,9 @@ def dropout(x, generator, mesh=None):
     rank keeps its rows, as JAX draws it over a sharded batch, so a
     sample's mask depends on the seed and its global row only and every
     rank's generator advances alike. Every rank of a model group draws
-    the same mask."""
-    mesh = None if mesh is None else mesh.data
-    shape = x.shape if mesh is None else \
-        (x.shape[0] * mesh.size,) + tuple(x.shape[1:])
-    keep = torch.rand(shape, generator=generator, device=x.device)
-    if mesh is not None:
-        keep = mesh.local_rows(keep)
-    keep = keep >= DROPOUT_RATE
+    the same mask; a ``band`` of a spatial axis keeps its rows of the
+    whole image's mask (``keep_mask``)."""
+    keep = keep_mask(x, generator, mesh, band)
     return torch.where(keep, x / (1.0 - DROPOUT_RATE), 0.0).to(x.dtype)
 
 
@@ -105,11 +132,14 @@ class DownBlock(nn.Module):
         return self.model[self.name].weight
 
     def forward(self, x, generator=None, s2d_in=False, mesh=None,
-                split_batch=None):
+                split_batch=None, band=False):
         """``s2d_in``: x is the s2d form [N, 4C, H/2, W/2] of the input;
         ``mesh``: x is a rank's rows, for the dropout draw, and the model
         axis of a sharded weight; ``split_batch``: the fused kernel's K
-        split (``conv_norm_act``)."""
+        split (``conv_norm_act``); ``band``: x is this rank's band of the
+        rows over ``mesh.spatial``."""
+        if band:
+            return self._band_forward(x, generator, mesh, split_batch)
         model = sharded_axis(mesh, self.model[self.name])
         if model is not None:
             x = model.enter(x)
@@ -128,6 +158,26 @@ class DownBlock(nn.Module):
             x = model.gather(x)
         if self.use_dropout and self.training:
             x = dropout(x, generator, mesh)
+        return x
+
+    def _band_forward(self, x, generator, mesh, split_batch):
+        axis = mesh.spatial
+        w = self.weight.to(x.dtype)
+        xh = axis.halo(x, 1, 1)
+        # the output plane's global elements: every band's rows
+        count = x.shape[2] // 2 * axis.size * (x.shape[3] // 2)
+        if self.use_norm and x.shape[1] >= FUSED_CONV_MIN_CIN:
+            x = conv_norm_act_band(xh, w, NORM_EPS, self.activation, axis,
+                                   count, split_batch)
+        elif self.use_norm:
+            x = instance_norm_act_band(conv2d(xh, w, padding=(0, 1)),
+                                       NORM_EPS, self.activation, axis,
+                                       count)
+        else:
+            x = apply_activation(conv2d(xh, w, padding=(0, 1)),
+                                 self.activation)
+        if self.use_dropout and self.training:
+            x = dropout(x, generator, mesh, band=True)
         return x
 
 
@@ -153,12 +203,15 @@ class UpBlock(nn.Module):
         return self.model[self.name].weight
 
     def forward(self, x, skip=None, generator=None, s2d_out=False,
-                mesh=None, split_batch=None):
+                mesh=None, split_batch=None, band=False):
         """``s2d_out``: produce the s2d form [N, 4 Cout, H, W] of the
-        output (the output head only); ``mesh`` and ``split_batch`` as in
-        DownBlock."""
+        output (the output head only); ``mesh``, ``split_batch`` and
+        ``band`` as in DownBlock (the skip is a band too)."""
         w = self.weight.to(x.dtype)
         skip = skip.to(x.dtype) if skip is not None else None
+        if band:
+            return self._band_forward(x, skip, w, generator, mesh,
+                                      split_batch)
         model = sharded_axis(mesh, self.model[self.name])
         if model is not None:
             x = model.enter(x)
@@ -187,4 +240,21 @@ class UpBlock(nn.Module):
             x = apply_activation(out, self.activation)
         if self.use_dropout and self.training:
             x = dropout(x, generator, mesh)
+        return x
+
+    def _band_forward(self, x, skip, w, generator, mesh, split_batch):
+        axis = mesh.spatial
+        xh = axis.halo(x, 1, 1)
+        skh = axis.halo(skip, 1, 1) if skip is not None else None
+        if self.use_norm:
+            count = 2 * x.shape[2] * axis.size * 2 * x.shape[3]
+            x = convt_norm_act_band(xh, w, NORM_EPS, self.activation, axis,
+                                    count, skh, split_batch)
+        else:
+            out = conv_transpose2d(xh, w, x2=skh, padding=(3, 1))
+            if self.fp32_act:
+                out = out.float()
+            x = apply_activation(out, self.activation)
+        if self.use_dropout and self.training:
+            x = dropout(x, generator, mesh, band=True)
         return x

@@ -37,6 +37,17 @@ channels (and its bias's) with the activation and the norm, which are
 per channel, then ``mesh.model.gather``. conv0's image and mask parts
 each enter; ``conv_out`` (one channel) is replicated and computed whole
 on every rank.
+
+``forward(..., mesh=SpatialMesh)`` takes this rank's band of the image's
+rows (``parallel/spatial.py``): conv0 and the stride-2 layers take a
+halo row above and below (conv0's image part still computed once in the
+paired form); the stride-1 layers, whose output has ``H - 1`` rows, take
+one row above and two below, and the rank keeps output rows ``[a, b) &
+[0, H - 1)`` of its input band ``[a, b)``; ``norm=True`` takes K1's band
+form. The output is the rank's rows (``disc_rows``).
+Where the bands do not fit that rule (``disc_splits``), the image and
+masks are gathered, the discriminator runs whole, and the rank keeps an
+even share of the output rows.
 """
 
 import math
@@ -46,9 +57,32 @@ import torch.nn as nn
 
 from ..ops.activations import apply_activation
 from ..ops.conv import conv2d
+from ..ops.kernels import instance_norm_act_band
 from ..ops.norm import instance_norm
 from ..ops.s2d import conv2d_s2d
 from .blocks import KERNEL_SIZE, NORM_EPS, sharded_axis
+
+
+def disc_splits(h, sp, n_layers):
+    """Whether the discriminator runs on bands: every stride-2 layer's input
+    band has an even number of rows, and the stride-1 layers' input bands
+    at least 3 (each loses up to one row at the bottom, and lends two to a
+    halo). Otherwise it runs whole on every rank."""
+    for k in range(n_layers):
+        if (h >> k) % (2 * sp):
+            return False
+    return (h >> n_layers) % sp == 0 and (h >> n_layers) // sp >= 3
+
+
+def disc_rows(h, sp, rank, n_layers):
+    """(lo, hi, rows) of the discriminator's output that ``rank`` owns at
+    input height ``h``: the band rule (``[a, b) & [0, H_out)`` at each
+    stride-1 layer) where ``disc_splits``, else an even share."""
+    out = (h >> n_layers) - 2
+    if disc_splits(h, sp, n_layers):
+        n = (h >> n_layers) // sp
+        return rank * n, min((rank + 1) * n, out), out
+    return rank * out // sp, (rank + 1) * out // sp, out
 
 
 class Discriminator(nn.Module):
@@ -108,6 +142,11 @@ class Discriminator(nn.Module):
                 raise ValueError("paired masks must share one shape")
         elif y is not None:
             y = y.to(self.dtype)
+        if getattr(mesh, 'spatial', None) is not None:
+            if s2d:
+                raise ValueError("a spatial mesh runs the plain form")
+            outs = self._forward_bands(x, y if paired else (y,), mesh.spatial)
+            return outs if paired else outs[0]
         conv0 = self.model[self.plan[0][0]]
         model = sharded_axis(mesh, conv0)
         if model is not None:
@@ -153,3 +192,54 @@ class Discriminator(nn.Module):
             if model is not None:
                 h = model.gather(h)
         return h
+
+    def _forward_bands(self, x, ys, axis):
+        """The outputs for the masks ``ys`` (None: the image alone) over the
+        spatial ``axis``, x and ys this rank's bands (the module's
+        docstring)."""
+        h = x.shape[2] * axis.size
+        lo, hi, _ = disc_rows(h, axis.size, axis.rank, self.n_layers)
+        if not disc_splits(h, axis.size, self.n_layers):
+            xw = axis.gather_band(x)
+            if ys == (None,):
+                outs = (self.forward(xw),)
+            else:
+                outs = self.forward(xw, tuple(axis.gather_band(m)
+                                              for m in ys))
+            return tuple(axis.split_rows(o, lo, hi) for o in outs)
+        conv0 = self.model[self.plan[0][0]]
+        w0 = conv0.weight.to(self.dtype)
+        xh = axis.halo(x, 1, 1)
+        if ys == (None,):
+            hs = (conv2d(xh, w0, padding=(0, 1), bias=conv0.bias),)
+        else:
+            hs = conv2d(xh, w0, padding=(0, 1), bias=conv0.bias,
+                        x2s=tuple(axis.halo(m, 1, 1) for m in ys))
+        return tuple(self._tail_bands(t, axis, h // 2) for t in hs)
+
+    def _tail_bands(self, t, axis, rows):
+        """conv0's activation and the layers after it on a band; ``rows``
+        is the global height of conv0's output."""
+        t = apply_activation(t, self.plan[0][2])
+        lo = axis.rank * (rows // axis.size)
+        hi = lo + t.shape[2]
+        for idx, stride, act, normed in self.plan[1:]:
+            conv = self.model[idx]
+            if stride == 2:
+                t = conv2d(axis.halo(t, 1, 1), conv.weight, stride=2,
+                           padding=(0, 1), bias=conv.bias)
+                lo, hi, rows = lo // 2, hi // 2, rows // 2
+            else:
+                # output rows H - 1: keep [lo, hi) & [0, rows - 1)
+                t = conv2d(axis.halo(t, 1, 2), conv.weight, stride=1,
+                           padding=(0, 1), bias=conv.bias)
+                rows -= 1
+                hi = min(hi, rows)
+                t = t[:, :, :hi - lo]
+            if act == 'sigmoid':
+                return apply_activation(t.float(), act)
+            t = apply_activation(t, act)
+            if normed:
+                t = instance_norm_act_band(t, NORM_EPS, None, axis,
+                                           rows * t.shape[3])
+        return t

@@ -20,6 +20,14 @@ weight holds a shard of its output channels on the shard and gathers
 its output (``models/blocks.py``): a skip is gathered once, by its
 level, and feeds both the next level and the decoder's concat.
 
+With a ``parallel.spatial.SpatialMesh`` x is this rank's band of every
+image's rows: the levels whose input rows split into bands of an even
+number of rows run on bands (``models/blocks.py``); from the first that
+does not (``gather_level``) the encoder, the bottom and
+the decoder back up to the same rows run whole on every rank of the
+spatial axis, between ``gather_band`` and ``split_band``. The output is
+the band's rows.
+
 ``forward(..., s2d=True)`` (JAX ``unet.py:45-52``) runs the
 space-to-depth boundary form, whose input is ``[N, 4 input_nc, H/2,
 W/2]`` and output ``[N, 4 output_nc, H/2, W/2]`` (channel order (dy, dx,
@@ -33,6 +41,17 @@ import torch.nn as nn
 from .blocks import DownBlock, UpBlock
 
 N_LEVELS = 7
+
+
+def gather_level(h, sp):
+    """The first UNet encoder level whose input rows (``h / 2**i``) do not
+    split into ``sp`` bands of an even number of rows; ``N_LEVELS`` when
+    every level splits. From there the levels down to the bottom and the
+    decoder back up to the same rows run whole on every rank."""
+    for i in range(N_LEVELS):
+        if (h >> i) % (2 * sp):
+            return i
+    return N_LEVELS
 
 
 def unet_filters(nf):
@@ -81,7 +100,12 @@ class UNet(nn.Module):
         axis of the sharded levels);
         ``split_batch``: the K split of the fused conv kernels
         (``ops.kernels.conv_norm_act``; default N)."""
+        spatial = getattr(mesh, 'spatial', None)
         h, w = x.shape[2], x.shape[3]
+        if spatial is not None:
+            if s2d:
+                raise ValueError("a spatial mesh runs the plain form")
+            h *= spatial.size   # x is a band of the image's rows
         if s2d:
             h, w = 2 * h, 2 * w   # x is the s2d form of a 2h x 2w input
         stride_total = 2 ** N_LEVELS
@@ -90,6 +114,9 @@ class UNet(nn.Module):
                 f"UNet input spatial dims must be multiples of "
                 f"{stride_total}; got {h}x{w}")
         x = x.to(self.dtype)
+        if spatial is not None:
+            return self._forward_bands(x, h, mesh, return_hidden,
+                                       split_batch)
         gen = self.dropout_generator
         skips = []
         for i, block in enumerate(self.encoder):
@@ -105,6 +132,33 @@ class UNet(nn.Module):
             x = self.decoder[i](x, skip=rev[i], generator=gen,
                                 s2d_out=s2d and i == last, mesh=mesh,
                                 split_batch=split_batch)
+        if return_hidden:
+            return x, hidden
+        return x
+
+    def _forward_bands(self, x, h, mesh, return_hidden, split_batch):
+        """The forward over a spatial mesh (the module's docstring): x is
+        this rank's band of rows of images ``h`` rows high."""
+        axis = mesh.spatial
+        level = gather_level(h, axis.size)
+        gen = self.dropout_generator
+        skips = []
+        for i, block in enumerate(self.encoder):
+            if i == level:
+                x = axis.gather_band(x)
+            x = block(x, generator=gen, mesh=mesh, split_batch=split_batch,
+                      band=i < level)
+            skips.append(x)
+        hidden = skips[-1]
+        rev = skips[::-1]
+        x = hidden
+        for i, block in enumerate(self.decoder):
+            # decoder level i gives the rows of encoder level 6 - i's input
+            x = block(x, skip=rev[i] if i else None, generator=gen,
+                      mesh=mesh, split_batch=split_batch,
+                      band=N_LEVELS - 1 - i < level)
+            if N_LEVELS - 1 - i == level:
+                x = axis.split_band(x)
         if return_hidden:
             return x, hidden
         return x

@@ -18,7 +18,9 @@ import torch.nn.functional as F
 
 
 def conv2d(x, w, x2=None, stride=2, padding=1, bias=None, x2s=None):
-    """x: (N, C, H, W), w: (Cout, C [+ C2], k, k), bias: (Cout,).
+    """x: (N, C, H, W), w: (Cout, C [+ C2], k, k), bias: (Cout,);
+    ``padding`` an int or torch's (rows, columns) pair (``(0, 1)`` over a
+    haloed band, ``parallel/spatial.py``).
 
     ``x2s``, a tuple of second inputs of one shape, returns one output
     per element, each equal to ``conv2d(x, w, x2=m)``, with the x-part
@@ -43,12 +45,13 @@ def conv2d(x, w, x2=None, stride=2, padding=1, bias=None, x2s=None):
                        padding=padding))
 
 
-def conv_transpose2d(x, w, x2=None):
-    """x: (N, C, H, W), w: (C [+ C2], Cout, 4, 4)."""
+def conv_transpose2d(x, w, x2=None, padding=1):
+    """x: (N, C, H, W), w: (C [+ C2], Cout, 4, 4); ``padding`` as torch's
+    (``(3, 1)`` gives a haloed band's own rows, ``parallel/spatial.py``)."""
     w = w.to(x.dtype)
     if x2 is None:
-        return F.conv_transpose2d(x, w, stride=2, padding=1)
+        return F.conv_transpose2d(x, w, stride=2, padding=padding)
     c1 = x.shape[1]
-    return (F.conv_transpose2d(x, w[:c1], stride=2, padding=1)
+    return (F.conv_transpose2d(x, w[:c1], stride=2, padding=padding)
             + F.conv_transpose2d(x2.to(x.dtype), w[c1:], stride=2,
-                                 padding=1))
+                                 padding=padding))

@@ -9,6 +9,16 @@ oracle on the card). ``ConvNormAct`` is the custom VJP of
 the conv output in the compute dtype (cuDNN; the JAX package leaves this
 conv to XLA), runs K1-bwd on it, and takes dx and dw through the
 recomputed conv.
+
+Band form (spatial parallelism, ``parallel/spatial.py``): ``conv_band``
+takes a rank's band of rows with one halo row above and below (zero rows
+at the image's edges, ``SpatialAxis.halo``) and launches the same GEMM
+with no padding of H, writing the band's fp32 conv output and its
+per-plane stats;
+``conv_norm_act_band`` (``ConvNormActBand``) sums the stats over the
+spatial group and finishes with ``in_apply``. Its backward,
+``recompute_band_grads``, recomputes the conv on the haloed band and runs
+K1-bwd's band form with the forward's global stats.
 """
 
 import ctypes
@@ -18,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .norm_act import (act_code, dtype_flag, instance_norm_act_backward,
+from .norm_act import (act_code, band_backward, dtype_flag, in_apply,
+                       in_stats_plain, instance_norm_act_backward,
                        instance_norm_act_plain, needs_graph, require,
                        require_aligned)
 
@@ -42,6 +53,10 @@ def _lib():
     lib.pgt_tile_m.restype = i
     lib.pgt_conv_splits.argtypes = [i] * 5
     lib.pgt_conv_splits.restype = i
+    lib.pgt_conv_band.argtypes = [p] * 5 + [i] * 7 + [p]
+    lib.pgt_conv_band.restype = i
+    lib.pgt_conv_band_splits.argtypes = [i] * 5
+    lib.pgt_conv_band_splits.restype = i
     return lib
 
 
@@ -138,3 +153,118 @@ def conv_norm_act(x, w, eps=1e-5, activation=None, split_batch=None):
 
 
 conv_norm_act.launches = 0
+
+
+# band form
+
+
+def conv_band_plain(xh, w):
+    """(fp32 conv output, its per-plane stats [N, Cout, 2]) of a band xh
+    with one halo row above and below: H unpadded, W padded by 1 on both
+    sides."""
+    acc = F.conv2d(xh.float(), w.float(), stride=2, padding=(0, 1))
+    return acc, in_stats_plain(acc)
+
+
+def conv_band(xh, w, split_batch=None):
+    """``conv_band_plain`` for CPU tensors; on CUDA tensors the K2 GEMM
+    over the band and the stats kernel (``pgt_conv_band``). Returns (fp32
+    output, stats)."""
+    if xh.device.type == 'cpu':
+        return conv_band_plain(xh, w)
+    require(xh, 'x', 4)
+    require(w, 'w', 4, like=xh)
+    flag = dtype_flag(xh)
+    n, cin, h, wd = xh.shape
+    cout = w.shape[0]
+    if tuple(w.shape) != (cout, cin, 4, 4):
+        raise ValueError(f"w must be ({cout}, {cin}, 4, 4), got "
+                         f"{tuple(w.shape)}")
+    ho, wo = (h - 4) // 2 + 1, (wd - 2) // 2 + 1
+    if ho < 1 or wo < 1 or not n:
+        raise ValueError(f"band {tuple(xh.shape)} is too small for k=4, "
+                         f"s=2")
+    require_aligned(w, 'w')
+    lib = _lib()
+    tiles = -(-ho * wo // lib.pgt_tile_m())
+    split_batch = split_batch or n
+    splits = lib.pgt_conv_band_splits(split_batch, cin, h, wd, cout)
+    acc = torch.empty((splits, n, cout, ho, wo), dtype=torch.float32,
+                      device=xh.device)
+    part = torch.empty((n, cout, tiles, 2), dtype=torch.float32,
+                       device=xh.device)
+    stats = torch.empty((n, cout, 2), dtype=torch.float32, device=xh.device)
+    with torch.cuda.device(xh.device):
+        rc = lib.pgt_conv_band(
+            xh.data_ptr(), w.data_ptr(), acc.data_ptr(), part.data_ptr(),
+            stats.data_ptr(), n, split_batch, cin, h, wd, cout, flag,
+            _build.stream_of(xh))
+    _build.check(rc, 'conv_band')
+    conv_band.launches += 1
+    return acc[0], stats
+
+
+conv_band.launches = 0
+
+
+def recompute_band_grads(ctx, g, conv, inputs, stats):
+    """``recompute_grads`` of a band: ``conv(*inputs)`` recomputed on the
+    haloed band, K1-bwd's band form (``band_backward``, one sum over the
+    spatial group) from the forward's global ``stats``, then the input
+    gradients through the recompute; the haloed input's goes on to the
+    halo's backward."""
+    want = [t is not None and need
+            for t, need in zip(inputs, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need) if t is not None else None
+                  for t, need in zip(inputs, want)]
+        out = conv(*leaves)
+    recompute_grads.launches += 1
+    dout = band_backward(g.to(out.dtype).contiguous(), out.detach(), stats,
+                         ctx.count, ctx.eps, ctx.activation, ctx.axis,
+                         ctx.group)
+    wanted = [t for t, need in zip(leaves, want) if need]
+    found = iter(torch.autograd.grad(out, wanted, dout)) if wanted else None
+    return [next(found) if need else None for need in want]
+
+
+def _conv_band(xh, w):
+    return F.conv2d(xh, w, stride=2, padding=(0, 1))
+
+
+class ConvNormActBand(torch.autograd.Function):
+    """K2 over a haloed band: ``conv_band``, the stats' sum over the axis,
+    ``in_apply``; backward by ``recompute_band_grads``. Residuals (xh, w,
+    the plane's global stats)."""
+
+    @staticmethod
+    def forward(ctx, xh, w, eps, activation, split_batch, axis, group, count):
+        acc, stats = conv_band(xh, w, split_batch)
+        axis.all_reduce(stats, group)
+        ctx.save_for_backward(xh, w, stats)
+        ctx.eps, ctx.activation = eps, activation
+        ctx.axis, ctx.group, ctx.count = axis, group, count
+        return in_apply(acc, stats, count, eps, activation, xh.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xh, w, stats = ctx.saved_tensors
+        dxh, dw = recompute_band_grads(ctx, g, _conv_band, (xh, w), stats)
+        return dxh, dw, None, None, None, None, None, None
+
+
+def conv_norm_act_band(xh, w, eps, activation, axis, count,
+                       split_batch=None):
+    """``conv_norm_act`` of the whole image, on this rank's band with one
+    halo row above and below (``SpatialAxis.halo``; zero rows at the
+    image's edges): the band's output rows, normalised with the plane's
+    statistics summed over the spatial ``axis``; ``count`` is the output
+    plane's global element count. Differentiable through
+    ``ConvNormActBand``."""
+    group = axis.group_now()
+    if needs_graph(xh, w):
+        return ConvNormActBand.apply(xh, w, eps, activation, split_batch,
+                                     axis, group, count)
+    acc, stats = conv_band(xh, w, split_batch)
+    axis.all_reduce(stats, group)
+    return in_apply(acc, stats, count, eps, activation, xh.dtype)

@@ -12,6 +12,14 @@ both for tests and ``chip_smoke.py``). ``ConvTNormAct`` is the custom VJP of
 recomputes the transposed conv over the concat in the compute dtype,
 runs K1-bwd on it, and takes dx, dw and dskip through the recompute.
 
+Band form (spatial parallelism, ``parallel/spatial.py``): ``convt_band``
+takes a rank's bands of x and skip with one halo row above and below
+(zero rows at the image's edges, ``SpatialAxis.halo``) and writes the
+fp32 output of the band's own rows and its per-plane stats;
+``convt_norm_act_band`` (``ConvTNormActBand``) sums the stats over the
+spatial group and finishes with ``in_apply``; the backward is
+``recompute_band_grads``.
+
 Unlike the TPU gate (``Cout >= 128``, a lane-padding limit of that chip),
 every Cout runs the kernel here, so the nf=64 generator's dec5 (Cout=64)
 goes through it too.
@@ -24,9 +32,10 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv_norm_act import recompute_grads
-from .norm_act import (act_code, dtype_flag, instance_norm_act_plain,
-                       needs_graph, require, require_aligned)
+from .conv_norm_act import recompute_band_grads, recompute_grads
+from .norm_act import (act_code, dtype_flag, in_apply, in_stats_plain,
+                       instance_norm_act_plain, needs_graph, require,
+                       require_aligned)
 
 TILE_K = 32   # BK of csrc/conv_gemm.cuh: the packed rows' multiple
 
@@ -67,6 +76,10 @@ def _lib():
     lib.pgt_convt_splits.restype = i
     lib.pgt_convt_packed_k.argtypes = [i, i]
     lib.pgt_convt_packed_k.restype = i
+    lib.pgt_convt_band.argtypes = [p] * 7 + [i] * 8 + [p]
+    lib.pgt_convt_band.restype = i
+    lib.pgt_convt_band_splits.argtypes = [i] * 6
+    lib.pgt_convt_band_splits.restype = i
     return lib
 
 
@@ -171,3 +184,109 @@ def convt_norm_act(x, w, eps=1e-5, activation=None, skip=None,
 
 
 convt_norm_act.launches = 0
+
+
+# band form
+
+
+def convt_band_plain(xh, w, skip=None):
+    """(fp32 output, its per-plane stats [N, Cout, 2]) of the transposed
+    conv over the bands of x and skip, each with one halo row above and
+    below: the band's own 2 * (h - 2) rows."""
+    xin = xh if skip is None else torch.cat([xh, skip], dim=1)
+    acc = F.conv_transpose2d(xin.float(), w.float(), stride=2,
+                             padding=(3, 1))
+    return acc, in_stats_plain(acc)
+
+
+def convt_band(xh, w, skip=None, split_batch=None):
+    """``convt_band_plain`` for CPU tensors; on CUDA tensors K3's pack and
+    GEMM over the band and the stats kernel (``pgt_convt_band``). Returns
+    (fp32 output, stats)."""
+    if xh.device.type == 'cpu':
+        return convt_band_plain(xh, w, skip)
+    require(xh, 'x', 4)
+    require(w, 'w', 4, like=xh)
+    n, cx, h, wd = xh.shape
+    cs = 0
+    if skip is not None:
+        require(skip, 'skip', 4, like=xh)
+        if skip.shape[0] != n or skip.shape[2:] != xh.shape[2:]:
+            raise ValueError(f"skip {tuple(skip.shape)} does not match x "
+                             f"{tuple(xh.shape)}")
+        cs = skip.shape[1]
+    flag = dtype_flag(xh)
+    cout = w.shape[1]
+    if tuple(w.shape) != (cx + cs, cout, 4, 4):
+        raise ValueError(f"w must be ({cx + cs}, {cout}, 4, 4), got "
+                         f"{tuple(w.shape)}")
+    hc = h - 2
+    if hc < 1 or not n:
+        raise ValueError(f"band {tuple(xh.shape)} has no output rows")
+    require_aligned(w, 'w')
+    lib = _lib()
+    tiles = -(-hc * wd // lib.pgt_tile_m())
+    split_batch = split_batch or n
+    splits = lib.pgt_convt_band_splits(split_batch, cx, cs, h, wd, cout)
+    acc = torch.empty((splits, n, cout, 2 * hc, 2 * wd), dtype=torch.float32,
+                      device=xh.device)
+    part = torch.empty((n, cout, 4 * tiles, 2), dtype=torch.float32,
+                       device=xh.device)
+    stats = torch.empty((n, cout, 2), dtype=torch.float32, device=xh.device)
+    wp = _packed(lib, w)
+    skip_ptr = skip.data_ptr() if skip is not None else None
+    with torch.cuda.device(xh.device):
+        rc = lib.pgt_convt_band(
+            xh.data_ptr(), skip_ptr, w.data_ptr(), wp.data_ptr(),
+            acc.data_ptr(), part.data_ptr(), stats.data_ptr(), n,
+            split_batch, cx, cs, h, wd, cout, flag, _build.stream_of(xh))
+    _build.check(rc, 'convt_band')
+    convt_band.launches += 1
+    return acc[0], stats
+
+
+convt_band.launches = 0
+
+
+def _convt_band(xh, w, skip):
+    xin = xh if skip is None else torch.cat([xh, skip], dim=1)
+    return F.conv_transpose2d(xin, w, stride=2, padding=(3, 1))
+
+
+class ConvTNormActBand(torch.autograd.Function):
+    """K3 over haloed bands: ``convt_band``, the stats' sum over the axis,
+    ``in_apply``; backward by ``recompute_band_grads``. Residuals (xh, w,
+    skip, the plane's global stats)."""
+
+    @staticmethod
+    def forward(ctx, xh, w, skip, eps, activation, split_batch, axis, group,
+                count):
+        acc, stats = convt_band(xh, w, skip, split_batch)
+        axis.all_reduce(stats, group)
+        ctx.save_for_backward(xh, w, skip, stats)
+        ctx.eps, ctx.activation = eps, activation
+        ctx.axis, ctx.group, ctx.count = axis, group, count
+        return in_apply(acc, stats, count, eps, activation, xh.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xh, w, skip, stats = ctx.saved_tensors
+        dxh, dw, dskip = recompute_band_grads(ctx, g, _convt_band,
+                                              (xh, w, skip), stats)
+        return dxh, dw, dskip, None, None, None, None, None, None
+
+
+def convt_norm_act_band(xh, w, eps, activation, axis, count, skip=None,
+                        split_batch=None):
+    """``convt_norm_act`` of the whole image, on this rank's bands of x and
+    skip with one halo row above and below each (``SpatialAxis.halo``): the
+    band's 2h output rows, normalised with the plane's statistics summed
+    over the spatial ``axis``; ``count`` is the output plane's global
+    element count. Differentiable through ``ConvTNormActBand``."""
+    group = axis.group_now()
+    if needs_graph(xh, w, skip):
+        return ConvTNormActBand.apply(xh, w, skip, eps, activation,
+                                      split_batch, axis, group, count)
+    acc, stats = convt_band(xh, w, skip, split_batch)
+    axis.all_reduce(stats, group)
+    return in_apply(acc, stats, count, eps, activation, xh.dtype)

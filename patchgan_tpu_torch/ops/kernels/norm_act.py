@@ -12,6 +12,18 @@ and its backward recomputes the statistics from x. ``plane_geometry``
 chooses both kernels' launch geometry (how many threads own a plane, how
 much of it each holds in registers), which the wrappers pass to the C
 entry points.
+
+Band forms (spatial parallelism, ``parallel/spatial.py``; ``csrc/band.cuh``):
+a plane's rows split over the ranks of a spatial group. ``in_stats`` gives
+a band's per-plane fp32 (sum, sum of squares) [N, C, 2]; ``in_apply``
+normalises a band from the stats summed over the group and the plane's
+global element count; ``in_bwd_sums`` and ``in_bwd_apply`` are K1-bwd's
+two halves around the sum of (sum gm, sum gm * xhat). Each has a
+``_plain`` version beside it and a ``launches`` count.
+``instance_norm_act_band`` (``InstanceNormActBand``) is K1 over a band,
+the group's sums taken by collectives between the launches; its residuals
+are the band and the plane's global stats, so its backward takes one sum
+over the group, not two.
 """
 
 import collections
@@ -270,3 +282,236 @@ def instance_norm_act(x, eps=1e-5, activation=None):
 
 
 instance_norm_act.launches = 0
+
+
+# band forms
+
+
+def in_stats_plain(x):
+    """[N, C, 2] fp32 (sum, sum of squares) of each plane of x's band."""
+    xf = x.float()
+    return torch.stack([xf.sum(dim=(2, 3)), (xf * xf).sum(dim=(2, 3))],
+                       dim=-1)
+
+
+def _mean_rstd(stats, count, eps):
+    """(mean, rstd) [N, C, 1, 1] from a plane's global stats."""
+    mean = stats[..., 0] / count
+    var = stats[..., 1] / count - mean * mean
+    return mean[..., None, None], torch.rsqrt(var + eps)[..., None, None]
+
+
+def in_apply_plain(x, stats, count, eps=1e-5, activation=None, dtype=None):
+    """act((x - mean) * rstd) in fp32, mean and rstd from the plane's
+    global ``stats`` and element ``count``, cast to ``dtype`` (x's when
+    None)."""
+    act_code(activation)
+    mean, rstd = _mean_rstd(stats, count, eps)
+    y = (x.float() - mean) * rstd
+    return apply_activation(y, activation).to(dtype or x.dtype)
+
+
+def _band_terms(g, x, stats, count, eps, activation):
+    mean, rstd = _mean_rstd(stats, count, eps)
+    xhat = (x.float() - mean) * rstd
+    return rstd, xhat, g.float() * act_grad(xhat, activation)
+
+
+def in_bwd_sums_plain(g, x, stats, count, eps=1e-5, activation=None):
+    """[N, C, 2] fp32 (sum gm, sum gm * xhat) of each plane of the band."""
+    act_code(activation)
+    _, xhat, gm = _band_terms(g, x, stats, count, eps, activation)
+    return torch.stack([gm.sum(dim=(2, 3)), (gm * xhat).sum(dim=(2, 3))],
+                       dim=-1)
+
+
+def in_bwd_apply_plain(g, x, stats, sums, count, eps=1e-5, activation=None):
+    """The band's dx = rstd * (gm - m1 - xhat * m2), m1 and m2 the plane's
+    global ``sums`` over ``count``, in g's dtype."""
+    act_code(activation)
+    rstd, xhat, gm = _band_terms(g, x, stats, count, eps, activation)
+    m1 = (sums[..., 0] / count)[..., None, None]
+    m2 = (sums[..., 1] / count)[..., None, None]
+    return (rstd * (gm - m1 - xhat * m2)).to(g.dtype)
+
+
+def _pair_buffer(x):
+    n, c = x.shape[:2]
+    return torch.empty((n, c, 2), dtype=torch.float32, device=x.device)
+
+
+def _require_stats(t, name, like):
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(like.shape[:2]) \
+            + (2,) or not t.is_contiguous() or t.device != like.device:
+        raise ValueError(f"{name} must be contiguous fp32 "
+                         f"{tuple(like.shape[:2]) + (2,)} on {like.device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _planes(x):
+    n, c, h, w = x.shape
+    if not n * c * h * w:
+        raise ValueError(f"a band kernel needs a non-empty band, got "
+                         f"{tuple(x.shape)}")
+    return n * c, h * w
+
+
+@functools.lru_cache(maxsize=None)
+def _band_lib():
+    lib = _lib()
+    p, i, lg, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+    lib.pgt_in_stats.argtypes = [p, p, lg, lg, i, p]
+    lib.pgt_in_stats.restype = i
+    lib.pgt_in_apply.argtypes = [p, p, p, lg, lg, f, i, f, i, i, p]
+    lib.pgt_in_apply.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _band_bwd_lib():
+    lib = _bwd_lib()
+    p, i, lg, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+    lib.pgt_in_bwd_sums.argtypes = [p, p, p, p, lg, lg, f, i, f, i, p]
+    lib.pgt_in_bwd_sums.restype = i
+    lib.pgt_in_bwd_apply.argtypes = [p, p, p, p, p, lg, lg, f, i, f, i, p]
+    lib.pgt_in_bwd_apply.restype = i
+    return lib
+
+
+def in_stats(x):
+    """A band's per-plane stats [N, C, 2] fp32. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel."""
+    if x.is_cpu:
+        return in_stats_plain(x)
+    require(x, 'x', 4)
+    flag = dtype_flag(x)
+    planes, plane = _planes(x)
+    stats = _pair_buffer(x)
+    with _build.device_guard(x):
+        rc = _band_lib().pgt_in_stats(x.data_ptr(), stats.data_ptr(),
+                                      planes, plane, flag,
+                                      _build.stream_of(x))
+    _build.check(rc, 'in_stats')
+    in_stats.launches += 1
+    return stats
+
+
+in_stats.launches = 0
+
+
+def in_apply(x, stats, count, eps=1e-5, activation=None, dtype=None):
+    """Normalise and activate a band (fp32 or bf16) from the plane's global
+    ``stats`` and element ``count`` into ``dtype`` (x's when None; a fused
+    conv's fp32 output goes to the compute dtype). A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel."""
+    if x.is_cpu:
+        return in_apply_plain(x, stats, count, eps, activation, dtype)
+    act = act_code(activation)
+    require(x, 'x', 4)
+    _require_stats(stats, 'stats', x)
+    y = torch.empty(x.shape, dtype=dtype or x.dtype, device=x.device)
+    planes, plane = _planes(x)
+    with _build.device_guard(x):
+        rc = _band_lib().pgt_in_apply(
+            x.data_ptr(), stats.data_ptr(), y.data_ptr(), planes, plane,
+            float(count), act, eps, dtype_flag(x), dtype_flag(y),
+            _build.stream_of(x))
+    _build.check(rc, 'in_apply')
+    in_apply.launches += 1
+    return y
+
+
+in_apply.launches = 0
+
+
+def in_bwd_sums(g, x, stats, count, eps=1e-5, activation=None):
+    """A band's per-plane (sum gm, sum gm * xhat) [N, C, 2] fp32. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    if g.is_cpu:
+        return in_bwd_sums_plain(g, x, stats, count, eps, activation)
+    act = act_code(activation)
+    require(g, 'g', 4)
+    require(x, 'x', 4, like=g)
+    _require_stats(stats, 'stats', x)
+    planes, plane = _planes(x)
+    sums = _pair_buffer(x)
+    with _build.device_guard(g):
+        rc = _band_bwd_lib().pgt_in_bwd_sums(
+            g.data_ptr(), x.data_ptr(), stats.data_ptr(), sums.data_ptr(),
+            planes, plane, float(count), act, eps, dtype_flag(g),
+            _build.stream_of(g))
+    _build.check(rc, 'in_bwd_sums')
+    in_bwd_sums.launches += 1
+    return sums
+
+
+in_bwd_sums.launches = 0
+
+
+def in_bwd_apply(g, x, stats, sums, count, eps=1e-5, activation=None):
+    """The band's dx from the plane's global ``stats`` and ``sums``. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    if g.is_cpu:
+        return in_bwd_apply_plain(g, x, stats, sums, count, eps, activation)
+    act = act_code(activation)
+    require(g, 'g', 4)
+    require(x, 'x', 4, like=g)
+    _require_stats(stats, 'stats', x)
+    _require_stats(sums, 'sums', x)
+    planes, plane = _planes(x)
+    dx = torch.empty_like(g)
+    with _build.device_guard(g):
+        rc = _band_bwd_lib().pgt_in_bwd_apply(
+            g.data_ptr(), x.data_ptr(), stats.data_ptr(), sums.data_ptr(),
+            dx.data_ptr(), planes, plane, float(count), act, eps,
+            dtype_flag(g), _build.stream_of(g))
+    _build.check(rc, 'in_bwd_apply')
+    in_bwd_apply.launches += 1
+    return dx
+
+
+in_bwd_apply.launches = 0
+
+
+def band_backward(g, x, stats, count, eps, activation, axis, group):
+    """dx of K1 over a band: ``in_bwd_sums``, their sum over the spatial
+    ``axis`` (on ``group``), ``in_bwd_apply``."""
+    sums = in_bwd_sums(g, x, stats, count, eps, activation)
+    axis.all_reduce(sums, group)
+    return in_bwd_apply(g, x, stats, sums, count, eps, activation)
+
+
+class InstanceNormActBand(torch.autograd.Function):
+    """K1 over a band: stats, their sum over the axis, apply; the backward
+    is ``band_backward``. Residuals: x and the plane's global stats."""
+
+    @staticmethod
+    def forward(ctx, x, eps, activation, axis, group, count):
+        stats = in_stats(x)
+        axis.all_reduce(stats, group)
+        ctx.save_for_backward(x, stats)
+        ctx.eps, ctx.activation = eps, activation
+        ctx.axis, ctx.group, ctx.count = axis, group, count
+        return in_apply(x, stats, count, eps, activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, stats = ctx.saved_tensors
+        dx = band_backward(g.to(x.dtype).contiguous(), x, stats, ctx.count,
+                           ctx.eps, ctx.activation, ctx.axis, ctx.group)
+        return dx, None, None, None, None, None
+
+
+def instance_norm_act_band(x, eps, activation, axis, count):
+    """``instance_norm_act`` of the whole plane, on this rank's band x
+    (N, C, h, W) of it: the statistics summed over the spatial ``axis``
+    (``parallel.spatial.SpatialAxis``), ``count`` the plane's global
+    element count. Differentiable through ``InstanceNormActBand``."""
+    x = x.contiguous()
+    group = axis.group_now()
+    if needs_graph(x):
+        return InstanceNormActBand.apply(x, eps, activation, axis, group,
+                                         count)
+    stats = in_stats(x)
+    axis.all_reduce(stats, group)
+    return in_apply(x, stats, count, eps, activation)

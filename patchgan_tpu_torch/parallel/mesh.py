@@ -8,7 +8,9 @@ counterpart of ``replicate``) and splits each bucket of tiles over them
 across processes, described below. ``HybridMesh`` is the 2-D (data,
 model) grid of ``parallel/sharding.py``: a ``DataMesh`` over each data
 group and a ``ModelMesh``, whose ranks split every conv's output
-channels, over each model group.
+channels, over each model group. ``parallel/spatial.py``'s
+``SpatialMesh`` is the 2-D (data, spatial) grid, whose spatial groups
+split every image's rows.
 
 The JAX package lays a 1-D ``data`` mesh over the local devices, shards
 each batch on its leading axis, replicates the parameters and lets XLA
@@ -219,14 +221,29 @@ class _GroupMesh:
         else:
             dist.barrier(group=self.group)
 
+    def _all_gather(self, t, group):
+        """Each rank's ``t`` (one shape), in rank order."""
+        if self.backend == 'nccl':
+            out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype,
+                              device=t.device)
+            dist.all_gather_into_tensor(out, t, group=group)
+            return list(out.unbind(0))
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t, group=group)
+        return parts
+
+    def _all_reduce(self, t, group):
+        dist.all_reduce(t, group=group)
+
 
 class DataMesh(_GroupMesh):
     """The 1-D data mesh over the ranks of ``group`` (the default group
     when None); ``device`` is this rank's device. As a step's ``mesh`` it
     is its own data axis and has no model axis (``HybridMesh`` has
-    both)."""
+    both) and no spatial axis (``parallel.spatial.SpatialMesh``)."""
 
     model = None
+    spatial = None
 
     @property
     def data(self):
@@ -357,27 +374,38 @@ class ModelMesh(_GroupMesh):
         return torch.cat(self._all_gather(t.contiguous(), self._group()),
                          dim=dim)
 
-    def _all_gather(self, t, group):
-        """Each rank's ``t`` (one shape), in rank order."""
-        if self.backend == 'nccl':
-            out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype,
-                              device=t.device)
-            dist.all_gather_into_tensor(out, t, group=group)
-            return list(out.unbind(0))
-        parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t, group=group)
-        return parts
-
-    def _all_reduce(self, t, group):
-        dist.all_reduce(t, group=group)
-
 
 def rank_grid(dp, mp):
     """[dp, mp] array of the world ranks of a (data, model) grid: rank d *
     mp + m at (d, m), as JAX's ``hybrid_mesh`` reshapes its devices, so
-    a model group is ``mp`` consecutive ranks."""
+    a model group is ``mp`` consecutive ranks (and a (data, spatial) grid's
+    spatial group, as JAX's ``spatial_mesh`` reshapes them)."""
     return np.arange(dp * mp).reshape(dp, mp)
 
+
+def grid_groups(dp, n, what):
+    """This rank's (group, graph communicator) on each axis of a (dp, n)
+    grid of the world's ranks (``rank_grid``): its data group (the ranks
+    of its column) and its group on the second axis (its row). The graph
+    communicator is an NCCL group of the same ranks under NCCL, else
+    None. ``dist.new_group`` is collective over the whole world, so every
+    rank makes every group in the same order, the groups it is not in
+    included. ``what`` names the grid in the error of a world of another
+    size."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if dp * n != world:
+        raise ValueError(f'a ({dp}, {n}) {what} needs {dp * n} ranks; '
+                         f'the world has {world}')
+    nccl = dist.get_backend() == 'nccl'
+    grid = rank_grid(dp, n)
+    mine = []
+    for groups in (grid.T, grid):
+        for ranks in groups.tolist():
+            group = dist.new_group(ranks)
+            graph = dist.new_group(ranks, backend='nccl') if nccl else None
+            if rank in ranks:
+                mine.append((group, graph))
+    return mine
 
 class HybridMesh:
     """The 2-D (data, model) mesh over the default process group: the
@@ -386,33 +414,17 @@ class HybridMesh:
     group (the ranks that hold the same model shard: the batch splits
     over it, the losses average over it, the gradients sum over it);
     ``model`` the ``ModelMesh`` over its model group (the ranks of one
-    data rank, whose convs split their output channels).
-
-    ``dist.new_group`` is collective over the whole world, so every rank
-    makes every group, and under NCCL each group's graph communicator,
-    in the same order, the groups it is not in included. A rank's rows of
-    a global batch follow its data rank (``local_rows``), not its world
-    rank."""
+    data rank, whose convs split their output channels), both made by
+    ``grid_groups``. A rank's rows of a global batch follow its data rank
+    (``local_rows``), not its world rank."""
 
     def __init__(self, dp, mp, device):
-        world, rank = dist.get_world_size(), dist.get_rank()
-        if dp * mp != world:
-            raise ValueError(f'a ({dp}, {mp}) mesh needs {dp * mp} ranks; '
-                             f'the world has {world}')
+        self.rank, self.size = dist.get_rank(), dist.get_world_size()
         self.backend = dist.get_backend()
-        grid = rank_grid(dp, mp)
-        mine = {}
-        for axis, groups in (('data', grid.T), ('model', grid)):
-            for ranks in groups.tolist():
-                group = dist.new_group(ranks)
-                graph = dist.new_group(ranks, backend='nccl') \
-                    if self.backend == 'nccl' else None
-                if rank in ranks:
-                    mine[axis] = (group, graph)
-        self.data = DataMesh(device, *mine['data'])
-        self.model = ModelMesh(device, *mine['model'])
+        data, model = grid_groups(dp, mp, 'mesh')
+        self.data = DataMesh(device, *data)
+        self.model = ModelMesh(device, *model)
         self.device = self.data.device
-        self.rank, self.size = rank, world
         self.shape = {'data': dp, 'model': mp}
 
     def __repr__(self):
@@ -454,13 +466,18 @@ def torchrun_env():
             int(os.environ.get('LOCAL_RANK', 0)))
 
 
-def init_from_env(on_cpu=False, mp=1):
+def init_from_env(on_cpu=False, mp=1, sp=1):
     """The ``DataMesh`` of a process that torchrun started (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``):
     gloo over the CPU when ``on_cpu``, else NCCL with this rank on
     ``cuda:LOCAL_RANK``; with ``mp`` > 1 the ``HybridMesh`` of world size
-    / ``mp`` data ranks by ``mp`` model ranks. None outside torchrun: a
-    single process."""
+    / ``mp`` data ranks by ``mp`` model ranks, with ``sp`` > 1 the
+    ``SpatialMesh`` of world size / ``sp`` data ranks by ``sp`` spatial
+    ranks (both at once raise ValueError: neither package has that mesh).
+    None outside torchrun: a single process."""
+    if mp > 1 and sp > 1:
+        raise ValueError(f'a model axis (mp {mp}) and a spatial axis (sp '
+                         f'{sp}) at once: no mesh of this package has both')
     env = torchrun_env()
     if env is None:
         return None
@@ -479,14 +496,17 @@ def init_from_env(on_cpu=False, mp=1):
                                 world_size=size, **kwargs)
     if mp > 1:
         return HybridMesh(size // mp, mp, device)
+    if sp > 1:
+        from .spatial import SpatialMesh
+        return SpatialMesh(size // sp, sp, device)
     return DataMesh(device)
 
 
 def shutdown(mesh):
     """Destroy the default process group ``init_from_env`` made (and the
-    groups a ``HybridMesh`` made with it), once the graphs of the captured
-    steps made over ``mesh`` are freed: NCCL's teardown waits for
-    them."""
+    groups a ``HybridMesh`` or a ``SpatialMesh`` made with it), once the
+    graphs of the captured steps made over ``mesh``, on every axis, are
+    freed: NCCL's teardown waits for them."""
     if mesh is not None and dist.is_initialized():
         mesh.release_graphs()
         dist.destroy_process_group()

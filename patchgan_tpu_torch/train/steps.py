@@ -47,6 +47,16 @@ gradient buckets go over the mesh's data axis (``mesh.data``, a
 ``DataMesh``) only, since every rank of a model group computes them
 alike.
 
+A ``parallel.spatial.SpatialMesh`` splits the rows too (JAX
+``parallel/spatial.py``): the step takes each rank's rows of the global
+batch whole in H and keeps its band of them (``SpatialMesh.band``); the
+models run on the bands, the losses are reduced over both axes
+(``ops/losses.py``), the class weights' sums and the gradient buckets over
+every rank of the grid, since the parameters are replicated on all of it.
+A batch whose height does not split (``SpatialMesh.splits``) runs with H
+whole, as a data-parallel step over the data axis. The s2d form is
+refused, as JAX turns it off on spatial meshes.
+
 Steps return their losses as 0-d tensors on the device under the
 reference's keys ``gen, gen_loss, gdisc, discr, discf, disc``; nothing
 in a step waits for the device.
@@ -304,9 +314,12 @@ def make_seg_loss(loss_type, seg_alpha, tversky_beta=0.75,
                 weight = (c * inv / inv.sum()).expand(y.shape[0], c, 1, 1)
             elif c > 1 and bce_weighting == 'complement':
                 total = yf.sum()
+                per_sample = yf.sum(dim=(2, 3), keepdim=True)
                 if mesh is not None:
                     total = mesh.stat(total)
-                share = yf.sum(dim=(2, 3), keepdim=True) / total
+                if getattr(mesh, 'spatial', None) is not None:
+                    per_sample = mesh.spatial.stat(per_sample)
+                share = per_sample / total
                 weight = 1.0 - share
             else:
                 weight = torch.ones_like(yf)
@@ -341,8 +354,22 @@ def constant_params(params):
 
 
 def _data(mesh):
-    """The data axis of a step's ``mesh``: what its losses reduce over."""
-    return None if mesh is None else mesh.data
+    """What a step's losses reduce over, and its gradient buckets sum over:
+    the data axis of ``mesh``, or a ``SpatialMesh`` itself (both axes)."""
+    if mesh is None or getattr(mesh, 'spatial', None) is not None:
+        return mesh
+    return mesh.data
+
+
+def _spatial_form(mesh, x, y):
+    """(mesh, x, y) a spatial step runs a batch with: the rank's bands over
+    ``mesh`` where the height splits, else the whole rows over its data
+    axis."""
+    if getattr(mesh, 'spatial', None) is None:
+        return mesh, x, y
+    if mesh.splits(x.shape[2]):
+        return (mesh,) + tuple(mesh.band((x, y)))
+    return mesh.data, x, y
 
 
 def gan_losses(generator, discriminator, seg_loss, x, y, s2d=False,
@@ -391,6 +418,15 @@ def disc_loss(disc_real, disc_fake, mesh=None):
     return (loss_fake + loss_real) / 2.0, loss_real, loss_fake
 
 
+def _seg_losses(mesh, *settings):
+    """{mesh: its segmentation loss} for the meshes a step may run a batch
+    over: ``mesh``, and a spatial mesh's data axis as well."""
+    meshes = [mesh]
+    if getattr(mesh, 'spatial', None) is not None:
+        meshes.append(mesh.data)
+    return {m: make_seg_loss(*settings, mesh=_data(m)) for m in meshes}
+
+
 def make_train_step(generator, discriminator, gen_opt, disc_opt,
                     loss_type='tversky', seg_alpha=200.0, tversky_beta=0.75,
                     tversky_gamma=0.75, bce_weighting='complement',
@@ -412,9 +448,11 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
         raise ValueError(f"a {mesh.backend} process group cannot be "
                          f"captured into a CUDA graph; build the step "
                          f"with graph=False")
-    data = _data(mesh)
-    seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
-                             tversky_gamma, bce_weighting, data)
+    if s2d and getattr(mesh, 'spatial', None) is not None:
+        raise ValueError("the s2d form regroups the rows a spatial mesh "
+                         "splits; a spatial step runs the plain form")
+    seg_losses = _seg_losses(mesh, loss_type, seg_alpha, tversky_beta,
+                             tversky_gamma, bce_weighting)
     paired = resolve_paired_disc(discriminator)
     g_params = list(gen_opt.params)
     trainable = {id(p) for p in g_params}
@@ -427,9 +465,11 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
         generator.train()
         if s2d:
             x, y = space_to_depth(x), space_to_depth(y)
+        mesh_, x, y = _spatial_form(mesh, x, y)
+        data, seg_loss = _data(mesh_), seg_losses[mesh_]
         with constant_params(constants):
             g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
-                                                seg_loss, x, y, s2d, mesh)
+                                                seg_loss, x, y, s2d, mesh_)
             g_grads = torch.autograd.grad(g_loss, g_params)
         if data is not None:
             data.sum_(g_grads)
@@ -437,7 +477,7 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
         gen_img = gen_img.detach()
         d_loss, loss_real, loss_fake = disc_loss(*disc_real_fake(
             discriminator, x, y, gen_img, merged=False, paired=paired,
-            s2d=s2d, mesh=mesh), data)
+            s2d=s2d, mesh=mesh_), data)
         d_grads = torch.autograd.grad(d_loss, d_params)
         if data is not None:
             data.sum_(d_grads)
@@ -479,19 +519,22 @@ def make_eval_step(generator, discriminator, loss_type='tversky',
     'iou' when ``compute_iou``; ``s2d`` and ``mesh`` as in
     ``make_train_step``: with a mesh, the global batch's losses and
     IoU."""
-    data = _data(mesh)
-    seg_loss = make_seg_loss(loss_type, seg_alpha, tversky_beta,
-                             tversky_gamma, bce_weighting, data)
+    if s2d and getattr(mesh, 'spatial', None) is not None:
+        raise ValueError("a spatial step runs the plain form")
+    seg_losses = _seg_losses(mesh, loss_type, seg_alpha, tversky_beta,
+                             tversky_gamma, bce_weighting)
 
     @torch.no_grad()
     def eval_step(x, y):
         generator.eval()
         if s2d:
             x, y = space_to_depth(x), space_to_depth(y)
+        mesh_, x, y = _spatial_form(mesh, x, y)
+        data, seg_loss = _data(mesh_), seg_losses[mesh_]
         g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
-                                            seg_loss, x, y, s2d, mesh)
+                                            seg_loss, x, y, s2d, mesh_)
         d_loss, loss_real, loss_fake = disc_loss(*disc_real_fake(
-            discriminator, x, y, gen_img, s2d=s2d, mesh=mesh), data)
+            discriminator, x, y, gen_img, s2d=s2d, mesh=mesh_), data)
         losses = dict(zip(LOSS_KEYS, (g_loss, g_loss, gdisc, loss_real,
                                       loss_fake, d_loss)))
         if compute_iou:

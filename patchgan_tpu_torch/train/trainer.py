@@ -61,12 +61,22 @@ Rank 0 alone prints the progress, profiles and reports to
 ``neptune_config``. Under gloo on the card the step runs eagerly (gloo
 cannot be captured); ``PATCHGAN_CUDA_GRAPH=on`` given explicitly then
 raises.
+
+Spatial parallelism (``mesh=``, a ``parallel.spatial.SpatialMesh``; JAX
+``Trainer(mesh=spatial_mesh(...))``): the loader gives each rank its data
+group's rows and the step keeps the rank's band of them (JAX
+``place_batch``); the checks, the writes and the barriers are the grid's
+as above. The step runs the plain form whatever ``PATCHGAN_S2D`` says, as
+the JAX Trainer does on a spatial mesh. A batch whose height does not
+split into bands of an even number of rows runs with H whole on every
+rank of a spatial group, and the Trainer warns once.
 """
 
 import json
 import os
 import re
 import time
+import warnings
 from collections import defaultdict
 
 import numpy as np
@@ -135,6 +145,7 @@ class Trainer:
         self._step_slot = None
         self._scheds = None   # train()'s LR schedules, saved with the state
         self._step_cache = None   # (settings, steps, forms) of _steps()
+        self._warned_whole = False   # _place_batch's warning, once
         self._cuda_graph = cuda_graph_enabled()
         if mesh is not None and not mesh.capturable and self._cuda_graph:
             if self.device.type == 'cuda' and graph_flag_given():
@@ -164,10 +175,12 @@ class Trainer:
                 f"not ported yet (ROADMAP.md, queue 1 item 12); use "
                 f"'msgpack'")
 
-    @staticmethod
-    def _use_s2d(x):
-        """The s2d form for an NCHW batch: ``PATCHGAN_S2D`` on and even H
-        and W (the 2x2 block grid)."""
+    def _use_s2d(self, x):
+        """The s2d form for an NCHW batch: ``PATCHGAN_S2D`` on, even H
+        and W (the 2x2 block grid), and no spatial axis (JAX
+        ``trainer.py:237-245``)."""
+        if getattr(self.mesh, 'spatial', None) is not None:
+            return False
         return s2d_enabled() and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
 
     def _steps(self):
@@ -221,6 +234,15 @@ class Trainer:
             if not torch.is_tensor(a):
                 a = torch.from_numpy(np.asarray(a))
             return a.to(self.device, non_blocking=True)
+        mesh = self.mesh
+        if getattr(mesh, 'spatial', None) is not None and \
+                not mesh.splits(x.shape[2]) and not self._warned_whole:
+            self._warned_whole = True
+            warnings.warn(
+                f"spatial mesh {mesh.describe()}: images {x.shape[2]} rows "
+                f"high do not split into {mesh.spatial.size} bands of an "
+                f"even number of rows; the step keeps H whole on every rank "
+                f"(correct, but not split)", stacklevel=3)
         return place(x), place(y)
 
     def batch(self, x, y, train=False):
@@ -282,8 +304,12 @@ class Trainer:
             how = 'captured' if self._cuda_graph and on_card else 'eager'
             if on_card and not self.mesh.capturable:
                 how += f' (a {self.mesh.backend} group cannot be captured)'
-            self._say(f"Data parallel: {self.mesh.size} ranks "
-                      f"({self.mesh.backend}), the step {how}")
+            if getattr(self.mesh, 'spatial', None) is not None:
+                self._say(f"Spatial parallel: {self.mesh.describe()} "
+                          f"({self.mesh.backend}), the step {how}")
+            else:
+                self._say(f"Data parallel: {self.mesh.size} ranks "
+                          f"({self.mesh.backend}), the step {how}")
             self.mesh.check_replicated(
                 list(self.generator.parameters())
                 + list(self.discriminator.parameters()), 'weights')
@@ -380,7 +406,8 @@ class Trainer:
             self._resume_skip_delegated = False
         pbar = tqdm.tqdm(data, desc=desc, dynamic_ncols=True,
                          disable=not self.is_main)
-        ranks = 1 if self.mesh is None else self.mesh.size
+        # the data ranks' rows make up the global batch
+        ranks = 1 if self.mesh is None else self.mesh.data.size
         sums = defaultdict(float)
         count = n_images = 0
         pending = None   # (keys, stacked losses) of the previous step

@@ -7,7 +7,9 @@ and boundary F1 are per (sample, class), averaged over the pairs that
 are present (a non-empty union, a non-empty size sum, a non-empty
 boundary in either mask), each a 0-d fp32 tensor on the inputs' device.
 ``iou(..., mesh=)`` takes the mean over the global batch's present pairs
-under data parallelism: the ranks' sums and counts are summed first.
+under data parallelism: the ranks' sums and counts are summed first; over
+a ``parallel.spatial.SpatialMesh`` each (sample, class) sum is summed over
+the band's spatial axis before that.
 """
 
 import torch
@@ -39,6 +41,9 @@ def iou(y_true, y_pred, threshold=0.5, eps=1e-7, mesh=None):
     hard = _harden(y_pred, threshold)
     inter = (hard * y_true).sum(dim=(2, 3))
     union = hard.sum(dim=(2, 3)) + y_true.sum(dim=(2, 3)) - inter
+    if getattr(mesh, 'spatial', None) is not None:
+        inter, union = mesh.spatial.stat(torch.stack([inter, union]))
+        mesh = mesh.data
     return _present_mean(inter / (union + eps), union > 0, mesh)
 
 

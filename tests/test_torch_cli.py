@@ -6,8 +6,8 @@ checkpoints the JAX package reads, and resumes; it fine-tunes from
 torch ``.pth`` checkpoints with the encoder frozen and accumulated
 gradients; on a COCO folder it trains with the RAM cache, from tar
 shards, with process workers, a profile and rolling checkpoints;
-``spatial_parallelism``, not ported, raises. ``-d cuda`` / ``-d auto``
-without a GPU raise."""
+``spatial_parallelism`` that does not divide the world size raises.
+``-d cuda`` / ``-d auto`` without a GPU raise."""
 
 import os
 import shutil
@@ -239,7 +239,11 @@ def test_train_cli_without_gpu_raises(train_dir, device, monkeypatch):
     ({'train_params.spatial_parallelism': 2}, []),
 ], ids=['spatial'])
 def test_train_cli_deferred_keys_raise(train_dir, extra, args):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    """One process is a world of 1, which spatial_parallelism 2 does not
+    divide: ValueError naming both, before any group forms (the JAX CLI's
+    rule for its devices, ``patchgan_tpu/cli/train.py:112-115``)."""
+    with pytest.raises(ValueError,
+                       match='spatial_parallelism 2 .*world size 1'):
         patchgan_train(['-c', _train_config(train_dir, **extra), '-n',
                         '1'] + TRAIN_ARGS + args)
 
