@@ -239,8 +239,24 @@ Run from the root of the repository. In order:
    engine's on >= 99.9% of pixels; K1 / K2 / K3 1 / 6 / 5 launches a
    device a chunk, and K4 1 under ``PATCHGAN_S2D=on``; the host ms to
    issue one device's share of a 32-tile chunk against that share's
-   device ms. Then spatial mode on a 2-device mesh (the warning naming
-   item 11d, the mask equal to the one-card spatial mask); masks/s of
+   device ms. Then spatial mode split by rows over each mesh
+   (``parallel.spatial.BandThreads``, the band kernels): the fp32 band
+   forward of phase 11's 640x480 image (padded 640x512) against the
+   one-card fp32 forward, max |dprob| <= 1e-3, and its masks; the bf16
+   1280x960 mask against the one-card spatial mask, every differing
+   pixel's fp32 top-2 margin within twice the two bf16 forwards' errors
+   (agreement and bit-equality printed), no warning, each device's
+   launches
+   ``band_forward_plan``'s (1024 rows over 2 or 4: ``in_stats`` 1,
+   ``in_apply`` 12, ``conv_band`` 6, ``convt_band`` 5, no whole-plane
+   kernel); the card listed three times (1024 rows do not split into 3)
+   warns and equals the one-card mask bit for bit; where there are two or
+   more cards, masks/s of spatial mode on the 1280x960 image and on a
+   4096x4096 survey tile at 1, 2 and min(cards, 4) cards, three windows
+   of at least 2 s each in turns, each card's peak memory, each device's
+   host ms to issue its band forward against its device ms, and
+   ``patchgan_infer -d cuda`` in spatial mode over every card (masks
+   equal to the engine's over every card on >= 99.9%). Then masks/s of
    the 1280x960 image one at a time and in groups of 4 at 1, 2 and 4
    cards (on one card: 1 card and the card twice), with the widest
    mesh's groups also pending on the home card's copy, three windows of
@@ -295,9 +311,10 @@ Run from the root of the repository. In order:
 
 It prints a JSON summary of the kernels (launches from the s2d training
 run, which drives all six; every path's counts beside them, the
-spatial, serve, pipeline, data-parallel, mesh, tp and spatial-training
-paths' too; K1-K3's totals at the spatial shapes; then the six band entry
-points, launches from 17b's rank 0), the card's name and power limit, and as its last line ``{"ok":
+spatial, serve, pipeline, data-parallel, mesh, spatial-mesh (a device's
+launches an image), tp and spatial-training paths' too; K1-K3's totals at
+the spatial shapes; then the six band entry points, launches from 17b's
+rank 0, beside a device's in phase 15's spatial mode), the card's name and power limit, and as its last line ``{"ok":
 true, "device": {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
 """
@@ -361,6 +378,9 @@ EVAL_TIMED = 384   # images of the folder the eval loop is timed on
 # the 1280x960 image of the inference phases as spatial mode runs it:
 # (H, W) zero-padded to multiples of 128
 SPATIAL_HW, SPATIAL_PAD = (960, 1280), (1024, 1280)
+# phase 15b's survey tile for spatial mode over cards: every level of
+# the UNet splits over 2 and 4 cards
+SPATIAL_BIG = (4096, 4096)
 # launches of K1, K2, K3, K1-bwd, K4, K4-wgrad per spatial-mode image:
 # one whole-image forward in the plain form
 SPATIAL_IMAGE = [1, 6, 5, 0, 0, 0]
@@ -2047,36 +2067,73 @@ def spatial_phase(torch, np, F, kernels, model, card):
     return main_launches, out
 
 
+def sleep_cycles_per_ms(torch):
+    """Clock cycles of ``torch.cuda._sleep`` a millisecond on the card,
+    timed by events."""
+    cycles = 20_000_000
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
 def fetch_check(torch, eng, small, big):
     """A mask's ``.result()`` waits for its own image only: image A (one
-    small tiled image) is dispatched, then four 1280x960 tiled images
-    (B), and A's result must come back while B's work is still running
-    on the card. Events recorded after A's and after B's dispatch show
-    it."""
+    small tiled image) is dispatched, then a wait on the card longer than
+    twice B's host dispatch (timed in the warm-up) plus 50 ms, then four
+    1280x960 tiled images (B), dispatched from a thread of their own
+    while A's result is asked for: B's launches fill the card's queue
+    behind the wait, so B's dispatch can last as long as the wait, and
+    the result must come back while the wait still runs (a result that
+    waited for the stream would wait for it). Events recorded after A,
+    after the wait and after B show it."""
     for im in (small, big):      # warm the memory pools for both shapes
         eng.predict_image(im)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = eng.predict_images_async([big] * 4)
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    for h in warm:
+        h.result()
+    wait_ms = 2 * dispatch_ms + 50
+    cycles = int(wait_ms * sleep_cycles_per_ms(torch))
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     ev_a = torch.cuda.Event(enable_timing=True)
+    ev_w = torch.cuda.Event(enable_timing=True)
     ev_b = torch.cuda.Event(enable_timing=True)
     start.record()
     a = eng.predict_image_async(small)
     ev_a.record()
-    bs = eng.predict_images_async([big] * 4)
-    ev_b.record()
+    torch.cuda._sleep(cycles)
+    ev_w.record()
+    bs = []
+    b_dispatch = threading.Thread(
+        target=lambda: bs.extend(eng.predict_images_async([big] * 4)))
+    b_dispatch.start()
     t0 = time.perf_counter()
     a.result()
     host_ms = (time.perf_counter() - t0) * 1e3
-    a_done, b_done = ev_a.query(), ev_b.query()
+    a_done, w_done = ev_a.query(), ev_w.query()
+    b_dispatch.join()
+    ev_b.record()
     for h in bs:
         h.result()
     ev_b.synchronize()
-    print(f'  per-image copy: A.result() returned after {host_ms:.3f} ms '
-          f'with A\'s event done {a_done} and B\'s done {b_done}; on the '
-          f'card A ended at {start.elapsed_time(ev_a):.3f} ms, B at '
+    print(f'  per-image copy: a {wait_ms:.1f}-ms wait queued on the card '
+          f'between A and B (B\'s host dispatch {dispatch_ms:.3f} ms in the '
+          f'warm-up); A.result() returned after {host_ms:.3f} ms with A\'s '
+          f'event done {a_done} and the wait\'s done {w_done}; on the card A '
+          f'ended at {start.elapsed_time(ev_a):.3f} ms, the wait at '
+          f'{start.elapsed_time(ev_w):.3f} ms, B at '
           f'{start.elapsed_time(ev_b):.3f} ms', flush=True)
-    if b_done:
-        raise AssertionError('A\'s result waited for B\'s forward')
+    if w_done or len(bs) != 4:
+        raise AssertionError('A\'s result waited for the work queued after '
+                             'it (the wait, then B\'s forward)')
 
 
 def write_serve_inputs(tmp, np, model):
@@ -4036,12 +4093,377 @@ def mesh_cli_phase(torch, np, wrappers, model, plain_masks, watch_masks,
                       'infer_wall_s': wall, 'serve_agreement': agree}
 
 
+def band_forward_plan(h, sp):
+    """A device's launches of each wrapper (``kernel_wrappers`` and
+    ``band_wrappers``, by name) in the engine's spatial forward of an
+    image ``h`` padded rows high over ``sp`` devices: ``band_plan``'s
+    forward, no backward."""
+    plan = band_plan(h, sp)
+    del plan['gather_level']
+    plan.update(in_bwd_sums=0, in_bwd_apply=0, instance_norm_act_backward=0)
+    return plan
+
+
+def band_probs(torch, engine, x):
+    """The fp32 probabilities of the padded NCHW CPU image ``x`` from
+    ``engine``'s replicas over its mesh split by rows (its
+    ``BandThreads``; the engine's spatial forward without its
+    postprocess), on the CPU."""
+    rows = x.shape[2] // engine.n_devices
+
+    def band(m):
+        r = m.spatial.rank
+        with torch.inference_mode():
+            xb = x[:, :, r * rows:(r + 1) * rows].to(m.device)
+            return engine._models[r](xb, mesh=m).float()
+
+    return torch.cat([p.cpu() for p in engine.band_threads().run(
+        engine._devices, band)], dim=2)
+
+
+def spatial_mesh_check(torch, np, wrappers, model, refs, devices, card):
+    """Spatial mode split by rows over one mesh (``devices``): the fp32
+    band forward of phase 11's 640x480 image (padded 640x512) against the
+    one-card fp32 forward, max |dprob| <= 1e-3, its fp32 mask and the
+    1280x960 one against the one-card ones on >= MESH_AGREE of pixels; the
+    bf16 1280x960 mask (no warning, equal shape and dtype, each device's
+    launches ``band_forward_plan``'s) against the one-card bf16 mask,
+    where a bf16 forward's own rounding decides how far they may differ:
+    every pixel whose labels differ has an fp32 top-2 margin within twice
+    the two bf16 forwards' errors against the fp32 forward, and the split
+    mask agrees with the fp32 mask no worse than the one-card one, less
+    0.05 points. (Two bf16 forwards that differ only in their sums' order
+    differ near ties: phase 3's s2d and plain masks agree on 99.75-99.79%
+    of pixels.) Where ``refs`` holds the bf16 mask of the card listed as
+    often ('twice'), the mask agrees with it on >= MESH_AGREE. Returns
+    (the bf16 engine, a device's launches by wrapper name, the
+    summary)."""
+    import warnings
+
+    from patchgan_tpu_torch.inference import InferenceEngine
+    from patchgan_tpu_torch.parallel import default_mesh
+    mesh = default_mesh(devices)
+    k = len(mesh)
+    with s2d_env('off'):
+        eng32 = InferenceEngine(model, dtype=torch.float32, mesh=mesh)
+    d32 = (band_probs(torch, eng32, refs['x32']) -
+           refs['p32']).abs().max().item()
+    agree32 = [float(np.mean(eng32.predict_image(im, mode='spatial') == m))
+               for im, m in ((refs['img32'], refs['mask32']),
+                             (refs['big'], refs['big_mask32']))]
+    del eng32
+    with s2d_env('off'):
+        eng = InferenceEngine(model, dtype=torch.bfloat16, mesh=mesh)
+    names = [w.__name__ for w in wrappers]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        mask, launches = counted(wrappers, lambda: eng.predict_image(
+            refs['big'], mode='spatial'))
+    hh, ww = SPATIAL_HW
+    err16 = (band_probs(torch, eng, refs['x_big'])[0, :, :hh, :ww] -
+             refs['p_big32']).abs().max().item()
+    want = refs['big_mask']
+    differ = mask != want
+    agree = float(1 - differ.mean())
+    equal = bool(not differ.any())
+    margin = float(refs['margin32'][differ].max()) if differ.any() else 0.0
+    margin_tol = 2 * (err16 + refs['err16_one'])
+    truth = float(np.mean(mask == refs['big_mask32']))
+    plan = band_forward_plan(SPATIAL_PAD[0], k)
+    per_device = {n: c / k for n, c in zip(names, launches)}
+    twin = refs.get(('twice', k))
+    twin_agree = None if twin is None else float(np.mean(mask == twin))
+    print(f'  spatial mode split by rows over {mesh.describe()}: fp32 '
+          f'640x480 (padded 640x512, {512 // k} rows a device) band forward '
+          f'vs one card max |dprob| {d32:.3e} (tol 1e-3); fp32 mask '
+          f'agreement 640x480 / {hh}x{ww} {agree32} (>= {MESH_AGREE}); bf16 '
+          f'{ww}x{hh} mask {mask.shape} {mask.dtype}: agreement with the '
+          f'one-card bf16 mask {agree:.6f}, bit-equal {equal}; the bf16 '
+          f'band forward vs fp32 max |dprob| {err16:.3e} (one card '
+          f'{refs["err16_one"]:.3e}); largest fp32 top-2 margin where the '
+          f'labels differ {margin:.3e} (<= {margin_tol:.3e}); agreement '
+          f'with the fp32 mask {truth:.5f} (one card '
+          f'{refs["truth_one"]:.5f}); agreement with the card listed '
+          f'{k} times {twin_agree}; warnings {len(caught)}; a device\'s '
+          f'launches {per_device} (plan {plan})', flush=True)
+    if not d32 <= 1e-3 or min(agree32) < MESH_AGREE or \
+            mask.shape != want.shape or mask.dtype != want.dtype or \
+            caught or margin > margin_tol or \
+            truth < refs['truth_one'] - 5e-4 or \
+            (twin_agree is not None and twin_agree < MESH_AGREE) or \
+            launches != [k * plan[n] for n in names]:
+        raise AssertionError(f'spatial over {mesh}: {d32}, {agree32}, '
+                             f'{mask.shape} {mask.dtype}, '
+                             f'{[str(w.message) for w in caught]}, margin '
+                             f'{margin} > {margin_tol}, fp32 agreement '
+                             f'{truth} (one card {refs["truth_one"]}), '
+                             f'twin {twin_agree}, launches {launches} (plan '
+                             f'{plan} x {k})')
+    return eng, mask, per_device, {
+        'mesh': mesh.describe(), 'fp32_max_abs_dprob': d32,
+        'fp32_mask_agreement': agree32, 'bf16_mask_agreement': agree,
+        'bf16_mask_bit_equal': equal, 'bf16_max_abs_dprob_vs_fp32': err16,
+        'max_margin_where_labels_differ': margin,
+        'bf16_agreement_with_fp32_mask': truth,
+        'agreement_with_card_listed_k_times': twin_agree,
+        'device_launches': per_device}
+
+
+def spatial_fallback_check(torch, np, model, refs):
+    """A mesh of the first card listed three times: the padded 1024 rows
+    do not split into 3 even bands, so spatial mode warns and runs on the
+    home card, its mask bit-equal to the one-card mask."""
+    import warnings
+
+    from patchgan_tpu_torch.inference import InferenceEngine
+    from patchgan_tpu_torch.parallel import default_mesh
+    with s2d_env('off'):
+        eng = InferenceEngine(model, dtype=torch.bfloat16,
+                              mesh=default_mesh(['cuda:0'] * 3))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        mask = eng.predict_image(refs['big'], mode='spatial')
+    warned = any('does not split' in str(w.message) for w in caught)
+    equal = bool(np.array_equal(mask, refs['big_mask']))
+    print(f'  spatial mode on cuda:0 x3 ({SPATIAL_PAD[0]} rows do not split '
+          f'into 3 even bands): warned {warned}, mask bit-equal to one card '
+          f'{equal}', flush=True)
+    if not warned or not equal:
+        raise AssertionError(f'spatial fallback on 3 devices: warned '
+                             f'{warned}, bit-equal {equal}')
+    return {'warned': warned, 'bit_equal': equal}
+
+
+def band_pace(torch, engine, image, card, runs=13):
+    """Host ms for each device's thread (the engine's ``BandThreads``) to
+    issue its band forward of ``image`` (bf16, its band already on its
+    card; the waits for the other threads' turns included) against that
+    forward's ms on its card (events around it),
+    medians of the last ``runs - 3`` runs: whether the host or the cards
+    set the pace."""
+    k = engine.n_devices
+    ph, pw = (-(-n // 128) * 128 for n in image.shape[:2])
+    x = torch.rand(1, IN_C, ph, pw, generator=torch.Generator()
+                   .manual_seed(5))
+    rows = ph // k
+    bands = [x[:, :, r * rows:(r + 1) * rows].to(d)
+             for r, d in enumerate(engine._devices)]
+
+    def issue(m):
+        r = m.spatial.rank
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            start.record()
+            engine._models[r](bands[r], mesh=m)
+            end.record()
+            return (time.perf_counter() - t0) * 1e3, start, end
+
+    host = [[] for _ in range(k)]
+    dev = [[] for _ in range(k)]
+    for _ in range(runs):
+        for d in set(engine._devices):
+            torch.cuda.synchronize(d)
+        for r, (ms, start, end) in enumerate(engine.band_threads().run(
+                engine._devices, issue)):
+            end.synchronize()
+            host[r].append(ms)
+            dev[r].append(start.elapsed_time(end))
+    rows_out = [{'device': str(d), 'rows': rows,
+                 'host_issue_ms': statistics.median(host[r][3:]),
+                 'device_ms': statistics.median(dev[r][3:])}
+                for r, d in enumerate(engine._devices)]
+    issue_ms = max(r['host_issue_ms'] for r in rows_out)
+    slowest = max(r['device_ms'] for r in rows_out)
+    bound = 'host' if issue_ms >= slowest else 'cards'
+    print(f'  band pace, {k} devices, {pw}x{ph} padded: host issue ms a '
+          f'device {[round(r["host_issue_ms"], 3) for r in rows_out]}, '
+          f'device ms {[round(r["device_ms"], 3) for r in rows_out]}: the '
+          f'{bound} set the pace on {card}', flush=True)
+    return {'bands': rows_out, 'host_issue_ms_max': issue_ms,
+            'slowest_device_ms': slowest, 'bound_by': bound}
+
+
+def spatial_peaks(torch, engine, image):
+    """Each distinct card's peak bytes in one spatial call of ``engine``
+    on ``image``, and above what it held before the call."""
+    devices = sorted(set(engine._devices), key=str)
+    before = {}
+    for d in devices:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+        before[d] = torch.cuda.memory_allocated(d)
+    engine.predict_image(image, mode='spatial')
+    out = {}
+    for d in devices:
+        torch.cuda.synchronize(d)
+        peak = torch.cuda.max_memory_allocated(d)
+        out[str(d)] = {'peak_bytes': peak, 'own_peak_bytes':
+                       peak - before[d]}
+    return out
+
+
+def spatial_cli_check(torch, np, refs):
+    """``python -m patchgan_tpu_torch.cli.infer -d cuda`` with
+    ``infer_params.mode: spatial`` over every card: the header names the
+    mesh, each mask equals the engine's spatial mask over every card in
+    this process on >= MESH_AGREE of pixels (its agreement with one
+    card's is printed: bf16 rounding, ``spatial_mesh_check``)."""
+    import yaml
+
+    from patchgan_tpu_torch.parallel import default_mesh
+    from patchgan_tpu_torch.parallel.spatial import even_bands
+    mesh = default_mesh()
+    path = os.environ.get('PYTHONPATH')
+    env = dict(os.environ, PYTHONPATH=ROOT + (os.pathsep + path if path
+                                              else ''), PATCHGAN_S2D='off')
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, sizes, _ = write_inputs(tmp, torch, np)
+        with open(cfg) as f:
+            conf = yaml.safe_load(f)
+        conf['infer_params']['mode'] = 'spatial'
+        with open(cfg, 'w') as f:
+            yaml.safe_dump(conf, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'patchgan_tpu_torch.cli.infer', '-c', cfg,
+             '-d', 'cuda'], cwd=tmp, env=env, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        header = f'Running on {mesh.describe()}'
+        # every image's padded height splits over 2 and 4 cards
+        split = all(even_bands(-(-hh // 128) * 128, len(mesh))
+                    for hh, _ in sizes)
+        fell_back = 'does not split' in proc.stderr
+        if proc.returncode != 0 or header not in proc.stdout or \
+                fell_back == split:
+            print(proc.stdout[-2000:], proc.stderr[-3000:])
+            raise AssertionError(f'patchgan_infer -d cuda, mode spatial, '
+                                 f'exited {proc.returncode}, header printed '
+                                 f'{header in proc.stdout}, fell back '
+                                 f'{fell_back} (split {split})')
+        masks = [np.load(os.path.join(tmp, 'masks', f'{i:03d}.npy'))
+                 for i in range(len(sizes))]
+    agree = [float(np.mean(m == want))
+             for m, want in zip(masks, refs['masks_every'])]
+    agree_one = [float(np.mean(m == want))
+                 for m, want in zip(masks, refs['masks_one'])]
+    print(f'  python -m patchgan_tpu_torch.cli.infer -d cuda, mode spatial: '
+          f'"{header}", {wall:.2f} s; label agreement with the engine\'s '
+          f'spatial masks over every card {agree} (>= {MESH_AGREE}), with '
+          f'one card\'s {agree_one}', flush=True)
+    if any(a < MESH_AGREE for a in agree):
+        raise AssertionError(f'infer -d cuda spatial over {len(mesh)} cards: '
+                             f'{agree}')
+    return {'mesh': mesh.describe(), 'agreement': agree,
+            'agreement_one_card': agree_one, 'wall_s': wall,
+            'fell_back': fell_back}
+
+
+def spatial_mesh_phase(torch, np, wrappers, model, one, images, layouts,
+                       card):
+    """Phase 15's spatial mode split by rows: ``spatial_mesh_check`` on
+    every mesh of ``layouts`` (the card listed twice always) and the
+    3-device fallback; where there are two or more cards, masks/s of the
+    1280x960 image and of a SPATIAL_BIG one at 1, 2 and min(cards, 4)
+    cards in turns with each card's peak, the bands' pace, and
+    ``patchgan_infer -d cuda`` in spatial mode. ``one``: the one-card bf16
+    engine. Returns ({path: a device's launches by wrapper name}, the
+    summary)."""
+    from patchgan_tpu_torch.inference import InferenceEngine
+    from patchgan_tpu_torch.parallel import default_mesh
+
+    def padded(im, ph):
+        x = np.zeros((ph,) + im.shape[1:], np.float32)
+        x[:im.shape[0]] = im
+        return torch.from_numpy(x).permute(2, 0, 1)[None].contiguous()
+
+    img32 = np.random.default_rng(12).random((480, 640, IN_C),
+                                             dtype=np.float32)
+    big = images[0]
+    x32, x_big = padded(img32, 512), padded(big, SPATIAL_PAD[0])
+    hh, ww = SPATIAL_HW
+    with s2d_env('off'):
+        one32 = InferenceEngine(model, dtype=torch.float32)
+    with torch.inference_mode():
+        p32 = one32.model(x32.cuda()).float().cpu()
+        p_big32 = one32.model(x_big.cuda()).float()[0, :, :hh, :ww].cpu()
+        p_big16 = one.model(x_big.cuda()).float()[0, :, :hh, :ww].cpu()
+    top2 = p_big32.topk(2, dim=0).values
+    refs = {'x32': x32, 'p32': p32, 'img32': img32, 'x_big': x_big,
+            'p_big32': p_big32, 'margin32': (top2[0] - top2[1]).numpy(),
+            'err16_one': (p_big16 - p_big32).abs().max().item(),
+            'mask32': one32.predict_image(img32, mode='spatial'),
+            'big': big,
+            'big_mask32': one32.predict_image(big, mode='spatial'),
+            'big_mask': one.predict_image(big, mode='spatial')}
+    refs['truth_one'] = float(np.mean(refs['big_mask'] ==
+                                      refs['big_mask32']))
+    del one32
+    paths, out, engines = {}, {}, {'1 card': one}
+    for label, devices in layouts.items():
+        k = len(devices)
+        if label != 'cuda:0 x2' and ('twice', k) not in refs:
+            # the same bands on the first card: a mesh of real cards must
+            # agree with its mask
+            _, refs[('twice', k)], _, _ = spatial_mesh_check(
+                torch, np, wrappers, model, refs, ['cuda:0'] * k, card)
+        engines[label], mask, per_device, out[label] = spatial_mesh_check(
+            torch, np, wrappers, model, refs, devices, card)
+        if label == 'cuda:0 x2':
+            refs[('twice', 2)] = mask
+        tag = label.replace(' ', '_').replace(':', '')
+        paths[f'spatial_mesh_{tag}_device'] = per_device
+    out['fallback'] = spatial_fallback_check(torch, np, model, refs)
+    if len(layouts) == 1:
+        print(f'  15b spatial timing not run: this machine has '
+              f'{torch.cuda.device_count()} card', flush=True)
+        return paths, out
+    del engines['cuda:0 x2']
+    survey = (np.random.default_rng(13).random(SPATIAL_BIG + (IN_C,)) *
+              255).astype(np.uint8)
+    sizes = {f'{SPATIAL_HW[1]}x{SPATIAL_HW[0]}': big,
+             f'{SPATIAL_BIG[1]}x{SPATIAL_BIG[0]}': survey}
+    out['peaks'], out['pace'] = {}, {}
+    fns = {}
+    for label, eng in engines.items():
+        for size, im in sizes.items():
+            out['peaks'][f'{label} {size}'] = spatial_peaks(torch, eng, im)
+            if label != '1 card':
+                out['pace'][f'{label} {size}'] = band_pace(torch, eng, im,
+                                                           card)
+
+            def call(e=eng, im=im):
+                e.predict_image(im, mode='spatial')
+                return 1
+            fns[f'{label} {size}'] = call
+    print(f'  peak bytes a card: {out["peaks"]}', flush=True)
+    readings = mesh_rates(fns, 'spatial bf16')
+    out['masks_per_s'] = {}
+    for name, r in readings.items():
+        med = statistics.median(r)
+        out['masks_per_s'][name] = {'median': med, 'windows': r}
+        print(f'  spatial bf16 {name}: median {med:.3f} masks/s (min '
+              f'{min(r):.3f}, max {max(r):.3f}) over {MESH_WINDOWS} windows '
+              f'of >= {WINDOW_S} s on {card}', flush=True)
+    del engines, fns
+    with s2d_env('off'):
+        every = InferenceEngine(model, dtype=torch.bfloat16,
+                                mesh=default_mesh())
+    refs['masks_every'] = [every.predict_image(im, mode='spatial')
+                           for im in images]
+    refs['masks_one'] = [one.predict_image(im, mode='spatial')
+                         for im in images]
+    del every
+    out['cli'] = spatial_cli_check(torch, np, refs)
+    return paths, out
+
+
 def mesh_phase(torch, np, F, kernels, model, plain_masks, watch_masks,
                card):
     """Phase 15: the engine over the cards of one process (see the
     module's docstring). Returns (launches by path, the summary)."""
-    import warnings
-
     from patchgan_tpu_torch.inference import InferenceEngine
     wrappers = [k.wrapper for k in kernels]
     names = [k.name for k in kernels]
@@ -4074,20 +4496,10 @@ def mesh_phase(torch, np, F, kernels, model, plain_masks, watch_masks,
                       for run, n in launches.items()})
 
     big = images[0]
-    spatial_label = '2 cards' if '2 cards' in layouts else 'cuda:0 x2'
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter('always')
-        got = engines[spatial_label].predict_image(big, mode='spatial')
-    warned = any('item 11d' in str(w.message) for w in caught)
-    want = one.predict_image(big, mode='spatial')
-    agree = float(np.mean(got == want))
-    print(f'  spatial mode on {spatial_label}: warned naming item 11d '
-          f'{warned}; agreement with the one-card spatial mask {agree} '
-          f'(bit-equal {bool(np.array_equal(got, want))})', flush=True)
-    if not warned or agree < MESH_AGREE:
-        raise AssertionError(f'spatial on a mesh: warned {warned}, {agree}')
-    out['spatial'] = {'mesh': spatial_label, 'warned': warned,
-                      'agreement': agree}
+    paths_sp, out['spatial'] = spatial_mesh_phase(
+        torch, np, wrappers + band_wrappers(), model, one, images, layouts,
+        card)
+    paths.update(paths_sp)
 
     timed = {'1 card': one}
     timed.update({label: eng for label, eng in engines.items()
@@ -5567,7 +5979,9 @@ def main(only=None):
             'replaces': replaces, 'form': 'band (spatial parallelism)',
             'launches': sp_launches[name],
             'launches_by_path': {'spatial_train_gloo_rank_0':
-                                 sp_launches[name]},
+                                 sp_launches[name],
+                                 **{p: c[name] for p, c in paths.items()
+                                    if name in c}},
             # in_stats and in_bwd_sums write sums only: their sums' error
             'max_abs_err': bands[name]['max_abs_err'] or
             bands[name]['max_sum_abs_err'],

@@ -33,9 +33,19 @@ Spatial mode (``predict_image(mode='spatial')``, JAX ``engine.py:299-334,
 596-656``): the whole image, zero-padded bottom and right to multiples of
 128, goes through one plain-form forward (whatever ``PATCHGAN_S2D``
 says), with the same threshold / argmax on the device; instance-norm
-statistics are then the whole image's. On a mesh of several devices it
-runs on the home device and warns: the forward sharded by rows is
-ROADMAP item 11d.
+statistics are then the whole image's. Over a mesh of k devices whose
+padded height splits into k bands of an even number of rows (JAX's
+``ph % k == 0`` at any padded height), band r's rows go from pinned host
+memory to device r and the generator's band forward
+(``UNet.forward(..., mesh=)`` on the engine's
+``parallel.spatial.BandThreads``: one host thread a device, kept for the
+engine's life, halo rows and instance-norm sums copied between the
+devices) runs on every device at once; each device thresholds, argmaxes
+or bit-packs its band, and only those compact rows are copied to the
+home device, stitched, and fetched as below. A lock holds one such
+forward at a time, so concurrent callers do not mix their exchanges.
+Where the height does not split, the whole image runs on the home device
+and the engine warns once, as JAX's does.
 
 Either way the mask comes back as uint8 labels (int64 above 256
 classes), or bit-packed rows for a binary mask, in one device-to-host
@@ -55,7 +65,7 @@ import copy
 import json
 import math
 import os
-
+import threading
 import warnings
 
 import numpy as np
@@ -64,6 +74,7 @@ import torch
 from ..models.unet import UNet
 from ..ops.s2d import depth_to_space, s2d_enabled, space_to_depth
 from ..parallel.mesh import DeviceMesh
+from ..parallel.spatial import BandThreads, even_bands
 from .tiling import crop_positions
 
 
@@ -257,13 +268,16 @@ class InferenceEngine:
         self.threshold = threshold
         self.batch_size = _round_up(batch_size, self.n_devices)
         self._spatial_warned = False
+        self._spatial_lock = threading.Lock()
+        self._band_threads = None
 
-    def _upload(self, arr):
-        """Host array -> home device tensor, uint8 normalised to [0, 1] on
-        the device."""
+    def _upload(self, arr, device=None):
+        """Host array -> tensor on ``device`` (default home), uint8
+        normalised to [0, 1] on the device."""
+        device = device or self.device
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == 'cuda':
-            t = t.pin_memory().to(self.device, non_blocking=True)
+        if device.type == 'cuda':
+            t = t.pin_memory().to(device, non_blocking=True)
         if t.dtype == torch.uint8:
             t = t.to(torch.float32) / 255.0
         return t
@@ -308,24 +322,30 @@ class InferenceEngine:
         event.record(torch.cuda.current_stream(dev.device))
         return _PendingMask(host, h, w, cast, packed, event)
 
-    def _postprocess(self, probs, h, w):
-        """(C, H, W) fp32 map on the device -> handle of its (h, w) mask:
-        threshold, then argmax to uint8 labels (int64 above 256 classes);
-        a binary mask bit-packed when its width is a multiple of 8; host
-        dtypes as ``build_mask``'s."""
+    def _compact(self, probs):
+        """(C, H, W) fp32 map on the device -> (its compact mask on the
+        device, the host dtype to restore, bit-packed): threshold, then
+        argmax to uint8 labels (int64 above 256 classes); a binary mask
+        bit-packed when its width is a multiple of 8; host dtypes as
+        ``build_mask``'s. Row r of the mask is row r of the map."""
         if self.threshold > 0:
             probs = (probs >= self.threshold).to(torch.float32)
         out_c = probs.shape[0]
         if out_c > 1:
             lab = probs.argmax(dim=0)
-            return self._fetch(lab.to(torch.uint8) if out_c <= 256 else lab,
-                               h, w, np.int64)
+            return (lab.to(torch.uint8) if out_c <= 256 else lab, np.int64,
+                    False)
         if self.threshold > 0:
             if probs.shape[-1] % 8 == 0:
-                return self._fetch(_pack_bits(probs[0]), h, w, np.float32,
-                                   packed=True)
-            return self._fetch(probs[0].to(torch.uint8), h, w, np.float32)
-        return self._fetch(probs[0], h, w)
+                return _pack_bits(probs[0]), np.float32, True
+            return probs[0].to(torch.uint8), np.float32, False
+        return probs[0], None, False
+
+    def _postprocess(self, probs, h, w):
+        """(C, H, W) fp32 map on the device -> handle of its (h, w)
+        mask (``_compact``)."""
+        mask, cast, packed = self._compact(probs)
+        return self._fetch(mask, h, w, cast, packed)
 
     @torch.inference_mode()
     def predict_tiles(self, crops):
@@ -391,24 +411,61 @@ class InferenceEngine:
     def predict_image_spatial(self, image):
         """(H, W, C) image -> (H, W) mask from one whole-image forward in
         the plain form: zero-padded bottom and right to multiples of 128,
-        threshold / argmax on the device, one copy back, cropped. On the
-        home device, also over a mesh (it warns: item 11d)."""
-        if self.n_devices > 1 and not self._spatial_warned:
-            self._spatial_warned = True
-            warnings.warn(
-                f'spatial inference on a {self.n_devices}-device mesh runs '
-                f'the whole-image forward on its first device, '
-                f'{self.device}, alone: the forward sharded by rows is '
-                f'not ported yet (ROADMAP.md, queue 1 item 11d)',
-                stacklevel=3)
+        threshold / argmax on the device, one copy back, cropped. Over a
+        mesh split by rows (the module's docstring) where the padded
+        height splits; else on the home device (over a mesh it warns
+        once)."""
         image = _as_input(image)
         h, w = image.shape[:2]
         ph, pw = _round_up(h, 128), _round_up(w, 128)
         padded = np.zeros((ph, pw, image.shape[2]), image.dtype)
         padded[:h, :w] = image
+        k = self.n_devices
+        if k > 1 and even_bands(ph, k):
+            with self._spatial_lock:
+                handle = self._spatial_bands(padded, h, w)
+            return handle.result()
+        if k > 1 and not self._spatial_warned:
+            self._spatial_warned = True
+            warnings.warn(
+                f'spatial inference: padded height {ph} does not split '
+                f'into {k} bands of an even number of rows over the '
+                f'{k}-device mesh; falling back to a SINGLE-device '
+                f'whole-image forward on {self.device}', stacklevel=3)
         x = self._upload(padded).permute(2, 0, 1)[None].contiguous()
         probs = self.model(x).float()[0]
         return self._postprocess(probs, h, w).result()
+
+    def band_threads(self):
+        """The engine's ``BandThreads``, one a mesh device, made at its
+        first spatial forward split by rows."""
+        if self._band_threads is None:
+            self._band_threads = BandThreads(self.n_devices)
+        return self._band_threads
+
+    def _spatial_bands(self, padded, h, w):
+        """Handle of the (h, w) mask of the padded HWC image, its rows
+        split over the mesh: band r uploaded to device r, every band's
+        forward and compact mask on its device at once, the compact rows
+        copied into one mask on home."""
+        k = self.n_devices
+        rows = padded.shape[0] // k
+
+        def band(mesh):
+            r = mesh.spatial.rank
+            with torch.inference_mode():
+                x = self._upload(padded[r * rows:(r + 1) * rows],
+                                 mesh.device).permute(2, 0, 1)[None]
+                probs = self._models[r](x.contiguous(), mesh=mesh)
+                return self._compact(probs.float()[0])
+
+        bands = self.band_threads().run(self._devices, band)
+        first, cast, packed = bands[0]
+        mask = torch.empty((padded.shape[0],) + tuple(first.shape[1:]),
+                           dtype=first.dtype, device=self.device)
+        for part, (out, _, _) in zip(mask.chunk(k), bands):
+            part.copy_(out, non_blocking=True)
+        return self._fetch(mask, h, w, cast, packed)
 
     def predict_image(self, image, mode='tiled'):
         """(H, W, C) image of any size -> (H, W) mask. mode='tiled': the

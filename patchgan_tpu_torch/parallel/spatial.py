@@ -42,7 +42,37 @@ of a spatial group, as data parallelism over the data axis: correct, but
 not split (the Trainer warns). Which levels of a model run on bands is
 the model's rule (``models/unet.py``'s ``gather_level``,
 ``models/disc.py``'s ``disc_splits``).
+
+The inference engine splits one image's rows over the devices of one
+process (``inference/engine.py``'s spatial mode; JAX places the image
+with ``P(None, 'data')`` on its mesh). There ``BandThreads.run`` runs one
+host thread a device, each through the same band forward on its own band,
+and a ``LocalSpatialAxis`` stands for the process group. The threads take
+turns, in rank order around a ring: only the thread that holds the turn
+runs, so they never contend for the interpreter (threads that issue
+kernels at once pass it back and forth at every call, which made a band
+forward several times slower than one thread's on the card). An exchange
+deposits the rank's tensor, with an event recorded behind the work that
+made it, in a slot, and passes the turn on; when the turn comes back
+every rank has deposited, and the rank takes the parts: a part on
+another device is copied on a side stream of that device that waits for
+the part's event alone, and the rank's stream waits for the copy. No
+rank waits on the host for another's work, and no device waits for work
+its peer queued after the part (the ranks are a step apart around the
+ring), so the devices run their bands at once. The slots alternate
+between two sets, since rank 0 deposits its next part before the last
+rank has taken this one. ``all_reduce`` deposits a copy of its tensor,
+which it then overwrites in place, and adds the parts in rank order on
+every device, so every device holds the same bits. A device listed twice
+(one card standing for two) has two threads on one stream, and a part on
+the same device is the deposited tensor itself.
 """
+
+import contextlib
+import functools
+import queue
+import threading
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -199,6 +229,220 @@ class SpatialAxis(_GroupMesh):
         return self.band(total)
 
 
+def even_bands(h, n):
+    """Whether ``h`` rows split into ``n`` bands of an even number of
+    rows (else a spatial mesh keeps H whole)."""
+    return h % (2 * n) == 0
+
+
+class _Meeting:
+    """Where the threads of one ``BandThreads.run`` take turns: a gate a
+    rank (a thread runs only while it holds the turn, ``take``; ``round``
+    passes it to the next rank and waits until it comes back), two sets of
+    slots a rank, and a broken flag that a failing rank sets (``abort``)
+    and a wait of more than ``timeout`` seconds sets too."""
+
+    def __init__(self, size, timeout):
+        self.size, self.timeout = size, timeout
+        self.slots = ([None] * size, [None] * size)
+        self._gates = [threading.Semaphore(0) for _ in range(size)]
+        self.broken = False
+
+    def take(self, rank):
+        """Wait for the turn; raise ``threading.BrokenBarrierError`` when
+        the meeting is broken."""
+        if not self._gates[rank].acquire(timeout=self.timeout):
+            self.abort()
+        if self.broken:
+            raise threading.BrokenBarrierError
+
+    def pass_turn(self, rank):
+        self._gates[(rank + 1) % self.size].release()
+
+    def round(self, rank):
+        """Pass the turn on and wait for it: every other rank has run up
+        to its next ``round`` meanwhile."""
+        self.pass_turn(rank)
+        self.take(rank)
+
+    def abort(self):
+        self.broken = True
+        for gate in self._gates:
+            gate.release()
+
+
+class LocalSpatialAxis(SpatialAxis):
+    """The spatial axis over the devices of one process: rank ``rank`` of
+    ``size`` is the thread that drives ``devices[rank]``, and the
+    collectives are copies between devices through ``meeting`` (the
+    module's docstring). Everything else is ``SpatialAxis``'s."""
+
+    backend = 'threads'
+    group = graph_group = None
+
+    def __init__(self, rank, devices, meeting):
+        self.rank, self.size = rank, len(devices)
+        self.device = devices[rank]
+        self._meeting = meeting
+        self._exchanges = 0
+        self._sides = {}
+
+    def _exchange(self, t):
+        """Every rank's ``t``, in rank order, on this rank's device."""
+        meeting, n = self._meeting, self._exchanges
+        slots = meeting.slots[n % 2]
+        self._exchanges += 1
+        made = None
+        if t.is_cuda:
+            made = torch.cuda.Event()
+            made.record(torch.cuda.current_stream(t.device))
+        slots[self.rank] = n, t, made
+        meeting.round(self.rank)
+        for r, slot in enumerate(slots):
+            if slot is None or slot[0] != n:
+                raise RuntimeError(f'rank {r} of the {self.size}-device '
+                                   f'spatial axis did not reach exchange '
+                                   f'{n}: it ended or ran other exchanges')
+        return [self._take(part, made) for _, part, made in slots]
+
+    def _take(self, part, made):
+        """``part`` on this rank's device: itself on the same device, else
+        a copy queued on a side stream of its device that waits for the
+        event recorded behind the work that made it (not for what its
+        owner queued since), and that this rank's stream waits for."""
+        if part.device == self.device:
+            return part
+        if made is None:                    # a host part
+            return part.to(self.device)
+        side = self._sides.get(part.device)
+        if side is None:
+            side = self._sides[part.device] = torch.cuda.Stream(part.device)
+        side.wait_event(made)
+        with torch.cuda.stream(side):
+            out = part.to(self.device, non_blocking=True)
+        part.record_stream(side)
+        return out
+
+    def _all_gather(self, t, group):
+        return self._exchange(t)
+
+    def _all_reduce(self, t, group):
+        t.copy_(functools.reduce(torch.add, self._exchange(t.clone())))
+
+    all_gather, all_reduce = _all_gather, _all_reduce
+
+
+class LocalSpatialMesh:
+    """What ``UNet.forward(..., mesh=)`` takes on one rank of a
+    ``LocalSpatialAxis``: the spatial axis alone, no data or model
+    axis."""
+
+    data = model = None
+
+    def __init__(self, spatial):
+        self.spatial = spatial
+        self.device = spatial.device
+
+
+# seconds a rank waits for its turn before the axis breaks: a rank that
+# hangs, not one that fails (that one breaks the meeting at once)
+BAND_TIMEOUT_S = 300
+
+
+def _serve(jobs):
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        job()
+        del job     # the last job must not keep its caller alive
+
+
+def _stop(queues, threads):
+    """End the threads of a ``BandThreads`` (when it is collected, and at
+    exit, before the interpreter drops its daemon threads)."""
+    for jobs in queues:
+        jobs.put(None)
+    for t in threads:
+        if t is not threading.current_thread():
+            t.join()
+
+
+class BandThreads:
+    """``size`` host threads that live as long as this object, thread r
+    running rank r of every ``run``: what PyTorch keeps a thread (cuDNN's
+    handles and execution plans) then outlives a call, where new threads
+    would rebuild every cuDNN plan of the band forward at every call. One
+    call at a time (a lock); ``idle`` says whether no thread is running
+    one."""
+
+    def __init__(self, size):
+        self.size = size
+        self._lock = threading.Lock()
+        self._queues = [queue.SimpleQueue() for _ in range(size)]
+        self._running = [False] * size
+        threads = [threading.Thread(target=_serve, args=(jobs,), daemon=True,
+                                    name=f'spatial-band-{r}')
+                   for r, jobs in enumerate(self._queues)]
+        for t in threads:
+            t.start()
+        weakref.finalize(self, _stop, self._queues, threads)
+
+    @property
+    def idle(self):
+        return not any(self._running)
+
+    def run(self, devices, fn, timeout=BAND_TIMEOUT_S):
+        """``fn(mesh)`` on every device of ``devices`` (one a thread), rank
+        r on thread r with ``devices[r]`` current, ``mesh`` rank r's
+        ``LocalSpatialMesh``, the ranks taking turns (the module's
+        docstring); the results in rank order. A rank that raises breaks
+        the meeting, so no other waits for it; once every rank has ended
+        the first rank's own error is raised here (or, when every rank
+        only saw the meeting break, the first of those)."""
+        devices = [torch.device(d) for d in devices]
+        if len(devices) != self.size:
+            raise ValueError(f'{self.size} band threads for '
+                             f'{len(devices)} devices')
+        meeting = _Meeting(self.size, timeout)
+        results, errors = [None] * self.size, [None] * self.size
+        done = threading.Semaphore(0)
+
+        def rank(r):
+            self._running[r] = True
+            device = devices[r]
+            try:
+                if r:
+                    meeting.take(r)
+                with (torch.cuda.device(device) if device.type == 'cuda'
+                      else contextlib.nullcontext()):
+                    results[r] = fn(LocalSpatialMesh(LocalSpatialAxis(
+                        r, devices, meeting)))
+            except BaseException as e:
+                errors[r] = e
+                meeting.abort()
+            finally:
+                meeting.pass_turn(r)
+                self._running[r] = False
+                done.release()
+
+        with self._lock:
+            for r, jobs in enumerate(self._queues):
+                jobs.put(functools.partial(rank, r))
+            for _ in range(self.size):
+                done.acquire()
+        own = [e for e in errors if e is not None and
+               not isinstance(e, threading.BrokenBarrierError)]
+        if own:
+            raise own[0]
+        broken = [e for e in errors if e is not None]
+        if broken:
+            raise RuntimeError(f'a rank of the {self.size}-device spatial '
+                               f'axis did not reach an exchange within '
+                               f'{timeout} s') from broken[0]
+        return results
+
+
 class SpatialMesh:
     """The 2-D (data, spatial) mesh over the default process group: the
     counterpart of JAX's ``spatial_mesh``. ``data`` is the ``DataMesh`` over
@@ -244,7 +488,7 @@ class SpatialMesh:
     def splits(self, h):
         """Whether a batch of height ``h`` splits into bands of an even
         number of rows (else the step keeps H whole)."""
-        return h % (2 * self.spatial.size) == 0
+        return even_bands(h, self.spatial.size)
 
     def local_rows(self, batch):
         """This rank's rows of a global batch (its data rank's), whole in
@@ -306,5 +550,7 @@ def replicate_spatial(tensors, mesh):
     return tensors
 
 
-__all__ = ['SPATIAL_AXIS', 'SpatialAxis', 'SpatialMesh', 'rank_grid',
-           'replicate_spatial', 'shard_batch_spatial', 'spatial_mesh']
+__all__ = ['SPATIAL_AXIS', 'BandThreads', 'LocalSpatialAxis', 'LocalSpatialMesh',
+           'SpatialAxis', 'SpatialMesh', 'even_bands', 'rank_grid',
+           'replicate_spatial', 'shard_batch_spatial',
+           'spatial_mesh']

@@ -4,8 +4,11 @@ engine (``predict_tiles`` and float masks within rtol 1e-5 / atol 1e-6,
 label and bit-packed masks on >= 99.9% of pixels with equal dtypes, a
 ``predict_images`` group equal to single calls) and against the JAX
 engine over a mesh of as many JAX CPU devices (masks on >= 99.9% of
-pixels); spatial mode on a mesh warns (item 11d) and equals the
-one-device mask; a one-device mesh is ``mesh=None`` bit for bit;
+pixels); spatial mode on a mesh runs split by rows, without a warning,
+and equals the one-device mask, and where the padded height does not
+split it warns and runs on the home device (``tests/
+test_torch_spatial_engine.py`` holds the split mode to its limits); a
+one-device mesh is ``mesh=None`` bit for bit;
 ``default_mesh()`` covers the visible cards."""
 
 import warnings
@@ -124,14 +127,27 @@ def test_matches_jax_mesh_engine(k):
 
 
 def test_spatial_on_a_mesh_warns_and_runs_on_home():
+    """On 2 devices the 300 x 200 image (padded 384 rows) runs split by
+    rows, without a warning, its labels equal to one device's on >= 99.9%
+    of pixels; on 3 devices the 150 x 260 image (padded 256 rows, which do
+    not split into 3 even bands) warns, once an engine, and runs on the
+    home device, bit-equal to one device."""
     one, mesh = _engines(2, 'argmax')
     im = _images()[0]
-    with pytest.warns(UserWarning, match='item 11d'):
+    with warnings.catch_warnings():
+        warnings.simplefilter('error')
         got = mesh.predict_image(im, mode='spatial')
+    want = one.predict_image(im, mode='spatial')
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert np.mean(got == want) >= 0.999
+    _, mesh3 = _engines(3, 'argmax')
+    im = _images()[2]
+    with pytest.warns(UserWarning, match='does not split'):
+        got = mesh3.predict_image(im, mode='spatial')
     np.testing.assert_array_equal(got, one.predict_image(im, mode='spatial'))
     with warnings.catch_warnings():
         warnings.simplefilter('error')      # once an engine
-        mesh.predict_image(im, mode='spatial')
+        mesh3.predict_image(im, mode='spatial')
 
 
 def test_one_device_mesh_is_mesh_none():
@@ -188,7 +204,8 @@ def test_tiled_forwards_take_one_k_split(monkeypatch):
     a mesh) runs the UNet at the fused kernels' K split of SPLIT_BATCH
     tiles, so a tile's bits do not depend on its bucket or share (the
     kernels decide this on the card; the plain CPU path has no split);
-    the whole-image forward keeps its own."""
+    the whole-image forward keeps its own, split by rows on a mesh: one
+    call a device, each on its band."""
     from patchgan_tpu_torch.inference.engine import SPLIT_BATCH
     seen = []
     forward = UNet.forward
@@ -207,7 +224,11 @@ def test_tiled_forwards_take_one_k_split(monkeypatch):
         bucket = _pick_bucket(tiles, eng.batch_size, eng.n_devices)
         assert seen == [(bucket // eng.n_devices, SPLIT_BATCH)] * (
             -(-tiles // bucket) * eng.n_devices)
-    with pytest.warns(UserWarning):
+    seen.clear()
+    one.predict_image(im, mode='spatial')
+    assert seen == [(1, None)]
+    with warnings.catch_warnings():
+        warnings.simplefilter('error')
         seen.clear()
         mesh.predict_image(im, mode='spatial')
-    assert seen == [(1, None)]
+    assert seen == [(1, None)] * mesh.n_devices
