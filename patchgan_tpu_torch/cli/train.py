@@ -55,9 +55,6 @@ image's rows over ``sp`` ranks and the batch over world size / ``sp``
 (``parallel/spatial.py``); ``sp`` must divide the world size (one process
 is a world of 1), and ``-b`` the data ranks. The epoch lines say
 "Spatial parallel: dp x sp ranks".
-
-Not ported yet, and refused with NotImplementedError naming ROADMAP.md:
-the Trainer's orbax ``checkpoint_format`` (item 12).
 """
 
 import argparse

@@ -2,8 +2,10 @@
 
 Port of ``patchgan_tpu/data/native.py``. ``data/_native/imgio.cpp`` (the
 port's own copy) is compiled with g++ against the system libjpeg and
-libpng at first use into ``patchgan_tpu_torch/_build/``, under a name
-that carries a hash of the source and flags, so an edit rebuilds. The
+libpng at first use into the build directory
+(``utils.compilation_cache.build_dir()``: ``patchgan_tpu_torch/_build/``
+unless ``PATCHGAN_COMPILATION_CACHE`` names another), under a name that
+carries a hash of the source and flags, so an edit rebuilds. The
 entry points are those of the JAX module: ``native_available``,
 ``decode_jpeg_rgb[_u8]`` and ``decode_png_gray[_u8]``, each with its PIL
 path, taken when the library cannot be built (no compiler, no libjpeg
@@ -21,10 +23,10 @@ import threading
 
 import numpy as np
 
+from ..utils.compilation_cache import build_dir
+
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), '_native',
                     'imgio.cpp')
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), '_build')
 _FLAGS = ('-O3', '-fPIC', '-shared')
 _LIBS = ('-ljpeg', '-lpng')
 
@@ -37,14 +39,13 @@ def _library_path():
     h = hashlib.sha256(' '.join(_FLAGS + _LIBS).encode())
     with open(_SRC, 'rb') as f:
         h.update(f.read())
-    return os.path.join(_BUILD_DIR, f'libpatchgan_imgio-{h.hexdigest()[:16]}'
+    return os.path.join(build_dir(), f'libpatchgan_imgio-{h.hexdigest()[:16]}'
                                     '.so')
 
 
 def _build(out):
     """g++ into a file of this process, then an atomic rename: threads
     and worker processes building at once never load half a file."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f'{out}.{os.getpid()}.{threading.get_ident()}.tmp'
     proc = subprocess.run(['g++', *_FLAGS, '-o', tmp, _SRC, *_LIBS],
                           capture_output=True, text=True)

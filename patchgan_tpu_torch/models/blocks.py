@@ -50,10 +50,24 @@ conv over the haloed band. The dropout mask is drawn for the global shape
 (every data rank's rows, every band's) and the rank keeps its own. A
 block called without ``band`` on such a mesh holds its level whole
 (``models/unet.py``'s ``gather_level``).
+
+``remat=True`` (JAX ``blocks.py:47, 85-91, 120, 166-170``) runs the
+block's core (the conv or transposed conv, the norm and the activation:
+K1, K2, K3 or K4 and what goes with them) under
+``torch.utils.checkpoint``, which keeps its inputs and recomputes the
+core in the backward; only while autograd records, so a forward under
+``no_grad`` or ``inference_mode`` is the same. The dropout stays outside,
+so the core draws no random numbers and the checkpoint keeps no RNG
+state (a CUDA generator read during a graph capture would fail). A
+model axis's ``enter`` and ``gather`` stay outside too: at the
+un-normed levels, whose gather comes between the conv and the
+activation, the checkpoint wraps the conv alone. The band form takes no
+``remat`` (the UNet refuses it).
 """
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import apply_activation
 from ..ops.conv import conv2d, conv_transpose2d
@@ -104,6 +118,15 @@ def dropout(x, generator, mesh=None, band=False):
     return torch.where(keep, x / (1.0 - DROPOUT_RATE), 0.0).to(x.dtype)
 
 
+def run_core(core, remat, *args):
+    """``core(*args)``; under a checkpoint (recomputed in the backward)
+    when ``remat`` and autograd records."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(core, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return core(*args)
+
+
 def sharded_axis(mesh, conv):
     """``mesh``'s model axis when ``conv`` (a Conv2d or ConvTranspose2d)
     holds a shard of its output channels, else None."""
@@ -118,10 +141,11 @@ class DownBlock(nn.Module):
     """Strided conv -> instance norm -> activation -> optional dropout."""
 
     def __init__(self, in_channels, features, activation, level,
-                 use_dropout=False, use_norm=True):
+                 use_dropout=False, use_norm=True, remat=False):
         super().__init__()
         self.activation = activation
         self.use_norm = use_norm
+        self.remat = remat
         self.name = f'DownConv{level}'
         self.model = nn.ModuleDict({self.name: nn.Conv2d(
             in_channels, features, KERNEL_SIZE, 2, 1, bias=False)})
@@ -144,21 +168,25 @@ class DownBlock(nn.Module):
         if model is not None:
             x = model.enter(x)
         w = self.weight.to(x.dtype)
-        if s2d_in:
-            x = conv2d_s2d(x, w)
-            x = instance_norm(x, NORM_EPS, self.activation) \
-                if self.use_norm else apply_activation(x, self.activation)
-        elif self.use_norm and x.shape[1] >= FUSED_CONV_MIN_CIN:
-            x = conv_norm_act(x, w, NORM_EPS, self.activation, split_batch)
-        elif self.use_norm:
-            x = instance_norm(conv2d(x, w), NORM_EPS, self.activation)
-        else:
-            x = apply_activation(conv2d(x, w), self.activation)
+        x = run_core(self._core, self.remat, x, w, s2d_in, split_batch)
         if model is not None:
             x = model.gather(x)
         if self.use_dropout and self.training:
             x = dropout(x, generator, mesh)
         return x
+
+    def _core(self, x, w, s2d_in, split_batch):
+        """conv -> norm -> activation."""
+        if s2d_in:
+            x = conv2d_s2d(x, w)
+            return instance_norm(x, NORM_EPS, self.activation) \
+                if self.use_norm else apply_activation(x, self.activation)
+        if self.use_norm and x.shape[1] >= FUSED_CONV_MIN_CIN:
+            return conv_norm_act(x, w, NORM_EPS, self.activation,
+                                 split_batch)
+        if self.use_norm:
+            return instance_norm(conv2d(x, w), NORM_EPS, self.activation)
+        return apply_activation(conv2d(x, w), self.activation)
 
     def _band_forward(self, x, generator, mesh, split_batch):
         axis = mesh.spatial
@@ -188,11 +216,13 @@ class UpBlock(nn.Module):
     at |logit| ~ 9)."""
 
     def __init__(self, in_channels, features, activation, level,
-                 use_norm=True, use_dropout=False, fp32_act=False):
+                 use_norm=True, use_dropout=False, fp32_act=False,
+                 remat=False):
         super().__init__()
         self.activation = activation
         self.use_norm = use_norm
         self.fp32_act = fp32_act
+        self.remat = remat
         self.name = f'UpConv{level}'
         self.model = nn.ModuleDict({self.name: nn.ConvTranspose2d(
             in_channels, features, KERNEL_SIZE, 2, 1, bias=False)})
@@ -212,35 +242,47 @@ class UpBlock(nn.Module):
         if band:
             return self._band_forward(x, skip, w, generator, mesh,
                                       split_batch)
+        if s2d_out and self.use_norm:
+            raise ValueError("s2d_out is an output-head option "
+                             "(use_norm=False)")
         model = sharded_axis(mesh, self.model[self.name])
         if model is not None:
             x = model.enter(x)
             skip = model.enter(skip) if skip is not None else None
-        if s2d_out:
-            if self.use_norm:
-                raise ValueError("s2d_out is an output-head option "
-                                 "(use_norm=False)")
-            out = conv_transpose2d_s2d(x, w, x2=skip)
-            if model is not None:
-                # the s2d channels are (dy, dx, class): four blocks
-                out = model.gather(out, blocks=4)
-            x = apply_activation_s2d(out.float() if self.fp32_act else out,
-                                     self.activation)
-        elif self.use_norm:
-            x = convt_norm_act(x, w, NORM_EPS, self.activation, skip,
-                               split_batch)
+        if model is not None and not self.use_norm:
+            # the activation (the head's softmax) needs every channel:
+            # the gather comes between the conv and the activation; the
+            # s2d channels are (dy, dx, class), four blocks
+            out = run_core(self._conv, self.remat, x, w, skip, s2d_out)
+            x = self._act(model.gather(out, blocks=4 if s2d_out else 1),
+                          s2d_out)
+        else:
+            x = run_core(self._core, self.remat, x, w, skip, s2d_out,
+                         split_batch)
             if model is not None:
                 x = model.gather(x)
-        else:
-            out = conv_transpose2d(x, w, x2=skip)
-            if model is not None:
-                out = model.gather(out)
-            if self.fp32_act:
-                out = out.float()
-            x = apply_activation(out, self.activation)
         if self.use_dropout and self.training:
             x = dropout(x, generator, mesh)
         return x
+
+    def _conv(self, x, w, skip, s2d_out):
+        conv = conv_transpose2d_s2d if s2d_out else conv_transpose2d
+        return conv(x, w, x2=skip)
+
+    def _act(self, out, s2d_out):
+        """The activation, per parity block of an s2d output; in fp32
+        for the output head."""
+        if self.fp32_act:
+            out = out.float()
+        act = apply_activation_s2d if s2d_out else apply_activation
+        return act(out, self.activation)
+
+    def _core(self, x, w, skip, s2d_out, split_batch):
+        """transposed conv -> norm -> activation."""
+        if self.use_norm:
+            return convt_norm_act(x, w, NORM_EPS, self.activation, skip,
+                                  split_batch)
+        return self._act(self._conv(x, w, skip, s2d_out), s2d_out)
 
     def _band_forward(self, x, skip, w, generator, mesh, split_batch):
         axis = mesh.spatial

@@ -33,6 +33,13 @@ space-to-depth boundary form, whose input is ``[N, 4 input_nc, H/2,
 W/2]`` and output ``[N, 4 output_nc, H/2, W/2]`` (channel order (dy, dx,
 c), ``ops/s2d.py``). Both forms use the same parameters and state_dict
 keys, so one module serves both.
+
+``remat`` (JAX ``unet.py:53-62, 85-107``): ``True`` recomputes every
+block's conv + norm + activation in the backward, a tuple of block names
+(``'enc0'``-``'enc6'``, ``'dec0'``-``'dec6'``) those blocks' only; a name
+that matches no block is ignored (``models/blocks.py``). On a spatial
+mesh's band path a training forward with ``remat`` raises
+NotImplementedError.
 """
 
 import torch
@@ -62,29 +69,39 @@ def unet_filters(nf):
 class UNet(nn.Module):
     def __init__(self, input_nc, output_nc, nf=64, use_dropout=False,
                  activation='tanh', final_act='softmax',
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, remat=False):
         super().__init__()
         self.input_nc, self.output_nc, self.nf = input_nc, output_nc, nf
         self.dtype = dtype
+        self.remat = remat
         self.dropout_generator = None
         filts = unet_filters(nf)
         self.encoder = nn.ModuleList(
             DownBlock(input_nc if i == 0 else filts[i - 1], f, activation,
-                      i, use_dropout=use_dropout)
+                      i, use_dropout=use_dropout,
+                      remat=self._remat(f'enc{i}'))
             for i, f in enumerate(filts))
         dec_filts = filts[:-1][::-1]  # [8nf, 8nf, 8nf, 4nf, 2nf, nf]
         decoder = [UpBlock(filts[-1], dec_filts[0], activation, 0,
-                           use_norm=False)]
+                           use_norm=False, remat=self._remat('dec0'))]
         for i in range(1, len(dec_filts)):
             # previous decoder level + encoder skip rev[i] = enc(6 - i)
             decoder.append(UpBlock(dec_filts[i - 1] + filts[N_LEVELS - 1 - i],
                                    dec_filts[i], activation, i,
-                                   use_dropout=use_dropout))
+                                   use_dropout=use_dropout,
+                                   remat=self._remat(f'dec{i}')))
+        last = len(dec_filts)
         decoder.append(UpBlock(dec_filts[-1] + filts[0], output_nc,
-                               final_act, len(dec_filts), use_norm=False,
-                               fp32_act=True))
+                               final_act, last, use_norm=False,
+                               fp32_act=True, remat=self._remat(f'dec{last}')))
         self.decoder = nn.ModuleList(decoder)
         self.reset_parameters(generator)
+
+    def _remat(self, name):
+        """Whether block ``name`` recomputes its core in the backward."""
+        if self.remat is True or self.remat is False:
+            return self.remat
+        return name in self.remat
 
     def reset_parameters(self, generator=None):
         """Xavier-uniform conv weights (the reference's weights_init)."""
@@ -139,6 +156,12 @@ class UNet(nn.Module):
     def _forward_bands(self, x, h, mesh, return_hidden, split_batch):
         """The forward over a spatial mesh (the module's docstring): x is
         this rank's band of rows of images ``h`` rows high."""
+        if torch.is_grad_enabled() and any(
+                b.remat for b in [*self.encoder, *self.decoder]):
+            raise NotImplementedError(
+                f"UNet(remat={self.remat!r}) on a spatial mesh's band path "
+                f"is not ported yet (ROADMAP.md, queue 1: remat on the "
+                f"band path)")
         axis = mesh.spatial
         level = gather_level(h, axis.size)
         gen = self.dropout_generator

@@ -2,9 +2,11 @@
 with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), under
-``patchgan_tpu_torch/_build/``. The file name carries a hash of the
-sources, shared headers and flags, so an edit rebuilds. ``build()``
+plain C interface (no PyTorch headers, so a build takes seconds), into
+the build directory (``utils.compilation_cache.build_dir()``:
+``patchgan_tpu_torch/_build/`` unless ``PATCHGAN_COMPILATION_CACHE`` names
+another). The file name carries a hash of the sources, shared headers and
+flags, so an edit rebuilds. ``build()``
 starts one nvcc per source at once and waits for all of them. Nothing is
 downloaded; a failed build raises with nvcc's output.
 """
@@ -17,10 +19,11 @@ import shutil
 import subprocess
 import threading
 
+from ...utils.compilation_cache import build_dir
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, 'csrc')
-BUILD_DIR = os.path.join(_PKG, '_build')
 
 KERNELS = ('norm_act', 'norm_act_bwd', 'conv_norm_act', 'convt_norm_act',
            'thin_conv')
@@ -51,13 +54,12 @@ def _library_path(name):
     for fname in [f'{name}.cu'] + headers:
         with open(os.path.join(CSRC, fname), 'rb') as f:
             h.update(fname.encode() + b'\0' + f.read())
-    return os.path.join(BUILD_DIR, f'{name}-{h.hexdigest()[:16]}.so')
+    return os.path.join(build_dir(), f'{name}-{h.hexdigest()[:16]}.so')
 
 
 def build(names=KERNELS):
     """Compile every kernel of ``names`` that has no current library,
     one nvcc process each, all started together."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
     for name in names:
         out = _library_path(name)

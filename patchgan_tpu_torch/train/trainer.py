@@ -24,8 +24,17 @@ it (epoch, batches done, the loader iteration the epoch consumes): the
 metadata is written last and never names the slot being written, so a
 kill at any point leaves a consistent pair. On resume the loader replays
 its order (``fast_forward``) and leaves out the trained batches
-(``skip_next``), so the run continues bit for bit. The file names are
-not the JAX Trainer's (``.msgpack``, ``step_state.json``): neither
+(``skip_next``), so the run continues bit for bit.
+``checkpoint_format = 'orbax'`` (JAX ``:82-83, 346-356, 471-473,
+555-562, 594-599, 677-683``) writes the same state through the async
+store of ``utils/orbax_ckpt.py`` (``torch.distributed.checkpoint``):
+``training_state_ep_###.dcp/`` per save, whose write goes on while the
+training does, and ``training_state_step_{a,b}.dcp/`` as the rolling
+slots, each waited for before the metadata names it; ``train()`` waits
+for the last save before it returns. ``load_last_checkpoint`` takes the
+last epoch's ``.dcp`` directory before its ``.pt`` file, whatever the
+format, and restores it in place. The file names are not the JAX
+Trainer's (``.msgpack``, ``.orbax``, ``step_state.json``): neither
 package reads the other's exact-resume files, and both resume each
 other's folders from the epoch npz files.
 
@@ -43,9 +52,7 @@ fp32 parameters; they compute in their own ``dtype``. Batches are NCHW
 tensors (or numpy arrays), moved to the models' device. Each batch runs
 the space-to-depth boundary form (``ops/s2d.py``) when ``PATCHGAN_S2D``
 selects it and its H and W are even (``:232-251``); the checkpoints are
-the same in both forms. ``checkpoint_format`` other than 'msgpack' (the
-JAX name of the default store; the port writes torch files) raises
-``NotImplementedError``.
+the same in both forms.
 
 Data parallelism (``mesh=``, a ``parallel.mesh.DataMesh``; JAX
 ``Trainer(mesh=...)``): every rank runs this Trainer on its rows of each
@@ -54,9 +61,11 @@ its steps are the data-parallel ones (``train/steps.py``), so the
 replicas stay equal. ``train()`` first checks that every rank holds rank
 0's weights (the same seed, the same loaded files). Only rank 0 writes
 the epoch files, the exact-resume state and its metadata, and every
-rank waits at a barrier after each write; every rank reads them on
-resume. The losses a step reports are the global batch's on every rank,
-so the plateau schedule reads the same validation means everywhere.
+rank waits at a barrier after each write (after rank 0's ``wait`` for
+the async store's rolling save and at the end of ``train()``); every
+rank reads them on resume, at any world size. The losses a step reports
+are the global batch's on every rank, so the plateau schedule reads the
+same validation means everywhere.
 Rank 0 alone prints the progress, profiles and reports to
 ``neptune_config``. Under gloo on the card the step runs eagerly (gloo
 cannot be captured); ``PATCHGAN_CUDA_GRAPH=on`` given explicitly then
@@ -85,6 +94,7 @@ import tqdm
 
 from ..ops.s2d import s2d_enabled
 from ..utils import checkpoint as ckpt
+from ..utils import orbax_ckpt
 from ..utils.profiling import maybe_trace
 from ..utils.transfer import load_transfer_data
 from .graph import CapturedStep, cuda_graph_enabled, graph_flag_given
@@ -109,8 +119,10 @@ class Trainer:
     #                        parameters, run[key].append(v) for metrics
     compute_iou = False
     profile_dir = None     # profiler trace of the first train epoch
-    save_optimizer_state = False   # training_state_ep_###.pt per save
-    checkpoint_format = 'msgpack'
+    save_optimizer_state = False   # training_state_ep_###.pt (or .dcp/)
+    #                                per save
+    checkpoint_format = 'msgpack'  # exact-resume store: 'msgpack' (torch
+    #                                files) | 'orbax' (async, utils/orbax_ckpt)
     save_every_steps = None  # rolling exact-resume state every N batches
     adam_mu_dtype = None   # torch.bfloat16 stores Adam's first moment
     freeze_generator = ()  # JAX path prefixes to freeze, e.g. ('enc',)
@@ -167,13 +179,6 @@ class Trainer:
         self.disc_opt = make_optimizer(self.discriminator.parameters(),
                                        dsc_lr, mu_dtype=self.adam_mu_dtype,
                                        every_k=every_k)
-
-    def _check_ported(self):
-        if self.checkpoint_format != 'msgpack':
-            raise NotImplementedError(
-                f"Trainer.checkpoint_format {self.checkpoint_format!r} is "
-                f"not ported yet (ROADMAP.md, queue 1 item 12); use "
-                f"'msgpack'")
 
     def _use_s2d(self, x):
         """The s2d form for an NCHW batch: ``PATCHGAN_S2D`` on, even H
@@ -248,7 +253,6 @@ class Trainer:
     def batch(self, x, y, train=False):
         '''One G+D step (train=True) or loss evaluation (train=False) on
         one NCHW batch; the reference's dict of Python floats.'''
-        self._check_ported()
         train_step, eval_step = self._steps()
         x, y = self._place_batch(x, y)
         losses = (train_step if train else eval_step)(x, y)
@@ -264,7 +268,6 @@ class Trainer:
         reference, unless ``load_last_checkpoint`` found exact-resume
         state, which also carries the LR schedules on from where they
         were; an accumulator carries across the call's epochs.'''
-        self._check_ported()
         if (lr_decay is not None) and not reduce_on_plateau:
             gen_lr = resume_fast_forward(gen_learning_rate, lr_decay,
                                          self.start, decay_freq)
@@ -355,6 +358,10 @@ class Trainer:
                 le = getattr(train_data, 'epoch', None)
                 self._save_step_state(
                     epoch + 1, 0, loader_epoch=None if le is None else le + 1)
+        if self.checkpoint_format == 'orbax':
+            if self.is_main:
+                orbax_ckpt.wait()   # commit the last async save
+            self._written()
         self.start = epochs + 1
         return G_loss_ep, D_loss_ep
 
@@ -459,7 +466,14 @@ class Trainer:
             ckpt.save_state_dict(gen_savefile, self.generator.state_dict())
             ckpt.save_state_dict(disc_savefile,
                                  self.discriminator.state_dict())
-            if self.save_optimizer_state:
+            if self.save_optimizer_state and \
+                    self.checkpoint_format == 'orbax':
+                # goes on while the training does; the next save, the
+                # end of train() and a restore wait for it
+                orbax_ckpt.save_async(
+                    orbax_ckpt.orbax_path(self.savefolder, epoch),
+                    self.training_state())
+            elif self.save_optimizer_state:
                 self._write_training_state(
                     f'{self.savefolder}training_state_ep_{epoch:03d}.pt')
         self._written()
@@ -487,9 +501,14 @@ class Trainer:
         os.replace(tmp, path)
 
     def _restore_training_state(self, path):
-        # on the CPU first: a generator's state is a CPU tensor, and the
-        # copies below move the rest to the models' device
-        state = torch.load(path, map_location='cpu', weights_only=True)
+        if path.endswith('.dcp'):
+            # loaded in place into the live tensors; the copies below
+            # then copy each onto itself
+            state = orbax_ckpt.restore(path, self.training_state())
+        else:
+            # on the CPU first: a generator's state is a CPU tensor, and
+            # the copies below move the rest to the models' device
+            state = torch.load(path, map_location='cpu', weights_only=True)
         self.generator.load_state_dict(state['generator'])
         self.discriminator.load_state_dict(state['discriminator'])
         self.gen_opt.load_state_dict(state['gen_opt'])
@@ -518,9 +537,16 @@ class Trainer:
         the right order). A kill at any point leaves the metadata naming
         a whole state file."""
         self._step_slot = 'b' if self._step_slot == 'a' else 'a'
-        name = f'training_state_step_{self._step_slot}.pt'
+        dcp = self.checkpoint_format == 'orbax'
+        name = f'training_state_step_{self._step_slot}.' + \
+            ('dcp' if dcp else 'pt')
         if self.is_main:
-            self._write_training_state(os.path.join(self.savefolder, name))
+            path = os.path.join(self.savefolder, name)
+            if dcp:
+                orbax_ckpt.save_async(path, self.training_state())
+                orbax_ckpt.wait()   # the metadata never precedes the state
+            else:
+                self._write_training_state(path)
             meta = os.path.join(self.savefolder, STEP_META)
             with open(f'{meta}.tmp', 'w') as f:
                 json.dump({'epoch': int(epoch),
@@ -547,7 +573,7 @@ class Trainer:
             self._resume_loader_epoch = meta.get('loader_epoch')
             # the next save writes the other slot, never the one the
             # metadata names
-            slot = re.search(r'_([ab])\.pt$', meta['state'])
+            slot = re.search(r'_([ab])\.(pt|dcp)$', meta['state'])
             if slot:
                 self._step_slot = slot.group(1)
             self._say(f"Found mid-epoch checkpoint: epoch {self.start}, "
@@ -573,20 +599,26 @@ class Trainer:
                   f"{os.path.basename(discriminator_save)}")
 
     def load_last_checkpoint(self):
-        '''Resume from the latest epoch files, with their
-        ``training_state_ep_###.pt`` when there is one; without any (or
-        with a broken pair) training starts afresh, as in the JAX
-        package. A rolling checkpoint further along supersedes them.'''
+        '''Resume from the latest epoch files, with their exact-resume
+        state when there is one (``training_state_ep_###.dcp/``, else
+        ``.pt``); without any (or with a broken pair) training starts
+        afresh, as in the JAX package. A rolling checkpoint further along
+        supersedes them.'''
+        orbax_ckpt.wait()   # a save of this process still in flight
         try:
             last, gen_path, disc_path = ckpt.find_last_checkpoint(
                 self.savefolder)
             self.load(gen_path, disc_path)
             self.start = last + 1
-            state_path = f'{self.savefolder}training_state_ep_{last:03d}.pt'
-            if os.path.exists(state_path):
-                # restored in train(), once the optimizers exist
-                self._pending_training_state = state_path
+            for state_path in (
+                    orbax_ckpt.orbax_path(self.savefolder, last),
+                    f'{self.savefolder}training_state_ep_{last:03d}.pt'):
+                if os.path.exists(state_path):
+                    # restored in train(), once the optimizers exist
+                    self._pending_training_state = state_path
+                    break
             for jax_file in (f'training_state_ep_{last:03d}.msgpack',
+                             f'training_state_ep_{last:03d}.orbax',
                              'step_state.json'):
                 if os.path.exists(os.path.join(self.savefolder, jax_file)):
                     self._say(f"note: {jax_file} is the JAX package's "

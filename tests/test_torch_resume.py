@@ -503,13 +503,6 @@ def test_maybe_trace_off_and_step_timer(tmp_path):
     assert timer.steps == 3 and timer.rate(per=2) > 0
 
 
-def test_unported_checkpoint_format_names_its_item(tmp_path):
-    trainer = make_trainer(tmp_path)
-    trainer.checkpoint_format = 'orbax'
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 12'):
-        trainer.train(synth_batches(83, 1), [], epochs=1)
-
-
 def _cli_inputs(tmp_path):
     """_raw_dataset's 8 pairs as a folder and as 2 tar shards: (images,
     masks, shard glob)."""

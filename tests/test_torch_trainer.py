@@ -1,8 +1,7 @@
 """Checkpoints carry across: the port's Trainer resumes from epoch files
 a JAX Trainer wrote, and the other way round, at the next epoch with the
 fast-forwarded learning rate (lr * decay ** ((start - 1) / decay_freq)),
-a frozen, accumulated fine-tune's files too. The orbax checkpoint
-format, not ported, raises."""
+a frozen, accumulated fine-tune's files too."""
 
 import os
 
@@ -99,15 +98,6 @@ def test_jax_resumes_port_checkpoint(tmp_path, jax_env, capsys):
     assert "Epoch 2 -- lr: 5.000e-04, 5.000e-04" in capsys.readouterr().out
     assert np.isfinite(g_hist).all()
     assert os.path.exists(tmp_path / 'generator_ep_002.npz')
-
-
-@pytest.mark.parametrize('name,value', [('checkpoint_format', 'orbax')])
-def test_unported_trainer_options_raise(tmp_path, name, value):
-    pt = _port_trainer(tmp_path)
-    setattr(pt, name, value)
-    _, port_data = _batches(52)
-    with pytest.raises(NotImplementedError, match=f'{name}.*ROADMAP'):
-        pt.train(port_data, [], epochs=1)
 
 
 def test_frozen_accumulated_fine_tune_resumes_across_packages(

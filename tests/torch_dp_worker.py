@@ -289,7 +289,8 @@ def trainer(mesh, folder):
     t = Trainer(gen, disc, folder, device='cpu', seed=3, mesh=mesh)
     t.save_every_steps = 1
     t.compute_iou = True
-    slicing = dict(process_index=mesh.rank, process_count=mesh.size,
+    rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    slicing = dict(process_index=rank, process_count=size,
                    batch_size=BATCH, num_workers=0, seed=0)
     return t, (DataLoader(ArrayDataset(2 * BATCH, 0), **slicing),
                DataLoader(ArrayDataset(BATCH + 4, 1), drop_last=False,
@@ -324,3 +325,79 @@ def trainer_runs(mesh, outdir):
     t.train(train, val, **TRAIN)
     out['writes'] = writes
     torch.save(out, os.path.join(outdir, f'trainer_{mesh.rank}.pt'))
+
+
+# the async exact-resume store (checkpoint_format 'orbax') under two ranks
+
+
+def dcp_trainer(mesh, folder):
+    """``trainer`` writing its exact-resume state through the async store
+    at every epoch and every batch."""
+    t, loaders = trainer(mesh, folder)
+    t.checkpoint_format, t.save_optimizer_state = 'orbax', True
+    return t, loaders
+
+
+def host_state(t):
+    """The Trainer's ``training_state()`` with every tensor copied to the
+    host."""
+    def copy(tree):
+        if torch.is_tensor(tree):
+            return tree.detach().cpu().clone()
+        if isinstance(tree, dict):
+            return {k: copy(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [copy(v) for v in tree]
+        return tree
+    return copy(t.training_state())
+
+
+def single_dcp_run(folder):
+    """One process: epoch 1 of ``dcp_trainer`` on the whole global
+    batches; its state after the epoch."""
+    t, (train, val) = dcp_trainer(None, folder)
+    t.train(train, val, **dict(TRAIN, epochs=1))
+    return host_state(t)
+
+
+def restored_state(mesh, folder):
+    """A fresh ``dcp_trainer`` that resumes ``folder`` and restores its
+    exact-resume state (a ``train()`` with no epoch left to run)."""
+    t, (train, val) = dcp_trainer(mesh, folder)
+    t.load_last_checkpoint()
+    t.train(train, val, **dict(TRAIN, epochs=t.start - 1))
+    return host_state(t)
+
+
+def dcp_trainer_runs(mesh, outdir):
+    """With the async store: an uninterrupted two-epoch run into
+    ``outdir/whole`` and one stopped at epoch 2's second batch and
+    resumed from its rolling state into ``outdir/cut``, counting each
+    rank's writes; then every rank restores ``outdir/single``, a
+    one-process run's epoch-1 state."""
+    from patchgan_tpu_torch.train import trainer as trainer_module
+    writes = []
+    save_npz = trainer_module.ckpt.save_state_dict
+    save_dcp = trainer_module.orbax_ckpt.save_async
+    trainer_module.ckpt.save_state_dict = \
+        lambda path, sd: (writes.append(path), save_npz(path, sd))
+    trainer_module.orbax_ckpt.save_async = \
+        lambda path, state: (writes.append(path), save_dcp(path, state))
+    out = {}
+    t, (train, val) = dcp_trainer(mesh, os.path.join(outdir, 'whole'))
+    out['history'] = t.train(train, val, **TRAIN)
+    out['state'] = host_state(t)
+    t, (train, val) = dcp_trainer(mesh, os.path.join(outdir, 'cut'))
+    try:
+        t.train(Interrupting(train, (2, 1)), val, **TRAIN)
+    except Interrupted:
+        pass
+    t, (train, val) = dcp_trainer(mesh, os.path.join(outdir, 'cut'))
+    t.load_last_checkpoint()
+    out['resumed_at'] = (t.start, t._resume_skip_batches)
+    out['resumed_from'] = os.path.basename(t._pending_training_state)
+    t.train(train, val, **TRAIN)
+    out['cut_state'] = host_state(t)
+    out['writes'] = writes
+    out['restored'] = restored_state(mesh, os.path.join(outdir, 'single'))
+    torch.save(out, os.path.join(outdir, f'dcp_{mesh.rank}.pt'))

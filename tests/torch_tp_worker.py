@@ -69,7 +69,8 @@ def build(case, mesh=None, weights=None):
     out_c = case.get('out_c', dpw.OUT_C)
     gen = UNet(3, out_c, nf=dpw.NF, use_dropout=case.get('dropout', True),
                final_act='softmax' if out_c > 1 else 'sigmoid',
-               generator=torch.Generator().manual_seed(1))
+               generator=torch.Generator().manual_seed(1),
+               remat=case.get('remat', False))
     disc = Discriminator(3 + out_c, ndf=dpw.NF,
                          n_layers=case.get('n_layers', 3),
                          generator=torch.Generator().manual_seed(2))
@@ -225,3 +226,16 @@ def aot_rank(rank, outdir, argv):
 
 def launch_aot(world, outdir, argv):
     dpw.launch(aot_rank, world, outdir, argv, main=_aot_main)
+
+
+# UNet(remat=...) on the grid: the sharded levels' cores recomputed in
+# the backward, the model group's gathers outside the checkpoint
+REMAT = (False, True, ('enc0', 'dec0', 'dec6'))
+
+
+def remat_cases(mesh, outdir, names):
+    """Each named case of ``CASES`` at each of ``REMAT`` on this rank;
+    results into ``outdir/remat_<rank>.pt``."""
+    out = {(name, remat): run_case(dict(CASES[name], remat=remat), mesh)
+           for name in names for remat in REMAT}
+    torch.save(out, os.path.join(outdir, f'remat_{mesh.rank}.pt'))
