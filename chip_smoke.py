@@ -59,7 +59,7 @@ Run from the root of the repository. In order:
    the CPU), max |dprob| <= 1e-3; the bf16 kernel path against it,
    reported;
 5. masks/s for the 1280x960 image, one image at a time, in windows of at
-   least 2 s, four per form, plain and s2d in turns (every reading and
+   least 1.5 s (``WINDOW_S``), three per form, plain and s2d in turns (every reading and
    the medians), and tiles/s of the forward at buckets 8 and 32 in both
    forms;
 6. K1-bwd (the instance norm + act backward) at the 12 shapes of one
@@ -126,12 +126,16 @@ Run from the root of the repository. In order:
    losses, every parameter, Adam moment, count and LR tensor,
    accumulator and the dropout generator's state equal; a Trainer's
    captured step restored with ``_restore_training_state`` and stepped
-   again equal to an eager Trainer's. Then training img/s of the bf16
-   step on a device-resident batch, in turns, four windows of at least 2
-   s each (every reading and the medians): the full step at batch 16 in
-   the plain and the s2d form, the fine-tune step (encoder frozen) in
-   both forms, the fine-tune step accumulating two micro-batches of 8,
-   and the plain, s2d and accumulating steps captured; host ms a step,
+   again equal to an eager Trainer's. Then phase 19's checks (below).
+   Then training img/s of the bf16 step on a device-resident batch, in
+   turns, three windows of at least 1.5 s each (every reading and the
+   medians): the full step at batch 16 in the plain and the s2d form,
+   the fine-tune step (encoder frozen) in both forms, the fine-tune step
+   accumulating two micro-batches of 8, the plain, s2d and accumulating
+   steps captured, and the plain step captured in channels_last with the
+   generator's shadow (phase 19: img/s against the NCHW step's, cuDNN's
+   layout transposes a replay against its 240; ``--layout-only`` times
+   it without the shadow too); host ms a step,
    peak device memory, and a profiler breakdown of three steps of each
    (the top kernels, then each of the port's kernels, the device busy
    share and the device kernels launched a step, fewer for a frozen step
@@ -142,9 +146,10 @@ Run from the root of the repository. In order:
    counts over the profiled steps, and its trace may then count fewer,
    never more (the tracer loses a run of records now and then; the run
    prints so); then ``python -m
-   patchgan_tpu_torch.cli.aot -d cuda`` at config 2 (batch 16): the JAX
-   CLI's keys, fits, its peak within 10% of the captured plain step's
-   own peak above; at batch 4096: does not fit, exit 0;
+   patchgan_tpu_torch.cli.aot --shadow -d cuda`` at config 2 (batch 16,
+   the Trainer's layout): the JAX CLI's keys, fits, its peak within 10%
+   of the captured step's own peak above in the same layout (channels_last
+   with the shadow); at batch 4096: does not fit, exit 0;
 11. spatial mode (one whole-image forward, the plain form): the fp32
    forward of a 640x480 image (padded to 640x512) through the kernels on
    the card against the same model on the CPU, max |dprob| <= 1e-3 and
@@ -155,7 +160,7 @@ Run from the root of the repository. In order:
    tolerances, timed with their library yardsticks and bounds; that a
    mask's ``.result()`` returns while a forward queued after it still
    runs; masks/s of spatial and tiled mode on the 1280x960 image (bf16),
-   four windows of at least 2 s each, in turns;
+   three windows of at least 1.5 s each, in turns;
 12. the serve path, ``patchgan_serve -d cuda`` (bf16) on the four
    inference images as files (1280x960 and 640x480 JPEG, 256x256 and
    200x150 PNG) and a corrupt .jpg: ``--watch --once`` (every mask's
@@ -166,7 +171,7 @@ Run from the root of the repository. In order:
    in process at ``--batch 0`` and ``--batch 4`` (/healthz 200, every
    image's PNG equal to the watch mask, bad bytes 400), then 8 clients
    in a process of their own posting the 1280x960 JPEG and then the
-   256x256 PNG, four windows of at least 2 s per server in turns
+   256x256 PNG, three windows of at least 1.5 s per server in turns
    (requests/s, p50 and p95 latency); the stitch's share of the
    1280x960 tiled pipeline (its wall time minus its forward chunks); and
    the SIGTERM drain of ``python -m patchgan_tpu_torch.cli.serve --http
@@ -182,7 +187,7 @@ Run from the root of the repository. In order:
    the RAM cache at epoch 2 and later (the decoder called no time), and
    TarShards thread x4, every reading and the medians; ``patchgan_train
    -d cuda`` at config 2 with the default loader and the fastest one,
-   and with the RAM cache four times, the step captured and
+   and with the RAM cache twice, the step captured and
    ``PATCHGAN_CUDA_GRAPH=off`` in turns, epoch 2's img/s beside phase
    10's captured step alone, launches per step the wrappers ran as in
    ``STEP['off']``, the Trainer's ``graph_counts`` (1, 1, 31) captured
@@ -253,14 +258,14 @@ Run from the root of the repository. In order:
    warns and equals the one-card mask bit for bit; where there are two or
    more cards, masks/s of spatial mode on the 1280x960 image and on a
    4096x4096 survey tile at 1, 2 and min(cards, 4) cards, three windows
-   of at least 2 s each in turns, each card's peak memory, each device's
+   of at least 1.5 s each in turns, each card's peak memory, each device's
    host ms to issue its band forward against its device ms, and
    ``patchgan_infer -d cuda`` in spatial mode over every card (masks
    equal to the engine's over every card on >= 99.9%). Then masks/s of
    the 1280x960 image one at a time and in groups of 4 at 1, 2 and 4
    cards (on one card: 1 card and the card twice), with the widest
    mesh's groups also pending on the home card's copy, three windows of
-   at least 2 s each in turns; ``python -m
+   at least 1.5 s each in turns; ``python -m
    patchgan_tpu_torch.cli.infer -d cuda`` over every card (its header
    names the mesh, masks equal to phase 3's on >= 99.9%) and
    ``patchgan_serve -d cuda --watch --once`` (masks equal to phase
@@ -306,7 +311,7 @@ Run from the root of the repository. In order:
    ``spatial_parallelism: 2`` under ``torch.distributed.run`` (NCCL,
    bf16, 1024 px, the captured step; one set of epoch files), then the
    captured step over 2 cards beside one card's, in turns, in windows of
-   at least 2 s: img/s and the peak memory a rank; on one card a line says why (c) did not run. ``python3
+   at least 1.5 s: img/s and the peak memory a rank; on one card a line says why (c) did not run. ``python3
    chip_smoke.py --spatial-only`` runs phase 17 alone.
 18. the async exact-resume store (``checkpoint_format = 'orbax'``,
    ``utils/orbax_ckpt.py``) and ``UNet(remat=...)``: (a) run inside
@@ -330,14 +335,37 @@ Run from the root of the repository. In order:
    phase 10 (held to ``REMAT_STEP`` at 256 px), the peak memory, and
    img/s in turns, two windows of at least 0.5 s each.
    ``python3 chip_smoke.py --phase-18`` runs phase 13's exact-resume
-   runs with 18a, then 18b.
+   runs with 18a, then 18b;
+19. channels_last (``train/auto_layout.py``), before phase 10's timing:
+   the NHWC forms of K1, K2, K3 and K1-bwd against their plain versions
+   at every shape of config 2's step (batch 16, 256 px), bf16 and fp32 at
+   phase 2's and phase 6's tolerances, each output channels_last and the
+   NHWC form launched, K3's NHWC pack exactly against
+   ``pack_convt_weight_nhwc_plain``, and check-only cases of their
+   element paths (K2 at Cin 16 and 48, K3 ragged and without a skip, K1
+   and K1-bwd at the edge cases and one element past 16 bytes); timed in
+   bf16 beside the NCHW form on the same values, the plain version, a
+   library call and the bound; the fp32 channels_last step (phase 7's
+   models and batch) within phase 7's limits of the CPU's and of the NCHW
+   card step's, every launch of K1-K3 and K1-bwd in its NHWC form and
+   every block's output channels_last; the captured channels_last step
+   with the generator's shadow bit-equal to the one without over 3 steps
+   (bf16, dropout on, deterministic cuDNN), its shadows equal to the cast
+   masters; the cuDNN layout transposes an eager channels_last step
+   still launches, each with the operator (and its input shapes) that
+   launches it. Phase 8's ``patchgan_train`` runs in the Trainer's
+   default layout, channels_last, and counts the NHWC forms' launches
+   (the kernels line's). ``python3 chip_smoke.py --layout-only`` runs
+   phase 7's plain parity, these checks, then phase 10's timing of the
+   NCHW and the two channels_last steps alone.
 
 It prints a JSON summary of the kernels (launches from the s2d training
 run, which drives all six; every path's counts beside them, the
 spatial, serve, pipeline, data-parallel, mesh, spatial-mesh (a device's
 launches an image), tp, spatial-training and remat paths' too; K1-K3's
 totals at the spatial shapes; then the six band entry points, launches from 17b's
-rank 0, beside a device's in phase 15's spatial mode), the card's name and power limit, and as its last line ``{"ok":
+rank 0, beside a device's in phase 15's spatial mode; then the four NHWC
+forms, launches from phase 8's channels_last training run), the card's name and power limit, and as its last line ``{"ok":
 true, "device": {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
 """
@@ -365,7 +393,7 @@ B = 8                  # tiles per bucket in the kernel phase
 NF, SIZE, IN_C, OUT_C = 64, 256, 3, 7
 ACTS = (None, 'tanh', 'relu', 'leakyrelu')
 TOL = {'float32': 1e-3, 'bfloat16': 3e-2}
-WINDOWS, WINDOW_S = 4, 2.0   # masks/s, img/s: timing windows, seconds each
+WINDOWS, WINDOW_S = 3, 1.5   # masks/s, img/s: timing windows, seconds each
 TRAIN_B, NDF = 16, 64        # training batch, discriminator width
 TOL_BWD = {'float32': 1e-3, 'bfloat16': 3e-2}   # times max(1, max |dx|)
 # fp32 operations per element of K1-bwd: statistics 3, the two sums 6,
@@ -380,6 +408,9 @@ BWD_FLOPS = 14
 # validation: K4 5 = enc0 1 + the fake pair in G's loss 2 + the merged
 # real and fake pair 2.
 STEP = {'off': [1, 6, 5, 12, 0, 0], 'on': [1, 6, 5, 12, 6, 4]}
+# the channels_last steps of phase 19 (plain form): the same launches, in
+# the NHWC forms
+STEP.update({'cl': STEP['off'], 'cl shadow': STEP['off']})
 EVAL = {'off': [1, 6, 5, 0, 0, 0], 'on': [1, 6, 5, 0, 5, 0]}
 # the same per fine-tune step with the encoder frozen ('enc',): the
 # encoder runs forward only, so K1-bwd runs at dec1-dec5 alone, K2 takes
@@ -396,6 +427,13 @@ PROFILE_NAMES = (('pgt::in_act_kernel<',),
                  ('pgt::conv_gemm_kernel<', 'pgt::ConvTProblem<'),
                  ('pgt::in_act_bwd_kernel<',), ('pgt::thin::thin_fwd<',),
                  ('pgt::thin::thin_wgrad<',))
+# the same for the NHWC forms in bf16 (csrc/norm_nhwc.cuh): K1's apply
+# (bf16 in and out; K2's and K3's finish reads fp32), K1-bwd's bwd_apply
+PROFILE_NAMES_NHWC = (('pgt::nhwc::apply<__nv_bfloat16, __nv_bfloat16',),
+                      ('pgt::conv_gemm_kernel<', 'pgt::ConvNhwcProblem<'),
+                      ('pgt::conv_gemm_kernel<', 'pgt::ConvTNhwcProblem<'),
+                      ('pgt::nhwc::bwd_apply<',),
+                      ('pgt::thin::thin_fwd<',), ('pgt::thin::thin_wgrad<',))
 # launches of K1, K2, K3, K1-bwd, K4, K4-wgrad per train step with
 # UNet(remat=...), by (remat, s2d form): the checkpointed blocks run
 # their core again in the backward (enc0's conv, K4 in the s2d form, and
@@ -541,7 +579,7 @@ class Kernel:
     def __init__(self, name, source, replaces, wrapper, plain):
         self.name, self.source, self.replaces = name, source, replaces
         self.wrapper, self.plain = wrapper, plain
-        self.rows, self.spatial_rows = [], []
+        self.rows, self.spatial_rows, self.nhwc_rows = [], [], []
 
 
 def make_cases(torch, F, kernels, n=B, h=SIZE, w=SIZE, tp=1):
@@ -980,10 +1018,12 @@ def step_grads(torch, g, d, x, y, s2d):
             [t.double().cpu() for t in g_grads + d_grads])
 
 
-def step_parity_phase(torch, np, wrappers, s2d):
+def step_parity_phase(torch, np, wrappers, s2d, refs=None):
     """One G+D loss and the generator's and discriminator's gradients in
     the form ``s2d`` ('on' or 'off') selects, kernel path on the card
-    against the plain path on the CPU, fp32, TF32 off, dropout off."""
+    against the plain path on the CPU, fp32, TF32 off, dropout off;
+    ``refs`` (a dict) keeps the models, the batch and both results for
+    phase 19's channels_last step."""
     from patchgan_tpu_torch.models import Discriminator, UNet
     init = torch.Generator().manual_seed(4)
     gen = UNet(IN_C, OUT_C, nf=NF, activation='relu', final_act='softmax',
@@ -1023,6 +1063,9 @@ def step_parity_phase(torch, np, wrappers, s2d):
     print(f'  gradients: worst max |dg| / max |g| generator {worst["G"]:.3e}'
           f', discriminator {worst["D"]:.3e} (tol 1e-3) over '
           f'{len(gpu_grads)} tensors', flush=True)
+    if refs is not None:
+        refs.update(models=(gen, disc, x, y), cpu=(cpu_losses, cpu_grads),
+                    card_nchw=(gpu_losses, gpu_grads))
     return worst
 
 
@@ -1120,6 +1163,11 @@ def dcp_train_child():
     train_child()
 
 
+# the NHWC forms' launches by path (K1, K2, K3, K1-bwd), as phase 8 counts
+# them
+NHWC_PATHS = {}
+
+
 def train_path_phase(torch, np, wrappers, card, s2d, tmp):
     """patchgan_train -d cuda for 2 epochs, then a resume to epoch 3,
     under PATCHGAN_S2D=``s2d``, on a synthetic folder written into
@@ -1127,6 +1175,7 @@ def train_path_phase(torch, np, wrappers, card, s2d, tmp):
     and the training config."""
     from patchgan_tpu_torch.cli.train import patchgan_train
     from patchgan_tpu_torch.ops.kernels.conv_norm_act import recompute_grads
+    from patchgan_tpu_torch.train.auto_layout import auto_layout_enabled
     per_step, per_eval = STEP[s2d], EVAL[s2d]
     runs = []
     train_cfg, resume_cfg = write_train_inputs(tmp, np)
@@ -1134,6 +1183,8 @@ def train_path_phase(torch, np, wrappers, card, s2d, tmp):
         for cfg, epochs in ((train_cfg, 2), (resume_cfg, 3)):
             for w in wrappers + [recompute_grads]:
                 w.launches = 0
+            for w in wrappers[:4]:
+                w.launches_nhwc = 0
             tee = Tee(sys.stdout)
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(tee), s2d_env(s2d), \
@@ -1146,6 +1197,18 @@ def train_path_phase(torch, np, wrappers, card, s2d, tmp):
             runs.append(([w.launches for w in wrappers], g_hist, d_hist,
                          tee.getvalue(), wall, recompute_grads.launches,
                          tuple(counts)))
+            if epochs == 2:
+                nhwc = [w.launches_nhwc for w in wrappers[:4]]
+    # the Trainer's layout (PATCHGAN_AUTO_LAYOUT): channels_last runs every
+    # launch of K1-K3 and K1-bwd in its NHWC form; s2d keeps NCHW
+    cl_run = auto_layout_enabled() and s2d == 'off'
+    want_nhwc = runs[0][0][:4] if cl_run else [0] * 4
+    print(f'  s2d {s2d}: the Trainer\'s layout '
+          f'{"channels_last" if cl_run else "NCHW"}; NHWC launches of K1, '
+          f'K2, K3, K1-bwd {nhwc} (expected {want_nhwc})', flush=True)
+    if nhwc != want_nhwc:
+        raise AssertionError(f'NHWC launches {nhwc}, expected {want_nhwc}')
+    NHWC_PATHS[f'train_s2d_{s2d}'] = nhwc
     files = sorted(os.listdir(os.path.join(tmp, 'ck')))
     want_files = [f'{p}_ep_{e:03d}.npz' for p in ('discriminator',
                                                    'generator')
@@ -1511,7 +1574,9 @@ def eval_path_phase(torch, np, wrappers, card, tmp, train_cfg):
 
 # the throughput phase's configurations: (form, frozen, batch, every_k,
 # captured); 'off' and 'on' are the full step, the rest the fine-tune of
-# config 3; ' graph' the same step captured (train/graph.py)
+# config 3; ' graph' the same step captured (train/graph.py); 'cl' the
+# plain form in channels_last, 'cl shadow' with the generator's shadow
+# (phase 19)
 TRAIN_CONFIGS = {'off': ('off', False, TRAIN_B, 1, False),
                  'on': ('on', False, TRAIN_B, 1, False),
                  'frozen off': ('off', True, TRAIN_B, 1, False),
@@ -1520,7 +1585,11 @@ TRAIN_CONFIGS = {'off': ('off', False, TRAIN_B, 1, False),
                  'off graph': ('off', False, TRAIN_B, 1, True),
                  'on graph': ('on', False, TRAIN_B, 1, True),
                  'frozen off k=2 b=8 graph': ('off', True, TRAIN_B // 2, 2,
-                                              True)}
+                                              True),
+                 'cl shadow graph': ('cl shadow', False, TRAIN_B, 1, True)}
+# phase 19's channels_last step without the shadow: timed by
+# ``--layout-only`` beside the two above
+CL_PLAIN = {'cl graph': ('cl', False, TRAIN_B, 1, True)}
 # steps of each case of the graph-parity phase (micro-steps at k=2)
 PARITY_STEPS = 4
 
@@ -1545,15 +1614,21 @@ def config_step(torch, gen, disc, form, frozen, every_k, graph, mesh=None):
     """The bf16 train step of one ``TRAIN_CONFIGS`` entry and its two
     optimizers (Adam's first moment in bf16, as patchgan_train keeps
     it); data-parallel over ``mesh`` when one is given."""
+    from patchgan_tpu_torch.train.auto_layout import to_layout
     from patchgan_tpu_torch.train.steps import (make_optimizer,
                                                 make_train_step,
                                                 trainable_params)
+    layout = CL if form.startswith('cl') else None
+    if layout is not None:
+        to_layout((gen, disc))
     opts = (make_optimizer(trainable_params(gen, FREEZE if frozen else ()),
                            LR, mu_dtype=torch.bfloat16, every_k=every_k),
             make_optimizer(disc.parameters(), LR, mu_dtype=torch.bfloat16,
                            every_k=every_k))
-    return make_train_step(gen, disc, *opts, s2d=form == 'on',
-                           graph=graph, mesh=mesh), opts
+    return make_train_step(
+        gen, disc, *opts, s2d=form == 'on', graph=graph, mesh=mesh,
+        layout=layout,
+        shadow_dtype=torch.bfloat16 if 'shadow' in form else None), opts
 
 
 def step_state(torch, gen, disc, opts):
@@ -1701,9 +1776,10 @@ def profile_config(torch, profile, activity, fn, name, n_steps):
                    and e.self_cpu_time_total == 0), reverse=True)
     form, frozen = TRAIN_CONFIGS[name][:2]
     want = (FT_STEP if frozen else STEP)[form]
+    names = PROFILE_NAMES_NHWC if form.startswith('cl') else PROFILE_NAMES
     ported = [sum(n for _, n, key in rows
                   if all(part in key for part in parts)) / n_steps
-              for parts in PROFILE_NAMES]
+              for parts in names]
     launched = [(w.launches - n) / n_steps for w, n in zip(wrappers, before)]
     return rows, wall_us, ported, want, launched
 
@@ -1714,7 +1790,7 @@ def throughput_phase(torch, np, card):
     frozen (('enc',)) step at batch 16 in both forms, and the frozen step
     accumulating 2 micro-batches of 8 (img/s counts the images of each
     micro-step), then the plain, s2d and accumulating steps captured; all
-    in turns, four windows of at least 2 s each, with the host's ms per
+    in turns, three windows of at least ``WINDOW_S`` each, with the host's ms per
     step (the wall of the call that queues it; for a captured step the
     copy in, the replay and the copy out). Peak memory (absolute, above
     what was allocated before the configuration's first steps, and its
@@ -1791,7 +1867,7 @@ def throughput_phase(torch, np, card):
               f'{r["own_peak_memory_bytes"] / 2**30:.3f} GiB) on {card}',
               flush=True)
         n_steps = 3 if every_k == 1 else 4
-        captured = TRAIN_CONFIGS[name][4]
+        form, captured = TRAIN_CONFIGS[name][0], TRAIN_CONFIGS[name][4]
         rows, wall_us, ported, want, launched = profile_config(
             torch, profile, ProfilerActivity, fn, name, n_steps)
         if not captured and launched != want:
@@ -1801,6 +1877,16 @@ def throughput_phase(torch, np, card):
         busy = sum(row[0] for row in rows)
         ours = sum(row[0] for row in rows if 'pgt::' in row[2])
         n_kernels = sum(row[1] for row in rows) / n_steps
+        trans = [row for row in rows
+                 if any(t in row[2].lower() for t in TRANSPOSE_KEYS)]
+        r.update(transposes_per_step=sum(n for _, n, _ in trans) / n_steps,
+                 transposes_ms_per_step=sum(d for d, _, _ in trans)
+                 / n_steps / 1e3)
+        print(f'  {name}: cuDNN layout transposes '
+              f'{r["transposes_per_step"]:.1f} a step, '
+              f'{r["transposes_ms_per_step"]:.3f} ms: '
+              + ', '.join(f'{n / n_steps:.1f} x {key[:60]}'
+                          for _, n, key in trans), flush=True)
         print(f'  profile of {n_steps} steps, {name}: wall '
               f'{wall_us / n_steps / 1e3:.3f} ms/step, kernels '
               f'{busy / n_steps / 1e3:.3f} ms/step (device busy '
@@ -1822,7 +1908,17 @@ def throughput_phase(torch, np, card):
         # few kernels): an eager step's trace may count fewer than the
         # table, never more, where its wrappers launched exactly the
         # table's counts over the same steps. A captured step's replays
-        # call no wrapper, so its trace must count them all
+        # call no wrapper, so a short trace of one is read again (18b's
+        # reader: the largest of up to three readings over two replays),
+        # and that reading must count them all
+        if captured and ported != want and \
+                all(p <= w for p, w in zip(ported, want)):
+            again = replay_kernels(torch, fn, names=PROFILE_NAMES_NHWC
+                                   if form.startswith('cl') else
+                                   PROFILE_NAMES)
+            print(f'  {name}: the trace lost records of a replay ({ported});'
+                  f' read again over two replays: {again}', flush=True)
+            ported = again
         lost = not captured and all(p <= w for p, w in zip(ported, want))
         if ported != want and not lost:
             raise AssertionError(f'{name}: the device ran {ported} of the '
@@ -1843,6 +1939,8 @@ def throughput_phase(torch, np, card):
                  profile_ported_kernels_per_step=ported,
                  profile_trace_lost=ported != want)
     for form in ('off', 'on'):
+        if form not in out or f'frozen {form}' not in out:
+            continue
         full, frozen = (out[form]['profile_kernels_per_step'],
                         out[f'frozen {form}']['profile_kernels_per_step'])
         print(f'  s2d {form}: device kernels a step, full {full:.1f}, frozen '
@@ -1851,7 +1949,7 @@ def throughput_phase(torch, np, card):
             raise AssertionError(f's2d {form}: the frozen step launched '
                                  f'{frozen} kernels, the full {full}')
     for name in names:
-        if name.endswith(' graph'):
+        if name.endswith(' graph') and name[:-len(' graph')] in out:
             eager = out[name[:-len(' graph')]]
             r = out[name]
             ratio = r['img_per_s'] / eager['img_per_s']
@@ -1867,6 +1965,23 @@ def throughput_phase(torch, np, card):
                   f'{eager["profile_kernels_per_step"]:.1f}, own peak '
                   f'{r["own_peak_memory_bytes"] / 2**30:.3f} / '
                   f'{eager["own_peak_memory_bytes"] / 2**30:.3f} GiB',
+                  flush=True)
+    if 'cl shadow graph' in out:
+        base = out['off graph']
+        for name in [n for n in ('cl graph', 'cl shadow graph') if n in out]:
+            r = out[name]
+            r['img_per_s_over_nchw'] = r['img_per_s'] / base['img_per_s']
+            print(f'  {name} / off graph (NCHW): img/s '
+                  f'{r["img_per_s"]:.3f} / {base["img_per_s"]:.3f} = '
+                  f'{r["img_per_s_over_nchw"]:.4f}x, device kernels a '
+                  f'replay {r["profile_kernels_per_step"]:.1f} / '
+                  f'{base["profile_kernels_per_step"]:.1f}, cuDNN transposes '
+                  f'a replay {r["transposes_per_step"]:.1f} / '
+                  f'{base["transposes_per_step"]:.1f} '
+                  f'({r["transposes_ms_per_step"]:.3f} / '
+                  f'{base["transposes_ms_per_step"]:.3f} ms), own peak '
+                  f'{r["own_peak_memory_bytes"] / 2**30:.3f} / '
+                  f'{base["own_peak_memory_bytes"] / 2**30:.3f} GiB on {card}',
                   flush=True)
     return out
 
@@ -1888,10 +2003,12 @@ train_params: {{loss_type: tversky, seg_alpha: 200}}
 
 
 def aot_phase(torch, card, captured_peak):
-    """``python -m patchgan_tpu_torch.cli.aot -d cuda`` at config 2
-    (batch 16, bf16, the plain form): fits, its peak within 10% of phase
-    10's captured plain step's own peak, the JAX CLI's keys; then at
-    batch 4096: does not fit, exit 0."""
+    """``python -m patchgan_tpu_torch.cli.aot --shadow -d cuda`` at config
+    2 (batch 16, bf16, the plain form in the Trainer's layout, with the
+    generator's shadow as the Trainer runs it): fits, its peak within 10%
+    of phase 10's captured step's own peak in the same layout
+    (``captured_peak``), the JAX CLI's keys; then at batch 4096: does not
+    fit, exit 0."""
     path = os.environ.get('PYTHONPATH')
     env = dict(os.environ, PYTHONPATH=ROOT + (os.pathsep + path if path
                                               else ''), PATCHGAN_S2D='off')
@@ -1902,7 +2019,8 @@ def aot_phase(torch, card, captured_peak):
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, '-m', 'patchgan_tpu_torch.cli.aot', '-c',
-                 cfg, '--batch', str(batch), '-d', 'cuda'], cwd=tmp, env=env,
+                 cfg, '--batch', str(batch), '--shadow', '-d', 'cuda'],
+                cwd=tmp, env=env,
                 capture_output=True, text=True, timeout=600)
             wall = time.perf_counter() - t0
             print(proc.stdout[-2000:], end='')
@@ -2661,7 +2779,7 @@ def sigterm_drain(cfg, src, clients=4):
 # PIPE_N smooth PIPE_HW JPEGs with 7-label PNG masks (PIPE_VAL for
 # validation), the training pairs also as PIPE_SHARDS tar shards
 PIPE_N, PIPE_VAL, PIPE_SHARDS, PIPE_HW = 256, 16, 4, (480, 640)
-PIPE_TURNS = 3        # loader-rate readings per configuration, in turns
+PIPE_TURNS = 2        # loader-rate readings per configuration, in turns
 RESUME_N = 64         # training pairs of the exact-resume runs
 # the loader-rate configurations: (DataLoader kwargs, PATCHGAN_NATIVE_IO,
 # dataset); each has its patchgan_train form in pipeline_config
@@ -3262,8 +3380,7 @@ def pipeline_phase(torch, np, wrappers, card, step_img_s, tmp):
         runs.append((f'fastest ({fastest})', extra, io_mode, data,
                      bool(opts.get('cache')), 'on'))
     runs += [(f'thread x4 cache, graph {graph} {turn}', [], 'on', 'folder',
-              True, graph) for turn, graph in enumerate(('on', 'off', 'off',
-                                                         'on'))]
+              True, graph) for turn, graph in enumerate(('on', 'off'))]
     epoch_rate, launches = {}, None
     per_run = 2 * (PIPE_N // TRAIN_B)
     for name, extra, mode, data, cache, graph in runs:
@@ -3333,9 +3450,12 @@ def pipeline_phase(torch, np, wrappers, card, step_img_s, tmp):
     traces = os.listdir(trace_dir)
     with open(os.path.join(trace_dir, traces[0])) as f:
         text = f.read()
+    # the Trainer's layout names the forms: NHWC in channels_last
+    from patchgan_tpu_torch.train.auto_layout import auto_layout_enabled
+    nhwc = 'Nhwc' if auto_layout_enabled() else ''
     found = {k: k in text for k in ('pgt::conv_gemm_kernel',
-                                    'pgt::ConvProblem<',
-                                    'pgt::ConvTProblem<')}
+                                    f'pgt::Conv{nhwc}Problem<',
+                                    f'pgt::ConvT{nhwc}Problem<')}
     print(f'  --profile_dir: {len(traces)} trace(s), {len(text)} bytes, '
           f'names {found}', flush=True)
     if len(traces) != 1 or not all(found.values()):
@@ -5920,13 +6040,13 @@ def first_difference(np, want, got):
     return first is None, first, close
 
 
-def replay_kernels(torch, fn, tries=3):
+def replay_kernels(torch, fn, tries=3, names=PROFILE_NAMES):
     """K1 / K2 / K3 / K1-bwd / K4 / K4-wgrad a call of ``fn`` (a captured
     step's replay) on the device, counted by the profiler as phase 10
-    counts them, over two calls after a traced warm-up call whose records
-    are dropped: the largest of up to ``tries`` readings, stopping once
-    one repeats it (the tracer now and then loses a run of records,
-    never adds one)."""
+    counts them (by ``names``), over two calls after a traced warm-up
+    call whose records are dropped: the largest of up to ``tries``
+    readings, stopping once one repeats it (the tracer now and then loses
+    a run of records, never adds one)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     best = None
     for _ in range(tries):
@@ -5941,7 +6061,7 @@ def replay_kernels(torch, fn, tries=3):
                 prof.step()
         device = [sum(c for _, c, name in cycle[0]
                       if all(part in name for part in parts))
-                  for parts in PROFILE_NAMES]
+                  for parts in names]
         if device == best:
             break
         best = device if best is None else max(best, device, key=sum)
@@ -6044,6 +6164,369 @@ def phase_18_only(torch, np, wrappers, card):
     print(card)
 
 
+# phase 19: the G+D step in channels_last (train/auto_layout.py) and the
+# NHWC forms of K1, K2, K3 and K1-bwd
+CL = 'channels_last'
+# the NHWC forms: (name in the kernels line, source, TPU kernel, index of
+# their wrapper in ``kernel_wrappers()``)
+NHWC_FORMS = (
+    ('instance_norm_act_nhwc', 'patchgan_tpu_torch/csrc/norm_act.cu',
+     'patchgan_tpu/ops/pallas/norm_act.py:211', 0),
+    ('conv_norm_act_nhwc', 'patchgan_tpu_torch/csrc/conv_norm_act.cu',
+     'patchgan_tpu/ops/pallas/conv_norm_act.py:176', 1),
+    ('convt_norm_act_nhwc', 'patchgan_tpu_torch/csrc/convt_norm_act.cu',
+     'patchgan_tpu/ops/pallas/convt_norm_act.py:178', 2),
+    ('instance_norm_act_backward_nhwc',
+     'patchgan_tpu_torch/csrc/norm_act_bwd.cu',
+     'patchgan_tpu/ops/pallas/norm_act.py:253', 3))
+# cuDNN's layout transposes, as the profiler names their kernels
+# (lower-cased)
+TRANSPOSE_KEYS = ('nchwtonhwc', 'nhwctonchw')
+SHADOW_STEPS = 3      # steps of the captured shadow's bit-equality
+
+
+def cl(torch, args):
+    """The 4-D tensors of ``args`` in channels_last, with its strides
+    (a 1 x 1 plane's tensor too, which ``contiguous`` would leave as it
+    is: the same bytes, NCHW strides)."""
+    return tuple(torch.empty_like(a, memory_format=torch.channels_last)
+                 .copy_(a) if torch.is_tensor(a) and a.dim() == 4 else a
+                 for a in args)
+
+
+def cl_offset(torch, t):
+    """t as a channels_last tensor one element past a 16-byte boundary
+    (the NHWC forms then go element by element)."""
+    n, c, h, w = t.shape
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = base[1:].as_strided(t.shape, (h * w * c, 1, w * c, c))
+    out.copy_(t)
+    return out
+
+
+def nhwc_launched(w, fn):
+    """fn() and whether it launched the NHWC form of wrapper w once."""
+    before = w.launches_nhwc
+    out = fn()
+    if w.launches_nhwc != before + 1:
+        raise AssertionError(f'{w.__name__}: the NHWC form did not launch')
+    return out
+
+
+def nhwc_kernel_phase(torch, F, kernels):
+    """Each NHWC form (K1, K2, K3, K1-bwd) against its plain version at
+    every shape of config 2's step (batch 16, 256 px: ``make_cases`` and
+    ``bwd_shapes``), bf16 and fp32 within ``TOL`` / ``TOL_BWD``, its
+    output channels_last, the NHWC form launched; K3's NHWC pack exactly
+    against ``pack_convt_weight_nhwc_plain``. Check-only cases of the
+    element paths: K2 at Cin 16 and 48 (no multiple of the 32-channel K
+    step), K3 ragged (13 + 6 -> 40) and with Cs = 0, K1 and K1-bwd at
+    ``norm_edge_cases`` and one element past 16 bytes. Timed in bf16: the
+    NHWC form, the NCHW form on the same values, the plain version and a
+    library call in channels_last, the bound. Returns {form: rows}."""
+    from patchgan_tpu_torch.ops.kernels import (pack_convt_weight_nhwc,
+                                                pack_convt_weight_nhwc_plain)
+    k1, k2, k3, k1b = kernels[:4]
+    rows = {name: [] for name, *_ in NHWC_FORMS}
+    form = {k1.name: 'instance_norm_act_nhwc', k2.name: 'conv_norm_act_nhwc',
+            k3.name: 'convt_norm_act_nhwc',
+            k1b.name: 'instance_norm_act_backward_nhwc'}
+    gen = torch.Generator(device='cuda').manual_seed(19)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device='cuda') * scale
+
+    def check(kernel, label, make, tol_of, offset=False):
+        errs = {}
+        for dname, dt in (('bfloat16', torch.bfloat16),
+                          ('float32', torch.float32)):
+            args = cl(torch, make(dt))
+            if offset:
+                args = tuple(cl_offset(torch, a) if torch.is_tensor(a)
+                             and a.dim() == 4 else a for a in args)
+            if kernel is k3:
+                w = args[1]
+                if not torch.equal(pack_convt_weight_nhwc(w),
+                                   pack_convt_weight_nhwc_plain(w)):
+                    raise AssertionError(f'K3 NHWC pack {label} {dname}')
+            got = nhwc_launched(kernel.wrapper,
+                                lambda: kernel.wrapper(*args))
+            if not got.is_contiguous(memory_format=torch.channels_last):
+                raise AssertionError(f'{kernel.name} {label}: output not '
+                                     f'channels_last')
+            want = kernel.plain(*(a.float() if torch.is_tensor(a) else a
+                                  for a in args)).float()
+            torch.cuda.synchronize()
+            e = (got.float() - want).abs().max().item()
+            tol = tol_of(dname, want)
+            print(f'  {form[kernel.name]} {label} {dname}: max_abs_err '
+                  f'{e:.3e} (tol {tol:.3e})', flush=True)
+            if not e <= tol:
+                raise AssertionError(f'{form[kernel.name]} {label} {dname}: '
+                                     f'{e} > {tol}')
+            errs[dname] = e
+        return errs
+
+    def fwd_tol(dname, want):
+        return TOL[dname]
+
+    def bwd_tol(dname, want):
+        return TOL_BWD[dname] * max(1.0, want.abs().max().item())
+
+    def timed(kernel, label, make, library, flops, nbytes, peak, errs):
+        args = make(torch.bfloat16)
+        cargs = cl(torch, args)
+        row = {'kernel': form[kernel.name], 'case': label,
+               'dtype': 'bfloat16',
+               'kernel_ms': cuda_ms(lambda: kernel.wrapper(*cargs)),
+               'nchw_ms': cuda_ms(lambda: kernel.wrapper(*args)),
+               'plain_ms': cuda_ms(lambda: kernel.plain(*cargs)),
+               'library_ms': cuda_ms(lambda: library(*cargs)),
+               'max_abs_err_bf16': errs['bfloat16'],
+               'max_abs_err_fp32': errs['float32']}
+        row['bound_ms'], row['bound_by'] = bound(flops, nbytes, peak)
+        rows[form[kernel.name]].append(row)
+        print(json.dumps(row), flush=True)
+
+    for kernel, label, make, library, flops, elems, _ in make_cases(
+            torch, F, (k1, k2, k3), n=TRAIN_B):
+        errs = check(kernel, label, make, fwd_tol)
+        peak = PEAK_FP32 if kernel is k1 else PEAK_BF16
+        timed(kernel, label, make, library, flops, 2 * elems, peak, errs)
+    for label, shape in bwd_shapes():
+        x, g = rand(*shape), rand(*shape)
+
+        def make(dt, x=x, g=g):
+            return g.to(dt), x.to(dt), 1e-5, 'relu'
+
+        def library(g, x, eps, act):
+            xr = x.detach().requires_grad_()
+            y = F.relu(F.instance_norm(xr, eps=eps))
+            return torch.autograd.grad(y, xr, g)
+
+        errs = check(k1b, f'{label} {shape}', make, bwd_tol)
+        timed(k1b, f'{label} {shape}', make, library, BWD_FLOPS * x.numel(),
+              3 * 2 * x.numel(), PEAK_FP32, errs)
+    # check-only: the element paths, other activations
+    for cin, cout, hw in ((16, 40, (24, 40)), (48, 64, (16, 16))):
+        x, wt = rand(4, cin, *hw), rand(cout, cin, 4, 4, scale=0.1)
+        check(k2, f'Cin {cin} -> {cout} {hw}',
+              lambda dt, x=x, wt=wt: (x.to(dt), wt.to(dt), 1e-5, 'tanh'),
+              fwd_tol)
+    for cx, cs, cout, hw in ((13, 6, 40, (12, 20)), (64, 0, 32, (8, 8))):
+        x, wt = rand(4, cx, *hw), rand(cx + cs, cout, 4, 4, scale=0.1)
+        s = rand(4, cs, *hw) if cs else None
+        check(k3, f'({cx}+{cs}) -> {cout} {hw}',
+              lambda dt, x=x, wt=wt, s=s: (
+                  x.to(dt), wt.to(dt), 1e-5, 'leakyrelu',
+                  None if s is None else s.to(dt)), fwd_tol)
+    for label, pair in norm_edge_cases(torch, gen):
+        if 'past' in label:
+            continue
+        for act in (ACTS if label == '(3, 5, 4, 4)' else ('relu',)):
+            check(k1, f'edge {label} act={act}',
+                  lambda dt, p=pair, a=act: (p(dt)[0], 1e-5, a), fwd_tol)
+            check(k1b, f'edge {label} act={act}',
+                  lambda dt, p=pair, a=act: (p(dt)[1], p(dt)[0], 1e-5, a),
+                  bwd_tol)
+    x, g = rand(2, 16, 16, 16), rand(2, 16, 16, 16)
+    check(k1, 'one element past 16 bytes (2, 16, 16, 16)',
+          lambda dt: (x.to(dt), 1e-5, 'relu'), fwd_tol, offset=True)
+    check(k1b, 'one element past 16 bytes (2, 16, 16, 16)',
+          lambda dt: (g.to(dt), x.to(dt), 1e-5, 'relu'), bwd_tol,
+          offset=True)
+    for name, r in rows.items():
+        total = {k: sum(row[k] for row in r) for k in
+                 ('kernel_ms', 'nchw_ms', 'bound_ms', 'plain_ms',
+                  'library_ms')}
+        print(f'  {name}, the step\'s {len(r)} shapes: ' + ', '.join(
+            f'{k} {v:.4f}' for k, v in total.items()), flush=True)
+    return rows
+
+
+def cl_parity_phase(torch, np, wrappers, refs):
+    """The fp32 channels_last step (nf=64, 256 px, batch 2, dropout off,
+    TF32 off): the models converted with ``to_layout``, the batch
+    channels_last; its losses and gradients against the CPU's and the
+    NCHW card step's of ``step_parity_phase`` (``refs``), losses within
+    rtol 2e-3 / atol 2e-4, gradients 1e-3 of max |g|; every launch of
+    K1, K2, K3 and K1-bwd in its NHWC form; every activation channels_last
+    (a forward hook on each block)."""
+    from patchgan_tpu_torch.train.auto_layout import to_layout
+    gen, disc, x, y = refs['models']
+    gen_c, disc_c = copy.deepcopy(gen).cuda(), copy.deepcopy(disc).cuda()
+    to_layout((gen_c, disc_c))
+    bad = []
+
+    def hook(module, args, out):
+        if not out.is_contiguous(memory_format=torch.channels_last):
+            bad.append(type(module).__name__)
+
+    hooks = [b.register_forward_hook(hook)
+             for b in [*gen_c.encoder, *gen_c.decoder]]
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, 'launches_nhwc'):
+            w.launches_nhwc = 0
+    losses, grads = step_grads(torch, gen_c, disc_c,
+                               *cl(torch, (x.cuda(), y.cuda())), 'off')
+    for h in hooks:
+        h.remove()
+    nhwc = [w.launches_nhwc for w in wrappers[:4]]
+    print(f'  launches {[w.launches for w in wrappers]}, of them NHWC '
+          f'{nhwc}; blocks whose output left channels_last: {bad}',
+          flush=True)
+    if nhwc != STEP['off'][:4] or [w.launches for w in wrappers] != \
+            STEP['off'] or bad:
+        raise AssertionError(f'channels_last step: NHWC launches {nhwc}, '
+                             f'blocks out of channels_last {bad}')
+    out = {}
+    for ref in ('cpu', 'card_nchw'):
+        want_l, want_g = refs[ref]
+        for k, want in want_l.items():
+            got = losses[k]
+            if not abs(got - want) <= 2e-4 + 2e-3 * abs(want):
+                raise AssertionError(f'channels_last loss {k}: {got} vs '
+                                     f'{ref} {want}')
+        worst = max((a - b).abs().max().item() / max(
+            b.abs().max().item(), 1e-30) for a, b in zip(grads, want_g))
+        out[ref] = {'losses': losses, 'worst_grad_rel': worst}
+        print(f'  channels_last vs {ref}: losses {losses}, worst max |dg| / '
+              f'max |g| {worst:.3e} (tol 1e-3)', flush=True)
+        if not worst <= 1e-3:
+            raise AssertionError(f'channels_last gradients vs {ref}: '
+                                 f'{worst}')
+    return out
+
+
+def cl_step(torch, shadow, graph=True):
+    """Config 2's bf16 step in channels_last (dropout on), with the
+    generator's shadow or without: (step, (gen, disc, opts))."""
+    from patchgan_tpu_torch.train.auto_layout import to_layout
+    from patchgan_tpu_torch.train.steps import make_optimizer, make_train_step
+    gen, disc = train_models(torch)
+    to_layout((gen, disc))
+    opts = (make_optimizer(gen.parameters(), LR, mu_dtype=torch.bfloat16),
+            make_optimizer(disc.parameters(), LR, mu_dtype=torch.bfloat16))
+    step = make_train_step(gen, disc, *opts, graph=graph, layout=CL,
+                           shadow_dtype=torch.bfloat16 if shadow else None)
+    return step, (gen, disc, opts)
+
+
+def shadow_parity_phase(torch, np):
+    """The captured channels_last step with the shadow against the same
+    step without it, ``SHADOW_STEPS`` steps each (an eager step, the
+    capture, replays), bf16, batch 16, dropout on, deterministic cuDNN:
+    every step's losses, then every parameter, moment, count and the
+    dropout generator's state bit-equal; the shadows equal the cast
+    masters."""
+    batches = [tuple(t.to(torch.bfloat16) for t in train_batch(
+        torch, np, TRAIN_B, SIZE, 'cuda', 90 + i))
+        for i in range(SHADOW_STEPS)]
+    result = {}
+    with cudnn_flags_kept(torch):
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        for shadow in (False, True):
+            step, (gen, disc, opts) = cl_step(torch, shadow)
+            losses = [torch.stack(list(step(*b).values())).cpu()
+                      for b in batches]
+            torch.cuda.synchronize()
+            result[shadow] = (losses, step_state(torch, gen, disc, opts))
+            if shadow:
+                named = dict(gen.named_parameters())
+                cast = all(torch.equal(t, named[n].to(t.dtype))
+                           for n, t in step.shadows.items())
+                counts = (step.eager_steps, step.captures, step.replays)
+            del step, gen, disc, opts
+    (l_p, (t_p, c_p)), (l_s, (t_s, c_s)) = result[False], result[True]
+    same_losses = all(torch.equal(a, b) for a, b in zip(l_p, l_s))
+    same = [torch.equal(a, b) for a, b in zip(t_p, t_s)]
+    out = {'losses_equal': same_losses, 'tensors_equal': sum(same),
+           'tensors': len(same), 'shadows_equal_cast_masters': cast,
+           'eager_capture_replay': counts}
+    print(f'  shadow vs plain, captured, channels_last, {SHADOW_STEPS} '
+          f'steps: {out}, counters {c_s} (plain {c_p})', flush=True)
+    if not (same_losses and all(same) and cast and c_p == c_s) or \
+            counts != (1, 1, SHADOW_STEPS - 1):
+        raise AssertionError(f'the shadow step differs: {out}')
+    return out
+
+
+def transposes_by_op(torch, np, n_steps=1):
+    """cuDNN's layout transposes in ``n_steps`` eager channels_last steps
+    with the shadow (after one to warm up), each named with the operator
+    that launched it: {(operator chain, kernel): launches a step}."""
+    from torch.profiler import ProfilerActivity, profile
+    step, _ = cl_step(torch, True, graph=False)
+    x, y = (t.to(torch.bfloat16) for t in train_batch(
+        torch, np, TRAIN_B, SIZE, 'cuda', 95))
+    step(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(n_steps):
+            step(x, y)
+        torch.cuda.synchronize()
+    found = {}
+    for e in prof.events():
+        for k in getattr(e, 'kernels', None) or []:
+            if any(t in k.name.lower() for t in TRANSPOSE_KEYS):
+                chain, p = [e.name], e.cpu_parent
+                while p is not None and len(chain) < 4:
+                    chain.append(p.name)
+                    p = p.cpu_parent
+                shapes = [tuple(s) for s in (e.input_shapes or [])[:2]]
+                key = (f'{" < ".join(chain)} on {shapes}', k.name[:80])
+                found[key] = found.get(key, 0) + 1 / n_steps
+    return found
+
+
+def layout_phase(torch, np, F, kernels, card, refs):
+    """Phase 19's checks before phase 10's timing: the NHWC forms, the
+    fp32 channels_last step's parity, the captured shadow's bits, the
+    transposes an eager channels_last step still launches."""
+    t0 = time.perf_counter()
+    print('== channels_last: the NHWC forms of K1, K2, K3 and K1-bwd at '
+          'config 2\'s step shapes (batch 16, 256 px)', flush=True)
+    rows = nhwc_kernel_phase(torch, F, kernels)
+    for k in kernels[:4]:
+        rows_k = rows[next(n for n, _, _, i in NHWC_FORMS
+                           if kernels[i] is k)]
+        k.nhwc_rows = rows_k
+    wrappers = [k.wrapper for k in kernels]
+    print('== channels_last: the fp32 step (nf=64, 256 px, batch 2) against '
+          'the CPU and the NCHW card step', flush=True)
+    parity = cl_parity_phase(torch, np, wrappers, refs)
+    print('== channels_last: the captured step with the shadow against '
+          'without, bit for bit', flush=True)
+    shadow = shadow_parity_phase(torch, np)
+    found = transposes_by_op(torch, np)
+    print(f'  cuDNN layout transposes an eager channels_last shadow step '
+          f'launches, by operator: {len(found)} kinds', flush=True)
+    for (chain, name), n in sorted(found.items(), key=lambda t: -t[1]):
+        print(f'    {n:6.1f}/step  {name}  from {chain}', flush=True)
+    out = {'parity': parity, 'shadow': shadow,
+           'transposes_eager_by_op': {f'{c} :: {k}': n
+                                      for (c, k), n in found.items()},
+           'card': card, 'phase_wall_s': time.perf_counter() - t0}
+    print(json.dumps({'layout': out}), flush=True)
+    return out
+
+
+def layout_only(torch, np, F, kernels, card):
+    """``python3 chip_smoke.py --layout-only``: phase 19's checks, then
+    phase 10's timing of the plain and the channels_last steps alone."""
+    global TRAIN_CONFIGS
+    refs = {}
+    step_parity_phase(torch, np, [k.wrapper for k in kernels], 'off', refs)
+    layout_phase(torch, np, F, kernels, card, refs)
+    TRAIN_CONFIGS = {k: v for k, v in {**TRAIN_CONFIGS, **CL_PLAIN}.items()
+                     if k in ('off graph', 'cl graph', 'cl shadow graph')}
+    train = throughput_phase(torch, np, card)
+    print(json.dumps({'train': train}))
+
+
 def main(only=None):
     import torch
     if not torch.cuda.is_available():
@@ -6061,6 +6544,13 @@ def main(only=None):
         thin_conv3x3_wgrad_plain)
 
     t_start = time.perf_counter()
+
+    def mark(phases):
+        """The wall since the start, after ``phases``: where the time
+        goes, phase by phase."""
+        print(f'phases {phases}: {time.perf_counter() - t_start:.3f} s',
+              flush=True)
+
     card = card_line()
     print(f'card: {card}')
     print(f'python {sys.version.split()[0]} torch {torch.__version__} '
@@ -6109,11 +6599,16 @@ def main(only=None):
     if only == '--phase-18':
         phase_18_only(torch, np, wrappers, card)
         return 0
+    if only == '--layout-only':
+        layout_only(torch, np, F, kernels, card)
+        print(card_line())
+        return 0
     print('== kernel phase (8 tiles of 256 px, nf=64; the s2d paths\' '
           'thin convs)', flush=True)
     with torch.inference_mode():
         kernel_phase(torch, F, kernels[:3])
         thin_conv_phase(torch, F, kernels[4], kernels[5])
+    mark('1-2')
 
     paths = {}
     for s2d in ('off', 'on'):
@@ -6161,17 +6656,20 @@ def main(only=None):
     infer = infer_throughput_phase(torch, np, engines, card)
     print(json.dumps(infer))
     del engines
+    mark('1-5')
 
     print(f'== K1-bwd at the training shapes (batch {TRAIN_B}, 256 px, '
           f'nf={NF})', flush=True)
     backward_phase(torch, F, kernels[3])
-    epoch_s, finetune = {}, {}
+    mark('1-6')
+    epoch_s, finetune, refs = {}, {}, {}
     names = [k.name for k in kernels]
     for s2d in ('off', 'on'):
         print('== step parity: kernel path on the card vs plain path on '
               f'the CPU (nf=64, 256 px, batch 2, fp32), s2d {s2d}',
               flush=True)
-        step_parity_phase(torch, np, wrappers, s2d)
+        step_parity_phase(torch, np, wrappers, s2d,
+                          refs if s2d == 'off' else None)
         print('== fine-tune step parity: encoder frozen, accumulate 2, '
               'kernel path on the card vs plain path on the CPU (nf=64, '
               f'256 px, two micro-batches of 2, fp32), s2d {s2d}',
@@ -6202,6 +6700,7 @@ def main(only=None):
               f'{RECOMPUTES["frozen"]} frozen', flush=True)
     print(json.dumps({'eval': results, 'eval_img_per_s': eval_img_s,
                       'finetune': finetune, 'card': card}))
+    mark('1-9')
     print('== the captured step against the eager step, bit for bit (bf16, '
           'dropout on, deterministic cuDNN): full and frozen in both forms, '
           'accumulating 2 x 8; an LR written between steps; a restore',
@@ -6210,19 +6709,26 @@ def main(only=None):
     parity = graph_parity_phase(torch, np, wrappers)
     print(json.dumps({'graph_parity': parity,
                       'phase_wall_s': time.perf_counter() - t10}))
+    mark('1-9, 10\'s parity')
+    layout_phase(torch, np, F, kernels, card, refs)
+    mark('1-9, 10\'s parity, 19')
     print(f'== training throughput (bf16): the full step at batch {TRAIN_B} '
-          'and the fine-tune step, plain and s2d, eager and captured, in '
-          'turns', flush=True)
+          'and the fine-tune step, plain and s2d, eager and captured, and '
+          'the captured step in channels_last without and with the shadow, '
+          'in turns', flush=True)
     t10 = time.perf_counter()
     train = throughput_phase(torch, np, card)
     train.update({'epoch_s': epoch_s, 'card': card,
                   'phase_wall_s': time.perf_counter() - t10})
     print(json.dumps(train))
-    print('== patchgan_aot -d cuda: config 2 at batch 16 and 4096',
+    print('== patchgan_aot --shadow -d cuda: config 2 at batch 16 and 4096',
           flush=True)
-    aot = aot_phase(torch, card,
-                    train['off graph']['own_peak_memory_bytes'])
+    from patchgan_tpu_torch.train.auto_layout import auto_layout_enabled
+    aot = aot_phase(torch, card, train[
+        'cl shadow graph' if auto_layout_enabled() else 'off graph']
+        ['own_peak_memory_bytes'])
     print(json.dumps({'aot': aot}))
+    mark('1-10, 19')
 
     print('== spatial mode: whole-image forward (nf=64), parity on the CPU, '
           'K1-K3 at the 1280x960 image\'s shapes, masks/s against tiled',
@@ -6230,6 +6736,7 @@ def main(only=None):
     launches, spatial = spatial_phase(torch, np, F, kernels, model, card)
     paths['spatial'] = dict(zip(names, launches))
     print(json.dumps(spatial))
+    mark('1-11, 19')
     with tempfile.TemporaryDirectory() as tmp:
         print('== serve path: patchgan_serve -d cuda (bf16): --watch, '
               '--stdin, --http, load, SIGTERM drain', flush=True)
@@ -6237,6 +6744,7 @@ def main(only=None):
                                                       model, card, tmp)
     paths.update(serve_paths)
     print(json.dumps(serve))
+    mark('1-12, 19')
     with tempfile.TemporaryDirectory() as tmp:
         print('== input pipeline and exact resume: native decode, loader '
               'images/s, epoch img/s at config 2, shards against the '
@@ -6335,6 +6843,23 @@ def main(only=None):
             'bound_by': max(rows, key=lambda r: r['bound_ms'])['bound_by'],
             'library_ms': None,
             'whole_plane_ms': sum(r['whole_ms'] for r in rows)})
+    for name, source, replaces, i in NHWC_FORMS:
+        rows = kernels[i].nhwc_rows
+        launches = NHWC_PATHS['train_s2d_off'][i]
+        if not launches:
+            raise AssertionError(f'{name}: not launched on the main path')
+        summary.append({
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'form': 'NHWC (channels_last)',
+            'launches': launches,
+            'launches_by_path': {p: c[i] for p, c in NHWC_PATHS.items()},
+            'max_abs_err': max(r['max_abs_err_bf16'] for r in rows),
+            'ms': sum(r['kernel_ms'] for r in rows),
+            'plain_ms': sum(r['plain_ms'] for r in rows),
+            'bound_ms': sum(r['bound_ms'] for r in rows),
+            'bound_by': max(rows, key=lambda r: r['bound_ms'])['bound_by'],
+            'library_ms': sum(r['library_ms'] for r in rows),
+            'nchw_form_ms': sum(r['nchw_ms'] for r in rows)})
     print(json.dumps({'kernels': summary}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
@@ -6351,4 +6876,4 @@ if __name__ == '__main__':
         sys.exit(0)
     sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (
         ['--mesh-only'], ['--tp-only'], ['--spatial-only'],
-        ['--phase-18']) else None))
+        ['--phase-18'], ['--layout-only']) else None))

@@ -46,13 +46,17 @@ ones whole: counted on one rank's shards), the parameter and Adam
 moment bytes, the peak memory, the gradient all-reduce over the D ranks
 of a data group, and the activation gathers of a step over the T ranks
 of a model group with their backward sums, each beside its ring bound
-over NVLink. ``--topology`` and ``--shadow`` are not taken (no detached
-topology, no shadow parameters). The form is the Trainer's:
-space-to-depth when ``PATCHGAN_S2D`` selects it and ``--no-s2d`` is not
-given.
+over NVLink. ``--topology`` is not taken (no detached topology). The form
+and layout are the Trainer's: space-to-depth when ``PATCHGAN_S2D`` selects
+it and ``--no-s2d`` is not given; else channels_last where
+``PATCHGAN_AUTO_LAYOUT`` is on (``train/auto_layout.py``) and the step is
+one process's (no ``--dp`` or ``--tp`` above 1), NCHW otherwise: the peak
+reported is the chosen layout's. ``--shadow`` (JAX ``cli/aot.py:79-80``)
+runs the step with the generator's shadow in the compute dtype, as the
+Trainer does beside the layout (not under ``--tp``).
 
-Prints human-readable lines, then ONE JSON line with the JAX CLI's keys
-(``topology`` null, ``shadow`` false).
+Prints human-readable lines (the layout among them), then ONE JSON line
+with the JAX CLI's keys (``topology`` null).
 """
 
 import argparse
@@ -82,17 +86,23 @@ def _models(in_c, out_c, gen_cfg, disc_cfg, dtype, device, seed=0):
     return gen, disc
 
 
-def _step(gen, disc, mu_dtype, s2d, loss_kwargs, graph, mesh=None):
+def _step(gen, disc, mu_dtype, s2d, loss_kwargs, graph, mesh=None,
+          layout=None, shadow_dtype=None):
     """(the train step, its G and D optimizers); over a ``mesh`` with a
-    model axis, the state placed on it first."""
+    model axis, the state placed on it first; in ``layout``, the models
+    converted to it first."""
     from ..parallel.sharding import place_hybrid_state
+    from ..train.auto_layout import to_layout
     from ..train.steps import make_optimizer, make_train_step
+    if layout is not None:
+        to_layout((gen, disc), layout=layout)
     opts = (make_optimizer(gen.parameters(), mu_dtype=mu_dtype),
             make_optimizer(disc.parameters(), mu_dtype=mu_dtype))
     if mesh is not None and mesh.model is not None:
         place_hybrid_state(gen, disc, opts, mesh)
     return make_train_step(gen, disc, *opts, s2d=s2d, graph=graph,
-                           mesh=mesh, **loss_kwargs), opts
+                           mesh=mesh, layout=layout,
+                           shadow_dtype=shadow_dtype, **loss_kwargs), opts
 
 
 def _batch(n, in_c, out_c, size, dtype, device, seed=0):
@@ -219,10 +229,17 @@ def patchgan_aot(argv=None):
     parser.add_argument('--no-s2d', action='store_true',
                         help='the plain boundary form even when '
                              'PATCHGAN_S2D selects the space-to-depth one')
+    parser.add_argument('--shadow', action='store_true',
+                        help='the step with the generator\'s shadow in the '
+                             'compute dtype (the Trainer\'s default beside '
+                             'the channels_last layout)')
     parser.add_argument('-d', '--device', default='cuda',
                         help="'cuda' (the card; raises without one) or "
                              "'cpu' (eager, no memory report)")
     args = parser.parse_args(argv)
+    if args.shadow and args.tp > 1:
+        raise ValueError("--shadow under --tp is not ported: the shadow "
+                         "step runs on one process's state")
     dp, tp = _grid(args)
     if args.batch % dp:
         raise ValueError(f"--batch {args.batch} (the global batch) does "
@@ -271,12 +288,16 @@ def _preflight(args, dp, tp, mesh):
     (dp, tp) grid over ``mesh``, or one process (``mesh`` None) standing
     for each of ``dp`` data-parallel ranks. Rank 0 reports."""
     from ..ops.s2d import s2d_enabled
+    from ..train.auto_layout import LAYOUT, auto_layout_enabled
     from .common import compute_dtype, select_device
     batch = args.batch // dp
     device = select_device(args.device) if mesh is None else mesh.device
     dtype = compute_dtype(args.dtype, device)
     in_c, out_c, size, gen_cfg, disc_cfg, loss_kwargs = _config(args)
     s2d = not args.no_s2d and s2d_enabled() and size % 2 == 0
+    layout = LAYOUT if (auto_layout_enabled() and not s2d
+                        and dp * tp == 1) else None
+    shadow_dtype = dtype if args.shadow else None
     on_card = device.type == 'cuda'
     main = mesh is None or mesh.is_main
     kind = torch.cuda.get_device_name(device) if on_card else 'cpu'
@@ -284,7 +305,7 @@ def _preflight(args, dp, tp, mesh):
               'device_kind': kind, 'devices': dp * tp,
               'mesh': {'data': dp, 'model': tp}, 'batch': args.batch,
               'size': size, 'dtype': args.dtype, 's2d': s2d,
-              'shadow': False, 'gen_filts': gen_cfg['filters'],
+              'shadow': args.shadow, 'gen_filts': gen_cfg['filters'],
               'disc_filts': disc_cfg['filters']}
 
     flops, recompute, traffic = rank_step_counts(
@@ -297,6 +318,9 @@ def _preflight(args, dp, tp, mesh):
     capacity = torch.cuda.get_device_properties(device).total_memory \
         if on_card else None
     report = _report if main else (lambda *a, **k: None)
+    if main:
+        print(f"layout {layout or 'nchw'} (PATCHGAN_AUTO_LAYOUT; "
+              f"channels_last takes one process and the plain form)")
 
     # the models, the optimizers (Adam's first moment in bf16 beside a
     # bf16 step, as patchgan_train keeps it) and the batch, then the
@@ -305,7 +329,8 @@ def _preflight(args, dp, tp, mesh):
     try:
         gen, disc = _models(in_c, out_c, gen_cfg, disc_cfg, dtype, device)
         step, opts = _step(gen, disc, mu_dtype, s2d, loss_kwargs,
-                           graph=on_card, mesh=mesh)
+                           graph=on_card, mesh=mesh, layout=layout,
+                           shadow_dtype=shadow_dtype)
         x, y = _batch(args.batch if mesh else batch, in_c, out_c, size,
                       dtype, device)
         if mesh is not None:
@@ -407,7 +432,8 @@ def _report(result, args, status, recompute, allreduce=None, model=None):
     print(f"{result['device_kind']}, batch {args.batch} "
           f"({args.batch // dp} a rank, {ranks} ranks: "
           f"{result['mesh']}), {result['size']}px, "
-          f"{args.dtype}, s2d={result['s2d']}, gen_filts "
+          f"{args.dtype}, s2d={result['s2d']}, "
+          f"shadow={result['shadow']}, gen_filts "
           f"{result['gen_filts']}, disc_filts {result['disc_filts']}")
     print(f'  step: {status}')
     print(f"  cost: {cost['flops_per_device'] / 1e9:.1f} GFLOP a step"

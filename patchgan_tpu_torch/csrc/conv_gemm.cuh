@@ -14,6 +14,10 @@
 //       for the K step at k0 (zero for k >= kend), as pairs:
 //       v[i].x at k = k0 + ak0 + 4i, v[i].y at k = k0 + ak0 + 4i + 2
 //   long out(n, g, r, c, co)  index of the fp32 result in `acc`
+// and, where `acc` is NHWC (channels contiguous), a member
+// `static constexpr bool kChannelsLast = true`: the epilogue then walks
+// the tile channel by channel, so neighbouring threads store neighbouring
+// channels of one pixel.
 //
 // One block computes a BM x BN tile of one (n, g) product with fp32
 // accumulation: bf16 through WMMA 16x16x16 tensor-core fragments, fp32
@@ -33,7 +37,8 @@
 // partial (sum, sum of squares) per channel over the tile's valid pixels
 // to part[((n * Cout + co) * G + g) * gridDim.x + tile], with no atomics;
 // finish_from_partials (in_common.cuh) then reduces those in a fixed
-// order and normalises from the fp32 accumulator.
+// order and normalises from the fp32 accumulator (for an NHWC `acc`,
+// norm_nhwc.cuh's reduce_parts and apply, launch_conv_in_act_nhwc).
 //
 // The deep levels have few output tiles and a long K (enc4-enc6: 64
 // blocks, 256 K steps each), too few blocks to fill the card. There K is
@@ -48,8 +53,16 @@
 
 #include "band.cuh"
 #include "in_common.cuh"
+#include "norm_nhwc.cuh"
 
 namespace pgt {
+
+// Whether problem P writes an NHWC `acc` (its kChannelsLast member)
+template <typename P, typename = void>
+struct ChannelsLastOut : std::false_type {};
+template <typename P>
+struct ChannelsLastOut<P, std::void_t<decltype(P::kChannelsLast)>>
+    : std::bool_constant<P::kChannelsLast> {};
 
 constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
 // blocks that keep every SM of an H100 SXM (132) busy with a few each
@@ -246,10 +259,18 @@ __global__ void __launch_bounds__(GEMM_THREADS, MinBlocks<T>::value)
   }
   __syncthreads();
 
-  // fp32 conv output (this split's slice), coalesced along m
+  // fp32 conv output (this split's slice), coalesced along m (NCHW) or
+  // along the channels (NHWC)
   float* out = acc + split * slice;
   for (int idx = tid; idx < BM * BN; idx += GEMM_THREADS) {
-    const int ml = idx % BM, cl = idx / BM;
+    int ml, cl;
+    if constexpr (ChannelsLastOut<P>::value) {
+      cl = idx % BN;
+      ml = idx / BN;
+    } else {
+      ml = idx % BM;
+      cl = idx / BM;
+    }
     const int mm = mt * BM + ml, co = nt * BN + cl;
     if (mm < p.M && co < p.Cout)
       out[p.out(n, g, mm / p.Mw, mm % p.Mw, co)] = Cs[cl * LDC + ml];
@@ -268,6 +289,48 @@ __global__ void __launch_bounds__(GEMM_THREADS, MinBlocks<T>::value)
     const float2 t = warp_sum2(s, ss);
     if (lane == 0 && co < p.Cout)
       part[((long)(n * p.Cout + co) * p.G + g) * gridDim.x + mt] = t;
+  }
+}
+
+// The NHWC problems' vector gather (conv_norm_act.cu, convt_norm_act.cu):
+// the pair of slots (ak0 + 4i, ak0 + 4i + 2) of a K step from 8
+// channels' bf16 words (a, b: channels 8q .. 8q + 3, 8q + 4 .. 8q + 7 hold
+// pairs 2q and 2q + 1): the low halves for ak0 = 0, the high ones for 1
+__device__ __forceinline__ __nv_bfloat162 parity_pair(unsigned a, unsigned b,
+                                                      int ak0) {
+  const unsigned v = __byte_perm(a, b, ak0 ? 0x7632 : 0x5410);
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+
+// Pairs v[0..7] of a K step whose 32 channels start at p, as a thread of
+// parity ak0 takes them: v[i] = (channel 4i + ak0, 4i + 2 + ak0). p is on
+// 16 bytes.
+template <typename T>
+__device__ __forceinline__ void load_step_channels(const T* p, int ak0,
+                                                   pair_t<T> (&v)[BK / 4]) {
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) {
+      const float4 f = *reinterpret_cast<const float4*>(p + 4 * i);
+      v[i] = ak0 ? make_float2(f.y, f.w) : make_float2(f.x, f.z);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < BK / 8; ++q) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p + 8 * q);
+      v[2 * q] = parity_pair(u.x, u.y, ak0);
+      v[2 * q + 1] = parity_pair(u.z, u.w, ak0);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void zero_pairs(pair_t<T> (&v)[BK / 4]) {
+  const T zero = from_f32<T>(0.f);
+#pragma unroll
+  for (int i = 0; i < BK / 4; ++i) {
+    v[i].x = zero;
+    v[i].y = zero;
   }
 }
 
@@ -323,6 +386,40 @@ int launch_conv_in_act(const P& p, int batch, int split_batch, float* acc,
     finish_split<T><<<(long)batch * p.Cout, FINISH_THREADS, 0, st>>>(
         acc, splits, slice, y, plane, eps, act);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// NHWC form: the product into an NHWC `acc`, then the per-plane
+// statistics (reduce_parts over the tiles' partials, or split_stats after
+// a K split, which adds the slices into slice 0, then reduce_parts over
+// its `segs` segments) and norm_nhwc.cuh's apply into y. `part` holds N *
+// Cout * max(G * ceil(M / BM), segs) pairs, `stats` N * Cout; `vec`: the
+// finish's 16-byte vectors (Cout a multiple of 8, acc and y on 16 bytes).
+// Returns cudaGetLastError().
+template <typename T, typename P>
+int launch_conv_in_act_nhwc(const P& p, int batch, int split_batch,
+                            float* acc, float2* part, float2* stats, T* y,
+                            long plane, int segs, int vec, int act, float eps,
+                            cudaStream_t st) {
+  if (split_batch < 1 ||
+      !nhwc::shape_ok(batch, plane, p.Cout, segs, vec, {acc, y}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int splits = splits_for(p, split_batch);
+  const long slice = (long)batch * p.Cout * plane;
+  const long planes = (long)batch * p.Cout;
+  const dim3 grid((p.M + BM - 1) / BM, (p.Cout + BN - 1) / BN,
+                  batch * p.G * splits);
+  conv_gemm_kernel<T, P><<<grid, GEMM_THREADS, 0, st>>>(p, splits, slice,
+                                                         acc, part);
+  if (splits == 1) {
+    nhwc::launch_reduce(part, stats, planes, p.G * grid.x, st);
+  } else {
+    nhwc::launch_split_stats(acc, splits, slice, part, batch, plane, p.Cout,
+                             segs, vec, st);
+    nhwc::launch_reduce(part, stats, planes, segs, st);
+  }
+  nhwc::launch_apply<float, T>(acc, stats, y, batch, plane, p.Cout, segs,
+                               vec, eps, act, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,6 +34,17 @@
 // fp32 conv output of the band's own output rows and their per-plane
 // stats (conv_gemm.cuh's launch_conv_band), and norm_act.cu's pgt_in_apply
 // finishes it from the stats summed over the spatial group.
+//
+// NHWC form (channels_last): pgt_conv_in_act_nhwc takes x as [N, H, W,
+// Cin] and the channels_last weight, physically [Cout, 4, 4, Cin], which
+// is B k-contiguous as it stands with k = (ky * 4 + kx) * Cin + ci, so
+// nothing is packed. A second problem struct (ConvNhwcProblem) on the same
+// core: where Cin is a multiple of BK, a K step lies inside one tap, and a
+// gathering thread, whose k slots are every second one, reads the step's
+// 32 channels of its pixel as 16-byte vectors (one 64-byte run, in L1 for
+// the thread of the other parity) and keeps its parity's half; other Cin
+// go element by element. The fp32 accumulator is NHWC, and the finish is
+// norm_nhwc.cuh's (launch_conv_in_act_nhwc).
 
 #include "conv_gemm.cuh"
 
@@ -89,6 +100,110 @@ struct ConvProblem {
     return (((long)n * Cout + co) * Ho + r) * Wo + c;
   }
 };
+
+// The NHWC problem: x [N, H, W, Cin], the weight [Cout, 4, 4, Cin] (k =
+// tap * Cin + ci, tap = ky * 4 + kx), acc [N, Ho, Wo, Cout]. VEC: Cin a
+// multiple of BK and x on 16 bytes.
+template <typename T, bool VEC>
+struct ConvNhwcProblem {
+  static constexpr bool kChannelsLast = true;
+  const T* x;
+  const T* bw;
+  int Cin, H, W, Cout, Ho, Wo;
+  int M, Mw, K, G, ldb;
+
+  struct Gather {
+    const T* xs;   // this sample
+    int iy, ix;    // the pixel of tap (0, 0)
+    unsigned ok;   // bit tap: tap (ky, kx) inside the image
+    int ak0;
+  };
+  __device__ __forceinline__ Gather gather(int n, int, bool valid, int r,
+                                           int c, int ax) const {
+    Gather t;
+    t.xs = x + (long)n * H * W * Cin;
+    t.iy = 2 * r - 1;
+    t.ix = 2 * c - 1;
+    t.ak0 = ax;
+    t.ok = 0;
+#pragma unroll
+    for (int ky = 0; ky < 4; ++ky)
+#pragma unroll
+      for (int kx = 0; kx < 4; ++kx) {
+        const int yy = t.iy + ky, xx = t.ix + kx;
+        if (valid && yy >= 0 && yy < H && xx >= 0 && xx < W)
+          t.ok |= 1u << (ky * 4 + kx);
+      }
+    return t;
+  }
+  __device__ __forceinline__ const T* at(const Gather& t, int tap,
+                                         int ci) const {
+    return t.xs + ((long)(t.iy + (tap >> 2)) * W + t.ix + (tap & 3)) * Cin +
+           ci;
+  }
+  __device__ __forceinline__ void load_a(const Gather& t, int k0, int kend,
+                                         pair_t<T> (&v)[BK / 4]) const {
+    if constexpr (VEC) {
+      // K and kend are multiples of BK: the step is whole and in one tap
+      const int tap = k0 / Cin;
+      if (t.ok >> tap & 1)
+        load_step_channels<T>(at(t, tap, k0 - tap * Cin), t.ak0, v);
+      else
+        zero_pairs<T>(v);
+    } else {
+      const T zero = from_f32<T>(0.f);
+#pragma unroll
+      for (int i = 0; i < BK / 4; ++i) {
+        T e[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = k0 + t.ak0 + 4 * i + 2 * h;
+          const int tap = k / Cin;
+          e[h] = k < kend && (t.ok >> tap & 1) ? *at(t, tap, k - tap * Cin)
+                                               : zero;
+        }
+        v[i].x = e[0];
+        v[i].y = e[1];
+      }
+    }
+  }
+  __device__ __forceinline__ long out(int n, int, int r, int c,
+                                      int co) const {
+    return (((long)n * Ho + r) * Wo + c) * Cout + co;
+  }
+};
+
+template <typename T, bool VEC>
+ConvNhwcProblem<T, VEC> nhwc_problem(const void* x, const void* w, int cin,
+                                     int h, int wd, int cout) {
+  ConvNhwcProblem<T, VEC> p;
+  p.x = static_cast<const T*>(x);
+  p.bw = static_cast<const T*>(w);
+  p.Cin = cin;
+  p.H = h;
+  p.W = wd;
+  p.Cout = cout;
+  p.Ho = (h - 2) / 2 + 1;
+  p.Wo = (wd - 2) / 2 + 1;
+  p.M = p.Ho * p.Wo;
+  p.Mw = p.Wo;
+  p.K = 16 * cin;
+  p.G = 1;
+  p.ldb = p.K;
+  return p;
+}
+
+template <typename T, bool VEC>
+int run_nhwc(const void* x, const void* w, void* y, void* acc, void* part,
+             void* stats, int batch, int split_batch, int cin, int h, int wd,
+             int cout, int act, float eps, int vec, int segs,
+             cudaStream_t st) {
+  const auto p = nhwc_problem<T, VEC>(x, w, cin, h, wd, cout);
+  return launch_conv_in_act_nhwc<T>(
+      p, batch, split_batch, static_cast<float*>(acc),
+      static_cast<float2*>(part), static_cast<float2*>(stats),
+      static_cast<T*>(y), (long)p.M, segs, vec, act, eps, st);
+}
 
 template <typename T>
 ConvProblem<T> problem(const void* x, const void* w, int cin, int h, int wd,
@@ -186,3 +301,43 @@ extern "C" int pgt_conv_band(const void* x, const void* w, void* acc,
   return pgt::run_band<float>(x, w, acc, part, stats, batch, split_batch, cin,
                               h, wd, cout, st);
 }
+
+// NHWC form. x [N, H, W, Cin] (an NHWC tensor), w the channels_last weight
+// [Cout, 4, 4, Cin] (16-byte aligned), y [N, Ho, Wo, Cout], all bf16
+// (bf16 != 0) or all fp32; x_vec: Cin a multiple of pgt_tile_k() and x on
+// 16 bytes (the vector gather); acc: fp32 scratch of
+// pgt_conv_splits(split_batch, ...) times y's size (NHWC); part: fp32
+// pairs, N * Cout * max(ceil(Ho*Wo / pgt_tile_m()), segs); stats: fp32
+// pairs, N * Cout; segs, vec: the finish's segments and 16-byte vectors
+// (norm_nhwc.cuh). Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for what the kernels cannot take.
+extern "C" int pgt_conv_in_act_nhwc(const void* x, const void* w, void* y,
+                                    void* acc, void* part, void* stats,
+                                    int batch, int split_batch, int cin,
+                                    int h, int wd, int cout, int act,
+                                    float eps, int bf16, int x_vec, int vec,
+                                    int segs, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_vec && (cin % pgt::BK || reinterpret_cast<uintptr_t>(x) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16) {
+    using B = __nv_bfloat16;
+    if (x_vec)
+      return pgt::run_nhwc<B, true>(x, w, y, acc, part, stats, batch,
+                                    split_batch, cin, h, wd, cout, act, eps,
+                                    vec, segs, st);
+    return pgt::run_nhwc<B, false>(x, w, y, acc, part, stats, batch,
+                                   split_batch, cin, h, wd, cout, act, eps,
+                                   vec, segs, st);
+  }
+  if (x_vec)
+    return pgt::run_nhwc<float, true>(x, w, y, acc, part, stats, batch,
+                                      split_batch, cin, h, wd, cout, act, eps,
+                                      vec, segs, st);
+  return pgt::run_nhwc<float, false>(x, w, y, acc, part, stats, batch,
+                                     split_batch, cin, h, wd, cout, act, eps,
+                                     vec, segs, st);
+}
+
+// BK of the core: the vector gathers' channel multiple
+extern "C" int pgt_tile_k(void) { return pgt::BK; }

@@ -40,6 +40,19 @@
 // plane's is 0 and its missing rows read as zero). It writes the fp32 output of the band's own 2 * Hc rows and their
 // per-plane stats (conv_gemm.cuh's launch_conv_band); norm_act.cu's
 // pgt_in_apply finishes it from the stats summed over the spatial group.
+//
+// NHWC form (channels_last): pgt_convt_in_act_nhwc takes x and skip as
+// [N, H, W, C] and the channels_last weight, physically [Cx + Cs, 4, 4,
+// Cout]. Its pack kernel transposes that through shared memory, 32 input
+// by 32 output channels of one tap a block, into wp[g][co][k] with k =
+// (2 ay + ax) * (Cx + Cs) + ci: taps outer, channels inner, x's then
+// skip's. A second problem struct (ConvTNhwcProblem) on the same core:
+// where Cx and Cs are multiples of BK, a K step is 32 channels of one tap
+// of x or of skip, read as 16-byte vectors, each gathering thread keeping
+// its parity's half (conv_norm_act.cu's scheme); other widths go element
+// by element. The skip concat stays fused (two pointers). The fp32
+// accumulator is NHWC, the classes interleaved into it, and the finish is
+// norm_nhwc.cuh's (launch_conv_in_act_nhwc).
 
 #include "conv_gemm.cuh"
 
@@ -138,6 +151,166 @@ int pack(const void* w, void* wp, int cx, int cs, int cout, cudaStream_t st) {
   pack_convt_weight<T><<<(threads + 255) / 256, 256, 0, st>>>(
       static_cast<const T*>(w), static_cast<T*>(wp), cx + cs, cout, kp);
   return static_cast<int>(cudaGetLastError());
+}
+
+// NHWC pack: w [C, 4, 4, Cout] (channels_last IOHW) -> wp [4][Cout][Kp],
+// wp[g][co][(2 ay + ax) C + ci] = w[ci, co, 1 - dy + 2 ay, 1 - dx + 2 ax]
+// for g = 2 dy + dx, zero from 4C up to Kp. Block (x, y, z): input
+// channels 32x .. 32x + 31, output channels 32y .. 32y + 31, tap z = ky * 4
+// + kx (z = 16: the zero padding), read along co, written along ci.
+template <typename T>
+__global__ void pack_convt_weight_nhwc(const T* __restrict__ w,
+                                       T* __restrict__ wp, int C, int Cout,
+                                       int Kp) {
+  const int ci0 = blockIdx.x * 32, co0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;  // 32 x 8
+  if (blockIdx.z == 16) {
+    if (blockIdx.x) return;
+    for (int k = 4 * C + tx; k < Kp; k += 32)
+      for (int q = ty; q < 4 * 32; q += 8) {
+        const int g = q >> 5, co = co0 + (q & 31);
+        if (co < Cout) wp[((long)g * Cout + co) * Kp + k] = from_f32<T>(0.f);
+      }
+    return;
+  }
+  const int ky = blockIdx.z >> 2, kx = blockIdx.z & 3;
+  const int g = 2 * (1 - (ky & 1)) + 1 - (kx & 1);
+  const int tap = 2 * (ky >> 1) + (kx >> 1);
+  __shared__ T tile[32][33];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int ci = ci0 + ty + 8 * j, co = co0 + tx;
+    tile[ty + 8 * j][tx] =
+        ci < C && co < Cout ? w[(((long)ci * 4 + ky) * 4 + kx) * Cout + co]
+                            : from_f32<T>(0.f);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int co = co0 + ty + 8 * j, ci = ci0 + tx;
+    if (co < Cout && ci < C)
+      wp[((long)g * Cout + co) * Kp + (long)tap * C + ci] =
+          tile[tx][ty + 8 * j];
+  }
+}
+
+template <typename T>
+int pack_nhwc(const void* w, void* wp, int cx, int cs, int cout,
+              cudaStream_t st) {
+  const int c = cx + cs, kp = packed_k(cx, cs);
+  const dim3 grid((c + 31) / 32, (cout + 31) / 32, kp > 4 * c ? 17 : 16);
+  pack_convt_weight_nhwc<T><<<grid, 256, 0, st>>>(
+      static_cast<const T*>(w), static_cast<T*>(wp), c, cout, kp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The NHWC problem: x [N, H, W, Cx], skip [N, H, W, Cs], the packed
+// weight [4][Cout][ldb] (k = (2 ay + ax) * C + ci), acc [N, 2H, 2W, Cout].
+// VEC: Cx and Cs multiples of BK, x and skip on 16 bytes.
+template <typename T, bool VEC>
+struct ConvTNhwcProblem {
+  static constexpr bool kChannelsLast = true;
+  const T* x;
+  const T* s;
+  const T* bw;
+  int Cx, Cs, C, H, W, Cout;
+  int M, Mw, K, G, ldb;
+
+  struct Gather {
+    const T* xs;   // this sample's x
+    const T* ss;   // this sample's skip
+    int iy, ix;    // the input pixel of tap (ay, ax) = (0, 0)
+    bool valid;
+    int ak0;
+  };
+  __device__ __forceinline__ Gather gather(int n, int g, bool valid, int r,
+                                           int c, int ax) const {
+    Gather t;
+    t.xs = x + (long)n * H * W * Cx;
+    t.ss = s + (long)n * H * W * Cs;
+    t.iy = r + (g >> 1);
+    t.ix = c + (g & 1);
+    t.valid = valid;
+    t.ak0 = ax;
+    return t;
+  }
+  // the channels of tap (ay, ax) from ci on, or null outside the image
+  __device__ __forceinline__ const T* at(const Gather& t, int tap,
+                                         int ci) const {
+    const int yy = t.iy - (tap >> 1), xx = t.ix - (tap & 1);
+    if (!t.valid || yy < 0 || yy >= H || xx < 0 || xx >= W) return nullptr;
+    const long pix = (long)yy * W + xx;
+    return ci < Cx ? t.xs + pix * Cx + ci : t.ss + pix * Cs + (ci - Cx);
+  }
+  __device__ __forceinline__ void load_a(const Gather& t, int k0, int kend,
+                                         pair_t<T> (&v)[BK / 4]) const {
+    if constexpr (VEC) {
+      // K and kend are multiples of BK: the step is whole, in one tap and
+      // in x or in skip
+      const int tap = k0 / C;
+      const T* p = at(t, tap, k0 - tap * C);
+      if (p)
+        load_step_channels<T>(p, t.ak0, v);
+      else
+        zero_pairs<T>(v);
+    } else {
+      const T zero = from_f32<T>(0.f);
+#pragma unroll
+      for (int i = 0; i < BK / 4; ++i) {
+        T e[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = k0 + t.ak0 + 4 * i + 2 * h;
+          const int tap = k / C;
+          const T* p = k < kend ? at(t, tap, k - tap * C) : nullptr;
+          e[h] = p ? *p : zero;
+        }
+        v[i].x = e[0];
+        v[i].y = e[1];
+      }
+    }
+  }
+  __device__ __forceinline__ long out(int n, int g, int r, int c,
+                                      int co) const {
+    return (((long)n * 2 * H + 2 * r + (g >> 1)) * (2 * W) + 2 * c +
+            (g & 1)) * Cout + co;
+  }
+};
+
+template <typename T, bool VEC>
+ConvTNhwcProblem<T, VEC> nhwc_problem(const void* x, const void* s,
+                                      const void* wp, int cx, int cs, int h,
+                                      int wd, int cout) {
+  ConvTNhwcProblem<T, VEC> p;
+  p.x = static_cast<const T*>(x);
+  p.s = static_cast<const T*>(s);
+  p.bw = static_cast<const T*>(wp);
+  p.Cx = cx;
+  p.Cs = cs;
+  p.C = cx + cs;
+  p.H = h;
+  p.W = wd;
+  p.Cout = cout;
+  p.M = h * wd;
+  p.Mw = wd;
+  p.K = 4 * (cx + cs);
+  p.G = 4;
+  p.ldb = packed_k(cx, cs);
+  return p;
+}
+
+template <typename T, bool VEC>
+int run_nhwc(const void* x, const void* s, const void* w, void* wp, void* y,
+             void* acc, void* part, void* stats, int batch, int split_batch,
+             int cx, int cs, int h, int wd, int cout, int act, float eps,
+             int vec, int segs, cudaStream_t st) {
+  const int rc = pack_nhwc<T>(w, wp, cx, cs, cout, st);
+  if (rc != 0) return rc;
+  const auto p = nhwc_problem<T, VEC>(x, s, wp, cx, cs, h, wd, cout);
+  return launch_conv_in_act_nhwc<T>(
+      p, batch, split_batch, static_cast<float*>(acc),
+      static_cast<float2*>(part), static_cast<float2*>(stats),
+      static_cast<T*>(y), 4L * p.M, segs, vec, act, eps, st);
 }
 
 template <typename T>
@@ -264,4 +437,55 @@ extern "C" int pgt_convt_band(const void* x, const void* skip, const void* w,
                                         cout, st);
   return pgt::run_band<float>(x, skip, w, wp, acc, part, stats, batch,
                               split_batch, cx, cs, h, wd, cout, st);
+}
+
+// NHWC form: the pack kernel alone on a channels_last weight [Cx + Cs,
+// Cout, 4, 4] -> wp [4, Cout, pgt_convt_packed_k()], bf16 (bf16 != 0) or
+// fp32. Returns cudaGetLastError().
+extern "C" int pgt_convt_pack_nhwc(const void* w, void* wp, int cx, int cs,
+                                   int cout, int bf16, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) return pgt::pack_nhwc<__nv_bfloat16>(w, wp, cx, cs, cout, st);
+  return pgt::pack_nhwc<float>(w, wp, cx, cs, cout, st);
+}
+
+// NHWC form. x [N, H, W, Cx], skip [N, H, W, Cs] (Cs may be 0, skip then
+// unused), w the channels_last weight [Cx + Cs, Cout, 4, 4], y [N, 2H, 2W,
+// Cout], all bf16 (bf16 != 0) or all fp32; wp as pgt_convt_in_act's
+// (NHWC order); x_vec: Cx and Cs multiples of 32, x and skip on 16 bytes
+// (the vector gather); acc: fp32 scratch of pgt_convt_splits(split_batch,
+// ...) times y's size (NHWC); part: fp32 pairs, N * Cout * max(4 *
+// ceil(H*W / pgt_tile_m()), segs); stats: fp32 pairs, N * Cout; segs, vec:
+// the finish's segments and 16-byte vectors (norm_nhwc.cuh). Launches the
+// pack, the GEMM and the finish. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what the kernels cannot take.
+extern "C" int pgt_convt_in_act_nhwc(const void* x, const void* skip,
+                                     const void* w, void* wp, void* y,
+                                     void* acc, void* part, void* stats,
+                                     int batch, int split_batch, int cx,
+                                     int cs, int h, int wd, int cout, int act,
+                                     float eps, int bf16, int x_vec, int vec,
+                                     int segs, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_vec && (cx % pgt::BK || cs % pgt::BK ||
+                reinterpret_cast<uintptr_t>(x) % 16 ||
+                (cs && reinterpret_cast<uintptr_t>(skip) % 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16) {
+    using B = __nv_bfloat16;
+    if (x_vec)
+      return pgt::run_nhwc<B, true>(x, skip, w, wp, y, acc, part, stats,
+                                    batch, split_batch, cx, cs, h, wd, cout,
+                                    act, eps, vec, segs, st);
+    return pgt::run_nhwc<B, false>(x, skip, w, wp, y, acc, part, stats, batch,
+                                   split_batch, cx, cs, h, wd, cout, act, eps,
+                                   vec, segs, st);
+  }
+  if (x_vec)
+    return pgt::run_nhwc<float, true>(x, skip, w, wp, y, acc, part, stats,
+                                      batch, split_batch, cx, cs, h, wd, cout,
+                                      act, eps, vec, segs, st);
+  return pgt::run_nhwc<float, false>(x, skip, w, wp, y, acc, part, stats,
+                                     batch, split_batch, cx, cs, h, wd, cout,
+                                     act, eps, vec, segs, st);
 }

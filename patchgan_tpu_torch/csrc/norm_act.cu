@@ -23,8 +23,15 @@
 // Band form (spatial parallelism, band.cuh): pgt_in_stats gives a band's
 // per-plane (sum, sum of squares), and pgt_in_apply normalises a band from
 // the plane's stats summed over the spatial group and its global count.
+//
+// NHWC form (channels_last, norm_nhwc.cuh): pgt_in_act_nhwc takes x in
+// [N, H, W, C] order, whose (n, c) plane is strided by C: a block holds a
+// tile of contiguous channels over a segment of one sample's pixels,
+// writes per-segment partial statistics, a warp a plane adds them, and a
+// last pass normalises.
 
 #include "band.cuh"
+#include "norm_nhwc.cuh"
 #include "norm_plane.cuh"
 
 namespace pgt {
@@ -191,5 +198,32 @@ extern "C" int pgt_in_apply(const void* x, const void* stats, void* y,
   else
     pgt::launch_apply<float, float>(x, stats, y, planes, plane, count, eps,
                                     act, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// NHWC form. x, y: [n, hw, c] (an NHWC tensor: hw = H * W), both bf16
+// (bf16 != 0) or both fp32; part: fp32 pairs, n * c * segs; stats: fp32
+// pairs, n * c; segs: segments of a sample's pixels (grid.x); vec: 16-byte
+// vectors (c a multiple of 8, every pointer on 16 bytes), else element by
+// element. Returns cudaErrorInvalidValue for what the kernels cannot take,
+// else cudaGetLastError() after the launches.
+extern "C" int pgt_in_act_nhwc(const void* x, void* y, void* part,
+                               void* stats, long n, long hw, int c, int act,
+                               float eps, int bf16, int vec, int segs,
+                               void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!pgt::nhwc::shape_ok(n, hw, c, segs, vec, {x, y}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float2* pp = static_cast<float2*>(part);
+  float2* sp = static_cast<float2*>(stats);
+  if (bf16) {
+    using B = __nv_bfloat16;
+    pgt::nhwc::launch_in_act<B>(static_cast<const B*>(x), static_cast<B*>(y),
+                                pp, sp, n, hw, c, segs, vec, eps, act, st);
+  } else {
+    pgt::nhwc::launch_in_act<float>(static_cast<const float*>(x),
+                                    static_cast<float*>(y), pp, sp, n, hw, c,
+                                    segs, vec, eps, act, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,8 +35,15 @@
 // per-plane (sum gm, sum gm * xhat) from the plane's global statistics, and
 // pgt_in_bwd_apply writes the band's dx from those sums summed over the
 // spatial group.
+//
+// NHWC form (channels_last, norm_nhwc.cuh): pgt_in_act_bwd_nhwc takes g and
+// x in [N, H, W, C] order: x's per-segment partial statistics and their
+// sum, then the partial (sum gm, sum gm * xhat) and their sum, then dx,
+// each pass a block over a tile of contiguous channels and a segment of
+// one sample's pixels.
 
 #include "band.cuh"
+#include "norm_nhwc.cuh"
 #include "norm_plane.cuh"
 
 namespace pgt {
@@ -240,6 +247,36 @@ extern "C" int pgt_in_bwd_apply(const void* g, const void* x,
                                   st>>>(
         static_cast<const float*>(g), static_cast<const float*>(x), sp, up,
         static_cast<float*>(dx), plane, spans, count, eps, act);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// NHWC form. g, x, dx: [n, hw, c] (hw = H * W), all bf16 (bf16 != 0) or
+// all fp32; part: fp32 pairs, n * c * segs; stats, sums: fp32 pairs,
+// n * c each; segs and vec as pgt_in_act_nhwc's. Returns
+// cudaErrorInvalidValue for what the kernels cannot take, else
+// cudaGetLastError() after the launches.
+extern "C" int pgt_in_act_bwd_nhwc(const void* g, const void* x, void* dx,
+                                   void* part, void* stats, void* sums,
+                                   long n, long hw, int c, int act, float eps,
+                                   int bf16, int vec, int segs,
+                                   void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!pgt::nhwc::shape_ok(n, hw, c, segs, vec, {g, x, dx}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float2* pp = static_cast<float2*>(part);
+  float2* sp = static_cast<float2*>(stats);
+  float2* up = static_cast<float2*>(sums);
+  if (bf16) {
+    using B = __nv_bfloat16;
+    pgt::nhwc::launch_in_act_bwd<B>(
+        static_cast<const B*>(g), static_cast<const B*>(x),
+        static_cast<B*>(dx), pp, sp, up, n, hw, c, segs, vec, eps, act, st);
+  } else {
+    pgt::nhwc::launch_in_act_bwd<float>(
+        static_cast<const float*>(g), static_cast<const float*>(x),
+        static_cast<float*>(dx), pp, sp, up, n, hw, c, segs, vec, eps, act,
+        st);
   }
   return static_cast<int>(cudaGetLastError());
 }

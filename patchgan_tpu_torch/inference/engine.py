@@ -249,12 +249,16 @@ class InferenceEngine:
         if dtype is not None:
             model.dtype = dtype
         dtype = getattr(model, 'dtype', torch.float32)
-        # one eval copy a distinct device, cast once (JAX ``replicate``)
+        # one eval copy a distinct device, cast once (JAX ``replicate``),
+        # in NCHW whatever the generator's layout (a channels_last
+        # Trainer's): the engine has no channels_last path yet
         replicas = {}
         for d in devices:
             if d not in replicas:
                 src = model if not replicas else copy.deepcopy(model)
-                replicas[d] = src.to(device=d, dtype=dtype).eval()
+                replicas[d] = src.to(
+                    device=d, dtype=dtype,
+                    memory_format=torch.contiguous_format).eval()
         self._devices = devices
         self._models = [replicas[d] for d in devices]
         self.model = self._models[0]

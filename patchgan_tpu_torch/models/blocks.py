@@ -87,7 +87,10 @@ FUSED_CONV_MIN_CIN = 16
 def keep_mask(x, generator, mesh=None, band=False):
     """The dropout's keep mask for x, drawn from ``generator`` for the
     global shape: every data rank's rows with a ``mesh``, and every band's
-    rows when x is a ``band`` of a spatial axis; the rank keeps its own."""
+    rows when x is a ``band`` of a spatial axis; the rank keeps its own.
+    The draw is in NCHW order whatever x's layout, so a channels_last step
+    draws the same mask; the comparison writes it in x's layout (one
+    kernel, no copy)."""
     data = None if mesh is None else mesh.data
     spatial = mesh.spatial if band else None
     shape = list(x.shape)
@@ -100,7 +103,8 @@ def keep_mask(x, generator, mesh=None, band=False):
         keep = data.local_rows(keep)
     if spatial is not None:
         keep = spatial.band(keep)
-    return keep >= DROPOUT_RATE
+    out = torch.empty_like(x, dtype=torch.bool)
+    return torch.ge(keep, DROPOUT_RATE, out=out)
 
 
 def dropout(x, generator, mesh=None, band=False):

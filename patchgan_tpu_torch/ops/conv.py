@@ -11,7 +11,10 @@ x's dtype at use.
 
 These serve the generator levels that no fused kernel covers (enc0,
 dec0 and the dec6 head), which the JAX package also leaves outside its
-Pallas kernels, and the discriminator.
+Pallas kernels, and the discriminator. The weight's channel halves are
+taken with ``split``, whose backward concatenates their gradients and so
+keeps a channels_last weight's gradient channels_last (a slice's backward
+writes into a new NCHW tensor); the values are the same.
 """
 
 import torch.nn.functional as F
@@ -32,17 +35,22 @@ def conv2d(x, w, x2=None, stride=2, padding=1, bias=None, x2s=None):
     if x2s is not None:
         if x2 is not None:
             raise ValueError("conv2d: pass x2 or x2s, not both")
-        c1 = x.shape[1]
-        shared = F.conv2d(x, w[:, :c1], b, stride=stride, padding=padding)
-        return tuple(shared + F.conv2d(m.to(x.dtype), w[:, c1:],
-                                       stride=stride, padding=padding)
+        w1, w2 = _halves(w, x, 1)
+        shared = F.conv2d(x, w1, b, stride=stride, padding=padding)
+        return tuple(shared + F.conv2d(m.to(x.dtype), w2, stride=stride,
+                                       padding=padding)
                      for m in x2s)
     if x2 is None:
         return F.conv2d(x, w, b, stride=stride, padding=padding)
+    w1, w2 = _halves(w, x, 1)
+    return (F.conv2d(x, w1, b, stride=stride, padding=padding)
+            + F.conv2d(x2.to(x.dtype), w2, stride=stride, padding=padding))
+
+
+def _halves(w, x, dim):
+    """w's input-channel halves along ``dim``: x's channels, the rest."""
     c1 = x.shape[1]
-    return (F.conv2d(x, w[:, :c1], b, stride=stride, padding=padding)
-            + F.conv2d(x2.to(x.dtype), w[:, c1:], stride=stride,
-                       padding=padding))
+    return w.split([c1, w.shape[dim] - c1], dim=dim)
 
 
 def conv_transpose2d(x, w, x2=None, padding=1):
@@ -51,7 +59,7 @@ def conv_transpose2d(x, w, x2=None, padding=1):
     w = w.to(x.dtype)
     if x2 is None:
         return F.conv_transpose2d(x, w, stride=2, padding=padding)
-    c1 = x.shape[1]
-    return (F.conv_transpose2d(x, w[:c1], stride=2, padding=padding)
-            + F.conv_transpose2d(x2.to(x.dtype), w[c1:], stride=2,
+    w1, w2 = _halves(w, x, 0)
+    return (F.conv_transpose2d(x, w1, stride=2, padding=padding)
+            + F.conv_transpose2d(x2.to(x.dtype), w2, stride=2,
                                  padding=padding))

@@ -5,7 +5,9 @@ from .conv_norm_act import (conv_band, conv_band_plain, conv_norm_act,
                             conv_norm_act_band, conv_norm_act_plain)
 from .convt_norm_act import (convt_band, convt_band_plain, convt_norm_act,
                              convt_norm_act_band, convt_norm_act_plain,
-                             pack_convt_weight, pack_convt_weight_plain)
+                             pack_convt_weight, pack_convt_weight_nhwc,
+                             pack_convt_weight_nhwc_plain,
+                             pack_convt_weight_plain)
 from .norm_act import (in_apply, in_apply_plain, in_bwd_apply,
                        in_bwd_apply_plain, in_bwd_sums, in_bwd_sums_plain,
                        in_stats, in_stats_plain, instance_norm_act,
@@ -32,6 +34,7 @@ __all__ = ['conv_band', 'conv_band_plain', 'conv_norm_act',
            'instance_norm_act', 'instance_norm_act_backward',
            'instance_norm_act_backward_plain', 'instance_norm_act_band',
            'instance_norm_act_plain', 'pack_convt_weight',
+           'pack_convt_weight_nhwc', 'pack_convt_weight_nhwc_plain',
            'pack_convt_weight_plain', 'pack_thin_weight',
            'pack_thin_weight_plain', 'thin_conv3x3', 'thin_conv3x3_plain',
            'thin_conv3x3_wgrad', 'thin_conv3x3_wgrad_plain', 'WRAPPERS',

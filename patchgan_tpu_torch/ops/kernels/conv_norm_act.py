@@ -1,5 +1,5 @@
 """K2: conv(k=4, s=2, p=1, no bias) + instance norm + activation, NCHW
-input, OIHW weight, with its gradient.
+or NHWC (channels_last) input, OIHW weight, with its gradient.
 
 Port of ``patchgan_tpu/ops/pallas/conv_norm_act.py::fused_conv_norm_act``.
 The CUDA kernel is ``csrc/conv_norm_act.cu``; ``conv_norm_act_plain`` is
@@ -9,6 +9,13 @@ oracle on the card). ``ConvNormAct`` is the custom VJP of
 the conv output in the compute dtype (cuDNN; the JAX package leaves this
 conv to XLA), runs K1-bwd on it, and takes dx and dw through the
 recomputed conv.
+
+NHWC form: a channels_last x (``norm_act.is_nhwc``) with a channels_last
+weight launches ``pgt_conv_in_act_nhwc`` (the same core on an NHWC
+problem, the finish of ``csrc/norm_nhwc.cuh``), its output channels_last;
+an NCHW-contiguous x today's form; anything else raises. The backward's
+recompute (cuDNN) and K1-bwd then run in channels_last too: its incoming
+gradient is taken in the recompute's layout, never flattened to NCHW.
 
 Band form (spatial parallelism, ``parallel/spatial.py``): ``conv_band``
 takes a rank's band of rows with one halo row above and below (zero rows
@@ -28,9 +35,10 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .norm_act import (act_code, band_backward, dtype_flag, in_apply,
-                       in_stats_plain, instance_norm_act_backward,
-                       instance_norm_act_plain, needs_graph, require,
+from .norm_act import (act_code, band_backward, dtype_flag, f32_scratch,
+                       in_apply, in_layout_of, in_stats_plain,
+                       instance_norm_act_backward, instance_norm_act_plain,
+                       is_nhwc, needs_graph, nhwc_plan, require,
                        require_aligned)
 
 
@@ -57,6 +65,11 @@ def _lib():
     lib.pgt_conv_band.restype = i
     lib.pgt_conv_band_splits.argtypes = [i] * 5
     lib.pgt_conv_band_splits.restype = i
+    lib.pgt_conv_in_act_nhwc.argtypes = [p] * 6 + [i] * 7 + [
+        ctypes.c_float, i, i, i, i, p]
+    lib.pgt_conv_in_act_nhwc.restype = i
+    lib.pgt_tile_k.argtypes = []
+    lib.pgt_tile_k.restype = i
     return lib
 
 
@@ -66,8 +79,9 @@ def _forward(x, w, eps, activation, split_batch=None):
     if x.device.type == 'cpu':
         return conv_norm_act_plain(x, w, eps, activation)
     act = act_code(activation)
-    require(x, 'x', 4)
-    require(w, 'w', 4, like=x)
+    nhwc = x.dim() == 4 and is_nhwc(x)
+    require(x, 'x', 4, nhwc=nhwc)
+    require(w, 'w', 4, like=x, nhwc=nhwc)
     flag = dtype_flag(x)
     n, cin, h, wd = x.shape
     cout = w.shape[0]
@@ -80,6 +94,8 @@ def _forward(x, w, eps, activation, split_batch=None):
     require_aligned(w, 'w')
     lib = _lib()
     tiles = -(-ho * wo // lib.pgt_tile_m())
+    if nhwc:
+        return _forward_nhwc(lib, x, w, act, eps, split_batch, tiles)
     y = torch.empty((n, cout, ho, wo), dtype=x.dtype, device=x.device)
     # fp32 conv output, one copy per K split
     split_batch = split_batch or n
@@ -98,6 +114,32 @@ def _forward(x, w, eps, activation, split_batch=None):
     return y
 
 
+def _forward_nhwc(lib, x, w, act, eps, split_batch, tiles):
+    """K2's NHWC form on channels_last x and w (checked by ``_forward``)."""
+    n, cin, h, wd = x.shape
+    cout = w.shape[0]
+    ho, wo = (h - 2) // 2 + 1, (wd - 2) // 2 + 1
+    y = torch.empty((n, cout, ho, wo), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    split_batch = split_batch or n
+    splits = lib.pgt_conv_splits(split_batch, cin, h, wd, cout)
+    acc = f32_scratch(splits * n * ho * wo * cout, like=x)
+    vec, segs = nhwc_plan(n, ho * wo, cout, x.dtype, acc, y)
+    part = f32_scratch(n * cout * max(tiles, segs), 2, like=x)
+    stats = f32_scratch(n * cout, 2, like=x)
+    x_vec = cin % lib.pgt_tile_k() == 0 and x.data_ptr() % 16 == 0
+    with torch.cuda.device(x.device):
+        rc = lib.pgt_conv_in_act_nhwc(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), acc.data_ptr(),
+            part.data_ptr(), stats.data_ptr(), n, split_batch, cin, h, wd,
+            cout, act, eps, dtype_flag(x), int(x_vec), int(vec), segs,
+            _build.stream_of(x))
+    _build.check(rc, 'conv_norm_act (NHWC)')
+    conv_norm_act.launches += 1
+    conv_norm_act.launches_nhwc += 1
+    return y
+
+
 def recompute_grads(ctx, g, conv, inputs):
     """The shared backward of K2 and K3: ``conv(*inputs)`` recomputed in
     the compute dtype, K1-bwd on it, then the input gradients that
@@ -110,7 +152,7 @@ def recompute_grads(ctx, g, conv, inputs):
                   for t, need in zip(inputs, want)]
         out = conv(*leaves)
     recompute_grads.launches += 1
-    dout = instance_norm_act_backward(g.to(out.dtype).contiguous(),
+    dout = instance_norm_act_backward(in_layout_of(g.to(out.dtype), out),
                                       out.detach(), ctx.eps, ctx.activation)
     wanted = [t for t, need in zip(leaves, want) if need]
     found = iter(torch.autograd.grad(out, wanted, dout)) if wanted else None
@@ -141,8 +183,10 @@ class ConvNormAct(torch.autograd.Function):
 
 
 def conv_norm_act(x, w, eps=1e-5, activation=None, split_batch=None):
-    """x: (N, Cin, H, W), w: (Cout, Cin, 4, 4) in x's dtype. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel.
+    """x: (N, Cin, H, W), w: (Cout, Cin, 4, 4) in x's dtype and layout
+    (NCHW-contiguous, or both channels_last). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel in the form of its layout,
+    the output in that layout.
     ``split_batch``: the kernel takes the K split of a batch of that many
     samples (default N, the fastest); held fixed, each sample's output is
     the same bits whatever batch it runs in. Differentiable through
@@ -153,6 +197,8 @@ def conv_norm_act(x, w, eps=1e-5, activation=None, split_batch=None):
 
 
 conv_norm_act.launches = 0
+# the NHWC form's launches alone (``launches`` counts both forms')
+conv_norm_act.launches_nhwc = 0
 
 
 # band form

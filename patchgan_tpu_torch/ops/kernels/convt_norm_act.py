@@ -1,5 +1,6 @@
 """K3: transposed conv(k=4, s=2, p=1, no bias) over concat(x, skip) +
-instance norm + activation, NCHW, torch IOHW weight, with its gradient.
+instance norm + activation, NCHW or NHWC (channels_last), torch IOHW
+weight, with its gradient.
 
 Port of ``patchgan_tpu/ops/pallas/convt_norm_act.py::fused_convt_norm_act``.
 The CUDA kernel is ``csrc/convt_norm_act.cu``; ``convt_norm_act_plain``
@@ -20,6 +21,14 @@ fp32 output of the band's own rows and its per-plane stats;
 spatial group and finishes with ``in_apply``; the backward is
 ``recompute_band_grads``.
 
+NHWC form: channels_last x, skip and weight (``norm_act.is_nhwc``) launch
+``pgt_convt_in_act_nhwc``, whose pack kernel reads the channels_last
+weight (``pack_convt_weight_nhwc_plain`` is its layout in plain PyTorch,
+``pack_convt_weight_nhwc`` the pack kernel alone), then the same core on
+an NHWC problem and the finish of ``csrc/norm_nhwc.cuh``; the output is
+channels_last. NCHW-contiguous inputs take today's form; anything else
+raises.
+
 Unlike the TPU gate (``Cout >= 128``, a lane-padding limit of that chip),
 every Cout runs the kernel here, so the nf=64 generator's dec5 (Cout=64)
 goes through it too.
@@ -33,9 +42,9 @@ import torch.nn.functional as F
 
 from . import _build
 from .conv_norm_act import recompute_band_grads, recompute_grads
-from .norm_act import (act_code, dtype_flag, in_apply, in_stats_plain,
-                       instance_norm_act_plain, needs_graph, require,
-                       require_aligned)
+from .norm_act import (act_code, dtype_flag, f32_scratch, in_apply,
+                       in_stats_plain, instance_norm_act_plain, is_nhwc,
+                       needs_graph, nhwc_plan, require, require_aligned)
 
 TILE_K = 32   # BK of csrc/conv_gemm.cuh: the packed rows' multiple
 
@@ -61,6 +70,19 @@ def pack_convt_weight_plain(w):
     return F.pad(wp, (0, -(-k // TILE_K) * TILE_K - k))
 
 
+def pack_convt_weight_nhwc_plain(w):
+    """The NHWC form's packed weight: (4, Cout, Kp) with wp[g, co, (2 ay
+    + ax) C + ci] = w[ci, co, 1 - (g >> 1) + 2 ay, 1 - (g & 1) + 2 ax]
+    (taps outer, channels inner), zero from K = 4 C up to Kp, the next
+    multiple of ``TILE_K``."""
+    c, cout = w.shape[:2]
+    k = 4 * c
+    wp = torch.stack([w[:, :, 1 - (g >> 1)::2, 1 - (g & 1)::2]
+                      .permute(1, 2, 3, 0).reshape(cout, k)
+                      for g in range(4)])
+    return F.pad(wp, (0, -(-k // TILE_K) * TILE_K - k))
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load('convt_norm_act')
@@ -80,6 +102,11 @@ def _lib():
     lib.pgt_convt_band.restype = i
     lib.pgt_convt_band_splits.argtypes = [i] * 6
     lib.pgt_convt_band_splits.restype = i
+    lib.pgt_convt_pack_nhwc.argtypes = [p, p, i, i, i, i, p]
+    lib.pgt_convt_pack_nhwc.restype = i
+    lib.pgt_convt_in_act_nhwc.argtypes = [p] * 8 + [i] * 8 + [
+        ctypes.c_float, i, i, i, i, p]
+    lib.pgt_convt_in_act_nhwc.restype = i
     return lib
 
 
@@ -106,18 +133,36 @@ def pack_convt_weight(w):
     return wp
 
 
+def pack_convt_weight_nhwc(w):
+    """The NHWC form's pack kernel alone on a channels_last CUDA weight
+    (Cin, Cout, 4, 4), to hold against ``pack_convt_weight_nhwc_plain``.
+    Not a K3 launch."""
+    require(w, 'w', 4, nhwc=True)
+    if w.shape[2:] != (4, 4):
+        raise ValueError(f"w must be (Cin, Cout, 4, 4), got {tuple(w.shape)}")
+    lib = _lib()
+    wp = _packed(lib, w)
+    with torch.cuda.device(w.device):
+        rc = lib.pgt_convt_pack_nhwc(w.data_ptr(), wp.data_ptr(), w.shape[0],
+                                     0, w.shape[1], dtype_flag(w),
+                                     _build.stream_of(w))
+    _build.check(rc, 'convt pack (NHWC)')
+    return wp
+
+
 def _forward(x, w, eps, activation, skip, split_batch=None):
     """K3 on CUDA tensors, the plain version on CPU tensors; never
     recorded by autograd."""
     if x.device.type == 'cpu':
         return convt_norm_act_plain(x, w, eps, activation, skip)
     act = act_code(activation)
-    require(x, 'x', 4)
-    require(w, 'w', 4, like=x)
+    nhwc = x.dim() == 4 and is_nhwc(x)
+    require(x, 'x', 4, nhwc=nhwc)
+    require(w, 'w', 4, like=x, nhwc=nhwc)
     n, cx, h, wd = x.shape
     cs = 0
     if skip is not None:
-        require(skip, 'skip', 4, like=x)
+        require(skip, 'skip', 4, like=x, nhwc=nhwc)
         if skip.shape[0] != n or skip.shape[2:] != x.shape[2:]:
             raise ValueError(f"skip {tuple(skip.shape)} does not match x "
                              f"{tuple(x.shape)}")
@@ -130,6 +175,8 @@ def _forward(x, w, eps, activation, skip, split_batch=None):
     require_aligned(w, 'w')
     lib = _lib()
     tiles = -(-h * wd // lib.pgt_tile_m())
+    if nhwc:
+        return _forward_nhwc(lib, x, w, act, eps, skip, split_batch, tiles)
     y = torch.empty((n, cout, 2 * h, 2 * wd), dtype=x.dtype, device=x.device)
     # fp32 conv output, one copy per K split
     split_batch = split_batch or n
@@ -147,6 +194,36 @@ def _forward(x, w, eps, activation, skip, split_batch=None):
             cx, cs, h, wd, cout, act, eps, flag, _build.stream_of(x))
     _build.check(rc, 'convt_norm_act')
     convt_norm_act.launches += 1
+    return y
+
+
+def _forward_nhwc(lib, x, w, act, eps, skip, split_batch, tiles):
+    """K3's NHWC form on channels_last x, skip and w (checked by
+    ``_forward``)."""
+    n, cx, h, wd = x.shape
+    cs = 0 if skip is None else skip.shape[1]
+    cout = w.shape[1]
+    y = torch.empty((n, cout, 2 * h, 2 * wd), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    split_batch = split_batch or n
+    splits = lib.pgt_convt_splits(split_batch, cx, cs, h, wd, cout)
+    acc = f32_scratch(splits * y.numel(), like=x)
+    vec, segs = nhwc_plan(n, 4 * h * wd, cout, x.dtype, acc, y)
+    part = f32_scratch(n * cout * max(4 * tiles, segs), 2, like=x)
+    stats = f32_scratch(n * cout, 2, like=x)
+    wp = _packed(lib, w)
+    skip_ptr = skip.data_ptr() if skip is not None else None
+    x_vec = cx % TILE_K == 0 and cs % TILE_K == 0 and x.data_ptr() % 16 == 0 \
+        and (skip is None or skip.data_ptr() % 16 == 0)
+    with torch.cuda.device(x.device):
+        rc = lib.pgt_convt_in_act_nhwc(
+            x.data_ptr(), skip_ptr, w.data_ptr(), wp.data_ptr(),
+            y.data_ptr(), acc.data_ptr(), part.data_ptr(), stats.data_ptr(),
+            n, split_batch, cx, cs, h, wd, cout, act, eps, dtype_flag(x),
+            int(x_vec), int(vec), segs, _build.stream_of(x))
+    _build.check(rc, 'convt_norm_act (NHWC)')
+    convt_norm_act.launches += 1
+    convt_norm_act.launches_nhwc += 1
     return y
 
 
@@ -175,8 +252,10 @@ class ConvTNormAct(torch.autograd.Function):
 def convt_norm_act(x, w, eps=1e-5, activation=None, skip=None,
                    split_batch=None):
     """x: (N, Cx, H, W), optional skip: (N, Cs, H, W), w: (Cx + Cs, Cout,
-    4, 4), all in x's dtype. Returns (N, Cout, 2H, 2W). A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel. ``split_batch``
+    4, 4), all in x's dtype and layout (NCHW-contiguous, or all
+    channels_last). Returns (N, Cout, 2H, 2W) in that layout. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel in the form
+    of its layout. ``split_batch``
     as in ``conv_norm_act``. Differentiable through ``ConvTNormAct``."""
     if needs_graph(x, w, skip):
         return ConvTNormAct.apply(x, w, skip, eps, activation, split_batch)
@@ -184,6 +263,8 @@ def convt_norm_act(x, w, eps=1e-5, activation=None, skip=None,
 
 
 convt_norm_act.launches = 0
+# the NHWC form's launches alone (``launches`` counts both forms')
+convt_norm_act.launches_nhwc = 0
 
 
 # band form

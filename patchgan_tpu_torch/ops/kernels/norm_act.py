@@ -1,5 +1,5 @@
-"""K1: affine-free instance norm + activation, NCHW, and K1-bwd, its
-backward.
+"""K1: affine-free instance norm + activation, and K1-bwd, its backward,
+each in two forms: NCHW and NHWC (channels_last).
 
 Port of ``patchgan_tpu/ops/pallas/norm_act.py::instance_norm_act_pallas``:
 the forward (``_fwd_kernel``) is ``csrc/norm_act.cu``, the backward
@@ -12,6 +12,16 @@ and its backward recomputes the statistics from x. ``plane_geometry``
 chooses both kernels' launch geometry (how many threads own a plane, how
 much of it each holds in registers), which the wrappers pass to the C
 entry points.
+
+NHWC form (``csrc/norm_nhwc.cuh``): a CUDA tensor laid out
+``torch.channels_last`` (``is_nhwc``) launches ``pgt_in_act_nhwc`` /
+``pgt_in_act_bwd_nhwc``, whose blocks take a tile of contiguous channels
+over a segment of one sample's pixels (``nhwc_segments`` picks the
+segments), and gets its output in the same layout; an NCHW-contiguous one
+launches today's form; any other layout raises. No wrapper converts a
+layout: the autograd backward takes its incoming gradient in the layout of
+the saved input (a no-op when the two agree, as on either form's path).
+The plain versions keep the input's layout too.
 
 Band forms (spatial parallelism, ``parallel/spatial.py``; ``csrc/band.cuh``):
 a plane's rows split over the ranks of a spatial group. ``in_stats`` gives
@@ -55,14 +65,43 @@ def dtype_flag(t):
     raise TypeError(f"kernels take float32 or bfloat16, not {t.dtype}")
 
 
-def require(t, name, ndim, like=None):
-    """Device, contiguity, rank and dtype checks before a launch."""
+def is_nhwc(t, name='x'):
+    """Whether the 4-D tensor t is laid out channels_last (the NHWC forms
+    take it) rather than NCHW-contiguous (today's forms); any other layout
+    raises. A tensor both describe (H = W = 1, or C = 1) is the same bytes
+    either way; its strides say which it was made as, as torch's
+    ``suggest_memory_format`` reads them."""
+    cl = t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last)
+    if t.is_contiguous():
+        return cl and t.shape[1] > 1 and t.stride(3) != 1
+    if cl:
+        return True
+    raise ValueError(f"{name} {tuple(t.shape)} with strides {t.stride()} is "
+                     f"neither NCHW-contiguous nor channels_last")
+
+
+def memory_format(nhwc):
+    return torch.channels_last if nhwc else torch.contiguous_format
+
+
+def in_layout_of(g, x):
+    """g in x's layout: g itself where they agree (both forms' paths),
+    else a copy in x's."""
+    fmt = memory_format(is_nhwc(x))
+    return g if g.is_contiguous(memory_format=fmt) else \
+        g.contiguous(memory_format=fmt)
+
+
+def require(t, name, ndim, like=None, nhwc=False):
+    """Device, layout (NCHW-contiguous, or channels_last with ``nhwc``),
+    rank and dtype checks before a launch."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    if not t.is_contiguous(memory_format=memory_format(nhwc)):
+        raise ValueError(f"{name} must be "
+                         f"{'channels_last' if nhwc else 'contiguous'}")
     if like is not None and (t.dtype != like.dtype
                              or t.device != like.device):
         raise ValueError(f"{name} is {t.dtype} on {t.device}; expected "
@@ -186,6 +225,41 @@ def _aligned(*tensors):
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+# the NHWC forms' blocks (csrc/norm_nhwc.cuh): threads a block, and the
+# blocks the segments aim at (four a streaming multiprocessor of an H100)
+NHWC_THREADS = 256
+NHWC_TARGET_BLOCKS = 4 * 132
+
+
+def nhwc_segments(n, hw, c, width):
+    """Segments of a sample's ``hw`` pixels an NHWC launch over ``c``
+    channels in chunks of ``width`` takes (its grid.x): enough for about
+    ``NHWC_TARGET_BLOCKS`` blocks, each thread keeping at least four
+    pixels. Mirrors ``nhwc::geo`` for the lanes and tiles."""
+    chunks = -(-c // width)
+    lanes = 1
+    while lanes < chunks and lanes < 32:
+        lanes *= 2
+    tiles = -(-chunks // lanes)
+    rows = NHWC_THREADS // lanes
+    want = -(-NHWC_TARGET_BLOCKS // (n * tiles))
+    return max(1, min(want, -(-hw // (4 * rows)), 65535))
+
+
+def nhwc_plan(n, hw, c, dtype, *tensors):
+    """(vec, segs) of an NHWC launch: 16-byte vectors where c is a
+    multiple of 8 and every tensor starts on 16 bytes, else element by
+    element; the segments for that width."""
+    vec = c % 8 == 0 and _aligned(*tensors)
+    width = 16 // dtype.itemsize if vec else 1
+    return vec, nhwc_segments(n, hw, c, width)
+
+
+def f32_scratch(*shape, like):
+    """An empty fp32 tensor of ``shape`` on ``like``'s device."""
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load('norm_act')
@@ -193,6 +267,9 @@ def _lib():
     lib.pgt_in_act.argtypes = [p, p, ctypes.c_long, ctypes.c_long, i,
                                ctypes.c_float, i, i, i, i, i, p]
     lib.pgt_in_act.restype = i
+    lib.pgt_in_act_nhwc.argtypes = [p] * 4 + [
+        ctypes.c_long, ctypes.c_long, i, i, ctypes.c_float, i, i, i, p]
+    lib.pgt_in_act_nhwc.restype = i
     return lib
 
 
@@ -203,6 +280,9 @@ def _bwd_lib():
     lib.pgt_in_act_bwd.argtypes = [p, p, p, ctypes.c_long, ctypes.c_long,
                                    i, ctypes.c_float, i, i, i, i, i, p]
     lib.pgt_in_act_bwd.restype = i
+    lib.pgt_in_act_bwd_nhwc.argtypes = [p] * 6 + [
+        ctypes.c_long, ctypes.c_long, i, i, ctypes.c_float, i, i, i, p]
+    lib.pgt_in_act_bwd_nhwc.restype = i
     return lib
 
 
@@ -212,6 +292,8 @@ def _forward(x, eps, activation):
     if x.is_cpu:
         return instance_norm_act_plain(x, eps, activation)
     act = act_code(activation)
+    if x.dim() == 4 and is_nhwc(x):
+        return _forward_nhwc(x, eps, act)
     require(x, 'x', 4)
     flag = dtype_flag(x)
     n, c, h, w = x.shape
@@ -227,17 +309,64 @@ def _forward(x, eps, activation):
     return y
 
 
+def _forward_nhwc(x, eps, act):
+    """K1's NHWC form on a channels_last CUDA tensor."""
+    require(x, 'x', 4, nhwc=True)
+    n, c, h, w = x.shape
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    if not n * c * h * w:
+        return y
+    vec, segs = nhwc_plan(n, h * w, c, x.dtype, x, y)
+    part = f32_scratch(n * c * segs, 2, like=x)
+    stats = f32_scratch(n * c, 2, like=x)
+    with _build.device_guard(x):
+        rc = _lib().pgt_in_act_nhwc(
+            x.data_ptr(), y.data_ptr(), part.data_ptr(), stats.data_ptr(),
+            n, h * w, c, act, eps, dtype_flag(x), int(vec), segs,
+            _build.stream_of(x))
+    _build.check(rc, 'instance_norm_act (NHWC)')
+    instance_norm_act.launches += 1
+    instance_norm_act.launches_nhwc += 1
+    return y
+
+
+def _backward_nhwc(g, x, eps, act):
+    """K1-bwd's NHWC form on channels_last CUDA tensors."""
+    require(g, 'g', 4, nhwc=True)
+    require(x, 'x', 4, like=g, nhwc=True)
+    n, c, h, w = g.shape
+    dx = torch.empty_like(g, memory_format=torch.channels_last)
+    if not n * c * h * w:
+        return dx
+    vec, segs = nhwc_plan(n, h * w, c, g.dtype, g, x, dx)
+    part = f32_scratch(n * c * segs, 2, like=g)
+    stats = f32_scratch(n * c, 2, like=g)
+    sums = f32_scratch(n * c, 2, like=g)
+    with _build.device_guard(g):
+        rc = _bwd_lib().pgt_in_act_bwd_nhwc(
+            g.data_ptr(), x.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            stats.data_ptr(), sums.data_ptr(), n, h * w, c, act, eps,
+            dtype_flag(g), int(vec), segs, _build.stream_of(g))
+    _build.check(rc, 'instance_norm_act_backward (NHWC)')
+    instance_norm_act_backward.launches += 1
+    instance_norm_act_backward.launches_nhwc += 1
+    return dx
+
+
 def instance_norm_act_backward(g, x, eps=1e-5, activation=None):
-    """dx from g and x, both (N, C, H, W) of one dtype. A CPU tensor
-    takes the plain version; a CUDA tensor launches K1-bwd."""
+    """dx from g and x, both (N, C, H, W) of one dtype and one layout. A
+    CPU tensor takes the plain version; a CUDA tensor launches K1-bwd, in
+    its NHWC form where both are channels_last."""
     if g.is_cpu:
         return instance_norm_act_backward_plain(g, x, eps, activation)
     act = act_code(activation)
-    require(g, 'g', 4)
-    require(x, 'x', 4, like=g)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} and x {tuple(x.shape)} "
                          f"differ")
+    if g.dim() == 4 and is_nhwc(g, 'g'):
+        return _backward_nhwc(g, x, eps, act)
+    require(g, 'g', 4)
+    require(x, 'x', 4, like=g)
     flag = dtype_flag(g)
     n, c, h, w = g.shape
     dx = torch.empty_like(g)
@@ -254,6 +383,8 @@ def instance_norm_act_backward(g, x, eps=1e-5, activation=None):
 
 
 instance_norm_act_backward.launches = 0
+# the NHWC form's launches alone (``launches`` counts both forms')
+instance_norm_act_backward.launches_nhwc = 0
 
 
 class InstanceNormAct(torch.autograd.Function):
@@ -268,20 +399,24 @@ class InstanceNormAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, = ctx.saved_tensors
-        dx = instance_norm_act_backward(g.to(x.dtype).contiguous(), x,
+        dx = instance_norm_act_backward(in_layout_of(g.to(x.dtype), x), x,
                                         ctx.eps, ctx.activation)
         return dx, None, None
 
 
 def instance_norm_act(x, eps=1e-5, activation=None):
-    """x: (N, C, H, W). A CPU tensor takes the plain version; a CUDA
-    tensor launches K1. Differentiable through ``InstanceNormAct``."""
+    """x: (N, C, H, W), NCHW-contiguous or channels_last. A CPU tensor
+    takes the plain version; a CUDA tensor launches K1 in the form of its
+    layout, the output in that layout. Differentiable through
+    ``InstanceNormAct``."""
     if needs_graph(x):
         return InstanceNormAct.apply(x, eps, activation)
     return _forward(x, eps, activation)
 
 
 instance_norm_act.launches = 0
+# the NHWC form's launches alone (``launches`` counts both forms')
+instance_norm_act.launches_nhwc = 0
 
 
 # band forms

@@ -57,6 +57,25 @@ A batch whose height does not split (``SpatialMesh.splits``) runs with H
 whole, as a data-parallel step over the data axis. The s2d form is
 refused, as JAX turns it off on spatial meshes.
 
+``layout='channels_last'`` (``train/auto_layout.py``, the counterpart of
+the JAX Trainer's AUTO layouts) runs the step with the batch converted to
+``torch.channels_last`` once at its entry, inside the captured graph on
+the card: with the models' parameters and the optimizers' state in it
+(``auto_layout.to_layout``), every activation, the losses' inputs and the
+backward stay channels_last, and the kernels take their NHWC forms. The
+s2d form and the meshes have no channels_last path yet and refuse it.
+
+``shadow_dtype`` (JAX ``:316-368``): the step's generator forward consumes
+``auto_layout.make_shadows(generator, shadow_dtype)``, its parameters cast
+once, through ``torch.func.functional_call``; the gradients are taken with
+respect to the shadows and cast to the masters' dtype, which is where the
+autograd of the blocks' ``w.to(x.dtype)`` casts them, so the step is the
+plain step's bits. After the generator's update the step refreshes the
+shadows from the masters (in the captured graph too). The returned step
+carries them as ``step.shadows``; a write to the masters outside the step
+calls ``auto_layout.refresh_shadows``. ``grad_dtype`` casts both gradient
+lists before the optimizers (after a mesh's sums).
+
 Steps return their losses as 0-d tensors on the device under the
 reference's keys ``gen, gen_loss, gdisc, discr, discf, disc``; nothing
 in a step waits for the device.
@@ -73,6 +92,8 @@ from ..ops.losses import bce_loss, fc_tversky, mae_loss, weighted_bce_loss
 from ..ops.s2d import fold_blocks, space_to_depth
 from ..utils.metrics import iou
 from ..utils.transfer import unet_jax_path
+from .auto_layout import check_layout, in_layout, make_shadows, \
+    refresh_shadows
 
 LOSS_KEYS = ('gen', 'gen_loss', 'gdisc', 'discr', 'discf', 'disc')
 
@@ -375,7 +396,9 @@ def _spatial_form(mesh, x, y):
 def gan_losses(generator, discriminator, seg_loss, x, y, s2d=False,
                mesh=None):
     """The generator's loss: segmentation + BCE(D(x, gen_img), 1), x and
-    y in the form ``s2d`` says. Returns (loss, gen_img, gdisc)."""
+    y in the form ``s2d`` says; ``generator`` the module or a callable
+    taking its arguments (the shadow step's). Returns (loss, gen_img,
+    gdisc)."""
     gen_img = generator(x, s2d=s2d, mesh=mesh)
     disc_fake = discriminator(x, gen_img, s2d=s2d, mesh=mesh)
     seg = seg_loss(fold_blocks(gen_img), fold_blocks(y)) if s2d else \
@@ -427,10 +450,32 @@ def _seg_losses(mesh, *settings):
     return {m: make_seg_loss(*settings, mesh=_data(m)) for m in meshes}
 
 
+def _refuse_layout(layout, s2d, mesh):
+    """The forms without a channels_last path raise (ROADMAP.md, queue
+    1)."""
+    check_layout(layout)
+    if layout is None:
+        return
+    if s2d:
+        raise ValueError(f"layout={layout!r} with s2d=True: the "
+                         f"space-to-depth form has no channels_last path "
+                         f"yet (ROADMAP.md, queue 1: the NHWC forms of K4 "
+                         f"and K4-wgrad)")
+    if mesh is not None:
+        raise ValueError(f"layout={layout!r} with a mesh: the meshes have "
+                         f"no channels_last path yet (ROADMAP.md, queue 1: "
+                         f"channels_last on meshes)")
+
+
+def _grads_in(grads, dtype):
+    return grads if dtype is None else [g.to(dtype) for g in grads]
+
+
 def make_train_step(generator, discriminator, gen_opt, disc_opt,
                     loss_type='tversky', seg_alpha=200.0, tversky_beta=0.75,
                     tversky_gamma=0.75, bce_weighting='complement',
-                    s2d=False, graph=False, mesh=None):
+                    s2d=False, graph=False, mesh=None, layout=None,
+                    shadow_dtype=None, grad_dtype=None):
     """``step(x, y) -> losses``: one G+D update in place on the models
     and their optimizers (``make_optimizer``). x and y are NCHW; ``s2d``
     runs the step in the space-to-depth form. The discriminator step
@@ -443,7 +488,10 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
     same arithmetic, replayed as one CUDA graph per batch shape on the
     card. ``mesh`` makes it data-parallel, or data x model parallel (the
     module's docstring); its collectives are captured too, which NCCL's
-    can be and gloo's not."""
+    can be and gloo's not. ``layout``, ``shadow_dtype`` and
+    ``grad_dtype`` as the module's docstring says; the shadows are
+    ``step.shadows`` (None without ``shadow_dtype``)."""
+    _refuse_layout(layout, s2d, mesh)
     if graph and mesh is not None and not mesh.capturable:
         raise ValueError(f"a {mesh.backend} process group cannot be "
                          f"captured into a CUDA graph; build the step "
@@ -459,21 +507,39 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
     d_params = list(discriminator.parameters())
     constants = d_params + [p for p in generator.parameters()
                             if id(p) not in trainable]
+    shadows, g_wrt, g_fwd = None, g_params, generator
+    if shadow_dtype is not None:
+        shadows = make_shadows(generator, shadow_dtype)
+        named = dict(generator.named_parameters())
+        of = {id(named[n]): t for n, t in shadows.items()}
+        g_wrt = [of[id(p)] for p in g_params]
+        for t in g_wrt:
+            t.requires_grad_(True)
+
+        def g_fwd(x, **kwargs):
+            return torch.func.functional_call(generator, shadows, (x,),
+                                              kwargs)
 
     def run(x, y):
         # the device work of one step: no host counter moves here
         generator.train()
+        x, y = in_layout(x, layout), in_layout(y, layout)
         if s2d:
             x, y = space_to_depth(x), space_to_depth(y)
         mesh_, x, y = _spatial_form(mesh, x, y)
         data, seg_loss = _data(mesh_), seg_losses[mesh_]
         with constant_params(constants):
-            g_loss, gen_img, gdisc = gan_losses(generator, discriminator,
+            g_loss, gen_img, gdisc = gan_losses(g_fwd, discriminator,
                                                 seg_loss, x, y, s2d, mesh_)
-            g_grads = torch.autograd.grad(g_loss, g_params)
+            g_grads = torch.autograd.grad(g_loss, g_wrt)
+        if shadows is not None:
+            # the cast the autograd of the blocks' w.to(x.dtype) makes
+            g_grads = [g.to(p.dtype) for g, p in zip(g_grads, g_params)]
         if data is not None:
             data.sum_(g_grads)
-        gen_opt.update(g_grads)
+        gen_opt.update(_grads_in(g_grads, grad_dtype))
+        if shadows is not None:
+            refresh_shadows(shadows, generator)
         gen_img = gen_img.detach()
         d_loss, loss_real, loss_fake = disc_loss(*disc_real_fake(
             discriminator, x, y, gen_img, merged=False, paired=paired,
@@ -481,7 +547,7 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
         d_grads = torch.autograd.grad(d_loss, d_params)
         if data is not None:
             data.sum_(d_grads)
-        disc_opt.update(d_grads)
+        disc_opt.update(_grads_in(d_grads, grad_dtype))
         g_loss, gdisc = g_loss.detach(), gdisc.detach()
         return dict(zip(LOSS_KEYS, (g_loss, g_loss, gdisc,
                                     loss_real.detach(), loss_fake.detach(),
@@ -498,6 +564,7 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
             position=lambda: (getattr(gen_opt, 'mini_step', 0),
                               getattr(disc_opt, 'mini_step', 0)),
             generators=lambda: [generator.dropout_generator])
+        step.shadows = shadows
         if mesh is not None:
             mesh.hold(step)
         return step
@@ -507,18 +574,21 @@ def make_train_step(generator, discriminator, gen_opt, disc_opt,
         advance()
         return losses
 
+    train_step.shadows = shadows
     return train_step
 
 
 def make_eval_step(generator, discriminator, loss_type='tversky',
                    seg_alpha=200.0, tversky_beta=0.75, tversky_gamma=0.75,
                    compute_iou=False, bce_weighting='complement', s2d=False,
-                   mesh=None):
+                   mesh=None, layout=None):
     """``step(x, y) -> losses``: the same losses with dropout off and no
     update (``:431-466``), the discriminator in the merged form, plus
-    'iou' when ``compute_iou``; ``s2d`` and ``mesh`` as in
+    'iou' when ``compute_iou``; ``s2d``, ``mesh`` and ``layout`` as in
     ``make_train_step``: with a mesh, the global batch's losses and
-    IoU."""
+    IoU. It casts the generator's parameters at use: a shadow is the
+    train step's state, which the JAX eval step does not take either."""
+    _refuse_layout(layout, s2d, mesh)
     if s2d and getattr(mesh, 'spatial', None) is not None:
         raise ValueError("a spatial step runs the plain form")
     seg_losses = _seg_losses(mesh, loss_type, seg_alpha, tversky_beta,
@@ -527,6 +597,7 @@ def make_eval_step(generator, discriminator, loss_type='tversky',
     @torch.no_grad()
     def eval_step(x, y):
         generator.eval()
+        x, y = in_layout(x, layout), in_layout(y, layout)
         if s2d:
             x, y = space_to_depth(x), space_to_depth(y)
         mesh_, x, y = _spatial_form(mesh, x, y)

@@ -71,6 +71,18 @@ Rank 0 alone prints the progress, profiles and reports to
 cannot be captured); ``PATCHGAN_CUDA_GRAPH=on`` given explicitly then
 raises.
 
+The layout (``train/auto_layout.py``; JAX ``_auto_layout`` and
+``_shadow_params``, ``:193-209, 253-281``): where ``PATCHGAN_AUTO_LAYOUT``
+is on (the default: PERF.md), the Trainer puts both models' parameters
+into ``torch.channels_last`` when it is built, and its steps run in it
+(``layout='channels_last'``); with a generator computing in another dtype
+than its fp32 masters and ``PATCHGAN_SHADOW_PARAMS`` on, the train step
+carries the generator's shadow, which ``load``, ``_restore_training_state``
+and ``load_transfer_checkpoints`` re-derive after they write the masters.
+The forms without a channels_last path (``PATCHGAN_S2D`` on, any mesh)
+keep NCHW and warn once. The epoch files hold the same keys and C-order
+bytes in either layout, and every store resumes in either.
+
 Spatial parallelism (``mesh=``, a ``parallel.spatial.SpatialMesh``; JAX
 ``Trainer(mesh=spatial_mesh(...))``): the loader gives each rank its data
 group's rows and the step keeps the rank's band of them (JAX
@@ -97,6 +109,8 @@ from ..utils import checkpoint as ckpt
 from ..utils import orbax_ckpt
 from ..utils.profiling import maybe_trace
 from ..utils.transfer import load_transfer_data
+from .auto_layout import (LAYOUT, auto_layout_enabled, refresh_shadows,
+                          shadow_params_enabled, to_layout, warn_once)
 from .graph import CapturedStep, cuda_graph_enabled, graph_flag_given
 from .schedulers import (ConstantLR, ExponentialDecay, ReduceLROnPlateau,
                          resume_fast_forward)
@@ -165,7 +179,30 @@ class Trainer:
                     f"PATCHGAN_CUDA_GRAPH=on: a {mesh.backend} process "
                     f"group cannot be captured into a CUDA graph")
             self._cuda_graph = False
+        self.layout = self._pick_layout()
+        if self.layout is not None:
+            # before any optimizer or step holds the tensors
+            to_layout((self.generator, self.discriminator), layout=self.layout)
+        self.shadow_dtype = self.generator.dtype if (
+            self.layout is not None and shadow_params_enabled()
+            and self.generator.dtype != torch.float32) else None
         self._make_optimizers(1e-3, 1e-3)
+
+    def _pick_layout(self):
+        """The train state's layout (JAX ``_auto_layout``): channels_last
+        where ``PATCHGAN_AUTO_LAYOUT`` is on, NCHW where it is off and, with
+        a warning once, on the forms that have no channels_last path yet."""
+        if not auto_layout_enabled():
+            return None
+        missing = 'a mesh' if self.mesh is not None else \
+            'PATCHGAN_S2D=on' if s2d_enabled() else None
+        if missing is not None:
+            warn_once(('layout', missing),
+                      f"PATCHGAN_AUTO_LAYOUT: {missing} has no channels_last "
+                      f"path yet (ROADMAP.md, queue 1); the Trainer keeps "
+                      f"NCHW")
+            return None
+        return LAYOUT
 
     def _make_optimizers(self, gen_lr, dsc_lr):
         """Both optimizers, accumulating in lockstep; the generator's over
@@ -184,7 +221,8 @@ class Trainer:
         """The s2d form for an NCHW batch: ``PATCHGAN_S2D`` on, even H
         and W (the 2x2 block grid), and no spatial axis (JAX
         ``trainer.py:237-245``)."""
-        if getattr(self.mesh, 'spatial', None) is not None:
+        if getattr(self.mesh, 'spatial', None) is not None or \
+                self.layout is not None:
             return False
         return s2d_enabled() and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
 
@@ -209,6 +247,7 @@ class Trainer:
         gen_opt, disc_opt = self.gen_opt, self.disc_opt
         use_s2d, compute_iou = self._use_s2d, self.compute_iou
         cuda_graph, mesh = self._cuda_graph, self.mesh
+        layout, shadow_dtype = self.layout, self.shadow_dtype
 
         def form(x):
             s2d = use_s2d(x)
@@ -216,15 +255,26 @@ class Trainer:
                 forms[s2d] = (
                     make_train_step(gen, disc, gen_opt, disc_opt, s2d=s2d,
                                     graph=cuda_graph, mesh=mesh,
+                                    layout=layout, shadow_dtype=shadow_dtype,
                                     **loss_kwargs),
                     make_eval_step(gen, disc, compute_iou=compute_iou,
-                                   s2d=s2d, mesh=mesh, **loss_kwargs))
+                                   s2d=s2d, mesh=mesh, layout=layout,
+                                   **loss_kwargs))
             return forms[s2d]
 
         steps = (lambda x, y: form(x)[0](x, y),
                  lambda x, y: form(x)[1](x, y))
         self._step_cache = (settings, steps, forms)
         return steps
+
+    def _refresh_shadows(self):
+        """Re-derive the train steps' shadows from the masters, after a
+        write to them outside a step; in place, so a captured step reads
+        the new values."""
+        forms = self._step_cache[2] if self._step_cache else {}
+        for train_step, _ in forms.values():
+            if train_step.shadows is not None:
+                refresh_shadows(train_step.shadows, self.generator)
 
     def graph_counts(self):
         """(eager steps, captures, replays) of the current captured train
@@ -514,6 +564,7 @@ class Trainer:
         self.gen_opt.load_state_dict(state['gen_opt'])
         self.disc_opt.load_state_dict(state['disc_opt'])
         self.generator.dropout_generator.set_state(state['dropout_rng'])
+        self._refresh_shadows()
         self.step = int(state['step'])
         # the schedules continue where they were: the reference's LR
         # fast-forward on resume (a fractional power of the decay) gives
@@ -590,6 +641,7 @@ class Trainer:
             counts.append((load_transfer_data(module, state, verbose=False),
                            len(module.state_dict())))
         (g_count, g_total), (d_count, d_total) = counts
+        self._refresh_shadows()
         if g_count < g_total or d_count < d_total:
             raise ValueError(
                 f"Checkpoint mismatch: loaded {g_count}/{g_total} "
@@ -635,3 +687,4 @@ class Trainer:
                            ckpt.load_state_dict(gen_checkpoint))
         load_transfer_data(self.discriminator,
                            ckpt.load_state_dict(disc_checkpoint))
+        self._refresh_shadows()

@@ -20,7 +20,9 @@ DISC_PREFIX = 'discriminator_ep_'
 
 
 def save_state_dict(path, state_dict):
-    np.savez(path, **{k: v.detach().float().cpu().numpy()
+    """An npz of the state_dict's tensors as fp32 in NCHW (C) order,
+    whatever their layout (a channels_last parameter included)."""
+    np.savez(path, **{k: v.detach().float().cpu().contiguous().numpy()
                       if isinstance(v, torch.Tensor) else np.asarray(v)
                       for k, v in state_dict.items()})
 

@@ -18,12 +18,13 @@ BATCH = 2
 
 
 @functools.lru_cache(maxsize=None)
-def jax_case(size, act, out_c, final_act, s2d=False, freeze=(), every_k=1):
+def jax_case(size, act, out_c, final_act, s2d=False, freeze=(), every_k=1,
+             grad_dtype=None):
     """(initial JAX TrainState, jitted JAX step) of one configuration,
     built once per process; ``s2d`` steps through clones of the models in
     the space-to-depth form (the same parameter tree); ``freeze`` and
     ``every_k`` go to both optimizers and the step as the JAX Trainer
-    passes them."""
+    passes them; ``grad_dtype`` (a dtype's name) to the step."""
     from patchgan_tpu.models import Discriminator, UNet
     from patchgan_tpu.train.steps import (init_train_state, make_optimizer,
                                           make_train_step)
@@ -37,8 +38,11 @@ def jax_case(size, act, out_c, final_act, s2d=False, freeze=(), every_k=1):
                              dtx, seed=0)
     if s2d:
         gen, disc = gen.clone(s2d=True), disc.clone(s2d=True)
-    step = jax.jit(make_train_step(gen, disc, gtx, dtx, loss_type='tversky',
-                                   seg_alpha=200.0, freeze_patterns=freeze))
+    step = jax.jit(make_train_step(
+        gen, disc, gtx, dtx, loss_type='tversky', seg_alpha=200.0,
+        freeze_patterns=freeze,
+        grad_dtype=None if grad_dtype is None else getattr(jax.numpy,
+                                                           grad_dtype)))
     return state, step
 
 
@@ -75,22 +79,32 @@ def nchw(a):
                                                               (0, 3, 1, 2))))
 
 
-def run(size, act, out_c, final_act, steps, s2d=False):
+def run(size, act, out_c, final_act, steps, s2d=False, layout=None,
+        shadow=False, grad_dtype=None):
     """Run ``steps`` G+D steps in both packages on the same batches, in
-    the form ``s2d`` says.
+    the form ``s2d`` says; the port's in ``layout`` (its models converted
+    by ``to_layout``), with the generator's shadow (fp32, the compute
+    dtype here) where ``shadow``, and both with ``grad_dtype`` (a dtype's
+    name).
     Returns (jax losses per step, port losses per step, JAX state after
     the first step, port generator and discriminator state_dicts after
     the first step)."""
+    from patchgan_tpu_torch.train.auto_layout import to_layout
     from patchgan_tpu_torch.train.steps import (make_optimizer,
                                                 make_train_step)
     from patchgan_tpu_torch.utils.transfer import state_dict_from_jax
-    state, step = jax_case(size, act, out_c, final_act, s2d)
+    state, step = jax_case(size, act, out_c, final_act, s2d,
+                           grad_dtype=grad_dtype)
     gen, disc = port_models(state, act, out_c, final_act)
-    port_step = make_train_step(gen, disc,
-                                make_optimizer(gen.parameters(), LR),
-                                make_optimizer(disc.parameters(), LR),
-                                loss_type='tversky', seg_alpha=200.0,
-                                s2d=s2d)
+    if layout is not None:
+        to_layout((gen, disc), layout=layout)
+    port_step = make_train_step(
+        gen, disc, make_optimizer(gen.parameters(), LR),
+        make_optimizer(disc.parameters(), LR), loss_type='tversky',
+        seg_alpha=200.0, s2d=s2d, layout=layout,
+        shadow_dtype=torch.float32 if shadow else None,
+        grad_dtype=None if grad_dtype is None else getattr(torch,
+                                                           grad_dtype))
     jl, pl, first = [], [], None
     for i, (x, y) in enumerate(batches(size, out_c, steps)):
         state, losses = step(state, x, y)
