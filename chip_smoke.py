@@ -343,9 +343,17 @@ Run from the root of the repository. In order:
    NHWC form launched, K3's NHWC pack exactly against
    ``pack_convt_weight_nhwc_plain``, and check-only cases of their
    element paths (K2 at Cin 16 and 48, K3 ragged and without a skip, K1
-   and K1-bwd at the edge cases and one element past 16 bytes); timed in
-   bf16 beside the NCHW form on the same values, the plain version, a
-   library call and the bound; the fp32 channels_last step (phase 7's
+   and K1-bwd at the edge cases and one element past 16 bytes); K1 and
+   K1-bwd in both their NHWC kernels at every step shape (the one-pass
+   kernel on a thread-block cluster, ``csrc/norm_nhwc_cluster.cuh``,
+   which the planner picks there, and the segmented ones), the one-pass
+   kernel's two launches on the same inputs bit-equal, and the segmented
+   kernels, which the planner picks beyond a cluster's shared memory, at
+   batch 2, 64 x 512 x 512; timed in bf16 beside the NCHW form on the
+   same values, the plain version, a library call and the bound (K1 and
+   K1-bwd: both kernels, the NCHW form, plain and library in turns, each
+   by CUDA events around eager calls and by a CUDA graph's replay); the
+   fp32 channels_last step (phase 7's
    models and batch) within phase 7's limits of the CPU's and of the NCHW
    card step's, every launch of K1-K3 and K1-bwd in its NHWC form and
    every block's output channels_last; the captured channels_last step
@@ -355,7 +363,8 @@ Run from the root of the repository. In order:
    still launches, each with the operator (and its input shapes) that
    launches it. Phase 8's ``patchgan_train`` runs in the Trainer's
    default layout, channels_last, and counts the NHWC forms' launches
-   (the kernels line's). ``python3 chip_smoke.py --layout-only`` runs
+   (the kernels line's), every K1 and K1-bwd one of them on the one-pass
+   kernel. ``python3 chip_smoke.py --layout-only`` runs
    phase 7's plain parity, these checks, then phase 10's timing of the
    NCHW and the two channels_last steps alone.
 
@@ -365,7 +374,9 @@ spatial, serve, pipeline, data-parallel, mesh, spatial-mesh (a device's
 launches an image), tp, spatial-training and remat paths' too; K1-K3's
 totals at the spatial shapes; then the six band entry points, launches from 17b's
 rank 0, beside a device's in phase 15's spatial mode; then the four NHWC
-forms, launches from phase 8's channels_last training run), the card's name and power limit, and as its last line ``{"ok":
+forms, launches from phase 8's channels_last training run, K1's and
+K1-bwd's on their one-pass kernels with the segmented kernels' times
+beside), the card's name and power limit, and as its last line ``{"ok":
 true, "device": {...}}``. Any failure exits non-zero before that line; without a CUDA
 device it exits 2.
 """
@@ -427,12 +438,12 @@ PROFILE_NAMES = (('pgt::in_act_kernel<',),
                  ('pgt::conv_gemm_kernel<', 'pgt::ConvTProblem<'),
                  ('pgt::in_act_bwd_kernel<',), ('pgt::thin::thin_fwd<',),
                  ('pgt::thin::thin_wgrad<',))
-# the same for the NHWC forms in bf16 (csrc/norm_nhwc.cuh): K1's apply
-# (bf16 in and out; K2's and K3's finish reads fp32), K1-bwd's bwd_apply
-PROFILE_NAMES_NHWC = (('pgt::nhwc::apply<__nv_bfloat16, __nv_bfloat16',),
+# the same for the NHWC forms in bf16: K1's and K1-bwd's one-pass kernels
+# (csrc/norm_nhwc_cluster.cuh), which config 2's step shapes take
+PROFILE_NAMES_NHWC = (('pgt::nhwc::one_pass::in_act_one_pass<',),
                       ('pgt::conv_gemm_kernel<', 'pgt::ConvNhwcProblem<'),
                       ('pgt::conv_gemm_kernel<', 'pgt::ConvTNhwcProblem<'),
-                      ('pgt::nhwc::bwd_apply<',),
+                      ('pgt::nhwc::one_pass::in_act_bwd_one_pass<',),
                       ('pgt::thin::thin_fwd<',), ('pgt::thin::thin_wgrad<',))
 # launches of K1, K2, K3, K1-bwd, K4, K4-wgrad per train step with
 # UNet(remat=...), by (remat, s2d form): the checkpointed blocks run
@@ -1164,8 +1175,8 @@ def dcp_train_child():
 
 
 # the NHWC forms' launches by path (K1, K2, K3, K1-bwd), as phase 8 counts
-# them
-NHWC_PATHS = {}
+# them, and of K1's and K1-bwd's those on the one-pass kernel
+NHWC_PATHS, ONE_PASS_PATHS = {}, {}
 
 
 def train_path_phase(torch, np, wrappers, card, s2d, tmp):
@@ -1185,6 +1196,8 @@ def train_path_phase(torch, np, wrappers, card, s2d, tmp):
                 w.launches = 0
             for w in wrappers[:4]:
                 w.launches_nhwc = 0
+            for w in (wrappers[0], wrappers[3]):
+                w.launches_one_pass = 0
             tee = Tee(sys.stdout)
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(tee), s2d_env(s2d), \
@@ -1199,6 +1212,8 @@ def train_path_phase(torch, np, wrappers, card, s2d, tmp):
                          tuple(counts)))
             if epochs == 2:
                 nhwc = [w.launches_nhwc for w in wrappers[:4]]
+                one_pass = [w.launches_one_pass
+                            for w in (wrappers[0], wrappers[3])]
     # the Trainer's layout (PATCHGAN_AUTO_LAYOUT): channels_last runs every
     # launch of K1-K3 and K1-bwd in its NHWC form; s2d keeps NCHW
     cl_run = auto_layout_enabled() and s2d == 'off'
@@ -1208,7 +1223,16 @@ def train_path_phase(torch, np, wrappers, card, s2d, tmp):
           f'K2, K3, K1-bwd {nhwc} (expected {want_nhwc})', flush=True)
     if nhwc != want_nhwc:
         raise AssertionError(f'NHWC launches {nhwc}, expected {want_nhwc}')
+    # config 2's shapes all fit a cluster: every NHWC K1 and K1-bwd call
+    # takes the one-pass kernel
+    want_one = [want_nhwc[0], want_nhwc[3]]
+    print(f'  s2d {s2d}: of them on the one-pass kernel, K1 and K1-bwd '
+          f'{one_pass} (expected {want_one})', flush=True)
+    if one_pass != want_one:
+        raise AssertionError(f'one-pass launches {one_pass}, expected '
+                             f'{want_one}')
     NHWC_PATHS[f'train_s2d_{s2d}'] = nhwc
+    ONE_PASS_PATHS[f'train_s2d_{s2d}'] = one_pass
     files = sorted(os.listdir(os.path.join(tmp, 'ck')))
     want_files = [f'{p}_ep_{e:03d}.npz' for p in ('discriminator',
                                                    'generator')
@@ -6168,16 +6192,19 @@ def phase_18_only(torch, np, wrappers, card):
 # NHWC forms of K1, K2, K3 and K1-bwd
 CL = 'channels_last'
 # the NHWC forms: (name in the kernels line, source, TPU kernel, index of
-# their wrapper in ``kernel_wrappers()``)
+# their wrapper in ``kernel_wrappers()``); K1's and K1-bwd's source is the
+# one-pass kernels' header, which config 2's step takes (the segmented
+# kernels, csrc/norm_nhwc.cuh, beside them in the line)
 NHWC_FORMS = (
-    ('instance_norm_act_nhwc', 'patchgan_tpu_torch/csrc/norm_act.cu',
+    ('instance_norm_act_nhwc',
+     'patchgan_tpu_torch/csrc/norm_nhwc_cluster.cuh',
      'patchgan_tpu/ops/pallas/norm_act.py:211', 0),
     ('conv_norm_act_nhwc', 'patchgan_tpu_torch/csrc/conv_norm_act.cu',
      'patchgan_tpu/ops/pallas/conv_norm_act.py:176', 1),
     ('convt_norm_act_nhwc', 'patchgan_tpu_torch/csrc/convt_norm_act.cu',
      'patchgan_tpu/ops/pallas/convt_norm_act.py:178', 2),
     ('instance_norm_act_backward_nhwc',
-     'patchgan_tpu_torch/csrc/norm_act_bwd.cu',
+     'patchgan_tpu_torch/csrc/norm_nhwc_cluster.cuh',
      'patchgan_tpu/ops/pallas/norm_act.py:253', 3))
 # cuDNN's layout transposes, as the profiler names their kernels
 # (lower-cased)
@@ -6204,13 +6231,28 @@ def cl_offset(torch, t):
     return out
 
 
-def nhwc_launched(w, fn):
-    """fn() and whether it launched the NHWC form of wrapper w once."""
-    before = w.launches_nhwc
+def nhwc_launched(w, fn, one_pass=None):
+    """fn() and whether it launched the NHWC form of wrapper w once (and,
+    where ``one_pass`` is True or False, on the one-pass kernel or
+    not)."""
+    before = w.launches_nhwc, getattr(w, 'launches_one_pass', 0)
     out = fn()
-    if w.launches_nhwc != before + 1:
+    if w.launches_nhwc != before[0] + 1:
         raise AssertionError(f'{w.__name__}: the NHWC form did not launch')
+    took = w.launches_one_pass == before[1] + 1 if one_pass is not None \
+        else None
+    if took != one_pass:
+        raise AssertionError(f'{w.__name__}: the one-pass kernel launched: '
+                             f'{took}, expected {one_pass}')
     return out
+
+
+# K1's and K1-bwd's NHWC kernels as the wrappers' private argument names
+# them, with whether the launch counts as the one-pass kernel's
+NHWC_KERNELS = (('one_pass', True), ('segmented', False))
+# a (sample, channel tile) beyond a cluster's shared memory: the
+# segmented kernels'
+BEYOND_CLUSTER = (2, NF, 512, 512)
 
 
 def nhwc_kernel_phase(torch, F, kernels):
@@ -6221,11 +6263,18 @@ def nhwc_kernel_phase(torch, F, kernels):
     against ``pack_convt_weight_nhwc_plain``. Check-only cases of the
     element paths: K2 at Cin 16 and 48 (no multiple of the 32-channel K
     step), K3 ragged (13 + 6 -> 40) and with Cs = 0, K1 and K1-bwd at
-    ``norm_edge_cases`` and one element past 16 bytes. Timed in bf16: the
-    NHWC form, the NCHW form on the same values, the plain version and a
-    library call in channels_last, the bound. Returns {form: rows}."""
+    ``norm_edge_cases`` and one element past 16 bytes. K1 and K1-bwd at
+    the step's shapes in both NHWC kernels (``check_norm``: the one-pass
+    kernel the planner picks there, two launches bit-equal, and the
+    segmented kernels), and beyond a cluster's shared memory
+    (``BEYOND_CLUSTER``), where the planner picks the segmented kernels.
+    Timed in bf16: the NHWC form, the NCHW form on the same values, the
+    plain version and a library call in channels_last, the bound; K1 and
+    K1-bwd by events and by a graph's replay (``timed_norm``). Returns
+    {form: rows}."""
     from patchgan_tpu_torch.ops.kernels import (pack_convt_weight_nhwc,
                                                 pack_convt_weight_nhwc_plain)
+    from patchgan_tpu_torch.ops.kernels.norm_act import nhwc_one_pass_plan
     k1, k2, k3, k1b = kernels[:4]
     rows = {name: [] for name, *_ in NHWC_FORMS}
     form = {k1.name: 'instance_norm_act_nhwc', k2.name: 'conv_norm_act_nhwc',
@@ -6236,8 +6285,14 @@ def nhwc_kernel_phase(torch, F, kernels):
     def rand(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device='cuda') * scale
 
-    def check(kernel, label, make, tol_of, offset=False):
+    def check(kernel, label, make, tol_of, offset=False, nk=None,
+              one_pass=None, repeat=False):
+        """The NHWC form (``nk``: K1's / K1-bwd's kernel forced) against
+        the plain version in both dtypes; ``one_pass``: which kernel must
+        have launched; ``repeat``: a second launch bit-equal."""
         errs = {}
+        kw = {} if nk is None else {'_nhwc_kernel': nk}
+        name = form[kernel.name] + ('' if nk is None else f' {nk}')
         for dname, dt in (('bfloat16', torch.bfloat16),
                           ('float32', torch.float32)):
             args = cl(torch, make(dt))
@@ -6250,7 +6305,8 @@ def nhwc_kernel_phase(torch, F, kernels):
                                    pack_convt_weight_nhwc_plain(w)):
                     raise AssertionError(f'K3 NHWC pack {label} {dname}')
             got = nhwc_launched(kernel.wrapper,
-                                lambda: kernel.wrapper(*args))
+                                lambda: kernel.wrapper(*args, **kw),
+                                one_pass)
             if not got.is_contiguous(memory_format=torch.channels_last):
                 raise AssertionError(f'{kernel.name} {label}: output not '
                                      f'channels_last')
@@ -6259,13 +6315,31 @@ def nhwc_kernel_phase(torch, F, kernels):
             torch.cuda.synchronize()
             e = (got.float() - want).abs().max().item()
             tol = tol_of(dname, want)
-            print(f'  {form[kernel.name]} {label} {dname}: max_abs_err '
-                  f'{e:.3e} (tol {tol:.3e})', flush=True)
+            same = ''
+            if repeat:
+                again = kernel.wrapper(*args, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f'{name} {label} {dname}: two '
+                                         f'launches differ')
+                same = ', two launches equal'
+            print(f'  {name} {label} {dname}: max_abs_err {e:.3e} (tol '
+                  f'{tol:.3e}){same}', flush=True)
             if not e <= tol:
-                raise AssertionError(f'{form[kernel.name]} {label} {dname}: '
-                                     f'{e} > {tol}')
+                raise AssertionError(f'{name} {label} {dname}: {e} > {tol}')
             errs[dname] = e
         return errs
+
+    def check_norm(kernel, label, make, tol_of):
+        """K1's / K1-bwd's one-pass kernel (which the planner picks here,
+        two launches bit-equal) and segmented kernels: the errors of
+        each."""
+        nhwc_launched(kernel.wrapper,
+                      lambda: kernel.wrapper(*cl(torch, make(torch.bfloat16))),
+                      True)
+        return {nk: check(kernel, label, make, tol_of, nk=nk,
+                          one_pass=one, repeat=one)
+                for nk, one in NHWC_KERNELS}
 
     def fwd_tol(dname, want):
         return TOL[dname]
@@ -6288,11 +6362,50 @@ def nhwc_kernel_phase(torch, F, kernels):
         rows[form[kernel.name]].append(row)
         print(json.dumps(row), flush=True)
 
+    def timed_norm(kernel, label, make, library, flops, nbytes, errs):
+        """K1 / K1-bwd in bf16: the one-pass kernel (kernel_ms), the
+        segmented kernels, the NCHW form on the same values, the plain
+        version and the library call, by CUDA events around 20 eager
+        calls each in that order, then by a CUDA graph's replay
+        (``device_ms``) in the reverse order."""
+        args = make(torch.bfloat16)
+        cargs = cl(torch, args)
+        fns = {'kernel': lambda: kernel.wrapper(*cargs,
+                                                _nhwc_kernel='one_pass'),
+               'segmented': lambda: kernel.wrapper(
+                   *cargs, _nhwc_kernel='segmented'),
+               'nchw': lambda: kernel.wrapper(*args),
+               'plain': lambda: kernel.plain(*cargs),
+               'library': lambda: library(*cargs)}
+        ev = {k: cuda_ms(f) for k, f in fns.items()}
+        dev = {k: device_ms(f) for k, f in reversed(list(fns.items()))}
+        n, c, h, w = cargs[0].shape
+        plan = nhwc_one_pass_plan(n, h * w, c, torch.bfloat16,
+                                  2 if kernel is k1b else 1)
+        row = {'kernel': form[kernel.name], 'case': label,
+               'dtype': 'bfloat16', 'lanes': plan.lanes,
+               'cluster': plan.cluster, 'ctas': plan.cluster * plan.tiles * n,
+               'smem_bytes': plan.smem,
+               **{f'{k}_ms': v for k, v in ev.items()},
+               **{f'{k}_device_ms': v for k, v in dev.items()},
+               'max_abs_err_bf16': errs['one_pass']['bfloat16'],
+               'max_abs_err_fp32': errs['one_pass']['float32'],
+               'segmented_max_abs_err_bf16': errs['segmented']['bfloat16'],
+               'segmented_max_abs_err_fp32': errs['segmented']['float32']}
+        row['device_ms'] = row.pop('kernel_device_ms')
+        row['bound_ms'], row['bound_by'] = bound(flops, nbytes, PEAK_FP32)
+        rows[form[kernel.name]].append(row)
+        print(json.dumps(row), flush=True)
+
     for kernel, label, make, library, flops, elems, _ in make_cases(
             torch, F, (k1, k2, k3), n=TRAIN_B):
+        if kernel is k1:
+            errs = check_norm(kernel, label, make, fwd_tol)
+            timed_norm(kernel, label, make, library, flops, 2 * elems, errs)
+            continue
         errs = check(kernel, label, make, fwd_tol)
-        peak = PEAK_FP32 if kernel is k1 else PEAK_BF16
-        timed(kernel, label, make, library, flops, 2 * elems, peak, errs)
+        timed(kernel, label, make, library, flops, 2 * elems, PEAK_BF16,
+              errs)
     for label, shape in bwd_shapes():
         x, g = rand(*shape), rand(*shape)
 
@@ -6304,9 +6417,18 @@ def nhwc_kernel_phase(torch, F, kernels):
             y = F.relu(F.instance_norm(xr, eps=eps))
             return torch.autograd.grad(y, xr, g)
 
-        errs = check(k1b, f'{label} {shape}', make, bwd_tol)
-        timed(k1b, f'{label} {shape}', make, library, BWD_FLOPS * x.numel(),
-              3 * 2 * x.numel(), PEAK_FP32, errs)
+        errs = check_norm(k1b, f'{label} {shape}', make, bwd_tol)
+        timed_norm(k1b, f'{label} {shape}', make, library,
+                   BWD_FLOPS * x.numel(), 3 * 2 * x.numel(), errs)
+    # beyond a cluster's shared memory the planner takes the segmented
+    # kernels
+    x, g = rand(*BEYOND_CLUSTER), rand(*BEYOND_CLUSTER)
+    check(k1, f'beyond a cluster {BEYOND_CLUSTER}',
+          lambda dt: (x.to(dt), 1e-5, 'relu'), fwd_tol, one_pass=False)
+    check(k1b, f'beyond a cluster {BEYOND_CLUSTER}',
+          lambda dt: (g.to(dt), x.to(dt), 1e-5, 'relu'), bwd_tol,
+          one_pass=False)
+    del x, g
     # check-only: the element paths, other activations
     for cin, cout, hw in ((16, 40, (24, 40)), (48, 64, (16, 16))):
         x, wt = rand(4, cin, *hw), rand(cout, cin, 4, 4, scale=0.1)
@@ -6336,9 +6458,8 @@ def nhwc_kernel_phase(torch, F, kernels):
           lambda dt: (g.to(dt), x.to(dt), 1e-5, 'relu'), bwd_tol,
           offset=True)
     for name, r in rows.items():
-        total = {k: sum(row[k] for row in r) for k in
-                 ('kernel_ms', 'nchw_ms', 'bound_ms', 'plain_ms',
-                  'library_ms')}
+        total = {k: sum(row[k] for row in r) for k in r[0]
+                 if k.endswith('_ms')}
         print(f'  {name}, the step\'s {len(r)} shapes: ' + ', '.join(
             f'{k} {v:.4f}' for k, v in total.items()), flush=True)
     return rows
@@ -6368,18 +6489,22 @@ def cl_parity_phase(torch, np, wrappers, refs):
         w.launches = 0
         if hasattr(w, 'launches_nhwc'):
             w.launches_nhwc = 0
+        if hasattr(w, 'launches_one_pass'):
+            w.launches_one_pass = 0
     losses, grads = step_grads(torch, gen_c, disc_c,
                                *cl(torch, (x.cuda(), y.cuda())), 'off')
     for h in hooks:
         h.remove()
     nhwc = [w.launches_nhwc for w in wrappers[:4]]
+    one_pass = [wrappers[i].launches_one_pass for i in (0, 3)]
     print(f'  launches {[w.launches for w in wrappers]}, of them NHWC '
-          f'{nhwc}; blocks whose output left channels_last: {bad}',
-          flush=True)
+          f'{nhwc}, K1\'s and K1-bwd\'s on the one-pass kernel {one_pass}; '
+          f'blocks whose output left channels_last: {bad}', flush=True)
     if nhwc != STEP['off'][:4] or [w.launches for w in wrappers] != \
-            STEP['off'] or bad:
+            STEP['off'] or one_pass != [nhwc[0], nhwc[3]] or bad:
         raise AssertionError(f'channels_last step: NHWC launches {nhwc}, '
-                             f'blocks out of channels_last {bad}')
+                             f'one-pass {one_pass}, blocks out of '
+                             f'channels_last {bad}')
     out = {}
     for ref in ('cpu', 'card_nchw'):
         want_l, want_g = refs[ref]
@@ -6860,6 +6985,23 @@ def main(only=None):
             'bound_by': max(rows, key=lambda r: r['bound_ms'])['bound_by'],
             'library_ms': sum(r['library_ms'] for r in rows),
             'nchw_form_ms': sum(r['nchw_ms'] for r in rows)})
+        if i in (0, 3):
+            # K1's and K1-bwd's: the one-pass kernel; the segmented
+            # kernels, which no step shape of config 2 takes, beside it
+            one = ONE_PASS_PATHS['train_s2d_off'][0 if i == 0 else 1]
+            if one != launches:
+                raise AssertionError(f'{name}: {one} of {launches} launches '
+                                     f'on the one-pass kernel')
+            summary[-1].update(
+                kernel='one_pass', launches_one_pass=one,
+                launches_segmented=launches - one,
+                segmented_source='patchgan_tpu_torch/csrc/norm_nhwc.cuh',
+                **{k: sum(r[k] for r in rows) for k in (
+                    'device_ms', 'segmented_ms', 'segmented_device_ms',
+                    'nchw_device_ms', 'plain_device_ms',
+                    'library_device_ms')},
+                segmented_max_abs_err=max(
+                    r['segmented_max_abs_err_bf16'] for r in rows))
     print(json.dumps({'kernels': summary}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

@@ -24,14 +24,18 @@
 // per-plane (sum, sum of squares), and pgt_in_apply normalises a band from
 // the plane's stats summed over the spatial group and its global count.
 //
-// NHWC form (channels_last, norm_nhwc.cuh): pgt_in_act_nhwc takes x in
-// [N, H, W, C] order, whose (n, c) plane is strided by C: a block holds a
-// tile of contiguous channels over a segment of one sample's pixels,
-// writes per-segment partial statistics, a warp a plane adds them, and a
-// last pass normalises.
+// NHWC form (channels_last): x in [N, H, W, C] order, whose (n, c) plane
+// is strided by C. pgt_in_act_nhwc_one_pass (norm_nhwc_cluster.cuh): one
+// launch, a thread-block cluster a (sample, channel tile), x read once into
+// shared memory; the host takes it wherever a tile's pixels fit a
+// cluster's shared memory. pgt_in_act_nhwc (norm_nhwc.cuh), the segmented
+// kernels for the rest: a block holds a tile of contiguous channels over a
+// segment of one sample's pixels, writes per-segment partial statistics, a
+// warp a plane adds them, and a last pass normalises.
 
 #include "band.cuh"
 #include "norm_nhwc.cuh"
+#include "norm_nhwc_cluster.cuh"
 #include "norm_plane.cuh"
 
 namespace pgt {
@@ -226,4 +230,30 @@ extern "C" int pgt_in_act_nhwc(const void* x, void* y, void* part,
                                     segs, vec, eps, act, st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One-pass NHWC form. x, y: [n, hw, c], both bf16 (bf16 != 0) or both
+// fp32, every pointer on 16 bytes; lanes: the tile's 16-byte chunks a
+// pixel (c a multiple of lanes * 16 bytes), cluster: CTAs a (sample, tile),
+// both chosen by nhwc_one_pass_plan in ops/kernels/norm_act.py. Returns
+// cudaErrorInvalidValue for what the kernel cannot take, else the launch's
+// error or cudaGetLastError() after it.
+extern "C" int pgt_in_act_nhwc_one_pass(const void* x, void* y, long n,
+                                        long hw, int c, int act, float eps,
+                                        int bf16, int lanes, int cluster,
+                                        void* stream) {
+  namespace op = pgt::nhwc::one_pass;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using B = __nv_bfloat16;
+  const long smem = bf16 ? op::check<B>(n, hw, c, lanes, cluster, 1, {x, y})
+                         : op::check<float>(n, hw, c, lanes, cluster, 1,
+                                            {x, y});
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return static_cast<int>(op::launch_in_act<B>(
+        static_cast<const B*>(x), static_cast<B*>(y), n, hw, c, lanes,
+        cluster, smem, eps, act, st));
+  return static_cast<int>(op::launch_in_act<float>(
+      static_cast<const float*>(x), static_cast<float*>(y), n, hw, c, lanes,
+      cluster, smem, eps, act, st));
 }

@@ -36,14 +36,19 @@
 // pgt_in_bwd_apply writes the band's dx from those sums summed over the
 // spatial group.
 //
-// NHWC form (channels_last, norm_nhwc.cuh): pgt_in_act_bwd_nhwc takes g and
-// x in [N, H, W, C] order: x's per-segment partial statistics and their
-// sum, then the partial (sum gm, sum gm * xhat) and their sum, then dx,
-// each pass a block over a tile of contiguous channels and a segment of
-// one sample's pixels.
+// NHWC form (channels_last): g and x in [N, H, W, C] order.
+// pgt_in_act_bwd_nhwc_one_pass (norm_nhwc_cluster.cuh): one launch, a
+// thread-block cluster a (sample, channel tile), x and g read once into
+// shared memory and all three phases taken from there; the host takes it
+// wherever a tile's pixels fit a cluster's shared memory.
+// pgt_in_act_bwd_nhwc (norm_nhwc.cuh), the segmented kernels for the rest:
+// x's per-segment partial statistics and their sum, then the partial (sum
+// gm, sum gm * xhat) and their sum, then dx, each pass a block over a tile
+// of contiguous channels and a segment of one sample's pixels.
 
 #include "band.cuh"
 #include "norm_nhwc.cuh"
+#include "norm_nhwc_cluster.cuh"
 #include "norm_plane.cuh"
 
 namespace pgt {
@@ -279,4 +284,31 @@ extern "C" int pgt_in_act_bwd_nhwc(const void* g, const void* x, void* dx,
         st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One-pass NHWC form. g, x, dx: [n, hw, c], all bf16 (bf16 != 0) or all
+// fp32, every pointer on 16 bytes; lanes and cluster as
+// pgt_in_act_nhwc_one_pass's. Returns cudaErrorInvalidValue for what the
+// kernel cannot take, else the launch's error or cudaGetLastError() after
+// it.
+extern "C" int pgt_in_act_bwd_nhwc_one_pass(const void* g, const void* x,
+                                            void* dx, long n, long hw, int c,
+                                            int act, float eps, int bf16,
+                                            int lanes, int cluster,
+                                            void* stream) {
+  namespace op = pgt::nhwc::one_pass;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using B = __nv_bfloat16;
+  const long smem =
+      bf16 ? op::check<B>(n, hw, c, lanes, cluster, 2, {g, x, dx})
+           : op::check<float>(n, hw, c, lanes, cluster, 2, {g, x, dx});
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return static_cast<int>(op::launch_in_act_bwd<B>(
+        static_cast<const B*>(g), static_cast<const B*>(x),
+        static_cast<B*>(dx), n, hw, c, lanes, cluster, smem, eps, act, st));
+  return static_cast<int>(op::launch_in_act_bwd<float>(
+      static_cast<const float*>(g), static_cast<const float*>(x),
+      static_cast<float*>(dx), n, hw, c, lanes, cluster, smem, eps, act,
+      st));
 }

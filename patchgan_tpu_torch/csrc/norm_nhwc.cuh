@@ -1,6 +1,8 @@
-// NHWC (channels_last) forms of the instance-norm kernels: K1's
-// (norm_act.cu), K1-bwd's (norm_act_bwd.cu), and the finish of K2's and
-// K3's NHWC forms (conv_gemm.cuh's launch_conv_in_act_nhwc).
+// NHWC (channels_last) forms of the instance-norm kernels, segmented:
+// K1's and K1-bwd's where a (sample, channel tile) is too large for the
+// one-pass kernels of norm_nhwc_cluster.cuh (the host's
+// nhwc_one_pass_plan decides), and the finish of K2's and K3's NHWC
+// forms (conv_gemm.cuh's launch_conv_in_act_nhwc).
 //
 // In an NHWC tensor the (n, c) plane a statistic runs over is strided by
 // C: neighbouring channels of one pixel are neighbours in memory, so the

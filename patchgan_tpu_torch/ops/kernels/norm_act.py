@@ -13,12 +13,16 @@ chooses both kernels' launch geometry (how many threads own a plane, how
 much of it each holds in registers), which the wrappers pass to the C
 entry points.
 
-NHWC form (``csrc/norm_nhwc.cuh``): a CUDA tensor laid out
-``torch.channels_last`` (``is_nhwc``) launches ``pgt_in_act_nhwc`` /
-``pgt_in_act_bwd_nhwc``, whose blocks take a tile of contiguous channels
-over a segment of one sample's pixels (``nhwc_segments`` picks the
-segments), and gets its output in the same layout; an NCHW-contiguous one
-launches today's form; any other layout raises. No wrapper converts a
+NHWC form: a CUDA tensor laid out ``torch.channels_last`` (``is_nhwc``)
+gets its output in the same layout, from one of two kernels, by size.
+Where a (sample, channel tile) fits a thread-block cluster's shared memory
+(``nhwc_one_pass_plan``), ``pgt_in_act_nhwc_one_pass`` /
+``pgt_in_act_bwd_nhwc_one_pass`` (``csrc/norm_nhwc_cluster.cuh``): one
+launch, x (and g) read once; elsewhere the segmented kernels
+``pgt_in_act_nhwc`` / ``pgt_in_act_bwd_nhwc`` (``csrc/norm_nhwc.cuh``),
+whose blocks take a tile of contiguous channels over a segment of one
+sample's pixels (``nhwc_segments`` picks the segments). An NCHW-contiguous
+tensor launches the NCHW form; any other layout raises. No wrapper converts a
 layout: the autograd backward takes its incoming gradient in the layout of
 the saved input (a no-op when the two agree, as on either form's path).
 The plain versions keep the input's layout too.
@@ -255,6 +259,102 @@ def nhwc_plan(n, hw, c, dtype, *tensors):
     return vec, nhwc_segments(n, hw, c, width)
 
 
+# the one-pass NHWC kernels (csrc/norm_nhwc_cluster.cuh): threads a CTA,
+# CTAs a cluster (the portable limit), an H100 block's shared memory; the
+# planner's aims, set from every geometry timed on an H100
+# (``tools/norm_act_variants.py --sweep``; PERF.md): at most 64 KiB staged
+# a CTA (three CTAs an SM) and at least 128 CTAs, as long as each CTA
+# keeps a pixel for every row of its threads
+ONE_PASS_THREADS = 256
+CLUSTER_MAX = 8
+SMEM_PER_BLOCK = 232448
+ONE_PASS_STAGE_AIM = 64 * 1024
+ONE_PASS_CTAS_AIM = 128
+
+OnePass = collections.namedtuple('OnePass',
+                                 'lanes cluster tiles seg_len smem grid')
+
+
+def one_pass_smem(cw, cluster, seg_len, tile_bytes, inputs):
+    """A CTA's shared memory (``one_pass::check``): two mbarriers, the
+    warps' partials, every rank's partials of two phases and two
+    coefficient tables over the tile's ``cw`` channels, then ``inputs``
+    staged segments of ``seg_len`` pixels of ``tile_bytes``."""
+    red = 16 + (ONE_PASS_THREADS // 32 + 2 * cluster + 2) * cw * 8
+    return red + seg_len * tile_bytes * inputs
+
+
+@functools.lru_cache(maxsize=None)
+def nhwc_one_pass_plan(n, hw, c, dtype, inputs, aligned=True):
+    """The one-pass kernel's geometry for ``inputs`` tensors (1: K1, 2:
+    K1-bwd) of (n, hw pixels, c channels) in ``dtype``, or None where it
+    cannot take them (the segmented kernels then do).
+
+    c must be a multiple of 8 and every pointer ``aligned`` on 16 bytes. A
+    tile is ``lanes`` chunks of 16 bytes of a pixel's channels: the widest
+    of 64 and 32 bytes (whole sectors) that divides the pixel and whose
+    (sample, tile) an 8-CTA cluster holds, or the whole pixel where it is
+    one chunk; up to 128 bytes while a CTA would have fewer than two chunks
+    a thread. ``cluster`` CTAs split a tile's ``hw`` pixels into segments
+    of ``seg_len``: the fewest whose shared memory (``smem``) fits a
+    block's, then more while a CTA stages more than ``ONE_PASS_STAGE_AIM``
+    bytes or the grid has fewer than ``ONE_PASS_CTAS_AIM`` CTAs, as long as
+    each keeps a pixel for every row of its threads (a row: ``lanes``
+    threads on one pixel). None where eight do not fit."""
+    if not aligned or c % 8:
+        return None
+    width = 16 // dtype.itemsize
+    chunks = c // width
+
+    def staged(lanes, k):
+        return -(-hw // k) * lanes * 16 * inputs
+
+    def smem(lanes, k):
+        return one_pass_smem(lanes * width, k, -(-hw // k), lanes * 16,
+                             inputs)
+
+    for lanes in (4, 2, 1):
+        if chunks % lanes == 0 and (lanes > 1 or chunks == 1) and \
+                smem(lanes, CLUSTER_MAX) <= SMEM_PER_BLOCK:
+            break
+    else:
+        return None
+    while lanes < 8 and chunks % (2 * lanes) == 0 and \
+            hw * lanes < 2 * ONE_PASS_THREADS:
+        lanes *= 2
+    tiles = chunks // lanes
+    cluster = 1
+    while smem(lanes, cluster) > SMEM_PER_BLOCK:
+        cluster *= 2
+    while cluster < CLUSTER_MAX and \
+            (staged(lanes, cluster) > ONE_PASS_STAGE_AIM
+             or n * tiles * cluster < ONE_PASS_CTAS_AIM) and \
+            -(-hw // (2 * cluster)) >= ONE_PASS_THREADS // lanes:
+        cluster *= 2
+    return OnePass(lanes, cluster, tiles, -(-hw // cluster),
+                   smem(lanes, cluster), (cluster, tiles, n))
+
+
+# the private ``_nhwc_kernel`` argument of the wrappers: which NHWC kernel
+# to launch (None: the planner's choice), for timing and checks only
+NHWC_KERNELS = (None, 'one_pass', 'segmented')
+
+
+def _nhwc_choice(kernel, n, hw, c, dtype, inputs, *tensors):
+    """The one-pass geometry to launch, or None for the segmented
+    kernels."""
+    if kernel not in NHWC_KERNELS:
+        raise ValueError(f"_nhwc_kernel must be one of {NHWC_KERNELS}, not "
+                         f"{kernel!r}")
+    if kernel == 'segmented':
+        return None
+    plan = nhwc_one_pass_plan(n, hw, c, dtype, inputs, _aligned(*tensors))
+    if plan is None and kernel == 'one_pass':
+        raise ValueError(f"the one-pass NHWC kernel cannot take ({n}, {c}, "
+                         f"{hw} px) in {dtype}")
+    return plan
+
+
 def f32_scratch(*shape, like):
     """An empty fp32 tensor of ``shape`` on ``like``'s device."""
     return torch.empty(shape, dtype=torch.float32, device=like.device)
@@ -270,6 +370,10 @@ def _lib():
     lib.pgt_in_act_nhwc.argtypes = [p] * 4 + [
         ctypes.c_long, ctypes.c_long, i, i, ctypes.c_float, i, i, i, p]
     lib.pgt_in_act_nhwc.restype = i
+    lib.pgt_in_act_nhwc_one_pass.argtypes = [p, p, ctypes.c_long,
+                                             ctypes.c_long, i, i,
+                                             ctypes.c_float, i, i, i, p]
+    lib.pgt_in_act_nhwc_one_pass.restype = i
     return lib
 
 
@@ -283,17 +387,21 @@ def _bwd_lib():
     lib.pgt_in_act_bwd_nhwc.argtypes = [p] * 6 + [
         ctypes.c_long, ctypes.c_long, i, i, ctypes.c_float, i, i, i, p]
     lib.pgt_in_act_bwd_nhwc.restype = i
+    lib.pgt_in_act_bwd_nhwc_one_pass.argtypes = [p, p, p, ctypes.c_long,
+                                                 ctypes.c_long, i, i,
+                                                 ctypes.c_float, i, i, i, p]
+    lib.pgt_in_act_bwd_nhwc_one_pass.restype = i
     return lib
 
 
-def _forward(x, eps, activation):
+def _forward(x, eps, activation, nhwc_kernel=None):
     """K1 on a CUDA tensor, the plain version on a CPU tensor; never
     recorded by autograd."""
     if x.is_cpu:
         return instance_norm_act_plain(x, eps, activation)
     act = act_code(activation)
     if x.dim() == 4 and is_nhwc(x):
-        return _forward_nhwc(x, eps, act)
+        return _forward_nhwc(x, eps, act, nhwc_kernel)
     require(x, 'x', 4)
     flag = dtype_flag(x)
     n, c, h, w = x.shape
@@ -309,54 +417,75 @@ def _forward(x, eps, activation):
     return y
 
 
-def _forward_nhwc(x, eps, act):
-    """K1's NHWC form on a channels_last CUDA tensor."""
+def _forward_nhwc(x, eps, act, kernel=None):
+    """K1's NHWC form on a channels_last CUDA tensor: the one-pass kernel
+    where ``nhwc_one_pass_plan`` takes the call, else the segmented
+    kernels (``kernel`` forces one)."""
     require(x, 'x', 4, nhwc=True)
     n, c, h, w = x.shape
     y = torch.empty_like(x, memory_format=torch.channels_last)
     if not n * c * h * w:
         return y
-    vec, segs = nhwc_plan(n, h * w, c, x.dtype, x, y)
-    part = f32_scratch(n * c * segs, 2, like=x)
-    stats = f32_scratch(n * c, 2, like=x)
+    plan = _nhwc_choice(kernel, n, h * w, c, x.dtype, 1, x, y)
     with _build.device_guard(x):
-        rc = _lib().pgt_in_act_nhwc(
-            x.data_ptr(), y.data_ptr(), part.data_ptr(), stats.data_ptr(),
-            n, h * w, c, act, eps, dtype_flag(x), int(vec), segs,
-            _build.stream_of(x))
+        if plan is not None:
+            rc = _lib().pgt_in_act_nhwc_one_pass(
+                x.data_ptr(), y.data_ptr(), n, h * w, c, act, eps,
+                dtype_flag(x), plan.lanes, plan.cluster, _build.stream_of(x))
+        else:
+            vec, segs = nhwc_plan(n, h * w, c, x.dtype, x, y)
+            part = f32_scratch(n * c * segs, 2, like=x)
+            stats = f32_scratch(n * c, 2, like=x)
+            rc = _lib().pgt_in_act_nhwc(
+                x.data_ptr(), y.data_ptr(), part.data_ptr(),
+                stats.data_ptr(), n, h * w, c, act, eps, dtype_flag(x),
+                int(vec), segs, _build.stream_of(x))
     _build.check(rc, 'instance_norm_act (NHWC)')
     instance_norm_act.launches += 1
     instance_norm_act.launches_nhwc += 1
+    instance_norm_act.launches_one_pass += plan is not None
     return y
 
 
-def _backward_nhwc(g, x, eps, act):
-    """K1-bwd's NHWC form on channels_last CUDA tensors."""
+def _backward_nhwc(g, x, eps, act, kernel=None):
+    """K1-bwd's NHWC form on channels_last CUDA tensors: the one-pass
+    kernel where ``nhwc_one_pass_plan`` takes the call, else the segmented
+    kernels (``kernel`` forces one)."""
     require(g, 'g', 4, nhwc=True)
     require(x, 'x', 4, like=g, nhwc=True)
     n, c, h, w = g.shape
     dx = torch.empty_like(g, memory_format=torch.channels_last)
     if not n * c * h * w:
         return dx
-    vec, segs = nhwc_plan(n, h * w, c, g.dtype, g, x, dx)
-    part = f32_scratch(n * c * segs, 2, like=g)
-    stats = f32_scratch(n * c, 2, like=g)
-    sums = f32_scratch(n * c, 2, like=g)
+    plan = _nhwc_choice(kernel, n, h * w, c, g.dtype, 2, g, x, dx)
     with _build.device_guard(g):
-        rc = _bwd_lib().pgt_in_act_bwd_nhwc(
-            g.data_ptr(), x.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            stats.data_ptr(), sums.data_ptr(), n, h * w, c, act, eps,
-            dtype_flag(g), int(vec), segs, _build.stream_of(g))
+        if plan is not None:
+            rc = _bwd_lib().pgt_in_act_bwd_nhwc_one_pass(
+                g.data_ptr(), x.data_ptr(), dx.data_ptr(), n, h * w, c, act,
+                eps, dtype_flag(g), plan.lanes, plan.cluster,
+                _build.stream_of(g))
+        else:
+            vec, segs = nhwc_plan(n, h * w, c, g.dtype, g, x, dx)
+            part = f32_scratch(n * c * segs, 2, like=g)
+            stats = f32_scratch(n * c, 2, like=g)
+            sums = f32_scratch(n * c, 2, like=g)
+            rc = _bwd_lib().pgt_in_act_bwd_nhwc(
+                g.data_ptr(), x.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                stats.data_ptr(), sums.data_ptr(), n, h * w, c, act, eps,
+                dtype_flag(g), int(vec), segs, _build.stream_of(g))
     _build.check(rc, 'instance_norm_act_backward (NHWC)')
     instance_norm_act_backward.launches += 1
     instance_norm_act_backward.launches_nhwc += 1
+    instance_norm_act_backward.launches_one_pass += plan is not None
     return dx
 
 
-def instance_norm_act_backward(g, x, eps=1e-5, activation=None):
+def instance_norm_act_backward(g, x, eps=1e-5, activation=None, *,
+                               _nhwc_kernel=None):
     """dx from g and x, both (N, C, H, W) of one dtype and one layout. A
     CPU tensor takes the plain version; a CUDA tensor launches K1-bwd, in
-    its NHWC form where both are channels_last."""
+    its NHWC form where both are channels_last (``_nhwc_kernel``, private:
+    'one_pass' or 'segmented' forces that kernel, for timing and checks)."""
     if g.is_cpu:
         return instance_norm_act_backward_plain(g, x, eps, activation)
     act = act_code(activation)
@@ -364,7 +493,7 @@ def instance_norm_act_backward(g, x, eps=1e-5, activation=None):
         raise ValueError(f"g {tuple(g.shape)} and x {tuple(x.shape)} "
                          f"differ")
     if g.dim() == 4 and is_nhwc(g, 'g'):
-        return _backward_nhwc(g, x, eps, act)
+        return _backward_nhwc(g, x, eps, act, _nhwc_kernel)
     require(g, 'g', 4)
     require(x, 'x', 4, like=g)
     flag = dtype_flag(g)
@@ -383,8 +512,10 @@ def instance_norm_act_backward(g, x, eps=1e-5, activation=None):
 
 
 instance_norm_act_backward.launches = 0
-# the NHWC form's launches alone (``launches`` counts both forms')
+# the NHWC form's launches alone (``launches`` counts both forms'), and of
+# them the one-pass kernel's
 instance_norm_act_backward.launches_nhwc = 0
+instance_norm_act_backward.launches_one_pass = 0
 
 
 class InstanceNormAct(torch.autograd.Function):
@@ -404,19 +535,23 @@ class InstanceNormAct(torch.autograd.Function):
         return dx, None, None
 
 
-def instance_norm_act(x, eps=1e-5, activation=None):
+def instance_norm_act(x, eps=1e-5, activation=None, *, _nhwc_kernel=None):
     """x: (N, C, H, W), NCHW-contiguous or channels_last. A CPU tensor
     takes the plain version; a CUDA tensor launches K1 in the form of its
     layout, the output in that layout. Differentiable through
-    ``InstanceNormAct``."""
+    ``InstanceNormAct``. ``_nhwc_kernel`` (private): as
+    ``instance_norm_act_backward``'s, for a call autograd does not
+    record."""
     if needs_graph(x):
         return InstanceNormAct.apply(x, eps, activation)
-    return _forward(x, eps, activation)
+    return _forward(x, eps, activation, _nhwc_kernel)
 
 
 instance_norm_act.launches = 0
-# the NHWC form's launches alone (``launches`` counts both forms')
+# the NHWC form's launches alone (``launches`` counts both forms'), and of
+# them the one-pass kernel's
 instance_norm_act.launches_nhwc = 0
+instance_norm_act.launches_one_pass = 0
 
 
 # band forms

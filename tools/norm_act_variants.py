@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time versions of the instance-norm kernels K1 and K1-bwd on one CUDA
-card, each version in its own process, in turns.
+card, in their NCHW and NHWC (channels_last) forms, each version in its
+own process, in turns.
 
     python3 tools/norm_act_variants.py NAME=CHECKOUT ... [--sweep]
 
@@ -13,7 +14,12 @@ reversed:
 
 - holds K1-bwd at the 12 shapes of one generator backward (batch 16,
   256 px, nf=64) and K1 at enc0 (the 8-tile inference chunk and the
-  batch-16 step) against their plain versions in bf16 and fp32;
+  batch-16 step) against their plain versions in bf16 and fp32, in both
+  layouts where the version has the NHWC form;
+- in the NHWC form, takes each kernel the version can be made to launch
+  (the wrappers' private ``_nhwc_kernel`` argument: ``one_pass`` and
+  ``segmented``), or the one it launches where it has no such argument
+  (``nhwc``), as a kind of its own (``K1-bwd NHWC one_pass`` ...);
 - times each call in bf16 four ways: ``cuda_ms``, CUDA events around 20
   back-to-back wrapper calls (as ``chip_smoke.py`` does); ``device_ms``,
   the kernels' own durations in a ``torch.profiler`` trace of 20 calls;
@@ -28,13 +34,17 @@ reversed:
 
 ``--sweep`` also times, for each version that has ``plane_geometry``,
 every level under each ``per_thread`` it can be given (the chunks a
-thread holds, which sets the threads on a plane), so that the
-thresholds can be set from one call.
+thread holds, which sets the threads on a plane), and, for each version
+that has ``nhwc_one_pass_plan``, the one-pass NHWC kernels at every
+(lanes, cluster) geometry their C entry points take (by a CUDA graph's
+replay, the planner's choice marked), so that the thresholds can be set
+from one call.
 
-It prints the card's name and power limit and, per version, the mean of
-its two turns.
+It prints the card's name and power limit and, per version and kind,
+the mean of its two turns and the sum over the 12 K1-bwd calls.
 """
 import functools
+import inspect
 import json
 import os
 import subprocess
@@ -171,6 +181,17 @@ def geometry(na, shape, dtype):
     return na.plane_geometry(n * c, h * w, dtype)._asdict()
 
 
+def nhwc_kernels(na):
+    """The NHWC kernels a version can be told to launch: (kind suffix,
+    wrapper keyword arguments); none before the NHWC form existed."""
+    if not hasattr(na, '_backward_nhwc'):
+        return []
+    if '_nhwc_kernel' in inspect.signature(
+            na.instance_norm_act_backward).parameters:
+        return [(k, {'_nhwc_kernel': k}) for k in ('one_pass', 'segmented')]
+    return [('nhwc', {})]
+
+
 def run_child(checkout, name, rep, sweep):
     sys.path.insert(0, os.path.abspath(checkout))
     import torch
@@ -212,6 +233,10 @@ def run_child(checkout, name, rep, sweep):
         row.update(extra or {})
         emit(row)
 
+    def cl(t):
+        return t.contiguous(memory_format=torch.channels_last)
+
+    forms = nhwc_kernels(na)
     data = {}
     for label, shape in levels():
         x = torch.randn(*shape, generator=gen, device='cuda')
@@ -220,12 +245,21 @@ def run_child(checkout, name, rep, sweep):
         if rep == 0:
             check(label, na.instance_norm_act_backward,
                   na.instance_norm_act_backward_plain, (g, x), (3e-2, 1e-3))
+            for kind, kw in forms:
+                check(f'{label} NHWC {kind}', functools.partial(
+                    na.instance_norm_act_backward, **kw),
+                    na.instance_norm_act_backward_plain, (cl(g), cl(x)),
+                    (3e-2, 1e-3))
     for label, shape in FWD_CASES:
         x = torch.randn(*shape, generator=gen, device='cuda')
         data[label] = (x,)
         if rep == 0:
             check(label, na.instance_norm_act, na.instance_norm_act_plain,
                   (x,), (3e-2, 1e-3))
+            for kind, kw in forms:
+                check(f'{label} NHWC {kind}', functools.partial(
+                    na.instance_norm_act, **kw), na.instance_norm_act_plain,
+                    (cl(x),), (3e-2, 1e-3))
     with torch.inference_mode():
         for label, shape in levels():
             x, g = (t.bfloat16() for t in data[label])
@@ -241,6 +275,18 @@ def run_child(checkout, name, rep, sweep):
                   lambda: na.instance_norm_act(x, 1e-5, 'relu'),
                   FWD_FLOPS * numel, 4 * numel,
                   {'geometry': geometry(na, shape, torch.bfloat16)})
+        for kind, kw in forms:
+            for label, shape in levels():
+                x, g = (cl(t.bfloat16()) for t in data[label])
+                timed(f'K1-bwd NHWC {kind}', label, shape,
+                      lambda: na.instance_norm_act_backward(
+                          g, x, 1e-5, 'relu', **kw),
+                      BWD_FLOPS * x.numel(), 6 * x.numel())
+            for label, shape in FWD_CASES:
+                x = cl(data[label][0].bfloat16())
+                timed(f'K1 NHWC {kind}', label, shape,
+                      lambda: na.instance_norm_act(x, 1e-5, 'relu', **kw),
+                      FWD_FLOPS * x.numel(), 4 * x.numel())
         x, g = (t.bfloat16() for t in data['enc6'])
         emit({'kernel': 'K1-bwd', 'case': 'host split enc6',
               **host_split(torch, na, x, g)})
@@ -272,7 +318,50 @@ def run_child(checkout, name, rep, sweep):
                           'device_ms': device_ms(torch, fn),
                           'graph_ms': graph_ms(torch, fn)})
                 na.plane_geometry = chosen
+        if sweep and hasattr(na, 'nhwc_one_pass_plan'):
+            one_pass_sweep(torch, na, data, cl, emit)
     return ok
+
+
+def one_pass_sweep(torch, na, data, cl, emit):
+    """K1-bwd at the 12 levels and K1 at enc0, NHWC, bf16, relu, through
+    the one-pass C entry points at every (lanes, cluster) whose shared
+    memory fits a block: graph_ms each, ``planned`` where
+    ``nhwc_one_pass_plan`` picks it."""
+    cases = [('K1-bwd', label, shape) for label, shape in levels()] + \
+        [('K1', label, shape) for label, shape in FWD_CASES]
+    for kind, label, shape in cases:
+        n, c, h, w = shape
+        hw, inputs = h * w, 2 if kind == 'K1-bwd' else 1
+        x = cl(data[label][0].bfloat16())
+        g = cl(data[label][1].bfloat16()) if inputs == 2 else None
+        y = torch.empty_like(x)
+        plan = na.nhwc_one_pass_plan(n, hw, c, torch.bfloat16, inputs)
+        for lanes in (1, 2, 4, 8, 16, 32):
+            for cluster in (1, 2, 4, 8):
+                if c % (lanes * 8) or na.one_pass_smem(
+                        lanes * 8, cluster, -(-hw // cluster), lanes * 16,
+                        inputs) > na.SMEM_PER_BLOCK:
+                    continue
+
+                def fn(lanes=lanes, cluster=cluster):
+                    st = torch.cuda.current_stream().cuda_stream
+                    if g is None:
+                        return na._lib().pgt_in_act_nhwc_one_pass(
+                            x.data_ptr(), y.data_ptr(), n, hw, c, 2, 1e-5,
+                            1, lanes, cluster, st)
+                    return na._bwd_lib().pgt_in_act_bwd_nhwc_one_pass(
+                        g.data_ptr(), x.data_ptr(), y.data_ptr(), n, hw, c,
+                        2, 1e-5, 1, lanes, cluster, st)
+
+                rc = fn()
+                torch.cuda.synchronize()
+                emit({'kernel': f'{kind} NHWC one_pass sweep', 'case': label,
+                      'lanes': lanes, 'cluster': cluster,
+                      'ctas': cluster * (c // (lanes * 8)) * n, 'rc': rc,
+                      'graph_ms': graph_ms(torch, fn) if rc == 0 else None,
+                      'planned': plan is not None and
+                      (plan.lanes, plan.cluster) == (lanes, cluster)})
 
 
 def main():
@@ -303,20 +392,38 @@ def main():
     print('mean of the two turns, bf16 (cuda_ms / device_ms / graph_ms '
           '/ host_us; bound_ms):')
     for name, _ in specs:
-        total = [0.0, 0.0, 0.0]
-        for label, _ in levels() + FWD_CASES:
-            rs = [r for r in rows if r['version'] == name
-                  and r['case'] == label]
-            if not rs:
-                continue
-            m = [sum(r[k] for r in rs) / len(rs)
-                 for k in ('cuda_ms', 'device_ms', 'graph_ms', 'host_us')]
-            if rs[0]['kernel'] == 'K1-bwd':
+        kinds = sorted({r['kernel'] for r in rows if r['version'] == name
+                        and 'cuda_ms' in r})
+        for kind in kinds:
+            total = [0.0] * 5
+            for label, _ in levels() + FWD_CASES:
+                rs = [r for r in rows if r['version'] == name
+                      and r['kernel'] == kind and r['case'] == label]
+                if not rs:
+                    continue
+                m = [sum(r[k] for r in rs) / len(rs)
+                     for k in ('cuda_ms', 'device_ms', 'graph_ms',
+                               'host_us')] + [rs[0]['bound_ms']]
                 total = [t + v for t, v in zip(total, m)]
-            print(f'  {name} {label}: {m[0]:.4f} / {m[1]:.4f} / {m[2]:.4f} '
-                  f'/ {m[3]:.1f}; {rs[0]["bound_ms"]:.4f}')
-        print(f'  {name} K1-bwd, 12 calls: {total[0]:.4f} / {total[1]:.4f} '
-              f'/ {total[2]:.4f}')
+                print(f'  {name} {kind} {label}: {m[0]:.4f} / {m[1]:.4f} / '
+                      f'{m[2]:.4f} / {m[3]:.1f}; {m[4]:.4f}')
+            if kind.startswith('K1-bwd'):
+                print(f'  {name} {kind}, 12 calls: {total[0]:.4f} / '
+                      f'{total[1]:.4f} / {total[2]:.4f}; {total[4]:.4f}')
+        swept = [r for r in rows if r['version'] == name
+                 and r['kernel'].endswith('one_pass sweep')]
+        if swept:
+            print(f'  {name}, one-pass geometries by graph_ms (lanes x '
+                  f'cluster: ms; * the planner\'s):')
+        for kind, label in sorted({(r['kernel'], r['case'])
+                                   for r in swept}):
+            ms = sorted((r['graph_ms'], r['lanes'], r['cluster'],
+                         r['planned']) for r in swept
+                        if (r['kernel'], r['case']) == (kind, label)
+                        and r['graph_ms'] is not None)
+            print(f'    {kind[:-15]} {label}: ' + ', '.join(
+                f'{ln}x{k}: {m:.4f}{"*" if p else ""}'
+                for m, ln, k, p in ms))
     return 0 if ok else 1
 
 
