@@ -439,10 +439,11 @@ PROFILE_NAMES = (('pgt::in_act_kernel<',),
                  ('pgt::in_act_bwd_kernel<',), ('pgt::thin::thin_fwd<',),
                  ('pgt::thin::thin_wgrad<',))
 # the same for the NHWC forms in bf16: K1's and K1-bwd's one-pass kernels
-# (csrc/norm_nhwc_cluster.cuh), which config 2's step shapes take
+# (csrc/norm_nhwc_cluster.cuh) and K2's and K3's wgmma core
+# (csrc/conv_wgmma.cuh), which config 2's step shapes take
 PROFILE_NAMES_NHWC = (('pgt::nhwc::one_pass::in_act_one_pass<',),
-                      ('pgt::conv_gemm_kernel<', 'pgt::ConvNhwcProblem<'),
-                      ('pgt::conv_gemm_kernel<', 'pgt::ConvTNhwcProblem<'),
+                      ('pgt::conv_wgmma_kernel<', 'pgt::ConvNhwcProblem<'),
+                      ('pgt::conv_wgmma_kernel<', 'pgt::ConvTNhwcProblem<'),
                       ('pgt::nhwc::one_pass::in_act_bwd_one_pass<',),
                       ('pgt::thin::thin_fwd<',), ('pgt::thin::thin_wgrad<',))
 # launches of K1, K2, K3, K1-bwd, K4, K4-wgrad per train step with
@@ -1175,8 +1176,9 @@ def dcp_train_child():
 
 
 # the NHWC forms' launches by path (K1, K2, K3, K1-bwd), as phase 8 counts
-# them, and of K1's and K1-bwd's those on the one-pass kernel
-NHWC_PATHS, ONE_PASS_PATHS = {}, {}
+# them, of K1's and K1-bwd's those on the one-pass kernel, and of K2's and
+# K3's those on the wgmma core
+NHWC_PATHS, ONE_PASS_PATHS, WGMMA_PATHS = {}, {}, {}
 
 
 def train_path_phase(torch, np, wrappers, card, s2d, tmp):
@@ -1198,6 +1200,8 @@ def train_path_phase(torch, np, wrappers, card, s2d, tmp):
                 w.launches_nhwc = 0
             for w in (wrappers[0], wrappers[3]):
                 w.launches_one_pass = 0
+            for w in (wrappers[1], wrappers[2]):
+                w.launches_wgmma = 0
             tee = Tee(sys.stdout)
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(tee), s2d_env(s2d), \
@@ -1214,6 +1218,7 @@ def train_path_phase(torch, np, wrappers, card, s2d, tmp):
                 nhwc = [w.launches_nhwc for w in wrappers[:4]]
                 one_pass = [w.launches_one_pass
                             for w in (wrappers[0], wrappers[3])]
+                wgmma = [w.launches_wgmma for w in wrappers[1:3]]
     # the Trainer's layout (PATCHGAN_AUTO_LAYOUT): channels_last runs every
     # launch of K1-K3 and K1-bwd in its NHWC form; s2d keeps NCHW
     cl_run = auto_layout_enabled() and s2d == 'off'
@@ -1231,8 +1236,16 @@ def train_path_phase(torch, np, wrappers, card, s2d, tmp):
     if one_pass != want_one:
         raise AssertionError(f'one-pass launches {one_pass}, expected '
                              f'{want_one}')
+    # and config 2's K2 and K3 shapes all take the wgmma core in bf16
+    want_wgmma = want_nhwc[1:3]
+    print(f'  s2d {s2d}: of them on the wgmma core, K2 and K3 {wgmma} '
+          f'(expected {want_wgmma})', flush=True)
+    if wgmma != want_wgmma:
+        raise AssertionError(f'wgmma launches {wgmma}, expected '
+                             f'{want_wgmma}')
     NHWC_PATHS[f'train_s2d_{s2d}'] = nhwc
     ONE_PASS_PATHS[f'train_s2d_{s2d}'] = one_pass
+    WGMMA_PATHS[f'train_s2d_{s2d}'] = wgmma
     files = sorted(os.listdir(os.path.join(tmp, 'ck')))
     want_files = [f'{p}_ep_{e:03d}.npz' for p in ('discriminator',
                                                    'generator')
@@ -1928,6 +1941,15 @@ def throughput_phase(torch, np, card):
         print(f'  K1 / K2 / K3 / K1-bwd / K4 / K4-wgrad a step on the device: '
               f'{ported} (expected {want}; the wrappers launched '
               f'{"none: replays" if captured else launched})', flush=True)
+        ported_ms = [sum(d for d, _, key in rows
+                         if all(part in key for part in parts))
+                     / n_steps / 1e3 for parts in (
+                         PROFILE_NAMES_NHWC if form.startswith('cl')
+                         else PROFILE_NAMES)]
+        r['profile_ported_ms_per_step'] = ported_ms
+        print(f'  {name}: their device ms a step by the profiler '
+              f'(K2 and K3: the GEMM kernels alone) '
+              f'{[round(v, 4) for v in ported_ms]}', flush=True)
         # the tracer now and then loses a run of records (a step's first
         # few kernels): an eager step's trace may count fewer than the
         # table, never more, where its wrappers launched exactly the
@@ -3477,7 +3499,8 @@ def pipeline_phase(torch, np, wrappers, card, step_img_s, tmp):
     # the Trainer's layout names the forms: NHWC in channels_last
     from patchgan_tpu_torch.train.auto_layout import auto_layout_enabled
     nhwc = 'Nhwc' if auto_layout_enabled() else ''
-    found = {k: k in text for k in ('pgt::conv_gemm_kernel',
+    core = 'conv_wgmma_kernel' if nhwc else 'conv_gemm_kernel'
+    found = {k: k in text for k in (f'pgt::{core}',
                                     f'pgt::Conv{nhwc}Problem<',
                                     f'pgt::ConvT{nhwc}Problem<')}
     print(f'  --profile_dir: {len(traces)} trace(s), {len(text)} bytes, '
@@ -6193,15 +6216,16 @@ def phase_18_only(torch, np, wrappers, card):
 CL = 'channels_last'
 # the NHWC forms: (name in the kernels line, source, TPU kernel, index of
 # their wrapper in ``kernel_wrappers()``); K1's and K1-bwd's source is the
-# one-pass kernels' header, which config 2's step takes (the segmented
-# kernels, csrc/norm_nhwc.cuh, beside them in the line)
+# one-pass kernels' header, K2's and K3's the wgmma core's, which config
+# 2's step takes (the segmented kernels, csrc/norm_nhwc.cuh, and the WMMA
+# core, csrc/conv_gemm.cuh, beside them in the line)
 NHWC_FORMS = (
     ('instance_norm_act_nhwc',
      'patchgan_tpu_torch/csrc/norm_nhwc_cluster.cuh',
      'patchgan_tpu/ops/pallas/norm_act.py:211', 0),
-    ('conv_norm_act_nhwc', 'patchgan_tpu_torch/csrc/conv_norm_act.cu',
+    ('conv_norm_act_nhwc', 'patchgan_tpu_torch/csrc/conv_wgmma.cuh',
      'patchgan_tpu/ops/pallas/conv_norm_act.py:176', 1),
-    ('convt_norm_act_nhwc', 'patchgan_tpu_torch/csrc/convt_norm_act.cu',
+    ('convt_norm_act_nhwc', 'patchgan_tpu_torch/csrc/conv_wgmma.cuh',
      'patchgan_tpu/ops/pallas/convt_norm_act.py:178', 2),
     ('instance_norm_act_backward_nhwc',
      'patchgan_tpu_torch/csrc/norm_nhwc_cluster.cuh',
@@ -6231,20 +6255,50 @@ def cl_offset(torch, t):
     return out
 
 
-def nhwc_launched(w, fn, one_pass=None):
+def nhwc_launched(w, fn, one_pass=None, wgmma=None):
     """fn() and whether it launched the NHWC form of wrapper w once (and,
-    where ``one_pass`` is True or False, on the one-pass kernel or
-    not)."""
-    before = w.launches_nhwc, getattr(w, 'launches_one_pass', 0)
+    where ``one_pass`` or ``wgmma`` is True or False, on K1's / K1-bwd's
+    one-pass kernel or K2's / K3's wgmma core, or not)."""
+    before = (w.launches_nhwc, getattr(w, 'launches_one_pass', 0),
+              getattr(w, 'launches_wgmma', 0))
     out = fn()
     if w.launches_nhwc != before[0] + 1:
         raise AssertionError(f'{w.__name__}: the NHWC form did not launch')
-    took = w.launches_one_pass == before[1] + 1 if one_pass is not None \
-        else None
-    if took != one_pass:
-        raise AssertionError(f'{w.__name__}: the one-pass kernel launched: '
-                             f'{took}, expected {one_pass}')
+    for what, want, i, attr in (('the one-pass kernel', one_pass, 1,
+                                 'launches_one_pass'),
+                                ('the wgmma core', wgmma, 2,
+                                 'launches_wgmma')):
+        took = getattr(w, attr) == before[i] + 1 if want is not None \
+            else None
+        if took != want:
+            raise AssertionError(f'{w.__name__}: {what} launched: {took}, '
+                                 f'expected {want}')
     return out
+
+
+def wgmma_ptxas(log_by_lib):
+    """ptxas's report of each wgmma-core kernel this process built (the
+    build's -Xptxas=-v): {(library, kernel): (registers, spill stores,
+    spill loads)}; empty where no build ran."""
+    out = {}
+    for lib, log in log_by_lib.items():
+        name = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1) if 'conv_wgmma_kernel' in m.group(1) \
+                    else None
+                continue
+            if name is None:
+                continue
+            m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                          line)
+            if m:
+                out[(lib, name)] = [None, int(m.group(1)), int(m.group(2))]
+            m = re.search(r'Used (\d+) registers', line)
+            if m and (lib, name) in out:
+                out[(lib, name)][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 # K1's and K1-bwd's NHWC kernels as the wrappers' private argument names
@@ -6260,22 +6314,39 @@ def nhwc_kernel_phase(torch, F, kernels):
     every shape of config 2's step (batch 16, 256 px: ``make_cases`` and
     ``bwd_shapes``), bf16 and fp32 within ``TOL`` / ``TOL_BWD``, its
     output channels_last, the NHWC form launched; K3's NHWC pack exactly
-    against ``pack_convt_weight_nhwc_plain``. Check-only cases of the
-    element paths: K2 at Cin 16 and 48 (no multiple of the 32-channel K
-    step), K3 ragged (13 + 6 -> 40) and with Cs = 0, K1 and K1-bwd at
-    ``norm_edge_cases`` and one element past 16 bytes. K1 and K1-bwd at
-    the step's shapes in both NHWC kernels (``check_norm``: the one-pass
-    kernel the planner picks there, two launches bit-equal, and the
-    segmented kernels), and beyond a cluster's shared memory
+    against ``pack_convt_weight_nhwc_plain``. K2 and K3 there on the
+    wgmma core in bf16 (two launches bit-equal) and on the WMMA core in
+    fp32 (``check_conv``), and in bf16 on the WMMA core forced on the same
+    values; ptxas's registers and spills of the wgmma core (none may
+    spill). Check-only cases of the element paths, all on the WMMA core:
+    K2 at Cin 16 and 48 (no multiple of the 32-channel K step), K3 ragged
+    (13 + 6 -> 40) and with Cs = 0, K2 and K3 one element past 16 bytes;
+    K1 and K1-bwd at ``norm_edge_cases`` and one element past 16 bytes. K1
+    and K1-bwd at the step's shapes in both NHWC kernels (``check_norm``:
+    the one-pass kernel the planner picks there, two launches bit-equal,
+    and the segmented kernels), and beyond a cluster's shared memory
     (``BEYOND_CLUSTER``), where the planner picks the segmented kernels.
     Timed in bf16: the NHWC form, the NCHW form on the same values, the
-    plain version and a library call in channels_last, the bound; K1 and
-    K1-bwd by events and by a graph's replay (``timed_norm``). Returns
-    {form: rows}."""
-    from patchgan_tpu_torch.ops.kernels import (pack_convt_weight_nhwc,
+    plain version and a library call in channels_last, the bound; K2 and
+    K3 on both cores, by events and by a graph's replay (``timed``); K1
+    and K1-bwd by events and by a graph's replay (``timed_norm``).
+    Returns {form: rows}."""
+    from patchgan_tpu_torch.ops.kernels import (_build,
+                                                pack_convt_weight_nhwc,
                                                 pack_convt_weight_nhwc_plain)
+    from patchgan_tpu_torch.ops.kernels.conv_norm_act import conv_nhwc_plan
+    from patchgan_tpu_torch.ops.kernels.convt_norm_act import convt_nhwc_plan
     from patchgan_tpu_torch.ops.kernels.norm_act import nhwc_one_pass_plan
     k1, k2, k3, k1b = kernels[:4]
+    ptxas = wgmma_ptxas(_build.build_log)
+    for (lib, name), (regs, stores, loads) in sorted(ptxas.items()):
+        print(f'  ptxas {lib} {name}: {regs} registers, spill stores '
+              f'{stores} / loads {loads} bytes', flush=True)
+    if not ptxas:
+        print('  ptxas: no build in this process, no report of the wgmma '
+              'core', flush=True)
+    if any(stores or loads for _, stores, loads in ptxas.values()):
+        raise AssertionError(f'the wgmma core spills: {ptxas}')
     rows = {name: [] for name, *_ in NHWC_FORMS}
     form = {k1.name: 'instance_norm_act_nhwc', k2.name: 'conv_norm_act_nhwc',
             k3.name: 'convt_norm_act_nhwc',
@@ -6286,19 +6357,22 @@ def nhwc_kernel_phase(torch, F, kernels):
         return torch.randn(*shape, generator=gen, device='cuda') * scale
 
     def check(kernel, label, make, tol_of, offset=False, nk=None,
-              one_pass=None, repeat=False):
+              one_pass=None, repeat=False, wgmma=None):
         """The NHWC form (``nk``: K1's / K1-bwd's kernel forced) against
         the plain version in both dtypes; ``one_pass``: which kernel must
-        have launched; ``repeat``: a second launch bit-equal."""
+        have launched; ``wgmma``: {dtype name: whether K2's / K3's wgmma
+        core must have}; ``repeat``: a second launch bit-equal."""
         errs = {}
         kw = {} if nk is None else {'_nhwc_kernel': nk}
         name = form[kernel.name] + ('' if nk is None else f' {nk}')
         for dname, dt in (('bfloat16', torch.bfloat16),
                           ('float32', torch.float32)):
             args = cl(torch, make(dt))
-            if offset:
+            if offset:   # the activations, not K2's / K3's weight
                 args = tuple(cl_offset(torch, a) if torch.is_tensor(a)
-                             and a.dim() == 4 else a for a in args)
+                             and a.dim() == 4 and (kernel not in (k2, k3)
+                                                   or i != 1) else a
+                             for i, a in enumerate(args))
             if kernel is k3:
                 w = args[1]
                 if not torch.equal(pack_convt_weight_nhwc(w),
@@ -6306,7 +6380,8 @@ def nhwc_kernel_phase(torch, F, kernels):
                     raise AssertionError(f'K3 NHWC pack {label} {dname}')
             got = nhwc_launched(kernel.wrapper,
                                 lambda: kernel.wrapper(*args, **kw),
-                                one_pass)
+                                one_pass, None if wgmma is None
+                                else wgmma[dname])
             if not got.is_contiguous(memory_format=torch.channels_last):
                 raise AssertionError(f'{kernel.name} {label}: output not '
                                      f'channels_last')
@@ -6341,6 +6416,16 @@ def nhwc_kernel_phase(torch, F, kernels):
                           one_pass=one, repeat=one)
                 for nk, one in NHWC_KERNELS}
 
+    def check_conv(kernel, label, make):
+        """K2 / K3 at a step shape: the wgmma core in bf16, two launches
+        bit-equal; the WMMA core in fp32."""
+        return check(kernel, label, make, fwd_tol, repeat=True,
+                     wgmma={'bfloat16': True, 'float32': False})
+
+    def on_wmma(kernel):
+        """Element-path cases: the WMMA core in both dtypes."""
+        return {'bfloat16': False, 'float32': False}
+
     def fwd_tol(dname, want):
         return TOL[dname]
 
@@ -6348,16 +6433,42 @@ def nhwc_kernel_phase(torch, F, kernels):
         return TOL_BWD[dname] * max(1.0, want.abs().max().item())
 
     def timed(kernel, label, make, library, flops, nbytes, peak, errs):
+        """K2 / K3 in bf16: the wgmma core (the planner's, kernel_ms), the
+        WMMA core forced on the same values, the NCHW form, the plain
+        version and the library call by CUDA events around 20 eager calls
+        each, then the two cores and the library call by a CUDA graph's
+        replay (``device_ms``) in the reverse order; the WMMA core's
+        error beside the wgmma core's."""
         args = make(torch.bfloat16)
         cargs = cl(torch, args)
+        fns = {'kernel': lambda: kernel.wrapper(*cargs),
+               'wmma': lambda: kernel.wrapper(*cargs, _nhwc_core='wmma'),
+               'nchw': lambda: kernel.wrapper(*args),
+               'plain': lambda: kernel.plain(*cargs),
+               'library': lambda: library(*cargs)}
+        ev = {k: cuda_ms(f) for k, f in fns.items()}
+        dev = {k: device_ms(fns[k]) for k in ('library', 'wmma', 'kernel')}
+        want = kernel.plain(*(a.float() if torch.is_tensor(a) else a
+                              for a in cargs)).float()
+        wmma_err = (fns['wmma']().float() - want).abs().max().item()
+        x = cargs[0]
+        n, c, h, w = x.shape
+        plan = conv_nhwc_plan(n, c, h, w, cargs[1].shape[0], x.dtype) \
+            if kernel is k2 else convt_nhwc_plan(
+                n, c, cargs[4].shape[1], h, w, cargs[1].shape[1], x.dtype)
         row = {'kernel': form[kernel.name], 'case': label,
-               'dtype': 'bfloat16',
-               'kernel_ms': cuda_ms(lambda: kernel.wrapper(*cargs)),
-               'nchw_ms': cuda_ms(lambda: kernel.wrapper(*args)),
-               'plain_ms': cuda_ms(lambda: kernel.plain(*cargs)),
-               'library_ms': cuda_ms(lambda: library(*cargs)),
+               'dtype': 'bfloat16', 'bn': plan.bn, 'stages': plan.stages,
+               'splits': plan.splits, 'samples_a_tile': plan.samples,
+               'smem_bytes': plan.smem,
+               **{f'{k}_ms': v for k, v in ev.items()},
+               **{f'{k}_device_ms': v for k, v in dev.items()},
                'max_abs_err_bf16': errs['bfloat16'],
-               'max_abs_err_fp32': errs['float32']}
+               'max_abs_err_fp32': errs['float32'],
+               'wmma_max_abs_err_bf16': wmma_err}
+        row['device_ms'] = row.pop('kernel_device_ms')
+        if not wmma_err <= TOL['bfloat16']:
+            raise AssertionError(f'{form[kernel.name]} {label} on the WMMA '
+                                 f'core: {wmma_err}')
         row['bound_ms'], row['bound_by'] = bound(flops, nbytes, peak)
         rows[form[kernel.name]].append(row)
         print(json.dumps(row), flush=True)
@@ -6403,7 +6514,7 @@ def nhwc_kernel_phase(torch, F, kernels):
             errs = check_norm(kernel, label, make, fwd_tol)
             timed_norm(kernel, label, make, library, flops, 2 * elems, errs)
             continue
-        errs = check(kernel, label, make, fwd_tol)
+        errs = check_conv(kernel, label, make)
         timed(kernel, label, make, library, flops, 2 * elems, PEAK_BF16,
               errs)
     for label, shape in bwd_shapes():
@@ -6434,14 +6545,26 @@ def nhwc_kernel_phase(torch, F, kernels):
         x, wt = rand(4, cin, *hw), rand(cout, cin, 4, 4, scale=0.1)
         check(k2, f'Cin {cin} -> {cout} {hw}',
               lambda dt, x=x, wt=wt: (x.to(dt), wt.to(dt), 1e-5, 'tanh'),
-              fwd_tol)
+              fwd_tol, wgmma=on_wmma(k2))
     for cx, cs, cout, hw in ((13, 6, 40, (12, 20)), (64, 0, 32, (8, 8))):
         x, wt = rand(4, cx, *hw), rand(cx + cs, cout, 4, 4, scale=0.1)
         s = rand(4, cs, *hw) if cs else None
         check(k3, f'({cx}+{cs}) -> {cout} {hw}',
               lambda dt, x=x, wt=wt, s=s: (
                   x.to(dt), wt.to(dt), 1e-5, 'leakyrelu',
-                  None if s is None else s.to(dt)), fwd_tol)
+                  None if s is None else s.to(dt)), fwd_tol,
+              wgmma=on_wmma(k3))
+    # the wgmma core's shapes with x (and skip) one element past 16
+    # bytes: the WMMA core's element path
+    x, wt = rand(4, 64, 16, 16), rand(64, 64, 4, 4, scale=0.1)
+    check(k2, 'one element past 16 bytes 64 -> 64 (16, 16)',
+          lambda dt: (x.to(dt), wt.to(dt), 1e-5, 'relu'), fwd_tol,
+          offset=True, wgmma=on_wmma(k2))
+    x, s = rand(4, 64, 8, 8), rand(4, 64, 8, 8)
+    wt = rand(128, 64, 4, 4, scale=0.1)
+    check(k3, 'one element past 16 bytes (64+64) -> 64 (8, 8)',
+          lambda dt: (x.to(dt), wt.to(dt), 1e-5, 'relu', s.to(dt)), fwd_tol,
+          offset=True, wgmma=on_wmma(k3))
     for label, pair in norm_edge_cases(torch, gen):
         if 'past' in label:
             continue
@@ -6491,20 +6614,25 @@ def cl_parity_phase(torch, np, wrappers, refs):
             w.launches_nhwc = 0
         if hasattr(w, 'launches_one_pass'):
             w.launches_one_pass = 0
+        if hasattr(w, 'launches_wgmma'):
+            w.launches_wgmma = 0
     losses, grads = step_grads(torch, gen_c, disc_c,
                                *cl(torch, (x.cuda(), y.cuda())), 'off')
     for h in hooks:
         h.remove()
     nhwc = [w.launches_nhwc for w in wrappers[:4]]
     one_pass = [wrappers[i].launches_one_pass for i in (0, 3)]
+    wgmma = [w.launches_wgmma for w in wrappers[1:3]]
     print(f'  launches {[w.launches for w in wrappers]}, of them NHWC '
-          f'{nhwc}, K1\'s and K1-bwd\'s on the one-pass kernel {one_pass}; '
+          f'{nhwc}, K1\'s and K1-bwd\'s on the one-pass kernel {one_pass}, '
+          f'K2\'s and K3\'s on the wgmma core {wgmma} (fp32: none); '
           f'blocks whose output left channels_last: {bad}', flush=True)
     if nhwc != STEP['off'][:4] or [w.launches for w in wrappers] != \
-            STEP['off'] or one_pass != [nhwc[0], nhwc[3]] or bad:
+            STEP['off'] or one_pass != [nhwc[0], nhwc[3]] or bad or \
+            wgmma != [0, 0]:
         raise AssertionError(f'channels_last step: NHWC launches {nhwc}, '
-                             f'one-pass {one_pass}, blocks out of '
-                             f'channels_last {bad}')
+                             f'one-pass {one_pass}, wgmma {wgmma}, blocks '
+                             f'out of channels_last {bad}')
     out = {}
     for ref in ('cpu', 'card_nchw'):
         want_l, want_g = refs[ref]
@@ -7002,6 +7130,21 @@ def main(only=None):
                     'library_device_ms')},
                 segmented_max_abs_err=max(
                     r['segmented_max_abs_err_bf16'] for r in rows))
+        else:
+            # K2's and K3's: the wgmma core; the WMMA core, which the
+            # fp32 and element-path calls take, beside it
+            on = WGMMA_PATHS['train_s2d_off'][i - 1]
+            if on != launches:
+                raise AssertionError(f'{name}: {on} of {launches} launches '
+                                     f'on the wgmma core')
+            summary[-1].update(
+                kernel='wgmma', launches_wgmma=on,
+                wmma_source='patchgan_tpu_torch/csrc/conv_gemm.cuh',
+                **{k: sum(r[k] for r in rows) for k in (
+                    'device_ms', 'wmma_ms', 'wmma_device_ms',
+                    'library_device_ms')},
+                wmma_max_abs_err=max(r['wmma_max_abs_err_bf16']
+                                     for r in rows))
     print(json.dumps({'kernels': summary}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

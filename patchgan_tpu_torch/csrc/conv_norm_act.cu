@@ -38,15 +38,18 @@
 // NHWC form (channels_last): pgt_conv_in_act_nhwc takes x as [N, H, W,
 // Cin] and the channels_last weight, physically [Cout, 4, 4, Cin], which
 // is B k-contiguous as it stands with k = (ky * 4 + kx) * Cin + ci, so
-// nothing is packed. A second problem struct (ConvNhwcProblem) on the same
-// core: where Cin is a multiple of BK, a K step lies inside one tap, and a
-// gathering thread, whose k slots are every second one, reads the step's
-// 32 channels of its pixel as 16-byte vectors (one 64-byte run, in L1 for
-// the thread of the other parity) and keeps its parity's half; other Cin
-// go element by element. The fp32 accumulator is NHWC, and the finish is
-// norm_nhwc.cuh's (launch_conv_in_act_nhwc).
+// nothing is packed. A second problem struct (ConvNhwcProblem): in bf16
+// with Cin and Cout multiples of 64 and x on 16 bytes (the host planner's
+// nhwc_gemm_plan), the wgmma core of conv_wgmma.cuh, a K step 64 channels
+// of one tap copied straight from x; otherwise the WMMA core above, where
+// with Cin a multiple of BK a K step lies inside one tap, and a gathering
+// thread, whose k slots are every second one, reads the step's 32 channels
+// of its pixel as 16-byte vectors (one 64-byte run, in L1 for the thread
+// of the other parity) and keeps its parity's half; other Cin go element
+// by element. The fp32 accumulator is NHWC, and the finish is
+// norm_nhwc.cuh's (launch_conv_in_act_nhwc, launch_conv_in_act_nhwc_wgmma).
 
-#include "conv_gemm.cuh"
+#include "conv_wgmma.cuh"
 
 namespace pgt {
 
@@ -140,6 +143,13 @@ struct ConvNhwcProblem {
                                          int ci) const {
     return t.xs + ((long)(t.iy + (tap >> 2)) * W + t.ix + (tap & 3)) * Cin +
            ci;
+  }
+  // the wgmma core (conv_wgmma.cuh): the channels of a tap, and a row's
+  // channels ci .. of tap `tap`, or null outside the image
+  __host__ __device__ __forceinline__ int tap_channels() const { return Cin; }
+  __device__ __forceinline__ const T* a_src(const Gather& t, int tap,
+                                            int ci) const {
+    return t.ok >> tap & 1 ? at(t, tap, ci) : nullptr;
   }
   __device__ __forceinline__ void load_a(const Gather& t, int k0, int kend,
                                          pair_t<T> (&v)[BK / 4]) const {
@@ -304,11 +314,15 @@ extern "C" int pgt_conv_band(const void* x, const void* w, void* acc,
 
 // NHWC form. x [N, H, W, Cin] (an NHWC tensor), w the channels_last weight
 // [Cout, 4, 4, Cin] (16-byte aligned), y [N, Ho, Wo, Cout], all bf16
-// (bf16 != 0) or all fp32; x_vec: Cin a multiple of pgt_tile_k() and x on
-// 16 bytes (the vector gather); acc: fp32 scratch of
-// pgt_conv_splits(split_batch, ...) times y's size (NHWC); part: fp32
-// pairs, N * Cout * max(ceil(Ho*Wo / pgt_tile_m()), segs); stats: fp32
-// pairs, N * Cout; segs, vec: the finish's segments and 16-byte vectors
+// (bf16 != 0) or all fp32. core: 1 the wgmma core (conv_wgmma.cuh: bf16,
+// Cin and Cout multiples of 64, x on 16 bytes; bn, stages, splits and
+// samples from the host planner), 0 the WMMA core (conv_gemm.cuh; splits
+// must be pgt_conv_splits(split_batch, ...); x_vec: Cin a multiple of
+// pgt_tile_k() and x on 16 bytes, the vector gather). acc: fp32 scratch of
+// `splits` times y's size (NHWC); part: fp32 pairs, N * Cout * max(tiles,
+// segs) with tiles = ceil(Ho*Wo / pgt_tile_m()) for the WMMA core, 1 or
+// that for the wgmma core (1 where it packs samples); stats: fp32 pairs,
+// N * Cout; segs, vec: the finish's segments and 16-byte vectors
 // (norm_nhwc.cuh). Returns cudaGetLastError(), or cudaErrorInvalidValue
 // for what the kernels cannot take.
 extern "C" int pgt_conv_in_act_nhwc(const void* x, const void* w, void* y,
@@ -316,12 +330,24 @@ extern "C" int pgt_conv_in_act_nhwc(const void* x, const void* w, void* y,
                                     int batch, int split_batch, int cin,
                                     int h, int wd, int cout, int act,
                                     float eps, int bf16, int x_vec, int vec,
-                                    int segs, void* stream) {
+                                    int segs, int core, int bn, int stages,
+                                    int splits, int samples, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_vec && (cin % pgt::BK || reinterpret_cast<uintptr_t>(x) % 16))
+  using B = __nv_bfloat16;
+  if (core) {
+    if (!bf16 || cin % pgt::wg::BKC || reinterpret_cast<uintptr_t>(x) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const auto p = pgt::nhwc_problem<B, true>(x, w, cin, h, wd, cout);
+    return pgt::launch_conv_in_act_nhwc_wgmma(
+        p, batch, bn, stages, splits, samples, static_cast<float*>(acc),
+        static_cast<float2*>(part), static_cast<float2*>(stats),
+        static_cast<B*>(y), (long)p.M, segs, vec, act, eps, st);
+  }
+  if ((x_vec && (cin % pgt::BK || reinterpret_cast<uintptr_t>(x) % 16)) ||
+      split_batch < 1 || splits != pgt_conv_splits(split_batch, cin, h, wd,
+                                                   cout))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
-    using B = __nv_bfloat16;
     if (x_vec)
       return pgt::run_nhwc<B, true>(x, w, y, acc, part, stats, batch,
                                     split_batch, cin, h, wd, cout, act, eps,

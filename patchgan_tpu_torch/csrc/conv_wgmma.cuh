@@ -1,0 +1,426 @@
+// Hopper GEMM core of the NHWC (channels_last) forms of K2 (conv_norm_act.cu)
+// and K3 (convt_norm_act.cu) in bf16: wgmma fed by an async-copy ring.
+//
+// Replaces, for those forms, the WMMA core of conv_gemm.cuh, which stays
+// for fp32, for channel runs that are no multiple of 64, for pointers off
+// 16 bytes, and for the NCHW and band forms. The TPU kernels these forms
+// port are patchgan_tpu/ops/pallas/conv_norm_act.py::_forward (pallas_call
+// at :176) and convt_norm_act.py::_forward (pallas_call at :178).
+//
+// Bound on the H100: operations at the bulk levels (enc1-enc3, dec3-dec5:
+// 0.5-1 GMAC a level at batch 16 against a few MB), bytes at the deep ones
+// (enc4-enc6, dec1, dec2: the 4-8 MB weight read for 64 to 4 pixels a
+// sample).
+//
+// The product of a (sample, class) is out[m, co] = sum_k A[m, k] B[k, co]
+// with k = tap * C + ci. A K step is 64 channels of one tap: for each
+// output pixel one contiguous 128-byte run of the channels_last input,
+// which is one row of a K-major wgmma operand under the 128-byte swizzle.
+// So A needs no register staging: thread (r0, j) of the 128 copies 16-byte
+// chunk j of rows r0 + 16 i with cp.async.cg straight to its swizzled
+// address (chunk j ^ (row & 7) of the row's 128 bytes), a tap outside the
+// image zero-filled (src-size 0). B is K-major already (K2's channels_last
+// weight [Cout][16 Cin]; K3's pack wp[g][co][tap C + ci]) and goes in the
+// same way. The problem gives each row's source (P::gather once a block,
+// P::a_src a K step); K3 reads x's or skip's channels by the chunk, so the
+// decoder's concat is never materialised.
+//
+// A block is one warpgroup (128 threads) over a tile of BM = 64 output rows
+// by BN (64 or 128) output channels. A ring of S (3 or 4) stages, each A
+// (64 x 128 bytes) then B (BN x 128 bytes), lies in dynamic shared memory
+// on 1024 bytes (the swizzle's period). K step i: wait for its copies
+// (cp.async.wait_group S - 2), fence them to the async proxy, one barrier;
+// four wgmma.mma_async m64nBNk16 from shared-memory descriptors, fp32
+// accumulators in registers; then the copies of step i + S - 1 into the
+// stage of step i - 1, which every thread's wgmma.wait_group 0 of the last
+// step has released; wgmma.wait_group 0. The copies of S - 1 steps fly
+// while the tensor cores run one.
+//
+// Rows of several samples: where a (sample, class) product has M < 64
+// pixels (enc5, dec1: 16; enc6: 4), a tile packs BM / M samples, each row
+// carrying its own sample, so the B tile is read once for all of them;
+// otherwise a tile holds one sample's rows and a sample takes ceil(M / 64)
+// tiles. The slot of sample n is n mod (BM / M) whatever the batch, and a
+// row's sums do not depend on its neighbours', so a sample's bits do not
+// change with the batch.
+//
+// Epilogue: the accumulators go through the ring's memory (row stride
+// BN + 8 floats) to the NHWC fp32 `acc`, 16 bytes a thread along the
+// channels, the classes interleaved as P::out places them; then, without a
+// K split, one partial (sum, sum of squares) per (sample, channel, class,
+// tile) over the sample's rows in row order into part[((n Cout + co) G +
+// g) tiles + tile], which norm_nhwc.cuh's reduce_parts adds. With a K split
+// (the deep levels' few tiles), block s sums its share of the K steps into
+// slice s of acc and split_stats adds the slices in order. No atomics: two
+// launches give the same bits. The host planner (nhwc_gemm_plan in
+// ops/kernels/conv_norm_act.py) picks BN, S, the split and the packing.
+#pragma once
+
+#include <stdint.h>
+
+#include "conv_gemm.cuh"
+
+namespace pgt {
+namespace wg {
+
+constexpr int BM = 64;         // rows a tile: one warpgroup's wgmma M
+constexpr int BKC = 64;        // channels a K step
+constexpr int ROW = 128;       // bytes of a ring row: 64 bf16
+constexpr int THREADS = 128;   // one warpgroup
+constexpr long SMEM_MAX = 232448;   // an H100 block's shared memory
+
+__host__ __device__ constexpr int stage_bytes(int bn) { return (BM + bn) * ROW; }
+// the ring, the epilogue's fp32 tile in the same memory, and 1024 bytes
+// to put the ring on the swizzle's period
+__host__ __device__ constexpr int smem_bytes(int bn, int stages) {
+  return (stages * stage_bytes(bn) > BM * (bn + 8) * 4
+              ? stages * stage_bytes(bn)
+              : BM * (bn + 8) * 4) +
+         1024;
+}
+
+// samples a tile packs for M pixels a (sample, class)
+__host__ __device__ inline int samples_for(int M) {
+  return M < BM ? BM / M : 1;
+}
+
+// How the rows of a launch fall into tiles.
+struct Tiling {
+  int batch;     // samples of the launch
+  int samples;   // samples a tile (samples_for(M))
+  int tiles;     // tiles a sample: ceil(M / BM), or 1 where samples > 1
+  int splits;    // K split
+  long slice;    // floats between two slices of acc
+};
+
+// Sample n and pixel m of row r of row tile bx; false for a padding row
+__device__ __forceinline__ bool row_of(const Tiling& t, int M, int bx, int r,
+                                       int& n, int& m) {
+  if (t.samples > 1) {
+    const int slot = r / M;
+    n = bx * t.samples + slot;
+    m = r - slot * M;
+    return slot < t.samples && n < t.batch;
+  }
+  n = bx / t.tiles;
+  m = (bx - n * t.tiles) * BM + r;
+  return m < M;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte cp.async to shared address dst; zeros without reading when
+// `valid` is false
+__device__ __forceinline__ void cp16(unsigned dst, const void* src,
+                                     bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// the ring's copies (generic proxy) made visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous MMAs
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory descriptor of a K-major operand under the 128-byte
+// swizzle: start address >> 4, leading offset 1 (unused by this layout),
+// 1024 bytes between 8-row groups, layout type 1 (128B swizzle). A 16-deep
+// slice kk of the 64-deep tile starts 32 kk bytes on: desc + 2 kk.
+__device__ __forceinline__ uint64_t desc_sw128(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// wgmma.mma_async m64nBNk16, bf16 x bf16 -> fp32, A and B K-major from
+// shared memory, D += A B
+template <int BN>
+struct Wgmma;
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+}  // namespace wg
+
+// The product of problem P (a ConvNhwcProblem or ConvTNhwcProblem in
+// bf16, its channel runs multiples of 64 and its pointers on 16 bytes):
+// grid (row tiles, Cout / BN, G * splits).
+template <typename P, int BN, int S>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    conv_wgmma_kernel(const P p, const wg::Tiling t, float* __restrict__ acc,
+                      float2* __restrict__ part) {
+  using T = __nv_bfloat16;
+  using wg::cp16;
+  using wg::row_of;
+  using wg::Wgmma;
+  // local names hide conv_gemm.cuh's tile constants
+  constexpr int BM = wg::BM, BKC = wg::BKC, ROW = wg::ROW;
+  constexpr int A_BYTES = BM * ROW, STAGE = wg::stage_bytes(BN);
+  constexpr int LDC = BN + 8;   // the epilogue tile's row stride, floats
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = wg::smem_u32(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;
+
+  const int tid = threadIdx.x, bx = blockIdx.x, nt = blockIdx.y;
+  const int split = blockIdx.z % t.splits, g = blockIdx.z / t.splits;
+  const int cpt = p.tap_channels() / BKC;   // K steps a tap
+  const int nk = p.K / BKC;
+  const int per = (nk + t.splits - 1) / t.splits;
+  const int kb = min(nk, split * per), ke = min(nk, kb + per);
+
+  // this thread copies 16-byte chunk j of rows r0 + 16 i of A and B
+  const int j = tid & 7, r0 = tid >> 3;
+  const unsigned own = r0 * ROW + ((j ^ (r0 & 7)) << 4);
+  typename P::Gather ga[BM / 16];
+#pragma unroll
+  for (int i = 0; i < BM / 16; ++i) {
+    int n, m;
+    const bool v = row_of(t, p.M, bx, r0 + 16 * i, n, m);
+    ga[i] = p.gather(v ? n : 0, g, v, v ? m / p.Mw : 0, v ? m % p.Mw : 0, 0);
+  }
+  const T* const brow =
+      p.bw + ((long)g * p.Cout + nt * BN + r0) * p.ldb + 8 * j;
+
+  auto load = [&](int ks, int s) {
+    const unsigned a = base + s * STAGE + own;
+    const int tap = ks / cpt, ci = (ks - tap * cpt) * BKC + 8 * j;
+#pragma unroll
+    for (int i = 0; i < BM / 16; ++i) {
+      const T* src = p.a_src(ga[i], tap, ci);
+      cp16(a + i * 16 * ROW, src ? src : p.bw, src != nullptr);
+    }
+    const T* bs = brow + (long)ks * BKC;
+#pragma unroll
+    for (int i = 0; i < BN / 16; ++i)
+      cp16(a + A_BYTES + i * 16 * ROW, bs + (long)16 * i * p.ldb, true);
+  };
+
+  float d[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (kb + s < ke) load(kb + s, s);
+    cp_async_commit();
+  }
+  int s = 0;
+  for (int ks = kb; ks < ke; ++ks) {
+    wg::cp_wait<S - 2>();   // this thread's copies of step ks have landed
+    wg::fence_async_smem();
+    __syncthreads();    // everyone's have; step ks - 1's stage is free
+    const unsigned a = base + s * STAGE;
+    const uint64_t da = wg::desc_sw128(a);
+    const uint64_t db = wg::desc_sw128(a + A_BYTES);
+    wg::fence_operands(d);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKC / 16; ++kk)
+      Wgmma<BN>::mma(d, da + 2 * kk, db + 2 * kk);
+    wg::wgmma_commit();
+    if (ks + S - 1 < ke) load(ks + S - 1, s == 0 ? S - 1 : s - 1);
+    cp_async_commit();
+    wg::wgmma_wait0();
+    wg::fence_operands(d);
+    s = s + 1 == S ? 0 : s + 1;
+  }
+  wg::cp_wait<0>();
+  __syncthreads();   // the ring is free for the epilogue tile
+
+  // accumulators -> cs[row * LDC + channel] (wgmma's D fragment: warp w
+  // rows 16 w .. 16 w + 15, lane l rows l / 4 and l / 4 + 8, columns
+  // 8 q + 2 (l % 4) and the next)
+  float* const cs = reinterpret_cast<float*>(smem_raw + (base - raw));
+  {
+    const int rr = (tid >> 5) * 16 + ((tid & 31) >> 2), cc = 2 * (tid & 3);
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+      *reinterpret_cast<float2*>(cs + rr * LDC + 8 * q + cc) =
+          make_float2(d[4 * q], d[4 * q + 1]);
+      *reinterpret_cast<float2*>(cs + (rr + 8) * LDC + 8 * q + cc) =
+          make_float2(d[4 * q + 2], d[4 * q + 3]);
+    }
+  }
+  __syncthreads();
+  // the fp32 output (this split's slice), 16 bytes a thread along the
+  // channels
+  float* const out = acc + split * t.slice;
+  constexpr int V = BN / 4;
+  for (int idx = tid; idx < BM * V; idx += wg::THREADS) {
+    const int r = idx / V, c4 = idx - r * V;
+    int n, m;
+    if (row_of(t, p.M, bx, r, n, m))
+      *reinterpret_cast<float4*>(
+          out + p.out(n, g, m / p.Mw, m % p.Mw, nt * BN + 4 * c4)) =
+          *reinterpret_cast<const float4*>(cs + r * LDC + 4 * c4);
+  }
+  if (t.splits > 1) return;   // split_stats takes the statistics
+  // per (sample, channel) partials over the sample's rows, in row order
+  const bool packed = t.samples > 1;
+  for (int cl = tid; cl < BN; cl += wg::THREADS) {
+    const int co = nt * BN + cl;
+    for (int slot = 0; slot < t.samples; ++slot) {
+      int n, m;
+      if (!row_of(t, p.M, bx, packed ? slot * p.M : 0, n, m)) break;
+      const int first = packed ? slot * p.M : 0;
+      const int rows = packed ? p.M : min(BM, p.M - m);
+      float sum = 0.f, sq = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const float v = cs[(first + r) * LDC + cl];
+        sum += v;
+        sq += v * v;
+      }
+      part[((long)(n * p.Cout + co) * p.G + g) * t.tiles + m / BM] =
+          make_float2(sum, sq);
+    }
+  }
+}
+
+namespace wg {
+
+template <typename P, int BN, int S>
+cudaError_t launch_gemm(const P& p, const Tiling& t, float* acc,
+                        float2* part, cudaStream_t st) {
+  constexpr int smem = smem_bytes(BN, S);
+  static_assert(smem <= SMEM_MAX, "the ring does not fit a block");
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_wgmma_kernel<P, BN, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int rows = t.samples > 1 ? (t.batch + t.samples - 1) / t.samples
+                                 : t.batch * t.tiles;
+  const dim3 grid(rows, p.Cout / BN, p.G * t.splits);
+  conv_wgmma_kernel<P, BN, S><<<grid, THREADS, smem, st>>>(p, t, acc, part);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// NHWC form on the wgmma core: the product into the NHWC `acc`, then the
+// per-plane statistics (reduce_parts over the tiles' partials, or
+// split_stats after a K split, then reduce_parts over its `segs` segments)
+// and norm_nhwc.cuh's apply into y. bn: 64 or 128 dividing Cout; stages:
+// 3 or 4; samples: wg::samples_for(M), as the host planner computed it.
+// `acc` holds `splits` slices of N * Cout * plane floats, `part` N * Cout *
+// max(G * tiles, segs) pairs, `stats` N * Cout. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for what the core cannot take.
+template <typename P>
+int launch_conv_in_act_nhwc_wgmma(const P& p, int batch, int bn, int stages,
+                                  int splits, int samples, float* acc,
+                                  float2* part, float2* stats,
+                                  __nv_bfloat16* y, long plane, int segs,
+                                  int vec, int act, float eps,
+                                  cudaStream_t st) {
+  if (!nhwc::shape_ok(batch, plane, p.Cout, segs, vec, {acc, y}) ||
+      (bn != 64 && bn != 128) || p.Cout % bn || (stages != 3 && stages != 4) ||
+      splits < 1 || splits > 65535 / p.G || p.K % wg::BKC ||
+      p.tap_channels() % wg::BKC || p.ldb % 8 ||
+      samples != wg::samples_for(p.M) ||
+      reinterpret_cast<uintptr_t>(p.bw) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  wg::Tiling t;
+  t.batch = batch;
+  t.samples = samples;
+  t.tiles = samples > 1 ? 1 : (p.M + wg::BM - 1) / wg::BM;
+  t.splits = splits;
+  t.slice = (long)batch * p.Cout * plane;
+  cudaError_t e;
+  if (bn == 128)
+    e = stages == 4 ? wg::launch_gemm<P, 128, 4>(p, t, acc, part, st)
+                    : wg::launch_gemm<P, 128, 3>(p, t, acc, part, st);
+  else
+    e = stages == 4 ? wg::launch_gemm<P, 64, 4>(p, t, acc, part, st)
+                    : wg::launch_gemm<P, 64, 3>(p, t, acc, part, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long planes = (long)batch * p.Cout;
+  if (splits == 1) {
+    nhwc::launch_reduce(part, stats, planes, p.G * t.tiles, st);
+  } else {
+    nhwc::launch_split_stats(acc, splits, t.slice, part, batch, plane,
+                             p.Cout, segs, vec, st);
+    nhwc::launch_reduce(part, stats, planes, segs, st);
+  }
+  nhwc::launch_apply<float, __nv_bfloat16>(acc, stats, y, batch, plane,
+                                           p.Cout, segs, vec, eps, act, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace pgt

@@ -46,15 +46,18 @@
 // Cout]. Its pack kernel transposes that through shared memory, 32 input
 // by 32 output channels of one tap a block, into wp[g][co][k] with k =
 // (2 ay + ax) * (Cx + Cs) + ci: taps outer, channels inner, x's then
-// skip's. A second problem struct (ConvTNhwcProblem) on the same core:
-// where Cx and Cs are multiples of BK, a K step is 32 channels of one tap
-// of x or of skip, read as 16-byte vectors, each gathering thread keeping
-// its parity's half (conv_norm_act.cu's scheme); other widths go element
-// by element. The skip concat stays fused (two pointers). The fp32
+// skip's. A second problem struct (ConvTNhwcProblem): in bf16 with Cx, Cs
+// and Cout multiples of 64 and x and skip on 16 bytes (the host planner's
+// nhwc_gemm_plan), the wgmma core of conv_wgmma.cuh, a K step 64 channels
+// of one tap of x or of skip copied straight from it; otherwise the WMMA
+// core, where with Cx and Cs multiples of BK a K step is 32 channels of
+// one tap of x or of skip, read as 16-byte vectors, each gathering thread
+// keeping its parity's half (conv_norm_act.cu's scheme); other widths go
+// element by element. The skip concat stays fused (two pointers). The fp32
 // accumulator is NHWC, the classes interleaved into it, and the finish is
-// norm_nhwc.cuh's (launch_conv_in_act_nhwc).
+// norm_nhwc.cuh's (launch_conv_in_act_nhwc, launch_conv_in_act_nhwc_wgmma).
 
-#include "conv_gemm.cuh"
+#include "conv_wgmma.cuh"
 
 namespace pgt {
 
@@ -241,6 +244,14 @@ struct ConvTNhwcProblem {
     if (!t.valid || yy < 0 || yy >= H || xx < 0 || xx >= W) return nullptr;
     const long pix = (long)yy * W + xx;
     return ci < Cx ? t.xs + pix * Cx + ci : t.ss + pix * Cs + (ci - Cx);
+  }
+  // the wgmma core (conv_wgmma.cuh): the channels of a tap (x's, then
+  // skip's), and a row's channels ci .. of tap `tap`, or null outside the
+  // image
+  __host__ __device__ __forceinline__ int tap_channels() const { return C; }
+  __device__ __forceinline__ const T* a_src(const Gather& t, int tap,
+                                            int ci) const {
+    return at(t, tap, ci);
   }
   __device__ __forceinline__ void load_a(const Gather& t, int k0, int kend,
                                          pair_t<T> (&v)[BK / 4]) const {
@@ -451,28 +462,46 @@ extern "C" int pgt_convt_pack_nhwc(const void* w, void* wp, int cx, int cs,
 
 // NHWC form. x [N, H, W, Cx], skip [N, H, W, Cs] (Cs may be 0, skip then
 // unused), w the channels_last weight [Cx + Cs, Cout, 4, 4], y [N, 2H, 2W,
-// Cout], all bf16 (bf16 != 0) or all fp32; wp as pgt_convt_in_act's
-// (NHWC order); x_vec: Cx and Cs multiples of 32, x and skip on 16 bytes
-// (the vector gather); acc: fp32 scratch of pgt_convt_splits(split_batch,
-// ...) times y's size (NHWC); part: fp32 pairs, N * Cout * max(4 *
-// ceil(H*W / pgt_tile_m()), segs); stats: fp32 pairs, N * Cout; segs, vec:
-// the finish's segments and 16-byte vectors (norm_nhwc.cuh). Launches the
-// pack, the GEMM and the finish. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for what the kernels cannot take.
+// Cout], all bf16 (bf16 != 0) or all fp32; wp as pgt_convt_in_act's (NHWC
+// order). core: 1 the wgmma core (conv_wgmma.cuh: bf16, Cx, Cs and Cout
+// multiples of 64, x and skip on 16 bytes; bn, stages, splits and samples
+// from the host planner), 0 the WMMA core (conv_gemm.cuh; splits must be
+// pgt_convt_splits(split_batch, ...); x_vec: Cx and Cs multiples of 32, x
+// and skip on 16 bytes, the vector gather). acc: fp32 scratch of `splits`
+// times y's size (NHWC); part: fp32 pairs, N * Cout * max(4 * tiles, segs)
+// with tiles = ceil(H*W / pgt_tile_m()) for the WMMA core, 1 or that for
+// the wgmma core (1 where it packs samples); stats: fp32 pairs, N * Cout;
+// segs, vec: the finish's segments and 16-byte vectors (norm_nhwc.cuh).
+// Launches the pack, the GEMM and the finish. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for what the kernels cannot take.
 extern "C" int pgt_convt_in_act_nhwc(const void* x, const void* skip,
                                      const void* w, void* wp, void* y,
                                      void* acc, void* part, void* stats,
                                      int batch, int split_batch, int cx,
                                      int cs, int h, int wd, int cout, int act,
                                      float eps, int bf16, int x_vec, int vec,
-                                     int segs, void* stream) {
+                                     int segs, int core, int bn, int stages,
+                                     int splits, int samples, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_vec && (cx % pgt::BK || cs % pgt::BK ||
-                reinterpret_cast<uintptr_t>(x) % 16 ||
-                (cs && reinterpret_cast<uintptr_t>(skip) % 16)))
+  using B = __nv_bfloat16;
+  const bool off16 = reinterpret_cast<uintptr_t>(x) % 16 ||
+                     (cs && reinterpret_cast<uintptr_t>(skip) % 16);
+  if (core) {
+    if (!bf16 || cx % pgt::wg::BKC || cs % pgt::wg::BKC || off16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int rc = pgt::pack_nhwc<B>(w, wp, cx, cs, cout, st);
+    if (rc != 0) return rc;
+    const auto p = pgt::nhwc_problem<B, true>(x, skip, wp, cx, cs, h, wd,
+                                              cout);
+    return pgt::launch_conv_in_act_nhwc_wgmma(
+        p, batch, bn, stages, splits, samples, static_cast<float*>(acc),
+        static_cast<float2*>(part), static_cast<float2*>(stats),
+        static_cast<B*>(y), 4L * p.M, segs, vec, act, eps, st);
+  }
+  if ((x_vec && (cx % pgt::BK || cs % pgt::BK || off16)) || split_batch < 1 ||
+      splits != pgt_convt_splits(split_batch, cx, cs, h, wd, cout))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
-    using B = __nv_bfloat16;
     if (x_vec)
       return pgt::run_nhwc<B, true>(x, skip, w, wp, y, acc, part, stats,
                                     batch, split_batch, cx, cs, h, wd, cout,

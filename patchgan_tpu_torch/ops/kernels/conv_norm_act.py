@@ -11,11 +11,19 @@ conv to XLA), runs K1-bwd on it, and takes dx and dw through the
 recomputed conv.
 
 NHWC form: a channels_last x (``norm_act.is_nhwc``) with a channels_last
-weight launches ``pgt_conv_in_act_nhwc`` (the same core on an NHWC
-problem, the finish of ``csrc/norm_nhwc.cuh``), its output channels_last;
-an NCHW-contiguous x today's form; anything else raises. The backward's
-recompute (cuDNN) and K1-bwd then run in channels_last too: its incoming
-gradient is taken in the recompute's layout, never flattened to NCHW.
+weight launches ``pgt_conv_in_act_nhwc`` (an NHWC problem, the finish of
+``csrc/norm_nhwc.cuh``), its output channels_last; an NCHW-contiguous x
+today's form; anything else raises. The host planner ``nhwc_gemm_plan``
+picks the GEMM core: in bf16 with every channel run (Cin, Cout) a multiple
+of 64 and x and w on 16 bytes the Hopper core of ``csrc/conv_wgmma.cuh``
+(wgmma fed by an async-copy ring, its tile, ring depth, K split and
+samples a tile from the plan), otherwise the WMMA core of
+``csrc/conv_gemm.cuh``. A failure of either raises; neither stands in for
+the other. The private ``_nhwc_core`` argument ('wgmma' or 'wmma', or
+('wgmma', BN, stages)) forces a core, for timing and checks only, and
+raises where it cannot. The backward's recompute (cuDNN) and K1-bwd then
+run in channels_last too: its incoming gradient is taken in the
+recompute's layout, never flattened to NCHW.
 
 Band form (spatial parallelism, ``parallel/spatial.py``): ``conv_band``
 takes a rank's band of rows with one halo row above and below (zero rows
@@ -28,6 +36,7 @@ spatial group and finishes with ``in_apply``. Its backward,
 K1-bwd's band form with the forward's global stats.
 """
 
+import collections
 import ctypes
 import functools
 
@@ -35,8 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .norm_act import (act_code, band_backward, dtype_flag, f32_scratch,
-                       in_apply, in_layout_of, in_stats_plain,
+from .norm_act import (_aligned, act_code, band_backward, dtype_flag,
+                       f32_scratch, in_apply, in_layout_of, in_stats_plain,
                        instance_norm_act_backward, instance_norm_act_plain,
                        is_nhwc, needs_graph, nhwc_plan, require,
                        require_aligned)
@@ -48,6 +57,121 @@ def conv_norm_act_plain(x, w, eps=1e-5, activation=None):
     statistics, as in the kernel."""
     acc = F.conv2d(x.float(), w.float(), stride=2, padding=1)
     return instance_norm_act_plain(acc, eps, activation).to(x.dtype)
+
+
+# The GEMM cores of the NHWC forms of K2 and K3. The wgmma core
+# (csrc/conv_wgmma.cuh): tiles of 64 rows by BN output channels, K steps of
+# 64 channels of one tap, a ring of `stages` of (64 + BN) rows of 128 bytes
+# in dynamic shared memory; two blocks an SM at BN = 128 and four stages,
+# so the K split aims at one wave of that many blocks. Three stages fit
+# three blocks an SM, which the grids of three such waves or more take
+# (timed on an H100 by ``tools/conv_nhwc_variants.py --sweep``; PERF.md).
+# The WMMA core (csrc/conv_gemm.cuh): 64 x 64 tiles, K steps of 32, eight
+# blocks an SM (choose_splits, mirrored here).
+NHWC_CORES = ('wgmma', 'wmma')
+WGMMA_BM = 64
+WGMMA_BK = 64
+WGMMA_BNS = (128, 64)
+WGMMA_STAGES = (4, 3)
+WGMMA_TARGET_BLOCKS = 2 * 132
+WGMMA_SHALLOW_BLOCKS = 3 * WGMMA_TARGET_BLOCKS
+WGMMA_MIN_STEPS = 4
+WMMA_BM, WMMA_BN, WMMA_BK = 64, 64, 32
+WMMA_TARGET_BLOCKS = 4 * 132
+SMEM_PER_BLOCK = 232448
+
+GemmPlan = collections.namedtuple(
+    'GemmPlan', 'core bn stages splits samples tiles parts smem')
+
+
+def wgmma_smem(bn, stages):
+    """Dynamic shared memory of a wgmma block (``wg::smem_bytes``): the
+    ring, or the epilogue's fp32 tile where larger, and 1024 bytes to put
+    the ring on the swizzle's period."""
+    return max(stages * (WGMMA_BM + bn) * 128, WGMMA_BM * (bn + 8) * 4) + \
+        1024
+
+
+def _doubled(blocks, steps, target, min_steps, fits):
+    """The K split: doubled from 1 while ``fits(blocks * s)`` and each
+    split keeps ``min_steps`` of the ``steps`` K steps."""
+    s = 1
+    while fits(blocks * s, target) and steps // (2 * s) >= min_steps:
+        s *= 2
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def nhwc_gemm_plan(m, groups, runs, taps, cout, dtype, aligned, split_batch,
+                   core=None):
+    """The GEMM of an NHWC K2 or K3 launch: ``m`` output pixels a (sample,
+    class), ``groups`` classes (K3's 4 output parities, K2's 1), the
+    input's channel ``runs`` (K2: (Cin,); K3: (Cx, Cs)), ``taps`` taps a
+    class (16; 4), ``cout`` output channels, ``aligned``: x (and skip) and
+    the weight on 16 bytes. The K split is the one a batch of
+    ``split_batch`` samples takes, never a function of the batch itself.
+
+    The wgmma core where the dtype is bf16, every channel run and Cout are
+    multiples of 64 and ``aligned``: BN = 128 where it divides Cout, else
+    64; a tile packs 64 / m samples where m < 64, otherwise a sample takes
+    ceil(m / 64) tiles; the split doubles while the doubled grid still
+    fits one wave of ``WGMMA_TARGET_BLOCKS`` and each split keeps
+    ``WGMMA_MIN_STEPS`` K steps; three stages where the grid has
+    ``WGMMA_SHALLOW_BLOCKS`` blocks or more, else four. The stages and BN
+    change no sum's order: only the split and the packing do, and they
+    follow ``split_batch``. Otherwise the WMMA core with
+    ``choose_splits``' split. ``core`` ('wgmma', 'wmma' or ('wgmma', BN,
+    stages)) forces one, and raises ValueError where it cannot. Returns a
+    ``GemmPlan``: ``parts`` partials a (sample, channel) plane, ``smem``
+    the block's dynamic shared memory (0 for the WMMA core's static 19
+    KB)."""
+    name, bn, stages = (core, None, None) if not isinstance(core, tuple) \
+        else core
+    if name is not None and name not in NHWC_CORES:
+        raise ValueError(f"_nhwc_core must be one of {NHWC_CORES} or "
+                         f"('wgmma', BN, stages), not {core!r}")
+    why = [w for w, bad in (
+        ('not bf16', dtype != torch.bfloat16),
+        (f'channel runs {tuple(runs)} not all multiples of {WGMMA_BK}',
+         any(r % WGMMA_BK for r in runs)),
+        (f'Cout {cout} not a multiple of {WGMMA_BK}', cout % WGMMA_BK),
+        ('x, skip or w off 16 bytes', not aligned)) if bad]
+    if name == 'wgmma' and why:
+        raise ValueError(f"the wgmma core cannot take this call: "
+                         f"{', '.join(why)}")
+    k = taps * sum(runs)
+    if name == 'wmma' or (name is None and why):
+        tiles = -(-m // WMMA_BM)
+        blocks = tiles * -(-cout // WMMA_BN) * split_batch * groups
+        splits = _doubled(blocks, -(-k // WMMA_BK), WMMA_TARGET_BLOCKS, 8,
+                          lambda b, t: b < t)
+        return GemmPlan('wmma', WMMA_BN, 2, splits, 1, tiles, groups * tiles,
+                        0)
+    bn = bn or (128 if cout % 128 == 0 else 64)
+    if bn not in WGMMA_BNS or cout % bn or \
+            stages not in (None,) + WGMMA_STAGES:
+        raise ValueError(f"the wgmma core takes BN in {WGMMA_BNS} dividing "
+                         f"Cout {cout} and stages in {WGMMA_STAGES}, not "
+                         f"({bn}, {stages})")
+    samples = WGMMA_BM // m if m < WGMMA_BM else 1
+    tiles = 1 if samples > 1 else -(-m // WGMMA_BM)
+    rows = -(-split_batch // samples) if samples > 1 else \
+        split_batch * tiles
+    blocks = rows * groups * (cout // bn)
+    splits = _doubled(blocks, k // WGMMA_BK, WGMMA_TARGET_BLOCKS,
+                      WGMMA_MIN_STEPS, lambda b, t: 2 * b <= t)
+    stages = stages or (3 if blocks * splits >= WGMMA_SHALLOW_BLOCKS else 4)
+    return GemmPlan('wgmma', bn, stages, min(splits, 65535 // groups),
+                    samples, tiles, groups * tiles, wgmma_smem(bn, stages))
+
+
+def conv_nhwc_plan(n, cin, h, w, cout, dtype, aligned=True,
+                   split_batch=None, core=None):
+    """``nhwc_gemm_plan`` of K2's NHWC form on x (n, cin, h, w) and a
+    (cout, cin, 4, 4) weight."""
+    ho, wo = (h - 2) // 2 + 1, (w - 2) // 2 + 1
+    return nhwc_gemm_plan(ho * wo, 1, (cin,), 16, cout, dtype, aligned,
+                          split_batch or n, core)
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,16 +190,23 @@ def _lib():
     lib.pgt_conv_band_splits.argtypes = [i] * 5
     lib.pgt_conv_band_splits.restype = i
     lib.pgt_conv_in_act_nhwc.argtypes = [p] * 6 + [i] * 7 + [
-        ctypes.c_float, i, i, i, i, p]
+        ctypes.c_float] + [i] * 9 + [p]
     lib.pgt_conv_in_act_nhwc.restype = i
     lib.pgt_tile_k.argtypes = []
     lib.pgt_tile_k.restype = i
     return lib
 
 
-def _forward(x, w, eps, activation, split_batch=None):
+def _forward(x, w, eps, activation, split_batch=None, core=None):
     """K2 on CUDA tensors, the plain version on CPU tensors; never
-    recorded by autograd."""
+    recorded by autograd. ``core``: the NHWC form's core forced (checked
+    on CPU tensors too)."""
+    if core is not None:
+        if not (x.dim() == 4 and is_nhwc(x)):
+            raise ValueError('_nhwc_core needs a channels_last x')
+        n, cin, h, wd = x.shape
+        plan = conv_nhwc_plan(n, cin, h, wd, w.shape[0], x.dtype,
+                              _aligned(x, w), split_batch, core)
     if x.device.type == 'cpu':
         return conv_norm_act_plain(x, w, eps, activation)
     act = act_code(activation)
@@ -93,9 +224,12 @@ def _forward(x, w, eps, activation, split_batch=None):
         raise ValueError(f"input {h}x{wd} is too small for k=4, s=2, p=1")
     require_aligned(w, 'w')
     lib = _lib()
-    tiles = -(-ho * wo // lib.pgt_tile_m())
     if nhwc:
-        return _forward_nhwc(lib, x, w, act, eps, split_batch, tiles)
+        if core is None:
+            plan = conv_nhwc_plan(n, cin, h, wd, cout, x.dtype,
+                                  _aligned(x, w), split_batch)
+        return _forward_nhwc(lib, x, w, act, eps, split_batch, plan)
+    tiles = -(-ho * wo // lib.pgt_tile_m())
     y = torch.empty((n, cout, ho, wo), dtype=x.dtype, device=x.device)
     # fp32 conv output, one copy per K split
     split_batch = split_batch or n
@@ -114,29 +248,31 @@ def _forward(x, w, eps, activation, split_batch=None):
     return y
 
 
-def _forward_nhwc(lib, x, w, act, eps, split_batch, tiles):
-    """K2's NHWC form on channels_last x and w (checked by ``_forward``)."""
+def _forward_nhwc(lib, x, w, act, eps, split_batch, plan):
+    """K2's NHWC form on channels_last x and w (checked by ``_forward``) on
+    the core ``plan`` (``conv_nhwc_plan``) names."""
     n, cin, h, wd = x.shape
     cout = w.shape[0]
     ho, wo = (h - 2) // 2 + 1, (wd - 2) // 2 + 1
     y = torch.empty((n, cout, ho, wo), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
-    split_batch = split_batch or n
-    splits = lib.pgt_conv_splits(split_batch, cin, h, wd, cout)
-    acc = f32_scratch(splits * n * ho * wo * cout, like=x)
+    acc = f32_scratch(plan.splits * n * ho * wo * cout, like=x)
     vec, segs = nhwc_plan(n, ho * wo, cout, x.dtype, acc, y)
-    part = f32_scratch(n * cout * max(tiles, segs), 2, like=x)
+    part = f32_scratch(n * cout * max(plan.parts, segs), 2, like=x)
     stats = f32_scratch(n * cout, 2, like=x)
     x_vec = cin % lib.pgt_tile_k() == 0 and x.data_ptr() % 16 == 0
-    with torch.cuda.device(x.device):
+    wgmma = plan.core == 'wgmma'
+    with _build.device_guard(x):
         rc = lib.pgt_conv_in_act_nhwc(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), acc.data_ptr(),
-            part.data_ptr(), stats.data_ptr(), n, split_batch, cin, h, wd,
-            cout, act, eps, dtype_flag(x), int(x_vec), int(vec), segs,
+            part.data_ptr(), stats.data_ptr(), n, split_batch or n, cin, h,
+            wd, cout, act, eps, dtype_flag(x), int(x_vec), int(vec), segs,
+            int(wgmma), plan.bn, plan.stages, plan.splits, plan.samples,
             _build.stream_of(x))
-    _build.check(rc, 'conv_norm_act (NHWC)')
+    _build.check(rc, f'conv_norm_act (NHWC, {plan.core} core)')
     conv_norm_act.launches += 1
     conv_norm_act.launches_nhwc += 1
+    conv_norm_act.launches_wgmma += wgmma
     return y
 
 
@@ -170,35 +306,41 @@ class ConvNormAct(torch.autograd.Function):
     """K2 forward; backward by recompute + K1-bwd. Residuals (x, w)."""
 
     @staticmethod
-    def forward(ctx, x, w, eps, activation, split_batch):
+    def forward(ctx, x, w, eps, activation, split_batch, core):
         ctx.save_for_backward(x, w)
         ctx.eps, ctx.activation = eps, activation
-        return _forward(x, w, eps, activation, split_batch)
+        return _forward(x, w, eps, activation, split_batch, core)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx, dw = recompute_grads(ctx, g, _conv, (x, w))
-        return dx, dw, None, None, None
+        return dx, dw, None, None, None, None
 
 
-def conv_norm_act(x, w, eps=1e-5, activation=None, split_batch=None):
+def conv_norm_act(x, w, eps=1e-5, activation=None, split_batch=None, *,
+                  _nhwc_core=None):
     """x: (N, Cin, H, W), w: (Cout, Cin, 4, 4) in x's dtype and layout
     (NCHW-contiguous, or both channels_last). A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel in the form of its layout,
     the output in that layout.
     ``split_batch``: the kernel takes the K split of a batch of that many
     samples (default N, the fastest); held fixed, each sample's output is
-    the same bits whatever batch it runs in. Differentiable through
-    ``ConvNormAct``."""
+    the same bits whatever batch it runs in. ``_nhwc_core`` (private):
+    the NHWC form's GEMM core forced ('wgmma', 'wmma' or ('wgmma', BN,
+    stages)), for timing and checks; it raises where it cannot.
+    Differentiable through ``ConvNormAct``."""
     if needs_graph(x, w):
-        return ConvNormAct.apply(x, w, eps, activation, split_batch)
-    return _forward(x, w, eps, activation, split_batch)
+        return ConvNormAct.apply(x, w, eps, activation, split_batch,
+                                 _nhwc_core)
+    return _forward(x, w, eps, activation, split_batch, _nhwc_core)
 
 
 conv_norm_act.launches = 0
-# the NHWC form's launches alone (``launches`` counts both forms')
+# the NHWC form's launches alone (``launches`` counts both forms'), and of
+# them the wgmma core's
 conv_norm_act.launches_nhwc = 0
+conv_norm_act.launches_wgmma = 0
 
 
 # band form

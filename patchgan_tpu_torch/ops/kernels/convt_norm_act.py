@@ -24,10 +24,14 @@ spatial group and finishes with ``in_apply``; the backward is
 NHWC form: channels_last x, skip and weight (``norm_act.is_nhwc``) launch
 ``pgt_convt_in_act_nhwc``, whose pack kernel reads the channels_last
 weight (``pack_convt_weight_nhwc_plain`` is its layout in plain PyTorch,
-``pack_convt_weight_nhwc`` the pack kernel alone), then the same core on
-an NHWC problem and the finish of ``csrc/norm_nhwc.cuh``; the output is
-channels_last. NCHW-contiguous inputs take today's form; anything else
-raises.
+``pack_convt_weight_nhwc`` the pack kernel alone), then a GEMM core on an
+NHWC problem and the finish of ``csrc/norm_nhwc.cuh``; the output is
+channels_last. The core is K2's choice (``conv_norm_act.nhwc_gemm_plan``,
+here through ``convt_nhwc_plan``): the wgmma core of
+``csrc/conv_wgmma.cuh`` in bf16 with Cx, Cs and Cout multiples of 64 and
+x and skip on 16 bytes, else the WMMA core; ``_nhwc_core`` forces one as
+in ``conv_norm_act``. NCHW-contiguous inputs take today's form; anything
+else raises.
 
 Unlike the TPU gate (``Cout >= 128``, a lane-padding limit of that chip),
 every Cout runs the kernel here, so the nf=64 generator's dec5 (Cout=64)
@@ -41,8 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv_norm_act import recompute_band_grads, recompute_grads
-from .norm_act import (act_code, dtype_flag, f32_scratch, in_apply,
+from .conv_norm_act import (nhwc_gemm_plan, recompute_band_grads,
+                            recompute_grads)
+from .norm_act import (_aligned, act_code, dtype_flag, f32_scratch, in_apply,
                        in_stats_plain, instance_norm_act_plain, is_nhwc,
                        needs_graph, nhwc_plan, require, require_aligned)
 
@@ -83,6 +88,14 @@ def pack_convt_weight_nhwc_plain(w):
     return F.pad(wp, (0, -(-k // TILE_K) * TILE_K - k))
 
 
+def convt_nhwc_plan(n, cx, cs, h, w, cout, dtype, aligned=True,
+                    split_batch=None, core=None):
+    """``nhwc_gemm_plan`` of K3's NHWC form on x (n, cx, h, w), a skip of
+    cs channels (0: none) and a (cx + cs, cout, 4, 4) weight."""
+    return nhwc_gemm_plan(h * w, 4, (cx, cs), 4, cout, dtype, aligned,
+                          split_batch or n, core)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load('convt_norm_act')
@@ -105,7 +118,7 @@ def _lib():
     lib.pgt_convt_pack_nhwc.argtypes = [p, p, i, i, i, i, p]
     lib.pgt_convt_pack_nhwc.restype = i
     lib.pgt_convt_in_act_nhwc.argtypes = [p] * 8 + [i] * 8 + [
-        ctypes.c_float, i, i, i, i, p]
+        ctypes.c_float] + [i] * 9 + [p]
     lib.pgt_convt_in_act_nhwc.restype = i
     return lib
 
@@ -150,9 +163,19 @@ def pack_convt_weight_nhwc(w):
     return wp
 
 
-def _forward(x, w, eps, activation, skip, split_batch=None):
+def _forward(x, w, eps, activation, skip, split_batch=None, core=None):
     """K3 on CUDA tensors, the plain version on CPU tensors; never
-    recorded by autograd."""
+    recorded by autograd. ``core``: the NHWC form's core forced (checked
+    on CPU tensors too)."""
+    if core is not None:
+        if not (x.dim() == 4 and is_nhwc(x)):
+            raise ValueError('_nhwc_core needs a channels_last x')
+        n, cx, h, wd = x.shape
+        cs = 0 if skip is None else skip.shape[1]
+        plan = convt_nhwc_plan(
+            n, cx, cs, h, wd, w.shape[1], x.dtype,
+            _aligned(x, *([] if skip is None else [skip])), split_batch,
+            core)
     if x.device.type == 'cpu':
         return convt_norm_act_plain(x, w, eps, activation, skip)
     act = act_code(activation)
@@ -174,9 +197,13 @@ def _forward(x, w, eps, activation, skip, split_batch=None):
                          f"{tuple(w.shape)}")
     require_aligned(w, 'w')
     lib = _lib()
-    tiles = -(-h * wd // lib.pgt_tile_m())
     if nhwc:
-        return _forward_nhwc(lib, x, w, act, eps, skip, split_batch, tiles)
+        if core is None:
+            plan = convt_nhwc_plan(
+                n, cx, cs, h, wd, cout, x.dtype,
+                _aligned(x, *([] if skip is None else [skip])), split_batch)
+        return _forward_nhwc(lib, x, w, act, eps, skip, split_batch, plan)
+    tiles = -(-h * wd // lib.pgt_tile_m())
     y = torch.empty((n, cout, 2 * h, 2 * wd), dtype=x.dtype, device=x.device)
     # fp32 conv output, one copy per K split
     split_batch = split_batch or n
@@ -197,33 +224,34 @@ def _forward(x, w, eps, activation, skip, split_batch=None):
     return y
 
 
-def _forward_nhwc(lib, x, w, act, eps, skip, split_batch, tiles):
+def _forward_nhwc(lib, x, w, act, eps, skip, split_batch, plan):
     """K3's NHWC form on channels_last x, skip and w (checked by
-    ``_forward``)."""
+    ``_forward``) on the core ``plan`` (``convt_nhwc_plan``) names."""
     n, cx, h, wd = x.shape
     cs = 0 if skip is None else skip.shape[1]
     cout = w.shape[1]
     y = torch.empty((n, cout, 2 * h, 2 * wd), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
-    split_batch = split_batch or n
-    splits = lib.pgt_convt_splits(split_batch, cx, cs, h, wd, cout)
-    acc = f32_scratch(splits * y.numel(), like=x)
+    acc = f32_scratch(plan.splits * y.numel(), like=x)
     vec, segs = nhwc_plan(n, 4 * h * wd, cout, x.dtype, acc, y)
-    part = f32_scratch(n * cout * max(4 * tiles, segs), 2, like=x)
+    part = f32_scratch(n * cout * max(plan.parts, segs), 2, like=x)
     stats = f32_scratch(n * cout, 2, like=x)
     wp = _packed(lib, w)
     skip_ptr = skip.data_ptr() if skip is not None else None
     x_vec = cx % TILE_K == 0 and cs % TILE_K == 0 and x.data_ptr() % 16 == 0 \
         and (skip is None or skip.data_ptr() % 16 == 0)
-    with torch.cuda.device(x.device):
+    wgmma = plan.core == 'wgmma'
+    with _build.device_guard(x):
         rc = lib.pgt_convt_in_act_nhwc(
             x.data_ptr(), skip_ptr, w.data_ptr(), wp.data_ptr(),
             y.data_ptr(), acc.data_ptr(), part.data_ptr(), stats.data_ptr(),
-            n, split_batch, cx, cs, h, wd, cout, act, eps, dtype_flag(x),
-            int(x_vec), int(vec), segs, _build.stream_of(x))
-    _build.check(rc, 'convt_norm_act (NHWC)')
+            n, split_batch or n, cx, cs, h, wd, cout, act, eps,
+            dtype_flag(x), int(x_vec), int(vec), segs, int(wgmma), plan.bn,
+            plan.stages, plan.splits, plan.samples, _build.stream_of(x))
+    _build.check(rc, f'convt_norm_act (NHWC, {plan.core} core)')
     convt_norm_act.launches += 1
     convt_norm_act.launches_nhwc += 1
+    convt_norm_act.launches_wgmma += wgmma
     return y
 
 
@@ -237,34 +265,37 @@ class ConvTNormAct(torch.autograd.Function):
     skip)."""
 
     @staticmethod
-    def forward(ctx, x, w, skip, eps, activation, split_batch):
+    def forward(ctx, x, w, skip, eps, activation, split_batch, core):
         ctx.save_for_backward(x, w, skip)
         ctx.eps, ctx.activation = eps, activation
-        return _forward(x, w, eps, activation, skip, split_batch)
+        return _forward(x, w, eps, activation, skip, split_batch, core)
 
     @staticmethod
     def backward(ctx, g):
         x, w, skip = ctx.saved_tensors
         dx, dw, dskip = recompute_grads(ctx, g, _convt, (x, w, skip))
-        return dx, dw, dskip, None, None, None
+        return dx, dw, dskip, None, None, None, None
 
 
 def convt_norm_act(x, w, eps=1e-5, activation=None, skip=None,
-                   split_batch=None):
+                   split_batch=None, *, _nhwc_core=None):
     """x: (N, Cx, H, W), optional skip: (N, Cs, H, W), w: (Cx + Cs, Cout,
     4, 4), all in x's dtype and layout (NCHW-contiguous, or all
     channels_last). Returns (N, Cout, 2H, 2W) in that layout. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel in the form
-    of its layout. ``split_batch``
-    as in ``conv_norm_act``. Differentiable through ``ConvTNormAct``."""
+    of its layout. ``split_batch`` and ``_nhwc_core`` (private) as in
+    ``conv_norm_act``. Differentiable through ``ConvTNormAct``."""
     if needs_graph(x, w, skip):
-        return ConvTNormAct.apply(x, w, skip, eps, activation, split_batch)
-    return _forward(x, w, eps, activation, skip, split_batch)
+        return ConvTNormAct.apply(x, w, skip, eps, activation, split_batch,
+                                  _nhwc_core)
+    return _forward(x, w, eps, activation, skip, split_batch, _nhwc_core)
 
 
 convt_norm_act.launches = 0
-# the NHWC form's launches alone (``launches`` counts both forms')
+# the NHWC form's launches alone (``launches`` counts both forms'), and of
+# them the wgmma core's
 convt_norm_act.launches_nhwc = 0
+convt_norm_act.launches_wgmma = 0
 
 
 # band form
