@@ -254,7 +254,8 @@ Run from the root of the repository. In order:
    launches
    ``band_forward_plan``'s (1024 rows over 2 or 4: ``in_stats`` 1,
    ``in_apply`` 12, ``conv_band`` 6, ``convt_band`` 5, no whole-plane
-   kernel); the card listed three times (1024 rows do not split into 3)
+   kernel), every ``conv_band`` and ``convt_band`` launch on the wgmma
+   core; the card listed three times (1024 rows do not split into 3)
    warns and equals the one-card mask bit for bit; where there are two or
    more cards, masks/s of spatial mode on the 1280x960 image and on a
    4096x4096 survey tile at 1, 2 and min(cards, 4) cards, three windows
@@ -301,8 +302,15 @@ Run from the root of the repository. In order:
    band at sp 2, a middle one at sp 4), bf16 and fp32, the kernel phase's
    tolerances (a sum's times max(1, max |sum|)); the bands' stats summed,
    applied and concatenated against the whole-plane kernel; two launches
-   equal; the bf16 ms of each on the top band beside its plain version,
-   its bound and the whole-plane kernel at the global shape; (b) two gloo
+   equal; K2's and K3's band entries on the wgmma core in bf16 (their
+   layout pass and then the core; the launches by core counted) and on
+   the WMMA core in fp32, their layout pass bit-equal to
+   ``nchw_to_nhwc_plain``, the band instantiations' ptxas registers and
+   spills (none may spill); the bf16 ms of each on the top band beside
+   its plain version, its bound and the whole-plane kernel at the global
+   shape, K2's and K3's on both cores on the same values by events and by
+   a graph's replay, and their layout passes' ms on a line of their own;
+   (b) two gloo
    ranks sharing the card at (dp, sp) = (1, 2), fp32, TF32 off, tanh,
    dropout off, one step at 256 px, global batch 2, against one process:
    losses within rtol 2e-3 / atol 2e-4, every gradient within 1e-3 of its
@@ -311,7 +319,9 @@ Run from the root of the repository. In order:
    ``spatial_parallelism: 2`` under ``torch.distributed.run`` (NCCL,
    bf16, 1024 px, the captured step; one set of epoch files), then the
    captured step over 2 cards beside one card's, in turns, in windows of
-   at least 1.5 s: img/s and the peak memory a rank; on one card a line says why (c) did not run. ``python3
+   at least 1.5 s: img/s and the peak memory a rank, every band launch of
+   the step on the wgmma core; on one card a line says why (c) did not
+   run. ``python3
    chip_smoke.py --spatial-only`` runs phase 17 alone.
 18. the async exact-resume store (``checkpoint_format = 'orbax'``,
    ``utils/orbax_ckpt.py``) and ``UNet(remat=...)``: (a) run inside
@@ -4208,6 +4218,16 @@ def counted(wrappers, fn):
     return out, [w.launches for w in wrappers]
 
 
+def wgmma_counted(fn):
+    """(fn's result, {band wrapper name: its launches on the wgmma core
+    during fn}) for K2's and K3's band entries."""
+    from patchgan_tpu_torch.ops.kernels import conv_band, convt_band
+    before = [w.launches_wgmma for w in (conv_band, convt_band)]
+    out = fn()
+    return out, {w.__name__: w.launches_wgmma - b
+                 for w, b in zip((conv_band, convt_band), before)}
+
+
 def mesh_rates(fns, label):
     """Masks/s of each of ``fns`` ({name: a call that returns the masks
     it finished}, with an optional ``flush`` attribute that finishes what
@@ -4477,8 +4497,8 @@ def spatial_mesh_check(torch, np, wrappers, model, refs, devices, card):
     names = [w.__name__ for w in wrappers]
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
-        mask, launches = counted(wrappers, lambda: eng.predict_image(
-            refs['big'], mode='spatial'))
+        (mask, on_wgmma), launches = counted(wrappers, lambda: wgmma_counted(
+            lambda: eng.predict_image(refs['big'], mode='spatial')))
     hh, ww = SPATIAL_HW
     err16 = (band_probs(torch, eng, refs['x_big'])[0, :, :hh, :ww] -
              refs['p_big32']).abs().max().item()
@@ -4491,6 +4511,7 @@ def spatial_mesh_check(torch, np, wrappers, model, refs, devices, card):
     truth = float(np.mean(mask == refs['big_mask32']))
     plan = band_forward_plan(SPATIAL_PAD[0], k)
     per_device = {n: c / k for n, c in zip(names, launches)}
+    band_launches = {n: c for n, c in zip(names, launches) if n in on_wgmma}
     twin = refs.get(('twice', k))
     twin_agree = None if twin is None else float(np.mean(mask == twin))
     print(f'  spatial mode split by rows over {mesh.describe()}: fp32 '
@@ -4505,20 +4526,22 @@ def spatial_mesh_check(torch, np, wrappers, model, refs, devices, card):
           f'with the fp32 mask {truth:.5f} (one card '
           f'{refs["truth_one"]:.5f}); agreement with the card listed '
           f'{k} times {twin_agree}; warnings {len(caught)}; a device\'s '
-          f'launches {per_device} (plan {plan})', flush=True)
+          f'launches {per_device} (plan {plan}); the bf16 band launches '
+          f'on the wgmma core {on_wgmma} of {band_launches}', flush=True)
     if not d32 <= 1e-3 or min(agree32) < MESH_AGREE or \
             mask.shape != want.shape or mask.dtype != want.dtype or \
             caught or margin > margin_tol or \
             truth < refs['truth_one'] - 5e-4 or \
             (twin_agree is not None and twin_agree < MESH_AGREE) or \
-            launches != [k * plan[n] for n in names]:
+            launches != [k * plan[n] for n in names] or \
+            on_wgmma != band_launches:
         raise AssertionError(f'spatial over {mesh}: {d32}, {agree32}, '
                              f'{mask.shape} {mask.dtype}, '
                              f'{[str(w.message) for w in caught]}, margin '
                              f'{margin} > {margin_tol}, fp32 agreement '
                              f'{truth} (one card {refs["truth_one"]}), '
                              f'twin {twin_agree}, launches {launches} (plan '
-                             f'{plan} x {k})')
+                             f'{plan} x {k}), on the wgmma core {on_wgmma}')
     return eng, mask, per_device, {
         'mesh': mesh.describe(), 'fp32_max_abs_dprob': d32,
         'fp32_mask_agreement': agree32, 'bf16_mask_agreement': agree,
@@ -4526,7 +4549,8 @@ def spatial_mesh_check(torch, np, wrappers, model, refs, devices, card):
         'max_margin_where_labels_differ': margin,
         'bf16_agreement_with_fp32_mask': truth,
         'agreement_with_card_listed_k_times': twin_agree,
-        'device_launches': per_device}
+        'device_launches': per_device,
+        'band_launches_wgmma': {n: c / k for n, c in on_wgmma.items()}}
 
 
 def spatial_fallback_check(torch, np, model, refs):
@@ -5382,6 +5406,12 @@ BAND_KERNELS = (
      'patchgan_tpu/ops/pallas/norm_act.py:253'))
 
 
+# the mangled name's mark of the wgmma core's band problems (their BAND
+# template argument true): ConvNhwcProblem / ConvTNhwcProblem<bf16, true,
+# true>
+BAND_MODE = 'Lb1ELb1EE'
+
+
 def band_wrappers():
     """The band entry points' wrappers in ``BAND_KERNELS``'s order."""
     from patchgan_tpu_torch.ops import kernels
@@ -5447,11 +5477,29 @@ def band_kernel_phase(torch, F, whole):
     concatenated) against the whole-plane K1 / K2 / K3 / K1-bwd; two
     launches on the same inputs equal; the bf16 ms of each entry on the
     top band beside its plain version's, its bound, and the whole-plane
-    kernel's at the global shape. Returns {entry: {'rows': [...],
+    kernel's at the global shape. K2's and K3's band entries: the wgmma
+    core in bf16 and the WMMA core in fp32 (``on_core``), the WMMA core
+    forced in bf16 on the top band within the same tolerance, and their
+    rows timed on both cores by events and by a graph's replay beside
+    their layout passes alone (``core_row``); the layout pass bit-equal
+    to its plain version at every band and at its element paths; ptxas's
+    report of the band instantiations. Returns {entry: {'rows': [...],
     'max_abs_err': the outputs' worst, 'max_sum_err': the sums' worst over
     max(1, max |sum|), 'max_sum_abs_err': the sums' worst}}."""
     from patchgan_tpu_torch.ops import kernels as kn
+    from patchgan_tpu_torch.ops.kernels import _build
+    from patchgan_tpu_torch.ops.kernels.conv_norm_act import conv_band_plan
+    from patchgan_tpu_torch.ops.kernels.convt_norm_act import \
+        convt_band_plan
     k1, k2, k3, k1b = whole
+    ptxas = {k: v for k, v in wgmma_ptxas(_build.build_log).items()
+             if BAND_MODE in k[1]}
+    for (lib, name), (regs, stores, loads) in sorted(ptxas.items()):
+        print(f'  ptxas {lib} {name}: {regs} registers, spill stores '
+              f'{stores} / loads {loads} bytes', flush=True)
+    if any(stores or loads for _, stores, loads in ptxas.values()):
+        raise AssertionError(f'17a: the band mode of the wgmma core spills: '
+                             f'{ptxas}')
     gen = torch.Generator(device='cuda').manual_seed(17)
     res = {name: {'rows': [], 'max_abs_err': 0.0, 'max_sum_err': 0.0,
                   'max_sum_abs_err': 0.0} for name, _, _ in BAND_KERNELS}
@@ -5487,14 +5535,57 @@ def band_kernel_phase(torch, F, whole):
         if not all(torch.equal(u, v) for u, v in pairs):
             raise AssertionError(f'17a: {name}: two launches differ')
 
-    def row(name, label, fn, plain, whole_ms, flops, nbytes, peak):
+    def row(name, label, fn, plain, whole_ms, flops, nbytes, peak,
+            extra=None):
         b_ms, b_by = bound(flops, nbytes, peak)
         r = {'kernel': name, 'case': label, 'dtype': 'bfloat16',
              'kernel_ms': cuda_ms(fn, iters=10),
              'plain_ms': cuda_ms(plain, iters=10), 'whole_ms': whole_ms,
-             'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
+             'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
+             **(extra or {})}
         res[name]['rows'].append(r)
         print(json.dumps(r), flush=True)
+
+    def on_core(w, wgmma, fn):
+        """fn(), which must launch band wrapper w once, on the wgmma core
+        where ``wgmma``, else on the WMMA core."""
+        before = (w.launches, w.launches_wgmma)
+        out = fn()
+        took = (w.launches - before[0], w.launches_wgmma - before[1])
+        if took != (1, int(wgmma)):
+            raise AssertionError(f'17a: {w.__name__}: launches {took[0]}, '
+                                 f'{took[1]} on the wgmma core; expected '
+                                 f'1, {int(wgmma)}')
+        return out
+
+    def layout_check(t):
+        """The layout pass alone on t, bit-equal to its plain version."""
+        if not torch.equal(kn.nchw_to_nhwc(t), kn.nchw_to_nhwc_plain(t)):
+            raise AssertionError(f'17a: the layout pass of '
+                                 f'{tuple(t.shape)} differs')
+
+    def core_row(name, wrapper, label, args, plain, whole_ms, flops,
+                 nbytes, layout, plan):
+        """A K2 / K3 band row in bf16: the planner's core (the wgmma core,
+        ``kernel_ms``) and the WMMA core forced on the same values, by
+        events around 10 calls and by a graph's replay (``device_ms``),
+        and the layout passes alone (``layout``: the tensors the entry
+        copies, by events and by a graph's replay) with their bound."""
+        fns = {'wgmma': lambda: wrapper(*args),
+               'wmma': lambda: wrapper(*args, _core='wmma'),
+               'layout': lambda: [kn.nchw_to_nhwc(t) for t in layout]}
+        ev = {k: cuda_ms(fns[k], iters=10) for k in ('wmma', 'layout')}
+        dev = {k: device_ms(f, iters=10) for k, f in fns.items()}
+        moved = 4 * sum(t.numel() for t in layout)
+        extra = {'core': plan.core, 'bn': plan.bn, 'stages': plan.stages,
+                 'splits': plan.splits, 'samples_a_tile': plan.samples,
+                 'smem_bytes': plan.smem, 'wmma_ms': ev['wmma'],
+                 'device_ms': dev['wgmma'], 'wmma_device_ms': dev['wmma'],
+                 'layout_ms': ev['layout'],
+                 'layout_device_ms': dev['layout'],
+                 'layout_bound_ms': bound(0, moved, PEAK_BF16)[0]}
+        row(name, label, fns['wgmma'], plain, whole_ms, flops, nbytes,
+            PEAK_BF16, extra)
 
     dts = (('bfloat16', torch.bfloat16), ('float32', torch.float32))
     for kind, lvl, shape_in, shape_out in sp_levels(torch):
@@ -5555,9 +5646,12 @@ def band_kernel_phase(torch, F, whole):
                 for blabel, sp, s in SP_BANDS:
                     lo, hi = band_rows(shape_in[2], sp, s)
                     xh = haloed(xd, lo, hi)
-                    acc, st = kn.conv_band(xh, wd)
+                    acc, st = on_core(kn.conv_band, dt == torch.bfloat16,
+                                      lambda: kn.conv_band(xh, wd))
                     want_acc, want_st = kn.conv_band_plain(xh.float(),
                                                            wd.float())
+                    if dt == torch.bfloat16:
+                        layout_check(xh)
                     check('conv_band', f'{label} {blabel} {dname}', acc,
                           want_acc, TOL[dname])
                     check('conv_band', f'{label} {blabel} stats {dname}',
@@ -5575,16 +5669,26 @@ def band_kernel_phase(torch, F, whole):
                       k2.wrapper(xd, wd, eps, act), TOL[dname])
                 xh = parts[0][0]
                 same_bits('conv_band', lambda: kn.conv_band(xh, wd))
+                if dt == torch.bfloat16:
+                    layout_check(wd)
+                    want_acc = kn.conv_band_plain(xh.float(), wd.float())[0]
+                    check('conv_band', f'{label} sp 2 top {dname} on the '
+                          f'WMMA core', on_core(kn.conv_band, False, lambda:
+                                               kn.conv_band(xh, wd,
+                                                            _core='wmma'))[0],
+                          want_acc, TOL[dname])
             xd, wd = x.to(torch.bfloat16), wt.to(torch.bfloat16)
             lo, hi = band_rows(shape_in[2], SP, 0)
             xh = haloed(xd, lo, hi)
             acc, st = kn.conv_band(xh, wd)
             k2_ms = cuda_ms(lambda: k2.wrapper(xd, wd, eps, act), iters=10)
             macs = acc.numel() * 16 * cin
-            row('conv_band', f'{label} {tuple(xh.shape)}->{tuple(acc.shape)}',
-                lambda: kn.conv_band(xh, wd),
-                lambda: kn.conv_band_plain(xh, wd), k2_ms, 2 * macs,
-                2 * (xh.numel() + wd.numel()) + 4 * acc.numel(), PEAK_BF16)
+            core_row('conv_band', kn.conv_band,
+                     f'{label} {tuple(xh.shape)}->{tuple(acc.shape)}',
+                     (xh, wd), lambda: kn.conv_band_plain(xh, wd), k2_ms,
+                     2 * macs, 2 * (xh.numel() + wd.numel())
+                     + 4 * acc.numel(), (xh, wd),
+                     conv_band_plan(*xh.shape, cout, xh.dtype))
             row('in_apply', f'{label} {tuple(acc.shape)} fp32 -> bf16',
                 lambda: kn.in_apply(acc, st, count, eps, act,
                                     torch.bfloat16),
@@ -5603,9 +5707,13 @@ def band_kernel_phase(torch, F, whole):
                 for blabel, sp, s in SP_BANDS:
                     lo, hi = band_rows(hh, sp, s)
                     xh, sh = haloed(xd, lo, hi), haloed(sd, lo, hi)
-                    acc, st = kn.convt_band(xh, wd, sh)
+                    acc, st = on_core(kn.convt_band, dt == torch.bfloat16,
+                                      lambda: kn.convt_band(xh, wd, sh))
                     want_acc, want_st = kn.convt_band_plain(
                         xh.float(), wd.float(), sh.float())
+                    if dt == torch.bfloat16:
+                        layout_check(xh)
+                        layout_check(sh)
                     check('convt_band', f'{label} {blabel} {dname}', acc,
                           want_acc, TOL[dname])
                     check('convt_band', f'{label} {blabel} stats {dname}',
@@ -5619,6 +5727,14 @@ def band_kernel_phase(torch, F, whole):
                       k3.wrapper(xd, wd, eps, act, sd), TOL[dname])
                 xh, sh = parts[0][:2]
                 same_bits('convt_band', lambda: kn.convt_band(xh, wd, sh))
+                if dt == torch.bfloat16:
+                    want_acc = kn.convt_band_plain(xh.float(), wd.float(),
+                                                   sh.float())[0]
+                    check('convt_band', f'{label} sp 2 top {dname} on the '
+                          f'WMMA core', on_core(
+                              kn.convt_band, False, lambda: kn.convt_band(
+                                  xh, wd, sh, _core='wmma'))[0],
+                          want_acc, TOL[dname])
             xd, sd, wd = (t.to(torch.bfloat16) for t in (x, sk, wt))
             lo, hi = band_rows(hh, SP, 0)
             xh, sh = haloed(xd, lo, hi), haloed(sd, lo, hi)
@@ -5626,13 +5742,14 @@ def band_kernel_phase(torch, F, whole):
             k3_ms = cuda_ms(lambda: k3.wrapper(xd, wd, eps, act, sd),
                             iters=10)
             macs = acc.numel() * 4 * (cx + cs)
-            row('convt_band',
-                f'{label} ({cx}+{cs})x{tuple(xh.shape[2:])}->'
-                f'{tuple(acc.shape)}',
-                lambda: kn.convt_band(xh, wd, sh),
-                lambda: kn.convt_band_plain(xh, wd, sh), k3_ms, 2 * macs,
-                2 * (xh.numel() + sh.numel() + wd.numel())
-                + 4 * acc.numel(), PEAK_BF16)
+            core_row('convt_band', kn.convt_band,
+                     f'{label} ({cx}+{cs})x{tuple(xh.shape[2:])}->'
+                     f'{tuple(acc.shape)}', (xh, wd, sh),
+                     lambda: kn.convt_band_plain(xh, wd, sh), k3_ms,
+                     2 * macs, 2 * (xh.numel() + sh.numel() + wd.numel())
+                     + 4 * acc.numel(), (xh, sh),
+                     convt_band_plan(xh.shape[0], cx, cs, *xh.shape[2:], c,
+                                     xh.dtype))
             row('in_apply', f'{label} {tuple(acc.shape)} fp32 -> bf16',
                 lambda: kn.in_apply(acc, st, count, eps, act,
                                     torch.bfloat16),
@@ -5689,6 +5806,30 @@ def band_kernel_phase(torch, F, whole):
             lambda: kn.in_bwd_apply(gb, xb, st, u, count, eps, act),
             lambda: kn.in_bwd_apply_plain(gb, xb, st, u, count, eps, act),
             kb_ms, 8 * numel, 6 * numel, PEAK_FP32)
+    # the layout pass's element paths and partial tiles: pixels a plane
+    # no multiple of 8, channels no multiple of 8, the 16-pixel tile of
+    # small planes (K2's weight takes it) with a partial channel tile, x
+    # one element past 16 bytes
+    for shape in ((3, 72, 5, 7), (2, 13, 6, 10), (2, 64, 4, 6),
+                  (5, 72, 2, 4), (3, 300, 3, 5)):
+        layout_check(rand(*shape).to(torch.bfloat16))
+    t = rand(2 * 64 * 8 * 8 + 1).to(torch.bfloat16)[1:].view(2, 64, 8, 8)
+    layout_check(t)
+    for name in ('conv_band', 'convt_band'):
+        rows = res[name]['rows']
+        total = {k: sum(r[k] for r in rows) for k in (
+            'kernel_ms', 'wmma_ms', 'device_ms', 'wmma_device_ms',
+            'bound_ms', 'layout_ms', 'layout_device_ms', 'layout_bound_ms')}
+        print(f'  {name} over the {len(rows)} levels of the sp {SP} top '
+              f'band, bf16: the wgmma core {total["kernel_ms"]:.4f} ms by '
+              f'events, {total["device_ms"]:.4f} by a graph\'s replay; the '
+              f'WMMA core {total["wmma_ms"]:.4f} / '
+              f'{total["wmma_device_ms"]:.4f}; bound '
+              f'{total["bound_ms"]:.4f}', flush=True)
+        print(f'  {name} layout passes alone, over the same levels: '
+              f'{total["layout_ms"]:.4f} ms by events, '
+              f'{total["layout_device_ms"]:.4f} by a graph\'s replay, bound '
+              f'{total["layout_bound_ms"]:.4f}', flush=True)
     return res
 
 
@@ -5850,7 +5991,10 @@ def sp_capture_step(torch, np, mesh, device):
     """The captured bf16 step of config 2 at SP_SIZE px, global batch SP_B,
     over ``mesh`` (or one card), after three steps (eager, capture,
     replay) with finite losses. Returns (a function running one step, the
-    peak bytes on this card those steps took above what it held before)."""
+    peak bytes on this card those steps took above what it held before,
+    K2's and K3's band launches in those steps as {name: [launches, on the
+    wgmma core]})."""
+    from patchgan_tpu_torch.ops.kernels import conv_band, convt_band
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
@@ -5861,13 +6005,18 @@ def sp_capture_step(torch, np, mesh, device):
         torch, np, SP_B, SP_SIZE, 'cuda', 18))
     if mesh is not None:
         x, y = mesh.local_rows((x, y))
+    before = {w.__name__: [w.launches, w.launches_wgmma]
+              for w in (conv_band, convt_band)}
     for _ in range(3):
         losses = step(x, y)
     torch.cuda.synchronize()
     if not all(np.isfinite(float(v)) for v in losses.values()):
         raise AssertionError(f'17c: losses {losses}')
     peak = torch.cuda.max_memory_allocated(device) - held
-    return (lambda: step(x, y)), peak
+    bands = {w.__name__: [w.launches - before[w.__name__][0],
+                          w.launches_wgmma - before[w.__name__][1]]
+             for w in (conv_band, convt_band)}
+    return (lambda: step(x, y)), peak, bands
 
 
 def sp_window(torch, run, mesh=None):
@@ -5913,9 +6062,11 @@ def sp_scale_child():
                             rank=rank, world_size=SP, device_id=device)
     mesh = spatial_mesh(1, SP, device)
     runs, peaks = {}, {}
-    runs['grid'], peaks['grid'] = sp_capture_step(torch, np, mesh, device)
+    runs['grid'], peaks['grid'], bands = sp_capture_step(torch, np, mesh,
+                                                         device)
     if rank == 0:
-        runs['one'], peaks['one'] = sp_capture_step(torch, np, None, device)
+        runs['one'], peaks['one'], _ = sp_capture_step(torch, np, None,
+                                                       device)
     rates = {'grid': [], 'one': []}
     for i in range(WINDOWS):
         for side in (('grid', 'one') if i % 2 == 0 else ('one', 'grid')):
@@ -5927,7 +6078,8 @@ def sp_scale_child():
         with open(os.path.join(out, 'spatial.json'), 'w') as f:
             json.dump({'img_per_s': rates['grid'], 'peak_bytes': peaks['grid'],
                        'one_card_img_per_s': rates['one'],
-                       'one_card_peak_bytes': peaks['one']}, f)
+                       'one_card_peak_bytes': peaks['one'],
+                       'band_launches': bands}, f)
     del runs
     shutdown(mesh)
 
@@ -5987,6 +6139,11 @@ def sp_nccl_phase(torch, np, card, tmp):
               timeout=SP_JOIN_S)
     with open(os.path.join(out_dir, 'spatial.json')) as f:
         grid = json.load(f)
+    # [launches, on the wgmma core] of K2's and K3's band entries in rank
+    # 0's eager step and capture
+    if not all(n > 0 and on == n for n, on in grid['band_launches'].values()):
+        raise AssertionError(f'17c: band launches off the wgmma core: '
+                             f'{grid["band_launches"]}')
     med = {k: statistics.median(grid[k])
            for k in ('img_per_s', 'one_card_img_per_s')}
     out = {'run': True, 'cards': n, 'train_cli_wall_s': wall,
@@ -5999,7 +6156,8 @@ def sp_nccl_phase(torch, np, card, tmp):
           f'{[round(v, 3) for v in grid["one_card_img_per_s"]]} (median '
           f'{med["one_card_img_per_s"]:.3f}); peak a rank '
           f'{grid["peak_bytes"] / 2 ** 30:.3f} GiB against one card '
-          f'{grid["one_card_peak_bytes"] / 2 ** 30:.3f} GiB on {card}',
+          f'{grid["one_card_peak_bytes"] / 2 ** 30:.3f} GiB; band launches '
+          f'[all, on the wgmma core] {grid["band_launches"]} on {card}',
           flush=True)
     return out
 
@@ -7096,6 +7254,19 @@ def main(only=None):
             'bound_by': max(rows, key=lambda r: r['bound_ms'])['bound_by'],
             'library_ms': None,
             'whole_plane_ms': sum(r['whole_ms'] for r in rows)})
+        if name in ('conv_band', 'convt_band'):
+            # bf16 on the wgmma core (phase 15's spatial mode), fp32 on
+            # the WMMA core (17b's step, launches above)
+            summary[-1].update(
+                kernel='wgmma', wmma_source=(
+                    'patchgan_tpu_torch/csrc/conv_gemm.cuh'),
+                launches_wgmma_by_path={
+                    f'spatial_mesh_{label}': v['band_launches_wgmma'][name]
+                    for label, v in mesh['spatial'].items()
+                    if isinstance(v, dict) and 'band_launches_wgmma' in v},
+                **{k: sum(r[k] for r in rows) for k in (
+                    'device_ms', 'wmma_ms', 'wmma_device_ms', 'layout_ms',
+                    'layout_device_ms', 'layout_bound_ms')})
     for name, source, replaces, i in NHWC_FORMS:
         rows = kernels[i].nhwc_rows
         launches = NHWC_PATHS['train_s2d_off'][i]

@@ -31,9 +31,15 @@
 // Band form (spatial parallelism): pgt_conv_band takes a rank's band of
 // rows with its halo rows (parallel/spatial.py; the halo holds the zero
 // rows at the image's edges, so the band pads no row of H); it writes the
-// fp32 conv output of the band's own output rows and their per-plane
-// stats (conv_gemm.cuh's launch_conv_band), and norm_act.cu's pgt_in_apply
-// finishes it from the stats summed over the spatial group.
+// fp32 conv output of the band's own output rows in NCHW and their
+// per-plane stats, and norm_act.cu's pgt_in_apply finishes it from the
+// stats summed over the spatial group. In bf16 with Cin and Cout multiples
+// of 64 (the host planner's choice) it runs on the wgmma core of
+// conv_wgmma.cuh: the layout pass copies the band into channels_last
+// scratch and the weight into [Cout, 4, 4, Cin], and the NHWC problem's
+// band mode (pt = 0, an NCHW acc) takes the product
+// (launch_conv_band_wgmma); otherwise the WMMA core of conv_gemm.cuh reads
+// the NCHW band as it is (launch_conv_band).
 //
 // NHWC form (channels_last): pgt_conv_in_act_nhwc takes x as [N, H, W,
 // Cin] and the channels_last weight, physically [Cout, 4, 4, Cin], which
@@ -106,12 +112,15 @@ struct ConvProblem {
 
 // The NHWC problem: x [N, H, W, Cin], the weight [Cout, 4, 4, Cin] (k =
 // tap * Cin + ci, tap = ky * 4 + kx), acc [N, Ho, Wo, Cout]. VEC: Cin a
-// multiple of BK and x on 16 bytes.
-template <typename T, bool VEC>
+// multiple of BK and x on 16 bytes. BAND: a haloed band (pt = 0) whose acc
+// is NCHW [N, Cout, Ho, Wo] (the wgmma core's band mode).
+template <typename T, bool VEC, bool BAND = false>
 struct ConvNhwcProblem {
-  static constexpr bool kChannelsLast = true;
+  static constexpr bool kChannelsLast = !BAND;
   const T* x;
   const T* bw;
+  // zero rows padded above the input: 1, or 0 for a haloed band
+  static constexpr int pt = BAND ? 0 : 1;
   int Cin, H, W, Cout, Ho, Wo;
   int M, Mw, K, G, ldb;
 
@@ -125,7 +134,7 @@ struct ConvNhwcProblem {
                                            int c, int ax) const {
     Gather t;
     t.xs = x + (long)n * H * W * Cin;
-    t.iy = 2 * r - 1;
+    t.iy = 2 * r - pt;
     t.ix = 2 * c - 1;
     t.ak0 = ax;
     t.ok = 0;
@@ -179,21 +188,22 @@ struct ConvNhwcProblem {
   }
   __device__ __forceinline__ long out(int n, int, int r, int c,
                                       int co) const {
+    if constexpr (BAND) return (((long)n * Cout + co) * Ho + r) * Wo + c;
     return (((long)n * Ho + r) * Wo + c) * Cout + co;
   }
 };
 
-template <typename T, bool VEC>
-ConvNhwcProblem<T, VEC> nhwc_problem(const void* x, const void* w, int cin,
-                                     int h, int wd, int cout) {
-  ConvNhwcProblem<T, VEC> p;
+template <typename T, bool VEC, bool BAND = false>
+ConvNhwcProblem<T, VEC, BAND> nhwc_problem(const void* x, const void* w,
+                                           int cin, int h, int wd, int cout) {
+  ConvNhwcProblem<T, VEC, BAND> p;
   p.x = static_cast<const T*>(x);
   p.bw = static_cast<const T*>(w);
   p.Cin = cin;
   p.H = h;
   p.W = wd;
   p.Cout = cout;
-  p.Ho = (h - 2) / 2 + 1;
+  p.Ho = (h + 2 * p.pt - 4) / 2 + 1;
   p.Wo = (wd - 2) / 2 + 1;
   p.M = p.Ho * p.Wo;
   p.Mw = p.Wo;
@@ -286,8 +296,8 @@ extern "C" int pgt_conv_in_act(const void* x, const void* w, void* y,
                          cout, act, eps, st);
 }
 
-// Band form: the K split pgt_conv_band takes for this band at split_batch
-// `batch`.
+// Band form: the K split pgt_conv_band's WMMA core takes for this band at
+// split_batch `batch` (the host planner's, which the entry checks).
 extern "C" int pgt_conv_band_splits(int batch, int cin, int h, int wd,
                                     int cout) {
   return pgt::splits_for(
@@ -296,20 +306,56 @@ extern "C" int pgt_conv_band_splits(int batch, int cin, int h, int wd,
 
 // Band form. x [N, Cin, H, W]: a band with one halo row above and below
 // (H counts them), H unpadded and W padded by one each side; w as
-// pgt_conv_in_act's. acc: fp32 scratch of pgt_conv_band_splits(split_batch,
-// ...) times [N, Cout, Ho, Wo] with Ho = (H - 4) / 2 + 1, slice 0 the
-// band's conv output on return; part: fp32 pairs, N * Cout * ceil(Ho*Wo /
-// pgt_tile_m()); stats: fp32 pairs, N * Cout. Returns cudaGetLastError().
-extern "C" int pgt_conv_band(const void* x, const void* w, void* acc,
-                             void* part, void* stats, int batch,
+// pgt_conv_in_act's. core: 1 the wgmma core (bf16, Cin and Cout multiples
+// of 64; bn, stages, splits and samples from the host planner; xt, wt:
+// bf16 scratch of x's and w's sizes on 16 bytes, which the layout pass
+// fills with x as [N, H, W, Cin] and w as [Cout, 4, 4, Cin]), 0 the WMMA
+// core (splits must be pgt_conv_band_splits(split_batch, ...); xt, wt
+// unused). acc: fp32 scratch of `splits` times [N, Cout, Ho, Wo] with Ho =
+// (H - 4) / 2 + 1, slice 0 the band's conv output on return; part: fp32
+// pairs, N * Cout * ceil(Ho*Wo / pgt_tile_m()) for the WMMA core, N * Cout
+// * tiles for the wgmma core (tiles 1 where it packs samples); stats: fp32
+// pairs, N * Cout. Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for what the kernels cannot take.
+extern "C" int pgt_conv_band(const void* x, const void* w, void* xt, void* wt,
+                             void* acc, void* part, void* stats, int batch,
                              int split_batch, int cin, int h, int wd,
-                             int cout, int bf16, void* stream) {
+                             int cout, int bf16, int core, int bn, int stages,
+                             int splits, int samples, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (core) {
+    if (!bf16 || cin % pgt::wg::BKC || reinterpret_cast<uintptr_t>(xt) % 16 ||
+        reinterpret_cast<uintptr_t>(wt) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = pgt::wg::launch_nchw_to_nhwc(x, xt, batch, cin,
+                                                 (long)h * wd, st);
+    if (e == cudaSuccess)
+      e = pgt::wg::launch_nchw_to_nhwc(w, wt, cout, cin, 16, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const auto p = pgt::nhwc_problem<__nv_bfloat16, true, true>(xt, wt, cin,
+                                                                h, wd, cout);
+    return pgt::launch_conv_band_wgmma(
+        p, batch, bn, stages, splits, samples, static_cast<float*>(acc),
+        static_cast<float2*>(part), static_cast<float2*>(stats), (long)p.M,
+        st);
+  }
+  if (split_batch < 1 ||
+      splits != pgt_conv_band_splits(split_batch, cin, h, wd, cout))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
     return pgt::run_band<__nv_bfloat16>(x, w, acc, part, stats, batch,
                                         split_batch, cin, h, wd, cout, st);
   return pgt::run_band<float>(x, w, acc, part, stats, batch, split_batch, cin,
                               h, wd, cout, st);
+}
+
+// The band forms' layout pass alone: x [batch, C, P] -> y [batch, P, C],
+// bf16 (conv_wgmma.cuh's nchw_to_nhwc). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape it cannot take.
+extern "C" int pgt_nchw_to_nhwc(const void* x, void* y, int batch, int c,
+                                long p, void* stream) {
+  return static_cast<int>(pgt::wg::launch_nchw_to_nhwc(
+      x, y, batch, c, p, static_cast<cudaStream_t>(stream)));
 }
 
 // NHWC form. x [N, H, W, Cin] (an NHWC tensor), w the channels_last weight

@@ -1,11 +1,12 @@
-// Hopper GEMM core of the NHWC (channels_last) forms of K2 (conv_norm_act.cu)
-// and K3 (convt_norm_act.cu) in bf16: wgmma fed by an async-copy ring.
+// Hopper GEMM core of the NHWC (channels_last) and band forms of K2
+// (conv_norm_act.cu) and K3 (convt_norm_act.cu) in bf16: wgmma fed by an
+// async-copy ring.
 //
 // Replaces, for those forms, the WMMA core of conv_gemm.cuh, which stays
 // for fp32, for channel runs that are no multiple of 64, for pointers off
-// 16 bytes, and for the NCHW and band forms. The TPU kernels these forms
-// port are patchgan_tpu/ops/pallas/conv_norm_act.py::_forward (pallas_call
-// at :176) and convt_norm_act.py::_forward (pallas_call at :178).
+// 16 bytes, and for the NCHW forms. The TPU kernels these forms port are
+// patchgan_tpu/ops/pallas/conv_norm_act.py::_forward (pallas_call at :176)
+// and convt_norm_act.py::_forward (pallas_call at :178).
 //
 // Bound on the H100: operations at the bulk levels (enc1-enc3, dec3-dec5:
 // 0.5-1 GMAC a level at batch 16 against a few MB), bytes at the deep ones
@@ -54,6 +55,23 @@
 // slice s of acc and split_stats adds the slices in order. No atomics: two
 // launches give the same bits. The host planner (nhwc_gemm_plan in
 // ops/kernels/conv_norm_act.py) picks BN, S, the split and the packing.
+//
+// Band mode (spatial parallelism): the band entries pgt_conv_band and
+// pgt_convt_band take NCHW bands with one halo row above and below and
+// return an NCHW fp32 output, so the core reads channels_last copies and
+// writes NCHW. A layout pass (nchw_to_nhwc below, one launch a tensor)
+// first copies each haloed band, and K2's weight, into channels_last
+// scratch: bytes-bound, 4096 elements a block through shared memory (64
+// pixels x 64 channels, or 16 x 256 for the weight's 16 taps), 16-byte
+// loads along the pixels and 16-byte stores along the channels. The band problems (kChannelsLast false) pad no row of H, and
+// their epilogue keeps the tile channel-major in the ring's memory (column
+// stride BM + 4 floats: a warp's fragment stores fall in 32 banks), so a
+// warp stores 32 consecutive rows of one channel: 128 contiguous bytes of
+// K2's plane, every other float of a K3 class's output row (the grid walks
+// a row tile's classes fastest, so the other x-parity class fills the
+// rest of those sectors while they are still in L2). The band's
+// stats are the partials' reduce, or after a K split band.cuh's
+// split_stats, which adds the slices into slice 0 in order; no apply.
 #pragma once
 
 #include <stdint.h>
@@ -222,8 +240,7 @@ struct Wgmma<128> {
 }  // namespace wg
 
 // The product of problem P (a ConvNhwcProblem or ConvTNhwcProblem in
-// bf16, its channel runs multiples of 64 and its pointers on 16 bytes):
-// grid (row tiles, Cout / BN, G * splits).
+// bf16, its channel runs multiples of 64 and its pointers on 16 bytes).
 template <typename P, int BN, int S>
 __global__ void __launch_bounds__(wg::THREADS, 1)
     conv_wgmma_kernel(const P p, const wg::Tiling t, float* __restrict__ acc,
@@ -240,8 +257,16 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   const unsigned raw = wg::smem_u32(smem_raw);
   const unsigned base = (raw + 1023u) & ~1023u;
 
-  const int tid = threadIdx.x, bx = blockIdx.x, nt = blockIdx.y;
-  const int split = blockIdx.z % t.splits, g = blockIdx.z / t.splits;
+  // an NHWC acc: grid (row tiles, Cout / BN, G * splits); a band's NCHW
+  // one: grid (row tiles * G * splits, Cout / BN), the classes and splits
+  // of a row tile fastest, so the two x-parity classes that share the
+  // sectors of an output row store into them close in time
+  constexpr bool kNhwc = ChannelsLastOut<P>::value;
+  const int gs = p.G * t.splits;
+  const int tid = threadIdx.x, nt = blockIdx.y;
+  const int bx = kNhwc ? blockIdx.x : blockIdx.x / gs;
+  const int gz = kNhwc ? blockIdx.z : blockIdx.x - bx * gs;
+  const int split = gz % t.splits, g = gz / t.splits;
   const int cpt = p.tap_channels() / BKC;   // K steps a tap
   const int nk = p.K / BKC;
   const int per = (nk + t.splits - 1) / t.splits;
@@ -305,32 +330,61 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   wg::cp_wait<0>();
   __syncthreads();   // the ring is free for the epilogue tile
 
-  // accumulators -> cs[row * LDC + channel] (wgmma's D fragment: warp w
-  // rows 16 w .. 16 w + 15, lane l rows l / 4 and l / 4 + 8, columns
-  // 8 q + 2 (l % 4) and the next)
+  // accumulators -> the epilogue tile: row-major cs[row * LDC + channel]
+  // for an NHWC acc, channel-major cs[channel * LDR + row] for a band's
+  // NCHW one (wgmma's D fragment: warp w rows 16 w .. 16 w + 15, lane l
+  // rows l / 4 and l / 4 + 8, columns 8 q + 2 (l % 4) and the next)
+  constexpr int LDR = BM + 4;
+  static_assert(wg::smem_bytes(BN, S) >= BN * LDR * 4 + 1024,
+                "the channel-major tile does not fit the ring");
   float* const cs = reinterpret_cast<float*>(smem_raw + (base - raw));
+  auto tile = [&](int r, int c) -> float {
+    return kNhwc ? cs[r * LDC + c] : cs[c * LDR + r];
+  };
   {
     const int rr = (tid >> 5) * 16 + ((tid & 31) >> 2), cc = 2 * (tid & 3);
 #pragma unroll
     for (int q = 0; q < BN / 8; ++q) {
-      *reinterpret_cast<float2*>(cs + rr * LDC + 8 * q + cc) =
-          make_float2(d[4 * q], d[4 * q + 1]);
-      *reinterpret_cast<float2*>(cs + (rr + 8) * LDC + 8 * q + cc) =
-          make_float2(d[4 * q + 2], d[4 * q + 3]);
+      if constexpr (kNhwc) {
+        *reinterpret_cast<float2*>(cs + rr * LDC + 8 * q + cc) =
+            make_float2(d[4 * q], d[4 * q + 1]);
+        *reinterpret_cast<float2*>(cs + (rr + 8) * LDC + 8 * q + cc) =
+            make_float2(d[4 * q + 2], d[4 * q + 3]);
+      } else {
+        float* const col = cs + (8 * q + cc) * LDR + rr;
+        col[0] = d[4 * q];
+        col[LDR] = d[4 * q + 1];
+        col[8] = d[4 * q + 2];
+        col[LDR + 8] = d[4 * q + 3];
+      }
     }
   }
   __syncthreads();
-  // the fp32 output (this split's slice), 16 bytes a thread along the
-  // channels
+  // the fp32 output (this split's slice)
   float* const out = acc + split * t.slice;
-  constexpr int V = BN / 4;
-  for (int idx = tid; idx < BM * V; idx += wg::THREADS) {
-    const int r = idx / V, c4 = idx - r * V;
+  if constexpr (kNhwc) {
+    // 16 bytes a thread along the channels
+    constexpr int V = BN / 4;
+    for (int idx = tid; idx < BM * V; idx += wg::THREADS) {
+      const int r = idx / V, c4 = idx - r * V;
+      int n, m;
+      if (row_of(t, p.M, bx, r, n, m))
+        *reinterpret_cast<float4*>(
+            out + p.out(n, g, m / p.Mw, m % p.Mw, nt * BN + 4 * c4)) =
+            *reinterpret_cast<const float4*>(cs + r * LDC + 4 * c4);
+    }
+  } else {
+    // NCHW: thread (r, h) stores row r of channels h, h + 2, ..., so a
+    // warp stores 32 consecutive rows of one channel
+    const int r = tid & (BM - 1);
     int n, m;
-    if (row_of(t, p.M, bx, r, n, m))
-      *reinterpret_cast<float4*>(
-          out + p.out(n, g, m / p.Mw, m % p.Mw, nt * BN + 4 * c4)) =
-          *reinterpret_cast<const float4*>(cs + r * LDC + 4 * c4);
+    if (row_of(t, p.M, bx, r, n, m)) {
+      const int y = m / p.Mw, x = m - y * p.Mw;
+      const long o = p.out(n, g, y, x, nt * BN);
+      const long plane = p.out(n, g, y, x, nt * BN + 1) - o;
+      for (int cl = tid / BM; cl < BN; cl += wg::THREADS / BM)
+        out[o + cl * plane] = cs[cl * LDR + r];
+    }
   }
   if (t.splits > 1) return;   // split_stats takes the statistics
   // per (sample, channel) partials over the sample's rows, in row order
@@ -344,7 +398,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       const int rows = packed ? p.M : min(BM, p.M - m);
       float sum = 0.f, sq = 0.f;
       for (int r = 0; r < rows; ++r) {
-        const float v = cs[(first + r) * LDC + cl];
+        const float v = tile(first + r, cl);
         sum += v;
         sq += v * v;
       }
@@ -367,8 +421,128 @@ cudaError_t launch_gemm(const P& p, const Tiling& t, float* acc,
   if (e != cudaSuccess) return e;
   const int rows = t.samples > 1 ? (t.batch + t.samples - 1) / t.samples
                                  : t.batch * t.tiles;
-  const dim3 grid(rows, p.Cout / BN, p.G * t.splits);
+  const dim3 grid = ChannelsLastOut<P>::value
+                        ? dim3(rows, p.Cout / BN, p.G * t.splits)
+                        : dim3(rows * p.G * t.splits, p.Cout / BN, 1);
   conv_wgmma_kernel<P, BN, S><<<grid, THREADS, smem, st>>>(p, t, acc, part);
+  return cudaGetLastError();
+}
+
+// The product of P into `acc` (`splits` slices of batch * Cout * plane
+// floats) and, without a K split, its partials into `part`; t returns the
+// tiling. bn: 64 or 128 dividing Cout; stages: 3 or 4; samples:
+// samples_for(M), as the host planner computed it. cudaErrorInvalidValue
+// for what the core cannot take.
+template <typename P>
+cudaError_t run_gemm(const P& p, int batch, int bn, int stages, int splits,
+                     int samples, long plane, float* acc, float2* part,
+                     Tiling& t, cudaStream_t st) {
+  if (batch < 1 || p.M < 1 || (bn != 64 && bn != 128) || p.Cout % bn ||
+      (stages != 3 && stages != 4) || splits < 1 || splits > 65535 / p.G ||
+      p.K % BKC || p.tap_channels() % BKC || p.ldb % 8 ||
+      samples != samples_for(p.M) ||
+      reinterpret_cast<uintptr_t>(p.bw) % 16)
+    return cudaErrorInvalidValue;
+  t.batch = batch;
+  t.samples = samples;
+  t.tiles = samples > 1 ? 1 : (p.M + BM - 1) / BM;
+  t.splits = splits;
+  t.slice = (long)batch * p.Cout * plane;
+  if (bn == 128)
+    return stages == 4 ? launch_gemm<P, 128, 4>(p, t, acc, part, st)
+                       : launch_gemm<P, 128, 3>(p, t, acc, part, st);
+  return stages == 4 ? launch_gemm<P, 64, 4>(p, t, acc, part, st)
+                     : launch_gemm<P, 64, 3>(p, t, acc, part, st);
+}
+
+// The band entries' layout pass: x [B][C][P] (B stacks of C planes of P
+// pixels: an NCHW band, or K2's weight [Cout][Cin][16]) -> y [B][P][C]
+// (channels_last), bf16. Block (pixel tile, channel tile, b) moves TP
+// pixels x TC channels (4096 elements; TP = 64, or 16 for planes of at
+// most 16 pixels: K2's weight, whose 16 taps would leave three quarters
+// of a 64-pixel tile idle) through shared memory: 16-byte loads along the
+// pixels where P and x lie on 8 elements (a warp reads 128-byte runs of
+// four channels, or 32-byte runs of 16), 16-byte stores along the
+// channels where C and y do (a warp writes four pixels' 128-byte runs, or
+// one pixel's 512 bytes), element by element otherwise. The tile is
+// pixel-major with its 16-byte chunks swizzled by the pixel's group of
+// eight (chunk c / 8 ^ p / 8 of row p), so the load's 2-byte stores of
+// one pixel group fall in different chunks (at TP = 16 two groups share
+// a chunk's banks) and the store's 16-byte reads of a row in eight.
+constexpr int LT_ELEMS = 4096;
+constexpr int LT_THREADS = 256;
+
+template <int TP>
+__global__ void __launch_bounds__(LT_THREADS)
+    nchw_to_nhwc(const unsigned short* __restrict__ x,
+                 unsigned short* __restrict__ y, int C, long P, bool vec_in,
+                 bool vec_out) {
+  constexpr int TC = LT_ELEMS / TP;
+  __shared__ __align__(16) unsigned short tile[LT_ELEMS];
+  const long p0 = (long)blockIdx.x * TP;
+  const int c0 = blockIdx.y * TC, tid = threadIdx.x;
+  const unsigned short* const xs = x + (long)blockIdx.z * C * P;
+  unsigned short* const ys = y + (long)blockIdx.z * P * C;
+  auto at = [](int p, int c) {
+    const int chunk = c >> 3;
+    return p * TC + ((chunk & ~7) | ((chunk ^ (p >> 3)) & 7)) * 8 + (c & 7);
+  };
+  if (vec_in) {
+    for (int i = tid; i < LT_ELEMS / 8; i += LT_THREADS) {
+      const int c = i / (TP / 8), pc = i % (TP / 8);
+      const long pix = p0 + 8 * pc;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (c0 + c < C && pix < P)
+        v = *reinterpret_cast<const uint4*>(xs + (long)(c0 + c) * P + pix);
+      const unsigned e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        tile[at(8 * pc + k, c)] =
+            static_cast<unsigned short>(e[k >> 1] >> (16 * (k & 1)));
+    }
+  } else {
+    for (int i = tid; i < LT_ELEMS; i += LT_THREADS) {
+      const int c = i / TP, pl = i - c * TP;
+      const long pix = p0 + pl;
+      tile[at(pl, c)] =
+          c0 + c < C && pix < P ? xs[(long)(c0 + c) * P + pix] : 0;
+    }
+  }
+  __syncthreads();
+  if (vec_out) {
+    for (int i = tid; i < LT_ELEMS / 8; i += LT_THREADS) {
+      const int pl = i / (TC / 8), c = 8 * (i % (TC / 8));
+      const long pix = p0 + pl;
+      if (pix < P && c0 + c < C)
+        *reinterpret_cast<uint4*>(ys + pix * C + c0 + c) =
+            *reinterpret_cast<const uint4*>(tile + at(pl, c));
+    }
+  } else {
+    for (int i = tid; i < LT_ELEMS; i += LT_THREADS) {
+      const int pl = i / TC, c = i - pl * TC;
+      const long pix = p0 + pl;
+      if (pix < P && c0 + c < C) ys[pix * C + c0 + c] = tile[at(pl, c)];
+    }
+  }
+}
+
+inline cudaError_t launch_nchw_to_nhwc(const void* x, void* y, int batch,
+                                       int C, long P, cudaStream_t st) {
+  const int tp = P <= 16 ? 16 : 64, tc = LT_ELEMS / tp;
+  if (batch < 1 || batch > 65535 || C < 1 || P < 1 ||
+      (C + tc - 1) / tc > 65535)
+    return cudaErrorInvalidValue;
+  const bool vec_in = P % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_out = C % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const dim3 grid((P + tp - 1) / tp, (C + tc - 1) / tc, batch);
+  const auto* xs = static_cast<const unsigned short*>(x);
+  auto* ys = static_cast<unsigned short*>(y);
+  if (tp == 16)
+    nchw_to_nhwc<16><<<grid, LT_THREADS, 0, st>>>(xs, ys, C, P, vec_in,
+                                                   vec_out);
+  else
+    nchw_to_nhwc<64><<<grid, LT_THREADS, 0, st>>>(xs, ys, C, P, vec_in,
+                                                   vec_out);
   return cudaGetLastError();
 }
 
@@ -377,11 +551,10 @@ cudaError_t launch_gemm(const P& p, const Tiling& t, float* acc,
 // NHWC form on the wgmma core: the product into the NHWC `acc`, then the
 // per-plane statistics (reduce_parts over the tiles' partials, or
 // split_stats after a K split, then reduce_parts over its `segs` segments)
-// and norm_nhwc.cuh's apply into y. bn: 64 or 128 dividing Cout; stages:
-// 3 or 4; samples: wg::samples_for(M), as the host planner computed it.
-// `acc` holds `splits` slices of N * Cout * plane floats, `part` N * Cout *
-// max(G * tiles, segs) pairs, `stats` N * Cout. Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for what the core cannot take.
+// and norm_nhwc.cuh's apply into y. `acc` holds `splits` slices of N * Cout
+// * plane floats, `part` N * Cout * max(G * tiles, segs) pairs, `stats` N *
+// Cout. Returns cudaGetLastError(), or cudaErrorInvalidValue for what the
+// core cannot take.
 template <typename P>
 int launch_conv_in_act_nhwc_wgmma(const P& p, int batch, int bn, int stages,
                                   int splits, int samples, float* acc,
@@ -389,26 +562,11 @@ int launch_conv_in_act_nhwc_wgmma(const P& p, int batch, int bn, int stages,
                                   __nv_bfloat16* y, long plane, int segs,
                                   int vec, int act, float eps,
                                   cudaStream_t st) {
-  if (!nhwc::shape_ok(batch, plane, p.Cout, segs, vec, {acc, y}) ||
-      (bn != 64 && bn != 128) || p.Cout % bn || (stages != 3 && stages != 4) ||
-      splits < 1 || splits > 65535 / p.G || p.K % wg::BKC ||
-      p.tap_channels() % wg::BKC || p.ldb % 8 ||
-      samples != wg::samples_for(p.M) ||
-      reinterpret_cast<uintptr_t>(p.bw) % 16)
+  if (!nhwc::shape_ok(batch, plane, p.Cout, segs, vec, {acc, y}))
     return static_cast<int>(cudaErrorInvalidValue);
   wg::Tiling t;
-  t.batch = batch;
-  t.samples = samples;
-  t.tiles = samples > 1 ? 1 : (p.M + wg::BM - 1) / wg::BM;
-  t.splits = splits;
-  t.slice = (long)batch * p.Cout * plane;
-  cudaError_t e;
-  if (bn == 128)
-    e = stages == 4 ? wg::launch_gemm<P, 128, 4>(p, t, acc, part, st)
-                    : wg::launch_gemm<P, 128, 3>(p, t, acc, part, st);
-  else
-    e = stages == 4 ? wg::launch_gemm<P, 64, 4>(p, t, acc, part, st)
-                    : wg::launch_gemm<P, 64, 3>(p, t, acc, part, st);
+  const cudaError_t e = wg::run_gemm(p, batch, bn, stages, splits, samples,
+                                     plane, acc, part, t, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long planes = (long)batch * p.Cout;
   if (splits == 1) {
@@ -420,6 +578,32 @@ int launch_conv_in_act_nhwc_wgmma(const P& p, int batch, int bn, int stages,
   }
   nhwc::launch_apply<float, __nv_bfloat16>(acc, stats, y, batch, plane,
                                            p.Cout, segs, vec, eps, act, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Band form on the wgmma core (a band problem, its acc NCHW): the product
+// into `acc`, then the per-plane (sum, sum of squares) of the band's fp32
+// output into `stats`: reduce_parts over the tiles' partials, or
+// band::split_stats after a K split (the slices added into slice 0 in
+// order, the stats over the sum). No apply: the caller sums the stats over
+// the spatial group. `acc` holds `splits` slices of N * Cout * plane floats,
+// `part` N * Cout * G * tiles pairs. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what the core cannot take.
+template <typename P>
+int launch_conv_band_wgmma(const P& p, int batch, int bn, int stages,
+                           int splits, int samples, float* acc, float2* part,
+                           float2* stats, long plane, cudaStream_t st) {
+  static_assert(!ChannelsLastOut<P>::value, "a band problem writes NCHW");
+  wg::Tiling t;
+  const cudaError_t e = wg::run_gemm(p, batch, bn, stages, splits, samples,
+                                     plane, acc, part, t, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long planes = (long)batch * p.Cout;
+  if (splits == 1)
+    nhwc::launch_reduce(part, stats, planes, p.G * t.tiles, st);
+  else
+    band::split_stats<<<planes, band::THREADS, 0, st>>>(acc, splits, t.slice,
+                                                         stats, plane);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -37,9 +37,17 @@
 // x and skip rows with one halo row above and below (parallel/spatial.py;
 // the halo holds the zero rows at the image's edges); class row r of the
 // band's output reads input row r + dy - ay + 1 (row0 = 1, where the whole
-// plane's is 0 and its missing rows read as zero). It writes the fp32 output of the band's own 2 * Hc rows and their
-// per-plane stats (conv_gemm.cuh's launch_conv_band); norm_act.cu's
-// pgt_in_apply finishes it from the stats summed over the spatial group.
+// plane's is 0 and its missing rows read as zero), so a tap on a halo row
+// reads it. It writes the fp32 output of the band's own 2 * Hc rows in
+// NCHW and their per-plane stats; norm_act.cu's pgt_in_apply finishes it
+// from the stats summed over the spatial group. In bf16 with Cx, Cs and
+// Cout multiples of 64 (the host planner's choice) it runs on the wgmma
+// core of conv_wgmma.cuh: the layout pass copies the x and skip bands into
+// channels_last scratch, the pack kernel writes the NHWC form's packed
+// layout (taps outer) straight from the NCHW weight, and the NHWC
+// problem's band mode (Hc = H - 2, row0 = 1, an NCHW acc) takes the
+// product (launch_conv_band_wgmma); otherwise the WMMA core of
+// conv_gemm.cuh reads the NCHW bands as they are (launch_conv_band).
 //
 // NHWC form (channels_last): pgt_convt_in_act_nhwc takes x and skip as
 // [N, H, W, C] and the channels_last weight, physically [Cx + Cs, 4, 4,
@@ -115,9 +123,10 @@ struct ConvTProblem {
 };
 
 // One thread per (co, ci slot of Kp / 4): reads the 16 taps of w[ci, co]
-// (two or four 16-byte loads), writes 4 values into each class's row.
-// Slots ci >= C write the zero padding.
-template <typename T>
+// (two or four 16-byte loads), writes 4 values into each class's row, at
+// k = 4 ci + tap or, TAP_MAJOR (the NHWC form's layout, Kp = 4 C), at k =
+// tap C + ci. Slots ci >= C write the zero padding.
+template <typename T, bool TAP_MAJOR = false>
 __global__ void pack_convt_weight(const T* __restrict__ w, T* __restrict__ wp,
                                   int C, int Cout, int Kp) {
   const int slots = Kp / 4;
@@ -133,12 +142,12 @@ __global__ void pack_convt_weight(const T* __restrict__ w, T* __restrict__ wp,
     raw[i] = ci < C ? src[i] : make_uint4(0, 0, 0, 0);
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
-    T* dst = wp + ((long)g * Cout + co) * Kp + 4 * ci;
+    T* dst = wp + ((long)g * Cout + co) * Kp + (TAP_MAJOR ? ci : 4 * ci);
 #pragma unroll
     for (int ay = 0; ay < 2; ++ay)
 #pragma unroll
       for (int ax = 0; ax < 2; ++ax)
-        dst[2 * ay + ax] =
+        dst[(2 * ay + ax) * (TAP_MAJOR ? C : 1)] =
             tap[(1 - (g >> 1) + 2 * ay) * 4 + 1 - (g & 1) + 2 * ax];
   }
 }
@@ -147,11 +156,13 @@ inline int packed_k(int cx, int cs) {
   return (4 * (cx + cs) + BK - 1) / BK * BK;
 }
 
-template <typename T>
+template <typename T, bool TAP_MAJOR = false>
 int pack(const void* w, void* wp, int cx, int cs, int cout, cudaStream_t st) {
   const int kp = packed_k(cx, cs);
+  if (TAP_MAJOR && kp != 4 * (cx + cs))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long threads = (long)cout * (kp / 4);
-  pack_convt_weight<T><<<(threads + 255) / 256, 256, 0, st>>>(
+  pack_convt_weight<T, TAP_MAJOR><<<(threads + 255) / 256, 256, 0, st>>>(
       static_cast<const T*>(w), static_cast<T*>(wp), cx + cs, cout, kp);
   return static_cast<int>(cudaGetLastError());
 }
@@ -209,14 +220,19 @@ int pack_nhwc(const void* w, void* wp, int cx, int cs, int cout,
 
 // The NHWC problem: x [N, H, W, Cx], skip [N, H, W, Cs], the packed
 // weight [4][Cout][ldb] (k = (2 ay + ax) * C + ci), acc [N, 2H, 2W, Cout].
-// VEC: Cx and Cs multiples of BK, x and skip on 16 bytes.
-template <typename T, bool VEC>
+// VEC: Cx and Cs multiples of BK, x and skip on 16 bytes. BAND: haloed
+// bands (Hc = H - 2, row0 = 1) whose acc is NCHW [N, Cout, 2 Hc, 2 W] (the
+// wgmma core's band mode).
+template <typename T, bool VEC, bool BAND = false>
 struct ConvTNhwcProblem {
-  static constexpr bool kChannelsLast = true;
+  static constexpr bool kChannelsLast = !BAND;
   const T* x;
   const T* s;
   const T* bw;
+  // input row of class row 0's tap ay = 0 at dy = 0
+  static constexpr int row0 = BAND ? 1 : 0;
   int Cx, Cs, C, H, W, Cout;
+  int Hc;    // output rows of one parity class (H for the whole plane)
   int M, Mw, K, G, ldb;
 
   struct Gather {
@@ -231,7 +247,7 @@ struct ConvTNhwcProblem {
     Gather t;
     t.xs = x + (long)n * H * W * Cx;
     t.ss = s + (long)n * H * W * Cs;
-    t.iy = r + (g >> 1);
+    t.iy = r + (g >> 1) + row0;
     t.ix = c + (g & 1);
     t.valid = valid;
     t.ak0 = ax;
@@ -283,16 +299,19 @@ struct ConvTNhwcProblem {
   }
   __device__ __forceinline__ long out(int n, int g, int r, int c,
                                       int co) const {
-    return (((long)n * 2 * H + 2 * r + (g >> 1)) * (2 * W) + 2 * c +
+    if constexpr (BAND)
+      return (((long)n * Cout + co) * (2 * Hc) + 2 * r + (g >> 1)) *
+                 (2 * W) + 2 * c + (g & 1);
+    return (((long)n * 2 * Hc + 2 * r + (g >> 1)) * (2 * W) + 2 * c +
             (g & 1)) * Cout + co;
   }
 };
 
-template <typename T, bool VEC>
-ConvTNhwcProblem<T, VEC> nhwc_problem(const void* x, const void* s,
-                                      const void* wp, int cx, int cs, int h,
-                                      int wd, int cout) {
-  ConvTNhwcProblem<T, VEC> p;
+template <typename T, bool VEC, bool BAND = false>
+ConvTNhwcProblem<T, VEC, BAND> nhwc_problem(const void* x, const void* s,
+                                            const void* wp, int cx, int cs,
+                                            int h, int wd, int cout) {
+  ConvTNhwcProblem<T, VEC, BAND> p;
   p.x = static_cast<const T*>(x);
   p.s = static_cast<const T*>(s);
   p.bw = static_cast<const T*>(wp);
@@ -302,7 +321,8 @@ ConvTNhwcProblem<T, VEC> nhwc_problem(const void* x, const void* s,
   p.H = h;
   p.W = wd;
   p.Cout = cout;
-  p.M = h * wd;
+  p.Hc = BAND ? h - 2 : h;
+  p.M = p.Hc * wd;
   p.Mw = wd;
   p.K = 4 * (cx + cs);
   p.G = 4;
@@ -420,8 +440,8 @@ extern "C" int pgt_convt_in_act(const void* x, const void* skip,
                          cx, cs, h, wd, cout, act, eps, st);
 }
 
-// Band form: the K split pgt_convt_band takes for this band at split_batch
-// `batch`.
+// Band form: the K split pgt_convt_band's WMMA core takes for this band at
+// split_batch `batch` (the host planner's, which the entry checks).
 extern "C" int pgt_convt_band_splits(int batch, int cx, int cs, int h,
                                      int wd, int cout) {
   return pgt::splits_for(pgt::problem<float>(nullptr, nullptr, nullptr, cx,
@@ -431,17 +451,50 @@ extern "C" int pgt_convt_band_splits(int batch, int cx, int cs, int h,
 
 // Band form. x [N, Cx, H, W], skip [N, Cs, H, W]: a band with one halo
 // row above and below (H counts them); w and wp as pgt_convt_in_act's.
-// The band's output has 2 * Hc rows, Hc = H - 2. acc: fp32 scratch of
-// pgt_convt_band_splits(split_batch, ...) times [N, Cout, 2 Hc, 2 W],
-// slice 0 the output on return; part: fp32 pairs, N * Cout * 4 *
-// ceil(Hc*W / pgt_tile_m()); stats: fp32 pairs, N * Cout. Launches the
-// pack, the GEMM and the stats. Returns cudaGetLastError().
+// The band's output has 2 * Hc rows, Hc = H - 2. core: 1 the wgmma core
+// (bf16, Cx, Cs and Cout multiples of 64; bn, stages, splits and samples
+// from the host planner; wp then in the NHWC form's order; xt, skt: bf16
+// scratch of x's and skip's sizes on 16 bytes, which the layout pass fills
+// with x and skip as [N, H, W, C]), 0 the WMMA core (splits must be
+// pgt_convt_band_splits(split_batch, ...); xt, skt unused). acc: fp32
+// scratch of `splits` times [N, Cout, 2 Hc, 2 W], slice 0 the output on
+// return; part: fp32 pairs, N * Cout * 4 * tiles, tiles = ceil(Hc*W /
+// pgt_tile_m()) for the WMMA core, 1 or that for the wgmma core (1 where
+// it packs samples); stats: fp32 pairs, N * Cout. Launches the layout
+// passes (wgmma core), the pack, the GEMM and the stats. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for what the kernels cannot
+// take.
 extern "C" int pgt_convt_band(const void* x, const void* skip, const void* w,
-                              void* wp, void* acc, void* part, void* stats,
-                              int batch, int split_batch, int cx, int cs,
-                              int h, int wd, int cout, int bf16,
+                              void* wp, void* xt, void* skt, void* acc,
+                              void* part, void* stats, int batch,
+                              int split_batch, int cx, int cs, int h, int wd,
+                              int cout, int bf16, int core, int bn,
+                              int stages, int splits, int samples,
                               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using B = __nv_bfloat16;
+  if (core) {
+    if (!bf16 || cx % pgt::wg::BKC || cs % pgt::wg::BKC ||
+        reinterpret_cast<uintptr_t>(xt) % 16 ||
+        (cs && reinterpret_cast<uintptr_t>(skt) % 16))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long plane = (long)h * wd;
+    cudaError_t e = pgt::wg::launch_nchw_to_nhwc(x, xt, batch, cx, plane, st);
+    if (e == cudaSuccess && cs)
+      e = pgt::wg::launch_nchw_to_nhwc(skip, skt, batch, cs, plane, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int rc = pgt::pack<B, true>(w, wp, cx, cs, cout, st);
+    if (rc != 0) return rc;
+    const auto p = pgt::nhwc_problem<B, true, true>(xt, skt, wp, cx, cs, h,
+                                                    wd, cout);
+    return pgt::launch_conv_band_wgmma(
+        p, batch, bn, stages, splits, samples, static_cast<float*>(acc),
+        static_cast<float2*>(part), static_cast<float2*>(stats), 4L * p.M,
+        st);
+  }
+  if (split_batch < 1 ||
+      splits != pgt_convt_band_splits(split_batch, cx, cs, h, wd, cout))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
     return pgt::run_band<__nv_bfloat16>(x, skip, w, wp, acc, part, stats,
                                         batch, split_batch, cx, cs, h, wd,

@@ -2,7 +2,8 @@
 version (see ``_build`` for how they are compiled and loaded)."""
 
 from .conv_norm_act import (conv_band, conv_band_plain, conv_norm_act,
-                            conv_norm_act_band, conv_norm_act_plain)
+                            conv_norm_act_band, conv_norm_act_plain,
+                            nchw_to_nhwc, nchw_to_nhwc_plain)
 from .convt_norm_act import (convt_band, convt_band_plain, convt_norm_act,
                              convt_norm_act_band, convt_norm_act_plain,
                              pack_convt_weight, pack_convt_weight_nhwc,
@@ -33,7 +34,8 @@ __all__ = ['conv_band', 'conv_band_plain', 'conv_norm_act',
            'in_bwd_sums_plain', 'in_stats', 'in_stats_plain',
            'instance_norm_act', 'instance_norm_act_backward',
            'instance_norm_act_backward_plain', 'instance_norm_act_band',
-           'instance_norm_act_plain', 'pack_convt_weight',
+           'instance_norm_act_plain', 'nchw_to_nhwc', 'nchw_to_nhwc_plain',
+           'pack_convt_weight',
            'pack_convt_weight_nhwc', 'pack_convt_weight_nhwc_plain',
            'pack_convt_weight_plain', 'pack_thin_weight',
            'pack_thin_weight_plain', 'thin_conv3x3', 'thin_conv3x3_plain',

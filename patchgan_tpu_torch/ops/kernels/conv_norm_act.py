@@ -26,10 +26,17 @@ run in channels_last too: its incoming gradient is taken in the
 recompute's layout, never flattened to NCHW.
 
 Band form (spatial parallelism, ``parallel/spatial.py``): ``conv_band``
-takes a rank's band of rows with one halo row above and below (zero rows
-at the image's edges, ``SpatialAxis.halo``) and launches the same GEMM
-with no padding of H, writing the band's fp32 conv output and its
-per-plane stats;
+takes a rank's NCHW band of rows with one halo row above and below (zero
+rows at the image's edges, ``SpatialAxis.halo``) and launches
+``pgt_conv_band`` with no padding of H, writing the band's fp32 conv
+output (NCHW) and its per-plane stats. Its core is the planner's
+(``conv_band_plan``): in bf16 with Cin and Cout multiples of 64 the wgmma
+core, after a layout pass in the same C call copies the band into
+channels_last scratch and the weight into [Cout, 4, 4, Cin]
+(``nchw_to_nhwc`` is that pass alone, ``nchw_to_nhwc_plain`` its plain
+version, a test helper); otherwise the WMMA core on the NCHW band. A
+failure raises; neither core stands in for the other. The private
+``_core`` argument forces one as ``_nhwc_core`` does.
 ``conv_norm_act_band`` (``ConvNormActBand``) sums the stats over the
 spatial group and finishes with ``in_apply``. Its backward,
 ``recompute_band_grads``, recomputes the conv on the haloed band and runs
@@ -185,10 +192,10 @@ def _lib():
     lib.pgt_tile_m.restype = i
     lib.pgt_conv_splits.argtypes = [i] * 5
     lib.pgt_conv_splits.restype = i
-    lib.pgt_conv_band.argtypes = [p] * 5 + [i] * 7 + [p]
+    lib.pgt_conv_band.argtypes = [p] * 7 + [i] * 12 + [p]
     lib.pgt_conv_band.restype = i
-    lib.pgt_conv_band_splits.argtypes = [i] * 5
-    lib.pgt_conv_band_splits.restype = i
+    lib.pgt_nchw_to_nhwc.argtypes = [p, p, i, i, ctypes.c_long, p]
+    lib.pgt_nchw_to_nhwc.restype = i
     lib.pgt_conv_in_act_nhwc.argtypes = [p] * 6 + [i] * 7 + [
         ctypes.c_float] + [i] * 9 + [p]
     lib.pgt_conv_in_act_nhwc.restype = i
@@ -354,10 +361,54 @@ def conv_band_plain(xh, w):
     return acc, in_stats_plain(acc)
 
 
-def conv_band(xh, w, split_batch=None):
-    """``conv_band_plain`` for CPU tensors; on CUDA tensors the K2 GEMM
-    over the band and the stats kernel (``pgt_conv_band``). Returns (fp32
-    output, stats)."""
+def conv_band_plan(n, cin, h, w, cout, dtype, split_batch=None,
+                   core=None):
+    """``nhwc_gemm_plan`` of K2's band form on a haloed band (n, cin, h,
+    w), whose output has (h - 4) // 2 + 1 rows. The wgmma core reads the
+    layout pass's channels_last copies, fresh allocations on 16 bytes."""
+    ho, wo = (h - 4) // 2 + 1, (w - 2) // 2 + 1
+    return nhwc_gemm_plan(ho * wo, 1, (cin,), 16, cout, dtype, True,
+                          split_batch or n, core)
+
+
+def nchw_to_nhwc_plain(x):
+    """The band entries' layout pass in plain PyTorch: (B, C, ...) ->
+    (B, ..., C) contiguous. A test helper; no CUDA path takes it."""
+    return x.movedim(1, -1).contiguous()
+
+
+def nchw_to_nhwc(x):
+    """The band entries' layout pass alone on a contiguous CUDA bf16 x
+    (B, C, ...): (B, ..., C) contiguous, to hold against
+    ``nchw_to_nhwc_plain`` and to time. Not a K2 launch."""
+    require(x, 'x', x.dim())
+    if x.dtype != torch.bfloat16 or x.dim() < 2:
+        raise ValueError(f"the layout pass takes a bf16 tensor of 2 or more "
+                         f"dimensions, not {x.dtype} {tuple(x.shape)}")
+    y = torch.empty(x.movedim(1, -1).shape, dtype=x.dtype, device=x.device)
+    with _build.device_guard(x):
+        rc = _lib().pgt_nchw_to_nhwc(x.data_ptr(), y.data_ptr(), x.shape[0],
+                                     x.shape[1], x[0, 0].numel(),
+                                     _build.stream_of(x))
+    _build.check(rc, 'layout pass')
+    return y
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def conv_band(xh, w, split_batch=None, *, _core=None):
+    """``conv_band_plain`` for CPU tensors; on CUDA tensors ``pgt_conv_band``
+    on the core ``conv_band_plan`` names: the layout pass and the wgmma
+    GEMM, or the WMMA GEMM, then the stats. Returns (fp32 output, stats).
+    ``_core`` (private): the core forced ('wgmma', 'wmma' or ('wgmma', BN,
+    stages)), for timing and checks; it raises where that core cannot run,
+    on CPU tensors too."""
+    if _core is not None:
+        n, cin, h, wd = xh.shape
+        conv_band_plan(n, cin, h, wd, w.shape[0], xh.dtype, split_batch,
+                       _core)
     if xh.device.type == 'cpu':
         return conv_band_plain(xh, w)
     require(xh, 'x', 4)
@@ -374,25 +425,29 @@ def conv_band(xh, w, split_batch=None):
                          f"s=2")
     require_aligned(w, 'w')
     lib = _lib()
-    tiles = -(-ho * wo // lib.pgt_tile_m())
-    split_batch = split_batch or n
-    splits = lib.pgt_conv_band_splits(split_batch, cin, h, wd, cout)
-    acc = torch.empty((splits, n, cout, ho, wo), dtype=torch.float32,
-                      device=xh.device)
-    part = torch.empty((n, cout, tiles, 2), dtype=torch.float32,
-                       device=xh.device)
-    stats = torch.empty((n, cout, 2), dtype=torch.float32, device=xh.device)
-    with torch.cuda.device(xh.device):
+    plan = conv_band_plan(n, cin, h, wd, cout, xh.dtype, split_batch, _core)
+    wgmma = plan.core == 'wgmma'
+    acc = f32_scratch(plan.splits, n, cout, ho, wo, like=xh)
+    part = f32_scratch(n, cout, plan.parts, 2, like=xh)
+    stats = f32_scratch(n, cout, 2, like=xh)
+    # the layout pass's channels_last copies of the band and the weight
+    xt, wt = (torch.empty(t.numel(), dtype=t.dtype, device=t.device)
+              if wgmma else None for t in (xh, w))
+    with _build.device_guard(xh):
         rc = lib.pgt_conv_band(
-            xh.data_ptr(), w.data_ptr(), acc.data_ptr(), part.data_ptr(),
-            stats.data_ptr(), n, split_batch, cin, h, wd, cout, flag,
-            _build.stream_of(xh))
-    _build.check(rc, 'conv_band')
+            xh.data_ptr(), w.data_ptr(), _ptr(xt), _ptr(wt), acc.data_ptr(),
+            part.data_ptr(), stats.data_ptr(), n, split_batch or n, cin, h,
+            wd, cout, flag, int(wgmma), plan.bn, plan.stages, plan.splits,
+            plan.samples, _build.stream_of(xh))
+    _build.check(rc, f'conv_band ({plan.core} core)')
     conv_band.launches += 1
+    conv_band.launches_wgmma += wgmma
     return acc[0], stats
 
 
 conv_band.launches = 0
+# of them the wgmma core's
+conv_band.launches_wgmma = 0
 
 
 def recompute_band_grads(ctx, g, conv, inputs, stats):

@@ -14,9 +14,14 @@ recomputes the transposed conv over the concat in the compute dtype,
 runs K1-bwd on it, and takes dx, dw and dskip through the recompute.
 
 Band form (spatial parallelism, ``parallel/spatial.py``): ``convt_band``
-takes a rank's bands of x and skip with one halo row above and below
+takes a rank's NCHW bands of x and skip with one halo row above and below
 (zero rows at the image's edges, ``SpatialAxis.halo``) and writes the
-fp32 output of the band's own rows and its per-plane stats;
+fp32 output of the band's own rows (NCHW) and its per-plane stats. Its
+core is the planner's (``convt_band_plan``): in bf16 with Cx, Cs and Cout
+multiples of 64 the wgmma core, after the layout pass copies both bands
+into channels_last scratch and the pack writes the NHWC form's layout
+(``pack_convt_weight_nhwc_plain``'s) from the NCHW weight; otherwise the
+WMMA core on the NCHW bands. ``_core`` forces one as in ``conv_band``.
 ``convt_norm_act_band`` (``ConvTNormActBand``) sums the stats over the
 spatial group and finishes with ``in_apply``; the backward is
 ``recompute_band_grads``.
@@ -45,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv_norm_act import (nhwc_gemm_plan, recompute_band_grads,
+from .conv_norm_act import (_ptr, nhwc_gemm_plan, recompute_band_grads,
                             recompute_grads)
 from .norm_act import (_aligned, act_code, dtype_flag, f32_scratch, in_apply,
                        in_stats_plain, instance_norm_act_plain, is_nhwc,
@@ -111,10 +116,8 @@ def _lib():
     lib.pgt_convt_splits.restype = i
     lib.pgt_convt_packed_k.argtypes = [i, i]
     lib.pgt_convt_packed_k.restype = i
-    lib.pgt_convt_band.argtypes = [p] * 7 + [i] * 8 + [p]
+    lib.pgt_convt_band.argtypes = [p] * 9 + [i] * 13 + [p]
     lib.pgt_convt_band.restype = i
-    lib.pgt_convt_band_splits.argtypes = [i] * 6
-    lib.pgt_convt_band_splits.restype = i
     lib.pgt_convt_pack_nhwc.argtypes = [p, p, i, i, i, i, p]
     lib.pgt_convt_pack_nhwc.restype = i
     lib.pgt_convt_in_act_nhwc.argtypes = [p] * 8 + [i] * 8 + [
@@ -311,10 +314,26 @@ def convt_band_plain(xh, w, skip=None):
     return acc, in_stats_plain(acc)
 
 
-def convt_band(xh, w, skip=None, split_batch=None):
-    """``convt_band_plain`` for CPU tensors; on CUDA tensors K3's pack and
-    GEMM over the band and the stats kernel (``pgt_convt_band``). Returns
-    (fp32 output, stats)."""
+def convt_band_plan(n, cx, cs, h, w, cout, dtype, split_batch=None,
+                    core=None):
+    """``nhwc_gemm_plan`` of K3's band form on haloed bands of x (n, cx, h,
+    w) and a skip of cs channels (0: none): h - 2 class rows. The wgmma
+    core reads the layout pass's channels_last copies, fresh allocations
+    on 16 bytes."""
+    return nhwc_gemm_plan((h - 2) * w, 4, (cx, cs), 4, cout, dtype, True,
+                          split_batch or n, core)
+
+
+def convt_band(xh, w, skip=None, split_batch=None, *, _core=None):
+    """``convt_band_plain`` for CPU tensors; on CUDA tensors
+    ``pgt_convt_band`` on the core ``convt_band_plan`` names: the layout
+    passes, the pack and the wgmma GEMM, or the pack and the WMMA GEMM,
+    then the stats. Returns (fp32 output, stats). ``_core`` (private) as
+    in ``conv_band``."""
+    if _core is not None:
+        n, cx, h, wd = xh.shape
+        convt_band_plan(n, cx, 0 if skip is None else skip.shape[1], h, wd,
+                        w.shape[1], xh.dtype, split_batch, _core)
     if xh.device.type == 'cpu':
         return convt_band_plain(xh, w, skip)
     require(xh, 'x', 4)
@@ -337,27 +356,32 @@ def convt_band(xh, w, skip=None, split_batch=None):
         raise ValueError(f"band {tuple(xh.shape)} has no output rows")
     require_aligned(w, 'w')
     lib = _lib()
-    tiles = -(-hc * wd // lib.pgt_tile_m())
-    split_batch = split_batch or n
-    splits = lib.pgt_convt_band_splits(split_batch, cx, cs, h, wd, cout)
-    acc = torch.empty((splits, n, cout, 2 * hc, 2 * wd), dtype=torch.float32,
-                      device=xh.device)
-    part = torch.empty((n, cout, 4 * tiles, 2), dtype=torch.float32,
-                       device=xh.device)
-    stats = torch.empty((n, cout, 2), dtype=torch.float32, device=xh.device)
+    plan = convt_band_plan(n, cx, cs, h, wd, cout, xh.dtype, split_batch,
+                           _core)
+    wgmma = plan.core == 'wgmma'
+    acc = f32_scratch(plan.splits, n, cout, 2 * hc, 2 * wd, like=xh)
+    part = f32_scratch(n, cout, plan.parts, 2, like=xh)
+    stats = f32_scratch(n, cout, 2, like=xh)
     wp = _packed(lib, w)
-    skip_ptr = skip.data_ptr() if skip is not None else None
-    with torch.cuda.device(xh.device):
+    # the layout pass's channels_last copies of the bands
+    xt, st = (torch.empty(t.numel(), dtype=t.dtype, device=t.device)
+              if wgmma and t is not None else None for t in (xh, skip))
+    with _build.device_guard(xh):
         rc = lib.pgt_convt_band(
-            xh.data_ptr(), skip_ptr, w.data_ptr(), wp.data_ptr(),
-            acc.data_ptr(), part.data_ptr(), stats.data_ptr(), n,
-            split_batch, cx, cs, h, wd, cout, flag, _build.stream_of(xh))
-    _build.check(rc, 'convt_band')
+            xh.data_ptr(), _ptr(skip), w.data_ptr(), wp.data_ptr(),
+            _ptr(xt), _ptr(st), acc.data_ptr(), part.data_ptr(),
+            stats.data_ptr(), n, split_batch or n, cx, cs, h, wd, cout, flag,
+            int(wgmma), plan.bn, plan.stages, plan.splits, plan.samples,
+            _build.stream_of(xh))
+    _build.check(rc, f'convt_band ({plan.core} core)')
     convt_band.launches += 1
+    convt_band.launches_wgmma += wgmma
     return acc[0], stats
 
 
 convt_band.launches = 0
+# of them the wgmma core's
+convt_band.launches_wgmma = 0
 
 
 def _convt_band(xh, w, skip):
