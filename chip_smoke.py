@@ -306,10 +306,17 @@ Run from the root of the repository. In order:
    layout pass and then the core; the launches by core counted) and on
    the WMMA core in fp32, their layout pass bit-equal to
    ``nchw_to_nhwc_plain``, the band instantiations' ptxas registers and
-   spills (none may spill); the bf16 ms of each on the top band beside
-   its plain version, its bound and the whole-plane kernel at the global
-   shape, K2's and K3's on both cores on the same values by events and by
-   a graph's replay, and their layout passes' ms on a line of their own;
+   spills (none may spill); ``in_bwd_sums``' and ``in_bwd_apply``'s kernels
+   (``csrc/band_norm.cuh``) also at their element paths (planes whose
+   bytes are no multiple of 16, x and g one element past 16 bytes) and in
+   all four activations, their ptxas registers and spills (none may
+   spill); the bf16 ms of each on the top band beside its plain version,
+   its bound and the whole-plane kernel at the global shape, K2's and
+   K3's on both cores on the same values by events and by a graph's
+   replay, and their layout passes' ms on a line of their own; the four
+   K1 / K1-bwd band entries by events and by a graph's replay, their sums
+   over the top band on lines of their own, ``in_bwd_sums``' and
+   ``in_bwd_apply``'s launch geometry in their rows;
    (b) two gloo
    ranks sharing the card at (dp, sp) = (1, 2), fp32, TF32 off, tanh,
    dropout off, one step at 256 px, global batch 2, against one process:
@@ -5410,6 +5417,17 @@ BAND_KERNELS = (
 # template argument true): ConvNhwcProblem / ConvTNhwcProblem<bf16, true,
 # true>
 BAND_MODE = 'Lb1ELb1EE'
+# the band forms of K1-bwd's sums and dx (csrc/band_norm.cuh): their
+# kernels' names, for ptxas's report
+BAND_NORM_MARKS = ('bwd_sums_group', 'bwd_sums_cluster', 'bwd_apply_vec')
+# the band entries of K1 and K1-bwd, timed also by a graph's replay
+BAND_NORM = ('in_stats', 'in_apply', 'in_bwd_sums', 'in_bwd_apply')
+# element-path and activation cases of in_bwd_sums and in_bwd_apply: planes of
+# 15 and 8643 elements (no multiple of 16 bytes in either dtype: element
+# by element, the small plane on a group, the large split over a
+# cluster), and a group's and a cluster's plane on the vector path
+BAND_NORM_EDGES = ((2, 8, 3, 5), (1, 4, 67, 129), (2, 16, 8, 8),
+                   (1, 2, 128, 256))
 
 
 def band_wrappers():
@@ -5483,11 +5501,18 @@ def band_kernel_phase(torch, F, whole):
     rows timed on both cores by events and by a graph's replay beside
     their layout passes alone (``core_row``); the layout pass bit-equal
     to its plain version at every band and at its element paths; ptxas's
-    report of the band instantiations. Returns {entry: {'rows': [...],
+    report of the band instantiations. ``in_bwd_sums`` and
+    ``in_bwd_apply`` (``csrc/band_norm.cuh``) also at ``BAND_NORM_EDGES``
+    in every activation and one element past 16 bytes, with their
+    kernels' ptxas report (none may spill); the four K1 / K1-bwd band
+    entries' rows also by a graph's replay (``device_ms``), ``in_bwd_sums``'
+    and ``in_bwd_apply``'s with their geometry. Returns {entry: {'rows': [...],
     'max_abs_err': the outputs' worst, 'max_sum_err': the sums' worst over
-    max(1, max |sum|), 'max_sum_abs_err': the sums' worst}}."""
+    max(1, max |sum|), 'max_sum_abs_err': the sums' worst}}, with
+    'ptxas' beside the rows of ``in_bwd_sums`` and ``in_bwd_apply``."""
     from patchgan_tpu_torch.ops import kernels as kn
     from patchgan_tpu_torch.ops.kernels import _build
+    from patchgan_tpu_torch.ops.kernels import norm_act as na
     from patchgan_tpu_torch.ops.kernels.conv_norm_act import conv_band_plan
     from patchgan_tpu_torch.ops.kernels.convt_norm_act import \
         convt_band_plan
@@ -5500,9 +5525,23 @@ def band_kernel_phase(torch, F, whole):
     if any(stores or loads for _, stores, loads in ptxas.values()):
         raise AssertionError(f'17a: the band mode of the wgmma core spills: '
                              f'{ptxas}')
+    norm_ptxas = wgmma_ptxas(_build.build_log, BAND_NORM_MARKS)
+    for mark in BAND_NORM_MARKS:
+        got = [v for (_, name), v in norm_ptxas.items() if mark in name]
+        if got:
+            print(f'  ptxas {mark}: {len(got)} instantiations, '
+                  f'{min(v[0] for v in got)}-{max(v[0] for v in got)} '
+                  f'registers, spill stores {sum(v[1] for v in got)} / '
+                  f'loads {sum(v[2] for v in got)} bytes', flush=True)
+    if any(stores or loads for _, stores, loads in norm_ptxas.values()):
+        raise AssertionError(f'17a: a band norm kernel spills: '
+                             f'{norm_ptxas}')
     gen = torch.Generator(device='cuda').manual_seed(17)
     res = {name: {'rows': [], 'max_abs_err': 0.0, 'max_sum_err': 0.0,
                   'max_sum_abs_err': 0.0} for name, _, _ in BAND_KERNELS}
+    for name in ('in_bwd_sums', 'in_bwd_apply'):
+        res[name]['ptxas'] = {k[1]: v for k, v in norm_ptxas.items()
+                              if (name == 'in_bwd_apply') == ('apply' in k[1])}
     eps, act = 1e-5, 'relu'
 
     def rand(*shape, scale=1.0):
@@ -5543,8 +5582,17 @@ def band_kernel_phase(torch, F, whole):
              'plain_ms': cuda_ms(plain, iters=10), 'whole_ms': whole_ms,
              'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
              **(extra or {})}
+        if name in BAND_NORM:
+            r['device_ms'] = device_ms(fn, iters=10)
         res[name]['rows'].append(r)
         print(json.dumps(r), flush=True)
+
+    def geometry(name, t):
+        """The launch geometry of band entry ``name`` on t (aligned)."""
+        planes, plane = t.shape[0] * t.shape[1], t.shape[2] * t.shape[3]
+        plan = na.band_bwd_apply_plan if name == 'in_bwd_apply' else \
+            na.band_sums_plan
+        return {'geometry': plan(planes, plane, t.dtype)._asdict()}
 
     def on_core(w, wgmma, fn):
         """fn(), which must launch band wrapper w once, on the wgmma core
@@ -5801,11 +5849,13 @@ def band_kernel_phase(torch, F, whole):
         row('in_bwd_sums', f'{label} {tuple(xb.shape)}',
             lambda: kn.in_bwd_sums(gb, xb, st, count, eps, act),
             lambda: kn.in_bwd_sums_plain(gb, xb, st, count, eps, act),
-            kb_ms, 9 * numel, 4 * numel, PEAK_FP32)
+            kb_ms, 9 * numel, 4 * numel, PEAK_FP32,
+            geometry('in_bwd_sums', xb))
         row('in_bwd_apply', f'{label} {tuple(xb.shape)}',
             lambda: kn.in_bwd_apply(gb, xb, st, u, count, eps, act),
             lambda: kn.in_bwd_apply_plain(gb, xb, st, u, count, eps, act),
-            kb_ms, 8 * numel, 6 * numel, PEAK_FP32)
+            kb_ms, 8 * numel, 6 * numel, PEAK_FP32,
+            geometry('in_bwd_apply', xb))
     # the layout pass's element paths and partial tiles: pixels a plane
     # no multiple of 8, channels no multiple of 8, the 16-pixel tile of
     # small planes (K2's weight takes it) with a partial channel tile, x
@@ -5815,6 +5865,44 @@ def band_kernel_phase(torch, F, whole):
         layout_check(rand(*shape).to(torch.bfloat16))
     t = rand(2 * 64 * 8 * 8 + 1).to(torch.bfloat16)[1:].view(2, 64, 8, 8)
     layout_check(t)
+    # in_bwd_sums' and in_bwd_apply's element paths, every activation,
+    # and x and g one element past 16 bytes (element by element)
+    for shape in BAND_NORM_EDGES:
+        x, g = rand(*shape), rand(*shape)
+        xo, go = rand(x.numel() + 1), rand(x.numel() + 1)
+        count = 2 * shape[2] * shape[3]
+        st = kn.in_stats_plain(x) * 2
+        cases = [(str(a), a, lambda dt: (x.to(dt), g.to(dt)))
+                 for a in (None, 'tanh', 'relu', 'leakyrelu')]
+        cases.append(('relu, one element past 16 bytes', 'relu',
+                      lambda dt: (xo.to(dt)[1:].view(shape),
+                                  go.to(dt)[1:].view(shape))))
+        for alabel, a, make in cases:
+            for dname, dt in dts:
+                xd, gd = make(dt)
+                want = kn.in_bwd_sums_plain(gd.float(), xd.float(), st, count,
+                                            eps, a)
+                u = kn.in_bwd_sums(gd, xd, st, count, eps, a)
+                check('in_bwd_sums', f'{shape} {alabel} {dname}', u, want,
+                      scaled(want, dname), 'max_sum_err')
+                want = kn.in_bwd_apply_plain(gd.float(), xd.float(), st, u,
+                                             count, eps, a)
+                check('in_bwd_apply', f'{shape} {alabel} {dname}',
+                      kn.in_bwd_apply(gd, xd, st, u, count, eps, a), want,
+                      TOL_BWD[dname] * max(1.0, want.abs().max().item()))
+                if a == 'relu':
+                    same_bits('in_bwd_sums', lambda: kn.in_bwd_sums(
+                        gd, xd, st, count, eps, a))
+                    same_bits('in_bwd_apply', lambda: kn.in_bwd_apply(
+                        gd, xd, st, u, count, eps, a))
+    for name in BAND_NORM:
+        rows = res[name]['rows']
+        total = {k: sum(r[k] for r in rows)
+                 for k in ('kernel_ms', 'device_ms', 'bound_ms')}
+        print(f'  {name} over the {len(rows)} levels of the sp {SP} top '
+              f'band, bf16: {total["kernel_ms"]:.4f} ms by events, '
+              f'{total["device_ms"]:.4f} by a graph\'s replay; bound '
+              f'{total["bound_ms"]:.4f}', flush=True)
     for name in ('conv_band', 'convt_band'):
         rows = res[name]['rows']
         total = {k: sum(r[k] for r in rows) for k in (
@@ -6434,9 +6522,10 @@ def nhwc_launched(w, fn, one_pass=None, wgmma=None):
     return out
 
 
-def wgmma_ptxas(log_by_lib):
-    """ptxas's report of each wgmma-core kernel this process built (the
-    build's -Xptxas=-v): {(library, kernel): (registers, spill stores,
+def wgmma_ptxas(log_by_lib, marks=('conv_wgmma_kernel',)):
+    """ptxas's report of each kernel this process built (the build's
+    -Xptxas=-v) whose mangled name holds one of ``marks`` (the wgmma
+    core's by default): {(library, kernel): (registers, spill stores,
     spill loads)}; empty where no build ran."""
     out = {}
     for lib, log in log_by_lib.items():
@@ -6444,7 +6533,7 @@ def wgmma_ptxas(log_by_lib):
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
-                name = m.group(1) if 'conv_wgmma_kernel' in m.group(1) \
+                name = m.group(1) if any(k in m.group(1) for k in marks) \
                     else None
                 continue
             if name is None:
@@ -7254,6 +7343,11 @@ def main(only=None):
             'bound_by': max(rows, key=lambda r: r['bound_ms'])['bound_by'],
             'library_ms': None,
             'whole_plane_ms': sum(r['whole_ms'] for r in rows)})
+        if name in BAND_NORM:
+            summary[-1]['device_ms'] = sum(r['device_ms'] for r in rows)
+        if name in ('in_bwd_sums', 'in_bwd_apply'):
+            summary[-1]['kernel_source'] = \
+                'patchgan_tpu_torch/csrc/band_norm.cuh'
         if name in ('conv_band', 'convt_band'):
             # bf16 on the wgmma core (phase 15's spatial mode), fp32 on
             # the WMMA core (17b's step, launches above)

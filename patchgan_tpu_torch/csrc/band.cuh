@@ -15,12 +15,14 @@
 // entries (conv_norm_act.cu, convt_norm_act.cu) end in the stats of their
 // fp32 output, and their finish is `apply` on that output.
 //
-// Bound on the H100: bytes, as K1 and K1-bwd. Design: simple first. A stats
-// kernel gives one block to a plane and reduces in a fixed order (strided
-// thread sums, then block_sum2), with no atomics, so two launches give the
-// same bits; apply and bwd-apply are elementwise over blocks of
-// APPLY_SPAN elements of one plane, each block reading its plane's sums
-// once.
+// Bound on the H100: bytes, as K1 and K1-bwd. Design: simple first here.
+// The stats kernel gives one block to a plane and reduces in a fixed order
+// (strided thread sums, then block_sum2), with no atomics, so two launches
+// give the same bits; apply is elementwise over blocks of APPLY_SPAN
+// elements of one plane, each block reading its plane's stats once. The
+// backward's two halves are band_norm.cuh's (a plane's sums split over a
+// thread-block cluster with 16-byte loads, dx walked as one range of
+// 16-byte vectors).
 #pragma once
 
 #include "in_common.cuh"
@@ -68,50 +70,6 @@ __global__ void __launch_bounds__(THREADS)
   Tout* yp = y + p * plane;
   for (long i = lo + threadIdx.x; i < hi; i += blockDim.x)
     yp[i] = from_f32<Tout>(activate((to_f32(xp[i]) - st.x) * st.y, act));
-}
-
-// Block p: sums[p] = (sum gm, sum gm * xhat) over this band of plane p,
-// with gm = g * act'(xhat), xhat from the plane's global stats.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    bwd_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                    const float2* __restrict__ stats,
-                    float2* __restrict__ sums, long plane, float count,
-                    float eps, int act) {
-  const float2 st = mean_rstd(stats[blockIdx.x], count, eps);
-  const T* gp = g + blockIdx.x * plane;
-  const T* xp = x + blockIdx.x * plane;
-  float s1 = 0.f, s2 = 0.f;
-  for (long i = threadIdx.x; i < plane; i += blockDim.x) {
-    const float xh = (to_f32(xp[i]) - st.x) * st.y;
-    const float gm = to_f32(gp[i]) * activate_grad(xh, act);
-    s1 += gm;
-    s2 += gm * xh;
-  }
-  const float2 t = block_sum2(s1, s2);
-  if (threadIdx.x == 0) sums[blockIdx.x] = t;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    bwd_apply_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                     const float2* __restrict__ stats,
-                     const float2* __restrict__ sums, T* __restrict__ dx,
-                     long plane, int spans, float count, float eps, int act) {
-  const long p = blockIdx.x / spans;
-  const long lo = (blockIdx.x % spans) * APPLY_SPAN;
-  const long hi = lo + APPLY_SPAN < plane ? lo + APPLY_SPAN : plane;
-  const float2 st = mean_rstd(stats[p], count, eps);
-  const float2 u = sums[p];
-  const float m1 = u.x / count, m2 = u.y / count;
-  const T* gp = g + p * plane;
-  const T* xp = x + p * plane;
-  T* dp = dx + p * plane;
-  for (long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    const float xh = (to_f32(xp[i]) - st.x) * st.y;
-    const float gm = to_f32(gp[i]) * activate_grad(xh, act);
-    dp[i] = from_f32<T>(st.y * (gm - m1 - xh * m2));
-  }
 }
 
 // After a fused conv's GEMM without a K split: stats[p] = the sum, in

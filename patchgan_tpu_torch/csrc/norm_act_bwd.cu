@@ -32,9 +32,11 @@
 // 16 goes element by element.
 //
 // Band form (spatial parallelism, band.cuh): pgt_in_bwd_sums gives a band's
-// per-plane (sum gm, sum gm * xhat) from the plane's global statistics, and
-// pgt_in_bwd_apply writes the band's dx from those sums summed over the
-// spatial group.
+// per-plane (sum gm, sum gm * xhat) from the plane's global statistics
+// (band_norm.cuh: small planes on the plane machinery above, larger ones
+// split over a thread-block cluster), and pgt_in_bwd_apply writes the
+// band's dx from those sums summed over the spatial group (band_norm.cuh:
+// the band walked as one range of 16-byte vectors).
 //
 // NHWC form (channels_last): g and x in [N, H, W, C] order.
 // pgt_in_act_bwd_nhwc_one_pass (norm_nhwc_cluster.cuh): one launch, a
@@ -47,6 +49,7 @@
 // of contiguous channels and a segment of one sample's pixels.
 
 #include "band.cuh"
+#include "band_norm.cuh"
 #include "norm_nhwc.cuh"
 #include "norm_nhwc_cluster.cuh"
 #include "norm_plane.cuh"
@@ -206,54 +209,62 @@ extern "C" int pgt_in_act_bwd(const void* g, const void* x, void* dx,
 // Band form. g, x: [planes, plane] contiguous, both bf16 (bf16 != 0) or
 // fp32; stats: the planes' global fp32 (sum, sum of squares) of the
 // forward's input, count: a plane's global element count; sums: out, fp32
-// pairs. Returns cudaGetLastError().
+// pairs. vec, group, per_thread, threads, cluster: the launch geometry
+// (band_norm.cuh), chosen by band_sums_plan in ops/kernels/norm_act.py.
+// Returns cudaErrorInvalidValue for what the kernels cannot take, else
+// the launch's error or cudaGetLastError() after it.
 extern "C" int pgt_in_bwd_sums(const void* g, const void* x,
                                const void* stats, void* sums, long planes,
                                long plane, float count, int act, float eps,
-                               int bf16, void* stream) {
+                               int bf16, int vec, int group, int per_thread,
+                               int threads, int cluster, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (planes <= 0 || plane <= 0 || !(count > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const float2* sp = static_cast<const float2*>(stats);
   float2* out = static_cast<float2*>(sums);
+  namespace bn = pgt::band;
   if (bf16) {
     using B = __nv_bfloat16;
-    pgt::band::bwd_sums_kernel<<<planes, pgt::band::THREADS, 0, st>>>(
-        static_cast<const B*>(g), static_cast<const B*>(x), sp, out, plane,
-        count, eps, act);
-  } else {
-    pgt::band::bwd_sums_kernel<<<planes, pgt::band::THREADS, 0, st>>>(
-        static_cast<const float*>(g), static_cast<const float*>(x), sp, out,
-        plane, count, eps, act);
+    const bn::SumsArgs<B> a{static_cast<const B*>(g),
+                            static_cast<const B*>(x), sp, out, planes,
+                            plane, count, eps};
+    return static_cast<int>(bn::launch_bwd_sums(
+        a, act, vec, group, per_thread, threads, cluster, st));
   }
-  return static_cast<int>(cudaGetLastError());
+  const bn::SumsArgs<float> a{static_cast<const float*>(g),
+                              static_cast<const float*>(x), sp, out, planes,
+                              plane, count, eps};
+  return static_cast<int>(bn::launch_bwd_sums(a, act, vec, group,
+                                              per_thread, threads, cluster,
+                                              st));
 }
 
 // Band form. dx from g, x, the global stats and the (sum gm, sum gm *
-// xhat) pairs summed over the band's group. Returns cudaGetLastError().
+// xhat) pairs summed over the band's group. vec, unroll, grid: the launch
+// geometry (band_norm.cuh), chosen by band_bwd_apply_plan in
+// ops/kernels/norm_act.py. Returns cudaErrorInvalidValue for what the
+// kernel cannot take, else cudaGetLastError() after the launch.
 extern "C" int pgt_in_bwd_apply(const void* g, const void* x,
                                 const void* stats, const void* sums, void* dx,
                                 long planes, long plane, float count, int act,
-                                float eps, int bf16, void* stream) {
+                                float eps, int bf16, int vec, int unroll,
+                                long grid, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (planes <= 0 || plane <= 0 || !(count > 0.f))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int spans = pgt::band::spans_of(plane);
+  if (!(count > 0.f)) return static_cast<int>(cudaErrorInvalidValue);
   const float2* sp = static_cast<const float2*>(stats);
   const float2* up = static_cast<const float2*>(sums);
   if (bf16) {
     using B = __nv_bfloat16;
-    pgt::band::bwd_apply_kernel<<<planes * spans, pgt::band::THREADS, 0,
-                                  st>>>(
+    return static_cast<int>(pgt::band::launch_bwd_apply(
         static_cast<const B*>(g), static_cast<const B*>(x), sp, up,
-        static_cast<B*>(dx), plane, spans, count, eps, act);
-  } else {
-    pgt::band::bwd_apply_kernel<<<planes * spans, pgt::band::THREADS, 0,
-                                  st>>>(
-        static_cast<const float*>(g), static_cast<const float*>(x), sp, up,
-        static_cast<float*>(dx), plane, spans, count, eps, act);
+        static_cast<B*>(dx), planes, plane, count, eps, act, vec, unroll,
+        grid, st));
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(pgt::band::launch_bwd_apply(
+      static_cast<const float*>(g), static_cast<const float*>(x), sp, up,
+      static_cast<float*>(dx), planes, plane, count, eps, act, vec, unroll,
+      grid, st));
 }
 
 // NHWC form. g, x, dx: [n, hw, c] (hw = H * W), all bf16 (bf16 != 0) or

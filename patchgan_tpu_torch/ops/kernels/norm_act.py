@@ -33,7 +33,11 @@ a band's per-plane fp32 (sum, sum of squares) [N, C, 2]; ``in_apply``
 normalises a band from the stats summed over the group and the plane's
 global element count; ``in_bwd_sums`` and ``in_bwd_apply`` are K1-bwd's
 two halves around the sum of (sum gm, sum gm * xhat). Each has a
-``_plain`` version beside it and a ``launches`` count.
+``_plain`` version beside it and a ``launches`` count. ``in_bwd_sums``
+and ``in_bwd_apply`` run ``csrc/band_norm.cuh``'s kernels, whose geometry
+``band_sums_plan`` (a small plane on K1-bwd's plane machinery, a larger
+one split over a thread-block cluster) and ``band_bwd_apply_plan`` (the
+band walked as one range of 16-byte chunks) choose.
 ``instance_norm_act_band`` (``InstanceNormActBand``) is K1 over a band,
 the group's sums taken by collectives between the launches; its residuals
 are the band and the plane's global stats, so its backward takes one sum
@@ -355,6 +359,79 @@ def _nhwc_choice(kernel, n, hw, c, dtype, inputs, *tensors):
     return plan
 
 
+# the band forms of K1-bwd's two halves (csrc/band_norm.cuh): threads a
+# CTA, the chunks of each input a thread keeps in flight, the CTAs the
+# sums of one plane may split over (a cluster: the portable limit), the
+# most CTAs a split takes, and dx's grid: at least DX_BLOCKS_MIN blocks
+# while a thread keeps more than one chunk, at most 32 an SM of an H100
+# (the blocks then walk the range in rounds); set from the geometries
+# timed on an H100 by ``tools/norm_act_variants.py --band --sweep``
+# (PERF.md)
+BAND_THREADS = 256
+BAND_UNROLL = 4
+BAND_CTAS_AIM = 512
+DX_BLOCKS_MIN = 256
+DX_BLOCKS_MAX = 32 * 132
+
+BandSums = collections.namedtuple(
+    'BandSums', 'vec group per_thread threads cluster seg grid')
+
+
+@functools.lru_cache(maxsize=None)
+def band_sums_plan(planes, plane, dtype, aligned=True):
+    """``in_bwd_sums``' launch geometry for ``planes`` contiguous planes of
+    ``plane`` elements of ``dtype``; its fields from ``vec`` to
+    ``cluster`` are the C entry point's geometry arguments.
+
+    A chunk is 16 bytes where the plane's bytes are a multiple of 16 and
+    g and x are ``aligned``, else one element. A plane of at most
+    BAND_THREADS * BAND_UNROLL chunks takes the group kernel with
+    ``plane_geometry``'s (vec, group, per_thread, threads) and ``cluster``
+    0. A larger one is split into ``cluster`` segments of ``seg`` chunks,
+    a CTA of BAND_THREADS each (``grid`` CTAs in all): twice as many while
+    the grid stays within BAND_CTAS_AIM CTAs, each CTA keeps at least
+    BAND_UNROLL chunks a thread, and the cluster holds at most
+    CLUSTER_MAX."""
+    esize = dtype.itemsize
+    vec = aligned and plane * esize % 16 == 0
+    chunks = plane // (16 // esize) if vec else plane
+    if chunks <= BAND_THREADS * BAND_UNROLL:
+        geo = plane_geometry(planes, plane, dtype, aligned)
+        return BandSums(geo.vec, geo.group, geo.per_thread, geo.threads, 0,
+                        chunks, geo.grid)
+    cluster = 1
+    while cluster < CLUSTER_MAX and planes * 2 * cluster <= BAND_CTAS_AIM \
+            and chunks // (2 * cluster) >= BAND_THREADS * BAND_UNROLL:
+        cluster *= 2
+    return BandSums(vec, BAND_THREADS, BAND_UNROLL, BAND_THREADS, cluster,
+                    -(-chunks // cluster), planes * cluster)
+
+
+BandDx = collections.namedtuple('BandDx', 'vec width unroll grid')
+
+
+@functools.lru_cache(maxsize=None)
+def band_bwd_apply_plan(planes, plane, dtype, aligned=True):
+    """``in_bwd_apply``'s launch geometry over ``planes`` contiguous planes
+    of ``plane`` elements of ``dtype``; ``vec``, ``unroll`` and ``grid``
+    are the C entry point's geometry arguments.
+
+    The range is walked in chunks of 16 bytes (``vec``) where the plane's
+    bytes are a multiple of 16 and g, x and dx are ``aligned``, else of
+    one element (``width`` elements each). A thread keeps ``unroll``
+    chunks of g and x in flight: BAND_UNROLL, halved while the grid would
+    have fewer than DX_BLOCKS_MIN blocks; the grid covers the range once,
+    or in rounds of at most DX_BLOCKS_MAX blocks."""
+    vec = aligned and plane * dtype.itemsize % 16 == 0
+    width = 16 // dtype.itemsize if vec else 1
+    n = planes * (plane // width)
+    unroll = BAND_UNROLL
+    while unroll > 1 and -(-n // (BAND_THREADS * unroll)) < DX_BLOCKS_MIN:
+        unroll //= 2
+    return BandDx(vec, width, unroll,
+                  min(-(-n // (BAND_THREADS * unroll)), DX_BLOCKS_MAX))
+
+
 def f32_scratch(*shape, like):
     """An empty fp32 tensor of ``shape`` on ``like``'s device."""
     return torch.empty(shape, dtype=torch.float32, device=like.device)
@@ -641,9 +718,11 @@ def _band_lib():
 def _band_bwd_lib():
     lib = _bwd_lib()
     p, i, lg, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
-    lib.pgt_in_bwd_sums.argtypes = [p, p, p, p, lg, lg, f, i, f, i, p]
+    lib.pgt_in_bwd_sums.argtypes = [p, p, p, p, lg, lg, f, i, f] + [i] * 6 \
+        + [p]
     lib.pgt_in_bwd_sums.restype = i
-    lib.pgt_in_bwd_apply.argtypes = [p, p, p, p, p, lg, lg, f, i, f, i, p]
+    lib.pgt_in_bwd_apply.argtypes = [p, p, p, p, p, lg, lg, f, i, f, i, i,
+                                     i, lg, p]
     lib.pgt_in_bwd_apply.restype = i
     return lib
 
@@ -705,11 +784,13 @@ def in_bwd_sums(g, x, stats, count, eps=1e-5, activation=None):
     _require_stats(stats, 'stats', x)
     planes, plane = _planes(x)
     sums = _pair_buffer(x)
+    plan = band_sums_plan(planes, plane, g.dtype, _aligned(g, x))
     with _build.device_guard(g):
         rc = _band_bwd_lib().pgt_in_bwd_sums(
             g.data_ptr(), x.data_ptr(), stats.data_ptr(), sums.data_ptr(),
             planes, plane, float(count), act, eps, dtype_flag(g),
-            _build.stream_of(g))
+            int(plan.vec), plan.group, plan.per_thread, plan.threads,
+            plan.cluster, _build.stream_of(g))
     _build.check(rc, 'in_bwd_sums')
     in_bwd_sums.launches += 1
     return sums
@@ -730,11 +811,13 @@ def in_bwd_apply(g, x, stats, sums, count, eps=1e-5, activation=None):
     _require_stats(sums, 'sums', x)
     planes, plane = _planes(x)
     dx = torch.empty_like(g)
+    plan = band_bwd_apply_plan(planes, plane, g.dtype, _aligned(g, x, dx))
     with _build.device_guard(g):
         rc = _band_bwd_lib().pgt_in_bwd_apply(
             g.data_ptr(), x.data_ptr(), stats.data_ptr(), sums.data_ptr(),
             dx.data_ptr(), planes, plane, float(count), act, eps,
-            dtype_flag(g), _build.stream_of(g))
+            dtype_flag(g), int(plan.vec), plan.unroll, plan.grid,
+            _build.stream_of(g))
     _build.check(rc, 'in_bwd_apply')
     in_bwd_apply.launches += 1
     return dx
