@@ -25,11 +25,20 @@ Run from the root of the repository. In order:
    elements, a plane count no multiple of a block's planes, 1x1, 1x3 and
    6x10 planes, inputs one element past a 16-byte boundary; all four
    activations at 4x4), and two launches on the same inputs must give
-   equal bits. Times (CUDA events): the kernel, its plain version, and a
+   equal bits. K2 and K3 (their NCHW forms) run all four activations at
+   every level: in bf16 on the planner's core (the wgmma core of
+   ``csrc/conv_wgmma.cuh`` behind its layout passes at the nf=64 widths;
+   the ragged K3 case on the WMMA core of ``csrc/conv_gemm.cuh``) and on
+   the WMMA core forced (``_core='wmma'``), in fp32 on the WMMA core,
+   each launch counted on the core it must take; ptxas's report of the
+   NCHW instantiations of the wgmma core (none may spill). Times (CUDA
+   events): the kernel, its plain version, and a
    library yardstick (cuDNN conv + F.instance_norm + activation, which
    the port never calls), beside the bound max(FLOPs / peak, bytes / 3.35
    TB/s); K1's row also carries its device time (a CUDA graph's
-   replay, without the wrapper's host work) and launch geometry;
+   replay, without the wrapper's host work) and launch geometry, K2's and
+   K3's their device time, both cores by events and by a graph's replay,
+   the layout passes alone and the library call by a replay;
    then K4 (the thin 3x3 conv of the s2d boundary form) and K4-wgrad (its
    weight gradient) at every shape of the s2d paths: enc0 of an 8-tile
    inference chunk (12 -> 64 channels on the 128 x 128 s2d grid), the
@@ -385,6 +394,12 @@ Run from the root of the repository. In order:
    phase 7's plain parity, these checks, then phase 10's timing of the
    NCHW and the two channels_last steps alone.
 
+K2's and K3's launches on the wgmma core are counted on every bf16 path
+at the nf=64 widths (``wgmma_grew``): they must grow in phases 3, 4
+(bf16; none in fp32), 5, 10 (the NCHW configurations' first steps), 11
+(six and five a bf16 spatial image; none in fp32), 12 and 15, and be all
+of K2's and K3's launches in phases 3, 4, 5, 8 and 10.
+
 It prints a JSON summary of the kernels (launches from the s2d training
 run, which drives all six; every path's counts beside them, the
 spatial, serve, pipeline, data-parallel, mesh, spatial-mesh (a device's
@@ -427,6 +442,9 @@ TOL_BWD = {'float32': 1e-3, 'bfloat16': 3e-2}   # times max(1, max |dx|)
 # fp32 operations per element of K1-bwd: statistics 3, the two sums 6,
 # dx 5 (act' counted as one)
 BWD_FLOPS = 14
+# the mangled name's mark of the wgmma core's NCHW problems (H padded, an
+# NCHW acc): ConvNhwcProblem / ConvTNhwcProblem<bf16, true, true, false>
+NCHW_MODE = 'Lb1ELb1ELb0EE'
 # launches of K1, K2, K3, K1-bwd, K4, K4-wgrad per train step and per
 # validation batch. s2d step: K4 6 = enc0 1 + the fake conv0's image and
 # mask parts inside G's loss 2 + the paired D step's shared image part
@@ -449,20 +467,20 @@ FT_STEP = {'off': [1, 6, 5, 5, 0, 0], 'on': [1, 6, 5, 5, 6, 3]}
 # K2 + K3 recomputes (recompute_grads) per full and per frozen step
 RECOMPUTES = {'full': 6 + 5, 'frozen': 5}
 # the device kernel of each of K1, K2, K3, K1-bwd, K4, K4-wgrad, one a
-# wrapper's launch, as the profiler names it (every part must appear)
+# wrapper's launch, as the profiler names it (every part must appear); K2
+# and K3 in bf16 at config 2's shapes: the GEMM of the wgmma core
+# (csrc/conv_wgmma.cuh), whose problem structs both forms use
 PROFILE_NAMES = (('pgt::in_act_kernel<',),
-                 ('pgt::conv_gemm_kernel<', 'pgt::ConvProblem<'),
-                 ('pgt::conv_gemm_kernel<', 'pgt::ConvTProblem<'),
+                 ('pgt::conv_wgmma_kernel<', 'pgt::ConvNhwcProblem<'),
+                 ('pgt::conv_wgmma_kernel<', 'pgt::ConvTNhwcProblem<'),
                  ('pgt::in_act_bwd_kernel<',), ('pgt::thin::thin_fwd<',),
                  ('pgt::thin::thin_wgrad<',))
 # the same for the NHWC forms in bf16: K1's and K1-bwd's one-pass kernels
-# (csrc/norm_nhwc_cluster.cuh) and K2's and K3's wgmma core
-# (csrc/conv_wgmma.cuh), which config 2's step shapes take
+# (csrc/norm_nhwc_cluster.cuh)
 PROFILE_NAMES_NHWC = (('pgt::nhwc::one_pass::in_act_one_pass<',),
-                      ('pgt::conv_wgmma_kernel<', 'pgt::ConvNhwcProblem<'),
-                      ('pgt::conv_wgmma_kernel<', 'pgt::ConvTNhwcProblem<'),
+                      *PROFILE_NAMES[1:3],
                       ('pgt::nhwc::one_pass::in_act_bwd_one_pass<',),
-                      ('pgt::thin::thin_fwd<',), ('pgt::thin::thin_wgrad<',))
+                      *PROFILE_NAMES[4:])
 # launches of K1, K2, K3, K1-bwd, K4, K4-wgrad per train step with
 # UNet(remat=...), by (remat, s2d form): the checkpointed blocks run
 # their core again in the backward (enc0's conv, K4 in the s2d form, and
@@ -711,13 +729,51 @@ def kernel_phase(torch, F, kernels, spatial=False):
     """K1-K3 against their plain versions at ``make_cases``'s shapes, with
     timing rows in ``kernel.rows``; ``spatial``: at the shapes of one
     whole 1280 x 960 image (``SPATIAL_PAD``), rows in
-    ``kernel.spatial_rows``, without the K1 edge cases."""
-    from patchgan_tpu_torch.ops.kernels import (pack_convt_weight,
+    ``kernel.spatial_rows``, without the K1 edge cases. K2 and K3 (their
+    NCHW forms) in every activation at every level: in bf16 on the
+    planner's core (the wgmma core wherever the channel runs are multiples
+    of 64) and on the WMMA core forced (``_core='wmma'``), in fp32 on the
+    WMMA core, each launch counted on the core it must take; their rows
+    add both cores by events and by a graph's replay (``device_ms``), the
+    layout passes the wgmma core's C call makes, alone, and the library
+    call by a replay. Outside ``spatial``, ptxas's report of the NCHW
+    instantiations of the wgmma core (none may spill)."""
+    from patchgan_tpu_torch.ops.kernels import (_build, nchw_to_nhwc,
+                                                pack_convt_weight,
                                                 pack_convt_weight_plain)
+    from patchgan_tpu_torch.ops.kernels.conv_norm_act import conv_nhwc_plan
+    from patchgan_tpu_torch.ops.kernels.convt_norm_act import \
+        convt_nhwc_plan
     shapes = (1,) + SPATIAL_PAD if spatial else (B, SIZE, SIZE)
+    if not spatial:
+        ptxas = {k: v for k, v in wgmma_ptxas(_build.build_log).items()
+                 if NCHW_MODE in k[1]}
+        for (lib, name), (regs, stores, loads) in sorted(ptxas.items()):
+            print(f'  ptxas {lib} {name}: {regs} registers, spill stores '
+                  f'{stores} / loads {loads} bytes', flush=True)
+        if any(stores or loads for _, stores, loads in ptxas.values()):
+            raise AssertionError(f'the NCHW mode of the wgmma core spills: '
+                                 f'{ptxas}')
 
-    def err(kernel, args32, args):
-        got = kernel.wrapper(*args).float()
+    def plan_of(kernel, args):
+        """The planner's core for a K2 / K3 call on ``args`` (NCHW)."""
+        x, w = args[:2]
+        n, c, h, wd = x.shape
+        if kernel.name == 'conv_norm_act':
+            return conv_nhwc_plan(n, c, h, wd, w.shape[0], x.dtype)
+        return convt_nhwc_plan(n, c, args[4].shape[1], h, wd, w.shape[1],
+                               x.dtype)
+
+    def err(kernel, args32, args, kw=None, wgmma=None):
+        """The kernel's max abs error against the plain version; where
+        ``wgmma`` is True or False, its launch counted on the wgmma core
+        or not."""
+        before = getattr(kernel.wrapper, 'launches_wgmma', 0)
+        got = kernel.wrapper(*args, **(kw or {})).float()
+        took = getattr(kernel.wrapper, 'launches_wgmma', 0) - before
+        if wgmma is not None and took != int(wgmma):
+            raise AssertionError(f'{kernel.name}: {took} launches on the '
+                                 f'wgmma core, expected {int(wgmma)}')
         want = kernel.plain(*args32).float()
         torch.cuda.synchronize()
         return (got - want).abs().max().item()
@@ -727,6 +783,7 @@ def kernel_phase(torch, F, kernels, spatial=False):
 
     for kernel, label, make, library, flops, elems, all_acts in \
             make_cases(torch, F, kernels, *shapes):
+        conv = kernel.name != 'instance_norm_act'
         errs = {}
         for dname, dt in (('bfloat16', torch.bfloat16),
                           ('float32', torch.float32)):
@@ -736,18 +793,29 @@ def kernel_phase(torch, F, kernels, spatial=False):
                                    pack_convt_weight_plain(w)):
                     raise AssertionError(f'K3 pack {label} {dname} differs')
                 print(f'  K3 pack {label} {dname}: equal', flush=True)
-            for act in (ACTS if all_acts else ('relu',)):
+            for act in (ACTS if all_acts or conv else ('relu',)):
                 args = make(dt, act)
-                e = err(kernel, as_fp32(args), args)
-                ok = e <= TOL[dname]
-                print(f'  {kernel.name} {label} {dname} act={act}: '
-                      f'max_abs_err {e:.3e} (tol {TOL[dname]:.0e})'
-                      f'{"" if ok else "  FAIL"}', flush=True)
-                if not ok:
-                    raise AssertionError(f'{kernel.name} {label} {dname} '
-                                         f'act={act}: {e} > {TOL[dname]}')
-                errs.setdefault(dname, 0.0)
-                errs[dname] = max(errs[dname], e)
+                cores = [('', None, None)]
+                if conv:
+                    wgmma = plan_of(kernel, args).core == 'wgmma'
+                    cores = [(' on the wgmma core' if wgmma else
+                              ' on the WMMA core', None, wgmma)]
+                    if wgmma:
+                        cores.append((' on the WMMA core forced',
+                                      {'_core': 'wmma'}, False))
+                for where, kw, on in cores:
+                    e = err(kernel, as_fp32(args), args, kw, on)
+                    ok = e <= TOL[dname]
+                    print(f'  {kernel.name} {label} {dname} act={act}'
+                          f'{where}: max_abs_err {e:.3e} (tol '
+                          f'{TOL[dname]:.0e}){"" if ok else "  FAIL"}',
+                          flush=True)
+                    if not ok:
+                        raise AssertionError(f'{kernel.name} {label} '
+                                             f'{dname} act={act}{where}: '
+                                             f'{e} > {TOL[dname]}')
+                    key = dname + ('_wmma' if kw else '')
+                    errs[key] = max(errs.get(key, 0.0), e)
         if label.startswith(('H!=W', 'ragged')):
             continue
         args = make(torch.bfloat16)
@@ -764,8 +832,47 @@ def kernel_phase(torch, F, kernels, spatial=False):
         if kernel.name == 'instance_norm_act':
             row.update(device_ms=device_ms(lambda: kernel.wrapper(*args)),
                        **norm_geometry(args[0].shape, torch.bfloat16))
+        else:
+            # both cores by events and by a graph's replay; the layout
+            # passes of the wgmma core's C call (x and the weight for K2,
+            # x and skip for K3) alone
+            plan = plan_of(kernel, args)
+            moved = args[:2] if kernel.name == 'conv_norm_act' else \
+                (args[0], args[4])
+            fns = {'kernel': lambda: kernel.wrapper(*args),
+                   'wmma': lambda: kernel.wrapper(*args, _core='wmma'),
+                   'layout': lambda: [nchw_to_nhwc(t) for t in moved],
+                   'library': lambda: library(*args)}
+            ev = {k: cuda_ms(fns[k]) for k in ('wmma', 'layout')}
+            dev = {k: device_ms(f) for k, f in fns.items()}
+            row.update(core=plan.core, bn=plan.bn, stages=plan.stages,
+                       splits=plan.splits, samples_a_tile=plan.samples,
+                       device_ms=dev['kernel'], wmma_ms=ev['wmma'],
+                       wmma_device_ms=dev['wmma'], layout_ms=ev['layout'],
+                       layout_device_ms=dev['layout'],
+                       layout_bound_ms=bound(
+                           0, 4 * sum(t.numel() for t in moved),
+                           PEAK_BF16)[0],
+                       library_device_ms=dev['library'],
+                       max_abs_err_wmma_bf16=errs['bfloat16_wmma'])
         (kernel.spatial_rows if spatial else kernel.rows).append(row)
         print(json.dumps(row), flush=True)
+    for k in kernels[1:]:
+        rows = k.spatial_rows if spatial else k.rows
+        total = {key: sum(r[key] for r in rows) for key in (
+            'kernel_ms', 'device_ms', 'wmma_ms', 'wmma_device_ms',
+            'layout_ms', 'layout_device_ms', 'library_ms',
+            'library_device_ms', 'bound_ms')}
+        print(f'  {k.name} over its {len(rows)} levels at '
+              f'{"the image" if spatial else "8 tiles"}, bf16: the wgmma '
+              f'core {total["kernel_ms"]:.4f} ms by events, '
+              f'{total["device_ms"]:.4f} by a graph\'s replay (the layout '
+              f'passes {total["layout_ms"]:.4f} / '
+              f'{total["layout_device_ms"]:.4f}); the WMMA core '
+              f'{total["wmma_ms"]:.4f} / {total["wmma_device_ms"]:.4f}; '
+              f'cuDNN {total["library_ms"]:.4f} / '
+              f'{total["library_device_ms"]:.4f}; bound '
+              f'{total["bound_ms"]:.4f}', flush=True)
     if spatial:
         return
     k1 = kernels[0]
@@ -1193,9 +1300,30 @@ def dcp_train_child():
 
 
 # the NHWC forms' launches by path (K1, K2, K3, K1-bwd), as phase 8 counts
-# them, of K1's and K1-bwd's those on the one-pass kernel, and of K2's and
-# K3's those on the wgmma core
+# them, of K1's and K1-bwd's those on the one-pass kernel, and K2's and
+# K3's launches on the wgmma core by path, in either form
 NHWC_PATHS, ONE_PASS_PATHS, WGMMA_PATHS = {}, {}, {}
+
+
+def wgmma_grew(path, fn, exact=True):
+    """fn(), a bf16 path at the nf=64 widths, and K2's and K3's launches
+    on the wgmma core during it (``WGMMA_PATHS[path]``), which must have
+    grown; ``exact``: every launch of theirs during it on that core (a
+    path whose phase resets the launch counts, or that runs fp32 too,
+    checks its own)."""
+    from patchgan_tpu_torch.ops.kernels import conv_norm_act, convt_norm_act
+    ws = (conv_norm_act, convt_norm_act)
+    before = [(w.launches, w.launches_wgmma) for w in ws]
+    out = fn()
+    took = [w.launches - b[0] for w, b in zip(ws, before)]
+    on = [w.launches_wgmma - b[1] for w, b in zip(ws, before)]
+    WGMMA_PATHS[path] = on
+    print(f'  {path}: K2\'s and K3\'s launches on the wgmma core {on}'
+          + (f' of {took}' if exact else ''), flush=True)
+    if not all(on) or (exact and on != took):
+        raise AssertionError(f'{path}: K2 / K3 on the wgmma core {on}, '
+                             f'launched {took}')
+    return out
 
 
 def train_path_phase(torch, np, wrappers, card, s2d, tmp):
@@ -1253,8 +1381,9 @@ def train_path_phase(torch, np, wrappers, card, s2d, tmp):
     if one_pass != want_one:
         raise AssertionError(f'one-pass launches {one_pass}, expected '
                              f'{want_one}')
-    # and config 2's K2 and K3 shapes all take the wgmma core in bf16
-    want_wgmma = want_nhwc[1:3]
+    # and config 2's K2 and K3 shapes all take the wgmma core in bf16, in
+    # either form
+    want_wgmma = runs[0][0][1:3]
     print(f'  s2d {s2d}: of them on the wgmma core, K2 and K3 {wgmma} '
           f'(expected {want_wgmma})', flush=True)
     if wgmma != want_wgmma:
@@ -1868,9 +1997,14 @@ def throughput_phase(torch, np, card):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        # the captured step's eager steps, its capture and a replay
-        for _ in range(2 * every_k + 1):
-            losses = steps[name][0]()
+
+        def first_steps(fn=steps[name][0], k=every_k):
+            # the captured step's eager steps, its capture and a replay
+            for _ in range(2 * k + 1):
+                out = fn()
+            return out
+        losses = first_steps() if form.startswith('cl') else wgmma_grew(
+            f'step_{name}', first_steps)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         out[name] = {'peak_memory_bytes': peak,
@@ -2244,8 +2378,11 @@ def spatial_phase(torch, np, F, kernels, model, card):
     d32 = (p32 - ref).abs().max().item()
     for w in wrappers:
         w.launches = 0
+    on = [w.launches_wgmma for w in wrappers[1:3]]
     mask = eng32.predict_image(img, mode='spatial')
     launches = [w.launches for w in wrappers]
+    if [w.launches_wgmma for w in wrappers[1:3]] != on:
+        raise AssertionError('fp32 spatial: the wgmma core launched')
     want = ref[0, :, :480].argmax(0).numpy()
     agree = float(np.mean(mask == want))
     print(f'  fp32 spatial 640x480 (padded 640x512): kernels vs plain on '
@@ -2268,9 +2405,15 @@ def spatial_phase(torch, np, F, kernels, model, card):
     small = big[:SIZE, :SIZE].copy()
     for w in wrappers:
         w.launches = 0
+    on = [w.launches_wgmma for w in wrappers[1:3]]
     mask = eng.predict_image(big, mode='spatial')
     torch.cuda.synchronize()
     main_launches = [w.launches for w in wrappers]
+    on = [w.launches_wgmma - b for w, b in zip(wrappers[1:3], on)]
+    print(f'  bf16 spatial: K2 and K3 on the wgmma core {on} (expected '
+          f'{SPATIAL_IMAGE[1:3]})', flush=True)
+    if on != SPATIAL_IMAGE[1:3]:
+        raise AssertionError(f'bf16 spatial: K2 / K3 on the wgmma core {on}')
     print(f'  bf16 spatial {SPATIAL_HW[1]}x{SPATIAL_HW[0]}: mask {mask.shape}'
           f' {mask.dtype}, labels {mask.min()}..{mask.max()}, launches '
           f'{main_launches}', flush=True)
@@ -3513,13 +3656,10 @@ def pipeline_phase(torch, np, wrappers, card, step_img_s, tmp):
     traces = os.listdir(trace_dir)
     with open(os.path.join(trace_dir, traces[0])) as f:
         text = f.read()
-    # the Trainer's layout names the forms: NHWC in channels_last
-    from patchgan_tpu_torch.train.auto_layout import auto_layout_enabled
-    nhwc = 'Nhwc' if auto_layout_enabled() else ''
-    core = 'conv_wgmma_kernel' if nhwc else 'conv_gemm_kernel'
-    found = {k: k in text for k in (f'pgt::{core}',
-                                    f'pgt::Conv{nhwc}Problem<',
-                                    f'pgt::ConvT{nhwc}Problem<')}
+    # bf16 at config 2's widths: both layouts' forms on the wgmma core
+    found = {k: k in text for k in ('pgt::conv_wgmma_kernel',
+                                    'pgt::ConvNhwcProblem<',
+                                    'pgt::ConvTNhwcProblem<')}
     print(f'  --profile_dir: {len(traces)} trace(s), {len(text)} bytes, '
           f'names {found}', flush=True)
     if len(traces) != 1 or not all(found.values()):
@@ -5413,10 +5553,10 @@ BAND_KERNELS = (
      'patchgan_tpu/ops/pallas/norm_act.py:253'))
 
 
-# the mangled name's mark of the wgmma core's band problems (their BAND
-# template argument true): ConvNhwcProblem / ConvTNhwcProblem<bf16, true,
-# true>
-BAND_MODE = 'Lb1ELb1EE'
+# the mangled name's mark of the wgmma core's band problems (no row of H
+# padded, an NCHW acc): ConvNhwcProblem / ConvTNhwcProblem<bf16, true,
+# false, false>
+BAND_MODE = 'Lb1ELb0ELb0EE'
 # the band forms of K1-bwd's sums and dx (csrc/band_norm.cuh): their
 # kernels' names, for ptxas's report
 BAND_NORM_MARKS = ('bwd_sums_group', 'bwd_sums_cluster', 'bwd_apply_vec')
@@ -7114,8 +7254,13 @@ def main(only=None):
     for s2d in ('off', 'on'):
         print(f'== main path: patchgan_infer -d cuda, PATCHGAN_S2D={s2d}',
               flush=True)
-        paths[f'infer_s2d_{s2d}'], model, masks = infer_path_phase(
-            torch, np, kernels, s2d)
+        path = f'infer_s2d_{s2d}'
+        paths[path], model, masks = wgmma_grew(path, lambda: infer_path_phase(
+            torch, np, kernels, s2d), exact=False)
+        if WGMMA_PATHS[path] != [paths[path][k.name] for k in kernels[1:3]]:
+            raise AssertionError(f'{path}: K2 / K3 on the wgmma core '
+                                 f'{WGMMA_PATHS[path]}, launched '
+                                 f'{paths[path]}')
         if s2d == 'off':
             plain_masks = masks
     agree = [float(np.mean(a == b)) for a, b in zip(plain_masks, masks)]
@@ -7134,11 +7279,16 @@ def main(only=None):
                 engines[s2d] = InferenceEngine(model, dtype=torch.bfloat16)
             for w in wrappers:
                 w.launches = 0
+            on = conv_norm_act.launches_wgmma
             p32 = eng32._forward(tiles.cuda()).cpu()
             n4 = thin_conv3x3.launches
             d32 = (p32 - ref).abs().max().item()
             del eng32
-            p16 = engines[s2d]._forward(tiles.cuda()).cpu()
+            if conv_norm_act.launches_wgmma != on:
+                raise AssertionError(f's2d {s2d}: the fp32 forward launched '
+                                     f'the wgmma core')
+            p16 = wgmma_grew(f'forward_8_tiles_s2d_{s2d}', lambda: engines[
+                s2d]._forward(tiles.cuda()).cpu())
             d16 = (p16 - ref).abs().max().item()
             agree = (p16.argmax(1) == ref.argmax(1)).float().mean().item()
             print(f'  s2d {s2d}: fp32 kernels vs plain: max |dprob| '
@@ -7153,7 +7303,8 @@ def main(only=None):
 
     print('== inference throughput (bf16), plain and s2d in turns',
           flush=True)
-    infer = infer_throughput_phase(torch, np, engines, card)
+    infer = wgmma_grew('infer_throughput', lambda: infer_throughput_phase(
+        torch, np, engines, card))
     print(json.dumps(infer))
     del engines
     mark('1-5')
@@ -7233,15 +7384,17 @@ def main(only=None):
     print('== spatial mode: whole-image forward (nf=64), parity on the CPU, '
           'K1-K3 at the 1280x960 image\'s shapes, masks/s against tiled',
           flush=True)
-    launches, spatial = spatial_phase(torch, np, F, kernels, model, card)
+    launches, spatial = wgmma_grew('spatial', lambda: spatial_phase(
+        torch, np, F, kernels, model, card), exact=False)
     paths['spatial'] = dict(zip(names, launches))
     print(json.dumps(spatial))
     mark('1-11, 19')
     with tempfile.TemporaryDirectory() as tmp:
         print('== serve path: patchgan_serve -d cuda (bf16): --watch, '
               '--stdin, --http, load, SIGTERM drain', flush=True)
-        serve_paths, serve, watch_masks = serve_phase(torch, np, kernels,
-                                                      model, card, tmp)
+        serve_paths, serve, watch_masks = wgmma_grew(
+            'serve', lambda: serve_phase(torch, np, kernels, model, card,
+                                         tmp), exact=False)
     paths.update(serve_paths)
     print(json.dumps(serve))
     mark('1-12, 19')
@@ -7270,8 +7423,9 @@ def main(only=None):
     print('== the engine over the cards of one process: one card listed '
           'twice, 2 and 4 cards where there are several, patchgan_infer and '
           'patchgan_serve -d cuda', flush=True)
-    mesh_paths, mesh = mesh_phase(torch, np, F, kernels, model, plain_masks,
-                                  watch_masks, card)
+    mesh_paths, mesh = wgmma_grew('mesh', lambda: mesh_phase(
+        torch, np, F, kernels, model, plain_masks, watch_masks, card),
+        exact=False)
     paths.update(mesh_paths)
     print(json.dumps({'mesh': mesh}))
     print(f'phases 1-15: {time.perf_counter() - t_start:.3f} s', flush=True)
@@ -7318,11 +7472,32 @@ def main(only=None):
             'bound_ms': total('bound_ms'),
             'bound_by': max(rows, key=lambda r: r['bound_ms'])['bound_by'],
             'library_ms': total('library_ms')})
+        timed = ('kernel_ms', 'plain_ms', 'bound_ms', 'library_ms')
+        if k.name in ('conv_norm_act', 'convt_norm_act'):
+            # the NCHW form: bf16 on the wgmma core behind its layout
+            # passes, fp32 and other widths on the WMMA core
+            i = 1 if k.name == 'conv_norm_act' else 2
+            on = WGMMA_PATHS['train_s2d_on'][i - 1]
+            if on != summary[-1]['launches']:
+                raise AssertionError(f'{k.name}: {on} of '
+                                     f'{summary[-1]["launches"]} launches '
+                                     f'on the wgmma core')
+            timed += ('device_ms', 'wmma_ms', 'wmma_device_ms', 'layout_ms',
+                      'layout_device_ms', 'layout_bound_ms',
+                      'library_device_ms')
+            summary[-1].update(
+                kernel='wgmma',
+                kernel_source='patchgan_tpu_torch/csrc/conv_wgmma.cuh',
+                wmma_source='patchgan_tpu_torch/csrc/conv_gemm.cuh',
+                launches_wgmma=on,
+                launches_wgmma_by_path={p: v[i - 1]
+                                        for p, v in WGMMA_PATHS.items()},
+                wmma_max_abs_err=max(r['max_abs_err_wmma_bf16']
+                                     for r in k.rows),
+                **{key: total(key) for key in timed[4:]})
         if k.spatial_rows:
             summary[-1]['spatial_1280x960'] = {
-                key: sum(r[key] for r in k.spatial_rows)
-                for key in ('kernel_ms', 'plain_ms', 'bound_ms',
-                            'library_ms')}
+                key: sum(r[key] for r in k.spatial_rows) for key in timed}
     for name, source, replaces in BAND_KERNELS:
         rows = bands[name]['rows']
         summary.append({

@@ -13,7 +13,9 @@
 // with the JAX package's formulas (norm_plane.cuh's mean_rstd, with the
 // global count in place of the plane's). The fused conv kernels' band
 // entries (conv_norm_act.cu, convt_norm_act.cu) end in the stats of their
-// fp32 output, and their finish is `apply` on that output.
+// fp32 output, and their finish is `apply` on that output; so is the
+// finish of those kernels' NCHW forms on the wgmma core, with the plane's
+// own count.
 //
 // Bound on the H100: bytes, as K1 and K1-bwd. Design: simple first here.
 // The stats kernel gives one block to a plane and reduces in a fixed order
@@ -108,6 +110,18 @@ __global__ void __launch_bounds__(THREADS)
 
 inline int spans_of(long plane) {
   return (int)((plane + APPLY_SPAN - 1) / APPLY_SPAN);
+}
+
+// apply_kernel over `planes` planes of `plane` elements: norm_act.cu's
+// pgt_in_apply, and the finish of K2's and K3's NCHW forms on the wgmma
+// core (count = plane there).
+template <typename Tin, typename Tout>
+void launch_apply(const Tin* x, const float2* stats, Tout* y, long planes,
+                  long plane, float count, float eps, int act,
+                  cudaStream_t st) {
+  const int spans = spans_of(plane);
+  apply_kernel<Tin, Tout><<<planes * spans, THREADS, 0, st>>>(
+      x, stats, y, plane, spans, count, eps, act);
 }
 
 }  // namespace band

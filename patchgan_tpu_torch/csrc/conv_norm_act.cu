@@ -20,7 +20,14 @@
 // pass normalises from that fp32 accumulator, never a bf16-rounded copy,
 // as the Pallas kernel does (conv_norm_act.py:154-161). The deep levels
 // (enc4-enc6: 64 output tiles at 8 samples, K up to 8192) split K across
-// blocks to fill the card, and normalise from the summed slices.
+// blocks to fill the card, and normalise from the summed slices. That is
+// the WMMA core's NCHW form, which fp32 and other widths take: in bf16
+// with Cin and Cout multiples of 64 and x and w on 16 bytes (the host
+// planner's choice) pgt_conv_in_act runs on the wgmma core of
+// conv_wgmma.cuh instead, in one C call: the layout pass copies x into
+// channels_last scratch and the weight into [Cout, 4, 4, Cin], the NHWC
+// problem with H padded and an NCHW acc takes the product and its stats,
+// and band.cuh's apply normalises into y (launch_conv_in_act_nchw_wgmma).
 //
 // The OIHW weight is already k-contiguous with K = 16 * Cin a multiple of
 // 8, so the core stages it as it is. With k = k0 + ak0 + 2j a gathering
@@ -36,8 +43,8 @@
 // stats summed over the spatial group. In bf16 with Cin and Cout multiples
 // of 64 (the host planner's choice) it runs on the wgmma core of
 // conv_wgmma.cuh: the layout pass copies the band into channels_last
-// scratch and the weight into [Cout, 4, 4, Cin], and the NHWC problem's
-// band mode (pt = 0, an NCHW acc) takes the product
+// scratch and the weight into [Cout, 4, 4, Cin], and the NHWC problem
+// with no row of H padded and an NCHW acc takes the product
 // (launch_conv_band_wgmma); otherwise the WMMA core of conv_gemm.cuh reads
 // the NCHW band as it is (launch_conv_band).
 //
@@ -111,16 +118,17 @@ struct ConvProblem {
 };
 
 // The NHWC problem: x [N, H, W, Cin], the weight [Cout, 4, 4, Cin] (k =
-// tap * Cin + ci, tap = ky * 4 + kx), acc [N, Ho, Wo, Cout]. VEC: Cin a
-// multiple of BK and x on 16 bytes. BAND: a haloed band (pt = 0) whose acc
-// is NCHW [N, Cout, Ho, Wo] (the wgmma core's band mode).
-template <typename T, bool VEC, bool BAND = false>
+// tap * Cin + ci, tap = ky * 4 + kx). VEC: Cin a multiple of BK and x on
+// 16 bytes. PAD_H: one zero row padded above the input (pt = 1), or none
+// (pt = 0) for a haloed band. NHWC_OUT: acc [N, Ho, Wo, Cout], or NCHW
+// [N, Cout, Ho, Wo] (the NCHW form and the band entry on the wgmma core,
+// reading the layout pass's channels_last copies).
+template <typename T, bool VEC, bool PAD_H = true, bool NHWC_OUT = true>
 struct ConvNhwcProblem {
-  static constexpr bool kChannelsLast = !BAND;
+  static constexpr bool kChannelsLast = NHWC_OUT;
   const T* x;
   const T* bw;
-  // zero rows padded above the input: 1, or 0 for a haloed band
-  static constexpr int pt = BAND ? 0 : 1;
+  static constexpr int pt = PAD_H ? 1 : 0;
   int Cin, H, W, Cout, Ho, Wo;
   int M, Mw, K, G, ldb;
 
@@ -188,15 +196,17 @@ struct ConvNhwcProblem {
   }
   __device__ __forceinline__ long out(int n, int, int r, int c,
                                       int co) const {
-    if constexpr (BAND) return (((long)n * Cout + co) * Ho + r) * Wo + c;
+    if constexpr (!NHWC_OUT) return (((long)n * Cout + co) * Ho + r) * Wo + c;
     return (((long)n * Ho + r) * Wo + c) * Cout + co;
   }
 };
 
-template <typename T, bool VEC, bool BAND = false>
-ConvNhwcProblem<T, VEC, BAND> nhwc_problem(const void* x, const void* w,
-                                           int cin, int h, int wd, int cout) {
-  ConvNhwcProblem<T, VEC, BAND> p;
+template <typename T, bool VEC, bool PAD_H = true, bool NHWC_OUT = true>
+ConvNhwcProblem<T, VEC, PAD_H, NHWC_OUT> nhwc_problem(const void* x,
+                                                      const void* w, int cin,
+                                                      int h, int wd,
+                                                      int cout) {
+  ConvNhwcProblem<T, VEC, PAD_H, NHWC_OUT> p;
   p.x = static_cast<const T*>(x);
   p.bw = static_cast<const T*>(w);
   p.Cin = cin;
@@ -267,6 +277,26 @@ int run_band(const void* x, const void* w, void* acc, void* part,
                              static_cast<float2*>(stats), (long)p.M, st);
 }
 
+// The wgmma core's entries (the NCHW form, PAD_H; the band, not): bf16
+// with Cin a multiple of 64 and the scratch on 16 bytes checked, the
+// layout pass of x into xt [N, H, W, Cin] and of w into wt [Cout, 4, 4,
+// Cin], and into p the problem on those copies, its acc NCHW.
+template <bool PAD_H>
+int wgmma_problem(const void* x, const void* w, void* xt, void* wt, int bf16,
+                  int batch, int cin, int h, int wd, int cout,
+                  ConvNhwcProblem<__nv_bfloat16, true, PAD_H, false>& p,
+                  cudaStream_t st) {
+  if (!bf16 || cin % wg::BKC || reinterpret_cast<uintptr_t>(xt) % 16 ||
+      reinterpret_cast<uintptr_t>(wt) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = wg::launch_nchw_to_nhwc(x, xt, batch, cin, (long)h * wd,
+                                          st);
+  if (e == cudaSuccess) e = wg::launch_nchw_to_nhwc(w, wt, cout, cin, 16, st);
+  p = nhwc_problem<__nv_bfloat16, true, PAD_H, false>(xt, wt, cin, h, wd,
+                                                      cout);
+  return static_cast<int>(e);
+}
+
 }  // namespace pgt
 
 // K split the launch below takes for this shape when its split_batch is
@@ -278,17 +308,40 @@ extern "C" int pgt_conv_splits(int batch, int cin, int h, int wd, int cout) {
 }
 
 // x [N, Cin, H, W], w [Cout, Cin, 4, 4] (16-byte aligned), y [N, Cout,
-// Ho, Wo], all bf16 (bf16 != 0) or all fp32; split_batch: the batch
-// whose K split to take (N for the fastest split); acc: fp32 scratch of
-// pgt_conv_splits(split_batch, ...) times y's shape; part: fp32 pairs,
-// N * Cout * ceil(Ho*Wo / pgt_tile_m()).
-// Returns cudaGetLastError().
+// Ho, Wo], all bf16 (bf16 != 0) or all fp32. core: 1 the wgmma core
+// (conv_wgmma.cuh: bf16, Cin and Cout multiples of 64; bn, stages, splits
+// and samples from the host planner; xt, wt: bf16 scratch of x's and w's
+// sizes on 16 bytes, which the layout pass fills with x as [N, H, W, Cin]
+// and w as [Cout, 4, 4, Cin]; stats: fp32 pairs, N * Cout), 0 the WMMA
+// core (conv_gemm.cuh; splits must be pgt_conv_splits(split_batch, ...);
+// xt, wt, stats unused). split_batch: the batch whose K split the plan
+// took (N for the fastest split); acc: fp32 scratch of `splits` times y's
+// shape; part: fp32 pairs, N * Cout * ceil(Ho*Wo / pgt_tile_m()) for the
+// WMMA core, N * Cout * tiles for the wgmma core (tiles 1 where it packs
+// samples). Launches the layout passes (wgmma core), the GEMM, the stats
+// and the finish. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// what the kernels cannot take.
 extern "C" int pgt_conv_in_act(const void* x, const void* w, void* y,
-                               void* acc, void* part, int batch,
-                               int split_batch, int cin, int h, int wd,
-                               int cout, int act, float eps, int bf16,
+                               void* acc, void* part, void* xt, void* wt,
+                               void* stats, int batch, int split_batch,
+                               int cin, int h, int wd, int cout, int act,
+                               float eps, int bf16, int core, int bn,
+                               int stages, int splits, int samples,
                                void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (core) {
+    pgt::ConvNhwcProblem<__nv_bfloat16, true, true, false> p;
+    const int rc = pgt::wgmma_problem<true>(x, w, xt, wt, bf16, batch, cin,
+                                            h, wd, cout, p, st);
+    if (rc != 0) return rc;
+    return pgt::launch_conv_in_act_nchw_wgmma(
+        p, batch, bn, stages, splits, samples, static_cast<float*>(acc),
+        static_cast<float2*>(part), static_cast<float2*>(stats),
+        static_cast<__nv_bfloat16*>(y), (long)p.M, act, eps, st);
+  }
+  if (split_batch < 1 ||
+      splits != pgt_conv_splits(split_batch, cin, h, wd, cout))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
     return pgt::run<__nv_bfloat16>(x, w, y, acc, part, batch, split_batch,
                                    cin, h, wd, cout, act, eps, st);
@@ -324,16 +377,10 @@ extern "C" int pgt_conv_band(const void* x, const void* w, void* xt, void* wt,
                              int splits, int samples, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (core) {
-    if (!bf16 || cin % pgt::wg::BKC || reinterpret_cast<uintptr_t>(xt) % 16 ||
-        reinterpret_cast<uintptr_t>(wt) % 16)
-      return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t e = pgt::wg::launch_nchw_to_nhwc(x, xt, batch, cin,
-                                                 (long)h * wd, st);
-    if (e == cudaSuccess)
-      e = pgt::wg::launch_nchw_to_nhwc(w, wt, cout, cin, 16, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const auto p = pgt::nhwc_problem<__nv_bfloat16, true, true>(xt, wt, cin,
-                                                                h, wd, cout);
+    pgt::ConvNhwcProblem<__nv_bfloat16, true, false, false> p;
+    const int rc = pgt::wgmma_problem<false>(x, w, xt, wt, bf16, batch, cin,
+                                             h, wd, cout, p, st);
+    if (rc != 0) return rc;
     return pgt::launch_conv_band_wgmma(
         p, batch, bn, stages, splits, samples, static_cast<float*>(acc),
         static_cast<float2*>(part), static_cast<float2*>(stats), (long)p.M,

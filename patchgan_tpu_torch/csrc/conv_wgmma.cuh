@@ -1,10 +1,10 @@
-// Hopper GEMM core of the NHWC (channels_last) and band forms of K2
-// (conv_norm_act.cu) and K3 (convt_norm_act.cu) in bf16: wgmma fed by an
-// async-copy ring.
+// Hopper GEMM core of every form of K2 (conv_norm_act.cu) and K3
+// (convt_norm_act.cu) in bf16, NHWC (channels_last), NCHW and band: wgmma
+// fed by an async-copy ring.
 //
 // Replaces, for those forms, the WMMA core of conv_gemm.cuh, which stays
-// for fp32, for channel runs that are no multiple of 64, for pointers off
-// 16 bytes, and for the NCHW forms. The TPU kernels these forms port are
+// for fp32, for channel runs that are no multiple of 64 and for pointers
+// off 16 bytes. The TPU kernels these forms port are
 // patchgan_tpu/ops/pallas/conv_norm_act.py::_forward (pallas_call at :176)
 // and convt_norm_act.py::_forward (pallas_call at :178).
 //
@@ -56,22 +56,28 @@
 // launches give the same bits. The host planner (nhwc_gemm_plan in
 // ops/kernels/conv_norm_act.py) picks BN, S, the split and the packing.
 //
-// Band mode (spatial parallelism): the band entries pgt_conv_band and
-// pgt_convt_band take NCHW bands with one halo row above and below and
-// return an NCHW fp32 output, so the core reads channels_last copies and
-// writes NCHW. A layout pass (nchw_to_nhwc below, one launch a tensor)
-// first copies each haloed band, and K2's weight, into channels_last
-// scratch: bytes-bound, 4096 elements a block through shared memory (64
-// pixels x 64 channels, or 16 x 256 for the weight's 16 taps), 16-byte
-// loads along the pixels and 16-byte stores along the channels. The band problems (kChannelsLast false) pad no row of H, and
-// their epilogue keeps the tile channel-major in the ring's memory (column
+// NCHW output (the NCHW forms pgt_conv_in_act / pgt_convt_in_act, and the
+// band entries pgt_conv_band / pgt_convt_band of spatial parallelism,
+// whose NCHW bands carry one halo row above and below): the core reads
+// channels_last copies and writes NCHW. A layout pass (nchw_to_nhwc below,
+// one launch a tensor) first copies x (and skip), and K2's weight, into
+// channels_last scratch: bytes-bound, 4096 elements a block through shared
+// memory (64 pixels x 64 channels, or 16 x 256 for the weight's 16 taps),
+// 16-byte loads along the pixels and 16-byte stores along the channels.
+// Two flags of the problem say the rest: whether it pads H (the NCHW
+// forms, as the NHWC form, one zero row above the image, taps outside it
+// zero-filled by the copy; a band pads none, its halo holds those rows),
+// and whether its acc is channels_last (kChannelsLast). An NCHW acc's
+// epilogue keeps the tile channel-major in the ring's memory (column
 // stride BM + 4 floats: a warp's fragment stores fall in 32 banks), so a
 // warp stores 32 consecutive rows of one channel: 128 contiguous bytes of
 // K2's plane, every other float of a K3 class's output row (the grid walks
 // a row tile's classes fastest, so the other x-parity class fills the
-// rest of those sectors while they are still in L2). The band's
-// stats are the partials' reduce, or after a K split band.cuh's
-// split_stats, which adds the slices into slice 0 in order; no apply.
+// rest of those sectors while they are still in L2). The stats are the
+// partials' reduce, or after a K split band.cuh's split_stats, which adds
+// the slices into slice 0 in order; a band takes no apply (its stats are
+// summed over the spatial group first), an NCHW form band.cuh's apply
+// with the plane's own count.
 #pragma once
 
 #include <stdint.h>
@@ -257,8 +263,8 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   const unsigned raw = wg::smem_u32(smem_raw);
   const unsigned base = (raw + 1023u) & ~1023u;
 
-  // an NHWC acc: grid (row tiles, Cout / BN, G * splits); a band's NCHW
-  // one: grid (row tiles * G * splits, Cout / BN), the classes and splits
+  // an NHWC acc: grid (row tiles, Cout / BN, G * splits); an NCHW one:
+  // grid (row tiles * G * splits, Cout / BN), the classes and splits
   // of a row tile fastest, so the two x-parity classes that share the
   // sectors of an output row store into them close in time
   constexpr bool kNhwc = ChannelsLastOut<P>::value;
@@ -331,8 +337,8 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   __syncthreads();   // the ring is free for the epilogue tile
 
   // accumulators -> the epilogue tile: row-major cs[row * LDC + channel]
-  // for an NHWC acc, channel-major cs[channel * LDR + row] for a band's
-  // NCHW one (wgmma's D fragment: warp w rows 16 w .. 16 w + 15, lane l
+  // for an NHWC acc, channel-major cs[channel * LDR + row] for an NCHW
+  // one (wgmma's D fragment: warp w rows 16 w .. 16 w + 15, lane l
   // rows l / 4 and l / 4 + 8, columns 8 q + 2 (l % 4) and the next)
   constexpr int LDR = BM + 4;
   static_assert(wg::smem_bytes(BN, S) >= BN * LDR * 4 + 1024,
@@ -455,8 +461,9 @@ cudaError_t run_gemm(const P& p, int batch, int bn, int stages, int splits,
                      : launch_gemm<P, 64, 3>(p, t, acc, part, st);
 }
 
-// The band entries' layout pass: x [B][C][P] (B stacks of C planes of P
-// pixels: an NCHW band, or K2's weight [Cout][Cin][16]) -> y [B][P][C]
+// The layout pass of the NCHW forms and the band entries: x [B][C][P] (B
+// stacks of C planes of P pixels: an NCHW x, skip or band, or K2's weight
+// [Cout][Cin][16]) -> y [B][P][C]
 // (channels_last), bf16. Block (pixel tile, channel tile, b) moves TP
 // pixels x TC channels (4096 elements; TP = 64, or 16 for planes of at
 // most 16 pixels: K2's weight, whose 16 taps would leave three quarters
@@ -581,19 +588,20 @@ int launch_conv_in_act_nhwc_wgmma(const P& p, int batch, int bn, int stages,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Band form on the wgmma core (a band problem, its acc NCHW): the product
-// into `acc`, then the per-plane (sum, sum of squares) of the band's fp32
-// output into `stats`: reduce_parts over the tiles' partials, or
-// band::split_stats after a K split (the slices added into slice 0 in
-// order, the stats over the sum). No apply: the caller sums the stats over
-// the spatial group. `acc` holds `splits` slices of N * Cout * plane floats,
-// `part` N * Cout * G * tiles pairs. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for what the core cannot take.
+// A problem with an NCHW acc (a band's, or an NCHW form's) on the wgmma
+// core: the product into `acc`, then the per-plane (sum, sum of squares)
+// of its fp32 output into `stats`: reduce_parts over the tiles' partials,
+// or band::split_stats after a K split (the slices added into slice 0 in
+// order, the stats over the sum). No apply: a band's caller sums the stats
+// over the spatial group first. `acc` holds `splits` slices of N * Cout *
+// plane floats, `part` N * Cout * G * tiles pairs. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for what the core cannot
+// take.
 template <typename P>
 int launch_conv_band_wgmma(const P& p, int batch, int bn, int stages,
                            int splits, int samples, float* acc, float2* part,
                            float2* stats, long plane, cudaStream_t st) {
-  static_assert(!ChannelsLastOut<P>::value, "a band problem writes NCHW");
+  static_assert(!ChannelsLastOut<P>::value, "the problem writes NHWC");
   wg::Tiling t;
   const cudaError_t e = wg::run_gemm(p, batch, bn, stages, splits, samples,
                                      plane, acc, part, t, st);
@@ -604,6 +612,28 @@ int launch_conv_band_wgmma(const P& p, int batch, int bn, int stages,
   else
     band::split_stats<<<planes, band::THREADS, 0, st>>>(acc, splits, t.slice,
                                                          stats, plane);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// NCHW form on the wgmma core (a problem that pads H, its acc NCHW, read
+// from the layout pass's channels_last copies): launch_conv_band_wgmma's
+// product and stats, then band.cuh's apply over each plane of `plane`
+// elements into the NCHW y. The stats follow the plan's split and
+// packing, which follow split_batch, so a sample's bits do not change
+// with the batch. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// what the core cannot take.
+template <typename P>
+int launch_conv_in_act_nchw_wgmma(const P& p, int batch, int bn, int stages,
+                                  int splits, int samples, float* acc,
+                                  float2* part, float2* stats,
+                                  __nv_bfloat16* y, long plane, int act,
+                                  float eps, cudaStream_t st) {
+  const int rc = launch_conv_band_wgmma(p, batch, bn, stages, splits,
+                                        samples, acc, part, stats, plane, st);
+  if (rc != 0) return rc;
+  band::launch_apply<float, __nv_bfloat16>(acc, stats, y,
+                                           (long)batch * p.Cout, plane,
+                                           (float)plane, eps, act, st);
   return static_cast<int>(cudaGetLastError());
 }
 

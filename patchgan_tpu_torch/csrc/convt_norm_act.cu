@@ -23,6 +23,14 @@
 // scratch; statistics partials span all four classes, and the finishing
 // pass shared with K1 and K2 normalises over the full 2H x 2W plane.
 // dec1 and dec2 (4x4 and 8x8 inputs, K = 4096) split K across blocks.
+// That is the WMMA core's NCHW form, which fp32 and other widths take: in
+// bf16 with Cx, Cs and Cout multiples of 64 and x, skip and w on 16 bytes
+// (the host planner's choice) pgt_convt_in_act runs on the wgmma core of
+// conv_wgmma.cuh instead, in one C call: the layout pass copies x and
+// skip into channels_last scratch, the pack writes the NHWC form's layout
+// (taps outer) from the NCHW weight, the NHWC problem with H padded (Hc =
+// H, row0 = 0) and an NCHW acc takes the product and its stats, and
+// band.cuh's apply normalises into y (launch_conv_in_act_nchw_wgmma).
 //
 // Before the GEMM, a pack kernel writes the weight k-contiguous per class,
 //   wp[g][co][ci * 4 + ay * 2 + ax] = w[ci, co, 1 - (g >> 1) + 2 ay,
@@ -45,8 +53,8 @@
 // core of conv_wgmma.cuh: the layout pass copies the x and skip bands into
 // channels_last scratch, the pack kernel writes the NHWC form's packed
 // layout (taps outer) straight from the NCHW weight, and the NHWC
-// problem's band mode (Hc = H - 2, row0 = 1, an NCHW acc) takes the
-// product (launch_conv_band_wgmma); otherwise the WMMA core of
+// problem with no row of H padded (Hc = H - 2, row0 = 1) and an NCHW acc
+// takes the product (launch_conv_band_wgmma); otherwise the WMMA core of
 // conv_gemm.cuh reads the NCHW bands as they are (launch_conv_band).
 //
 // NHWC form (channels_last): pgt_convt_in_act_nhwc takes x and skip as
@@ -219,18 +227,20 @@ int pack_nhwc(const void* w, void* wp, int cx, int cs, int cout,
 }
 
 // The NHWC problem: x [N, H, W, Cx], skip [N, H, W, Cs], the packed
-// weight [4][Cout][ldb] (k = (2 ay + ax) * C + ci), acc [N, 2H, 2W, Cout].
-// VEC: Cx and Cs multiples of BK, x and skip on 16 bytes. BAND: haloed
-// bands (Hc = H - 2, row0 = 1) whose acc is NCHW [N, Cout, 2 Hc, 2 W] (the
-// wgmma core's band mode).
-template <typename T, bool VEC, bool BAND = false>
+// weight [4][Cout][ldb] (k = (2 ay + ax) * C + ci). VEC: Cx and Cs
+// multiples of BK, x and skip on 16 bytes. PAD_H: the whole plane (Hc =
+// H, row0 = 0, the rows outside it read as zero), or haloed bands (Hc = H
+// - 2, row0 = 1). NHWC_OUT: acc [N, 2 Hc, 2 W, Cout], or NCHW [N, Cout,
+// 2 Hc, 2 W] (the NCHW form and the band entry on the wgmma core, reading
+// the layout pass's channels_last copies).
+template <typename T, bool VEC, bool PAD_H = true, bool NHWC_OUT = true>
 struct ConvTNhwcProblem {
-  static constexpr bool kChannelsLast = !BAND;
+  static constexpr bool kChannelsLast = NHWC_OUT;
   const T* x;
   const T* s;
   const T* bw;
   // input row of class row 0's tap ay = 0 at dy = 0
-  static constexpr int row0 = BAND ? 1 : 0;
+  static constexpr int row0 = PAD_H ? 0 : 1;
   int Cx, Cs, C, H, W, Cout;
   int Hc;    // output rows of one parity class (H for the whole plane)
   int M, Mw, K, G, ldb;
@@ -299,7 +309,7 @@ struct ConvTNhwcProblem {
   }
   __device__ __forceinline__ long out(int n, int g, int r, int c,
                                       int co) const {
-    if constexpr (BAND)
+    if constexpr (!NHWC_OUT)
       return (((long)n * Cout + co) * (2 * Hc) + 2 * r + (g >> 1)) *
                  (2 * W) + 2 * c + (g & 1);
     return (((long)n * 2 * Hc + 2 * r + (g >> 1)) * (2 * W) + 2 * c +
@@ -307,11 +317,11 @@ struct ConvTNhwcProblem {
   }
 };
 
-template <typename T, bool VEC, bool BAND = false>
-ConvTNhwcProblem<T, VEC, BAND> nhwc_problem(const void* x, const void* s,
-                                            const void* wp, int cx, int cs,
-                                            int h, int wd, int cout) {
-  ConvTNhwcProblem<T, VEC, BAND> p;
+template <typename T, bool VEC, bool PAD_H = true, bool NHWC_OUT = true>
+ConvTNhwcProblem<T, VEC, PAD_H, NHWC_OUT> nhwc_problem(
+    const void* x, const void* s, const void* wp, int cx, int cs, int h,
+    int wd, int cout) {
+  ConvTNhwcProblem<T, VEC, PAD_H, NHWC_OUT> p;
   p.x = static_cast<const T*>(x);
   p.s = static_cast<const T*>(s);
   p.bw = static_cast<const T*>(wp);
@@ -321,7 +331,7 @@ ConvTNhwcProblem<T, VEC, BAND> nhwc_problem(const void* x, const void* s,
   p.H = h;
   p.W = wd;
   p.Cout = cout;
-  p.Hc = BAND ? h - 2 : h;
+  p.Hc = PAD_H ? h : h - 2;
   p.M = p.Hc * wd;
   p.Mw = wd;
   p.K = 4 * (cx + cs);
@@ -380,6 +390,31 @@ int run(const void* x, const void* s, const void* w, void* wp, void* y,
                                4L * p.M, act, eps, st);
 }
 
+// The wgmma core's entries (the NCHW form, PAD_H; the band, not): bf16
+// with Cx and Cs multiples of 64 and the scratch on 16 bytes checked, the
+// layout pass of x into xt and of skip into skt ([N, H, W, C]), the pack
+// of the NCHW weight into wp in the NHWC form's order (taps outer), and
+// into p the problem on those copies, its acc NCHW.
+template <bool PAD_H>
+int wgmma_problem(const void* x, const void* skip, const void* w, void* wp,
+                  void* xt, void* skt, int bf16, int batch, int cx, int cs,
+                  int h, int wd, int cout,
+                  ConvTNhwcProblem<__nv_bfloat16, true, PAD_H, false>& p,
+                  cudaStream_t st) {
+  if (!bf16 || cx % wg::BKC || cs % wg::BKC ||
+      reinterpret_cast<uintptr_t>(xt) % 16 ||
+      (cs && reinterpret_cast<uintptr_t>(skt) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long plane = (long)h * wd;
+  cudaError_t e = wg::launch_nchw_to_nhwc(x, xt, batch, cx, plane, st);
+  if (e == cudaSuccess && cs)
+    e = wg::launch_nchw_to_nhwc(skip, skt, batch, cs, plane, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  p = nhwc_problem<__nv_bfloat16, true, PAD_H, false>(xt, skt, wp, cx, cs, h,
+                                                      wd, cout);
+  return pack<__nv_bfloat16, true>(w, wp, cx, cs, cout, st);
+}
+
 template <typename T>
 int run_band(const void* x, const void* s, const void* w, void* wp,
              void* acc, void* part, void* stats, int batch, int split_batch,
@@ -421,21 +456,45 @@ extern "C" int pgt_convt_pack(const void* w, void* wp, int cx, int cs,
 // x [N, Cx, H, W], skip [N, Cs, H, W] (Cs may be 0, skip then unused),
 // w [Cx + Cs, Cout, 4, 4] (16-byte aligned), y [N, Cout, 2H, 2W], all bf16
 // (bf16 != 0) or all fp32; wp: scratch of the packed weight, 4 * Cout *
-// pgt_convt_packed_k() elements; split_batch: the batch whose K split
-// to take (N for the fastest split); acc: fp32 scratch of
-// pgt_convt_splits(split_batch, ...) times y's shape; part: fp32 pairs,
-// N * Cout * 4 * ceil(H*W / pgt_tile_m()). Launches the pack, the GEMM
-// and the finishing pass. Returns cudaGetLastError().
+// pgt_convt_packed_k() elements. core: 1 the wgmma core (conv_wgmma.cuh:
+// bf16, Cx, Cs and Cout multiples of 64; bn, stages, splits and samples
+// from the host planner; wp then in the NHWC form's order; xt, skt: bf16
+// scratch of x's and skip's sizes on 16 bytes, which the layout pass fills
+// with x and skip as [N, H, W, C]; stats: fp32 pairs, N * Cout), 0 the
+// WMMA core (conv_gemm.cuh; splits must be pgt_convt_splits(split_batch,
+// ...); xt, skt, stats unused). split_batch: the batch whose K split the
+// plan took (N for the fastest split); acc: fp32 scratch of `splits`
+// times y's shape; part: fp32 pairs, N * Cout * 4 * tiles, tiles =
+// ceil(H*W / pgt_tile_m()) for the WMMA core, 1 or that for the wgmma core
+// (1 where it packs samples). Launches the layout passes (wgmma core), the
+// pack, the GEMM, the stats and the finish. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what the kernels cannot take.
 extern "C" int pgt_convt_in_act(const void* x, const void* skip,
                                 const void* w, void* wp, void* y, void* acc,
-                                void* part, int batch, int split_batch,
-                                int cx, int cs, int h, int wd, int cout,
-                                int act, float eps, int bf16, void* stream) {
+                                void* part, void* xt, void* skt, void* stats,
+                                int batch, int split_batch, int cx, int cs,
+                                int h, int wd, int cout, int act, float eps,
+                                int bf16, int core, int bn, int stages,
+                                int splits, int samples, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using B = __nv_bfloat16;
+  if (core) {
+    pgt::ConvTNhwcProblem<B, true, true, false> p;
+    const int rc = pgt::wgmma_problem<true>(x, skip, w, wp, xt, skt, bf16,
+                                            batch, cx, cs, h, wd, cout, p,
+                                            st);
+    if (rc != 0) return rc;
+    return pgt::launch_conv_in_act_nchw_wgmma(
+        p, batch, bn, stages, splits, samples, static_cast<float*>(acc),
+        static_cast<float2*>(part), static_cast<float2*>(stats),
+        static_cast<B*>(y), 4L * p.M, act, eps, st);
+  }
+  if (split_batch < 1 ||
+      splits != pgt_convt_splits(split_batch, cx, cs, h, wd, cout))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
-    return pgt::run<__nv_bfloat16>(x, skip, w, wp, y, acc, part, batch,
-                                   split_batch, cx, cs, h, wd, cout, act,
-                                   eps, st);
+    return pgt::run<B>(x, skip, w, wp, y, acc, part, batch, split_batch, cx,
+                       cs, h, wd, cout, act, eps, st);
   return pgt::run<float>(x, skip, w, wp, y, acc, part, batch, split_batch,
                          cx, cs, h, wd, cout, act, eps, st);
 }
@@ -474,19 +533,11 @@ extern "C" int pgt_convt_band(const void* x, const void* skip, const void* w,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   using B = __nv_bfloat16;
   if (core) {
-    if (!bf16 || cx % pgt::wg::BKC || cs % pgt::wg::BKC ||
-        reinterpret_cast<uintptr_t>(xt) % 16 ||
-        (cs && reinterpret_cast<uintptr_t>(skt) % 16))
-      return static_cast<int>(cudaErrorInvalidValue);
-    const long plane = (long)h * wd;
-    cudaError_t e = pgt::wg::launch_nchw_to_nhwc(x, xt, batch, cx, plane, st);
-    if (e == cudaSuccess && cs)
-      e = pgt::wg::launch_nchw_to_nhwc(skip, skt, batch, cs, plane, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int rc = pgt::pack<B, true>(w, wp, cx, cs, cout, st);
+    pgt::ConvTNhwcProblem<B, true, false, false> p;
+    const int rc = pgt::wgmma_problem<false>(x, skip, w, wp, xt, skt, bf16,
+                                             batch, cx, cs, h, wd, cout, p,
+                                             st);
     if (rc != 0) return rc;
-    const auto p = pgt::nhwc_problem<B, true, true>(xt, skt, wp, cx, cs, h,
-                                                    wd, cout);
     return pgt::launch_conv_band_wgmma(
         p, batch, bn, stages, splits, samples, static_cast<float*>(acc),
         static_cast<float2*>(part), static_cast<float2*>(stats), 4L * p.M,

@@ -171,10 +171,9 @@ template <typename Tin, typename Tout>
 void launch_apply(const void* x, const void* stats, void* y, long planes,
                   long plane, float count, float eps, int act,
                   cudaStream_t st) {
-  const int spans = band::spans_of(plane);
-  band::apply_kernel<Tin, Tout><<<planes * spans, band::THREADS, 0, st>>>(
-      static_cast<const Tin*>(x), static_cast<const float2*>(stats),
-      static_cast<Tout*>(y), plane, spans, count, eps, act);
+  band::launch_apply(static_cast<const Tin*>(x),
+                     static_cast<const float2*>(stats), static_cast<Tout*>(y),
+                     planes, plane, count, eps, act, st);
 }
 }  // namespace pgt
 

@@ -112,9 +112,11 @@ _BUCKET_REL_RATE = _load_bucket_rates()
 # batch of this many tiles takes, whatever its bucket or share: their
 # sums then run in one order for a tile wherever it runs (alone, in a
 # bucket of one card, a card's share of one, a group's), so its mask is
-# the same bits. 8 is the least split that runs the buckets 8-128 as
-# fast as each bucket's own split (``tools/split_batch.py``).
-SPLIT_BATCH = 8
+# the same bits. 32 is the least split that runs the buckets 32-128
+# within 4% of each bucket's own split on the wgmma core; 8 cost them
+# 7-13%, and the buckets 8 and 16 are host-bound at any split
+# (``tools/split_batch.py``; PERF.md).
+SPLIT_BATCH = 32
 
 
 def _pick_bucket(n, cap, align=1):

@@ -10,19 +10,26 @@ the conv output in the compute dtype (cuDNN; the JAX package leaves this
 conv to XLA), runs K1-bwd on it, and takes dx and dw through the
 recomputed conv.
 
-NHWC form: a channels_last x (``norm_act.is_nhwc``) with a channels_last
-weight launches ``pgt_conv_in_act_nhwc`` (an NHWC problem, the finish of
-``csrc/norm_nhwc.cuh``), its output channels_last; an NCHW-contiguous x
-today's form; anything else raises. The host planner ``nhwc_gemm_plan``
-picks the GEMM core: in bf16 with every channel run (Cin, Cout) a multiple
-of 64 and x and w on 16 bytes the Hopper core of ``csrc/conv_wgmma.cuh``
-(wgmma fed by an async-copy ring, its tile, ring depth, K split and
-samples a tile from the plan), otherwise the WMMA core of
-``csrc/conv_gemm.cuh``. A failure of either raises; neither stands in for
-the other. The private ``_nhwc_core`` argument ('wgmma' or 'wmma', or
-('wgmma', BN, stages)) forces a core, for timing and checks only, and
-raises where it cannot. The backward's recompute (cuDNN) and K1-bwd then
-run in channels_last too: its incoming gradient is taken in the
+Forms: an NCHW-contiguous x launches ``pgt_conv_in_act``, its output
+NCHW; a channels_last x (``norm_act.is_nhwc``) with a channels_last
+weight ``pgt_conv_in_act_nhwc`` (an NHWC problem, the finish of
+``csrc/norm_nhwc.cuh``), its output channels_last; anything else raises.
+The host planner ``nhwc_gemm_plan`` (``conv_nhwc_plan``, the plan of both
+forms) picks the GEMM core: in bf16 with every channel run (Cin, Cout) a
+multiple of 64 and x and w on 16 bytes the Hopper core of
+``csrc/conv_wgmma.cuh`` (wgmma fed by an async-copy ring, its tile, ring
+depth, K split and samples a tile from the plan), otherwise the WMMA core
+of ``csrc/conv_gemm.cuh``. On the wgmma core the NCHW form's C call first
+copies x into channels_last scratch and the weight into [Cout, 4, 4, Cin]
+(the layout pass, ``nchw_to_nhwc``), and ends in the stats and
+``in_apply``'s kernel writing y in NCHW. A failure of either core raises;
+neither stands in for the other. The private arguments ``_core`` (the
+NCHW form's) and ``_nhwc_core`` (the NHWC form's), 'wgmma' or 'wmma', or
+('wgmma', BN, stages), force a core, for timing and checks only, and
+raise where it cannot, or where x is in the other layout.
+``conv_norm_act.launches_wgmma`` counts both forms' launches on the
+wgmma core. The backward's recompute (cuDNN) and K1-bwd run in x's
+layout: in channels_last the incoming gradient is taken in the
 recompute's layout, never flattened to NCHW.
 
 Band form (spatial parallelism, ``parallel/spatial.py``): ``conv_band``
@@ -31,12 +38,12 @@ rows at the image's edges, ``SpatialAxis.halo``) and launches
 ``pgt_conv_band`` with no padding of H, writing the band's fp32 conv
 output (NCHW) and its per-plane stats. Its core is the planner's
 (``conv_band_plan``): in bf16 with Cin and Cout multiples of 64 the wgmma
-core, after a layout pass in the same C call copies the band into
+core, after the layout pass in the same C call copies the band into
 channels_last scratch and the weight into [Cout, 4, 4, Cin]
 (``nchw_to_nhwc`` is that pass alone, ``nchw_to_nhwc_plain`` its plain
 version, a test helper); otherwise the WMMA core on the NCHW band. A
 failure raises; neither core stands in for the other. The private
-``_core`` argument forces one as ``_nhwc_core`` does.
+``_core`` argument forces one as in ``conv_norm_act``.
 ``conv_norm_act_band`` (``ConvNormActBand``) sums the stats over the
 spatial group and finishes with ``in_apply``. Its backward,
 ``recompute_band_grads``, recomputes the conv on the haloed band and runs
@@ -66,12 +73,12 @@ def conv_norm_act_plain(x, w, eps=1e-5, activation=None):
     return instance_norm_act_plain(acc, eps, activation).to(x.dtype)
 
 
-# The GEMM cores of the NHWC forms of K2 and K3. The wgmma core
+# The GEMM cores of K2 and K3 (NHWC and NCHW forms). The wgmma core
 # (csrc/conv_wgmma.cuh): tiles of 64 rows by BN output channels, K steps of
 # 64 channels of one tap, a ring of `stages` of (64 + BN) rows of 128 bytes
 # in dynamic shared memory; two blocks an SM at BN = 128 and four stages,
 # so the K split aims at one wave of that many blocks. Three stages fit
-# three blocks an SM, which the grids of three such waves or more take
+# three blocks an SM; a grid takes them where that makes fewer waves
 # (timed on an H100 by ``tools/conv_nhwc_variants.py --sweep``; PERF.md).
 # The WMMA core (csrc/conv_gemm.cuh): 64 x 64 tiles, K steps of 32, eight
 # blocks an SM (choose_splits, mirrored here).
@@ -80,11 +87,12 @@ WGMMA_BM = 64
 WGMMA_BK = 64
 WGMMA_BNS = (128, 64)
 WGMMA_STAGES = (4, 3)
-WGMMA_TARGET_BLOCKS = 2 * 132
-WGMMA_SHALLOW_BLOCKS = 3 * WGMMA_TARGET_BLOCKS
+SMS = 132
+SMEM_PER_SM = 233472   # an H100 SM's shared memory (1 KB of it a block's)
+WGMMA_TARGET_BLOCKS = 2 * SMS
 WGMMA_MIN_STEPS = 4
 WMMA_BM, WMMA_BN, WMMA_BK = 64, 64, 32
-WMMA_TARGET_BLOCKS = 4 * 132
+WMMA_TARGET_BLOCKS = 4 * SMS
 SMEM_PER_BLOCK = 232448
 
 GemmPlan = collections.namedtuple(
@@ -99,6 +107,14 @@ def wgmma_smem(bn, stages):
         1024
 
 
+def wgmma_waves(blocks, bn, stages):
+    """Waves of a wgmma grid of ``blocks`` on the card: blocks an SM as
+    the shared memory holds them (two at BN 128 and four stages, three at
+    three stages)."""
+    per_sm = SMEM_PER_SM // (wgmma_smem(bn, stages) + 1024)
+    return -(-blocks // (SMS * per_sm))
+
+
 def _doubled(blocks, steps, target, min_steps, fits):
     """The K split: doubled from 1 while ``fits(blocks * s)`` and each
     split keeps ``min_steps`` of the ``steps`` K steps."""
@@ -111,11 +127,11 @@ def _doubled(blocks, steps, target, min_steps, fits):
 @functools.lru_cache(maxsize=None)
 def nhwc_gemm_plan(m, groups, runs, taps, cout, dtype, aligned, split_batch,
                    core=None):
-    """The GEMM of an NHWC K2 or K3 launch: ``m`` output pixels a (sample,
-    class), ``groups`` classes (K3's 4 output parities, K2's 1), the
-    input's channel ``runs`` (K2: (Cin,); K3: (Cx, Cs)), ``taps`` taps a
-    class (16; 4), ``cout`` output channels, ``aligned``: x (and skip) and
-    the weight on 16 bytes. The K split is the one a batch of
+    """The GEMM of a K2 or K3 launch (any form): ``m`` output pixels a
+    (sample, class), ``groups`` classes (K3's 4 output parities, K2's 1),
+    the input's channel ``runs`` (K2: (Cin,); K3: (Cx, Cs)), ``taps`` taps
+    a class (16; 4), ``cout`` output channels, ``aligned``: x (and skip)
+    and the weight on 16 bytes. The K split is the one a batch of
     ``split_batch`` samples takes, never a function of the batch itself.
 
     The wgmma core where the dtype is bf16, every channel run and Cout are
@@ -123,8 +139,8 @@ def nhwc_gemm_plan(m, groups, runs, taps, cout, dtype, aligned, split_batch,
     64; a tile packs 64 / m samples where m < 64, otherwise a sample takes
     ceil(m / 64) tiles; the split doubles while the doubled grid still
     fits one wave of ``WGMMA_TARGET_BLOCKS`` and each split keeps
-    ``WGMMA_MIN_STEPS`` K steps; three stages where the grid has
-    ``WGMMA_SHALLOW_BLOCKS`` blocks or more, else four. The stages and BN
+    ``WGMMA_MIN_STEPS`` K steps; three stages where the grid then runs in
+    fewer waves than at four (``wgmma_waves``), else four. The stages and BN
     change no sum's order: only the split and the packing do, and they
     follow ``split_batch``. Otherwise the WMMA core with
     ``choose_splits``' split. ``core`` ('wgmma', 'wmma' or ('wgmma', BN,
@@ -167,15 +183,19 @@ def nhwc_gemm_plan(m, groups, runs, taps, cout, dtype, aligned, split_batch,
     blocks = rows * groups * (cout // bn)
     splits = _doubled(blocks, k // WGMMA_BK, WGMMA_TARGET_BLOCKS,
                       WGMMA_MIN_STEPS, lambda b, t: 2 * b <= t)
-    stages = stages or (3 if blocks * splits >= WGMMA_SHALLOW_BLOCKS else 4)
+    grid = blocks * splits
+    stages = stages or (3 if wgmma_waves(grid, bn, 3) <
+                        wgmma_waves(grid, bn, 4) else 4)
     return GemmPlan('wgmma', bn, stages, min(splits, 65535 // groups),
                     samples, tiles, groups * tiles, wgmma_smem(bn, stages))
 
 
 def conv_nhwc_plan(n, cin, h, w, cout, dtype, aligned=True,
                    split_batch=None, core=None):
-    """``nhwc_gemm_plan`` of K2's NHWC form on x (n, cin, h, w) and a
-    (cout, cin, 4, 4) weight."""
+    """``nhwc_gemm_plan`` of K2's whole-plane forms (NHWC, and NCHW,
+    whose wgmma core reads the layout pass's channels_last copies) on x
+    (n, cin, h, w) and a (cout, cin, 4, 4) weight; ``aligned``: x and the
+    weight on 16 bytes."""
     ho, wo = (h - 2) // 2 + 1, (w - 2) // 2 + 1
     return nhwc_gemm_plan(ho * wo, 1, (cin,), 16, cout, dtype, aligned,
                           split_batch or n, core)
@@ -185,13 +205,9 @@ def conv_nhwc_plan(n, cin, h, w, cout, dtype, aligned=True,
 def _lib():
     lib = _build.load('conv_norm_act')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pgt_conv_in_act.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                    ctypes.c_float, i, p]
+    lib.pgt_conv_in_act.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float] + \
+        [i] * 6 + [p]
     lib.pgt_conv_in_act.restype = i
-    lib.pgt_tile_m.argtypes = []
-    lib.pgt_tile_m.restype = i
-    lib.pgt_conv_splits.argtypes = [i] * 5
-    lib.pgt_conv_splits.restype = i
     lib.pgt_conv_band.argtypes = [p] * 7 + [i] * 12 + [p]
     lib.pgt_conv_band.restype = i
     lib.pgt_nchw_to_nhwc.argtypes = [p, p, i, i, ctypes.c_long, p]
@@ -204,23 +220,22 @@ def _lib():
     return lib
 
 
-def _forward(x, w, eps, activation, split_batch=None, core=None):
+def _forward(x, w, eps, activation, split_batch=None, core=None,
+             nhwc_core=None):
     """K2 on CUDA tensors, the plain version on CPU tensors; never
-    recorded by autograd. ``core``: the NHWC form's core forced (checked
-    on CPU tensors too)."""
-    if core is not None:
-        if not (x.dim() == 4 and is_nhwc(x)):
-            raise ValueError('_nhwc_core needs a channels_last x')
+    recorded by autograd. ``core`` / ``nhwc_core``: the NCHW / NHWC
+    form's core forced (checked on CPU tensors too)."""
+    forced = forced_core(x, core, nhwc_core)
+    if forced is not None:
         n, cin, h, wd = x.shape
         plan = conv_nhwc_plan(n, cin, h, wd, w.shape[0], x.dtype,
-                              _aligned(x, w), split_batch, core)
+                              _aligned(x, w), split_batch, forced)
     if x.device.type == 'cpu':
         return conv_norm_act_plain(x, w, eps, activation)
     act = act_code(activation)
     nhwc = x.dim() == 4 and is_nhwc(x)
     require(x, 'x', 4, nhwc=nhwc)
     require(w, 'w', 4, like=x, nhwc=nhwc)
-    flag = dtype_flag(x)
     n, cin, h, wd = x.shape
     cout = w.shape[0]
     if tuple(w.shape) != (cout, cin, 4, 4):
@@ -230,28 +245,55 @@ def _forward(x, w, eps, activation, split_batch=None, core=None):
     if ho < 1 or wo < 1:
         raise ValueError(f"input {h}x{wd} is too small for k=4, s=2, p=1")
     require_aligned(w, 'w')
-    lib = _lib()
-    if nhwc:
-        if core is None:
-            plan = conv_nhwc_plan(n, cin, h, wd, cout, x.dtype,
-                                  _aligned(x, w), split_batch)
-        return _forward_nhwc(lib, x, w, act, eps, split_batch, plan)
-    tiles = -(-ho * wo // lib.pgt_tile_m())
+    if forced is None:
+        plan = conv_nhwc_plan(n, cin, h, wd, cout, x.dtype, _aligned(x, w),
+                              split_batch)
+    return (_forward_nhwc if nhwc else _forward_nchw)(
+        _lib(), x, w, act, eps, split_batch, plan)
+
+
+def forced_core(x, core, nhwc_core):
+    """The core forced on a call in x's layout, or None: ``core`` the NCHW
+    form's, ``nhwc_core`` the NHWC form's; either given for the other
+    layout raises ValueError."""
+    if core is None and nhwc_core is None:
+        return None
+    nhwc = x.dim() == 4 and is_nhwc(x)
+    if nhwc_core is not None and not nhwc:
+        raise ValueError('_nhwc_core needs a channels_last x')
+    if core is not None and nhwc:
+        raise ValueError('_core forces the NCHW form\'s core; a '
+                         'channels_last x takes _nhwc_core')
+    return nhwc_core if nhwc else core
+
+
+def _forward_nchw(lib, x, w, act, eps, split_batch, plan):
+    """K2's NCHW form on NCHW-contiguous x and w (checked by ``_forward``)
+    on the core ``plan`` (``conv_nhwc_plan``) names: on the wgmma core the
+    layout pass's channels_last copies of x and w, the GEMM, the stats and
+    the apply, one C call."""
+    n, cin, h, wd = x.shape
+    cout = w.shape[0]
+    ho, wo = (h - 2) // 2 + 1, (wd - 2) // 2 + 1
     y = torch.empty((n, cout, ho, wo), dtype=x.dtype, device=x.device)
+    wgmma = plan.core == 'wgmma'
     # fp32 conv output, one copy per K split
-    split_batch = split_batch or n
-    splits = lib.pgt_conv_splits(split_batch, cin, h, wd, cout)
-    acc = torch.empty((splits, n, cout, ho, wo), dtype=torch.float32,
-                      device=x.device)
-    part = torch.empty((n, cout, tiles, 2), dtype=torch.float32,
-                       device=x.device)
-    with torch.cuda.device(x.device):
+    acc = f32_scratch(plan.splits * y.numel(), like=x)
+    part = f32_scratch(n * cout * plan.parts, 2, like=x)
+    stats = f32_scratch(n * cout, 2, like=x) if wgmma else None
+    # the layout pass's channels_last copies of x and the weight
+    xt, wt = (torch.empty(t.numel(), dtype=t.dtype, device=t.device)
+              if wgmma else None for t in (x, w))
+    with _build.device_guard(x):
         rc = lib.pgt_conv_in_act(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), acc.data_ptr(),
-            part.data_ptr(), n, split_batch, cin, h, wd, cout, act, eps,
-            flag, _build.stream_of(x))
-    _build.check(rc, 'conv_norm_act')
+            part.data_ptr(), _ptr(xt), _ptr(wt), _ptr(stats), n,
+            split_batch or n, cin, h, wd, cout, act, eps, dtype_flag(x),
+            int(wgmma), plan.bn, plan.stages, plan.splits, plan.samples,
+            _build.stream_of(x))
+    _build.check(rc, f'conv_norm_act ({plan.core} core)')
     conv_norm_act.launches += 1
+    conv_norm_act.launches_wgmma += wgmma
     return y
 
 
@@ -313,39 +355,40 @@ class ConvNormAct(torch.autograd.Function):
     """K2 forward; backward by recompute + K1-bwd. Residuals (x, w)."""
 
     @staticmethod
-    def forward(ctx, x, w, eps, activation, split_batch, core):
+    def forward(ctx, x, w, eps, activation, split_batch, core, nhwc_core):
         ctx.save_for_backward(x, w)
         ctx.eps, ctx.activation = eps, activation
-        return _forward(x, w, eps, activation, split_batch, core)
+        return _forward(x, w, eps, activation, split_batch, core, nhwc_core)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx, dw = recompute_grads(ctx, g, _conv, (x, w))
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None, None, None
 
 
 def conv_norm_act(x, w, eps=1e-5, activation=None, split_batch=None, *,
-                  _nhwc_core=None):
+                  _core=None, _nhwc_core=None):
     """x: (N, Cin, H, W), w: (Cout, Cin, 4, 4) in x's dtype and layout
     (NCHW-contiguous, or both channels_last). A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel in the form of its layout,
     the output in that layout.
     ``split_batch``: the kernel takes the K split of a batch of that many
     samples (default N, the fastest); held fixed, each sample's output is
-    the same bits whatever batch it runs in. ``_nhwc_core`` (private):
-    the NHWC form's GEMM core forced ('wgmma', 'wmma' or ('wgmma', BN,
-    stages)), for timing and checks; it raises where it cannot.
+    the same bits whatever batch it runs in. ``_core`` / ``_nhwc_core``
+    (private): the NCHW / NHWC form's GEMM core forced ('wgmma', 'wmma' or
+    ('wgmma', BN, stages)), for timing and checks; it raises where it
+    cannot, or where x is in the other layout.
     Differentiable through ``ConvNormAct``."""
     if needs_graph(x, w):
-        return ConvNormAct.apply(x, w, eps, activation, split_batch,
+        return ConvNormAct.apply(x, w, eps, activation, split_batch, _core,
                                  _nhwc_core)
-    return _forward(x, w, eps, activation, split_batch, _nhwc_core)
+    return _forward(x, w, eps, activation, split_batch, _core, _nhwc_core)
 
 
 conv_norm_act.launches = 0
-# the NHWC form's launches alone (``launches`` counts both forms'), and of
-# them the wgmma core's
+# the NHWC form's launches alone (``launches`` counts both forms'), and
+# the wgmma core's (both forms')
 conv_norm_act.launches_nhwc = 0
 conv_norm_act.launches_wgmma = 0
 

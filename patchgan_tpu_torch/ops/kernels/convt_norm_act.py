@@ -31,12 +31,18 @@ NHWC form: channels_last x, skip and weight (``norm_act.is_nhwc``) launch
 weight (``pack_convt_weight_nhwc_plain`` is its layout in plain PyTorch,
 ``pack_convt_weight_nhwc`` the pack kernel alone), then a GEMM core on an
 NHWC problem and the finish of ``csrc/norm_nhwc.cuh``; the output is
-channels_last. The core is K2's choice (``conv_norm_act.nhwc_gemm_plan``,
-here through ``convt_nhwc_plan``): the wgmma core of
-``csrc/conv_wgmma.cuh`` in bf16 with Cx, Cs and Cout multiples of 64 and
-x and skip on 16 bytes, else the WMMA core; ``_nhwc_core`` forces one as
-in ``conv_norm_act``. NCHW-contiguous inputs take today's form; anything
-else raises.
+channels_last. NCHW-contiguous inputs take the NCHW form,
+``pgt_convt_in_act``; anything else raises. Both forms' core is K2's
+choice (``conv_norm_act.nhwc_gemm_plan``, here through
+``convt_nhwc_plan``): the wgmma core of ``csrc/conv_wgmma.cuh`` in bf16
+with Cx, Cs and Cout multiples of 64 and x, skip and w on 16 bytes, else
+the WMMA core. On the wgmma core the NCHW form's C call first copies x
+and skip into channels_last scratch (the layout pass) and packs the NCHW
+weight in the NHWC form's order, as the band form does, and ends in the
+stats and ``in_apply``'s kernel writing y in NCHW. ``_core`` and
+``_nhwc_core`` force the NCHW and the NHWC form's core as in
+``conv_norm_act``; ``convt_norm_act.launches_wgmma`` counts both forms'
+launches on the wgmma core.
 
 Unlike the TPU gate (``Cout >= 128``, a lane-padding limit of that chip),
 every Cout runs the kernel here, so the nf=64 generator's dec5 (Cout=64)
@@ -50,8 +56,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv_norm_act import (_ptr, nhwc_gemm_plan, recompute_band_grads,
-                            recompute_grads)
+from .conv_norm_act import (_ptr, forced_core, nhwc_gemm_plan,
+                            recompute_band_grads, recompute_grads)
 from .norm_act import (_aligned, act_code, dtype_flag, f32_scratch, in_apply,
                        in_stats_plain, instance_norm_act_plain, is_nhwc,
                        needs_graph, nhwc_plan, require, require_aligned)
@@ -95,8 +101,10 @@ def pack_convt_weight_nhwc_plain(w):
 
 def convt_nhwc_plan(n, cx, cs, h, w, cout, dtype, aligned=True,
                     split_batch=None, core=None):
-    """``nhwc_gemm_plan`` of K3's NHWC form on x (n, cx, h, w), a skip of
-    cs channels (0: none) and a (cx + cs, cout, 4, 4) weight."""
+    """``nhwc_gemm_plan`` of K3's whole-plane forms (NHWC, and NCHW,
+    whose wgmma core reads the layout pass's channels_last copies) on x
+    (n, cx, h, w), a skip of cs channels (0: none) and a (cx + cs, cout, 4,
+    4) weight; ``aligned``: x, skip and the weight on 16 bytes."""
     return nhwc_gemm_plan(h * w, 4, (cx, cs), 4, cout, dtype, aligned,
                           split_batch or n, core)
 
@@ -105,15 +113,11 @@ def convt_nhwc_plan(n, cx, cs, h, w, cout, dtype, aligned=True,
 def _lib():
     lib = _build.load('convt_norm_act')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pgt_convt_in_act.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                     i, ctypes.c_float, i, p]
+    lib.pgt_convt_in_act.argtypes = [p] * 10 + [i] * 8 + [
+        ctypes.c_float] + [i] * 6 + [p]
     lib.pgt_convt_in_act.restype = i
     lib.pgt_convt_pack.argtypes = [p, p, i, i, i, i, p]
     lib.pgt_convt_pack.restype = i
-    lib.pgt_tile_m.argtypes = []
-    lib.pgt_tile_m.restype = i
-    lib.pgt_convt_splits.argtypes = [i] * 6
-    lib.pgt_convt_splits.restype = i
     lib.pgt_convt_packed_k.argtypes = [i, i]
     lib.pgt_convt_packed_k.restype = i
     lib.pgt_convt_band.argtypes = [p] * 9 + [i] * 13 + [p]
@@ -166,19 +170,19 @@ def pack_convt_weight_nhwc(w):
     return wp
 
 
-def _forward(x, w, eps, activation, skip, split_batch=None, core=None):
+def _forward(x, w, eps, activation, skip, split_batch=None, core=None,
+             nhwc_core=None):
     """K3 on CUDA tensors, the plain version on CPU tensors; never
-    recorded by autograd. ``core``: the NHWC form's core forced (checked
-    on CPU tensors too)."""
-    if core is not None:
-        if not (x.dim() == 4 and is_nhwc(x)):
-            raise ValueError('_nhwc_core needs a channels_last x')
+    recorded by autograd. ``core`` / ``nhwc_core``: the NCHW / NHWC
+    form's core forced (checked on CPU tensors too)."""
+    forced = forced_core(x, core, nhwc_core)
+    if forced is not None:
         n, cx, h, wd = x.shape
         cs = 0 if skip is None else skip.shape[1]
         plan = convt_nhwc_plan(
             n, cx, cs, h, wd, w.shape[1], x.dtype,
-            _aligned(x, *([] if skip is None else [skip])), split_batch,
-            core)
+            _aligned(x, w, *([] if skip is None else [skip])), split_batch,
+            forced)
     if x.device.type == 'cpu':
         return convt_norm_act_plain(x, w, eps, activation, skip)
     act = act_code(activation)
@@ -193,37 +197,47 @@ def _forward(x, w, eps, activation, skip, split_batch=None, core=None):
             raise ValueError(f"skip {tuple(skip.shape)} does not match x "
                              f"{tuple(x.shape)}")
         cs = skip.shape[1]
-    flag = dtype_flag(x)
     cout = w.shape[1]
     if tuple(w.shape) != (cx + cs, cout, 4, 4):
         raise ValueError(f"w must be ({cx + cs}, {cout}, 4, 4), got "
                          f"{tuple(w.shape)}")
     require_aligned(w, 'w')
-    lib = _lib()
-    if nhwc:
-        if core is None:
-            plan = convt_nhwc_plan(
-                n, cx, cs, h, wd, cout, x.dtype,
-                _aligned(x, *([] if skip is None else [skip])), split_batch)
-        return _forward_nhwc(lib, x, w, act, eps, skip, split_batch, plan)
-    tiles = -(-h * wd // lib.pgt_tile_m())
+    if forced is None:
+        plan = convt_nhwc_plan(
+            n, cx, cs, h, wd, cout, x.dtype,
+            _aligned(x, w, *([] if skip is None else [skip])), split_batch)
+    return (_forward_nhwc if nhwc else _forward_nchw)(
+        _lib(), x, w, act, eps, skip, split_batch, plan)
+
+
+def _forward_nchw(lib, x, w, act, eps, skip, split_batch, plan):
+    """K3's NCHW form on NCHW-contiguous x, skip and w (checked by
+    ``_forward``) on the core ``plan`` (``convt_nhwc_plan``) names: on the
+    wgmma core the layout pass's channels_last copies of x and skip, the
+    pack, the GEMM, the stats and the apply, one C call."""
+    n, cx, h, wd = x.shape
+    cs = 0 if skip is None else skip.shape[1]
+    cout = w.shape[1]
     y = torch.empty((n, cout, 2 * h, 2 * wd), dtype=x.dtype, device=x.device)
+    wgmma = plan.core == 'wgmma'
     # fp32 conv output, one copy per K split
-    split_batch = split_batch or n
-    splits = lib.pgt_convt_splits(split_batch, cx, cs, h, wd, cout)
-    acc = torch.empty((splits,) + y.shape, dtype=torch.float32,
-                      device=x.device)
-    part = torch.empty((n, cout, 4 * tiles, 2), dtype=torch.float32,
-                       device=x.device)
+    acc = f32_scratch(plan.splits * y.numel(), like=x)
+    part = f32_scratch(n * cout * plan.parts, 2, like=x)
+    stats = f32_scratch(n * cout, 2, like=x) if wgmma else None
     wp = _packed(lib, w)
-    skip_ptr = skip.data_ptr() if skip is not None else None
-    with torch.cuda.device(x.device):
+    # the layout pass's channels_last copies of x and skip
+    xt, st = (torch.empty(t.numel(), dtype=t.dtype, device=t.device)
+              if wgmma and t is not None else None for t in (x, skip))
+    with _build.device_guard(x):
         rc = lib.pgt_convt_in_act(
-            x.data_ptr(), skip_ptr, w.data_ptr(), wp.data_ptr(),
-            y.data_ptr(), acc.data_ptr(), part.data_ptr(), n, split_batch,
-            cx, cs, h, wd, cout, act, eps, flag, _build.stream_of(x))
-    _build.check(rc, 'convt_norm_act')
+            x.data_ptr(), _ptr(skip), w.data_ptr(), wp.data_ptr(),
+            y.data_ptr(), acc.data_ptr(), part.data_ptr(), _ptr(xt),
+            _ptr(st), _ptr(stats), n, split_batch or n, cx, cs, h, wd, cout,
+            act, eps, dtype_flag(x), int(wgmma), plan.bn, plan.stages,
+            plan.splits, plan.samples, _build.stream_of(x))
+    _build.check(rc, f'convt_norm_act ({plan.core} core)')
     convt_norm_act.launches += 1
+    convt_norm_act.launches_wgmma += wgmma
     return y
 
 
@@ -268,35 +282,38 @@ class ConvTNormAct(torch.autograd.Function):
     skip)."""
 
     @staticmethod
-    def forward(ctx, x, w, skip, eps, activation, split_batch, core):
+    def forward(ctx, x, w, skip, eps, activation, split_batch, core,
+                nhwc_core):
         ctx.save_for_backward(x, w, skip)
         ctx.eps, ctx.activation = eps, activation
-        return _forward(x, w, eps, activation, skip, split_batch, core)
+        return _forward(x, w, eps, activation, skip, split_batch, core,
+                        nhwc_core)
 
     @staticmethod
     def backward(ctx, g):
         x, w, skip = ctx.saved_tensors
         dx, dw, dskip = recompute_grads(ctx, g, _convt, (x, w, skip))
-        return dx, dw, dskip, None, None, None, None
+        return dx, dw, dskip, None, None, None, None, None
 
 
 def convt_norm_act(x, w, eps=1e-5, activation=None, skip=None,
-                   split_batch=None, *, _nhwc_core=None):
+                   split_batch=None, *, _core=None, _nhwc_core=None):
     """x: (N, Cx, H, W), optional skip: (N, Cs, H, W), w: (Cx + Cs, Cout,
     4, 4), all in x's dtype and layout (NCHW-contiguous, or all
     channels_last). Returns (N, Cout, 2H, 2W) in that layout. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel in the form
-    of its layout. ``split_batch`` and ``_nhwc_core`` (private) as in
-    ``conv_norm_act``. Differentiable through ``ConvTNormAct``."""
+    of its layout. ``split_batch``, ``_core`` and ``_nhwc_core`` (private)
+    as in ``conv_norm_act``. Differentiable through ``ConvTNormAct``."""
     if needs_graph(x, w, skip):
         return ConvTNormAct.apply(x, w, skip, eps, activation, split_batch,
-                                  _nhwc_core)
-    return _forward(x, w, eps, activation, skip, split_batch, _nhwc_core)
+                                  _core, _nhwc_core)
+    return _forward(x, w, eps, activation, skip, split_batch, _core,
+                    _nhwc_core)
 
 
 convt_norm_act.launches = 0
-# the NHWC form's launches alone (``launches`` counts both forms'), and of
-# them the wgmma core's
+# the NHWC form's launches alone (``launches`` counts both forms'), and
+# the wgmma core's (both forms')
 convt_norm_act.launches_nhwc = 0
 convt_norm_act.launches_wgmma = 0
 

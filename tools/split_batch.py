@@ -5,11 +5,13 @@ same bits in any batch.
 
     python3 tools/split_batch.py [--splits 1,4,8,32] [--windows 2]
 
-K2 and K3 (``csrc/conv_gemm.cuh``, ``choose_splits``) split their K loop
-by the batch they run: fewer samples, more splits. So a tile's sums run
-in another order in a bucket of 32 than in a share of 8, and in bf16 the
-masks differ on a fraction of a percent of pixels. ``split_batch=S``
-fixes the split to a batch of S samples. This runs the bf16 nf=64 3 -> 7
+K2 and K3 split their K loop by the batch they run (in bf16 the wgmma
+core's plan, ``nhwc_gemm_plan``; on the WMMA core ``choose_splits``):
+fewer samples, more splits. So a tile's sums run in another order in a
+bucket of 32 than in a share of 8, and in bf16 the masks differ on a
+fraction of a percent of pixels. ``split_batch=S`` fixes the split (and
+the wgmma core's tile and ring depth, which change no sum) to a batch of
+S samples. This runs the bf16 nf=64 3 -> 7
 generator (seeded random weights, 256-px seeded noise tiles): first the
 outputs of a bucket of 32 against four shares of 8 and against the first
 32 rows of a bucket of 128, with each batch's own split and with each
