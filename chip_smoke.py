@@ -469,12 +469,13 @@ RECOMPUTES = {'full': 6 + 5, 'frozen': 5}
 # the device kernel of each of K1, K2, K3, K1-bwd, K4, K4-wgrad, one a
 # wrapper's launch, as the profiler names it (every part must appear); K2
 # and K3 in bf16 at config 2's shapes: the GEMM of the wgmma core
-# (csrc/conv_wgmma.cuh), whose problem structs both forms use
+# (csrc/conv_wgmma.cuh), whose problem structs both forms use; K4-wgrad
+# at the s2d step's shapes: its wgmma kernel (csrc/thin_conv.cu)
 PROFILE_NAMES = (('pgt::in_act_kernel<',),
                  ('pgt::conv_wgmma_kernel<', 'pgt::ConvNhwcProblem<'),
                  ('pgt::conv_wgmma_kernel<', 'pgt::ConvTNhwcProblem<'),
                  ('pgt::in_act_bwd_kernel<',), ('pgt::thin::thin_fwd<',),
-                 ('pgt::thin::thin_wgrad<',))
+                 ('pgt::thin::thin_wgrad_tma<',))
 # the same for the NHWC forms in bf16: K1's and K1-bwd's one-pass kernels
 # (csrc/norm_nhwc_cluster.cuh)
 PROFILE_NAMES_NHWC = (('pgt::nhwc::one_pass::in_act_one_pass<',),
@@ -892,16 +893,33 @@ def kernel_phase(torch, F, kernels, spatial=False):
     repeat_check(torch, k1.wrapper, lambda xd, gd: (xd, 1e-5, 'relu'), gen)
 
 
+# K4-wgrad's kernel on the wgmma path (csrc/thin_conv.cu), as ptxas and
+# the profiler name it
+WGRAD_WGMMA = 'thin_wgrad_tma'
+
+
 def thin_conv_phase(torch, F, k4, k4w):
     """K4 and K4-wgrad against their plain versions at the s2d paths'
     shapes, bf16 and fp32, and K4's weight pack against its plain
-    layout; timing rows go to ``k4.rows`` / ``k4w.rows`` with ``calls``,
-    the number of calls per train step at that shape (0: the inference
-    chunk and the merged validation discriminator, where K4-wgrad is
-    checked but not timed)."""
-    from patchgan_tpu_torch.ops.kernels import (pack_thin_weight,
+    layout; two launches of each on the same inputs bit-equal; K4-wgrad's
+    launches on ``thin_wgrad_plan``'s kernel (the wgmma kernel wherever
+    bf16 W % 8 == 0 and the inputs lie on 16 bytes, which the profiler
+    must name at the s2d step's shapes), and ptxas's report of the wgmma
+    kernel (none may spill). Timing rows go to ``k4.rows`` /
+    ``k4w.rows`` with ``calls``, the number of calls per train step at
+    that shape (0: the inference chunk and the merged validation
+    discriminator, where K4-wgrad is checked but not timed), by events
+    and by a graph's replay beside the library call's."""
+    from patchgan_tpu_torch.ops.kernels import (_build, pack_thin_weight,
                                                 pack_thin_weight_plain)
-    from patchgan_tpu_torch.ops.kernels.thin_conv import thin_conv_grid
+    from patchgan_tpu_torch.ops.kernels.thin_conv import (thin_conv_grid,
+                                                          thin_wgrad_plan)
+    ptxas = wgmma_ptxas(_build.build_log, (WGRAD_WGMMA,))
+    for (lib, name), (regs, stores, loads) in sorted(ptxas.items()):
+        print(f'  ptxas {lib} {name}: {regs} registers, spill stores '
+              f'{stores} / loads {loads} bytes', flush=True)
+    if any(stores or loads for _, stores, loads in ptxas.values()):
+        raise AssertionError(f'K4-wgrad\'s wgmma kernel spills: {ptxas}')
     gen = torch.Generator(device='cuda').manual_seed(9)
     hw = SIZE // 2
     # (label, N, Cin, H, W, Cout, K4 calls per step, K4-wgrad calls,
@@ -930,23 +948,41 @@ def thin_conv_phase(torch, F, k4, k4w):
             if not torch.equal(pack_thin_weight(wd_),
                                pack_thin_weight_plain(wd_, dt)):
                 raise AssertionError(f'K4 pack {label} {dname} differs')
+            route = thin_wgrad_plan(n, cin, h, wd, cout, dt).route
             got = k4.wrapper(xd, wd_).float()
             want = k4.plain(xd.float(), wd_.float())
+            before = k4w.wrapper.launches_wgmma
             got_w = k4w.wrapper(xd, dyd)
+            again_w = k4w.wrapper(xd, dyd)
+            on = k4w.wrapper.launches_wgmma - before
+            same = torch.equal(k4.wrapper(xd, wd_).float(), got) and \
+                torch.equal(got_w, again_w)
             want_w = k4w.plain(xd.float(), dyd.float())
             torch.cuda.synchronize()
             e = (got - want).abs().max().item()
             ew = (got_w - want_w).abs().max().item()
             tol_w = 1e-3 * max(1.0, want_w.abs().max().item())
             print(f'  {k4.name} {label} {dname}: max_abs_err {e:.3e} (tol '
-                  f'{TOL[dname]:.0e}); {k4w.name}: {ew:.3e} (tol '
-                  f'{tol_w:.3e}); pack equal', flush=True)
-            if not (e <= TOL[dname] and ew <= tol_w):
-                raise AssertionError(f'thin conv {label} {dname}: {e}, {ew}')
+                  f'{TOL[dname]:.0e}); {k4w.name} on {route}: {ew:.3e} (tol '
+                  f'{tol_w:.3e}); pack equal; two launches equal {same}',
+                  flush=True)
+            if not (e <= TOL[dname] and ew <= tol_w and same):
+                raise AssertionError(f'thin conv {label} {dname}: {e}, {ew}, '
+                                     f'two launches equal {same}')
+            if on != 2 * (route == 'wgmma'):
+                raise AssertionError(f'{k4w.name} {label} {dname}: {on} of 2 '
+                                     f'launches on the wgmma kernel, route '
+                                     f'{route}')
             errs[dname] = (e, ew)
         if not timed:
             continue
         xb, wb, dyb = x.bfloat16(), w.bfloat16(), dy.bfloat16()
+        if wcalls:
+            names = [key for _, _, key in profile_steps(
+                torch, lambda: k4w.wrapper(xb, dyb), 1)]
+            if not any(WGRAD_WGMMA in k for k in names):
+                raise AssertionError(f'{k4w.name} {label}: the profiler saw '
+                                     f'{names}, not {WGRAD_WGMMA}')
         flops = 2 * n * h * wd * 9 * cin * cout
         xy = 2 * (x.numel() + dy.numel())
         for k, calls, (fn, plain, lib), nbytes, i in (
@@ -965,11 +1001,16 @@ def thin_conv_phase(torch, F, k4, k4w):
             grid, per_sm = thin_conv_grid(xb, cout, wgrad=k is k4w)
             row = {'kernel': k.name, 'case': label, 'dtype': 'bfloat16',
                    'calls': calls, 'grid': grid, 'blocks_per_sm': per_sm,
-                   'kernel_ms': cuda_ms(fn),
+                   'kernel_ms': cuda_ms(fn), 'device_ms': device_ms(fn),
                    'plain_ms': cuda_ms(plain), 'library_ms': cuda_ms(lib),
+                   'library_device_ms': device_ms(lib),
                    'bound_ms': b_ms, 'bound_by': b_by,
                    'max_abs_err_bf16': errs['bfloat16'][i],
                    'max_abs_err_fp32': errs['float32'][i]}
+            if k is k4w:
+                plan = thin_wgrad_plan(n, cin, h, wd, cout, torch.bfloat16)
+                row.update(route=plan.route, stages=plan.stages,
+                           smem_bytes=plan.smem)
             k.rows.append(row)
             print(json.dumps(row), flush=True)
 
@@ -5557,17 +5598,25 @@ BAND_KERNELS = (
 # padded, an NCHW acc): ConvNhwcProblem / ConvTNhwcProblem<bf16, true,
 # false, false>
 BAND_MODE = 'Lb1ELb0ELb0EE'
-# the band forms of K1-bwd's sums and dx (csrc/band_norm.cuh): their
-# kernels' names, for ptxas's report
-BAND_NORM_MARKS = ('bwd_sums_group', 'bwd_sums_cluster', 'bwd_apply_vec')
+# the band forms of K1's stats and K1-bwd's sums and dx
+# (csrc/band_norm.cuh): their kernels' names, for ptxas's report; the
+# sums' kernels are instantiated for in_stats' StatsTerm and for
+# in_bwd_sums' BwdTerm
+BAND_NORM_MARKS = ('sums_group', 'sums_cluster', 'bwd_apply_vec')
+BAND_NORM_TERMS = {'in_stats': 'StatsTerm', 'in_bwd_sums': 'BwdTerm',
+                   'in_bwd_apply': 'bwd_apply_vec'}
 # the band entries of K1 and K1-bwd, timed also by a graph's replay
 BAND_NORM = ('in_stats', 'in_apply', 'in_bwd_sums', 'in_bwd_apply')
-# element-path and activation cases of in_bwd_sums and in_bwd_apply: planes of
-# 15 and 8643 elements (no multiple of 16 bytes in either dtype: element
-# by element, the small plane on a group, the large split over a
-# cluster), and a group's and a cluster's plane on the vector path
+# element-path and activation cases of in_stats, in_bwd_sums and
+# in_bwd_apply: planes of 15 and 8643 elements (no multiple of 16 bytes in
+# either dtype: element by element, the small plane on a group, the large
+# split over a cluster), and a group's and a cluster's plane on the vector
+# path
 BAND_NORM_EDGES = ((2, 8, 3, 5), (1, 4, 67, 129), (2, 16, 8, 8),
                    (1, 2, 128, 256))
+# in_stats' other bands: phase 15's spatial mode (the 1280x960 image
+# padded to 1024 x 1280, enc0 over 2 and 4 cards)
+STATS_BANDS = ((1, NF, 256, 640), (1, NF, 128, 640))
 
 
 def band_wrappers():
@@ -5641,12 +5690,14 @@ def band_kernel_phase(torch, F, whole):
     rows timed on both cores by events and by a graph's replay beside
     their layout passes alone (``core_row``); the layout pass bit-equal
     to its plain version at every band and at its element paths; ptxas's
-    report of the band instantiations. ``in_bwd_sums`` and
+    report of the band instantiations. ``in_stats``, ``in_bwd_sums`` and
     ``in_bwd_apply`` (``csrc/band_norm.cuh``) also at ``BAND_NORM_EDGES``
-    in every activation and one element past 16 bytes, with their
+    (K1-bwd's in every activation) and one element past 16 bytes,
+    ``in_stats`` also at phase 15's bands (``STATS_BANDS``), with their
     kernels' ptxas report (none may spill); the four K1 / K1-bwd band
-    entries' rows also by a graph's replay (``device_ms``), ``in_bwd_sums``'
-    and ``in_bwd_apply``'s with their geometry. Returns {entry: {'rows': [...],
+    entries' rows also by a graph's replay (``device_ms``), ``in_stats``',
+    ``in_bwd_sums``' and ``in_bwd_apply``'s with their geometry,
+    ``in_stats``' with ``torch.var_mean``'s time as its library call. Returns {entry: {'rows': [...],
     'max_abs_err': the outputs' worst, 'max_sum_err': the sums' worst over
     max(1, max |sum|), 'max_sum_abs_err': the sums' worst}}, with
     'ptxas' beside the rows of ``in_bwd_sums`` and ``in_bwd_apply``."""
@@ -5679,9 +5730,9 @@ def band_kernel_phase(torch, F, whole):
     gen = torch.Generator(device='cuda').manual_seed(17)
     res = {name: {'rows': [], 'max_abs_err': 0.0, 'max_sum_err': 0.0,
                   'max_sum_abs_err': 0.0} for name, _, _ in BAND_KERNELS}
-    for name in ('in_bwd_sums', 'in_bwd_apply'):
+    for name, mark in BAND_NORM_TERMS.items():
         res[name]['ptxas'] = {k[1]: v for k, v in norm_ptxas.items()
-                              if (name == 'in_bwd_apply') == ('apply' in k[1])}
+                              if mark in k[1]}
     eps, act = 1e-5, 'relu'
 
     def rand(*shape, scale=1.0):
@@ -5715,7 +5766,7 @@ def band_kernel_phase(torch, F, whole):
             raise AssertionError(f'17a: {name}: two launches differ')
 
     def row(name, label, fn, plain, whole_ms, flops, nbytes, peak,
-            extra=None):
+            extra=None, library=None):
         b_ms, b_by = bound(flops, nbytes, peak)
         r = {'kernel': name, 'case': label, 'dtype': 'bfloat16',
              'kernel_ms': cuda_ms(fn, iters=10),
@@ -5724,6 +5775,9 @@ def band_kernel_phase(torch, F, whole):
              **(extra or {})}
         if name in BAND_NORM:
             r['device_ms'] = device_ms(fn, iters=10)
+        if library is not None:
+            r.update(library_ms=cuda_ms(library, iters=10),
+                     library_device_ms=device_ms(library, iters=10))
         res[name]['rows'].append(r)
         print(json.dumps(r), flush=True)
 
@@ -5733,6 +5787,14 @@ def band_kernel_phase(torch, F, whole):
         plan = na.band_bwd_apply_plan if name == 'in_bwd_apply' else \
             na.band_sums_plan
         return {'geometry': plan(planes, plane, t.dtype)._asdict()}
+
+    def stats_check(label, xd, dname):
+        """in_stats on band xd against its plain version, two launches
+        bit-equal."""
+        want = kn.in_stats_plain(xd.float())
+        check('in_stats', f'{label} {dname}', kn.in_stats(xd), want,
+              scaled(want, dname), 'max_sum_err')
+        same_bits('in_stats', lambda: kn.in_stats(xd))
 
     def on_core(w, wgmma, fn):
         """fn(), which must launch band wrapper w once, on the wgmma core
@@ -5817,7 +5879,9 @@ def band_kernel_phase(torch, F, whole):
             k1_ms = cuda_ms(lambda: k1.wrapper(xd, eps, act), iters=10)
             row('in_stats', f'{label} {tuple(xb.shape)}',
                 lambda: kn.in_stats(xb), lambda: kn.in_stats_plain(xb),
-                k1_ms, 3 * numel, 2 * numel, PEAK_FP32)
+                k1_ms, 3 * numel, 2 * numel, PEAK_FP32,
+                geometry('in_stats', xb), library=lambda: torch.var_mean(
+                    xb, dim=(2, 3), correction=0))
             row('in_apply', f'{label} {tuple(xb.shape)} bf16 -> bf16',
                 lambda: kn.in_apply(xb, st, count, eps, act),
                 lambda: kn.in_apply_plain(xb, st, count, eps, act), k1_ms,
@@ -6005,11 +6069,20 @@ def band_kernel_phase(torch, F, whole):
         layout_check(rand(*shape).to(torch.bfloat16))
     t = rand(2 * 64 * 8 * 8 + 1).to(torch.bfloat16)[1:].view(2, 64, 8, 8)
     layout_check(t)
-    # in_bwd_sums' and in_bwd_apply's element paths, every activation,
-    # and x and g one element past 16 bytes (element by element)
+    # in_stats, in_bwd_sums' and in_bwd_apply's element paths, every
+    # activation, and x and g one element past 16 bytes (element by
+    # element); in_stats also at phase 15's bands
+    for shape in STATS_BANDS:
+        x = rand(*shape) * 2.0 + 0.5
+        for dname, dt in dts:
+            stats_check(f'{shape}', x.to(dt), dname)
     for shape in BAND_NORM_EDGES:
         x, g = rand(*shape), rand(*shape)
         xo, go = rand(x.numel() + 1), rand(x.numel() + 1)
+        for dname, dt in dts:
+            stats_check(f'{shape}', x.to(dt), dname)
+            stats_check(f'{shape} one element past 16 bytes',
+                        xo.to(dt)[1:].view(shape), dname)
         count = 2 * shape[2] * shape[3]
         st = kn.in_stats_plain(x) * 2
         cases = [(str(a), a, lambda dt: (x.to(dt), g.to(dt)))
@@ -7495,6 +7568,14 @@ def main(only=None):
                 wmma_max_abs_err=max(r['max_abs_err_wmma_bf16']
                                      for r in k.rows),
                 **{key: total(key) for key in timed[4:]})
+        if k.name in ('thin_conv3x3', 'thin_conv3x3_wgrad'):
+            # by a graph's replay beside events; K4-wgrad at the s2d step's
+            # shapes on its wgmma kernel (thin_conv_phase checked the route)
+            summary[-1].update({key: total(key) for key in (
+                'device_ms', 'library_device_ms')})
+            if k.name == 'thin_conv3x3_wgrad':
+                summary[-1].update(kernel=WGRAD_WGMMA, wmma_source=(
+                    'patchgan_tpu_torch/csrc/thin_conv.cu thin_wgrad'))
         if k.spatial_rows:
             summary[-1]['spatial_1280x960'] = {
                 key: sum(r[key] for r in k.spatial_rows) for key in timed}
@@ -7516,11 +7597,12 @@ def main(only=None):
             'plain_ms': sum(r['plain_ms'] for r in rows),
             'bound_ms': sum(r['bound_ms'] for r in rows),
             'bound_by': max(rows, key=lambda r: r['bound_ms'])['bound_by'],
-            'library_ms': None,
+            'library_ms': sum(r['library_ms'] for r in rows)
+            if all(r['library_ms'] is not None for r in rows) else None,
             'whole_plane_ms': sum(r['whole_ms'] for r in rows)})
         if name in BAND_NORM:
             summary[-1]['device_ms'] = sum(r['device_ms'] for r in rows)
-        if name in ('in_bwd_sums', 'in_bwd_apply'):
+        if name in BAND_NORM_TERMS:
             summary[-1]['kernel_source'] = \
                 'patchgan_tpu_torch/csrc/band_norm.cuh'
         if name in ('conv_band', 'convt_band'):

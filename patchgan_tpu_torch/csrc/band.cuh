@@ -17,13 +17,12 @@
 // finish of those kernels' NCHW forms on the wgmma core, with the plane's
 // own count.
 //
-// Bound on the H100: bytes, as K1 and K1-bwd. Design: simple first here.
-// The stats kernel gives one block to a plane and reduces in a fixed order
-// (strided thread sums, then block_sum2), with no atomics, so two launches
-// give the same bits; apply is elementwise over blocks of APPLY_SPAN
-// elements of one plane, each block reading its plane's stats once. The
-// backward's two halves are band_norm.cuh's (a plane's sums split over a
-// thread-block cluster with 16-byte loads, dx walked as one range of
+// Bound on the H100: bytes, as K1 and K1-bwd. Apply is elementwise over
+// blocks of APPLY_SPAN elements of one plane, each block reading its
+// plane's stats once. The stats and the backward's two halves are
+// band_norm.cuh's (a plane's sums on a group of threads or split over a
+// thread-block cluster with 16-byte loads, in a fixed order with no
+// atomics, so two launches give the same bits; dx walked as one range of
 // 16-byte vectors).
 #pragma once
 
@@ -40,22 +39,6 @@ __device__ __forceinline__ float2 mean_rstd(float2 t, float count,
   const float mean = t.x / count;
   const float var = t.y / count - mean * mean;
   return make_float2(mean, rsqrtf(var + eps));
-}
-
-// Block p: stats[p] = (sum, sum of squares) of plane p's `plane` values.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    stats_kernel(const T* __restrict__ x, float2* __restrict__ stats,
-                 long plane) {
-  const T* xp = x + blockIdx.x * plane;
-  float s = 0.f, ss = 0.f;
-  for (long i = threadIdx.x; i < plane; i += blockDim.x) {
-    const float v = to_f32(xp[i]);
-    s += v;
-    ss += v * v;
-  }
-  const float2 t = block_sum2(s, ss);
-  if (threadIdx.x == 0) stats[blockIdx.x] = t;
 }
 
 // Block b: elements [lo, lo + APPLY_SPAN) of plane b / spans.

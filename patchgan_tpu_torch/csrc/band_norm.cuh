@@ -1,25 +1,30 @@
-// Band forms of K1-bwd's two halves, redesigned for the H100: the sums
-// (pgt_in_bwd_sums) and dx given the summed sums (pgt_in_bwd_apply), both
-// in norm_act_bwd.cu; the formulas and the other band entries are
-// band.cuh's.
+// Band forms of K1's statistics and K1-bwd's two halves, redesigned for
+// the H100: a band's (sum, sum of squares) (pgt_in_stats, norm_act.cu),
+// K1-bwd's sums (pgt_in_bwd_sums) and dx given the summed sums
+// (pgt_in_bwd_apply), both in norm_act_bwd.cu; the formulas and the other
+// band entries are band.cuh's.
 //
 // Replaces, with the rest of the band forms, the JAX package's
-// patchgan_tpu/ops/pallas/norm_act.py::_backward_pallas (_bwd_kernel
+// patchgan_tpu/ops/pallas/norm_act.py::_fwd_kernel's statistics
+// (:152-163, pallas_call :211) and _backward_pallas (_bwd_kernel
 // :166-198) over a band of each plane's rows (spatial parallelism,
 // parallel/spatial.py).
 //
-// Bound on the H100: bytes. The sums read g and x once and write 8 bytes
-// a plane; dx reads g and x once and writes dx once. A few fp32
-// operations an element (one tanh at most) are far below the fp32 rate.
+// Bound on the H100: bytes. The statistics read x once, the sums g and x,
+// and both write 8 bytes a plane; dx reads g and x once and writes dx
+// once. A few fp32 operations an element (one tanh at most) are far below
+// the fp32 rate.
 //
-// Sums, per plane p: (sum gm, sum gm * xhat) of this band, gm = g *
-// act'(xhat), xhat from the plane's global stats and count. The host
-// (band_sums_plan in ops/kernels/norm_act.py) picks one of two kernels and
+// Sums, per plane p, of what each element adds (a Term): StatsTerm (v,
+// v^2) of x for the statistics; BwdTerm (gm, gm * xhat) of g and x for
+// K1-bwd, gm = g * act'(xhat), xhat from the plane's global stats and
+// count. One template over the Term, so both take the same two kernels;
+// the host (band_sums_plan in ops/kernels/norm_act.py) picks one and
 // passes its geometry:
 //   group    a plane of at most THREADS * UNROLL chunks: K1-bwd's plane
 //            machinery (norm_plane.cuh), a group of threads sized to the
-//            plane by plane_geometry, its 16-byte chunks of g and x held
-//            in registers, the group's fixed-order sum (xor butterflies,
+//            plane by plane_geometry, its 16-byte chunks held in
+//            registers, the group's fixed-order sum (xor butterflies,
 //            several planes a warp where a plane is short);
 //   cluster  a larger plane: `cluster` CTAs (at most 8, the portable
 //            limit) split its chunks into contiguous segments; a thread
@@ -28,9 +33,9 @@
 //            pushes its pair into rank 0's shared memory (st.async counted
 //            on rank 0's mbarrier: norm_nhwc_cluster.cuh), which adds the
 //            pairs in rank order. Nothing is staged: nothing is read twice.
-// A chunk is 16 bytes where the plane's bytes are a multiple of 16 and g
-// and x sit on 16 bytes, else one element. No atomics: two launches on the
-// same inputs give the same bits.
+// A chunk is 16 bytes where the plane's bytes are a multiple of 16 and
+// the inputs sit on 16 bytes, else one element. No atomics: two launches
+// on the same inputs give the same bits.
 //
 // dx = rstd * (gm - m1 - xhat * m2), m1 and m2 the summed sums over the
 // count, over the band's planes x plane elements walked as one range of
@@ -57,6 +62,7 @@ namespace band {
 constexpr int UNROLL = 4;        // chunks a thread has in flight
 constexpr int MAX_CLUSTER = 8;
 
+// g is unread (null) for the statistics; so are stats, count and eps
 template <typename T>
 struct SumsArgs {
   const T* g;
@@ -67,36 +73,60 @@ struct SumsArgs {
   float count, eps;
 };
 
-template <int ACT, typename Ch>
-__device__ __forceinline__ void add_sums(const Ch& xc, const Ch& gc,
-                                         float2 st, float& s1, float& s2) {
-  constexpr int W = Ch::W;
-  float xf[W], gf[W];
-  xc.unpack(xf);
-  gc.unpack(gf);
+// What an element of a plane adds to its pair of sums: (v, v^2) of x
+struct StatsTerm {
+  static constexpr bool kGrad = false;
+  template <typename Ch>
+  static __device__ __forceinline__ void add(const Ch& xc, const Ch&,
+                                             float2, float& s1, float& s2) {
+    float xf[Ch::W];
+    xc.unpack(xf);
 #pragma unroll
-  for (int j = 0; j < W; ++j) {
-    const float xh = (xf[j] - st.x) * st.y;
-    const float gm = gf[j] * activate_grad(xh, ACT);
-    s1 += gm;
-    s2 += gm * xh;
+    for (int j = 0; j < Ch::W; ++j) {
+      s1 += xf[j];
+      s2 += xf[j] * xf[j];
+    }
   }
-}
+};
+
+// (gm, gm * xhat) of g and x, gm = g * act'(xhat), st the plane's (mean,
+// rstd)
+template <int ACT>
+struct BwdTerm {
+  static constexpr bool kGrad = true;
+  template <typename Ch>
+  static __device__ __forceinline__ void add(const Ch& xc, const Ch& gc,
+                                             float2 st, float& s1,
+                                             float& s2) {
+    constexpr int W = Ch::W;
+    float xf[W], gf[W];
+    xc.unpack(xf);
+    gc.unpack(gf);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const float xh = (xf[j] - st.x) * st.y;
+      const float gm = gf[j] * activate_grad(xh, ACT);
+      s1 += gm;
+      s2 += gm * xh;
+    }
+  }
+};
 
 // A group of `group` threads a plane (norm_plane.cuh's geometry): chunk
 // i of the plane goes to lane i % group; C chunks of each input a thread
-// are loaded before any is added. A missing chunk is zero (g = 0 adds 0).
-template <typename T, int C, bool VEC, int ACT>
+// are loaded before any is added. A missing chunk is zero (adds 0).
+template <typename T, int C, bool VEC, typename Term>
 __global__ void __launch_bounds__(norm::MAX_THREADS)
-    bwd_sums_group(SumsArgs<T> a, int group) {
+    sums_group(SumsArgs<T> a, int group) {
   using Ch = norm::Chunk<T, VEC>;
   constexpr int W = Ch::W;
   __shared__ float2 part[32];
   const norm::Place at = norm::place<W>(a.planes, a.plane, group);
   const long p =
       (long)blockIdx.x * (blockDim.x / group) + threadIdx.x / group;
-  const float2 st = at.live ? mean_rstd(a.stats[p], a.count, a.eps)
-                            : make_float2(0.f, 0.f);
+  const float2 st = Term::kGrad && at.live
+                        ? mean_rstd(a.stats[p], a.count, a.eps)
+                        : make_float2(0.f, 0.f);
   const T* xp = a.x + at.off;
   const T* gp = a.g + at.off;
   Ch xr[C], gr[C];
@@ -105,17 +135,17 @@ __global__ void __launch_bounds__(norm::MAX_THREADS)
     const int i = k * group + at.lane;
     if (i < at.chunks) {
       xr[k].load(xp + (long)i * W);
-      gr[k].load(gp + (long)i * W);
+      if constexpr (Term::kGrad) gr[k].load(gp + (long)i * W);
     }
   }
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-  for (int k = 0; k < C; ++k) add_sums<ACT>(xr[k], gr[k], st, s1, s2);
+  for (int k = 0; k < C; ++k) Term::add(xr[k], gr[k], st, s1, s2);
   for (int i = C * group + at.lane; i < at.chunks; i += group) {
     Ch xc, gc;
     xc.load(xp + (long)i * W);
-    gc.load(gp + (long)i * W);
-    add_sums<ACT>(xc, gc, st, s1, s2);
+    if constexpr (Term::kGrad) gc.load(gp + (long)i * W);
+    Term::add(xc, gc, st, s1, s2);
   }
   const float2 u = norm::group_sum2(s1, s2, group, part);
   if (at.live && at.lane == 0) a.sums[p] = u;
@@ -124,9 +154,9 @@ __global__ void __launch_bounds__(norm::MAX_THREADS)
 // CTA b: rank b % cluster of plane b / cluster, chunks [rank * seg,
 // (rank + 1) * seg) of it; thread t takes chunks lo + t + m * THREADS in
 // order of m.
-template <typename T, bool VEC, int ACT>
+template <typename T, bool VEC, typename Term>
 __global__ void __launch_bounds__(THREADS)
-    bwd_sums_cluster(SumsArgs<T> a, long seg, int cluster) {
+    sums_cluster(SumsArgs<T> a, long seg, int cluster) {
   namespace op = nhwc::one_pass;
   using Ch = norm::Chunk<T, VEC>;
   constexpr int W = Ch::W;
@@ -135,7 +165,8 @@ __global__ void __launch_bounds__(THREADS)
   const long p = blockIdx.x / cluster;
   const int rank = (int)(blockIdx.x % cluster);
   if (cluster > 1) op::barriers_init(bar, cluster * 8);
-  const float2 st = mean_rstd(a.stats[p], a.count, a.eps);
+  const float2 st = Term::kGrad ? mean_rstd(a.stats[p], a.count, a.eps)
+                                : make_float2(0.f, 0.f);
   const long chunks = a.plane / W;
   const long lo = rank * seg;
   const long hi = lo + seg < chunks ? lo + seg : chunks;
@@ -149,11 +180,11 @@ __global__ void __launch_bounds__(THREADS)
       const long j = i + (long)k * THREADS;
       if (j < hi) {
         xc[k].load(xp + j * W);
-        gc[k].load(gp + j * W);
+        if constexpr (Term::kGrad) gc[k].load(gp + j * W);
       }
     }
 #pragma unroll
-    for (int k = 0; k < UNROLL; ++k) add_sums<ACT>(xc[k], gc[k], st, s1, s2);
+    for (int k = 0; k < UNROLL; ++k) Term::add(xc[k], gc[k], st, s1, s2);
   }
   const float2 t = block_sum2(s1, s2);
   if (cluster == 1) {
@@ -292,12 +323,12 @@ inline cudaError_t launch_clustered(long blocks, int cluster,
 
 // The sums' geometry (band_sums_plan): cluster 0 takes the group kernel
 // with (vec, group, per_thread 1 or 4, threads), else `cluster` (1, 2, 4
-// or 8) CTAs a plane. Returns cudaErrorInvalidValue for a geometry the
-// kernels cannot take.
-template <typename T>
-inline cudaError_t launch_bwd_sums(const SumsArgs<T>& a, int act, int vec,
-                                   int group, int per_thread, int threads,
-                                   int cluster, cudaStream_t st) {
+// or 8) CTAs a plane; Term: what an element adds. Returns
+// cudaErrorInvalidValue for a geometry the kernels cannot take.
+template <typename Term, typename T>
+inline cudaError_t launch_sums(const SumsArgs<T>& a, int vec, int group,
+                               int per_thread, int threads, int cluster,
+                               cudaStream_t st) {
   constexpr int esize = sizeof(T);
   if (cluster > 0) {
     if (cluster > MAX_CLUSTER || (cluster & (cluster - 1)) ||
@@ -310,11 +341,8 @@ inline cudaError_t launch_bwd_sums(const SumsArgs<T>& a, int act, int vec,
     const long chunks = vec ? a.plane / (16 / esize) : a.plane;
     const long seg = (chunks + cluster - 1) / cluster;
     return with_bool(vec, [&](auto v) {
-      return with_act(act, [&](auto c) {
-        return launch_clustered<bwd_sums_cluster<T, decltype(v)::value,
-                                                 decltype(c)::value>>(
-            a.planes * cluster, cluster, st, a, seg, cluster);
-      });
+      return launch_clustered<sums_cluster<T, decltype(v)::value, Term>>(
+          a.planes * cluster, cluster, st, a, seg, cluster);
     });
   }
   const long grid = norm::grid_of(
@@ -322,15 +350,24 @@ inline cudaError_t launch_bwd_sums(const SumsArgs<T>& a, int act, int vec,
       {static_cast<const void*>(a.g), static_cast<const void*>(a.x)});
   if (grid == 0 || per_thread == 8) return cudaErrorInvalidValue;
   return with_bool(vec, [&](auto v) {
-    return with_act(act, [&](auto c) {
-      constexpr bool VEC = decltype(v)::value;
-      constexpr int ACT = decltype(c)::value;
-      if (per_thread == 1)
-        bwd_sums_group<T, 1, VEC, ACT><<<grid, threads, 0, st>>>(a, group);
-      else
-        bwd_sums_group<T, 4, VEC, ACT><<<grid, threads, 0, st>>>(a, group);
-      return cudaGetLastError();
-    });
+    constexpr bool VEC = decltype(v)::value;
+    if (per_thread == 1)
+      sums_group<T, 1, VEC, Term><<<grid, threads, 0, st>>>(a, group);
+    else
+      sums_group<T, 4, VEC, Term><<<grid, threads, 0, st>>>(a, group);
+    return cudaGetLastError();
+  });
+}
+
+// K1-bwd's sums in activation `act`
+template <typename T>
+inline cudaError_t launch_bwd_sums(const SumsArgs<T>& a, int act, int vec,
+                                   int group, int per_thread, int threads,
+                                   int cluster, cudaStream_t st) {
+  return with_act(act, [&](auto c) {
+    return launch_sums<BwdTerm<decltype(c)::value>>(a, vec, group,
+                                                    per_thread, threads,
+                                                    cluster, st);
   });
 }
 

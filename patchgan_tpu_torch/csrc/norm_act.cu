@@ -21,8 +21,10 @@
 // their own finishing pass (in_common.cuh's normalize_plane).
 //
 // Band form (spatial parallelism, band.cuh): pgt_in_stats gives a band's
-// per-plane (sum, sum of squares), and pgt_in_apply normalises a band from
-// the plane's stats summed over the spatial group and its global count.
+// per-plane (sum, sum of squares), on band_norm.cuh's sums (a plane on a
+// group of threads, or split over a thread-block cluster, with 16-byte
+// loads), and pgt_in_apply normalises a band from the plane's stats
+// summed over the spatial group and its global count.
 //
 // NHWC form (channels_last): x in [N, H, W, C] order, whose (n, c) plane
 // is strided by C. pgt_in_act_nhwc_one_pass (norm_nhwc_cluster.cuh): one
@@ -34,6 +36,7 @@
 // warp a plane adds them, and a last pass normalises.
 
 #include "band.cuh"
+#include "band_norm.cuh"
 #include "norm_nhwc.cuh"
 #include "norm_nhwc_cluster.cuh"
 #include "norm_plane.cuh"
@@ -150,20 +153,31 @@ extern "C" int pgt_in_act(const void* x, void* y, long planes, long plane,
 }
 
 // Band form. x: [planes, plane] contiguous, bf16 (bf16 != 0) or fp32;
-// stats: fp32 pairs, one a plane. Returns cudaGetLastError().
+// stats: out, fp32 pairs, one a plane. vec, group, per_thread, threads,
+// cluster: the launch geometry (band_norm.cuh, the same kernels as
+// pgt_in_bwd_sums'), chosen by band_sums_plan in ops/kernels/norm_act.py.
+// Returns cudaErrorInvalidValue for what the kernels cannot take, else the
+// launch's error or cudaGetLastError() after it.
 extern "C" int pgt_in_stats(const void* x, void* stats, long planes,
-                            long plane, int bf16, void* stream) {
+                            long plane, int bf16, int vec, int group,
+                            int per_thread, int threads, int cluster,
+                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (planes <= 0 || plane <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   float2* out = static_cast<float2*>(stats);
-  if (bf16)
-    pgt::band::stats_kernel<<<planes, pgt::band::THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), out, plane);
-  else
-    pgt::band::stats_kernel<<<planes, pgt::band::THREADS, 0, st>>>(
-        static_cast<const float*>(x), out, plane);
-  return static_cast<int>(cudaGetLastError());
+  namespace bn = pgt::band;
+  if (bf16) {
+    using B = __nv_bfloat16;
+    const bn::SumsArgs<B> a{nullptr, static_cast<const B*>(x), nullptr, out,
+                            planes, plane, 0.f, 0.f};
+    return static_cast<int>(bn::launch_sums<bn::StatsTerm>(
+        a, vec, group, per_thread, threads, cluster, st));
+  }
+  const bn::SumsArgs<float> a{nullptr, static_cast<const float*>(x), nullptr,
+                              out, planes, plane, 0.f, 0.f};
+  return static_cast<int>(bn::launch_sums<bn::StatsTerm>(
+      a, vec, group, per_thread, threads, cluster, st));
 }
 
 namespace pgt {

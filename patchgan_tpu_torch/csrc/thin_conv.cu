@@ -11,7 +11,8 @@
 // Bound on the H100: bytes. Forward: 2 * 9 Cin * Cout FLOPs per pixel
 // against (Cin + Cout) * 2 bytes in bf16, about 100 FLOPs a byte at
 // Cin 28, a third of the bf16 tensor cores' ridge; wgrad reads x and dy and
-// writes a 64 x 9 Cin fp32 dw, the same FLOPs over fewer bytes.
+// writes a 64 x 9 Cin fp32 dw, the same FLOPs over fewer bytes (at the
+// s2d step's shapes 40 / 48 MB a call: 0.012 / 0.014 ms).
 //
 // Design. The Pallas kernels materialise a transposed, padded copy of x
 // (_prep) and contract an im2col patch matrix on the MXU; the wgrad sums
@@ -43,15 +44,40 @@
 //   does, so each block sums the tiles it walks into an fp32 partial
 //   [64, 9 Cin] in registers and stores it; a second pass adds the
 //   partials in a fixed order. No atomics: runs are bit-reproducible on a
-//   given card, as the instance-norm statistics are (in_common.cuh). Its
-//   bf16 dy tile (64-pixel rows) is copied by 16-byte cp.async into the
-//   other of two stages while the MMAs run.
+//   given card, as the instance-norm statistics are (in_common.cuh).
+//
+// The wgrad in bf16 (thin_wgrad_tma, where W % 8 == 0 and x, dy lie on 16
+// bytes: the s2d step's calls) is a GEMM on the wgmma path: M = 64 output
+// channels, K = pixels, A = dy. In NCHW, 64 pixels of one channel are one
+// 128-byte row of a K-major operand under the 128-byte swizzle, which TMA
+// copies as it is. B is x's tap views, and a tap's shift along W moves a
+// K-major row by 2 bytes, which neither a 16-byte copy, a descriptor's start
+// nor a TMA box can take (a swizzled box at col0 +- 1 stopped the kernel with
+// an illegal instruction on the H100). Of the two ways round it, staging x once
+// channel-innermost for an MN-major B (register transposes, and the no-swizzle
+// transposed descriptor) or three column-shifted K-major copies, this takes the
+// copies: TMA lands the aligned one (shift 1) and 16-byte halo columns, and the
+// threads build shifts 0 and 2 from them in shared memory, one 16-byte chunk
+// and one neighbouring element a store, while shift 1's wgmmas run. So A and B
+// take conv_wgmma.cuh's one descriptor form (wgmma.cuh), TMA reads zeros
+// outside the image and past Cin, and x's bytes cross from L2 once. A tile is 4
+// output rows (6 staged: the halo adds half of x's rows, against twice at TH =
+// 2), and rows r, r + 1, r + 2 of a shift's copy lie in consecutive 128-byte
+// rows, so one m64n(3 CP)k16 covers a shift's three tap rows: 3 wgmma a
+// 16-pixel slice. One warpgroup an SM, persistent, a ring of whole tiles on
+// mbarriers; one partial a block, so one an SM (half the WMMA kernel's 264),
+// added by the same reduce. The other bf16 inputs keep the WMMA kernel
+// (thin_wgrad), chosen by shape and alignment alone; its dy tile (64-pixel
+// rows) is copied by 16-byte cp.async into the other of two stages while the
+// MMAs run.
+#include <cuda.h>
 #include <mma.h>
 
 #include <cstdint>
 #include <type_traits>
 
 #include "in_common.cuh"
+#include "wgmma.cuh"
 
 namespace pgt {
 namespace thin {
@@ -621,6 +647,236 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
   }
 }
 
+// K4-wgrad on the tensor cores' wgmma path: bf16, W % 8 == 0, x and dy on
+// 16 bytes (the s2d step's four calls). One block of one warpgroup an SM,
+// persistent over tiles of TH_W output rows x TW columns of one sample.
+// A tile is one GEMM step, M = the block's 64 output channels, K = its
+// pixels, N = 3 CP per column shift s (the tap rows r = 0..2 and CP
+// channels each); CP = Cin rounded up to 16 or 32.
+//
+// TMA fills a ring of wg_stages(CP) stages, one tile a stage, each counted
+// on its own mbarrier:
+// - dy: each output row's 64 channels x 64 pixels, one 128-byte K-major
+//   row a channel under the 128-byte swizzle (A, rows at 128 bytes);
+// - x: the TH_W + 2 haloed rows of CP channels at columns col0 ..
+//   col0 + 63, rows (row, channel) at 128 bytes in the same layout: the
+//   B of shift s = 1. Rows r..r + 2 are 3 CP consecutive rows, so one
+//   descriptor of N = 3 CP covers the three tap rows;
+// - the halo columns col0 - 8 .. col0 - 1 and col0 + 64 .. col0 + 71 of
+//   those rows (16 bytes a row and channel, no swizzle).
+// TMA reads zeros outside the image and past Cin, but takes no box whose first
+// column lies off 16 bytes, so it cannot copy the one-element shifts (a
+// swizzled box at col0 +- 1 stopped the kernel with an illegal instruction on
+// the H100). The threads build them in the stage: the B of shift 0 (x[col0 - 1
+// + k]) and of shift 2 (x[col0 + 1 + k]), each 16-byte chunk from one chunk of
+// shift 1 and one element of its neighbour chunk (or the halo), by byte
+// permutes, stored in the same swizzled layout.
+// A tile: its three shifts' wgmmas (for each output row and 16-pixel
+// slice, one m64n(3 CP)k16 a shift), committed; while they run, the wait
+// for the next tile's stage and its shifted copies, fenced to the async
+// proxy; then a barrier, and this tile's stage goes back to TMA for the
+// tile wg_stages on. The
+// accumulators (3 x 3 CP / 2 floats a thread) sum every tile of the
+// block; at the end each thread stores its fragment into the block's
+// partial, laid out as thin_wgrad's (ks = CP), which thin_wgrad_reduce
+// adds in a fixed order.
+constexpr int TH_W = 4;                    // output rows of a tile
+constexpr int DY_ROW = BN * 128;           // bytes of one output row's dy
+constexpr int HALO_W = 8;                  // halo box: 16 bytes of a row
+
+__host__ __device__ constexpr int wg_cp(int cin) {
+  return cin <= 16 ? 16 : 32;
+}
+// a stage: dy, the three shifts' x rows, the left and right halos
+__host__ __device__ constexpr int wg_xrows(int cp) {
+  return (TH_W + 2) * cp * 128;
+}
+__host__ __device__ constexpr int wg_halo(int cp) {
+  return (TH_W + 2) * cp * HALO_W * 2;
+}
+__host__ __device__ constexpr int wg_stage(int cp) {
+  return TH_W * DY_ROW + 3 * wg_xrows(cp) + 2 * wg_halo(cp);
+}
+// the bytes TMA lands in a stage: all but shifts 0 and 2
+__host__ __device__ constexpr int wg_landed(int cp) {
+  return wg_stage(cp) - 2 * wg_xrows(cp);
+}
+// as many stages as fit beside the 1024 bytes that align the ring, at most 4
+__host__ __device__ constexpr int wg_stages(int cp) {
+  return (wg::SMEM_MAX - 1024) / wg_stage(cp) < 4
+             ? (int)((wg::SMEM_MAX - 1024) / wg_stage(cp))
+             : 4;
+}
+__host__ __device__ constexpr int wg_smem(int cp) {
+  return wg_stages(cp) * wg_stage(cp) + 1024;
+}
+
+inline int wg_tiles_of(int n, int h, int wd) {
+  return n * ((h + TH_W - 1) / TH_W) * ((wd + TW - 1) / TW);
+}
+
+// Shifts 0 and 2 of a stage's x (xs: its three shifts' rows, halo: left
+// then right halo) from shift 1 and the halos. Task i: half i % 2 (chunks
+// 4 (i % 2) .. 4 (i % 2) + 3) of row R = i / 2 (R = r CP + c: staged row
+// r, channel c). Under the 128-byte swizzle chunk j of a row sits at 16
+// (j ^ R % 8) bytes, the same in each shift; a halo row is 8 elements at
+// 16 R bytes. A task loads its 4 chunks of shift 1 and the two elements
+// beside them (of the row's other half, or of a halo), then stores 4
+// chunks of each shift.
+template <int CP>
+__device__ __forceinline__ void shift_copies(unsigned char* xs,
+                                             const unsigned char* halo) {
+  constexpr int ROWS = (TH_W + 2) * CP, XROWS = ROWS * 128;
+  for (int i = threadIdx.x; i < 2 * ROWS; i += wg::THREADS) {
+    const int row = i >> 1, j0 = 4 * (i & 1), sw = row & 7;
+    const unsigned char* src = xs + XROWS + row * 128;
+    uint4 m[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      m[k] = *reinterpret_cast<const uint4*>(src + (((j0 + k) ^ sw) << 4));
+    // x[col0 - 1 + 8 j0] and x[col0 + 8 j0 + 32]
+    const unsigned prev =
+        j0 ? *reinterpret_cast<const unsigned short*>(
+                 src + (((j0 - 1) ^ sw) << 4) + 14)
+           : *reinterpret_cast<const unsigned short*>(halo + row * 16 + 14);
+    const unsigned next =
+        j0 ? *reinterpret_cast<const unsigned short*>(halo +
+                                                      (ROWS + row) * 16)
+           : *reinterpret_cast<const unsigned short*>(
+                 src + ((4 ^ sw) << 4));
+    unsigned char* const left = xs + row * 128;
+    unsigned char* const right = xs + 2 * XROWS + row * 128;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // left: x[col0 - 1 + p], the previous element then this chunk's
+      // 0..6; right: x[col0 + 1 + p], this chunk's 1..7 then the next
+      const unsigned before = k ? m[k - 1].w >> 16 : prev;
+      const unsigned after = k < 3 ? m[k + 1].x & 0xffffu : next;
+      const int at = ((j0 + k) ^ sw) << 4;
+      *reinterpret_cast<uint4*>(left + at) = make_uint4(
+          (m[k].x << 16) | before, __byte_perm(m[k].x, m[k].y, 0x5432),
+          __byte_perm(m[k].y, m[k].z, 0x5432),
+          __byte_perm(m[k].z, m[k].w, 0x5432));
+      *reinterpret_cast<uint4*>(right + at) = make_uint4(
+          __byte_perm(m[k].x, m[k].y, 0x5432),
+          __byte_perm(m[k].y, m[k].z, 0x5432),
+          __byte_perm(m[k].z, m[k].w, 0x5432), (m[k].w >> 16) | (after << 16));
+    }
+  }
+}
+
+template <int CP>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    thin_wgrad_tma(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap thalo,
+                   const __grid_constant__ CUtensorMap tdy,
+                   float* __restrict__ part, int h, int wd, int tiles) {
+  constexpr int N = 3 * CP, S = wg_stages(CP), STAGE = wg_stage(CP);
+  constexpr int XROWS = wg_xrows(CP), X0 = TH_W * DY_ROW;
+  constexpr int HALO = X0 + 3 * XROWS;   // the halos' offset in a stage
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[S];
+  const unsigned raw = wg::smem_u32(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;
+  unsigned char* const ring = smem_raw + (base - raw);
+  const int tid = threadIdx.x;
+  const int co0 = blockIdx.y * BN;
+  const int tw = (wd + TW - 1) / TW, th = (h + TH_W - 1) / TH_W;
+
+  // thread 0: tile t's dy rows, x rows (shift 1) and halos into stage s,
+  // four boxes
+  auto issue = [&](int t, int s) {
+    const int n = t / (tw * th), row0 = t / tw % th * TH_W,
+              col0 = t % tw * TW;
+    const unsigned st = base + s * STAGE, bar = wg::smem_u32(full + s);
+    wg::mbar_expect_tx(bar, wg_landed(CP));
+    wg::tma_load_4d(st, &tdy, col0, co0, row0, n, bar);
+    wg::tma_load_4d(st + X0 + XROWS, &tx, col0, 0, row0 - 1, n, bar);
+    wg::tma_load_4d(st + HALO, &thalo, col0 - HALO_W, 0, row0 - 1, n, bar);
+    wg::tma_load_4d(st + HALO + (TH_W + 2) * CP * 16, &thalo, col0 + TW, 0,
+                    row0 - 1, n, bar);
+  };
+  // the wgmmas of shift sh on stage st
+  auto mma = [&](float (&acc)[N / 2], unsigned st, int sh) {
+#pragma unroll
+    for (int r = 0; r < TH_W; ++r) {
+      const uint64_t da = wg::desc_sw128(st + r * DY_ROW);
+      const uint64_t db = wg::desc_sw128(st + X0 + sh * XROWS + r * CP * 128);
+#pragma unroll
+      for (int kk = 0; kk < TW / 16; ++kk)
+        wg::Wgmma<N>::mma(acc, da + 2 * kk, db + 2 * kk);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) wg::mbar_init(wg::smem_u32(full + s), 1);
+    wg::mbar_fence_init();
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (blockIdx.x + s * gridDim.x < tiles)
+        issue(blockIdx.x + s * gridDim.x, s);
+  }
+  __syncthreads();
+
+  float d[3][N / 2];
+#pragma unroll
+  for (int sh = 0; sh < 3; ++sh)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[sh][i] = 0.f;
+  // stage s's shifted copies, once its TMA has landed (phase `parity`)
+  auto shifts = [&](int s, unsigned parity) {
+    wg::mbar_wait(wg::smem_u32(full + s), parity);
+    shift_copies<CP>(ring + s * STAGE + X0, ring + s * STAGE + HALO);
+    wg::fence_async_smem();   // to the async proxy the wgmmas read through
+    __syncwarp();   // the .aligned wgmma instructions need whole warps
+  };
+  if (blockIdx.x < tiles) shifts(0, 0);
+  __syncthreads();
+  int s = 0;
+  unsigned phase = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const unsigned st = base + s * STAGE;
+#pragma unroll
+    for (int sh = 0; sh < 3; ++sh) wg::fence_operands(d[sh]);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int sh = 0; sh < 3; ++sh) mma(d[sh], st, sh);
+    wg::wgmma_commit();
+    // the next tile's shifted copies while this tile's MMAs run
+    const int sn = s + 1 == S ? 0 : s + 1;
+    const unsigned pn = sn ? phase : phase ^ 1;
+    if (t + gridDim.x < tiles) shifts(sn, pn);
+    wg::wgmma_wait0();
+#pragma unroll
+    for (int sh = 0; sh < 3; ++sh) wg::fence_operands(d[sh]);
+    // every warp's MMAs on stage s are done, every copy of stage sn made
+    __syncthreads();
+    if (tid == 0 && t + S * gridDim.x < tiles) issue(t + S * gridDim.x, s);
+    s = sn;
+    phase = pn;
+  }
+
+  // the fragments into the block's partial part[blk][co][tap CP + ci]
+  // (wgmma's D: warp w rows 16 w .. 16 w + 15, lane l rows l / 4 and
+  // l / 4 + 8, columns 8 q + 2 (l % 4) and the next; column rr CP + ci of
+  // shift s is tap 3 rr + s)
+  float* const out =
+      part + ((long)blockIdx.x * gridDim.y + blockIdx.y) * BN * 9 * CP;
+  const int row = (tid >> 5) * 16 + ((tid & 31) >> 2), c2 = 2 * (tid & 3);
+#pragma unroll
+  for (int sh = 0; sh < 3; ++sh)
+#pragma unroll
+    for (int q = 0; q < N / 8; ++q) {
+      const int rr = 8 * q / CP, ci = 8 * q % CP + c2;
+      float* const o = out + row * 9 * CP + (3 * rr + sh) * CP + ci;
+      *reinterpret_cast<float2*>(o) =
+          make_float2(d[sh][4 * q], d[sh][4 * q + 1]);
+      *reinterpret_cast<float2*>(o + 8 * 9 * CP) =
+          make_float2(d[sh][4 * q + 2], d[sh][4 * q + 3]);
+    }
+}
+
 // dw[co, ci, r, s] = the sum of the nblk partials in a fixed order. A
 // block of 32 x RED_ROWS threads: column tx owns the partial element o
 // (o = co * 9 ks + tap * ks + ci, consecutive over the warp), row ty sums
@@ -729,9 +985,101 @@ int run_fwd(const void* x, const void* w, void* wp, void* y, int n, int cin,
   return static_cast<int>(cudaGetLastError());
 }
 
+// cuTensorMapEncodeTiled, taken from the driver through the runtime (the
+// library links no libcuda); null where the driver has none
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a bf16 NCHW tensor [n][c][h][w] whose box is box_w pixels
+// of box_h rows in box_c channels of one sample, listed innermost first as
+// (w, c, h, n): the box lands row by row, each row's box_c channels
+// consecutive, as the kernel's A and B take them. 64 pixels (128 bytes) a
+// row under the 128-byte swizzle, or 8 (16 bytes) unswizzled; reads
+// outside the tensor give zeros. W % 8 == 0 and p on 16 bytes (TMA's
+// strides and base).
+inline bool nchw_map(EncodeTiled enc, CUtensorMap* m, const void* p, int n,
+                     int c, int h, int w, int box_w, int box_c, int box_h) {
+  const cuuint64_t dims[4] = {(cuuint64_t)w, (cuuint64_t)c, (cuuint64_t)h,
+                              (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)h * w * 2, (cuuint64_t)w * 2,
+                                 (cuuint64_t)c * h * w * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_w, (cuuint32_t)box_c,
+                             (cuuint32_t)box_h, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             box_w == TW ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The wgmma kernel takes a call in bf16 where TMA can map x and dy: W % 8
+// == 0 and both on 16 bytes (ops/kernels/thin_conv.py's thin_wgrad_plan
+// makes the same choice)
+template <typename T>
+inline bool wgrad_on_tma(int wd, const void* x, const void* dy) {
+  return Bf16<T>::value && wd % 8 == 0 && aligned16(x) && aligned16(dy);
+}
+
+template <int CP>
+dim3 wgrad_tma_grid(int n, int h, int wd, int cout, int* per_sm = nullptr) {
+  static int cache[MAX_DEVICES];
+  return persistent_grid(thin_wgrad_tma<CP>, wg::THREADS, wg_smem(CP),
+                         wg_smem(CP), cache, wg_tiles_of(n, h, wd), cout,
+                         per_sm);
+}
+
+inline dim3 wgrad_tma_grid(int n, int cin, int h, int wd, int cout,
+                           int* per_sm = nullptr) {
+  return wg_cp(cin) == 16 ? wgrad_tma_grid<16>(n, h, wd, cout, per_sm)
+                          : wgrad_tma_grid<32>(n, h, wd, cout, per_sm);
+}
+
+template <int CP>
+int run_wgrad_tma(const void* x, const void* dy, void* part, void* dw, int n,
+                  int cin, int h, int wd, int cout, cudaStream_t st) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tx, thalo, tdy;
+  if (!nchw_map(enc, &tx, x, n, cin, h, wd, TW, CP, TH_W + 2) ||
+      !nchw_map(enc, &thalo, x, n, cin, h, wd, HALO_W, CP, TH_W + 2) ||
+      !nchw_map(enc, &tdy, dy, n, cout, h, wd, TW, BN, TH_W))
+    return cudaErrorInvalidValue;
+  const dim3 grid = wgrad_tma_grid<CP>(n, h, wd, cout);
+  thin_wgrad_tma<CP><<<grid, wg::THREADS, wg_smem(CP), st>>>(
+      tx, thalo, tdy, static_cast<float*>(part), h, wd,
+      wg_tiles_of(n, h, wd));
+  const long outs = (long)cout * 9 * CP;
+  thin_wgrad_reduce<<<(outs + 31) / 32, dim3(32, RED_ROWS), 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(dw), grid.x,
+      grid.y, cin, cout, CP);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int run_wgrad(const void* x, const void* dy, void* part, void* dw, int n,
               int cin, int h, int wd, int cout, cudaStream_t st) {
+  if (wgrad_on_tma<T>(wd, x, dy))
+    return wg_cp(cin) == 16
+               ? run_wgrad_tma<16>(x, dy, part, dw, n, cin, h, wd, cout, st)
+               : run_wgrad_tma<32>(x, dy, part, dw, n, cin, h, wd, cout, st);
   const dim3 grid = wgrad_grid<T>(n, cin, h, wd, cout);
   thin_wgrad<T><<<grid, WG_THREADS, wgrad_smem<T>(cin), st>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy),
@@ -786,24 +1134,34 @@ extern "C" int pgt_thin_conv_fwd(const void* x, const void* w, void* wp,
 }
 
 // fp32 elements of the scratch `part` that pgt_thin_conv_wgrad needs on
-// the current device: one partial a block of its grid.
+// the current device: one partial a block of its grid (in bf16 at W % 8
+// == 0, the larger of the two kernels' grids: the alignment of x and dy
+// picks one at the launch).
 extern "C" long pgt_thin_conv_wgrad_scratch(int n, int cin, int h, int wd,
                                             int cout, int bf16) {
   using namespace pgt::thin;
   if (!valid(n, cin, h, wd, cout)) return 0;
   const dim3 g = bf16 ? wgrad_grid<__nv_bfloat16>(n, cin, h, wd, cout)
                       : wgrad_grid<float>(n, cin, h, wd, cout);
+  long blocks = (long)g.x * g.y;
+  if (bf16 && wd % 8 == 0) {
+    const dim3 t = wgrad_tma_grid(n, cin, h, wd, cout);
+    if ((long)t.x * t.y > blocks) blocks = (long)t.x * t.y;
+  }
   const int ks = bf16 ? kstride<__nv_bfloat16>(cin) : kstride<float>(cin);
-  return (long)g.x * g.y * BN * 9 * ks;
+  return blocks * BN * 9 * ks;
 }
 
 // Blocks along the tiles of the forward (wgrad == 0) or the weight
-// gradient on the current device, as the launches take them; *per_sm
+// gradient on the current device, as the launches take them (the wgmma
+// kernel's in bf16 at W % 8 == 0, for x and dy on 16 bytes); *per_sm
 // receives the blocks one SM holds.
 extern "C" int pgt_thin_conv_grid(int n, int cin, int h, int wd, int cout,
                                   int bf16, int wgrad, int* per_sm) {
   using namespace pgt::thin;
   if (!valid(n, cin, h, wd, cout)) return 0;
+  if (wgrad && bf16 && wd % 8 == 0)
+    return wgrad_tma_grid(n, cin, h, wd, cout, per_sm).x;
   if (wgrad)
     return bf16 ? wgrad_grid<__nv_bfloat16>(n, cin, h, wd, cout, per_sm).x
                 : wgrad_grid<float>(n, cin, h, wd, cout, per_sm).x;
@@ -813,6 +1171,10 @@ extern "C" int pgt_thin_conv_grid(int n, int cin, int h, int wd, int cout,
 
 // x [N, Cin, H, W] and dy [N, Cout, H, W], both bf16 or both fp32; dw
 // [Cout, Cin, 3, 3] fp32; part: pgt_thin_conv_wgrad_scratch() floats.
+// bf16 at W % 8 == 0 with x and dy on 16 bytes runs thin_wgrad_tma, the
+// rest thin_wgrad; then the reduce. Returns cudaGetLastError(),
+// cudaErrorInvalidValue for shapes the kernels do not take, or
+// cudaErrorNotSupported where the driver offers no TMA map encoder.
 extern "C" int pgt_thin_conv_wgrad(const void* x, const void* dy, void* part,
                                    void* dw, int n, int cin, int h, int wd,
                                    int cout, int bf16, void* stream) {

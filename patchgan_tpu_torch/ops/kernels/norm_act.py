@@ -33,11 +33,13 @@ a band's per-plane fp32 (sum, sum of squares) [N, C, 2]; ``in_apply``
 normalises a band from the stats summed over the group and the plane's
 global element count; ``in_bwd_sums`` and ``in_bwd_apply`` are K1-bwd's
 two halves around the sum of (sum gm, sum gm * xhat). Each has a
-``_plain`` version beside it and a ``launches`` count. ``in_bwd_sums``
-and ``in_bwd_apply`` run ``csrc/band_norm.cuh``'s kernels, whose geometry
-``band_sums_plan`` (a small plane on K1-bwd's plane machinery, a larger
-one split over a thread-block cluster) and ``band_bwd_apply_plan`` (the
-band walked as one range of 16-byte chunks) choose.
+``_plain`` version beside it and a ``launches`` count. ``in_stats``,
+``in_bwd_sums`` and ``in_bwd_apply`` run ``csrc/band_norm.cuh``'s
+kernels, whose geometry ``band_sums_plan`` (a small plane on K1-bwd's
+plane machinery, a larger one split over a thread-block cluster; the
+same kernels for the statistics and K1-bwd's sums) and
+``band_bwd_apply_plan`` (the band walked as one range of 16-byte chunks)
+choose.
 ``instance_norm_act_band`` (``InstanceNormActBand``) is K1 over a band,
 the group's sums taken by collectives between the launches; its residuals
 are the band and the plane's global stats, so its backward takes one sum
@@ -379,13 +381,13 @@ BandSums = collections.namedtuple(
 
 @functools.lru_cache(maxsize=None)
 def band_sums_plan(planes, plane, dtype, aligned=True):
-    """``in_bwd_sums``' launch geometry for ``planes`` contiguous planes of
-    ``plane`` elements of ``dtype``; its fields from ``vec`` to
-    ``cluster`` are the C entry point's geometry arguments.
+    """``in_bwd_sums``' and ``in_stats``' launch geometry for ``planes``
+    contiguous planes of ``plane`` elements of ``dtype``; its fields from
+    ``vec`` to ``cluster`` are the C entry points' geometry arguments.
 
     A chunk is 16 bytes where the plane's bytes are a multiple of 16 and
-    g and x are ``aligned``, else one element. A plane of at most
-    BAND_THREADS * BAND_UNROLL chunks takes the group kernel with
+    the inputs (g and x, or x) are ``aligned``, else one element. A plane
+    of at most BAND_THREADS * BAND_UNROLL chunks takes the group kernel with
     ``plane_geometry``'s (vec, group, per_thread, threads) and ``cluster``
     0. A larger one is split into ``cluster`` segments of ``seg`` chunks,
     a CTA of BAND_THREADS each (``grid`` CTAs in all): twice as many while
@@ -707,7 +709,7 @@ def _planes(x):
 def _band_lib():
     lib = _lib()
     p, i, lg, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
-    lib.pgt_in_stats.argtypes = [p, p, lg, lg, i, p]
+    lib.pgt_in_stats.argtypes = [p, p, lg, lg] + [i] * 6 + [p]
     lib.pgt_in_stats.restype = i
     lib.pgt_in_apply.argtypes = [p, p, p, lg, lg, f, i, f, i, i, p]
     lib.pgt_in_apply.restype = i
@@ -729,16 +731,20 @@ def _band_bwd_lib():
 
 def in_stats(x):
     """A band's per-plane stats [N, C, 2] fp32. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel."""
+    plain version; a CUDA tensor launches the kernel, on the sums' kernels
+    at ``band_sums_plan``'s geometry."""
     if x.is_cpu:
         return in_stats_plain(x)
     require(x, 'x', 4)
     flag = dtype_flag(x)
     planes, plane = _planes(x)
     stats = _pair_buffer(x)
+    plan = band_sums_plan(planes, plane, x.dtype, _aligned(x))
     with _build.device_guard(x):
         rc = _band_lib().pgt_in_stats(x.data_ptr(), stats.data_ptr(),
-                                      planes, plane, flag,
+                                      planes, plane, flag, int(plan.vec),
+                                      plan.group, plan.per_thread,
+                                      plan.threads, plan.cluster,
                                       _build.stream_of(x))
     _build.check(rc, 'in_stats')
     in_stats.launches += 1

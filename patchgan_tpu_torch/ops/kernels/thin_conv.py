@@ -15,8 +15,19 @@ into the layout its blocks copy to shared memory
 ``chip_smoke.py``). ``ThinConv3x3`` is the custom VJP
 (``thin_conv.py:241-263``): residuals (x, w); dw by K4-wgrad in fp32,
 cast to w's dtype; dx by the conv of dy with the flipped kernel.
+
+K4-wgrad takes one of two kernels, by shape and alignment alone
+(``thin_wgrad_plan``): in bf16 where W % 8 == 0 and x and dy lie on 16
+bytes (the s2d step's calls), ``thin_wgrad_tma`` on the wgmma path, fed
+by TMA, one block an SM over tiles of 4 output rows x 64 columns; else
+the WMMA kernel (bf16) or the FMA kernel (fp32), over tiles of 2 rows.
+Each block sums its tiles into one fp32 partial and a reduce adds the
+partials in a fixed order (tests/test_torch_thin_wgrad.py mirrors the
+walk and the order). ``thin_conv3x3_wgrad.launches_wgmma`` counts the
+wgmma kernel's launches.
 """
 
+import collections
 import ctypes
 import functools
 
@@ -32,6 +43,46 @@ MAX_CIN = 32
 BLOCK_N = 64   # output channels of a kernel block (BN of csrc/thin_conv.cu)
 # row stride of the packed weight: bf16 pads 8 channels (LDW), fp32 none
 PACKED_ROW = {torch.bfloat16: BLOCK_N + 8, torch.float32: BLOCK_N}
+# K4-wgrad's tiles (output rows x columns): the wgmma kernel's (TH_W, TW
+# of csrc/thin_conv.cu) and the WMMA / FMA kernel's (TH, TW)
+WGRAD_TILE = {'wgmma': (4, 64), 'wmma': (2, 64), 'fma': (2, 64)}
+# the wgmma kernel's shared memory: an H100 block's, a ring stage (4
+# output rows of dy, 64 channels x 128 bytes each; 3 column shifts of 6
+# haloed rows of x, CP channels x 128 bytes; 2 halos of 16 bytes a row
+# and channel), at most 4 stages
+WGRAD_SMEM_MAX = 232448
+
+
+def _wgrad_stage(cp):
+    return 4 * BLOCK_N * 128 + 3 * 6 * cp * 128 + 2 * 6 * cp * 16
+
+
+ThinWgradPlan = collections.namedtuple(
+    'ThinWgradPlan', 'route cp stages smem tiles cblks')
+
+
+@functools.lru_cache(maxsize=None)
+def thin_wgrad_plan(n, cin, h, w, cout, dtype, aligned=True):
+    """K4-wgrad's kernel for x (n, cin, h, w) and dy (n, cout, h, w) of
+    ``dtype``, as csrc/thin_conv.cu's run_wgrad picks it: ``route``
+    'wgmma' (thin_wgrad_tma) in bf16 where W % 8 == 0 and x and dy are
+    ``aligned`` on 16 bytes, else 'wmma' (bf16) or 'fma' (fp32). ``cp``:
+    the partial's columns a tap (Cin rounded up to 16 or 32 in bf16, Cin
+    in fp32); ``stages`` and ``smem``: the wgmma kernel's ring (0
+    elsewhere); ``tiles``: the output tiles the blocks share; ``cblks``:
+    the blocks of 64 output channels."""
+    if dtype == torch.bfloat16:
+        route = 'wgmma' if aligned and w % 8 == 0 else 'wmma'
+        cp = 16 if cin <= 16 else 32
+    else:
+        route, cp = 'fma', cin
+    stages = smem = 0
+    if route == 'wgmma':
+        stages = min(4, (WGRAD_SMEM_MAX - 1024) // _wgrad_stage(cp))
+        smem = stages * _wgrad_stage(cp) + 1024
+    th, tw = WGRAD_TILE[route]
+    tiles = n * -(-h // th) * -(-w // tw)
+    return ThinWgradPlan(route, cp, stages, smem, tiles, -(-cout // BLOCK_N))
 
 
 def thin_conv3x3_plain(x, w):
@@ -155,7 +206,7 @@ def _forward(x, w):
 def thin_conv3x3_wgrad(x, dy):
     """fp32 dw [Cout, Cin, 3, 3] from x (N, Cin, H, W) and dy (N, Cout,
     H, W) of one dtype. A CPU tensor takes the plain version; a CUDA
-    tensor launches K4-wgrad."""
+    tensor launches K4-wgrad on ``thin_wgrad_plan``'s kernel."""
     if x.device.type == 'cpu':
         return thin_conv3x3_wgrad_plain(x, dy)
     require(x, 'x', 4)
@@ -168,9 +219,11 @@ def thin_conv3x3_wgrad(x, dy):
         raise ValueError(f"dy {tuple(dy.shape)} does not match x "
                          f"{tuple(x.shape)}")
     lib = _lib()
+    plan = thin_wgrad_plan(n, cin, h, wd, cout, x.dtype,
+                           x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
     dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32,
                      device=x.device)
-    with torch.cuda.device(x.device):
+    with _build.device_guard(x):
         # one partial per block of the grid, which is sized for this card
         part = torch.empty(lib.pgt_thin_conv_wgrad_scratch(n, cin, h, wd,
                                                            cout, flag),
@@ -180,10 +233,12 @@ def thin_conv3x3_wgrad(x, dy):
                                      h, wd, cout, flag, _build.stream_of(x))
     _build.check(rc, 'thin_conv3x3_wgrad')
     thin_conv3x3_wgrad.launches += 1
+    thin_conv3x3_wgrad.launches_wgmma += plan.route == 'wgmma'
     return dw
 
 
 thin_conv3x3_wgrad.launches = 0
+thin_conv3x3_wgrad.launches_wgmma = 0
 
 
 class ThinConv3x3(torch.autograd.Function):

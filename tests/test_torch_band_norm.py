@@ -34,8 +34,9 @@ import torch
 
 from patchgan_tpu.ops.pallas.norm_act import instance_norm_act_pallas
 from patchgan_tpu_torch.models.unet import gather_level
-from patchgan_tpu_torch.ops.kernels import (in_bwd_apply, in_bwd_apply_plain,
-                                            in_bwd_sums, in_bwd_sums_plain,
+from patchgan_tpu_torch.ops.kernels import (in_apply_plain, in_bwd_apply,
+                                            in_bwd_apply_plain, in_bwd_sums,
+                                            in_bwd_sums_plain, in_stats,
                                             in_stats_plain)
 
 na = importlib.import_module('patchgan_tpu_torch.ops.kernels.norm_act')
@@ -271,6 +272,40 @@ def _thread_sums(terms):
     return s
 
 
+def _card_order(t, plan):
+    """Each plane's sum of terms t [planes, chunks, width] in the order of
+    the card's kernels under ``plan`` (band_norm.cuh's group or cluster
+    kernel), fp32: [planes]."""
+    planes, chunks, width = t.shape
+    if plan.cluster == 0:
+        group = plan.group
+        m = -(-chunks // group)
+        t = torch.nn.functional.pad(t, (0, 0, 0, m * group - chunks))
+        s = _thread_sums(t.reshape(planes, m, group, width)
+                         .permute(0, 2, 1, 3))        # [planes, group]
+        if group <= 32:
+            return _butterfly(s, group)[:, 0]
+        warps = _butterfly(s.reshape(planes, group // 32, 32), 32)[..., 0]
+        total = torch.zeros(planes)
+        for i in range(group // 32):
+            total = total + warps[:, i]
+        return total
+    k, seg = plan.cluster, plan.seg
+    m = -(-seg // THREADS)
+    t = torch.nn.functional.pad(t, (0, 0, 0, k * seg - chunks))
+    t = t.reshape(planes, k, seg, width)
+    t = torch.nn.functional.pad(t, (0, 0, 0, m * THREADS - seg))
+    s = _thread_sums(t.reshape(planes, k, m, THREADS, width)
+                     .permute(0, 1, 3, 2, 4))   # [planes, k, THREADS]
+    warps = _butterfly(s.reshape(planes, k, THREADS // 32, 32), 32)[..., 0]
+    warps = torch.nn.functional.pad(warps, (0, 32 - THREADS // 32))
+    cta = _butterfly(warps, 32)[..., 0]           # [planes, k]
+    total = torch.zeros(planes)
+    for r in range(k):
+        total = total + cta[:, r]
+    return total
+
+
 def emulate_sums(g, x, st, count, eps, act, plan):
     """``in_bwd_sums`` in the card's order under ``plan`` (fp32): [N, C,
     2]."""
@@ -280,41 +315,21 @@ def emulate_sums(g, x, st, count, eps, act, plan):
     xh = (x.float().reshape(planes, plane) - mean[:, None]) * rstd[:, None]
     gm = g.float().reshape(planes, plane) * na.act_grad(xh, act)
     width = 16 // x.element_size() if plan.vec else 1
-    chunks = plane // width
-    out = []
-    for t in (gm, gm * xh):
-        t = t.reshape(planes, chunks, width)
-        if plan.cluster == 0:
-            group = plan.group
-            m = -(-chunks // group)
-            t = torch.nn.functional.pad(t, (0, 0, 0, m * group - chunks))
-            s = _thread_sums(t.reshape(planes, m, group, width)
-                             .permute(0, 2, 1, 3))        # [planes, group]
-            if group <= 32:
-                out.append(_butterfly(s, group)[:, 0])
-            else:
-                warps = _butterfly(s.reshape(planes, group // 32, 32),
-                                   32)[..., 0]
-                total = torch.zeros(planes)
-                for i in range(group // 32):
-                    total = total + warps[:, i]
-                out.append(total)
-            continue
-        k, seg = plan.cluster, plan.seg
-        m = -(-seg // THREADS)
-        t = torch.nn.functional.pad(t, (0, 0, 0, k * seg - chunks))
-        t = t.reshape(planes, k, seg, width)
-        t = torch.nn.functional.pad(t, (0, 0, 0, m * THREADS - seg))
-        s = _thread_sums(t.reshape(planes, k, m, THREADS, width)
-                         .permute(0, 1, 3, 2, 4))   # [planes, k, THREADS]
-        warps = _butterfly(s.reshape(planes, k, THREADS // 32, 32),
-                           32)[..., 0]
-        warps = torch.nn.functional.pad(warps, (0, 32 - THREADS // 32))
-        cta = _butterfly(warps, 32)[..., 0]           # [planes, k]
-        total = torch.zeros(planes)
-        for r in range(k):
-            total = total + cta[:, r]
-        out.append(total)
+    out = [_card_order(t.reshape(planes, plane // width, width), plan)
+           for t in (gm, gm * xh)]
+    return torch.stack(out, dim=-1).reshape(n, c, 2)
+
+
+def emulate_stats(x, plan):
+    """``in_stats`` in the card's order under ``plan`` (fp32): the same
+    kernels as ``in_bwd_sums``, each element adding (v, v^2). [N, C,
+    2]."""
+    n, c, h, w = x.shape
+    planes, plane = n * c, h * w
+    v = x.float().reshape(planes, plane)
+    width = 16 // x.element_size() if plan.vec else 1
+    out = [_card_order(t.reshape(planes, plane // width, width), plan)
+           for t in (v, v * v)]
     return torch.stack(out, dim=-1).reshape(n, c, 2)
 
 
@@ -445,3 +460,95 @@ def test_band_bwd_recombined_matches_pallas_vjp(shape, k, act):
                      jnp.asarray(_nhwc(x)))
     want, = vjp(jnp.asarray(_nhwc(g)))
     _close(torch.cat(parts, dim=2), want)
+
+
+# in_stats (band entry 1a) on the same kernels: K1's enc0 epilogue is the
+# one level of a band that takes it
+STATS_CASES = [case for case in CASES if case[1] == 'enc0']
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32],
+                         ids=['bf16', 'fp32'])
+@pytest.mark.parametrize('case', STATS_CASES, ids=_id)
+def test_band_stats_plan_covers_each_chunk_once(case, dtype):
+    """``in_stats``' plan (``band_sums_plan`` on x alone) at the enc0
+    bands the card runs, aligned and one element off 16 bytes: every
+    element of every plane added once, a plane of at most 1024 chunks on a
+    group, a larger one over a cluster of at most 8, each CTA keeping
+    BAND_UNROLL chunks a thread in flight."""
+    _, _, (n, c, h, w) = case
+    planes, plane, esize = n * c, h * w, dtype.itemsize
+    for aligned in (True, False):
+        plan = na.band_sums_plan(planes, plane, dtype, aligned)
+        assert plan.vec == (aligned and plane * esize % 16 == 0)
+        chunks = sums_cover(plan, planes, plane, esize)
+        if chunks > THREADS * na.BAND_UNROLL:
+            assert 1 <= plan.cluster <= na.CLUSTER_MAX
+            assert plan.seg >= THREADS * na.BAND_UNROLL
+        else:
+            assert plan.cluster == 0
+
+
+@pytest.mark.parametrize('aligned', [True, False], ids=['vec', 'element'])
+@pytest.mark.parametrize('shape,k,cluster', SUM_CASES,
+                         ids=lambda v: str(v).replace(' ', ''))
+def test_band_stats_order_recombined_matches_pallas(shape, k, cluster,
+                                                   aligned):
+    """fp32: each band's stats in the card's order (emulated under its
+    plan: a group, a cluster of 1-8 CTAs, or element by element) within
+    1e-5 of max(1, max |stat|) of ``in_stats_plain``; the bands' stats
+    added in band order, each band normalised by ``in_apply_plain`` and
+    the rows put back together: JAX ``instance_norm_act_pallas``
+    (interpret mode) within rtol 1e-3 / atol 1e-4. ``in_stats`` on a CPU
+    tensor is its plain version."""
+    x, _ = _inputs(shape, 50 + k)
+    count = shape[2] * shape[3]
+    total = 0
+    xs = _bands(x, k)
+    for xb in xs:
+        planes, plane = xb.shape[0] * xb.shape[1], xb.shape[2] * xb.shape[3]
+        plan = na.band_sums_plan(planes, plane, xb.dtype, aligned)
+        if cluster:
+            plan = _forced(plan, cluster, planes, plane, xb.element_size())
+        sums_cover(plan, planes, plane, xb.element_size())
+        st = emulate_stats(xb, plan)
+        want = in_stats_plain(xb)
+        assert torch.equal(in_stats(xb), want)
+        assert (st - want).abs().max() <= 1e-5 * max(1.0,
+                                                      want.abs().max())
+        total = total + st
+    y = torch.cat([in_apply_plain(xb, total, count, 1e-5, 'relu')
+                   for xb in xs], dim=2)
+    want = instance_norm_act_pallas(jnp.asarray(_nhwc(x)), 1e-5, 'relu')
+    _close(y, want)
+
+
+class _Lib:
+    """Stands in for a ctypes library: records each entry's argtypes."""
+
+    def __init__(self):
+        self.entries = {}
+
+    def __getattr__(self, name):
+        return self.entries.setdefault(name, type('Entry', (), {})())
+
+
+@pytest.mark.parametrize('lib,source', [('_band_lib', 'norm_act'),
+                                        ('_band_bwd_lib', 'norm_act_bwd')])
+def test_band_ctypes_entries_match_their_c_declarations(monkeypatch, lib,
+                                                       source):
+    """Each argtypes list the band wrappers give their library names the
+    C entry point's parameters in order (``pgt_in_stats`` now takes the
+    sums' geometry)."""
+    from test_torch_thin_wgrad import c_entries
+    fake = _Lib()
+    monkeypatch.setattr(na._build, 'load', lambda name: fake)
+    base = '_lib' if source == 'norm_act' else '_bwd_lib'
+    getattr(na, base).__wrapped__()
+    # the band library extends the (cached) base one: hand it the fake
+    monkeypatch.setattr(na, base, lambda: fake)
+    getattr(na, lib).__wrapped__()
+    declared = c_entries(source)
+    assert fake.entries
+    for name, entry in fake.entries.items():
+        assert list(entry.argtypes) == declared[name], name

@@ -13,11 +13,16 @@ carries its own CUDA runtime), in the order given and then reversed, it
 checks K4 and K4-wgrad against F.conv2d / torch.nn.grad.conv2d_weight in
 fp32 (TF32 off) at the s2d paths' shapes and four edge cases, in bf16 and
 fp32 (libraries built with -D flags are timed only), and times both
-kernels in bf16 with CUDA events at the s2d shapes: the 8-tile inference
-chunk (8, 12), the batch-16 step (16, 12) and (16, 28), the merged
-validation batch (32, 12) and (32, 28), all 128 x 128 -> 64. It prints
+kernels in bf16 with CUDA events (K4-wgrad also by a graph's replay) at
+the s2d shapes: the 8-tile inference chunk (8, 12), the batch-16 step
+(16, 12) and (16, 28), the merged validation batch (32, 12) and (32,
+28), all 128 x 128 -> 64. It prints
 each row as JSON, cuDNN's times at the same shapes, the card's name and
 power limit, and the mean over the two turns of each library.
+
+Each library also prints a digest of K4's outputs at every checked case
+in both dtypes; the summary says whether they are bit-equal across the
+versions.
 
 ``--split OLD.cu`` splits the time of the kernels of the
 ``thin_conv.cu`` before the persistent-grid redesign (``git show
@@ -25,9 +30,19 @@ power limit, and the mean over the two turns of each library.
 copy with compile-time switches (the MMA loop skipped, the staging done
 for a block's first tile only, the forward's weight fill skipped, the
 forward's epilogue skipped, the wgrad's reduce skipped) and runs the
-variants of it.
+variants of it. Its patches name that source's kernels and take no
+later one.
+
+``--split-wgmma NEW.cu`` splits the time of K4-wgrad's wgmma kernel
+(``thin_wgrad_tma`` of a ``thin_conv.cu`` that has it): a copy with
+compile-time switches (the wgmma and the shifted copies skipped: the TMA
+ring alone; the copies skipped; the wgmma skipped; each block's tiles
+loaded once into the ring and then only copied and multiplied; the
+reduce skipped) and the variants of it, timed as above at the bf16 step
+shapes.
 """
 import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -103,6 +118,46 @@ SPLIT_VARIANTS = [('base', ''), ('mma', '-DSKIP_MMA'),
                   ('once', '-DSTAGE_ONCE'), ('wfill', '-DSKIP_WFILL'),
                   ('epi', '-DSKIP_EPI'), ('red', '-DSKIP_REDUCE'),
                   ('oncemma', '-DSTAGE_ONCE,-DSKIP_MMA')]
+# --split-wgmma: (anchor in thin_wgrad_tma's source, its replacement)
+WGMMA_SWITCHES = """
+#ifdef SKIP_MMA
+constexpr bool kSplitMma = false;
+#else
+constexpr bool kSplitMma = true;
+#endif
+#ifdef SKIP_SHIFT
+constexpr bool kSplitShift = false;
+#else
+constexpr bool kSplitShift = true;
+#endif
+#ifdef LOAD_ONCE
+constexpr bool kSplitReload = false;
+#else
+constexpr bool kSplitReload = true;
+#endif
+"""
+WGMMA_EDITS = [
+    ('#include "wgmma.cuh"\n', '#include "wgmma.cuh"\n' + WGMMA_SWITCHES),
+    # once each stage's first load has landed, parity 0 never waits
+    ('    wg::mbar_wait(wg::smem_u32(full + s), parity);\n',
+     '    wg::mbar_wait(wg::smem_u32(full + s), kSplitReload ? parity : 0u);\n'),
+    ('        wg::Wgmma<N>::mma(acc, da + 2 * kk, db + 2 * kk);\n',
+     '        if (kSplitMma) wg::Wgmma<N>::mma(acc, da + 2 * kk, '
+     'db + 2 * kk);\n'),
+    ('    shift_copies<CP>(', '    if (kSplitShift) shift_copies<CP>('),
+    ('    if (tid == 0 && t + S * gridDim.x < tiles) issue(',
+     '    if (kSplitReload && tid == 0 && t + S * gridDim.x < tiles) issue('),
+    ('  thin_wgrad_reduce<<<(outs + 31) / 32, dim3(32, RED_ROWS), 0, st>>>(\n'
+     '      static_cast<const float*>(part), static_cast<float*>(dw), grid.x,\n'
+     '      grid.y, cin, cout, CP);\n',
+     '#ifndef SKIP_REDUCE\n'
+     '  thin_wgrad_reduce<<<(outs + 31) / 32, dim3(32, RED_ROWS), 0, st>>>(\n'
+     '      static_cast<const float*>(part), static_cast<float*>(dw), grid.x,\n'
+     '      grid.y, cin, cout, CP);\n#endif\n'),
+]
+WGMMA_VARIANTS = [('base', ''), ('tma', '-DSKIP_MMA,-DSKIP_SHIFT'),
+                  ('noshift', '-DSKIP_SHIFT'), ('nomma', '-DSKIP_MMA'),
+                  ('once', '-DLOAD_ONCE'), ('red', '-DSKIP_REDUCE')]
 
 
 def split_source(src, dst):
@@ -114,6 +169,19 @@ def split_source(src, dst):
         s = s[:i] + before + anchor + after + s[i + len(anchor):]
     with open(dst, 'w') as f:
         f.write(s + SPLIT_OCCUPANCY)
+
+
+def split_wgmma_source(src, dst):
+    """A copy of ``src`` with WGMMA_EDITS' switches (its headers come from
+    the build's -I)."""
+    s = open(src).read()
+    for anchor, new in WGMMA_EDITS:
+        if s.count(anchor) != 1:
+            raise SystemExit(f'--split-wgmma: anchor not found once: '
+                             f'{anchor!r}')
+        s = s.replace(anchor, new)
+    with open(dst, 'w') as f:
+        f.write(s)
 
 
 def build(specs):
@@ -169,6 +237,32 @@ def ms(fn, iters=50, warmup=5):
     return a.elapsed_time(b) / iters
 
 
+def replay_ms(fn, iters=20):
+    """Mean ms of fn on the card alone: CUDA events around the replays of
+    a CUDA graph of ``iters`` calls (captured after a warm-up on a side
+    stream)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(5):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (5 * iters)
+
+
 def run_one(spec, rep, check):
     """One library in this process: check (if asked) and time it."""
     import torch
@@ -218,6 +312,14 @@ def run_one(spec, rep, check):
         dy = torch.randn(n, cout, h, wd, generator=gen, device='cuda')
         data[label] = (x, w, dy)
     ok = True
+    for label, (x, w, dy) in data.items():
+        for dt in (torch.bfloat16, torch.float32):
+            y = fwd(x.to(dt), w.to(dt))
+            print(json.dumps({'lib': name, 'case': label, 'dtype': str(dt),
+                              'k4_digest': hashlib.sha256(
+                                  y.view(torch.uint8).cpu().numpy()
+                                  .tobytes()).hexdigest()[:16]}),
+                  flush=True)
     for label, (x, w, dy) in data.items() if check else ():
         for dt in (torch.bfloat16, torch.float32):
             xd, wdd, dyd = x.to(dt), w.to(dt), dy.to(dt)
@@ -237,7 +339,8 @@ def run_one(spec, rep, check):
         x, w, dy = (t.bfloat16() for t in data[label])
         r = {'lib': name, 'case': label, 'rep': rep,
              'fwd_ms': ms(lambda: fwd(x, w)),
-             'wgrad_ms': ms(lambda: wgrad(x, dy))}
+             'wgrad_ms': ms(lambda: wgrad(x, dy)),
+             'wgrad_replay_ms': replay_ms(lambda: wgrad(x, dy))}
         if hasattr(lib, 'pgt_thin_occupancy'):
             lib.pgt_thin_occupancy.argtypes = [ctypes.c_int] * 2
             r['fwd_blocks_per_sm'] = lib.pgt_thin_occupancy(cin, 0)
@@ -263,10 +366,12 @@ def cudnn_rows():
         dy = torch.randn(n, cout, h, wd, generator=gen, device='cuda') \
             .bfloat16()
 
+        def lib():
+            return torch.nn.grad.conv2d_weight(x, w.shape, dy, padding=1)
         print(json.dumps({'lib': 'cudnn', 'case': label,
                           'fwd_ms': ms(lambda: F.conv2d(x, w, padding=1)),
-                          'wgrad_ms': ms(lambda: torch.nn.grad.conv2d_weight(
-                              x, w.shape, dy, padding=1))}), flush=True)
+                          'wgrad_ms': ms(lib),
+                          'wgrad_replay_ms': replay_ms(lib)}), flush=True)
 
 
 def main():
@@ -278,6 +383,13 @@ def main():
         cudnn_rows()
         return 0
     specs = [a for a in args if '=' in a and not a.startswith('--')]
+    if '--split-wgmma' in args:
+        src = os.path.abspath(args[args.index('--split-wgmma') + 1])
+        os.makedirs(BUILD, exist_ok=True)
+        dst = os.path.join(BUILD, 'split_wgmma.cu')
+        split_wgmma_source(src, dst)
+        specs += [f'{n}={dst}:{d}' if d else f'{n}={dst}'
+                  for n, d in WGMMA_VARIANTS]
     if '--split' in args:
         src = args[args.index('--split') + 1]
         os.makedirs(BUILD, exist_ok=True)
@@ -306,15 +418,25 @@ def main():
     out = subprocess.run([sys.executable, __file__, '--cudnn'],
                          capture_output=True, text=True)
     print(out.stdout + out.stderr[-3000:], flush=True)
-    print('mean of the two turns, bf16, ms (K4 / K4-wgrad):')
+    digests = {}
+    for r in rows:
+        if 'k4_digest' in r:
+            digests.setdefault((r['case'], r['dtype']), set()).add(
+                r['k4_digest'])
+    print(f'K4 outputs bit-equal across the versions at every case in both '
+          f'dtypes: {all(len(v) == 1 for v in digests.values())}')
+    print('mean of the two turns, bf16, ms (K4 / K4-wgrad / K4-wgrad by '
+          'a graph\'s replay):')
     for spec in specs:
         name = spec.split('=')[0]
         line = [name]
         for label, *_ in TIMED:
-            rs = [r for r in rows if r['lib'] == name and r['case'] == label]
+            rs = [r for r in rows if r['lib'] == name and r['case'] == label
+                  and 'fwd_ms' in r]
             f = sum(r['fwd_ms'] for r in rs) / len(rs)
             g = sum(r['wgrad_ms'] for r in rs) / len(rs)
-            line.append(f'{label} {f:.4f} / {g:.4f}')
+            gr = sum(r['wgrad_replay_ms'] for r in rs) / len(rs)
+            line.append(f'{label} {f:.4f} / {g:.4f} / {gr:.4f}')
         print('  ' + ' | '.join(line))
     return 0 if ok else 1
 
